@@ -11,26 +11,43 @@ in order:
 
 1. requires a CUDA device (exits 2 otherwise), turns TF32 off and prints
    the card's name and power limit as ``nvidia-smi`` reports them;
-2. builds every CUDA kernel of the serving path from
-   ``paddle_tpu_torch/csrc`` with ``nvcc`` for ``sm_90a`` (one process
-   per source, all at once) and prints the build time and ptxas report;
+2. builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
+   for ``sm_90a`` (one process per source, all at once) and prints the
+   build time and ptxas report;
 3. holds each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, within ``TOL``, and times the
-   kernel, the plain version, one PyTorch library call computing the
-   same function (a yardstick the port never calls) and the card's
-   bound for the work;
-4. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
+   the shapes its paths give it, within ``TOL`` (layer norm at the
+   serving shapes and at training's [4096, 768] with eps 1e-5 and
+   1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash attention,
+   forward and both backward routes, with and without dropout, key
+   bias, causal masking and a ragged length), and times the kernel, the
+   plain version, one PyTorch library call computing the same function
+   (a yardstick the port never calls) and the card's bound for the work;
+   the LayerNorm backward (plain PyTorch) is checked and timed too,
+   with the kernel's forward through its autograd Function;
+4. trains BERT-base (``BertConfig()``, random weights from a seed, fp32)
+   through ``TrainStep`` with ``AdamW(1e-4, weight_decay=0.01)``: 5 steps
+   at batch 8, seq 512 (flash forward + the dq and dkv kernels) and 5 at
+   batch 32, seq 128 with ``flash_attention_min_seq_train`` at 128 (flash
+   forward + the fused backward kernel); every loss must be finite and
+   each step must launch the kernels its path needs (LN 26, flash
+   forward 12, and dq 12 + dkv 12 or fused 12); then profiles one
+   seq-512 step with ``torch.profiler``;
+5. runs a 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the
+   card and the same model on the CPU (plain versions): one forward and
+   backward, comparing the loss and every parameter's gradient, then one
+   ``TrainStep``, comparing the loss and every updated parameter;
+6. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
    weights from a seed; half of the requests join mid-decode) and holds
-   every token against the port's dense ``generate()``;
-5. repeats four requests with speculative decoding (self-draft) and
-   requires the same tokens and an accept rate of 1.0; then serves those
-   four at temperature 0.8, plain and speculative, and requires the
-   same sampled tokens and an accept rate of 1.0 again;
-6. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+   every token against the port's dense ``generate()``; repeats four
+   requests with speculative decoding (self-draft) and requires the same
+   tokens and an accept rate of 1.0; then serves those four at
+   temperature 0.8, plain and speculative, and requires the same sampled
+   tokens and an accept rate of 1.0 again;
+7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
-   Launch counts are set to 0 just before each engine run and read just
-   after it; the serving run must launch layer norm and paged decode
-   attention, the speculative run layer norm and multi-query attention.
+   Launch counts are set to 0 just before each run of a path (each
+   training run, each engine run) and read just after it; each path
+   must launch the kernels it needs (``PATH_KERNELS``).
 
 Any failure raises, so the exit code is non-zero and no result line is
 printed. Every number and message also goes to
@@ -57,10 +74,47 @@ NEAR_TIE = 1e-4
 SEED = 0
 # the sampled runs' temperature
 TEMPERATURE = 0.8
-# the kernels each path of the main path must launch: plain decode, and
-# speculative decode (a self-draft's dense forwards plus the verify)
+# flash attention kernel vs plain PyTorch: fp32 sums over up to 512 keys
+# (forward) or queries (dk, dv) in another order; the dropout masks are
+# the same hash bit for bit, so they add no slack
+FLASH_TOL = 2e-5
+FLASH_GRAD_TOL = 5e-5
+# card against CPU, a 2-layer BERT: the loss within 1e-5 relative (fp32
+# sums in another order). Every parameter's gradient within
+# GRAD_REL_TOL of its largest entry: the check of the gradients' size,
+# which a kernel that scaled dq/dk/dv wrongly would fail by ~1e-1 or
+# more (2.6e-6 measured at worst on an H100, so the limit leaves 7x for
+# summation-order noise). Then, after one
+# TrainStep, every parameter within a fifth of the step size lr = 1e-4.
+# An Adam step moves a weight by up to ~lr whatever its gradient's size
+# (it sees little more than the gradient's sign), dividing by sqrt(v) +
+# eps, so where |g| is near eps * sqrt(1 - b2) / (1 - b1) ~ 3e-7 fp32
+# gradient noise of ~1e-8 moves the update by a few percent of lr
+# (6.5e-6 measured on an H100); a gradient of the wrong sign moves it by
+# ~lr
+STEP_LOSS_RTOL = 1e-5
+GRAD_REL_TOL = 2e-5
+STEP_PARAM_TOL = 2e-5
+# the kernels each path of the main path must launch: plain decode,
+# speculative decode (a self-draft's dense forwards plus the verify),
+# and BERT training at seq 512 (split backward) and seq 128 (fused)
 PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
-                "speculative": ("layer_norm", "paged_attention_multiquery")}
+                "speculative": ("layer_norm", "paged_attention_multiquery"),
+                "train_seq512": ("layer_norm", "flash_attention_fwd",
+                                 "flash_attention_bwd_dq",
+                                 "flash_attention_bwd_dkv"),
+                "train_seq128": ("layer_norm", "flash_attention_fwd",
+                                 "flash_attention_bwd_fused")}
+# BERT-base pretraining as the JAX package's bench runs it
+# (bench.py bench_bert: BertConfig(), AdamW(1e-4, weight_decay=0.01))
+TRAIN_RUNS = {"train_seq512": dict(batch=8, seq=512, gate=512),
+              "train_seq128": dict(batch=32, seq=128, gate=128)}
+TRAIN_STEPS = 5
+# (rows, eps) of the LayerNorm kernel's calls: serving decode and prefill,
+# and BERT training's [B*T, 768] (encoder eps 1e-5; embeddings and MLM
+# transform 1e-12)
+LN_SHAPES = ((8, 1e-5), (16, 1e-5), (512, 1e-5), (4096, 1e-5),
+             (4096, 1e-12))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
 # tensor cores, the unit these fp32 kernels run on
@@ -88,9 +142,13 @@ def bound(nbytes: float, flops: float):
 class Timer:
     """Device time of one call, averaged over ``iters`` calls, with the
     50 MB L2 flushed before each (the serving path meets every pool and
-    activation cold: twelve layers' pools pass between two calls). The
-    1 GiB flush also keeps the card busy for ~0.3 ms while the host
-    enqueues the call, so a short kernel's time is not the host's."""
+    activation cold: twelve layers' pools pass between two calls). After
+    the 1 GiB flush the card spins for ~2.5 ms (``torch.cuda._sleep``)
+    while the host enqueues the call, so the time is the device's, not
+    the host's launch latency (an autograd backward enqueues dozens of
+    kernels)."""
+
+    SPIN_CYCLES = 5_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -104,6 +162,7 @@ class Timer:
         total = 0.0
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -176,10 +235,12 @@ def check_kernels(torch, timer):
     rng = np.random.default_rng(SEED)
     results = {}
 
-    # layer norm at the serving shapes: decode [B, 768], prefill [T, 768]
+    # layer norm at the serving shapes (decode [B, 768], prefill [T, 768],
+    # eps 1e-5) and the training shape [B*T, 768] = [4096, 768] with the
+    # encoder's eps 1e-5 and the embeddings' and MLM transform's 1e-12
     err = 0.0
     per_shape = {}
-    for rows in (8, 16, 512):
+    for rows, eps in LN_SHAPES:
         cols = 768
         x = torch.from_numpy(rng.standard_normal((rows, cols),
                                                  np.float32)).cuda()
@@ -187,25 +248,28 @@ def check_kernels(torch, timer):
             cols, np.float32)).cuda()
         b = torch.from_numpy(0.1 * rng.standard_normal(
             cols, np.float32)).cuda()
-        got = ln.layer_norm(x, w, b, 1e-5)
-        want = ln.layer_norm_plain(x, w, b, 1e-5)
+        got = ln.layer_norm(x, w, b, eps)
+        want = ln.layer_norm_plain(x, w, b, eps)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
         err = max(err, e)
         bms, by = bound((2 * rows * cols + 2 * cols) * 4, 8 * rows * cols)
-        per_shape[f"[{rows},{cols}]"] = {
+        key = f"[{rows},{cols}] eps {eps:g}"
+        per_shape[key] = {
             "max_abs_err": e,
-            "ms": timer(lambda: ln.layer_norm(x, w, b, 1e-5)),
-            "plain_ms": timer(lambda: ln.layer_norm_plain(x, w, b, 1e-5)),
+            "ms": timer(lambda: ln.layer_norm(x, w, b, eps)),
+            "plain_ms": timer(lambda: ln.layer_norm_plain(x, w, b, eps)),
             "library_ms": timer(lambda: F.layer_norm(x, (cols,), w, b,
-                                                     1e-5)),
+                                                     eps)),
             "bound_ms": bms, "bound_by": by}
-        log(f"layer_norm [{rows},{cols}]: {json.dumps(per_shape[f'[{rows},{cols}]'])}")
+        log(f"layer_norm {key}: {json.dumps(per_shape[key])}")
     if not err <= TOL:
         raise AssertionError(f"layer_norm kernel differs from plain by "
                              f"{err} > {TOL}")
-    results["layer_norm"] = dict(per_shape["[16,768]"], max_abs_err=err,
-                                 shape="[16,768]",
+    results["layer_norm"] = dict(per_shape["[16,768] eps 1e-05"],
+                                 max_abs_err=err,
+                                 shape="[16,768] eps 1e-05 (errors: every "
+                                       "shape)",
                                  shapes=per_shape)
 
     # single-query paged decode: B=16, 12 x 64 heads, bs 16, ragged lens
@@ -283,7 +347,499 @@ def check_kernels(torch, timer):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: serving through the engine
+# phase 3, continued: flash attention and the LayerNorm backward
+# ---------------------------------------------------------------------------
+
+# (name, B, Tq, Tk, H, D, BTHD layout, causal, key bias, dropout p): the
+# two paths' own calls first (seq 512: the dq + dkv route; seq 128: the
+# fused route), then masks, ragged lengths, the BHTD layout and the other
+# head dims the kernels take
+FLASH_CASES = [
+    ("path_seq512", 8, 512, 512, 12, 64, True, False, False, 0.1),
+    ("path_seq128", 32, 128, 128, 12, 64, True, False, False, 0.1),
+    ("seq512_p0", 8, 512, 512, 12, 64, True, False, False, 0.0),
+    ("seq512_bias", 8, 512, 512, 12, 64, True, False, True, 0.1),
+    ("causal_ragged500", 2, 500, 500, 12, 64, True, True, False, 0.1),
+    ("bhtd_causal_bias_200x333", 2, 200, 333, 12, 64, False, True, True, 0.0),
+    ("seq128_p0_bias", 32, 128, 128, 12, 64, True, False, True, 0.0),
+    ("fused_bhtd_causal_ragged100", 4, 100, 100, 12, 64, False, True, True,
+     0.1),
+    ("d32_fused", 2, 96, 96, 4, 32, True, False, True, 0.1),
+    ("d128_split", 2, 200, 200, 4, 128, False, True, False, 0.1),
+    ("d128_fused", 2, 64, 64, 4, 128, True, False, True, 0.1),
+    ("d16_split", 2, 130, 130, 2, 16, True, True, True, 0.1),
+]
+
+
+def flash_inputs(torch, rng, b, tq, tk, h, d, bthd, bias, p):
+    def randn(t):
+        shape = (b, t, h, d) if bthd else (b, h, t, d)
+        return torch.from_numpy(rng.standard_normal(shape,
+                                                    np.float32)).cuda()
+
+    t = {"q": randn(tq), "k": randn(tk), "v": randn(tk), "dout": randn(tq)}
+    kw = {"bthd": bthd, "dropout_p": p, "seed": None, "kv_bias": None}
+    if p:
+        kw["seed"] = torch.tensor([int(rng.integers(0, 2 ** 31 - 1))],
+                                  dtype=torch.int32, device="cuda")
+    if bias:
+        keep = rng.random((b, tk)) < 0.85
+        keep[:, 0] = True
+        kw["kv_bias"] = torch.from_numpy(np.where(
+            keep, 0.0, np.finfo(np.float32).min).astype(np.float32)).cuda()
+    return t, kw
+
+
+def flash_delta(torch, dout, out, bthd):
+    delta = (dout * out).sum(dim=-1)
+    return (delta.transpose(1, 2) if bthd else delta).contiguous()
+
+
+def flash_backward(fa, route, args, kw):
+    """The backward kernels of ``route`` on ``args`` -> (dq, dk, dv)."""
+    if route == "fused":
+        return fa.flash_bwd_fused(*args, **kw)
+    return (fa.flash_bwd_dq(*args, **kw),) + fa.flash_bwd_dkv(*args, **kw)
+
+
+def flash_bounds(b, h, tq, tk, d, causal, bias):
+    """(bytes, flops) of each flash kernel's function on these shapes:
+    inputs read once, outputs written once; flops of the products over
+    the score entries a causal or full mask keeps."""
+    if causal:
+        entries = b * h * sum(min(tk, max(0, i + tk - tq + 1))
+                              for i in range(tq))
+    else:
+        entries = b * h * tq * tk
+    rows_q, rows_k = b * h * tq * d, b * h * tk * d
+    extra = 4 * (b * tk if bias else 0)
+    stats = 4 * 2 * b * h * tq  # lse and delta
+    return {
+        "flash_attention_fwd": (4 * (2 * rows_q + 2 * rows_k + b * h * tq)
+                                + extra, 4 * entries * d),
+        "flash_attention_bwd_dq": (4 * (3 * rows_q + 2 * rows_k) + stats
+                                   + extra, 6 * entries * d),
+        "flash_attention_bwd_dkv": (4 * (2 * rows_q + 4 * rows_k) + stats
+                                    + extra, 8 * entries * d),
+        "flash_attention_bwd_fused": (4 * (3 * rows_q + 4 * rows_k) + stats
+                                      + extra, 10 * entries * d),
+    }
+
+
+def check_flash(torch, timer):
+    """Each flash kernel against the plain version (forward: out and
+    lse; backward: autograd of the plain forward) on FLASH_CASES; times
+    at the two paths' own calls. Returns the kernels' results."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    F = torch.nn.functional
+    rng = np.random.default_rng(SEED + 3)
+    errs = {n: 0.0 for n in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv",
+                             "flash_attention_bwd_fused")}
+    cases, timed = {}, {}
+    for name, b, tq, tk, h, d, bthd, causal, bias, p in FLASH_CASES:
+        t, kw = flash_inputs(torch, rng, b, tq, tk, h, d, bthd, bias, p)
+        kw["causal"] = causal
+        q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
+        out, lse = fa.flash_fwd(q, k, v, **kw)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        pout, plse = fa.flash_attention_plain(*leaves, return_lse=True,
+                                              **kw)
+        pgrads = torch.autograd.grad(pout, leaves, dout, retain_graph=True)
+        pout_v = pout.detach()
+        route = fa.backward_route(tq, tk, d)
+        args = (q, k, v, dout, lse, flash_delta(torch, dout, out, bthd))
+        grads = flash_backward(fa, route, args, kw)
+        torch.cuda.synchronize()
+        e = {"out": float((out - pout_v).abs().max()),
+             "lse": float((lse - plse).abs().max())}
+        for g_name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
+            e[g_name] = float((g - pg).abs().max())
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (out, lse) + tuple(grads))
+        cases[name] = dict(route=route, shape=[b, tq, tk, h, d],
+                           layout="bthd" if bthd else "bhtd", causal=causal,
+                           bias=bias, dropout_p=p, max_abs_err=e)
+        log(f"flash {name}: route {route}, errors {json.dumps(e)}")
+        if not (finite and e["out"] <= FLASH_TOL and e["lse"] <= FLASH_TOL
+                and max(e["dq"], e["dk"], e["dv"]) <= FLASH_GRAD_TOL):
+            raise AssertionError(f"flash attention case {name}: kernels "
+                                 f"differ from plain: {e} (tolerances "
+                                 f"{FLASH_TOL}, {FLASH_GRAD_TOL}), "
+                                 f"finite {finite}")
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                          e["out"], e["lse"])
+        if route == "fused":
+            errs["flash_attention_bwd_fused"] = max(
+                errs["flash_attention_bwd_fused"], e["dq"], e["dk"], e["dv"])
+        else:
+            errs["flash_attention_bwd_dq"] = max(
+                errs["flash_attention_bwd_dq"], e["dq"])
+            errs["flash_attention_bwd_dkv"] = max(
+                errs["flash_attention_bwd_dkv"], e["dk"], e["dv"])
+        if name.startswith("path_"):
+            timed[name] = time_flash(torch, timer, fa, F, t, kw, pout,
+                                     leaves, route, args,
+                                     flash_bounds(b, h, tq, tk, d, causal,
+                                                  bias))
+        del out, lse, pout, pout_v, plse, pgrads, grads, leaves, args
+    results = {}
+    for kname, case in (("flash_attention_fwd", "path_seq512"),
+                        ("flash_attention_bwd_dq", "path_seq512"),
+                        ("flash_attention_bwd_dkv", "path_seq512"),
+                        ("flash_attention_bwd_fused", "path_seq128")):
+        results[kname] = dict(timed[case][kname], max_abs_err=errs[kname],
+                              shape=f"{case}: B,T,H,D = "
+                                    f"{cases[case]['shape'][0]},"
+                                    f"{cases[case]['shape'][1]},12,64 BTHD,"
+                                    f" dropout 0.1")
+        log(f"{kname}: {json.dumps(results[kname])}")
+    REPORT["flash_cases"] = cases
+    REPORT["flash_library"] = {c: timed[c]["library"] for c in timed}
+    return results
+
+
+def time_flash(torch, timer, fa, F, t, kw, pout, leaves, route, args,
+               bounds):
+    """Times at one path's call: each kernel, the plain version (forward
+    under no_grad; backward = autograd through the plain graph) and
+    scaled_dot_product_attention at dropout 0 (forward; backward through
+    its graph; forward + backward), the yardstick the port never calls.
+    """
+    q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
+    bthd = kw["bthd"]
+
+    def heads(x):  # SDPA wants [B, H, T, D]
+        return (x.transpose(1, 2) if bthd else x).detach()
+
+    sq, sk, sv = (heads(x).clone().requires_grad_() for x in (q, k, v))
+    sdout = heads(dout)
+    lib_out = F.scaled_dot_product_attention(sq, sk, sv)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(sq, sk, sv)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(sq, sk, sv)
+        torch.autograd.grad(o, (sq, sk, sv), sdout)
+
+    def plain_fwd():
+        with torch.no_grad():
+            fa.flash_attention_plain(q, k, v, **kw)
+
+    lib = {"fwd_ms": timer(lib_fwd),
+           "bwd_ms": timer(lambda: torch.autograd.grad(
+               lib_out, (sq, sk, sv), sdout, retain_graph=True)),
+           "fwd_bwd_ms": timer(lib_fwd_bwd)}
+    plain_bwd_ms = timer(lambda: torch.autograd.grad(
+        pout, leaves, dout, retain_graph=True), iters=10)
+    out = {"library": lib}
+    names = ["flash_attention_fwd"] + (
+        ["flash_attention_bwd_fused"] if route == "fused"
+        else ["flash_attention_bwd_dq", "flash_attention_bwd_dkv"])
+    fns = {"flash_attention_fwd": lambda: fa.flash_fwd(q, k, v, **kw),
+           "flash_attention_bwd_fused": lambda: fa.flash_bwd_fused(*args,
+                                                                   **kw),
+           "flash_attention_bwd_dq": lambda: fa.flash_bwd_dq(*args, **kw),
+           "flash_attention_bwd_dkv": lambda: fa.flash_bwd_dkv(*args, **kw)}
+    for n in names:
+        bms, by = bound(*bounds[n])
+        fwd = n == "flash_attention_fwd"
+        out[n] = {"ms": timer(fns[n]),
+                  "plain_ms": timer(plain_fwd, iters=10) if fwd
+                  else plain_bwd_ms,
+                  "library_ms": lib["fwd_ms"] if fwd else lib["bwd_ms"],
+                  "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def check_layer_norm_backward(torch, timer):
+    """The LayerNorm gradient (plain PyTorch, the JAX package's _ln_bwd)
+    at BERT's [B*T, 768]: against autograd of the plain forward, and
+    through the kernel's autograd Function, whose forward output (the
+    kernel's, on inputs that need a gradient, as training calls it) is
+    held against the plain forward too; its time, the library's
+    (F.layer_norm's backward) and the bound."""
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    F = torch.nn.functional
+    rng = np.random.default_rng(SEED + 5)
+    rows, cols, eps = 8 * 512, 768, 1e-12
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(shift + scale * rng.standard_normal(
+            shape, np.float32)).cuda()
+
+    x, g = randn(rows, cols), randn(rows, cols)
+    w, b = randn(cols, scale=0.1, shift=1.0), randn(cols, scale=0.1)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    plain_out = ln.layer_norm_plain(*leaves, eps)
+    want = torch.autograd.grad(plain_out, leaves, g)
+    got = ln.layer_norm_backward(x, w, g, eps)
+    kleaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    kernel_out = ln.layer_norm(*kleaves, eps)
+    via_kernel = torch.autograd.grad(kernel_out, kleaves, g)
+    fwd_err = float((kernel_out - plain_out).detach().abs().max())
+    # relative to each gradient's largest entry: dw and db sum 4096 rows
+    err = max(float((a - e).abs().max()) / max(1.0, float(e.abs().max()))
+              for a, e in zip(got + via_kernel, want + want))
+    if not (fwd_err <= TOL and err <= TOL):
+        raise AssertionError(f"layer norm through its autograd Function "
+                             f"differs: forward {fwd_err}, backward {err} "
+                             f"(relative) > {TOL}")
+    lib_leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    lib_out = F.layer_norm(lib_leaves[0], (cols,), lib_leaves[1],
+                           lib_leaves[2], eps)
+    bms, by = bound(4 * (3 * rows * cols + 3 * cols), 12 * rows * cols)
+    res = {"shape": f"[{rows},{cols}]", "max_rel_err": err,
+           "forward_max_abs_err": fwd_err,
+           "ms": timer(lambda: ln.layer_norm_backward(x, w, g, eps)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               lib_out, lib_leaves, g, retain_graph=True)),
+           "bound_ms": bms, "bound_by": by}
+    log(f"layer_norm backward (plain PyTorch): {json.dumps(res)}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: BERT-base pretraining through TrainStep
+# ---------------------------------------------------------------------------
+
+def bert_batch(torch, cfg, batch: int, seq: int, device, seed: int):
+    """Random token ids, full-position MLM labels and NSP labels."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq))
+    mlm = rng.integers(0, cfg.vocab_size, (batch, seq))
+    nsp = rng.integers(0, 2, (batch,))
+    return tuple(torch.from_numpy(a).to(device) for a in (ids, mlm, nsp))
+
+
+def expected_launches(seq: int, layers: int, d: int) -> dict:
+    """Kernel launches of one training step at ``seq``: LN twice per
+    layer plus embeddings and the MLM transform, flash forward once per
+    layer, and one backward route per layer."""
+    from paddle_tpu_torch.kernels.flash_attention import backward_route
+    fused = backward_route(seq, seq, d) == "fused"
+    return {"layer_norm": 2 * layers + 2, "paged_attention": 0,
+            "paged_attention_multiquery": 0,
+            "flash_attention_fwd": layers,
+            "flash_attention_bwd_fused": layers if fused else 0,
+            "flash_attention_bwd_dq": 0 if fused else layers,
+            "flash_attention_bwd_dkv": 0 if fused else layers}
+
+
+def make_train_step(model):
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.static import TrainStep
+    return TrainStep(model, AdamW(1e-4, weight_decay=0.01),
+                     pretraining_loss, seed=SEED)
+
+
+def run_training(torch, model, name: str, batch: int, seq: int,
+                 gate: int):
+    """TRAIN_STEPS TrainSteps at (batch, seq) with the flash gate at
+    ``gate``; launch counts set to 0 just before and read just after.
+    Returns (stats, counts, the step, its batch)."""
+    from paddle_tpu_torch import kernels, set_flags
+    cfg = model.config
+    data = bert_batch(torch, cfg, batch, seq, "cuda", SEED + seq)
+    step = make_train_step(model)
+    set_flags({"flash_attention_min_seq_train": gate})
+    losses, step_ms = [], []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            loss = float(step(data[0], labels=data[1:])["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+        counts = kernels.launch_counts()
+    finally:
+        set_flags({"flash_attention_min_seq_train": 512})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    per_step = expected_launches(seq, cfg.num_hidden_layers,
+                                 cfg.hidden_size // cfg.num_attention_heads)
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want} "
+                             f"({TRAIN_STEPS} steps of {per_step})")
+    steady = float(np.median(step_ms[1:]))
+    stats = {"batch": batch, "seq": seq, "steps": TRAIN_STEPS,
+             "losses": losses, "step_ms": step_ms,
+             "step_ms_median_after_first": steady,
+             "tokens_per_s": batch * seq / steady * 1e3,
+             "launches_per_step": per_step,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"{name}: {json.dumps(stats)}")
+    return stats, counts, step, data
+
+
+def device_rows(prof, steps: int):
+    """torch.profiler device events: [ms per step, launches per step,
+    name], largest first (a CPU op's device time repeats its kernels')."""
+    rows = []
+    for evt in prof.key_averages():
+        if "CUDA" not in str(getattr(evt, "device_type", "")):
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append([us / 1e3 / steps, evt.count / steps, evt.key[:90]])
+    rows.sort(reverse=True)
+    return rows
+
+
+def profile_train(torch, step, data, gate: int) -> dict:
+    """Where a training step's time goes: torch.profiler over one step,
+    device time by kernel and the device's busy share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import set_flags
+    set_flags({"flash_attention_min_seq_train": gate})
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(data[0], labels=data[1:])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_flags({"flash_attention_min_seq_train": 512})
+    rows = device_rows(prof, 1)
+    device_ms = sum(r[0] for r in rows)
+    flash = sum(r[0] for r in rows if "flash_" in r[2])
+    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower()
+               or "sgemm" in r[2].lower())
+    # the profiler's own host work lengthens the profiled step: the busy
+    # share of an unprofiled step is device_ms over that step's wall time
+    # (run_training's step_ms)
+    return {"wall_ms": wall_ms,
+            "device_ms": device_ms if rows else None,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "flash_kernels_ms": flash, "gemm_ms": gemm,
+            "top_ms_launches_name": rows[:15]}
+
+
+def grad_gaps(torch, grads: dict, ref: dict) -> dict:
+    """Each leaf's largest gradient gap over the largest |gradient| of
+    its reference. A key-projection bias is measured against its layer's
+    k_proj.weight gradient instead: softmax ignores a per-query constant,
+    so its exact gradient is 0 and its own entries are fp32 noise, while
+    the weight's gradient carries the same dk rows."""
+    out = {}
+    for n, g in grads.items():
+        scale_of = n[:-len("bias")] + "weight" if n.endswith(
+            "k_proj.bias") else n
+        scale = float(ref[scale_of].abs().max())
+        out[n] = float((g.cpu() - ref[n]).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def card_against_cpu(torch) -> dict:
+    """A 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the card
+    (kernels) and on the CPU (plain versions) from the same weights and
+    batch: one forward and backward, whose loss and every parameter's
+    gradient must agree (the gradients' size, which one Adam step
+    hides); then one TrainStep, after which every parameter must
+    agree."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         pretraining_loss)
+    cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    cpu = BertForPretraining(cfg, device="cpu", seed=SEED)
+    card = BertForPretraining(cfg, device="cuda", seed=SEED)
+    card.load_state_dict(cpu.state_dict())
+    data = bert_batch(torch, cfg, 2, 512, "cpu", SEED + 11)
+    grad_losses, losses, grads, counts = {}, {}, {}, {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        ids, mlm, nsp = (x.to(dev) for x in data)
+        names = [n for n, _ in model.named_parameters()]
+        kernels.reset_launch_counts()
+        loss = pretraining_loss(model(ids), mlm, nsp)
+        # without token type ids their embedding gets no gradient
+        grads[dev] = {n: g for n, g in zip(names, torch.autograd.grad(
+            loss, list(model.parameters()), allow_unused=True))
+            if g is not None}
+        counts[f"grad_{dev}"] = kernels.launch_counts()
+        grad_losses[dev] = float(loss.detach())
+        step = make_train_step(model)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses[dev] = float(step(ids, labels=(mlm, nsp))["loss"])
+        counts[f"step_{dev}"] = kernels.launch_counts()
+        log(f"card vs cpu: {dev} step {time.perf_counter() - t0:.2f} s, "
+            f"loss {losses[dev]}")
+    rel = grad_gaps(torch, grads["cuda"], grads["cpu"])
+    worst_grad = max(rel, key=rel.get)
+    params_cpu = dict(cpu.named_parameters())
+    gaps = {n: (p.detach().cpu() - params_cpu[n].detach()).abs()
+            for n, p in card.named_parameters()}
+    diffs = {n: float(g.max()) for n, g in gaps.items()}
+    worst = max(diffs, key=diffs.get)
+    res = {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+           "loss_rel_diff": max(abs(a["cuda"] - a["cpu"]) / abs(a["cpu"])
+                                for a in (grad_losses, losses)),
+           "grad_max_rel_gap": rel[worst_grad], "worst_grad": worst_grad,
+           "grad_rel_gap_by_leaf": rel, "grads_compared": len(rel),
+           "param_max_abs_diff": diffs[worst], "worst_param": worst,
+           "param_mean_abs_diff": float(sum(g.sum() for g in gaps.values())
+                                        / sum(g.numel()
+                                              for g in gaps.values())),
+           "k_proj_bias_max_abs_diff": max(
+               d for n, d in diffs.items() if n.endswith("k_proj.bias")),
+           "params_compared": len(diffs),
+           "launches": counts}
+    log(f"card vs cpu: {json.dumps({k: v for k, v in res.items() if k != 'grad_rel_gap_by_leaf'})}")
+    want = expected_launches(512, 2, 64)
+    if any(counts[f"{what}_cuda"] != want
+           or any(counts[f"{what}_cpu"].values())
+           for what in ("grad", "step")):
+        raise AssertionError(f"card vs cpu launches: {counts} (card "
+                             f"should be {want}, cpu all 0)")
+    if not (res["loss_rel_diff"] <= STEP_LOSS_RTOL
+            and res["grad_max_rel_gap"] <= GRAD_REL_TOL
+            and res["param_max_abs_diff"] <= STEP_PARAM_TOL):
+        raise AssertionError(f"card and CPU disagree: {res} (tolerances "
+                             f"{STEP_LOSS_RTOL} loss relative, "
+                             f"{GRAD_REL_TOL} gradient relative, "
+                             f"{STEP_PARAM_TOL} parameters)")
+    return res
+
+
+def run_training_phases(torch) -> tuple:
+    """Phases 4-5. Returns (report, launch counts of each training
+    run)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig(), device="cuda", seed=SEED)
+    report, counts = {}, {}
+    for name, run in TRAIN_RUNS.items():
+        stats, counts[name], step, data = run_training(torch, model, name,
+                                                       **run)
+        report[name] = stats
+        if name == "train_seq512":
+            prof = profile_train(torch, step, data, run["gate"])
+            if prof["device_ms"]:
+                prof["device_busy_share_unprofiled"] = \
+                    prof["device_ms"] / stats["step_ms_median_after_first"]
+            report["train_profile"] = prof
+            log(f"train profile (seq 512): "
+                f"{json.dumps(report['train_profile'])}")
+        del step, data
+    del model
+    torch.cuda.empty_cache()
+    report["card_against_cpu"] = card_against_cpu(torch)
+    return report, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving through the engine
 # ---------------------------------------------------------------------------
 
 def build_model(torch, config: dict, device: str):
@@ -515,18 +1071,7 @@ def profile_decode(torch, model, prompts, pool_blocks: int,
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    rows = []
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's device time repeats its
-        # kernels' time
-        if "CUDA" not in str(getattr(evt, "device_type", "")):
-            continue
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
-            rows.append([us / 1e3 / steps, evt.count / steps, evt.key[:90]])
-    rows.sort(reverse=True)
+    rows = device_rows(prof, steps)
     while eng.active():
         eng.step()
     device_ms = sum(r[0] for r in rows)
@@ -539,7 +1084,9 @@ def profile_decode(torch, model, prompts, pool_blocks: int,
 
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
-    the kernel's own path; ``launches_by_path`` gives both paths'."""
+    the kernel's own path; ``launches_by_path`` gives every path's."""
+    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    flash_ref = "paddle_tpu/kernels/flash_attention.py"
     meta = {
         "layer_norm": ("serving", "paddle_tpu_torch/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:29"),
@@ -549,6 +1096,14 @@ def kernel_line(results: dict, counts: dict) -> dict:
         "paged_attention_multiquery": (
             "speculative", "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/kernels/paged_attention.py:185"),
+        "flash_attention_fwd": ("train_seq512", flash_src,
+                                f"{flash_ref}:128"),
+        "flash_attention_bwd_fused": ("train_seq128", flash_src,
+                                      f"{flash_ref}:541"),
+        "flash_attention_bwd_dq": ("train_seq512", flash_src,
+                                   f"{flash_ref}:417"),
+        "flash_attention_bwd_dkv": ("train_seq512", flash_src,
+                                    f"{flash_ref}:473"),
     }
     for path, names in PATH_KERNELS.items():
         for name in names:
@@ -597,14 +1152,25 @@ def main() -> int:
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
+    results.update(check_flash(torch, timer))
+    ln_bwd = check_layer_norm_backward(torch, timer)
+    results["layer_norm"]["max_abs_err"] = max(
+        results["layer_norm"]["max_abs_err"], ln_bwd["forward_max_abs_err"])
+    del timer  # frees the 1 GiB flush buffer for the training runs
+    torch.cuda.empty_cache()
 
-    serving, counts = run_serving(torch, GPT2_SMALL, "cuda", n_req=16,
-                                  lo=16, hi=512, max_new=32,
-                                  pool_blocks=1024, n_spec=4)
-    log(f"launches per engine run: {json.dumps(counts)}")
+    training, counts = run_training_phases(torch)
+    serving, serve_counts = run_serving(torch, GPT2_SMALL, "cuda",
+                                        n_req=16, lo=16, hi=512,
+                                        max_new=32, pool_blocks=1024,
+                                        n_spec=4)
+    counts.update(serve_counts)
+    log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
-    REPORT.update(card=card, kernels=results, launches=counts,
-                  total_s=time.perf_counter() - t_start, **serving)
+    REPORT.update(card=card, kernels=results,
+                  layer_norm_backward=ln_bwd, launches=counts,
+                  total_s=time.perf_counter() - t_start, **training,
+                  **serving)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

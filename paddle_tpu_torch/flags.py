@@ -2,8 +2,10 @@
 
 A typed, env-overridable registry (``FLAGS_<name>`` in the environment
 overrides a default at import), settable with ``set_flags`` and read
-with ``get_flags``. It holds only the serving flags the paged-KV LLM
-engine reads, with the names and defaults of ``paddle_tpu.flags``.
+with ``get_flags``. It holds the flags the ported paths read (the
+paged-KV LLM engine's, and the attention routing and train-step flags
+of BERT pretraining), with the names and defaults of
+``paddle_tpu.flags``.
 """
 
 from __future__ import annotations
@@ -152,3 +154,25 @@ define_flag("speculative_draft_layers", 1,
 define_flag("speculative_draft_tie_embeddings", True,
             "Share the target's token and position embeddings (and so the"
             " tied output head) with the auto-built draft model.")
+
+# ---------------------------------------------------------------------------
+# attention routing and training (BERT pretraining)
+# ---------------------------------------------------------------------------
+define_flag("fused_qkv_projection", False,
+            "Compute self-attention q/k/v as one [d, 3d] matmul over the "
+            "concatenated q/k/v weights (parameters unchanged).")
+define_flag("flash_attention_min_seq", 8192,
+            "Key-sequence length at or above which EVAL attention routes "
+            "to the flash-attention kernels (kernels.maybe_flash_attention)."
+            " Head dims that are not a multiple of 128 keep a fixed 8192 "
+            "eval floor this flag does not move.")
+define_flag("flash_attention_min_seq_train", 512,
+            "Training-mode flash gate (0 = use flash_attention_min_seq). "
+            "Also picks the backward route a run exercises: sequences that "
+            "fit the fused backward kernel's tile take it, longer ones the "
+            "dq and dkv kernels.")
+define_flag("skip_nonfinite_steps", True,
+            "TrainStep discards the whole update (parameters, optimizer "
+            "moments and the step counter) when any gradient is NaN/Inf, "
+            "selected on the device without a host sync. Read at "
+            "TrainStep construction.")

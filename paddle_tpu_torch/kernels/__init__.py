@@ -7,6 +7,11 @@ no silent fallback from the kernel to the plain version, and no shape
 gate: the TPU kernels' tiling limits (layer norm's cols % 128 and
 rows >= 8) do not apply to these kernels.
 
+``maybe_flash_attention`` keeps the JAX package's routing gate (head
+dim, mask shape, train/eval minimum sequence length): what the gate
+admits goes to flash attention (kernels on CUDA, their plain version on
+the CPU), the rest to the plain ``ops.attention`` composition.
+
 Each kernel counts its launches; ``launch_counts()`` reads the counts
 and ``reset_launch_counts()`` sets them to 0, so a run can show that its
 main path went through the kernels.
@@ -18,25 +23,44 @@ from typing import Dict, Optional
 
 import torch
 
+from ..core import random as _random
+from ..flags import GLOBAL_FLAGS
 from ..nn import functional as F
+from ..ops.attention import scaled_dot_product_attention
+from . import flash_attention as _fa
 from . import layer_norm as _ln
 from . import paged_attention as _pa
 
 __all__ = ["maybe_layer_norm", "maybe_paged_attention",
-           "maybe_paged_attention_multiquery", "launch_counts",
-           "reset_launch_counts"]
+           "maybe_paged_attention_multiquery", "maybe_flash_attention",
+           "launch_counts", "reset_launch_counts"]
+
+# (module, counter attribute) of every kernel, by the name launch_counts()
+# reports
+_COUNTERS = {
+    "layer_norm": (_ln, "launches"),
+    "paged_attention": (_pa, "launches"),
+    "paged_attention_multiquery": (_pa, "mq_launches"),
+    "flash_attention_fwd": (_fa, "fwd_launches"),
+    "flash_attention_bwd_fused": (_fa, "fused_launches"),
+    "flash_attention_bwd_dq": (_fa, "dq_launches"),
+    "flash_attention_bwd_dkv": (_fa, "dkv_launches"),
+}
+
+# The eval floor for head dims that are not a multiple of 128 (BERT's 64):
+# a fixed memory bound, not the flash_attention_min_seq flag (the JAX
+# package's kernels._NARROW_HEAD_EVAL_MIN_SEQ).
+_NARROW_HEAD_EVAL_MIN_SEQ = 8192
 
 
 def launch_counts() -> Dict[str, int]:
-    return {"layer_norm": _ln.launches,
-            "paged_attention": _pa.launches,
-            "paged_attention_multiquery": _pa.mq_launches}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    _ln.launches = 0
-    _pa.launches = 0
-    _pa.mq_launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def maybe_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -73,3 +97,76 @@ def maybe_paged_attention_multiquery(q, q_lens, k_pool, v_pool,
             q, q_lens, k_pool, v_pool, block_tables, context_lens, scale)
     return _pa.paged_attention_multiquery(q, q_lens, k_pool, v_pool,
                                           block_tables, context_lens, scale)
+
+
+def _is_key_padding_mask(mask, batch: int, tk: int) -> bool:
+    """True for exactly-shaped [B, 1, 1, Tk] masks (no broadcasting)."""
+    return (getattr(mask, "ndim", 0) == 4 and mask.shape[0] == batch
+            and mask.shape[1] == 1 and mask.shape[2] == 1
+            and mask.shape[3] == tk)
+
+
+def _mask_to_kv_bias(mask: torch.Tensor) -> torch.Tensor:
+    """[B, 1, 1, Tk] mask -> [B, Tk] additive fp32 key bias. A bool mask
+    is a KEEP mask (True attends); a float mask is already additive."""
+    if mask.dtype == torch.bool:
+        return torch.where(mask[:, 0, 0, :], 0.0,
+                           _fa.NEG_INF).to(torch.float32).contiguous()
+    return mask[:, 0, 0, :].to(torch.float32).contiguous()
+
+
+def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
+                          causal: bool = False, dropout_p: float = 0.0,
+                          training: bool = False,
+                          layout: str = "bhtd") -> torch.Tensor:
+    """Attention over q/k/v ``[B, H, T, D]`` (``layout="bhtd"``) or
+    ``[B, T, H, D]`` (``"bthd"``); the output keeps the input layout.
+
+    The JAX package's gate, as written: flash attention only when the
+    head dim suits it (``d % 128 == 0``, or ``d % 8 == 0`` in training
+    or at eval lengths >= 8192), the mask is absent or exactly
+    ``[B, 1, 1, Tk]`` (it becomes the kernels' key bias), and the key
+    length reaches ``flash_attention_min_seq`` (eval) or
+    ``flash_attention_min_seq_train`` (training, 0 = the eval flag).
+    Admitted calls run the CUDA kernels on CUDA tensors and their plain
+    version on CPU tensors; with dropout in training each call draws its
+    kernel seed, a one-element device tensor, from the ``dropout``
+    stream. The rest runs ``ops.attention.scaled_dot_product_attention``.
+
+    Known gap (``ROADMAP.md`` section C): the CUDA kernels take head dims
+    16, 32, 64 and 128 only, so a CUDA call the gate admits at another
+    dim (48, 80, 96 or 256, say, in training) raises, where the JAX
+    package runs flash attention and the CPU route its plain version.
+    """
+    bthd = layout == "bthd"
+    t_axis = 1 if bthd else 2
+    d = q.shape[-1]
+    tk = k.shape[t_axis]
+    d_ok = d % 128 == 0 or (d % 8 == 0 and (
+        training or tk >= _NARROW_HEAD_EVAL_MIN_SEQ))
+    mask_ok = mask is None or _is_key_padding_mask(mask, q.shape[0], tk)
+    min_seq = GLOBAL_FLAGS.get("flash_attention_min_seq")
+    if training:
+        min_seq = GLOBAL_FLAGS.get("flash_attention_min_seq_train") \
+            or min_seq
+    if mask_ok and q.ndim == 4 and d_ok and tk >= min_seq:
+        kv_bias = None if mask is None else _mask_to_kv_bias(mask)
+        seed, p = None, 0.0
+        if dropout_p > 0.0 and training:
+            gen = _random.next_generator("dropout", q.device)
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=gen,
+                                 device=q.device, dtype=torch.int32)
+            p = float(dropout_p)
+        impl = _fa.flash_attention_plain if q.device.type == "cpu" \
+            else _fa.flash_attention
+        return impl(q, k, v, causal=causal, scale=scale, dropout_p=p,
+                    seed=seed, kv_bias=kv_bias, bthd=bthd)
+    if bthd:
+        out = scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            mask=mask, scale=scale, causal=causal, dropout_p=dropout_p,
+            training=training)
+        return out.transpose(1, 2)
+    return scaled_dot_product_attention(q, k, v, mask=mask, scale=scale,
+                                        causal=causal, dropout_p=dropout_p,
+                                        training=training)

@@ -33,7 +33,11 @@ BUILD_DIR = _PKG / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 # kernel library name -> its C entry points' ctypes signatures
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint
+# flash attention's trailing arguments: dims (a host int64 array), scale,
+# causal, keep_prob, threshold, stream
+_FLASH_TAIL = [_P, _F, _I, _F, _U, _P]
 SOURCES: Dict[str, Dict[str, list]] = {
     "layer_norm": {
         # x, w, b, y, rows, cols, eps, stream
@@ -48,6 +52,16 @@ SOURCES: Dict[str, Dict[str, list]] = {
         # B, Qmax, H, D, n_blocks, block_size, max_blocks, scale, stream
         "paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    },
+    "flash_attention": {
+        # q, k, v, bias, seed, out, lse, ...tail
+        "flash_attention_fwd": [_P] * 7 + _FLASH_TAIL,
+        # q, k, v, dout, lse, delta, bias, seed, dq, ...tail
+        "flash_attention_bwd_dq": [_P] * 9 + _FLASH_TAIL,
+        # q, k, v, dout, lse, delta, bias, seed, dk, dv, ...tail
+        "flash_attention_bwd_dkv": [_P] * 10 + _FLASH_TAIL,
+        # q, k, v, dout, lse, delta, bias, seed, dq, dk, dv, ...tail
+        "flash_attention_bwd_fused": [_P] * 11 + _FLASH_TAIL,
     },
 }
 

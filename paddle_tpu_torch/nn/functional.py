@@ -1,9 +1,10 @@
-"""Plain functional ops of the GPT path.
+"""Plain functional ops of the GPT and BERT paths.
 
 Counterparts of ``paddle_tpu.ops.nn_functional`` (linear, embedding,
-layer_norm) and ``paddle_tpu.ops.activation.gelu``. ``linear`` keeps
-the reference fc convention: the weight is ``[in, out]``, never torch's
-``[out, in]``, so weights move across from the JAX package untouched.
+layer_norm, dropout) and ``paddle_tpu.ops.activation.gelu``. ``linear``
+keeps the reference fc convention: the weight is ``[in, out]``, never
+torch's ``[out, in]``, so weights move across from the JAX package
+untouched.
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from typing import Optional
 
 import torch
 
-__all__ = ["linear", "embedding", "gelu", "layer_norm"]
+from ..core import random as _random
+
+__all__ = ["linear", "embedding", "gelu", "layer_norm", "dropout"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -32,6 +35,18 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as ``jax.nn.gelu(approximate=False)`` (GPT-2's
     published tanh form is not what the JAX package computes)."""
     return torch.nn.functional.gelu(x)
+
+
+def dropout(x: torch.Tensor, p: float = 0.5,
+            training: bool = True) -> torch.Tensor:
+    """Paddle's ``upscale_in_train`` dropout: ``where(keep, x / (1 - p),
+    0)`` in training, identity in eval. Keep is a Bernoulli(1 - p) draw
+    from the ``dropout`` stream of ``core.random``."""
+    if not training or p == 0.0:
+        return x
+    gen = _random.next_generator("dropout", x.device)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - p)
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def layer_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,

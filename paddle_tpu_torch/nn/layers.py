@@ -1,7 +1,8 @@
-"""Layers of the GPT path as ``torch.nn.Module``s.
+"""Layers of the GPT and BERT paths as ``torch.nn.Module``s.
 
 Counterparts of ``paddle_tpu.nn.layers.common`` (Linear, Embedding,
-GELU) and ``paddle_tpu.nn.layers.norm.LayerNorm``. Parameter names
+Dropout), the activation layers (GELU, Tanh) and
+``paddle_tpu.nn.layers.norm.LayerNorm``. Parameter names
 (``weight``, ``bias``) and shapes match the JAX layers, so a JAX
 ``param_dict()`` loads by name (see ``paddle_tpu_torch.convert``). Each
 layer initialises itself on ``device`` from an explicit
@@ -23,7 +24,7 @@ from . import functional as F
 # may be mid-import when this line runs; attributes resolve at call time
 from .. import kernels
 
-__all__ = ["Linear", "Embedding", "GELU", "LayerNorm"]
+__all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "LayerNorm"]
 
 
 def _param(shape, device, fill: Optional[float] = None) -> nn.Parameter:
@@ -67,9 +68,26 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight)
 
 
+class Dropout(nn.Module):
+    """Paddle's ``upscale_in_train`` dropout, active only while the
+    module is in training mode (``self.training``)."""
+
+    def __init__(self, p: float = 0.5) -> None:
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.dropout(x, self.p, training=self.training)
+
+
 class GELU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(x)
+
+
+class Tanh(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x)
 
 
 class LayerNorm(nn.Module):

@@ -1,0 +1,108 @@
+"""Optimizers: Adam and AdamW as Paddle computes them.
+
+Counterpart of ``paddle_tpu.optimizer`` (``Adam``, ``AdamW``). Paddle's
+Adam is not ``torch.optim.Adam``: ``eps`` is added to the UNCORRECTED
+``sqrt(v)``, and the bias correction is folded into the learning rate,
+
+    m = b1 m + (1 - b1) g,   v = b2 v + (1 - b2) g^2,
+    lr_c = lr sqrt(1 - b2^t) / (1 - b1^t),
+    p = p - lr_c m / (sqrt(v) + eps),
+
+and AdamW's decoupled decay then subtracts ``lr * wd * p_old`` with the
+UNCORRECTED ``lr`` (skipped for parameters whose name
+``apply_decay_param_fun`` rejects). ``Adam(weight_decay=c)`` is coupled
+L2 (``g + c p``), as there.
+
+The functional API is the JAX package's: ``init(params)`` builds the
+state (a step counter and per-parameter ``m``/``v``) for a name-keyed
+dict of parameters, and ``apply_gradients(params, grads, state, ok)``
+updates them. Here the update is IN PLACE on the parameter and moment
+tensors (no second copy of the model); the step counter is a device
+tensor, and ``ok`` (a 0-d bool device tensor) selects between the new
+and the old values on the device, so a train step's skip guard costs no
+host sync. The learning rate is a float (schedulers are not ported).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+__all__ = ["Adam", "AdamW"]
+
+
+class Adam:
+    """Paddle Adam (``adam_op.h``): see the module note."""
+
+    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: Optional[float] = None) -> None:
+        self.learning_rate = float(learning_rate)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.weight_decay = weight_decay
+
+    def init(self, params: Dict[str, torch.Tensor]) -> dict:
+        dev = next(iter(params.values())).device
+        return {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                "slots": {n: {"m": torch.zeros_like(p),
+                              "v": torch.zeros_like(p)}
+                          for n, p in params.items()}}
+
+    @torch.no_grad()
+    def apply_gradients(self, params: Dict[str, torch.Tensor],
+                        grads: Dict[str, Optional[torch.Tensor]],
+                        state: dict,
+                        ok: Optional[torch.Tensor] = None) -> None:
+        """One update of every parameter with a gradient, in place. With
+        ``ok`` given, everything keeps its old value where it is False,
+        the step counter included."""
+        step = state["step"] + 1
+        step_f = step.to(torch.float32)
+        lr_c = self.learning_rate * torch.sqrt(
+            1.0 - torch.pow(self.beta2, step_f)) \
+            / (1.0 - torch.pow(self.beta1, step_f))
+        for name, p in params.items():
+            g = grads.get(name)
+            if g is None:
+                continue
+            if self.weight_decay:
+                g = g + self.weight_decay * p
+            slots = state["slots"][name]
+            m = self.beta1 * slots["m"] + (1 - self.beta1) * g
+            v = self.beta2 * slots["v"] + (1 - self.beta2) * (g * g)
+            p_new = self._decay(name, p,
+                                p - lr_c * m / (torch.sqrt(v)
+                                                + self.epsilon))
+            for dst, new in ((slots["m"], m), (slots["v"], v), (p, p_new)):
+                dst.copy_(new if ok is None else torch.where(ok, new, dst))
+        state["step"] = step if ok is None \
+            else torch.where(ok, step, state["step"])
+
+    def _decay(self, name: str, p: torch.Tensor,
+               p_new: torch.Tensor) -> torch.Tensor:
+        """Decoupled decay of ``p_new`` (none for Adam)."""
+        return p_new
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay: ``p -= lr * wd * p_old`` after
+    the Adam step, with the uncorrected ``lr``; parameters whose name
+    ``apply_decay_param_fun`` maps to False are not decayed."""
+
+    def __init__(self, learning_rate: float = 0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 weight_decay: float = 0.01,
+                 apply_decay_param_fun: Optional[Callable[[str], bool]]
+                 = None) -> None:
+        super().__init__(learning_rate, beta1, beta2, epsilon)
+        self.decoupled_weight_decay = weight_decay
+        self.apply_decay_param_fun = apply_decay_param_fun
+
+    def _decay(self, name, p, p_new):
+        fn = self.apply_decay_param_fun
+        if fn is not None and not fn(name):
+            return p_new
+        return p_new - self.learning_rate * self.decoupled_weight_decay * p

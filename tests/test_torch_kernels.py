@@ -154,7 +154,9 @@ class TestRoutingAndCounters:
                                  torch.zeros(8), 1e-5, 1)
         assert kernels.launch_counts() == {
             "layer_norm": 0, "paged_attention": 0,
-            "paged_attention_multiquery": 0}
+            "paged_attention_multiquery": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_fused": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
     def test_kernel_wrappers_refuse_cpu_tensors(self):
         with pytest.raises(ValueError, match="CUDA"):

@@ -17,25 +17,35 @@ in order:
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes its paths give it, within ``TOL`` (layer norm at the
    serving shapes and at training's [4096, 768] with eps 1e-5 and
-   1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash attention,
-   forward and both backward routes, with and without dropout, key
-   bias, causal masking and a ragged length), and times the kernel, the
+   1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
+   attention, forward and both backward routes, with and without
+   dropout, key bias, causal masking, ragged lengths and head dims 16 to
+   256, D = 40 through the wrapper's zero padding) or
+   ``XENT_TOL``/``XENT_GRAD_TOL`` (the fused softmax cross-entropy's
+   forward, dh and dW/db at BERT-base's MLM head and at ragged shapes),
+   and the Adam kernel bitwise (both variants on BERT-base's own leaves,
+   AdamW's decay, the skip guard false), and times the kernel, the
    plain version, one PyTorch library call computing the same function
    (a yardstick the port never calls) and the card's bound for the work;
    the LayerNorm backward (plain PyTorch) is checked and timed too,
    with the kernel's forward through its autograd Function;
 4. trains BERT-base (``BertConfig()``, random weights from a seed, fp32)
-   through ``TrainStep`` with ``AdamW(1e-4, weight_decay=0.01)``: 5 steps
-   at batch 8, seq 512 (flash forward + the dq and dkv kernels) and 5 at
-   batch 32, seq 128 with ``flash_attention_min_seq_train`` at 128 (flash
-   forward + the fused backward kernel); every loss must be finite and
-   each step must launch the kernels its path needs (LN 26, flash
-   forward 12, and dq 12 + dkv 12 or fused 12); then profiles one
+   through ``TrainStep`` with ``AdamW(1e-4, weight_decay=0.01)``, 5 steps
+   per run (``TRAIN_RUNS``): batch 8, seq 512 (flash forward + the dq and
+   dkv kernels); batch 32, seq 128 with ``flash_attention_min_seq_train``
+   at 128 (flash forward + the fused backward kernel); batch 8, seq 512
+   with ``fused_softmax_xent`` and ``fused_adam`` (plus the three xent
+   kernels and the leaf Adam kernel); batch 32, seq 128 with
+   ``use_pallas_adam`` (plus the flat Adam kernel). Every loss must be
+   finite and each step must launch exactly the kernels its path needs
+   (``expected_launches``); then profiles one default and one fused
    seq-512 step with ``torch.profiler``;
 5. runs a 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the
-   card and the same model on the CPU (plain versions): one forward and
-   backward, comparing the loss and every parameter's gradient, then one
-   ``TrainStep``, comparing the loss and every updated parameter;
+   card and the same model on the CPU (plain versions), under the default
+   flags and again with ``fused_softmax_xent`` and ``fused_adam``: one
+   forward and backward, comparing the loss and every parameter's
+   gradient, then one ``TrainStep``, comparing the loss and every
+   updated parameter;
 6. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
    weights from a seed; half of the requests join mid-decode) and holds
    every token against the port's dense ``generate()``; repeats four
@@ -95,6 +105,13 @@ FLASH_GRAD_TOL = 5e-5
 STEP_LOSS_RTOL = 1e-5
 GRAD_REL_TOL = 2e-5
 STEP_PARAM_TOL = 2e-5
+# fused xent kernels vs plain: fp32 logits summed over H in another order
+# (chunks of 32 against cuBLAS's), the online logsumexp against torch's
+# two-pass one. Loss and lse absolute (a loss of ~10); gradients relative
+# to each gradient's largest entry (dW and db sum over 4096 rows). An H100
+# measured 7.6e-6 (loss) and 4.1e-6 (dh); a wrong tile or mask gives 1e-1
+XENT_TOL = 1e-4
+XENT_GRAD_TOL = 1e-4
 # the kernels each path of the main path must launch: plain decode,
 # speculative decode (a self-draft's dense forwards plus the verify),
 # and BERT training at seq 512 (split backward) and seq 128 (fused)
@@ -104,11 +121,31 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                                  "flash_attention_bwd_dq",
                                  "flash_attention_bwd_dkv"),
                 "train_seq128": ("layer_norm", "flash_attention_fwd",
-                                 "flash_attention_bwd_fused")}
+                                 "flash_attention_bwd_fused"),
+                "train_seq512_fused": ("layer_norm", "flash_attention_fwd",
+                                       "flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv",
+                                       "fused_xent_fwd", "fused_xent_bwd_dh",
+                                       "fused_xent_bwd_dw", "adam_leaf"),
+                "train_seq128_pallas_adam": ("layer_norm",
+                                             "flash_attention_fwd",
+                                             "flash_attention_bwd_fused",
+                                             "adam_flat")}
+# the fused flags of slice 3 (all off by default, as in the JAX package)
+FUSED_FLAGS = {"fused_softmax_xent": True, "fused_adam": True}
 # BERT-base pretraining as the JAX package's bench runs it
-# (bench.py bench_bert: BertConfig(), AdamW(1e-4, weight_decay=0.01))
+# (bench.py bench_bert: BertConfig(), AdamW(1e-4, weight_decay=0.01)):
+# under the default flags, then with the fused loss and the leaf Adam
+# kernel, then with the flat Adam kernel (use_pallas_adam)
 TRAIN_RUNS = {"train_seq512": dict(batch=8, seq=512, gate=512),
-              "train_seq128": dict(batch=32, seq=128, gate=128)}
+              "train_seq128": dict(batch=32, seq=128, gate=128),
+              "train_seq512_fused": dict(batch=8, seq=512, gate=512,
+                                         flags=FUSED_FLAGS),
+              "train_seq128_pallas_adam": dict(
+                  batch=32, seq=128, gate=128,
+                  flags={"use_pallas_adam": True})}
+# the runs profiled with torch.profiler (one step each)
+PROFILED_RUNS = ("train_seq512", "train_seq512_fused")
 TRAIN_STEPS = 5
 # (rows, eps) of the LayerNorm kernel's calls: serving decode and prefill,
 # and BERT training's [B*T, 768] (encoder eps 1e-5; embeddings and MLM
@@ -368,6 +405,18 @@ FLASH_CASES = [
     ("d128_split", 2, 200, 200, 4, 128, False, True, False, 0.1),
     ("d128_fused", 2, 64, 64, 4, 128, True, False, True, 0.1),
     ("d16_split", 2, 130, 130, 2, 16, True, True, True, 0.1),
+    # the head dims of the repair: 48, 80, 96, 112 (C = D / 16 of 3, 5, 6,
+    # 7), 256 (32-row tiles, always the split route) and 40 (zero-padded
+    # to 48 by the flash_attention wrapper, checked through it)
+    ("d48_fused", 2, 128, 128, 4, 48, True, False, True, 0.1),
+    ("d80_split", 1, 130, 130, 2, 80, True, False, False, 0.1),
+    ("d96_split", 2, 150, 150, 4, 96, False, True, False, 0.1),
+    ("d96_fused", 2, 64, 64, 4, 96, True, False, True, 0.0),
+    ("d112_fused", 1, 60, 60, 2, 112, True, True, False, 0.1),
+    ("d256_split_ragged", 2, 100, 100, 2, 256, True, True, True, 0.1),
+    ("d256_bhtd", 1, 64, 90, 2, 256, False, False, False, 0.0),
+    ("d40_padded_split", 2, 200, 200, 4, 40, True, True, True, 0.1),
+    ("d40_padded_fused", 2, 100, 100, 4, 40, False, False, False, 0.1),
 ]
 
 
@@ -441,34 +490,45 @@ def check_flash(torch, timer):
         t, kw = flash_inputs(torch, rng, b, tq, tk, h, d, bthd, bias, p)
         kw["causal"] = causal
         q, k, v, dout = t["q"], t["k"], t["v"], t["dout"]
-        out, lse = fa.flash_fwd(q, k, v, **kw)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
         pout, plse = fa.flash_attention_plain(*leaves, return_lse=True,
                                               **kw)
         pgrads = torch.autograd.grad(pout, leaves, dout, retain_graph=True)
         pout_v = pout.detach()
         route = fa.backward_route(tq, tk, d)
-        args = (q, k, v, dout, lse, flash_delta(torch, dout, out, bthd))
-        grads = flash_backward(fa, route, args, kw)
+        padded = fa.kernel_head_dim(d) != d
+        if padded:
+            # through the wrapper that pads the head dim (lse stays inside)
+            kleaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            out = fa.flash_attention(*kleaves, **kw)
+            grads = torch.autograd.grad(out, kleaves, dout)
+            out, lse = out.detach(), None
+        else:
+            out, lse = fa.flash_fwd(q, k, v, **kw)
+            args = (q, k, v, dout, lse, flash_delta(torch, dout, out, bthd))
+            grads = flash_backward(fa, route, args, kw)
         torch.cuda.synchronize()
-        e = {"out": float((out - pout_v).abs().max()),
-             "lse": float((lse - plse).abs().max())}
+        e = {"out": float((out - pout_v).abs().max())}
+        if lse is not None:
+            e["lse"] = float((lse - plse).abs().max())
         for g_name, g, pg in zip(("dq", "dk", "dv"), grads, pgrads):
             e[g_name] = float((g - pg).abs().max())
         finite = all(bool(torch.isfinite(x).all())
-                     for x in (out, lse) + tuple(grads))
+                     for x in (out, lse) + tuple(grads) if x is not None)
         cases[name] = dict(route=route, shape=[b, tq, tk, h, d],
+                           kernel_head_dim=fa.kernel_head_dim(d),
                            layout="bthd" if bthd else "bhtd", causal=causal,
                            bias=bias, dropout_p=p, max_abs_err=e)
         log(f"flash {name}: route {route}, errors {json.dumps(e)}")
-        if not (finite and e["out"] <= FLASH_TOL and e["lse"] <= FLASH_TOL
+        if not (finite and e["out"] <= FLASH_TOL
+                and e.get("lse", 0.0) <= FLASH_TOL
                 and max(e["dq"], e["dk"], e["dv"]) <= FLASH_GRAD_TOL):
             raise AssertionError(f"flash attention case {name}: kernels "
                                  f"differ from plain: {e} (tolerances "
                                  f"{FLASH_TOL}, {FLASH_GRAD_TOL}), "
                                  f"finite {finite}")
         errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
-                                          e["out"], e["lse"])
+                                          e["out"], e.get("lse", 0.0))
         if route == "fused":
             errs["flash_attention_bwd_fused"] = max(
                 errs["flash_attention_bwd_fused"], e["dq"], e["dk"], e["dv"])
@@ -482,7 +542,7 @@ def check_flash(torch, timer):
                                      leaves, route, args,
                                      flash_bounds(b, h, tq, tk, d, causal,
                                                   bias))
-        del out, lse, pout, pout_v, plse, pgrads, grads, leaves, args
+        del out, lse, pout, pout_v, plse, pgrads, grads, leaves
     results = {}
     for kname, case in (("flash_attention_fwd", "path_seq512"),
                         ("flash_attention_bwd_dq", "path_seq512"),
@@ -602,6 +662,282 @@ def check_layer_norm_backward(torch, timer):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, continued: the fused softmax cross-entropy and the Adam kernel
+# ---------------------------------------------------------------------------
+
+# (name, N, V, H, bias, ignored share): the path's call (BERT-base's MLM
+# head over b8 x s512 positions; ~15% of rows ignored here, none in the
+# training runs) and ragged shapes: N not a tile multiple, V = 513 one
+# column past a tile, H = 48 not a multiple of the 32-wide chunk, no bias
+XENT_CASES = [
+    ("path", 4096, 30522, 768, True, 0.15),
+    ("ragged_v513_h48_nobias", 1000, 513, 48, False, 0.3),
+    ("ragged_n77_v300_h32", 77, 300, 32, True, 0.0),
+]
+
+
+def xent_inputs(torch, rng, n, v, hd, bias, ignored):
+    """Unit-scale hidden states (a LayerNorm's output), a weight of
+    N(0, 0.05) and a bias of N(0, 0.1), so the logits spread over a few
+    units; labels uniform with ``ignored`` of them -100; the upstream
+    gradient of a mean loss (1 / N per row)."""
+    def dev(a):
+        return torch.from_numpy(a).cuda()
+    lab = rng.integers(0, v, n)
+    lab[rng.random(n) < ignored] = -100
+    return {"h": dev(rng.standard_normal((n, hd), np.float32)),
+            "w": dev((0.05 * rng.standard_normal((v, hd))).astype(
+                np.float32)),
+            "b": dev((0.1 * rng.standard_normal(v)).astype(np.float32))
+            if bias else None,
+            "lab": dev(lab.astype(np.int64)),
+            "g": torch.full((n,), 1.0 / n, dtype=torch.float32,
+                            device="cuda")}
+
+
+def xent_bounds(n_used, v, hd, n, bias):
+    """(bytes, flops) of each xent kernel's function: inputs read once,
+    outputs written once; flops of the rows whose label is not ignored
+    (an ignored row's loss and gradient need no logits)."""
+    ins = 4 * (n * hd + v * hd + (v if bias else 0)) + 8 * n
+    return {
+        "fused_xent_fwd": (ins + 4 * 2 * n, 2 * n_used * v * hd),
+        "fused_xent_bwd_dh": (ins + 4 * 2 * n + 4 * n * hd,
+                              4 * n_used * v * hd),
+        "fused_xent_bwd_dw": (ins + 4 * 2 * n + 4 * (v * hd + v),
+                              4 * n_used * v * hd),
+    }
+
+
+def check_fused_xent(torch, timer):
+    """The three xent kernels against the plain version (forward: loss
+    and lse; backward: autograd of the plain loss) on XENT_CASES, within
+    XENT_TOL / XENT_GRAD_TOL; times at the path's call: each kernel, the
+    plain version, the library composition (torch.matmul +
+    F.cross_entropy(reduction="none"); its backward through autograd) and
+    the bound."""
+    from paddle_tpu_torch.kernels import fused_softmax_xent as fx
+    F = torch.nn.functional
+    rng = np.random.default_rng(SEED + 7)
+    names = ("fused_xent_fwd", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    errs = {k: 0.0 for k in names}
+    cases, results = {}, {}
+    for name, n, v, hd, bias, ignored in XENT_CASES:
+        t = xent_inputs(torch, rng, n, v, hd, bias, ignored)
+        h, w, b, lab, g = t["h"], t["w"], t["b"], t["lab"], t["g"]
+        loss, lse = fx.xent_fwd(h, w, b, lab)
+        args = (h, w, b, lab, lse, g)
+        dh = fx.xent_bwd_dh(*args)
+        dw, db = fx.xent_bwd_dw(*args)
+        leaves = [x.clone().requires_grad_() for x in (h, w, b)
+                  if x is not None]
+        ploss, plse = fx.fused_linear_xent_plain(
+            leaves[0], leaves[1], leaves[2] if bias else None, lab,
+            return_lse=True)
+        pgrads = torch.autograd.grad(ploss, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        ignored_rows = lab == -100
+        e = {"loss": float((loss - ploss.detach()).abs().max()),
+             "lse": float((lse - plse)[~ignored_rows].abs().max()),
+             "ignored_loss_exact_0": bool((loss[ignored_rows] == 0).all())}
+        for g_name, got, want in zip(("dh", "dw", "db"), (dh, dw, db),
+                                     pgrads):
+            e[g_name] = float((got - want).abs().max()) \
+                / max(float(want.abs().max()), 1e-30)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (loss, lse, dh, dw, db) if x is not None)
+        cases[name] = dict(shape=[n, v, hd], bias=bias, ignored=ignored,
+                           max_err=e)
+        log(f"fused xent {name}: {json.dumps(cases[name])}")
+        grad_err = max(e[k] for k in ("dh", "dw", "db") if k in e)
+        if not (finite and e["ignored_loss_exact_0"]
+                and max(e["loss"], e["lse"]) <= XENT_TOL
+                and grad_err <= XENT_GRAD_TOL):
+            raise AssertionError(f"fused xent case {name}: kernels differ "
+                                 f"from plain: {e} (tolerances {XENT_TOL} "
+                                 f"absolute, {XENT_GRAD_TOL} of the largest "
+                                 f"entry), finite {finite}")
+        errs["fused_xent_fwd"] = max(errs["fused_xent_fwd"], e["loss"],
+                                     e["lse"])
+        errs["fused_xent_bwd_dh"] = max(errs["fused_xent_bwd_dh"], e["dh"])
+        errs["fused_xent_bwd_dw"] = max(errs["fused_xent_bwd_dw"], e["dw"],
+                                        e.get("db", 0.0))
+        if name == "path":
+            n_used = int((~ignored_rows).sum())
+            results = time_xent(torch, timer, fx, F, t, args, ploss, leaves,
+                                xent_bounds(n_used, v, hd, n, bias))
+        del loss, lse, dh, dw, db, ploss, plse, pgrads, leaves, args, t
+    for k in names:
+        results[k].update(max_abs_err=errs[k], shape=(
+            "N,V,H = 4096,30522,768 with bias, 15% of rows ignored (errors: "
+            "every case; gradients relative to the largest entry)"))
+        log(f"{k}: {json.dumps(results[k])}")
+    REPORT["xent_cases"] = cases
+    return results
+
+
+def time_xent(torch, timer, fx, F, t, args, ploss, leaves, bounds):
+    """Times at the path's call: each kernel; the plain version (forward
+    under no_grad; backward = autograd through the plain graph, all
+    three gradients); the library composition (torch.matmul +
+    F.cross_entropy, reduction none; its backward likewise), which the
+    port never calls."""
+    h, w, b, lab, g = t["h"], t["w"], t["b"], t["lab"], t["g"]
+    lh, lw, lb = (x.clone().requires_grad_() for x in (h, w, b))
+    lib_loss = F.cross_entropy(torch.matmul(lh, lw.T) + lb, lab,
+                               reduction="none", ignore_index=-100)
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.cross_entropy(torch.matmul(h, w.T) + b, lab,
+                            reduction="none", ignore_index=-100)
+
+    def plain_fwd():
+        with torch.no_grad():
+            fx.fused_linear_xent_plain(h, w, b, lab)
+
+    plain_bwd = timer(lambda: torch.autograd.grad(
+        ploss, leaves, g, retain_graph=True), iters=10)
+    lib_bwd = timer(lambda: torch.autograd.grad(
+        lib_loss, (lh, lw, lb), g, retain_graph=True), iters=10)
+    fns = {"fused_xent_fwd": lambda: fx.xent_fwd(h, w, b, lab),
+           "fused_xent_bwd_dh": lambda: fx.xent_bwd_dh(*args),
+           "fused_xent_bwd_dw": lambda: fx.xent_bwd_dw(*args)}
+    out = {}
+    for n, fn in fns.items():
+        bms, by = bound(*bounds[n])
+        fwd = n == "fused_xent_fwd"
+        out[n] = {"ms": timer(fn, iters=10),
+                  "plain_ms": timer(plain_fwd, iters=10) if fwd
+                  else plain_bwd,
+                  "library_ms": timer(lib_fwd, iters=10) if fwd else lib_bwd,
+                  "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def adam_leaves(torch, rng):
+    """BERT-base's own parameter leaves (the model built on the card from
+    SEED) with a gradient and moments of a run's scale, plus one leaf
+    whose data is not 16-byte aligned (the kernel's scalar route). Names
+    follow the model's; the decay flag is the JAX bench's AdamW rule
+    (``apply_decay_param_fun`` excluding biases and norms)."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig(), device="cuda", seed=SEED)
+    leaves = {}
+    for name, p in model.named_parameters():
+        leaves[name] = p.detach().clone()
+    # 1031 elements at a 4-byte offset: scalar loads, a tail of 3, and
+    # >= 1024 so the flat variant takes it too
+    buf = torch.from_numpy(rng.standard_normal(1032, np.float32)).cuda()
+    leaves["unaligned"] = buf[1:]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = []
+    for name, p in leaves.items():
+        def like(scale, square=False):
+            a = scale * torch.randn(p.shape, generator=gen, device="cuda")
+            return a * a if square else a
+        out.append({"name": name, "p": p, "g": like(1e-3),
+                    "m": like(1e-4), "v": like(1e-3, square=True),
+                    "decay": not (name.endswith("bias") or "norm" in name)})
+    del model
+    return out
+
+
+def run_adam(impl, leaves, variant, lr_c, ok, lr_wd=1e-6, wd=0.0,
+             keep=lambda leaf: True):
+    """One ``impl`` update (adam_multi or adam_multi_plain) of clones of
+    the leaves ``keep`` selects; returns their (p, m, v) after it."""
+    sel = [leaf for leaf in leaves if keep(leaf)]
+    p, m, v = ([leaf[k].clone() for leaf in sel] for k in "pmv")
+    impl(p, [leaf["g"] for leaf in sel], m, v,
+         [leaf["decay"] for leaf in sel], lr_c, 0.9, 0.999, 1e-8, lr_wd,
+         ok, variant, weight_decay=wd)
+    return list(zip(p, m, v))
+
+
+def check_fused_adam(torch, timer):
+    """The Adam kernel against its plain version, bitwise, on BERT-base's
+    own leaves: the leaf variant over every leaf with AdamW's decay (lr
+    1e-4, wd 0.01, biases and norms excluded) with ``ok`` True and with
+    ``ok`` False (nothing may be written); the flat variant over the
+    leaves of >= 1024 elements (the use_pallas_adam route) and with its
+    weight_decay term. Times one launch over the route's leaves against
+    the plain version and the bound; torch.optim.AdamW(fused=True) over
+    the same leaves is timed beside it as a different function (it puts
+    eps on the bias-corrected sqrt(v)), never as the library time."""
+    from paddle_tpu_torch.kernels import fused_adam as fa
+    rng = np.random.default_rng(SEED + 9)
+    leaves = adam_leaves(torch, rng)
+    lr_c = torch.tensor([2.34e-5], dtype=torch.float32, device="cuda")
+    yes = torch.tensor([True], device="cuda")
+    no = torch.tensor([False], device="cuda")
+    big = lambda leaf: leaf["p"].numel() >= 1024  # noqa: E731
+    checks = {
+        "leaf_ok": dict(variant="leaf", ok=yes),
+        "leaf_no_guard": dict(variant="leaf", ok=None),
+        "leaf_skipped": dict(variant="leaf", ok=no),
+        "flat_ge1024": dict(variant="flat", ok=yes, keep=big),
+        "flat_weight_decay": dict(variant="flat", ok=yes, keep=big,
+                                  wd=0.01),
+    }
+    report = {}
+    for name, kw in checks.items():
+        got = run_adam(fa.adam_multi, leaves, lr_c=lr_c, **kw)
+        want = run_adam(fa.adam_multi_plain, leaves, lr_c=lr_c, **kw)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for gl, wl in zip(got, want)
+                      for a, b in zip(gl, wl))
+        report[name] = {"leaves": len(got), "bitwise": bitwise}
+        if name == "leaf_skipped":
+            keep = kw.get("keep", lambda leaf: True)
+            orig = [(leaf["p"], leaf["m"], leaf["v"]) for leaf in leaves
+                    if keep(leaf)]
+            report[name]["untouched"] = all(
+                torch.equal(a, b) for gl, ol in zip(got, orig)
+                for a, b in zip(gl, ol))
+            bitwise = bitwise and report[name]["untouched"]
+        log(f"fused adam {name}: {json.dumps(report[name])}")
+        if not bitwise:
+            raise AssertionError(f"fused adam {name}: kernel differs from "
+                                 f"plain (bitwise): {report[name]}")
+        del got, want
+    results = {}
+    elems = {}
+    for kname, variant, keep in (("adam_leaf", "leaf", lambda leaf: True),
+                                 ("adam_flat", "flat", big)):
+        sel = [leaf for leaf in leaves if keep(leaf)]
+        n = sum(leaf["p"].numel() for leaf in sel)
+        elems[kname] = n
+        args = ([leaf["p"] for leaf in sel], [leaf["g"] for leaf in sel],
+                [leaf["m"] for leaf in sel], [leaf["v"] for leaf in sel],
+                [leaf["decay"] for leaf in sel], lr_c, 0.9, 0.999, 1e-8,
+                1e-6, yes, variant)
+        bms, by = bound(28 * n, 16 * n)
+        results[kname] = {
+            "ms": timer(lambda: fa.adam_multi(*args), iters=10),
+            "plain_ms": timer(lambda: fa.adam_multi_plain(*args), iters=5),
+            "library_ms": None,
+            "torch_adamw_fused_ms_different_function": time_torch_adamw(
+                torch, timer, sel),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
+            "shape": f"{len(sel) - 1} BERT-base leaves + 1 unaligned, "
+                     f"{n} elements; bitwise (all checks)"}
+        log(f"{kname}: {json.dumps(results[kname])}")
+    REPORT["adam_checks"] = dict(report, elements=elems)
+    return results
+
+
+def time_torch_adamw(torch, timer, sel) -> float:
+    """torch.optim.AdamW(fused=True).step() over the same leaves: a
+    yardstick of a different function, never called by the port."""
+    params = [torch.nn.Parameter(leaf["p"].clone()) for leaf in sel]
+    for p, leaf in zip(params, sel):
+        p.grad = leaf["g"].clone()
+    opt = torch.optim.AdamW(params, lr=1e-4, weight_decay=0.01, fused=True)
+    return timer(opt.step, iters=10)
+
+
+# ---------------------------------------------------------------------------
 # phases 4-5: BERT-base pretraining through TrainStep
 # ---------------------------------------------------------------------------
 
@@ -614,18 +950,30 @@ def bert_batch(torch, cfg, batch: int, seq: int, device, seed: int):
     return tuple(torch.from_numpy(a).to(device) for a in (ids, mlm, nsp))
 
 
-def expected_launches(seq: int, layers: int, d: int) -> dict:
+def expected_launches(seq: int, layers: int, d: int, flags=None,
+                      update: bool = True) -> dict:
     """Kernel launches of one training step at ``seq``: LN twice per
     layer plus embeddings and the MLM transform, flash forward once per
-    layer, and one backward route per layer."""
+    layer, and one backward route per layer; under ``fused_softmax_xent``
+    the xent forward's two kernels (partials, merge), dh and dW/db once
+    each; with ``update``, one Adam launch for all leaves under
+    ``fused_adam`` (leaf variant), else under ``use_pallas_adam`` (flat
+    variant, the leaves of >= 1024 elements)."""
     from paddle_tpu_torch.kernels.flash_attention import backward_route
+    flags = flags or {}
     fused = backward_route(seq, seq, d) == "fused"
+    xent = 1 if flags.get("fused_softmax_xent") else 0
+    leaf = int(update and bool(flags.get("fused_adam")))
+    flat = int(update and not leaf and bool(flags.get("use_pallas_adam")))
     return {"layer_norm": 2 * layers + 2, "paged_attention": 0,
             "paged_attention_multiquery": 0,
             "flash_attention_fwd": layers,
             "flash_attention_bwd_fused": layers if fused else 0,
             "flash_attention_bwd_dq": 0 if fused else layers,
-            "flash_attention_bwd_dkv": 0 if fused else layers}
+            "flash_attention_bwd_dkv": 0 if fused else layers,
+            "fused_xent_fwd": 2 * xent, "fused_xent_bwd_dh": xent,
+            "fused_xent_bwd_dw": xent, "adam_leaf": leaf,
+            "adam_flat": flat}
 
 
 def make_train_step(model):
@@ -636,16 +984,26 @@ def make_train_step(model):
                      pretraining_loss, seed=SEED)
 
 
+def flag_scope(flags: dict):
+    """Sets the port's ``flags`` and returns a function restoring their
+    previous values."""
+    from paddle_tpu_torch import get_flags, set_flags
+    old = get_flags(list(flags))
+    set_flags(flags)
+    return lambda: set_flags(old)
+
+
 def run_training(torch, model, name: str, batch: int, seq: int,
-                 gate: int):
+                 gate: int, flags=None):
     """TRAIN_STEPS TrainSteps at (batch, seq) with the flash gate at
-    ``gate``; launch counts set to 0 just before and read just after.
-    Returns (stats, counts, the step, its batch)."""
-    from paddle_tpu_torch import kernels, set_flags
+    ``gate`` and ``flags`` set; launch counts set to 0 just before and
+    read just after. Returns (stats, counts, the step, its batch)."""
+    from paddle_tpu_torch import kernels
     cfg = model.config
     data = bert_batch(torch, cfg, batch, seq, "cuda", SEED + seq)
     step = make_train_step(model)
-    set_flags({"flash_attention_min_seq_train": gate})
+    restore = flag_scope(dict(flags or {},
+                              flash_attention_min_seq_train=gate))
     losses, step_ms = [], []
     try:
         torch.cuda.synchronize()
@@ -659,17 +1017,19 @@ def run_training(torch, model, name: str, batch: int, seq: int,
             losses.append(loss)
         counts = kernels.launch_counts()
     finally:
-        set_flags({"flash_attention_min_seq_train": 512})
+        restore()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{name}: non-finite loss {losses}")
     per_step = expected_launches(seq, cfg.num_hidden_layers,
-                                 cfg.hidden_size // cfg.num_attention_heads)
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 flags)
     want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} != {want} "
                              f"({TRAIN_STEPS} steps of {per_step})")
     steady = float(np.median(step_ms[1:]))
-    stats = {"batch": batch, "seq": seq, "steps": TRAIN_STEPS,
+    stats = {"batch": batch, "seq": seq, "flags": flags or {},
+             "steps": TRAIN_STEPS,
              "losses": losses, "step_ms": step_ms,
              "step_ms_median_after_first": steady,
              "tokens_per_s": batch * seq / steady * 1e3,
@@ -695,12 +1055,12 @@ def device_rows(prof, steps: int):
     return rows
 
 
-def profile_train(torch, step, data, gate: int) -> dict:
+def profile_train(torch, step, data, gate: int, flags=None) -> dict:
     """Where a training step's time goes: torch.profiler over one step,
     device time by kernel and the device's busy share of the wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from paddle_tpu_torch import set_flags
-    set_flags({"flash_attention_min_seq_train": gate})
+    restore = flag_scope(dict(flags or {},
+                              flash_attention_min_seq_train=gate))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -710,10 +1070,12 @@ def profile_train(torch, step, data, gate: int) -> dict:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        set_flags({"flash_attention_min_seq_train": 512})
+        restore()
     rows = device_rows(prof, 1)
     device_ms = sum(r[0] for r in rows)
     flash = sum(r[0] for r in rows if "flash_" in r[2])
+    xent = sum(r[0] for r in rows if "xent_" in r[2])
+    adam = sum(r[0] for r in rows if "adam_multi" in r[2])
     gemm = sum(r[0] for r in rows if "gemm" in r[2].lower()
                or "sgemm" in r[2].lower())
     # the profiler's own host work lengthens the profiled step: the busy
@@ -722,7 +1084,9 @@ def profile_train(torch, step, data, gate: int) -> dict:
     return {"wall_ms": wall_ms,
             "device_ms": device_ms if rows else None,
             "device_busy_share": device_ms / wall_ms if rows else None,
-            "flash_kernels_ms": flash, "gemm_ms": gemm,
+            "flash_kernels_ms": flash, "xent_kernels_ms": xent,
+            "adam_kernel_ms": adam, "gemm_ms": gemm,
+            "device_launches": sum(r[1] for r in rows),
             "top_ms_launches_name": rows[:15]}
 
 
@@ -741,13 +1105,13 @@ def grad_gaps(torch, grads: dict, ref: dict) -> dict:
     return out
 
 
-def card_against_cpu(torch) -> dict:
+def card_against_cpu(torch, flags=None) -> dict:
     """A 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the card
     (kernels) and on the CPU (plain versions) from the same weights and
-    batch: one forward and backward, whose loss and every parameter's
-    gradient must agree (the gradients' size, which one Adam step
-    hides); then one TrainStep, after which every parameter must
-    agree."""
+    batch, with ``flags`` set: one forward and backward, whose loss and
+    every parameter's gradient must agree (the gradients' size, which one
+    Adam step hides); then one TrainStep, after which every parameter
+    must agree."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                          pretraining_loss)
@@ -758,24 +1122,28 @@ def card_against_cpu(torch) -> dict:
     card.load_state_dict(cpu.state_dict())
     data = bert_batch(torch, cfg, 2, 512, "cpu", SEED + 11)
     grad_losses, losses, grads, counts = {}, {}, {}, {}
-    for dev, model in (("cuda", card), ("cpu", cpu)):
-        ids, mlm, nsp = (x.to(dev) for x in data)
-        names = [n for n, _ in model.named_parameters()]
-        kernels.reset_launch_counts()
-        loss = pretraining_loss(model(ids), mlm, nsp)
-        # without token type ids their embedding gets no gradient
-        grads[dev] = {n: g for n, g in zip(names, torch.autograd.grad(
-            loss, list(model.parameters()), allow_unused=True))
-            if g is not None}
-        counts[f"grad_{dev}"] = kernels.launch_counts()
-        grad_losses[dev] = float(loss.detach())
-        step = make_train_step(model)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        losses[dev] = float(step(ids, labels=(mlm, nsp))["loss"])
-        counts[f"step_{dev}"] = kernels.launch_counts()
-        log(f"card vs cpu: {dev} step {time.perf_counter() - t0:.2f} s, "
-            f"loss {losses[dev]}")
+    restore = flag_scope(flags or {})
+    try:
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            ids, mlm, nsp = (x.to(dev) for x in data)
+            names = [n for n, _ in model.named_parameters()]
+            kernels.reset_launch_counts()
+            loss = pretraining_loss(model(ids), mlm, nsp)
+            # without token type ids their embedding gets no gradient
+            grads[dev] = {n: g for n, g in zip(names, torch.autograd.grad(
+                loss, list(model.parameters()), allow_unused=True))
+                if g is not None}
+            counts[f"grad_{dev}"] = kernels.launch_counts()
+            grad_losses[dev] = float(loss.detach())
+            step = make_train_step(model)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses[dev] = float(step(ids, labels=(mlm, nsp))["loss"])
+            counts[f"step_{dev}"] = kernels.launch_counts()
+            log(f"card vs cpu {flags or 'default flags'}: {dev} step "
+                f"{time.perf_counter() - t0:.2f} s, loss {losses[dev]}")
+    finally:
+        restore()
     rel = grad_gaps(torch, grads["cuda"], grads["cpu"])
     worst_grad = max(rel, key=rel.get)
     params_cpu = dict(cpu.named_parameters())
@@ -783,7 +1151,8 @@ def card_against_cpu(torch) -> dict:
             for n, p in card.named_parameters()}
     diffs = {n: float(g.max()) for n, g in gaps.items()}
     worst = max(diffs, key=diffs.get)
-    res = {"loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+    res = {"flags": flags or {},
+           "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
            "loss_rel_diff": max(abs(a["cuda"] - a["cpu"]) / abs(a["cpu"])
                                 for a in (grad_losses, losses)),
            "grad_max_rel_gap": rel[worst_grad], "worst_grad": worst_grad,
@@ -797,8 +1166,9 @@ def card_against_cpu(torch) -> dict:
            "params_compared": len(diffs),
            "launches": counts}
     log(f"card vs cpu: {json.dumps({k: v for k, v in res.items() if k != 'grad_rel_gap_by_leaf'})}")
-    want = expected_launches(512, 2, 64)
-    if any(counts[f"{what}_cuda"] != want
+    want = {"grad": expected_launches(512, 2, 64, flags, update=False),
+            "step": expected_launches(512, 2, 64, flags)}
+    if any(counts[f"{what}_cuda"] != want[what]
            or any(counts[f"{what}_cpu"].values())
            for what in ("grad", "step")):
         raise AssertionError(f"card vs cpu launches: {counts} (card "
@@ -823,18 +1193,19 @@ def run_training_phases(torch) -> tuple:
         stats, counts[name], step, data = run_training(torch, model, name,
                                                        **run)
         report[name] = stats
-        if name == "train_seq512":
-            prof = profile_train(torch, step, data, run["gate"])
+        if name in PROFILED_RUNS:
+            prof = profile_train(torch, step, data, run["gate"],
+                                 run.get("flags"))
             if prof["device_ms"]:
                 prof["device_busy_share_unprofiled"] = \
                     prof["device_ms"] / stats["step_ms_median_after_first"]
-            report["train_profile"] = prof
-            log(f"train profile (seq 512): "
-                f"{json.dumps(report['train_profile'])}")
+            report[f"profile_{name}"] = prof
+            log(f"train profile ({name}): {json.dumps(prof)}")
         del step, data
     del model
     torch.cuda.empty_cache()
     report["card_against_cpu"] = card_against_cpu(torch)
+    report["card_against_cpu_fused"] = card_against_cpu(torch, FUSED_FLAGS)
     return report, counts
 
 
@@ -1087,6 +1458,10 @@ def kernel_line(results: dict, counts: dict) -> dict:
     the kernel's own path; ``launches_by_path`` gives every path's."""
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_ref = "paddle_tpu/kernels/flash_attention.py"
+    xent_src = "paddle_tpu_torch/csrc/fused_softmax_xent.cu"
+    xent_ref = "paddle_tpu/kernels/fused_softmax_xent.py"
+    adam_src = "paddle_tpu_torch/csrc/fused_adam.cu"
+    adam_ref = "paddle_tpu/kernels/fused_adam.py"
     meta = {
         "layer_norm": ("serving", "paddle_tpu_torch/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:29"),
@@ -1104,6 +1479,15 @@ def kernel_line(results: dict, counts: dict) -> dict:
                                    f"{flash_ref}:417"),
         "flash_attention_bwd_dkv": ("train_seq512", flash_src,
                                     f"{flash_ref}:473"),
+        "fused_xent_fwd": ("train_seq512_fused", xent_src,
+                           f"{xent_ref}:69"),
+        "fused_xent_bwd_dh": ("train_seq512_fused", xent_src,
+                              f"{xent_ref}:92"),
+        "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
+                              f"{xent_ref}:110"),
+        "adam_leaf": ("train_seq512_fused", adam_src, f"{adam_ref}:54"),
+        "adam_flat": ("train_seq128_pallas_adam", adam_src,
+                      f"{adam_ref}:34"),
     }
     for path, names in PATH_KERNELS.items():
         for name in names:
@@ -1153,6 +1537,8 @@ def main() -> int:
     timer = Timer(torch)
     results = check_kernels(torch, timer)
     results.update(check_flash(torch, timer))
+    results.update(check_fused_xent(torch, timer))
+    results.update(check_fused_adam(torch, timer))
     ln_bwd = check_layer_norm_backward(torch, timer)
     results["layer_norm"]["max_abs_err"] = max(
         results["layer_norm"]["max_abs_err"], ln_bwd["forward_max_abs_err"])

@@ -50,23 +50,38 @@
 // VMEM scratch. CUDA blocks run in no order, so each CUDA block owns one
 // (batch*head, tile) and runs the scan as a loop inside the block. The
 // fused backward holds one (batch, head) whole: Q, K, V, dO and a dQ
-// accumulator of all its rows stay in shared memory (207 KB at D = 64),
+// accumulator of all its rows stay in shared memory (208 KB at D = 64),
 // and 64 x 64 sub-tiles of s/p/dp are computed once each and feed dq, dk
 // and dv together. Its row limit is the port's tile: 128 rows for
-// D <= 64, 64 for D = 128 (what 227 KB of shared memory holds); longer
+// D <= 64, 64 for D <= 128 (what 227 KB of shared memory holds); longer
 // sequences take the dq and dkv kernels. Simple first: no tensor cores,
 // no cp.async/TMA pipelining yet.
+//
+// Head dims: the kernels are instantiated for D = 16, 32, ..., 128 (every
+// multiple of 16) and D = 256; the wrapper zero-pads any other D <= 256 to
+// the next of these (zero columns leave q.k and the output unchanged; the
+// scale stays 1/sqrt of the unpadded D). A thread owns C = D / 16 output
+// columns. At D = 256 a 64-row tile of the dq and dkv kernels' four operand
+// tiles would need 284-302 KB of shared memory, so every kernel at D > 128
+// uses 32-row tiles (2 x 2 micro-tiles per thread) and the fused backward,
+// which holds a whole (batch, head), is not built for it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTile = 64;          // rows of a q tile and of a k tile
+constexpr int kTile = 64;          // rows of a tile at D <= 128
 constexpr int kThreads = 256;      // 16 x 16 threads per tile
-constexpr int kPLd = kTile + 4;    // padded row stride of score tiles
 constexpr float kNegInf = -1e30f;
 constexpr uint32_t kGolden = 0x9E3779B9u;
+
+// Rows of a q tile and of a k tile at head dim D (see the note above).
+__host__ __device__ constexpr int tile_rows(int D) {
+  return D > 128 ? 32 : kTile;
+}
+// Padded row stride of a score tile of T columns.
+__host__ __device__ constexpr int p_ld(int T) { return T + 4; }
 
 struct Strides {
   long long b, t, h;
@@ -119,7 +134,9 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// C consecutive floats (C = D / 16, so 1, 2, 4 or 8), vectorised.
+// C consecutive floats (C = D / 16, 1 to 8 or 16) at column tx * C:
+// float4 loads when C % 4 == 0, float2 when C is even (the address is then
+// 8-byte aligned), scalar loads otherwise.
 template <int C>
 __device__ __forceinline__ void load_c(const float* p, float (&r)[C]) {
   if constexpr (C % 4 == 0) {
@@ -128,11 +145,15 @@ __device__ __forceinline__ void load_c(const float* p, float (&r)[C]) {
       const float4 t = *reinterpret_cast<const float4*>(p + c);
       r[c] = t.x; r[c + 1] = t.y; r[c + 2] = t.z; r[c + 3] = t.w;
     }
-  } else if constexpr (C == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x; r[1] = t.y;
+  } else if constexpr (C % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + c);
+      r[c] = t.x; r[c + 1] = t.y;
+    }
   } else {
-    r[0] = p[0];
+#pragma unroll
+    for (int c = 0; c < C; ++c) r[c] = p[c];
   }
 }
 
@@ -143,10 +164,13 @@ __device__ __forceinline__ void store_c(float* p, const float (&r)[C]) {
     for (int c = 0; c < C; c += 4)
       *reinterpret_cast<float4*>(p + c) =
           make_float4(r[c], r[c + 1], r[c + 2], r[c + 3]);
-  } else if constexpr (C == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(r[0], r[1]);
+  } else if constexpr (C % 2 == 0) {
+#pragma unroll
+    for (int c = 0; c < C; c += 2)
+      *reinterpret_cast<float2*>(p + c) = make_float2(r[c], r[c + 1]);
   } else {
-    p[0] = r[0];
+#pragma unroll
+    for (int c = 0; c < C; ++c) p[c] = r[c];
   }
 }
 
@@ -170,49 +194,50 @@ __device__ void load_rows(float* dst, const float* src, long long ts,
 }
 
 // acc[i][j] += A[ra + 16 i] . B[rb + 16 j] over D, A and B shared tiles of
-// row stride D + 4 (the 4 x 4 micro-tile of one thread).
-template <int D>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4], const float* A,
+// row stride D + 4 (the MI x MI micro-tile of one thread).
+template <int D, int MI>
+__device__ __forceinline__ void dot_tile(float (&acc)[MI][MI], const float* A,
                                          int ra, const float* Bm, int rb) {
   constexpr int LD = D + 4;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[MI], b[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
       a[i] = *reinterpret_cast<const float4*>(A + (ra + 16 * i) * LD + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < MI; ++j)
       b[j] = *reinterpret_cast<const float4*>(Bm + (rb + 16 * j) * LD + d);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < MI; ++j)
         acc[i][j] += a[i].x * b[j].x + a[i].y * b[j].y + a[i].z * b[j].z +
                      a[i].w * b[j].w;
   }
 }
 
-// out[i][c] += sum_k P[ra + 16 i][k] * M[k][col0 + c] over k < kTile, P a
-// score tile (row stride kPLd), M a shared tile of row stride D + 4.
-template <int D>
-__device__ __forceinline__ void acc_pm(float (&out)[4][D / 16],
+// out[i][c] += sum_k P[ra + 16 i][k] * M[k][col0 + c] over k < T = 16 MI,
+// P a score tile (row stride p_ld(T)), M a shared tile of row stride D + 4.
+template <int D, int MI>
+__device__ __forceinline__ void acc_pm(float (&out)[MI][D / 16],
                                        const float* P, int ra,
                                        const float* M, int col0) {
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
+  constexpr int T = 16 * MI, PLD = p_ld(T);
 #pragma unroll 2
-  for (int kk = 0; kk < kTile; kk += 4) {
-    float4 p[4];
+  for (int kk = 0; kk < T; kk += 4) {
+    float4 p[MI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      p[i] = *reinterpret_cast<const float4*>(P + (ra + 16 * i) * kPLd + kk);
+    for (int i = 0; i < MI; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (ra + 16 * i) * PLD + kk);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float m[C];
       load_c<C>(M + (kk + u) * LD + col0, m);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         const float pv = u == 0 ? p[i].x : u == 1 ? p[i].y
                          : u == 2 ? p[i].z : p[i].w;
 #pragma unroll
@@ -223,20 +248,21 @@ __device__ __forceinline__ void acc_pm(float (&out)[4][D / 16],
 }
 
 // out[i][c] += sum_k PT[k][ra + 16 i] * M[k][col0 + c]: the same product
-// with the score tile stored transposed (row stride kPLd).
+// with the score tile stored transposed (the fused kernel's 64-row tiles).
 template <int D>
 __device__ __forceinline__ void acc_ptm(float (&out)[4][D / 16],
                                         const float* PT, int ra,
                                         const float* M, int col0) {
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
+  constexpr int PLD = p_ld(kTile);
 #pragma unroll 4
   for (int kk = 0; kk < kTile; ++kk) {
     float m[C];
     load_c<C>(M + kk * LD + col0, m);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float pv = PT[kk * kPLd + ra + 16 * i];
+      const float pv = PT[kk * PLD + ra + 16 * i];
 #pragma unroll
       for (int c = 0; c < C; ++c) out[i][c] += pv * m[c];
     }
@@ -253,20 +279,22 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-// Key tiles a query tile starting at q0 scans: all, or (causal) those up
-// to its last row's last visible key, at least one (as the TPU kernel).
-__device__ __forceinline__ int key_tiles(const Problem& P, int q0) {
-  const int num_k = (P.Tk + kTile - 1) / kTile;
+// Key tiles (of T rows) a query tile starting at q0 scans: all, or
+// (causal) those up to its last row's last visible key, at least one (as
+// the TPU kernel).
+__device__ __forceinline__ int key_tiles(const Problem& P, int q0, int T) {
+  const int num_k = (P.Tk + T - 1) / T;
   if (!P.causal) return num_k;
-  const int upper = floor_div(q0 + kTile - 1 + P.Tk - P.Tq, kTile) + 1;
+  const int upper = floor_div(q0 + T - 1 + P.Tk - P.Tq, T) + 1;
   return upper < 1 ? 1 : (upper > num_k ? num_k : upper);
 }
 
 // First query tile a key tile starting at k0 needs (causal), else 0.
-__device__ __forceinline__ int first_query_tile(const Problem& P, int k0) {
-  const int num_q = (P.Tq + kTile - 1) / kTile;
+__device__ __forceinline__ int first_query_tile(const Problem& P, int k0,
+                                                int T) {
+  const int num_q = (P.Tq + T - 1) / T;
   if (!P.causal) return 0;
-  const int lower = floor_div(k0 - (P.Tk - P.Tq), kTile);
+  const int lower = floor_div(k0 - (P.Tk - P.Tq), T);
   return lower < 0 ? 0 : (lower > num_q ? num_q : lower);
 }
 
@@ -284,63 +312,63 @@ __global__ void __launch_bounds__(kThreads)
                      float* __restrict__ lse) {
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
+  constexpr int T = tile_rows(D), MI = T / 16, PLD = p_ld(T);
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;
+  float* Ks = Qs + T * LD;
+  float* Vs = Ks + T * LD;
+  float* Ps = Vs + T * LD;
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * T;
   const float* kb = k + b * P.k.b + h * P.k.h;
   const float* vb = v + b * P.v.b + h * P.v.h;
   const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
 
   // the TPU kernel scales q before the product
-  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, kTile, P.Tq,
-               P.scale);
+  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, T, P.Tq, P.scale);
 
-  uint32_t u[4] = {0u, 0u, 0u, 0u};
+  uint32_t u[MI] = {};
   if (seed) {
     const uint32_t hh = head_hash(seed, g);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) u[i] = row_hash(hh, q0 + ty + 16 * i);
+    for (int i = 0; i < MI; ++i) u[i] = row_hash(hh, q0 + ty + 16 * i);
   }
 
-  float m[4], l[4], acc[4][C];
+  float m[MI], l[MI], acc[MI][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  const int upper = key_tiles(P, q0);
+  const int upper = key_tiles(P, q0, T);
   for (int j = 0; j < upper; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * T;
     __syncthreads();  // the previous tile's K/V/P are consumed
-    load_rows<D>(Ks, kb, P.k.t, k0, kTile, P.Tk, 1.f);
-    load_rows<D>(Vs, vb, P.v.t, k0, kTile, P.Tk, 1.f);
+    load_rows<D>(Ks, kb, P.k.t, k0, T, P.Tk, 1.f);
+    load_rows<D>(Vs, vb, P.v.t, k0, T, P.Tk, 1.f);
     __syncthreads();
 
-    float s[4][4] = {};
-    dot_tile<D>(s, Qs, ty, Ks, tx);
+    float s[MI][MI] = {};
+    dot_tile<D, MI>(s, Qs, ty, Ks, tx);
 
-    float bj[4];
+    float bj[MI];
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < MI; ++jj) {
       const int kp = k0 + tx + 16 * jj;
       bj[jj] = (bias_row && kp < P.Tk) ? bias_row[kp] : 0.f;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int qp = q0 + ty + 16 * i;
-      bool ok[4];
+      bool ok[MI];
       float mt = kNegInf;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < MI; ++jj) {
         ok[jj] = visible(P, qp, k0 + tx + 16 * jj);
         s[i][jj] = ok[jj] ? s[i][jj] + bj[jj] : kNegInf;
         mt = fmaxf(mt, s[i][jj]);
@@ -349,12 +377,12 @@ __global__ void __launch_bounds__(kThreads)
       const float alpha = expf(m[i] - m_new);
       float ps = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < MI; ++jj) {
         float p = ok[jj] ? expf(s[i][jj] - m_new) : 0.f;
         ps += p;
         if (seed && !keep_bit(u[i], k0 + tx + 16 * jj, P.threshold))
           p = 0.f;
-        Ps[(ty + 16 * i) * kPLd + tx + 16 * jj] = p;
+        Ps[(ty + 16 * i) * PLD + tx + 16 * jj] = p;
       }
       l[i] = l[i] * alpha + row_sum16(ps);
       m[i] = m_new;
@@ -362,12 +390,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < C; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    acc_pm<D>(acc, Ps, ty, Vs, tx * C);
+    acc_pm<D, MI>(acc, Ps, ty, Vs, tx * C);
   }
 
   float* ob = out + b * P.o.b + h * P.o.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp >= P.Tq) continue;
     const float safe_l = fmaxf(l[i], 1e-30f);
@@ -386,22 +414,25 @@ __global__ void __launch_bounds__(kThreads)
 // backward: shared score-tile math
 // ---------------------------------------------------------------------------
 
-// One thread's 4 x 4 entries of the transposed tiles p_v^T and ds^T for
+// One thread's MI x MI entries of the transposed tiles p_v^T and ds^T for
 // key rows k0 + ty + 16 i and query columns q0 + tx + 16 j, given
 // sT = K.Q (unscaled) and dpT = V.dO. lse/delta are the query tile's
-// (shared, indexed by local column). Stores into PvT and dST.
+// (shared, indexed by local column). Stores into PvT and dST (row stride
+// p_ld(16 MI)).
+template <int MI>
 __device__ __forceinline__ void grad_core_t(
-    const Problem& P, const float (&sT)[4][4], const float (&dpT)[4][4],
-    const float (&bk)[4], const float* lse_s, const float* delta_s,
+    const Problem& P, const float (&sT)[MI][MI], const float (&dpT)[MI][MI],
+    const float (&bk)[MI], const float* lse_s, const float* delta_s,
     const int* seed, uint32_t hh, int q0, int k0, int ty, int tx,
     float* PvT, float* dST) {
+  constexpr int PLD = p_ld(16 * MI);
 #pragma unroll
-  for (int jj = 0; jj < 4; ++jj) {
+  for (int jj = 0; jj < MI; ++jj) {
     const int ql = tx + 16 * jj, qp = q0 + ql;
     const float lq = lse_s[ql], dq = delta_s[ql];
     const uint32_t u = seed ? row_hash(hh, qp) : 0u;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < MI; ++i) {
       const int kl = ty + 16 * i, kp = k0 + kl;
       const float sv = sT[i][jj] * P.scale + bk[i];
       const float p = visible(P, qp, kp) ? expf(sv - lq) : 0.f;
@@ -411,8 +442,8 @@ __device__ __forceinline__ void grad_core_t(
         pv = keep ? p / P.keep_prob : 0.f;
         dp = keep ? dp / P.keep_prob : 0.f;
       }
-      PvT[kl * kPLd + ql] = pv;
-      dST[kl * kPLd + ql] = p * (dp - dq) * P.scale;
+      PvT[kl * PLD + ql] = pv;
+      dST[kl * PLD + ql] = p * (dp - dq) * P.scale;
     }
   }
 }
@@ -448,28 +479,29 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ dq) {
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
+  constexpr int T = tile_rows(D), MI = T / 16, PLD = p_ld(T);
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* dSs = Vs + kTile * LD;
+  float* dOs = Qs + T * LD;
+  float* Ks = dOs + T * LD;
+  float* Vs = Ks + T * LD;
+  float* dSs = Vs + T * LD;
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * T;
   const float* kb = k + b * P.k.b + h * P.k.h;
   const float* vb = v + b * P.v.b + h * P.v.h;
   const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
 
-  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, kTile, P.Tq, 1.f);
-  load_rows<D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, q0, kTile,
+  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, T, P.Tq, 1.f);
+  load_rows<D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, q0, T,
                P.Tq, 1.f);
-  float lq[4], dlt[4];
-  uint32_t u[4] = {0u, 0u, 0u, 0u};
+  float lq[MI], dlt[MI];
+  uint32_t u[MI] = {};
   const uint32_t hh = seed ? head_hash(seed, g) : 0u;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int qp = q0 + ty + 16 * i;
     const bool in = qp < P.Tq;
     lq[i] = in ? lse[(long long)g * P.Tq + qp] : 0.f;
@@ -477,46 +509,46 @@ __global__ void __launch_bounds__(kThreads)
     if (seed) u[i] = row_hash(hh, qp);
   }
 
-  float acc[4][C];
+  float acc[MI][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
 
-  const int upper = key_tiles(P, q0);
+  const int upper = key_tiles(P, q0, T);
   for (int j = 0; j < upper; ++j) {
-    const int k0 = j * kTile;
+    const int k0 = j * T;
     __syncthreads();
-    load_rows<D>(Ks, kb, P.k.t, k0, kTile, P.Tk, 1.f);
-    load_rows<D>(Vs, vb, P.v.t, k0, kTile, P.Tk, 1.f);
+    load_rows<D>(Ks, kb, P.k.t, k0, T, P.Tk, 1.f);
+    load_rows<D>(Vs, vb, P.v.t, k0, T, P.Tk, 1.f);
     __syncthreads();
 
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tile<D>(s, Qs, ty, Ks, tx);
-    dot_tile<D>(dp, dOs, ty, Vs, tx);
+    float s[MI][MI] = {}, dp[MI][MI] = {};
+    dot_tile<D, MI>(s, Qs, ty, Ks, tx);
+    dot_tile<D, MI>(dp, dOs, ty, Vs, tx);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < MI; ++jj) {
       const int kp = k0 + tx + 16 * jj;
       const float bk = (bias_row && kp < P.Tk) ? bias_row[kp] : 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < MI; ++i) {
         const int qp = q0 + ty + 16 * i;
         const float sv = s[i][jj] * P.scale + bk;
         const float p = visible(P, qp, kp) ? expf(sv - lq[i]) : 0.f;
         float d = dp[i][jj];
         if (seed)
           d = keep_bit(u[i], kp, P.threshold) ? d / P.keep_prob : 0.f;
-        dSs[(ty + 16 * i) * kPLd + tx + 16 * jj] =
+        dSs[(ty + 16 * i) * PLD + tx + 16 * jj] =
             p * (d - dlt[i]) * P.scale;
       }
     }
     __syncthreads();
-    acc_pm<D>(acc, dSs, ty, Ks, tx * C);
+    acc_pm<D, MI>(acc, dSs, ty, Ks, tx * C);
   }
 
   float* db = dq + b * P.dq.b + h * P.dq.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int qp = q0 + ty + 16 * i;
     if (qp < P.Tq) store_c<C>(db + qp * P.dq.t + tx * C, acc[i]);
   }
@@ -539,61 +571,62 @@ __global__ void __launch_bounds__(kThreads)
                          float* __restrict__ dk, float* __restrict__ dv) {
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
+  constexpr int T = tile_rows(D), MI = T / 16, PLD = p_ld(T);
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* PvT = dOs + kTile * LD;
-  float* dST = PvT + kTile * kPLd;
-  float* lse_s = dST + kTile * kPLd;
-  float* delta_s = lse_s + kTile;
+  float* Vs = Ks + T * LD;
+  float* Qs = Vs + T * LD;
+  float* dOs = Qs + T * LD;
+  float* PvT = dOs + T * LD;
+  float* dST = PvT + T * PLD;
+  float* lse_s = dST + T * PLD;
+  float* delta_s = lse_s + T;
 
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * T;
   const float* qb = q + b * P.q.b + h * P.q.h;
   const float* ob = dout + b * P.dout.b + h * P.dout.h;
 
-  load_rows<D>(Ks, k + b * P.k.b + h * P.k.h, P.k.t, k0, kTile, P.Tk, 1.f);
-  load_rows<D>(Vs, v + b * P.v.b + h * P.v.h, P.v.t, k0, kTile, P.Tk, 1.f);
-  float bk[4];
+  load_rows<D>(Ks, k + b * P.k.b + h * P.k.h, P.k.t, k0, T, P.Tk, 1.f);
+  load_rows<D>(Vs, v + b * P.v.b + h * P.v.h, P.v.t, k0, T, P.Tk, 1.f);
+  float bk[MI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int kp = k0 + ty + 16 * i;
     bk[i] = (bias && kp < P.Tk) ? bias[(long long)b * P.Tk + kp] : 0.f;
   }
   const uint32_t hh = seed ? head_hash(seed, g) : 0u;
 
-  float dka[4][C], dva[4][C];
+  float dka[MI][C], dva[MI][C];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int c = 0; c < C; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int num_q = (P.Tq + kTile - 1) / kTile;
-  for (int iq = first_query_tile(P, k0); iq < num_q; ++iq) {
-    const int q0 = iq * kTile;
+  const int num_q = (P.Tq + T - 1) / T;
+  for (int iq = first_query_tile(P, k0, T); iq < num_q; ++iq) {
+    const int q0 = iq * T;
     __syncthreads();
-    load_rows<D>(Qs, qb, P.q.t, q0, kTile, P.Tq, 1.f);
-    load_rows<D>(dOs, ob, P.dout.t, q0, kTile, P.Tq, 1.f);
-    load_row_stats(lse_s, delta_s, lse, delta, P, g, q0, kTile);
+    load_rows<D>(Qs, qb, P.q.t, q0, T, P.Tq, 1.f);
+    load_rows<D>(dOs, ob, P.dout.t, q0, T, P.Tq, 1.f);
+    load_row_stats(lse_s, delta_s, lse, delta, P, g, q0, T);
     __syncthreads();
 
-    float sT[4][4] = {}, dpT[4][4] = {};
-    dot_tile<D>(sT, Ks, ty, Qs, tx);
-    dot_tile<D>(dpT, Vs, ty, dOs, tx);
-    grad_core_t(P, sT, dpT, bk, lse_s, delta_s, seed, hh, q0, k0, ty, tx,
-                PvT, dST);
+    float sT[MI][MI] = {}, dpT[MI][MI] = {};
+    dot_tile<D, MI>(sT, Ks, ty, Qs, tx);
+    dot_tile<D, MI>(dpT, Vs, ty, dOs, tx);
+    grad_core_t<MI>(P, sT, dpT, bk, lse_s, delta_s, seed, hh, q0, k0, ty,
+                    tx, PvT, dST);
     __syncthreads();
-    acc_pm<D>(dva, PvT, ty, dOs, tx * C);
-    acc_pm<D>(dka, dST, ty, Qs, tx * C);
+    acc_pm<D, MI>(dva, PvT, ty, dOs, tx * C);
+    acc_pm<D, MI>(dka, dST, ty, Qs, tx * C);
   }
 
   float* dkb = dk + b * P.dk.b + h * P.dk.h;
   float* dvb = dv + b * P.dv.b + h * P.dv.h;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     const int kp = k0 + ty + 16 * i;
     if (kp >= P.Tk) continue;
     store_c<C>(dkb + kp * P.dk.t + tx * C, dka[i]);
@@ -620,14 +653,15 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int C = D / 16;
   constexpr int LD = D + 4;
   constexpr int R = NT * kTile;
+  constexpr int PLD = p_ld(kTile);
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + R * LD;
   float* Ks = dOs + R * LD;
   float* Vs = Ks + R * LD;
   float* PvT = Vs + R * LD;
-  float* dST = PvT + kTile * kPLd;
-  float* dQs = dST + kTile * kPLd;  // [R][D]
+  float* dST = PvT + kTile * PLD;
+  float* dQs = dST + kTile * PLD;  // [R][D]
   float* lse_s = dQs + R * D;
   float* delta_s = lse_s + R;
 
@@ -666,13 +700,13 @@ __global__ void __launch_bounds__(kThreads)
       const float* Qt = Qs + q0 * LD;
       const float* dOt = dOs + q0 * LD;
       float sT[4][4] = {}, dpT[4][4] = {};
-      dot_tile<D>(sT, Kt, ty, Qt, tx);
-      dot_tile<D>(dpT, Vt, ty, dOt, tx);
-      grad_core_t(P, sT, dpT, bk, lse_s + q0, delta_s + q0, seed, hh, q0,
-                  k0, ty, tx, PvT, dST);
+      dot_tile<D, 4>(sT, Kt, ty, Qt, tx);
+      dot_tile<D, 4>(dpT, Vt, ty, dOt, tx);
+      grad_core_t<4>(P, sT, dpT, bk, lse_s + q0, delta_s + q0, seed, hh, q0,
+                     k0, ty, tx, PvT, dST);
       __syncthreads();
-      acc_pm<D>(dva, PvT, ty, dOt, tx * C);
-      acc_pm<D>(dka, dST, ty, Qt, tx * C);
+      acc_pm<D, 4>(dva, PvT, ty, dOt, tx * C);
+      acc_pm<D, 4>(dka, dST, ty, Qt, tx * C);
       // dq rows q0 + ty + 16 i: sum over this key tile of ds * K; each
       // thread owns its rows and columns of the accumulator
       float dqa[4][C];
@@ -744,19 +778,29 @@ bool too_many_heads(const Problem& P) {
   return (long long)P.B * P.H > 65535;
 }
 
-// Dynamic shared memory of each kernel, in bytes.
+// One block per (query tile, batch * head).
+dim3 q_grid(const Problem& P, int D) {
+  const int T = tile_rows(D);
+  return dim3((P.Tq + T - 1) / T, P.B * P.H);
+}
+
+// Dynamic shared memory of each kernel, in bytes: at most 208 KB (the
+// fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB, dkv 143 KB.
 constexpr size_t fwd_smem(int D) {
-  return (size_t)(3 * kTile * (D + 4) + kTile * kPLd) * sizeof(float);
+  return (size_t)(3 * tile_rows(D) * (D + 4) +
+                  tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
 }
 constexpr size_t dq_smem(int D) {
-  return (size_t)(4 * kTile * (D + 4) + kTile * kPLd) * sizeof(float);
+  return (size_t)(4 * tile_rows(D) * (D + 4) +
+                  tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
 }
 constexpr size_t dkv_smem(int D) {
-  return (size_t)(4 * kTile * (D + 4) + 2 * kTile * kPLd + 2 * kTile) *
-         sizeof(float);
+  return (size_t)(4 * tile_rows(D) * (D + 4) +
+                  2 * tile_rows(D) * p_ld(tile_rows(D)) +
+                  2 * tile_rows(D)) * sizeof(float);
 }
 constexpr size_t fused_smem(int D, int NT) {
-  return (size_t)(4 * NT * kTile * (D + 4) + 2 * kTile * kPLd +
+  return (size_t)(4 * NT * kTile * (D + 4) + 2 * kTile * p_ld(kTile) +
                   NT * kTile * D + 2 * NT * kTile) *
          sizeof(float);
 }
@@ -773,32 +817,44 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
   return cudaGetLastError();
 }
 
-// The fused kernel at D's row count (fused_rows below).
+// The fused kernel at D's row count (fused_rows below); not built for
+// D > 128, whose whole (batch, head) does not fit shared memory.
 template <int D>
 cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
                          const float* q, const float* k, const float* v,
                          const float* dout, const float* lse,
                          const float* delta, const float* bias,
                          const int* seed, float* dq, float* dk, float* dv) {
-  constexpr int NT = D <= 64 ? 2 : 1;
-  return launch(flash_bwd_fused_kernel<D, NT>, grid, fused_smem(D, NT),
-                stream, P, q, k, v, dout, lse, delta, bias, seed, dq, dk,
-                dv);
+  if constexpr (D > 128) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int NT = D <= 64 ? 2 : 1;
+    return launch(flash_bwd_fused_kernel<D, NT>, grid, fused_smem(D, NT),
+                  stream, P, q, k, v, dout, lse, delta, bias, seed, dq, dk,
+                  dv);
+  }
 }
 
-#define DISPATCH_D(D, ...)                                  \
-  switch (D) {                                              \
-    case 16: { constexpr int kD = 16; __VA_ARGS__; } break; \
-    case 32: { constexpr int kD = 32; __VA_ARGS__; } break; \
-    case 64: { constexpr int kD = 64; __VA_ARGS__; } break; \
+// The head dims the kernels are built for (kernels/flash_attention.py
+// HEAD_DIMS; the wrapper pads any other D <= 256 up to one of them).
+#define DISPATCH_D(D, ...)                                    \
+  switch (D) {                                                \
+    case 16: { constexpr int kD = 16; __VA_ARGS__; } break;   \
+    case 32: { constexpr int kD = 32; __VA_ARGS__; } break;   \
+    case 48: { constexpr int kD = 48; __VA_ARGS__; } break;   \
+    case 64: { constexpr int kD = 64; __VA_ARGS__; } break;   \
+    case 80: { constexpr int kD = 80; __VA_ARGS__; } break;   \
+    case 96: { constexpr int kD = 96; __VA_ARGS__; } break;   \
+    case 112: { constexpr int kD = 112; __VA_ARGS__; } break; \
     case 128: { constexpr int kD = 128; __VA_ARGS__; } break; \
-    default: return (int)cudaErrorInvalidValue;             \
+    case 256: { constexpr int kD = 256; __VA_ARGS__; } break; \
+    default: return (int)cudaErrorInvalidValue;               \
   }
 
 // Rows of one (batch, head) the fused backward holds whole: 128 for
-// D <= 64, 64 for D = 128 (kernels/flash_attention.py routes by the same
-// rule, fused_rows()).
-int fused_rows(int D) { return D <= 64 ? 2 * kTile : kTile; }
+// D <= 64, 64 for D <= 128, none above (kernels/flash_attention.py routes
+// by the same rule, fused_rows()).
+int fused_rows(int D) { return D <= 64 ? 2 * kTile : D <= 128 ? kTile : 0; }
 
 }  // namespace
 
@@ -812,10 +868,10 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
   if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
-  dim3 grid((P.Tq + kTile - 1) / kTile, P.B * P.H);
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D, err = launch(flash_fwd_kernel<kD>, grid, fwd_smem(kD),
-                               stream, P, q, k, v, bias, seed, out, lse));
+  DISPATCH_D(P.D, err = launch(flash_fwd_kernel<kD>, q_grid(P, kD),
+                               fwd_smem(kD), stream, P, q, k, v, bias, seed,
+                               out, lse));
   return (int)err;
 }
 
@@ -831,11 +887,10 @@ extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
   if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
-  dim3 grid((P.Tq + kTile - 1) / kTile, P.B * P.H);
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D, err = launch(flash_bwd_dq_kernel<kD>, grid, dq_smem(kD),
-                               stream, P, q, k, v, dout, lse, delta, bias,
-                               seed, dq));
+  DISPATCH_D(P.D, err = launch(flash_bwd_dq_kernel<kD>, q_grid(P, kD),
+                               dq_smem(kD), stream, P, q, k, v, dout, lse,
+                               delta, bias, seed, dq));
   return (int)err;
 }
 
@@ -851,7 +906,8 @@ extern "C" int flash_attention_bwd_dkv(const float* q, const float* k,
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
   if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
-  dim3 grid((P.Tk + kTile - 1) / kTile, P.B * P.H);
+  const int T = tile_rows(P.D);
+  dim3 grid((P.Tk + T - 1) / T, P.B * P.H);
   cudaError_t err = cudaSuccess;
   DISPATCH_D(P.D, err = launch(flash_bwd_dkv_kernel<kD>, grid,
                                dkv_smem(kD), stream, P, q, k, v, dout, lse,
@@ -873,7 +929,7 @@ extern "C" int flash_attention_bwd_fused(const float* q, const float* k,
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
   const int rows = fused_rows(P.D);
-  if (P.Tq > rows || P.Tk > rows || too_many_heads(P))
+  if (rows == 0 || P.Tq > rows || P.Tk > rows || too_many_heads(P))
     return (int)cudaErrorInvalidValue;
   dim3 grid(1, P.B * P.H);
   cudaError_t err = cudaSuccess;

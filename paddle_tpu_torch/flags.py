@@ -176,3 +176,30 @@ define_flag("skip_nonfinite_steps", True,
             "moments and the step counter) when any gradient is NaN/Inf, "
             "selected on the device without a host sync. Read at "
             "TrainStep construction.")
+
+# ---------------------------------------------------------------------------
+# fused loss region and optimizer kernels (BERT pretraining)
+# ---------------------------------------------------------------------------
+define_flag("use_pallas_adam", False,
+            "Route Adam/AdamW updates of fp32 parameters with at least "
+            "1024 elements through the flat variant of the CUDA Adam "
+            "kernel (csrc/fused_adam.cu: the update in its reciprocal "
+            "form m * (1 / (sqrt(v) + eps))), all such leaves of a step in "
+            "one multi-tensor launch; smaller leaves keep the unfused "
+            "update. The JAX package's name, kept for parity. "
+            "fused_adam takes precedence.")
+define_flag("fused_adam", False,
+            "Route Adam/AdamW updates of fp32 parameters through the "
+            "leaf variant of the CUDA Adam kernel (csrc/fused_adam.cu): "
+            "every leaf of a step in one multi-tensor launch, bitwise "
+            "equal to the unfused update, AdamW's decoupled decay and the "
+            "skip-step guard folded in (lr and the guard are read on the "
+            "device, so no host sync).")
+define_flag("fused_softmax_xent", False,
+            "Fuse BERT's masked-LM head (the hidden -> vocab projection) "
+            "with its softmax cross-entropy: BertPretrainingHeads returns "
+            "MLMHeadOutput and pretraining_loss runs "
+            "kernels.maybe_fused_linear_xent, whose CUDA kernels "
+            "(csrc/fused_softmax_xent.cu) stream the vocabulary, so the "
+            "[N, V] logits and their gradient never exist in device "
+            "memory.")

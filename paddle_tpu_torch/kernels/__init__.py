@@ -11,6 +11,10 @@ rows >= 8) do not apply to these kernels.
 dim, mask shape, train/eval minimum sequence length): what the gate
 admits goes to flash attention (kernels on CUDA, their plain version on
 the CPU), the rest to the plain ``ops.attention`` composition.
+``maybe_fused_linear_xent`` routes by the ``fused_softmax_xent`` flag:
+off, the composed projection and ``ops.loss``; on, the fused kernels (or
+their plain version). ``maybe_fused_adam`` is the optimizer's one call
+per route and step.
 
 Each kernel counts its launches; ``launch_counts()`` reads the counts
 and ``reset_launch_counts()`` sets them to 0, so a run can show that its
@@ -19,7 +23,7 @@ main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -27,13 +31,17 @@ from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..nn import functional as F
 from ..ops.attention import scaled_dot_product_attention
+from ..ops.loss import softmax_with_cross_entropy
 from . import flash_attention as _fa
+from . import fused_adam as _adam
+from . import fused_softmax_xent as _fx
 from . import layer_norm as _ln
 from . import paged_attention as _pa
 
 __all__ = ["maybe_layer_norm", "maybe_paged_attention",
            "maybe_paged_attention_multiquery", "maybe_flash_attention",
-           "launch_counts", "reset_launch_counts"]
+           "fused_softmax_xent_enabled", "maybe_fused_linear_xent",
+           "maybe_fused_adam", "launch_counts", "reset_launch_counts"]
 
 # (module, counter attribute) of every kernel, by the name launch_counts()
 # reports
@@ -45,6 +53,11 @@ _COUNTERS = {
     "flash_attention_bwd_fused": (_fa, "fused_launches"),
     "flash_attention_bwd_dq": (_fa, "dq_launches"),
     "flash_attention_bwd_dkv": (_fa, "dkv_launches"),
+    "fused_xent_fwd": (_fx, "fwd_launches"),
+    "fused_xent_bwd_dh": (_fx, "dh_launches"),
+    "fused_xent_bwd_dw": (_fx, "dw_launches"),
+    "adam_leaf": (_adam, "leaf_launches"),
+    "adam_flat": (_adam, "flat_launches"),
 }
 
 # The eval floor for head dims that are not a multiple of 128 (BERT's 64):
@@ -133,10 +146,10 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     kernel seed, a one-element device tensor, from the ``dropout``
     stream. The rest runs ``ops.attention.scaled_dot_product_attention``.
 
-    Known gap (``ROADMAP.md`` section C): the CUDA kernels take head dims
-    16, 32, 64 and 128 only, so a CUDA call the gate admits at another
-    dim (48, 80, 96 or 256, say, in training) raises, where the JAX
-    package runs flash attention and the CPU route its plain version.
+    The CUDA kernels take every head dim the gate admits up to 256
+    (those outside ``flash_attention.HEAD_DIMS`` zero-padded to the next
+    one); a CUDA call the gate admits above 256 (``d % 128 == 0``)
+    raises, the gap ``ROADMAP.md`` section C records.
     """
     bthd = layout == "bthd"
     t_axis = 1 if bthd else 2
@@ -170,3 +183,49 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     return scaled_dot_product_attention(q, k, v, mask=mask, scale=scale,
                                         causal=causal, dropout_p=dropout_p,
                                         training=training)
+
+
+def fused_softmax_xent_enabled() -> bool:
+    """The ``fused_softmax_xent`` flag: BERT's MLM head hands its hidden
+    states to the loss (``MLMHeadOutput``) instead of logits."""
+    return bool(GLOBAL_FLAGS.get("fused_softmax_xent"))
+
+
+def maybe_fused_linear_xent(hidden: torch.Tensor, weight: torch.Tensor,
+                            bias: Optional[torch.Tensor],
+                            labels: torch.Tensor,
+                            ignore_index: int = -100) -> torch.Tensor:
+    """Per-position softmax cross-entropy of ``hidden @ weight.T + bias``
+    (hidden ``[..., H]``, weight ``[V, H]``, bias ``[V]`` or None, integer
+    labels of the leading shape): fp32 loss of labels' shape, 0 at
+    ``ignore_index``. Flag off: the composed projection and
+    ``ops.loss.softmax_with_cross_entropy``. Flag on: the fused kernels
+    for CUDA tensors (the logits never exist in device memory), their
+    plain version for CPU tensors."""
+    if not fused_softmax_xent_enabled():
+        logits = hidden @ weight.T
+        if bias is not None:
+            logits = logits + bias
+        return softmax_with_cross_entropy(
+            logits, labels[..., None], ignore_index=ignore_index)[..., 0]
+    if hidden.device.type == "cpu":
+        return _fx.fused_linear_xent_plain(hidden, weight, bias, labels,
+                                           ignore_index)
+    return _fx.fused_linear_xent(hidden, weight, bias, labels,
+                                 ignore_index)
+
+
+def maybe_fused_adam(params: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor],
+                     ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                     decay: Sequence[bool], lr_c: torch.Tensor,
+                     beta1: float, beta2: float, eps: float, lr_wd: float,
+                     ok: Optional[torch.Tensor] = None,
+                     variant: str = "leaf") -> None:
+    """Paddle's Adam update of every given leaf in place (variant
+    ``"leaf"`` or ``"flat"``, see ``kernels/fused_adam.py``): one kernel
+    launch for CUDA tensors, the plain version for CPU tensors."""
+    impl = _adam.adam_multi_plain if params and \
+        params[0].device.type == "cpu" else _adam.adam_multi
+    impl(params, grads, ms, vs, decay, lr_c, beta1, beta2, eps, lr_wd, ok,
+         variant)

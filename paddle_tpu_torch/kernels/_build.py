@@ -33,8 +33,8 @@ BUILD_DIR = _PKG / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 # kernel library name -> its C entry points' ctypes signatures
-_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
-    ctypes.c_uint
+_P, _I, _F, _U, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint, ctypes.c_longlong
 # flash attention's trailing arguments: dims (a host int64 array), scale,
 # causal, keep_prob, threshold, stream
 _FLASH_TAIL = [_P, _F, _I, _F, _U, _P]
@@ -62,6 +62,20 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "flash_attention_bwd_dkv": [_P] * 10 + _FLASH_TAIL,
         # q, k, v, dout, lse, delta, bias, seed, dq, dk, dv, ...tail
         "flash_attention_bwd_fused": [_P] * 11 + _FLASH_TAIL,
+    },
+    "fused_softmax_xent": {
+        # h, w, bias, labels, part, loss, lse, N, V, H, splits,
+        # ignore_index, stream
+        "fused_xent_fwd": [_P] * 7 + [_I, _I, _I, _I, _L, _P],
+        # h, w, bias, labels, lse, g, dh, N, V, H, ignore_index, stream
+        "fused_xent_bwd_dh": [_P] * 7 + [_I, _I, _I, _L, _P],
+        # h, w, bias, labels, lse, g, dw, db, N, V, H, ignore_index, stream
+        "fused_xent_bwd_dw": [_P] * 8 + [_I, _I, _I, _L, _P],
+    },
+    "fused_adam": {
+        # table, n_leaves, n_chunks, lr_c, ok, b1, 1 - b1, b2, 1 - b2, eps,
+        # lr * wd, weight_decay, variant, stream
+        "fused_adam_multi": [_P, _I, _I, _P, _P] + [_F] * 7 + [_I, _P],
     },
 }
 

@@ -25,14 +25,20 @@ Semantics are the JAX package's ``flash_attention``:
 The backward takes the fused kernel when both sequences fit its tile
 (:func:`backward_route`): the JAX rule (fused when the padded Tq and Tk
 each equal one tile) with the port's tile, 128 rows at D <= 64 and 64 at
-D = 128, what a Hopper block's 227 KB of shared memory holds of Q, K, V,
-dO and a dQ accumulator. Longer sequences take the dq and dkv kernels.
-``delta = rowsum(dO * out)`` is a torch reduction, as it is an XLA op in
-the JAX package.
+D <= 128, what a Hopper block's 227 KB of shared memory holds of Q, K, V,
+dO and a dQ accumulator. Longer sequences, and every sequence at D = 256,
+take the dq and dkv kernels. ``delta = rowsum(dO * out)`` is a torch
+reduction, as it is an XLA op in the JAX package.
 
-Kernels take fp32 CUDA tensors whose head dim D is 16, 32, 64 or 128,
-contiguous in that dim, with the other strides multiples of 4 floats
-and 16-byte aligned data; anything else raises.
+The kernels are built for the head dims in ``HEAD_DIMS`` (every multiple
+of 16 up to 128, and 256). :func:`flash_attention` zero-pads any other
+head dim up to 256 to the next of them (:func:`kernel_head_dim`) and
+slices the output: zero columns change neither q.k nor the output, and
+the scale stays ``1/sqrt`` of the unpadded dim. A head dim above 256
+raises. The kernel entry points themselves take fp32 CUDA tensors whose
+head dim is in ``HEAD_DIMS``, contiguous in that dim, with the other
+strides multiples of 4 floats and 16-byte aligned data; anything else
+raises.
 """
 
 from __future__ import annotations
@@ -47,11 +53,12 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
            "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
-           "backward_route", "fused_rows", "dropout_keep_mask",
-           "dropout_threshold", "HEAD_DIMS"]
+           "backward_route", "fused_rows", "kernel_head_dim",
+           "dropout_keep_mask", "dropout_threshold", "HEAD_DIMS"]
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dims the kernels are instantiated for (DISPATCH_D in the source)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 fwd_launches = 0
@@ -63,10 +70,23 @@ _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a head dim ``d`` at: the smallest
+    of ``HEAD_DIMS`` >= d (the wrapper zero-pads up to it). Raises above
+    256, which no kernel is built for (``ROADMAP.md`` section C)."""
+    for kd in HEAD_DIMS:
+        if kd >= d:
+            return kd
+    raise ValueError(f"flash attention kernels take head dims up to "
+                     f"{HEAD_DIMS[-1]}, got {d}")
+
+
 def fused_rows(d: int) -> int:
     """Sequence length up to which one (batch, head) fits the fused
-    backward kernel whole (``fused_rows()`` in the CUDA source)."""
-    return 128 if d <= 64 else 64
+    backward kernel whole (``fused_rows()`` in the CUDA source), at the
+    kernels' head dim for ``d``: 128 up to 64, 64 up to 128, else 0."""
+    kd = kernel_head_dim(d)
+    return 128 if kd <= 64 else 64 if kd <= 128 else 0
 
 
 def backward_route(tq: int, tk: int, d: int) -> str:
@@ -222,8 +242,9 @@ class _Call:
                              f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                              f"{tuple(v.shape)}")
         if self.d not in HEAD_DIMS:
-            raise ValueError(f"flash attention kernel takes head dims "
-                             f"{HEAD_DIMS}, got {self.d}")
+            raise ValueError(f"flash attention kernels are built for head "
+                             f"dims {HEAD_DIMS}, got {self.d} (the "
+                             f"flash_attention wrapper pads the others)")
         if kv_bias is not None and (
                 kv_bias.shape != (self.b, self.tk) or kv_bias.device != dev
                 or kv_bias.dtype != torch.float32
@@ -403,6 +424,16 @@ def flash_attention(q, k, v, causal: bool = False,
     """Flash attention on CUDA tensors through the kernels, forward and
     backward (an autograd Function). Raises on CPU tensors: the router
     (``kernels.maybe_flash_attention``) sends those to
-    :func:`flash_attention_plain`."""
-    return _FlashAttention.apply(q, k, v, kv_bias, seed, causal, scale,
-                                 float(dropout_p), bthd)
+    :func:`flash_attention_plain`. A head dim outside ``HEAD_DIMS`` is
+    zero-padded to :func:`kernel_head_dim` around the Function (autograd
+    slices the gradients back), with the scale of the unpadded dim."""
+    d = q.shape[-1]
+    kd = kernel_head_dim(d)
+    if kd != d:
+        if scale is None:
+            scale = 1.0 / math.sqrt(d)
+        q, k, v = (torch.nn.functional.pad(t, (0, kd - d))
+                   for t in (q, k, v))
+    out = _FlashAttention.apply(q, k, v, kv_bias, seed, causal, scale,
+                                float(dropout_p), bthd)
+    return out if kd == d else out[..., :d]

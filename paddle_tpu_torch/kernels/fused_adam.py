@@ -1,0 +1,146 @@
+"""Paddle's Adam update in one multi-tensor CUDA launch: the kernel's
+wrapper and the plain versions of its two variants.
+
+The kernel (``csrc/fused_adam.cu``) replaces the Pallas kernels of
+``paddle_tpu/kernels/fused_adam.py``: ``_adam_leaf_kernel`` (variant
+``"leaf"``, the unfused update's exact order of operations) and
+``_adam_kernel`` (variant ``"flat"``, the reciprocal form with an
+optional ``weight_decay`` term). Both compute, with the bias correction
+already folded into ``lr_c``,
+
+    m = b1 m + (1 - b1) g,   v = b2 v + (1 - b2) g^2,
+    leaf: p - lr_c m / (sqrt(v) + eps)
+    flat: p - lr_c (m (1 / (sqrt(v) + eps)) [+ wd p])
+
+and then, for the leaves whose ``decay`` flag is set, AdamW's decoupled
+``p_new - (lr wd) p_old``. One launch updates every leaf of a step in
+place; ``lr_c`` and the skip-step guard's ``ok`` stay on the device, and
+with ``ok`` False nothing is written. On the card the kernel equals
+:func:`adam_multi_plain` bit for bit (each operation rounded on its own,
+as PyTorch's eager ops round them).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from . import _build
+
+__all__ = ["adam_leaf_plain", "adam_flat_plain", "adam_multi",
+           "adam_multi_plain", "CHUNK", "VARIANTS"]
+
+# kernel launches since the last reset (kernels.reset_launch_counts), by
+# variant
+leaf_launches = 0
+flat_launches = 0
+
+CHUNK = 8192  # elements per CUDA block (kChunk in the source)
+VARIANTS = ("leaf", "flat")
+
+
+def adam_leaf_plain(p, g, m, v, lr_c, beta1: float, beta2: float,
+                    eps: float):
+    """The leaf variant: the port's unfused update as written. Returns
+    (p_new, m_new, v_new)."""
+    m = beta1 * m + (1 - beta1) * g
+    v = beta2 * v + (1 - beta2) * (g * g)
+    return p - lr_c * m / (torch.sqrt(v) + eps), m, v
+
+
+def adam_flat_plain(p, g, m, v, lr_c, beta1: float, beta2: float,
+                    eps: float, weight_decay: float = 0.0):
+    """The flat variant: the update as ``m * (1 / (sqrt(v) + eps))``,
+    plus ``weight_decay * p`` when that is non-zero. Returns (p_new,
+    m_new, v_new)."""
+    m = beta1 * m + (1 - beta1) * g
+    v = beta2 * v + (1 - beta2) * (g * g)
+    update = m * torch.reciprocal(torch.sqrt(v) + eps)
+    if weight_decay:
+        update = update + weight_decay * p
+    return p - lr_c * update, m, v
+
+
+def adam_multi_plain(params: Sequence[torch.Tensor],
+                     grads: Sequence[torch.Tensor],
+                     ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+                     decay: Sequence[bool], lr_c: torch.Tensor,
+                     beta1: float, beta2: float, eps: float, lr_wd: float,
+                     ok: Optional[torch.Tensor] = None,
+                     variant: str = "leaf",
+                     weight_decay: float = 0.0) -> None:
+    """:func:`adam_multi`'s plain version: the same update of every leaf,
+    in place, one leaf at a time; ``torch.where(ok, new, old)`` for the
+    skip-step guard."""
+    for p, g, m, v, dec in zip(params, grads, ms, vs, decay):
+        if variant == "leaf":
+            new = adam_leaf_plain(p, g, m, v, lr_c, beta1, beta2, eps)
+        else:
+            new = adam_flat_plain(p, g, m, v, lr_c, beta1, beta2, eps,
+                                  weight_decay)
+        p_new = new[0] - lr_wd * p if dec else new[0]
+        for dst, val in ((m, new[1]), (v, new[2]), (p, p_new)):
+            dst.copy_(val if ok is None else torch.where(ok, val, dst))
+
+
+def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
+               decay: Sequence[bool], lr_c: torch.Tensor, beta1: float,
+               beta2: float, eps: float, lr_wd: float,
+               ok: Optional[torch.Tensor] = None, variant: str = "leaf",
+               weight_decay: float = 0.0) -> None:
+    """One launch of the kernel over every leaf: updates ``params``,
+    ``ms`` and ``vs`` in place. Leaves are contiguous float32 CUDA
+    tensors of matching sizes; ``lr_c`` a one-element float32 and ``ok``
+    (or None) a one-element bool tensor on the same card. Raises on
+    anything else (CPU tensors go to :func:`adam_multi_plain`)."""
+    global leaf_launches, flat_launches
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}")
+    if not params:
+        return
+    dev = params[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"fused Adam kernel needs CUDA tensors (a "
+                         f"parameter is on {dev})")
+    rows: List[List[int]] = []
+    chunks = 0
+    for p, g, m, v, dec in zip(params, grads, ms, vs, decay):
+        for t in (p, g, m, v):
+            if t.device != dev or t.dtype != torch.float32 \
+                    or not t.is_contiguous() or t.numel() != p.numel():
+                raise TypeError(f"fused Adam kernel takes contiguous "
+                                f"float32 leaves of one size on {dev} "
+                                f"({t.dtype}, {tuple(t.shape)}, "
+                                f"{t.device})")
+        n = p.numel()
+        if n == 0:
+            continue
+        rows.append([p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                     v.data_ptr(), n, chunks, int(bool(dec)), 0])
+        chunks += -(-n // CHUNK)
+    if not rows:
+        return
+    for t, what in ((lr_c, "lr_c"), (ok, "ok")):
+        if t is not None and (t.device != dev or t.numel() != 1):
+            raise TypeError(f"{what} must be a one-element tensor on {dev}")
+    if lr_c.dtype != torch.float32 or (ok is not None
+                                       and ok.dtype != torch.bool):
+        raise TypeError("lr_c must be float32 and ok bool")
+    # the leaf table travels by one asynchronous copy from pinned memory
+    # (PyTorch's pinned allocator keeps the block until the copy is done)
+    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
+    table = host.to(dev, non_blocking=True)
+    # the scalars are Python floats (1 - beta1 taken in double), which
+    # ctypes rounds to float32 as PyTorch hands them to a float32 kernel
+    code = _build.library("fused_adam").fused_adam_multi(
+        table.data_ptr(), len(rows), chunks, lr_c.data_ptr(),
+        None if ok is None else ok.data_ptr(), beta1, 1 - beta1, beta2,
+        1 - beta2, eps, lr_wd, weight_decay, VARIANTS.index(variant),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("fused_adam", code, "fused_adam_multi")
+    if variant == "leaf":
+        leaf_launches += 1
+    else:
+        flat_launches += 1

@@ -1,10 +1,10 @@
 """Models of the PyTorch package."""
 
 from .bert import (BertConfig, BertForPretraining, BertModel,
-                   pretraining_loss)
+                   MLMHeadOutput, pretraining_loss)
 from .gpt_lm import (GPTBlock, GPTConfig, GPTLanguageModel,
                      dense_causal_attention)
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTLanguageModel",
            "dense_causal_attention", "BertConfig", "BertModel",
-           "BertForPretraining", "pretraining_loss"]
+           "BertForPretraining", "MLMHeadOutput", "pretraining_loss"]

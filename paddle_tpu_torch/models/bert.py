@@ -7,32 +7,47 @@ type) embeddings with LayerNorm eps 1e-12, a post-norm
 sequence length >= ``flash_attention_min_seq_train``), a tanh pooler,
 and the pretraining heads: a GELU transform, LayerNorm eps 1e-12, the
 MLM decoder tied to the word embedding plus ``cls.decoder_bias``, and
-the NSP classifier. ``attention_mask`` ``[B, T]`` (1 keeps) becomes the
-additive ``[B, 1, 1, T]`` mask ``(1 - m) * finfo(f32).min``, which the
-flash route turns into its key bias. ``masked_positions`` ``[B, P]``
-restricts the MLM head to those positions.
+the NSP classifier. With the ``fused_softmax_xent`` flag the MLM head
+returns ``MLMHeadOutput`` (its hidden states, the tied weight and the
+bias) instead of logits, and ``pretraining_loss`` runs the fused
+projection + cross-entropy (``kernels.maybe_fused_linear_xent``), so the
+``[B, T, V]`` logits never exist. ``attention_mask`` ``[B, T]`` (1
+keeps) becomes the additive ``[B, 1, 1, T]`` mask
+``(1 - m) * finfo(f32).min``, which the flash route turns into its key
+bias. ``masked_positions`` ``[B, P]`` restricts the MLM head to those
+positions.
 
-Models build on ``device`` (None means ``cuda``, which raises without a
-GPU; pass ``device="cpu"`` for the CPU) with weights from ``seed``. The
-fused MLM-loss head of the JAX package (``MLMHeadOutput``, behind
-``fused_softmax_xent``) is not ported yet.
+Models and their parts build on ``device`` (None means ``cuda``, which
+raises without a GPU; pass ``device="cpu"`` for the CPU); the whole model
+draws its weights from ``seed``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .. import kernels
 from ..core.place import resolve_device
 from ..nn import (GELU, Dropout, Embedding, LayerNorm, Linear, Tanh,
                   TransformerEncoder, TransformerEncoderLayer)
 from ..ops import loss as L
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel",
-           "BertPretrainingHeads", "BertForPretraining", "pretraining_loss"]
+           "BertPretrainingHeads", "BertForPretraining", "MLMHeadOutput",
+           "pretraining_loss"]
+
+
+class MLMHeadOutput(NamedTuple):
+    """The fused MLM head's handoff to the loss (``fused_softmax_xent``):
+    the transformed hidden states, the tied decoder weight and its bias
+    in place of the ``[B, P, V]`` logits."""
+    hidden: torch.Tensor
+    weight: torch.Tensor
+    bias: torch.Tensor
 
 
 @dataclass
@@ -53,6 +68,7 @@ class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         kw = dict(device=device, generator=generator)
         self.word_embeddings = Embedding(config.vocab_size,
                                          config.hidden_size, **kw)
@@ -81,7 +97,7 @@ class BertModel(nn.Module):
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         self.config = config = config or BertConfig()
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=resolve_device(device), generator=generator)
         self.embeddings = BertEmbeddings(config, **kw)
         self.encoder = TransformerEncoder(
             lambda: TransformerEncoderLayer(
@@ -114,6 +130,7 @@ class BertPretrainingHeads(nn.Module):
     def __init__(self, config: BertConfig, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         kw = dict(device=device, generator=generator)
         self.transform = Linear(config.hidden_size, config.hidden_size,
                                 **kw)
@@ -126,11 +143,15 @@ class BertPretrainingHeads(nn.Module):
 
     def forward(self, sequence_output: torch.Tensor,
                 pooled_output: torch.Tensor,
-                word_embedding_weight: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                word_embedding_weight: torch.Tensor) -> tuple:
+        """(MLM logits, or ``MLMHeadOutput`` under the
+        ``fused_softmax_xent`` flag; NSP logits)."""
         h = self.transform_norm(self.transform_act(
             self.transform(sequence_output)))
         nsp_logits = self.seq_relationship(pooled_output)
+        if kernels.fused_softmax_xent_enabled():
+            return MLMHeadOutput(h, word_embedding_weight,
+                                 self.decoder_bias), nsp_logits
         mlm_logits = h @ word_embedding_weight.T + self.decoder_bias
         return mlm_logits, nsp_logits
 
@@ -169,9 +190,14 @@ def pretraining_loss(outputs, mlm_labels: torch.Tensor,
                      nsp_labels: torch.Tensor,
                      ignore_index: int = -100) -> torch.Tensor:
     """Masked-LM + next-sentence loss, each a mean over every position
-    (ignored MLM positions count as 0)."""
+    (ignored MLM positions count as 0). An ``MLMHeadOutput`` takes the
+    fused projection + cross-entropy."""
     mlm_logits, nsp_logits = outputs
-    mlm = L.cross_entropy(mlm_logits, mlm_labels, ignore_index=ignore_index,
-                          reduction="mean")
+    if isinstance(mlm_logits, MLMHeadOutput):
+        mlm = kernels.maybe_fused_linear_xent(
+            *mlm_logits, mlm_labels, ignore_index=ignore_index).mean()
+    else:
+        mlm = L.cross_entropy(mlm_logits, mlm_labels,
+                              ignore_index=ignore_index, reduction="mean")
     nsp = L.cross_entropy(nsp_logits, nsp_labels, reduction="mean")
     return mlm + nsp

@@ -65,6 +65,7 @@ class GPTBlock(nn.Module):
     def __init__(self, config: GPTConfig, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         h = config.hidden_size
         eps = config.layer_norm_epsilon
         kw = dict(device=device, generator=generator)

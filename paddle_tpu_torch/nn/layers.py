@@ -1,14 +1,17 @@
 """Layers of the GPT and BERT paths as ``torch.nn.Module``s.
 
 Counterparts of ``paddle_tpu.nn.layers.common`` (Linear, Embedding,
-Dropout), the activation layers (GELU, Tanh) and
-``paddle_tpu.nn.layers.norm.LayerNorm``. Parameter names
+Dropout), the activation layers (GELU, Tanh),
+``paddle_tpu.nn.layers.norm.LayerNorm`` and
+``paddle_tpu.nn.layers.loss.FusedLinearCrossEntropy``. Parameter names
 (``weight``, ``bias``) and shapes match the JAX layers, so a JAX
 ``param_dict()`` loads by name (see ``paddle_tpu_torch.convert``). Each
 layer initialises itself on ``device`` from an explicit
 ``torch.Generator`` with the JAX layer's scheme (Xavier-uniform Linear
 weights, Xavier-normal embeddings, zero biases, unit LayerNorm scale);
 the bits differ from JAX's, so tests move weights across instead.
+``device`` None means ``cuda`` (``core.place.resolve_device``), which
+raises without a GPU; pass ``device="cpu"`` for the CPU.
 """
 
 from __future__ import annotations
@@ -19,16 +22,20 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ..core.place import resolve_device
+from ..ops.loss import _reduce
 from . import functional as F
 # a module reference: kernels imports nn.functional, so the two packages
 # may be mid-import when this line runs; attributes resolve at call time
 from .. import kernels
 
-__all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "LayerNorm"]
+__all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "LayerNorm",
+           "FusedLinearCrossEntropy"]
 
 
 def _param(shape, device, fill: Optional[float] = None) -> nn.Parameter:
-    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t = torch.empty(shape, dtype=torch.float32,
+                    device=resolve_device(device))
     if fill is not None:
         t.fill_(fill)
     return nn.Parameter(t)
@@ -40,6 +47,7 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.weight = _param((in_features, out_features), device)
@@ -57,6 +65,7 @@ class Embedding(nn.Module):
                  device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         self.weight = _param((num_embeddings, embedding_dim), device)
@@ -98,6 +107,7 @@ class LayerNorm(nn.Module):
     def __init__(self, normalized_shape: Union[int, Sequence[int]],
                  epsilon: float = 1e-5, device=None) -> None:
         super().__init__()
+        device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
@@ -109,3 +119,24 @@ class LayerNorm(nn.Module):
         return kernels.maybe_layer_norm(
             x, self.weight, self.bias, self.epsilon,
             x.ndim - len(self.normalized_shape))
+
+
+class FusedLinearCrossEntropy(nn.Module):
+    """``loss = xent(hidden @ weight.T + bias, label)`` as one loss-region
+    op through ``kernels.maybe_fused_linear_xent`` (the fused kernels
+    under the ``fused_softmax_xent`` flag, the composed projection and
+    ``ops.loss`` otherwise), reduced as Paddle reduces it (``"mean"``
+    over every position, ignored ones counted as 0)."""
+
+    def __init__(self, ignore_index: int = -100,
+                 reduction: str = "mean") -> None:
+        super().__init__()
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+
+    def forward(self, hidden: torch.Tensor, weight: torch.Tensor,
+                label: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        loss = kernels.maybe_fused_linear_xent(
+            hidden, weight, bias, label, ignore_index=self.ignore_index)
+        return _reduce(loss, self.reduction)

@@ -12,7 +12,8 @@ no such flag: its flash kernels read heads through strides, so a
 transpose would only add two copies around the same kernels. Parameter
 names match the JAX layers', so a JAX ``param_dict()`` loads by name.
 Not ported yet: cross-attention, ``need_weights``, pre-norm layers and
-per-layer rematerialisation (``transformer_remat``).
+per-layer rematerialisation (``transformer_remat``). ``device`` None
+means ``cuda`` (raises without a GPU).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ..core.place import resolve_device
 from ..flags import GLOBAL_FLAGS
 from . import functional as F
 # a module reference: kernels imports nn.functional (see nn/layers.py)
@@ -45,7 +47,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
-        kw = dict(device=device, generator=generator)
+        kw = dict(device=resolve_device(device), generator=generator)
         self.q_proj = Linear(embed_dim, embed_dim, **kw)
         self.k_proj = Linear(embed_dim, embed_dim, **kw)
         self.v_proj = Linear(embed_dim, embed_dim, **kw)
@@ -79,6 +81,7 @@ class TransformerEncoderLayer(nn.Module):
                  attn_dropout: Optional[float] = None, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
+        device = resolve_device(device)
         kw = dict(device=device, generator=generator)
         self.self_attn = MultiHeadAttention(
             d_model, nhead,

@@ -21,6 +21,16 @@ tensors (no second copy of the model); the step counter is a device
 tensor, and ``ok`` (a 0-d bool device tensor) selects between the new
 and the old values on the device, so a train step's skip guard costs no
 host sync. The learning rate is a float (schedulers are not ported).
+
+The fused routes, under the JAX package's conditions: with the
+``fused_adam`` flag every leaf whose ``p``, ``m`` and ``v`` are fp32
+takes the leaf variant of the Adam kernel; else, with
+``use_pallas_adam``, every leaf whose ``p`` and ``m`` are fp32 and that
+has at least 1024 elements takes its flat variant. Each route updates
+all its leaves of a step in one ``kernels.maybe_fused_adam`` call (one
+launch on the card, the plain version on the CPU), AdamW's decay and the
+skip guard folded in; the other leaves take the unfused update. Coupled
+L2 is added to ``g`` before either.
 """
 
 from __future__ import annotations
@@ -29,7 +39,14 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from .. import kernels
+from ..flags import GLOBAL_FLAGS
+from ..kernels import fused_adam as _adam
+
 __all__ = ["Adam", "AdamW"]
+
+# the use_pallas_adam route's least leaf size (the JAX package's)
+_FLAT_MIN_NUMEL = 1024
 
 
 class Adam:
@@ -64,6 +81,11 @@ class Adam:
         lr_c = self.learning_rate * torch.sqrt(
             1.0 - torch.pow(self.beta2, step_f)) \
             / (1.0 - torch.pow(self.beta1, step_f))
+        fused_leaf = GLOBAL_FLAGS.get("fused_adam")
+        fused_flat = GLOBAL_FLAGS.get("use_pallas_adam")
+        # variant -> leaves: the kernel's "leaf" and "flat" routes, and
+        # None, the unfused update (the leaf variant's plain version)
+        routes = {"leaf": [], "flat": [], None: []}
         for name, p in params.items():
             g = grads.get(name)
             if g is None:
@@ -71,20 +93,37 @@ class Adam:
             if self.weight_decay:
                 g = g + self.weight_decay * p
             slots = state["slots"][name]
-            m = self.beta1 * slots["m"] + (1 - self.beta1) * g
-            v = self.beta2 * slots["v"] + (1 - self.beta2) * (g * g)
-            p_new = self._decay(name, p,
-                                p - lr_c * m / (torch.sqrt(v)
-                                                + self.epsilon))
-            for dst, new in ((slots["m"], m), (slots["v"], v), (p, p_new)):
-                dst.copy_(new if ok is None else torch.where(ok, new, dst))
+            fp32 = [t.dtype == torch.float32
+                    for t in (p, slots["m"], slots["v"])]
+            if fused_leaf and all(fp32):
+                route = "leaf"
+            elif fused_flat and fp32[0] and fp32[1] \
+                    and p.numel() >= _FLAT_MIN_NUMEL:
+                route = "flat"
+            else:
+                route = None
+            routes[route].append((p, g, slots, self._decay_coeff(name)))
+        for variant, leaves in routes.items():
+            if not leaves:
+                continue
+            coeffs = [c for *_, c in leaves]
+            args = ([p for p, *_ in leaves], [g for _, g, *_ in leaves],
+                    [s["m"] for *_, s, _ in leaves],
+                    [s["v"] for *_, s, _ in leaves],
+                    [c is not None for c in coeffs], lr_c, self.beta1,
+                    self.beta2, self.epsilon,
+                    next((c for c in coeffs if c is not None), 0.0), ok)
+            if variant is None:
+                _adam.adam_multi_plain(*args)
+            else:
+                kernels.maybe_fused_adam(*args, variant)
         state["step"] = step if ok is None \
             else torch.where(ok, step, state["step"])
 
-    def _decay(self, name: str, p: torch.Tensor,
-               p_new: torch.Tensor) -> torch.Tensor:
-        """Decoupled decay of ``p_new`` (none for Adam)."""
-        return p_new
+    def _decay_coeff(self, name: str) -> Optional[float]:
+        """The decoupled decay coefficient ``lr * wd`` of parameter
+        ``name``, or None for no decay (always None for Adam)."""
+        return None
 
 
 class AdamW(Adam):
@@ -101,8 +140,8 @@ class AdamW(Adam):
         self.decoupled_weight_decay = weight_decay
         self.apply_decay_param_fun = apply_decay_param_fun
 
-    def _decay(self, name, p, p_new):
+    def _decay_coeff(self, name):
         fn = self.apply_decay_param_fun
         if fn is not None and not fn(name):
-            return p_new
-        return p_new - self.learning_rate * self.decoupled_weight_decay * p
+            return None
+        return self.learning_rate * self.decoupled_weight_decay

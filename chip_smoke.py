@@ -20,9 +20,13 @@ in order:
    1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
    attention, forward and both backward routes, with and without
    dropout, key bias, causal masking, ragged lengths and head dims 16 to
-   256, D = 40 through the wrapper's zero padding) or
+   512, D = 40 and 320 through the wrapper's zero padding) or
    ``XENT_TOL``/``XENT_GRAD_TOL`` (the fused softmax cross-entropy's
-   forward, dh and dW/db at BERT-base's MLM head and at ragged shapes),
+   forward and its chunked backward, dlog + dW/db + dh, at BERT-base's
+   MLM head and at ragged shapes: H = 1600, H = 45, V not a multiple of
+   the chunk, a chunk wider than V, every row ignored; the backward also
+   against its chunked plain version, bitwise equal run to run and with
+   one gradient asked for),
    and the Adam kernel bitwise (both variants on BERT-base's own leaves,
    AdamW's decay, the skip guard false), and times the kernel, the
    plain version, one PyTorch library call computing the same function
@@ -34,8 +38,9 @@ in order:
    per run (``TRAIN_RUNS``): batch 8, seq 512 (flash forward + the dq and
    dkv kernels); batch 32, seq 128 with ``flash_attention_min_seq_train``
    at 128 (flash forward + the fused backward kernel); batch 8, seq 512
-   with ``fused_softmax_xent`` and ``fused_adam`` (plus the three xent
-   kernels and the leaf Adam kernel); batch 32, seq 128 with
+   with ``fused_softmax_xent`` and ``fused_adam`` (plus the xent forward,
+   the three backward kernels once per vocabulary chunk and the leaf Adam
+   kernel; peak memory at most ``FUSED_PEAK_GB``); batch 32, seq 128 with
    ``use_pallas_adam`` (plus the flat Adam kernel). Every loss must be
    finite and each step must launch exactly the kernels its path needs
    (``expected_launches``); then profiles one default and one fused
@@ -68,6 +73,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,12 +112,17 @@ STEP_LOSS_RTOL = 1e-5
 GRAD_REL_TOL = 2e-5
 STEP_PARAM_TOL = 2e-5
 # fused xent kernels vs plain: fp32 logits summed over H in another order
-# (chunks of 32 against cuBLAS's), the online logsumexp against torch's
+# (chunks of 32 against cuBLAS's; the backward in 3xTF32, whose dropped
+# lo.lo term is ~2^-22 of a product), the online logsumexp against torch's
 # two-pass one. Loss and lse absolute (a loss of ~10); gradients relative
 # to each gradient's largest entry (dW and db sum over 4096 rows). An H100
-# measured 7.6e-6 (loss) and 4.1e-6 (dh); a wrong tile or mask gives 1e-1
+# measured 7.6e-6 (loss) and 4.1e-6 (dh, fp32 SIMT); a wrong tile or mask
+# gives 1e-1
 XENT_TOL = 1e-4
 XENT_GRAD_TOL = 1e-4
+# the fused training run's peak device memory at b8 x s512, in GiB (4.00
+# before the chunked backward; its scratch adds 32 MB)
+FUSED_PEAK_GB = 4.25
 # the kernels each path of the main path must launch: plain decode,
 # speculative decode (a self-draft's dense forwards plus the verify),
 # and BERT training at seq 512 (split backward) and seq 128 (fused)
@@ -125,7 +136,8 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                 "train_seq512_fused": ("layer_norm", "flash_attention_fwd",
                                        "flash_attention_bwd_dq",
                                        "flash_attention_bwd_dkv",
-                                       "fused_xent_fwd", "fused_xent_bwd_dh",
+                                       "fused_xent_fwd", "fused_xent_bwd_dlog",
+                                       "fused_xent_bwd_dh",
                                        "fused_xent_bwd_dw", "adam_leaf"),
                 "train_seq128_pallas_adam": ("layer_norm",
                                              "flash_attention_fwd",
@@ -140,7 +152,8 @@ FUSED_FLAGS = {"fused_softmax_xent": True, "fused_adam": True}
 TRAIN_RUNS = {"train_seq512": dict(batch=8, seq=512, gate=512),
               "train_seq128": dict(batch=32, seq=128, gate=128),
               "train_seq512_fused": dict(batch=8, seq=512, gate=512,
-                                         flags=FUSED_FLAGS),
+                                         flags=FUSED_FLAGS,
+                                         max_peak_gb=FUSED_PEAK_GB),
               "train_seq128_pallas_adam": dict(
                   batch=32, seq=128, gate=128,
                   flags={"use_pallas_adam": True})}
@@ -153,10 +166,13 @@ TRAIN_STEPS = 5
 LN_SHAPES = ((8, 1e-5), (16, 1e-5), (512, 1e-5), (4096, 1e-5),
              (4096, 1e-12))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 outside the
-# tensor cores, the unit these fp32 kernels run on
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
+# tensor cores (the unit the SIMT kernels run on) and dense TF32 on the
+# tensor cores, of which 3xTF32 (three products per fp32 product: the xent
+# backward) gets a third
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
                   num_heads=12, intermediate_size=3072,
@@ -170,9 +186,9 @@ def log(msg: str) -> None:
     REPORT.setdefault("log", []).append(msg)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -417,6 +433,12 @@ FLASH_CASES = [
     ("d256_bhtd", 1, 64, 90, 2, 256, False, False, False, 0.0),
     ("d40_padded_split", 2, 200, 200, 4, 40, True, True, True, 0.1),
     ("d40_padded_fused", 2, 100, 100, 4, 40, False, False, False, 0.1),
+    # 384 and 512 (16-row tiles, the split route), and 320 zero-padded to
+    # 384 by the wrapper
+    ("d384_split_ragged", 2, 100, 100, 2, 384, True, True, True, 0.1),
+    ("d512_bhtd", 1, 64, 90, 2, 512, False, False, False, 0.0),
+    ("d512_causal_bias", 1, 130, 130, 2, 512, True, True, True, 0.1),
+    ("d320_padded", 1, 80, 80, 2, 320, True, False, False, 0.1),
 ]
 
 
@@ -668,12 +690,20 @@ def check_layer_norm_backward(torch, timer):
 # (name, N, V, H, bias, ignored share): the path's call (BERT-base's MLM
 # head over b8 x s512 positions; ~15% of rows ignored here, none in the
 # training runs) and ragged shapes: N not a tile multiple, V = 513 one
-# column past a tile, H = 48 not a multiple of the 32-wide chunk, no bias
+# column past a tile and below one backward chunk, H = 48 not a multiple
+# of the 32-wide chunk, no bias; H = 1600 (GPT-2-XL's width, past the old
+# shared-memory cap); H = 45 (4-byte copies, unpaired stores); V two
+# chunks and 77 columns; every row ignored (all gradients exactly 0)
 XENT_CASES = [
     ("path", 4096, 30522, 768, True, 0.15),
     ("ragged_v513_h48_nobias", 1000, 513, 48, False, 0.3),
     ("ragged_n77_v300_h32", 77, 300, 32, True, 0.0),
+    ("h1600", 300, 1000, 1600, True, 0.2),
+    ("h45_scalar_copies", 130, 300, 45, True, 0.1),
+    ("v_two_chunks_and_77", 512, 2 * 2048 + 77, 64, True, 0.1),
+    ("all_rows_ignored", 200, 700, 96, True, 1.0),
 ]
+XENT_BWD = ("fused_xent_bwd_dlog", "fused_xent_bwd_dw", "fused_xent_bwd_dh")
 
 
 def xent_inputs(torch, rng, n, v, hd, bias, ignored):
@@ -696,30 +726,53 @@ def xent_inputs(torch, rng, n, v, hd, bias, ignored):
 
 
 def xent_bounds(n_used, v, hd, n, bias):
-    """(bytes, flops) of each xent kernel's function: inputs read once,
-    outputs written once; flops of the rows whose label is not ignored
-    (an ignored row's loss and gradient need no logits)."""
+    """(bytes, flops, peak) of each xent kernel's function and of the
+    backward as a whole: inputs read once, outputs written once; flops of
+    the rows whose label is not ignored (an ignored row's loss and
+    gradient need no logits). The forward runs on the FP32 FMA units, the
+    backward in 3xTF32. Each backward kernel's own function passes the
+    logit gradient D ([N, V] over all chunks) between them."""
     ins = 4 * (n * hd + v * hd + (v if bias else 0)) + 8 * n
+    dlog = 4 * n * v
+    prod = 2 * n_used * v * hd
     return {
-        "fused_xent_fwd": (ins + 4 * 2 * n, 2 * n_used * v * hd),
-        "fused_xent_bwd_dh": (ins + 4 * 2 * n + 4 * n * hd,
-                              4 * n_used * v * hd),
-        "fused_xent_bwd_dw": (ins + 4 * 2 * n + 4 * (v * hd + v),
-                              4 * n_used * v * hd),
+        "fused_xent_fwd": (ins + 4 * 2 * n, prod, PEAK_FP32_FLOPS),
+        "fused_xent_bwd_dlog": (ins + 4 * 2 * n + dlog, prod,
+                                PEAK_3XTF32_FLOPS),
+        "fused_xent_bwd_dw": (dlog + 4 * (n * hd + v * hd
+                                          + (v if bias else 0)), prod,
+                              PEAK_3XTF32_FLOPS),
+        "fused_xent_bwd_dh": (dlog + 4 * (v * hd + n * hd), prod,
+                              PEAK_3XTF32_FLOPS),
+        "backward": (ins + 4 * 2 * n + 4 * (n * hd + v * hd
+                                            + (v if bias else 0)),
+                     3 * prod, PEAK_3XTF32_FLOPS),
     }
 
 
+def rel_err(got, want) -> float:
+    """Largest gap over the reference's largest entry (0 where both are
+    exactly 0)."""
+    gap = float((got - want).abs().max())
+    return 0.0 if gap == 0.0 else gap / max(float(want.abs().max()), 1e-30)
+
+
 def check_fused_xent(torch, timer):
-    """The three xent kernels against the plain version (forward: loss
-    and lse; backward: autograd of the plain loss) on XENT_CASES, within
-    XENT_TOL / XENT_GRAD_TOL; times at the path's call: each kernel, the
-    plain version, the library composition (torch.matmul +
-    F.cross_entropy(reduction="none"); its backward through autograd) and
-    the bound."""
+    """The xent kernels against the plain version on XENT_CASES: forward
+    (loss and lse) within XENT_TOL; the chunked backward (dlog, dW/db and
+    dh kernels per vocabulary chunk) within XENT_GRAD_TOL of autograd
+    through the plain loss and of its chunked plain version
+    (fused_xent_bwd_chunked_plain), bitwise equal on a second run and when
+    only dh or only dW/db is asked for; every row ignored gives exact
+    zeros. Times at the path's call: the forward kernel, each backward
+    kernel (torch.profiler, summed over the chunks of one backward), the
+    whole backward (CUDA events), the plain versions, the library
+    composition (torch.matmul + F.cross_entropy(reduction="none"); its
+    backward through autograd) and the bounds."""
     from paddle_tpu_torch.kernels import fused_softmax_xent as fx
     F = torch.nn.functional
     rng = np.random.default_rng(SEED + 7)
-    names = ("fused_xent_fwd", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    names = ("fused_xent_fwd",) + XENT_BWD
     errs = {k: 0.0 for k in names}
     cases, results = {}, {}
     for name, n, v, hd, bias, ignored in XENT_CASES:
@@ -727,8 +780,11 @@ def check_fused_xent(torch, timer):
         h, w, b, lab, g = t["h"], t["w"], t["b"], t["lab"], t["g"]
         loss, lse = fx.xent_fwd(h, w, b, lab)
         args = (h, w, b, lab, lse, g)
-        dh = fx.xent_bwd_dh(*args)
-        dw, db = fx.xent_bwd_dw(*args)
+        dh, dw, db = fx.xent_bwd(*args)
+        again = fx.xent_bwd(*args)
+        dh_only = fx.xent_bwd(*args, need_dw=False)[0]
+        dw_only, db_only = fx.xent_bwd(*args, need_dh=False)[1:]
+        chunked = fx.fused_xent_bwd_chunked_plain(*args)
         leaves = [x.clone().requires_grad_() for x in (h, w, b)
                   if x is not None]
         ploss, plse = fx.fused_linear_xent_plain(
@@ -737,20 +793,35 @@ def check_fused_xent(torch, timer):
         pgrads = torch.autograd.grad(ploss, leaves, g, retain_graph=True)
         torch.cuda.synchronize()
         ignored_rows = lab == -100
+        used = ~ignored_rows
+        got = [x for x in (dh, dw, db) if x is not None]
         e = {"loss": float((loss - ploss.detach()).abs().max()),
-             "lse": float((lse - plse)[~ignored_rows].abs().max()),
-             "ignored_loss_exact_0": bool((loss[ignored_rows] == 0).all())}
-        for g_name, got, want in zip(("dh", "dw", "db"), (dh, dw, db),
-                                     pgrads):
-            e[g_name] = float((got - want).abs().max()) \
-                / max(float(want.abs().max()), 1e-30)
+             "lse": float((lse - plse)[used].abs().max())
+             if bool(used.any()) else 0.0,
+             "ignored_loss_exact_0": bool((loss[ignored_rows] == 0).all()),
+             "ignored_dh_exact_0": bool((dh[ignored_rows] == 0).all()),
+             "bitwise_run_to_run": all(
+                 torch.equal(x, y) for x, y in zip(
+                     got, [y for y in again if y is not None])),
+             "bitwise_one_gradient": torch.equal(dh, dh_only)
+             and torch.equal(dw, dw_only)
+             and (db is None or torch.equal(db, db_only))}
+        for g_name, x, want, plain in zip(("dh", "dw", "db"), got, pgrads,
+                                          chunked):
+            e[g_name] = rel_err(x, want)
+            e[f"{g_name}_vs_chunked_plain"] = rel_err(x, plain)
+        if not bool(used.any()):
+            e["all_gradients_exact_0"] = not any(
+                bool(x.count_nonzero()) for x in got)
         finite = all(bool(torch.isfinite(x).all())
                      for x in (loss, lse, dh, dw, db) if x is not None)
         cases[name] = dict(shape=[n, v, hd], bias=bias, ignored=ignored,
-                           max_err=e)
+                           chunk=fx.bwd_chunk(n, v), max_err=e)
         log(f"fused xent {name}: {json.dumps(cases[name])}")
-        grad_err = max(e[k] for k in ("dh", "dw", "db") if k in e)
-        if not (finite and e["ignored_loss_exact_0"]
+        grad_err = max(val for k, val in e.items()
+                       if k.startswith(("dh", "dw", "db")))
+        exact = all(val for k, val in e.items() if isinstance(val, bool))
+        if not (finite and exact
                 and max(e["loss"], e["lse"]) <= XENT_TOL
                 and grad_err <= XENT_GRAD_TOL):
             raise AssertionError(f"fused xent case {name}: kernels differ "
@@ -759,27 +830,52 @@ def check_fused_xent(torch, timer):
                                  f"entry), finite {finite}")
         errs["fused_xent_fwd"] = max(errs["fused_xent_fwd"], e["loss"],
                                      e["lse"])
-        errs["fused_xent_bwd_dh"] = max(errs["fused_xent_bwd_dh"], e["dh"])
-        errs["fused_xent_bwd_dw"] = max(errs["fused_xent_bwd_dw"], e["dw"],
-                                        e.get("db", 0.0))
+        for k in XENT_BWD:
+            errs[k] = max(errs[k], grad_err)
         if name == "path":
-            n_used = int((~ignored_rows).sum())
             results = time_xent(torch, timer, fx, F, t, args, ploss, leaves,
-                                xent_bounds(n_used, v, hd, n, bias))
-        del loss, lse, dh, dw, db, ploss, plse, pgrads, leaves, args, t
+                                xent_bounds(int(used.sum()), v, hd, n,
+                                            bias))
+        del loss, lse, dh, dw, db, again, dh_only, dw_only, db_only
+        del chunked, ploss, plse, pgrads, leaves, args, t, got
     for k in names:
         results[k].update(max_abs_err=errs[k], shape=(
             "N,V,H = 4096,30522,768 with bias, 15% of rows ignored (errors: "
-            "every case; gradients relative to the largest entry)"))
+            "every case; backward gradients relative to the largest entry, "
+            "the worst of dh, dW, db)"))
         log(f"{k}: {json.dumps(results[k])}")
     REPORT["xent_cases"] = cases
     return results
 
 
+def xent_kernel_ms(torch, fn, calls: int = 3) -> dict:
+    """Device ms per ``fn()`` call of each backward kernel, summed over
+    its launches (one per chunk), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in XENT_BWD}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0)
+        for k in XENT_BWD:
+            if k[len("fused_"):] + "_kernel" in evt.key:
+                out[k] += us / 1e3 / calls
+    if not all(out.values()):
+        raise AssertionError(f"the profiler saw no backward kernel: {out}")
+    return out
+
+
 def time_xent(torch, timer, fx, F, t, args, ploss, leaves, bounds):
-    """Times at the path's call: each kernel; the plain version (forward
-    under no_grad; backward = autograd through the plain graph, all
-    three gradients); the library composition (torch.matmul +
+    """Times at the path's call: the forward kernel; each backward kernel
+    and the whole backward (all three gradients); the plain versions
+    (forward under no_grad; the chunked plain backward; autograd through
+    the unchunked plain graph); the library composition (torch.matmul +
     F.cross_entropy, reduction none; its backward likewise), which the
     port never calls."""
     h, w, b, lab, g = t["h"], t["w"], t["b"], t["lab"], t["g"]
@@ -796,22 +892,34 @@ def time_xent(torch, timer, fx, F, t, args, ploss, leaves, bounds):
         with torch.no_grad():
             fx.fused_linear_xent_plain(h, w, b, lab)
 
-    plain_bwd = timer(lambda: torch.autograd.grad(
+    plain_bwd = timer(lambda: fx.fused_xent_bwd_chunked_plain(*args),
+                      iters=10)
+    autograd_bwd = timer(lambda: torch.autograd.grad(
         ploss, leaves, g, retain_graph=True), iters=10)
     lib_bwd = timer(lambda: torch.autograd.grad(
         lib_loss, (lh, lw, lb), g, retain_graph=True), iters=10)
-    fns = {"fused_xent_fwd": lambda: fx.xent_fwd(h, w, b, lab),
-           "fused_xent_bwd_dh": lambda: fx.xent_bwd_dh(*args),
-           "fused_xent_bwd_dw": lambda: fx.xent_bwd_dw(*args)}
+    pair_ms = timer(lambda: fx.xent_bwd(*args), iters=10)
+    own = xent_kernel_ms(torch, lambda: fx.xent_bwd(*args))
+    pair_bms, pair_by = bound(*bounds["backward"])
+    pair = {"ms": pair_ms, "kernels_ms": own, "plain_ms": plain_bwd,
+            "plain_unchunked_autograd_ms": autograd_bwd,
+            "library_ms": lib_bwd, "bound_ms": pair_bms,
+            "bound_by": pair_by, "chunk": fx.bwd_chunk(h.shape[0],
+                                                       w.shape[0])}
+    log(f"fused xent backward (dlog + dW/db + dh): {json.dumps(pair)}")
+    REPORT["xent_backward"] = pair
     out = {}
-    for n, fn in fns.items():
-        bms, by = bound(*bounds[n])
-        fwd = n == "fused_xent_fwd"
-        out[n] = {"ms": timer(fn, iters=10),
-                  "plain_ms": timer(plain_fwd, iters=10) if fwd
-                  else plain_bwd,
-                  "library_ms": timer(lib_fwd, iters=10) if fwd else lib_bwd,
-                  "bound_ms": bms, "bound_by": by}
+    bms, by = bound(*bounds["fused_xent_fwd"])
+    out["fused_xent_fwd"] = {
+        "ms": timer(lambda: fx.xent_fwd(h, w, b, lab), iters=10),
+        "plain_ms": timer(plain_fwd, iters=10),
+        "library_ms": timer(lib_fwd, iters=10),
+        "bound_ms": bms, "bound_by": by}
+    for k in XENT_BWD:
+        bms, by = bound(*bounds[k])
+        out[k] = {"ms": own[k], "plain_ms": plain_bwd,
+                  "library_ms": lib_bwd, "bound_ms": bms, "bound_by": by,
+                  "backward_ms": pair_ms, "backward_bound_ms": pair_bms}
     return out
 
 
@@ -951,18 +1059,23 @@ def bert_batch(torch, cfg, batch: int, seq: int, device, seed: int):
 
 
 def expected_launches(seq: int, layers: int, d: int, flags=None,
-                      update: bool = True) -> dict:
+                      update: bool = True, rows: int = 0,
+                      vocab: int = 1) -> dict:
     """Kernel launches of one training step at ``seq``: LN twice per
     layer plus embeddings and the MLM transform, flash forward once per
     layer, and one backward route per layer; under ``fused_softmax_xent``
-    the xent forward's two kernels (partials, merge), dh and dW/db once
-    each; with ``update``, one Adam launch for all leaves under
-    ``fused_adam`` (leaf variant), else under ``use_pallas_adam`` (flat
-    variant, the leaves of >= 1024 elements)."""
+    the xent forward's two kernels (partials, merge) and, for each
+    vocabulary chunk of the backward (``ceil(vocab / bwd_chunk(rows,
+    vocab))`` over the ``rows`` MLM positions), dlog, dW/db and dh once;
+    with ``update``, one Adam launch for all leaves under ``fused_adam``
+    (leaf variant), else under ``use_pallas_adam`` (flat variant, the
+    leaves of >= 1024 elements)."""
     from paddle_tpu_torch.kernels.flash_attention import backward_route
+    from paddle_tpu_torch.kernels.fused_softmax_xent import bwd_chunk
     flags = flags or {}
     fused = backward_route(seq, seq, d) == "fused"
     xent = 1 if flags.get("fused_softmax_xent") else 0
+    chunks = xent * -(-vocab // bwd_chunk(rows, vocab))
     leaf = int(update and bool(flags.get("fused_adam")))
     flat = int(update and not leaf and bool(flags.get("use_pallas_adam")))
     return {"layer_norm": 2 * layers + 2, "paged_attention": 0,
@@ -971,8 +1084,9 @@ def expected_launches(seq: int, layers: int, d: int, flags=None,
             "flash_attention_bwd_fused": layers if fused else 0,
             "flash_attention_bwd_dq": 0 if fused else layers,
             "flash_attention_bwd_dkv": 0 if fused else layers,
-            "fused_xent_fwd": 2 * xent, "fused_xent_bwd_dh": xent,
-            "fused_xent_bwd_dw": xent, "adam_leaf": leaf,
+            "fused_xent_fwd": 2 * xent, "fused_xent_bwd_dlog": chunks,
+            "fused_xent_bwd_dh": chunks, "fused_xent_bwd_dw": chunks,
+            "adam_leaf": leaf,
             "adam_flat": flat}
 
 
@@ -994,10 +1108,11 @@ def flag_scope(flags: dict):
 
 
 def run_training(torch, model, name: str, batch: int, seq: int,
-                 gate: int, flags=None):
+                 gate: int, flags=None, max_peak_gb=None):
     """TRAIN_STEPS TrainSteps at (batch, seq) with the flash gate at
     ``gate`` and ``flags`` set; launch counts set to 0 just before and
-    read just after. Returns (stats, counts, the step, its batch)."""
+    read just after; the peak device memory at most ``max_peak_gb`` GiB
+    where given. Returns (stats, counts, the step, its batch)."""
     from paddle_tpu_torch import kernels
     cfg = model.config
     data = bert_batch(torch, cfg, batch, seq, "cuda", SEED + seq)
@@ -1022,11 +1137,16 @@ def run_training(torch, model, name: str, batch: int, seq: int,
         raise AssertionError(f"{name}: non-finite loss {losses}")
     per_step = expected_launches(seq, cfg.num_hidden_layers,
                                  cfg.hidden_size // cfg.num_attention_heads,
-                                 flags)
+                                 flags, rows=batch * seq,
+                                 vocab=cfg.vocab_size)
     want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} != {want} "
                              f"({TRAIN_STEPS} steps of {per_step})")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if max_peak_gb is not None and peak_gb > max_peak_gb:
+        raise AssertionError(f"{name}: peak memory {peak_gb} GiB > "
+                             f"{max_peak_gb}")
     steady = float(np.median(step_ms[1:]))
     stats = {"batch": batch, "seq": seq, "flags": flags or {},
              "steps": TRAIN_STEPS,
@@ -1034,7 +1154,7 @@ def run_training(torch, model, name: str, batch: int, seq: int,
              "step_ms_median_after_first": steady,
              "tokens_per_s": batch * seq / steady * 1e3,
              "launches_per_step": per_step,
-             "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+             "peak_memory_gb": peak_gb}
     log(f"{name}: {json.dumps(stats)}")
     return stats, counts, step, data
 
@@ -1166,8 +1286,10 @@ def card_against_cpu(torch, flags=None) -> dict:
            "params_compared": len(diffs),
            "launches": counts}
     log(f"card vs cpu: {json.dumps({k: v for k, v in res.items() if k != 'grad_rel_gap_by_leaf'})}")
-    want = {"grad": expected_launches(512, 2, 64, flags, update=False),
-            "step": expected_launches(512, 2, 64, flags)}
+    kw = dict(rows=2 * 512, vocab=cfg.vocab_size)
+    want = {"grad": expected_launches(512, 2, 64, flags, update=False,
+                                      **kw),
+            "step": expected_launches(512, 2, 64, flags, **kw)}
     if any(counts[f"{what}_cuda"] != want[what]
            or any(counts[f"{what}_cpu"].values())
            for what in ("grad", "step")):
@@ -1481,6 +1603,9 @@ def kernel_line(results: dict, counts: dict) -> dict:
                                     f"{flash_ref}:473"),
         "fused_xent_fwd": ("train_seq512_fused", xent_src,
                            f"{xent_ref}:69"),
+        # the recompute _backward's two kernels each repeat, done once
+        "fused_xent_bwd_dlog": ("train_seq512_fused", xent_src,
+                                f"{xent_ref}:176"),
         "fused_xent_bwd_dh": ("train_seq512_fused", xent_src,
                               f"{xent_ref}:92"),
         "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
@@ -1530,9 +1655,16 @@ def main() -> int:
     _build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for name, text in sorted(_build.build_logs.items()):
+        func = ""
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln:
-                log(f"ptxas {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                # the kernel's name and template arguments, unmangled
+                m = re.search(r"([a-z_]+_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?)?",
+                              ln)
+                func = m.group(1) + "".join(f"<{a}>" for a in m.groups()[1:]
+                                            if a) if m else ln
+            elif "registers" in ln or "spill" in ln or "error" in ln:
+                log(f"ptxas {name} {func}: {ln.strip()}")
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)

@@ -58,13 +58,15 @@
 // no cp.async/TMA pipelining yet.
 //
 // Head dims: the kernels are instantiated for D = 16, 32, ..., 128 (every
-// multiple of 16) and D = 256; the wrapper zero-pads any other D <= 256 to
-// the next of these (zero columns leave q.k and the output unchanged; the
-// scale stays 1/sqrt of the unpadded D). A thread owns C = D / 16 output
-// columns. At D = 256 a 64-row tile of the dq and dkv kernels' four operand
-// tiles would need 284-302 KB of shared memory, so every kernel at D > 128
-// uses 32-row tiles (2 x 2 micro-tiles per thread) and the fused backward,
-// which holds a whole (batch, head), is not built for it.
+// multiple of 16), 256, 384 and 512; the wrapper zero-pads any other
+// D <= 512 to the next of these (zero columns leave q.k and the output
+// unchanged; the scale stays 1/sqrt of the unpadded D). A thread owns
+// C = D / 16 output columns. The tiles shrink with D so that the dq and dkv
+// kernels' four operand tiles fit 227 KB of shared memory: 64 rows up to
+// D = 128, 32 rows (2 x 2 micro-tiles per thread) at D = 256 (64 would
+// need 284-302 KB), 16 rows (one score entry per thread) at D = 384 and
+// 512 (32 would need 269 KB for dq at D = 512). The fused backward, which
+// holds a whole (batch, head), is not built above D = 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,7 +80,7 @@ constexpr uint32_t kGolden = 0x9E3779B9u;
 
 // Rows of a q tile and of a k tile at head dim D (see the note above).
 __host__ __device__ constexpr int tile_rows(int D) {
-  return D > 128 ? 32 : kTile;
+  return D > 256 ? 16 : D > 128 ? 32 : kTile;
 }
 // Padded row stride of a score tile of T columns.
 __host__ __device__ constexpr int p_ld(int T) { return T + 4; }
@@ -134,7 +136,7 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// C consecutive floats (C = D / 16, 1 to 8 or 16) at column tx * C:
+// C consecutive floats (C = D / 16: 1 to 8, 16, 24 or 32) at column tx * C:
 // float4 loads when C % 4 == 0, float2 when C is even (the address is then
 // 8-byte aligned), scalar loads otherwise.
 template <int C>
@@ -785,7 +787,8 @@ dim3 q_grid(const Problem& P, int D) {
 }
 
 // Dynamic shared memory of each kernel, in bytes: at most 208 KB (the
-// fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB, dkv 143 KB.
+// fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB, dkv 143 KB;
+// at D = 512 fwd 98 KB, dq 130 KB, dkv 132 KB.
 constexpr size_t fwd_smem(int D) {
   return (size_t)(3 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
@@ -836,7 +839,7 @@ cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
 }
 
 // The head dims the kernels are built for (kernels/flash_attention.py
-// HEAD_DIMS; the wrapper pads any other D <= 256 up to one of them).
+// HEAD_DIMS; the wrapper pads any other D <= 512 up to one of them).
 #define DISPATCH_D(D, ...)                                    \
   switch (D) {                                                \
     case 16: { constexpr int kD = 16; __VA_ARGS__; } break;   \
@@ -848,6 +851,8 @@ cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
     case 112: { constexpr int kD = 112; __VA_ARGS__; } break; \
     case 128: { constexpr int kD = 128; __VA_ARGS__; } break; \
     case 256: { constexpr int kD = 256; __VA_ARGS__; } break; \
+    case 384: { constexpr int kD = 384; __VA_ARGS__; } break; \
+    case 512: { constexpr int kD = 512; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;               \
   }
 

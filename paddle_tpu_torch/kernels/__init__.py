@@ -54,6 +54,7 @@ _COUNTERS = {
     "flash_attention_bwd_dq": (_fa, "dq_launches"),
     "flash_attention_bwd_dkv": (_fa, "dkv_launches"),
     "fused_xent_fwd": (_fx, "fwd_launches"),
+    "fused_xent_bwd_dlog": (_fx, "dlog_launches"),
     "fused_xent_bwd_dh": (_fx, "dh_launches"),
     "fused_xent_bwd_dw": (_fx, "dw_launches"),
     "adam_leaf": (_adam, "leaf_launches"),
@@ -146,9 +147,9 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     kernel seed, a one-element device tensor, from the ``dropout``
     stream. The rest runs ``ops.attention.scaled_dot_product_attention``.
 
-    The CUDA kernels take every head dim the gate admits up to 256
+    The CUDA kernels take every head dim the gate admits up to 512
     (those outside ``flash_attention.HEAD_DIMS`` zero-padded to the next
-    one); a CUDA call the gate admits above 256 (``d % 128 == 0``)
+    one); a CUDA call the gate admits above 512 (``d % 128 == 0``)
     raises, the gap ``ROADMAP.md`` section C records.
     """
     bthd = layout == "bthd"

@@ -67,10 +67,13 @@ SOURCES: Dict[str, Dict[str, list]] = {
         # h, w, bias, labels, part, loss, lse, N, V, H, splits,
         # ignore_index, stream
         "fused_xent_fwd": [_P] * 7 + [_I, _I, _I, _I, _L, _P],
-        # h, w, bias, labels, lse, g, dh, N, V, H, ignore_index, stream
-        "fused_xent_bwd_dh": [_P] * 7 + [_I, _I, _I, _L, _P],
-        # h, w, bias, labels, lse, g, dw, db, N, V, H, ignore_index, stream
-        "fused_xent_bwd_dw": [_P] * 8 + [_I, _I, _I, _L, _P],
+        # h, w, bias, labels, lse, g, dlog, N, V, H, v0, vc, Vc,
+        # ignore_index, stream
+        "fused_xent_bwd_dlog": [_P] * 7 + [_I] * 6 + [_L, _P],
+        # dlog, h, dw, db, N, H, v0, vc, Vc, stream
+        "fused_xent_bwd_dw": [_P] * 4 + [_I] * 5 + [_P],
+        # dlog, w, dh, N, H, v0, vc, Vc, accumulate, stream
+        "fused_xent_bwd_dh": [_P] * 3 + [_I] * 6 + [_P],
     },
     "fused_adam": {
         # table, n_leaves, n_chunks, lr_c, ok, b1, 1 - b1, b2, 1 - b2, eps,

@@ -26,19 +26,19 @@ The backward takes the fused kernel when both sequences fit its tile
 (:func:`backward_route`): the JAX rule (fused when the padded Tq and Tk
 each equal one tile) with the port's tile, 128 rows at D <= 64 and 64 at
 D <= 128, what a Hopper block's 227 KB of shared memory holds of Q, K, V,
-dO and a dQ accumulator. Longer sequences, and every sequence at D = 256,
+dO and a dQ accumulator. Longer sequences, and every sequence at D > 128,
 take the dq and dkv kernels. ``delta = rowsum(dO * out)`` is a torch
 reduction, as it is an XLA op in the JAX package.
 
 The kernels are built for the head dims in ``HEAD_DIMS`` (every multiple
-of 16 up to 128, and 256). :func:`flash_attention` zero-pads any other
-head dim up to 256 to the next of them (:func:`kernel_head_dim`) and
-slices the output: zero columns change neither q.k nor the output, and
-the scale stays ``1/sqrt`` of the unpadded dim. A head dim above 256
-raises. The kernel entry points themselves take fp32 CUDA tensors whose
-head dim is in ``HEAD_DIMS``, contiguous in that dim, with the other
-strides multiples of 4 floats and 16-byte aligned data; anything else
-raises.
+of 16 up to 128, and 256, 384 and 512). :func:`flash_attention`
+zero-pads any other head dim up to 512 to the next of them
+(:func:`kernel_head_dim`) and slices the output: zero columns change
+neither q.k nor the output, and the scale stays ``1/sqrt`` of the
+unpadded dim. A head dim above 512 raises. The kernel entry points
+themselves take fp32 CUDA tensors whose head dim is in ``HEAD_DIMS``,
+contiguous in that dim, with the other strides multiples of 4 floats and
+16-byte aligned data; anything else raises.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
 
 NEG_INF = -1e30
 # the head dims the kernels are instantiated for (DISPATCH_D in the source)
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256, 384, 512)
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 fwd_launches = 0
@@ -73,7 +73,7 @@ _GOLDEN = 0x9E3779B9
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a head dim ``d`` at: the smallest
     of ``HEAD_DIMS`` >= d (the wrapper zero-pads up to it). Raises above
-    256, which no kernel is built for (``ROADMAP.md`` section C)."""
+    512, which no kernel is built for (``ROADMAP.md`` section C)."""
     for kd in HEAD_DIMS:
         if kd >= d:
             return kd

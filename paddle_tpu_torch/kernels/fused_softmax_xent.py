@@ -3,9 +3,15 @@ wrappers, their autograd Function, and the plain version.
 
 The kernels (``csrc/fused_softmax_xent.cu``) replace the Pallas kernels
 of ``paddle_tpu/kernels/fused_softmax_xent.py``: ``_fwd_kernel`` (the
-streamed logsumexp and picked logit), ``_bwd_dh_kernel`` and
-``_bwd_dw_kernel`` (the recompute backward). The source note gives the
-design and the bound.
+streamed logsumexp and picked logit), and ``_backward`` with its
+``_bwd_dh_kernel`` and ``_bwd_dw_kernel``: here the vocabulary runs in
+chunks of :func:`bwd_chunk` columns, and for each chunk one kernel
+recomputes the logits into their gradient ``D`` (an ``[N, Vc]``
+scratch), one computes ``dW`` and ``db`` of the chunk from ``D``, one
+adds ``D @ W_chunk`` to ``dh``; all three are 3xTF32 tensor-core
+products. The source note gives the design and the bound.
+:func:`fused_xent_bwd_chunked_plain` is that decomposition in plain
+PyTorch, chunk for chunk.
 
 Semantics are the JAX package's ``fused_linear_softmax_xent``: the
 per-position loss of ``logits = hidden @ weight.T + bias`` (never
@@ -33,23 +39,27 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_linear_xent", "fused_linear_xent_plain", "xent_fwd",
-           "xent_bwd_dh", "xent_bwd_dw", "vocab_splits", "MAX_HIDDEN"]
+__all__ = ["fused_linear_xent", "fused_linear_xent_plain",
+           "fused_xent_bwd_chunked_plain", "xent_fwd", "xent_bwd",
+           "vocab_splits", "bwd_chunk"]
 
 # kernel launches since the last reset (kernels.reset_launch_counts): the
-# forward entry launches two kernels (partials per vocab split, merge)
+# forward entry launches two kernels (partials per vocab split, merge);
+# the backward one dlog kernel per chunk, and one dW/db and one dh kernel
+# per chunk where that gradient is needed
 fwd_launches = 0
-dh_launches = 0
+dlog_launches = 0
 dw_launches = 0
+dh_launches = 0
 
 _VOCAB_TILE = 64      # vocab columns of a logits tile (kVT in the source)
 _ROW_TILE = 64        # rows of a forward block
-_OWN = 32             # rows (dh) or vocab rows (dW) a backward block owns
-_BLOCK_SMEM = 232448  # shared memory a Hopper block may have, in bytes
-# the backward keeps its [32, H] accumulator in shared memory beside its
-# staging tiles (bwd_smem in the source): H up to this fits
-MAX_HIDDEN = (_BLOCK_SMEM // 4 - (2 * _OWN * 36 + 2 * 64 * 36 + _OWN * 68
-                                  + 2 * 64 * 68)) // _OWN
+# the backward's chunk: Vc columns, a multiple of the products' 128-row
+# tile (kBM in the source), its [N, Vc] scratch kept to 256 MB where 128
+# columns allow (bwd_chunk)
+BWD_CHUNK = 2048
+_CHUNK_TILE = 128
+_SCRATCH_FLOATS = 64 * 2 ** 20
 
 
 def fused_linear_xent_plain(hidden: torch.Tensor, weight: torch.Tensor,
@@ -80,6 +90,58 @@ def fused_linear_xent_plain(hidden: torch.Tensor, weight: torch.Tensor,
 # --- the CUDA kernels ------------------------------------------------------
 
 _sm_counts = {}
+
+
+def bwd_chunk(n: int, v: int) -> int:
+    """Vocabulary columns per backward chunk (``Vc``): 2048, so that at
+    BERT's N = 4096 rows the chunk's logit gradient (32 MB) stays in the
+    H100's 50 MB L2 between the kernel that writes it and the two that
+    read it, and the dW product has 2048 / 128 x 768 / 96 = 128 tiles for
+    132 SMs; fewer (down to 128) where N is so large that the [N, Vc]
+    scratch would pass 256 MB; at most V rounded up to 128."""
+    fit = _SCRATCH_FLOATS // max(n, 1) // _CHUNK_TILE * _CHUNK_TILE
+    return max(_CHUNK_TILE, min(BWD_CHUNK, fit,
+                                -(-v // _CHUNK_TILE) * _CHUNK_TILE))
+
+
+def fused_xent_bwd_chunked_plain(h2: torch.Tensor, w: torch.Tensor,
+                                 b: Optional[torch.Tensor],
+                                 lab: torch.Tensor, lse: torch.Tensor,
+                                 g: torch.Tensor, ignore_index: int = -100,
+                                 chunk: Optional[int] = None):
+    """The backward kernels' decomposition in plain PyTorch:
+    ``(dh, dw, db)`` of ``h2`` ``[N, H]``, ``w`` ``[V, H]``, ``b``
+    ``[V]`` or None, labels ``[N]``, the forward's ``lse`` and the
+    upstream gradient ``g`` ``[N]``. The vocabulary runs in chunks of
+    ``chunk`` (default :func:`bwd_chunk`) columns in order; each chunk's
+    ``D = g (exp(logits - lse) - onehot)`` is exactly 0 on rows whose
+    label is ``ignore_index`` (no compaction), gives ``dW`` and ``db``
+    of its columns and is added to ``dh``. ``db`` is None without a
+    bias."""
+    n, hd = h2.shape
+    v = w.shape[0]
+    vc = chunk or bwd_chunk(n, v)
+    h2, w, g = h2.float(), w.float(), g.float()
+    gz = torch.where(lab != ignore_index, g, torch.zeros_like(g))[:, None]
+    hot = lab.clamp(0, v - 1)[:, None]
+    dh = torch.zeros_like(h2)
+    dw = torch.empty_like(w)
+    db = None if b is None else torch.empty(v, dtype=torch.float32,
+                                            device=w.device)
+    for v0 in range(0, v, vc):
+        v1 = min(v, v0 + vc)
+        logits = h2 @ w[v0:v1].T
+        if b is not None:
+            logits = logits + b[v0:v1].float()
+        cols = torch.arange(v0, v1, device=h2.device)[None, :]
+        d = gz * (torch.exp(logits - lse[:, None])
+                  - (hot == cols).to(torch.float32))
+        d = torch.where(gz != 0, d, torch.zeros_like(d))
+        dw[v0:v1] = d.T @ h2
+        if db is not None:
+            db[v0:v1] = d.sum(dim=0)
+        dh += d @ w[v0:v1]
+    return dh, dw, db
 
 
 def vocab_splits(n: int, v: int, sm_count: int) -> int:
@@ -124,9 +186,6 @@ def _checked(h2, w, b, lab) -> Tuple[int, int, int]:
             or not lab.is_contiguous():
         raise TypeError(f"labels must be contiguous int64 [{n}] on the "
                         f"hidden states' device")
-    if hd > MAX_HIDDEN:
-        raise ValueError(f"fused softmax-xent backward holds [32, H] in "
-                         f"shared memory: H <= {MAX_HIDDEN}, got {hd}")
     return n, v, hd
 
 
@@ -164,40 +223,47 @@ def _rows(t: torch.Tensor, n: int, what: str) -> torch.Tensor:
     return t
 
 
-def xent_bwd_dh(h2, w, b, lab, lse, g, ignore_index: int = -100
-                ) -> torch.Tensor:
-    """The dh kernel: ``dh = g (softmax - onehot) @ W`` ``[N, H]``."""
-    global dh_launches
+def xent_bwd(h2, w, b, lab, lse, g, ignore_index: int = -100,
+             need_dh: bool = True, need_dw: bool = True):
+    """The backward kernels: ``(dh, dw, db)`` as
+    :func:`fused_xent_bwd_chunked_plain` computes them, chunk by chunk:
+    the dlog kernel, then the dW/db kernel where ``need_dw``, then the dh
+    kernel where ``need_dh`` (the first chunk writes ``dh``, the others
+    add to it). One ``[N, Vc]`` scratch serves every chunk: the launches
+    run in order on the current stream. Nothing is synchronised."""
+    global dlog_launches, dw_launches, dh_launches
     n, v, hd = _checked(h2, w, b, lab)
     _rows(lse, n, "lse")
     _rows(g, n, "g")
-    dh = torch.empty_like(h2)
-    code = _build.library("fused_softmax_xent").fused_xent_bwd_dh(
-        h2.data_ptr(), w.data_ptr(), _ptr(b), lab.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dh.data_ptr(), n, v, hd,
-        int(ignore_index), _stream(h2.device))
-    _build.check("fused_softmax_xent", code, "fused_xent_bwd_dh")
-    dh_launches += 1
-    return dh
-
-
-def xent_bwd_dw(h2, w, b, lab, lse, g, ignore_index: int = -100
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The dW/db kernel: ``dW = (g (softmax - onehot))^T @ h`` ``[V, H]``
-    and its column sums ``db`` ``[V]`` (None without a bias)."""
-    global dw_launches
-    n, v, hd = _checked(h2, w, b, lab)
-    _rows(lse, n, "lse")
-    _rows(g, n, "g")
-    dw = torch.empty_like(w)
-    db = None if b is None else torch.empty_like(b)
-    code = _build.library("fused_softmax_xent").fused_xent_bwd_dw(
-        h2.data_ptr(), w.data_ptr(), _ptr(b), lab.data_ptr(),
-        lse.data_ptr(), g.data_ptr(), dw.data_ptr(), _ptr(db), n, v, hd,
-        int(ignore_index), _stream(h2.device))
-    _build.check("fused_softmax_xent", code, "fused_xent_bwd_dw")
-    dw_launches += 1
-    return dw, db
+    chunk = bwd_chunk(n, v)
+    dev = h2.device
+    dlog = torch.empty(n, chunk, dtype=torch.float32, device=dev)
+    dh = torch.empty_like(h2) if need_dh else None
+    dw = torch.empty_like(w) if need_dw else None
+    db = torch.empty_like(b) if need_dw and b is not None else None
+    lib = _build.library("fused_softmax_xent")
+    stream = _stream(dev)
+    for v0 in range(0, v, chunk):
+        vc = min(chunk, v - v0)
+        code = lib.fused_xent_bwd_dlog(
+            h2.data_ptr(), w.data_ptr(), _ptr(b), lab.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), dlog.data_ptr(), n, v, hd, v0,
+            vc, chunk, int(ignore_index), stream)
+        _build.check("fused_softmax_xent", code, "fused_xent_bwd_dlog")
+        dlog_launches += 1
+        if need_dw:
+            code = lib.fused_xent_bwd_dw(
+                dlog.data_ptr(), h2.data_ptr(), dw.data_ptr(), _ptr(db), n,
+                hd, v0, vc, chunk, stream)
+            _build.check("fused_softmax_xent", code, "fused_xent_bwd_dw")
+            dw_launches += 1
+        if need_dh:
+            code = lib.fused_xent_bwd_dh(
+                dlog.data_ptr(), w.data_ptr(), dh.data_ptr(), n, hd, v0, vc,
+                chunk, int(v0 > 0), stream)
+            _build.check("fused_softmax_xent", code, "fused_xent_bwd_dh")
+            dh_launches += 1
+    return dh, dw, db
 
 
 class _FusedLinearXent(torch.autograd.Function):
@@ -212,11 +278,9 @@ class _FusedLinearXent(torch.autograd.Function):
     def backward(ctx, g):
         h2, w, b, lab, lse = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
-        args = (h2, w, b, lab, lse, g, ctx.ignore_index)
-        dh = xent_bwd_dh(*args) if ctx.needs_input_grad[0] else None
-        dw, db = xent_bwd_dw(*args) if (ctx.needs_input_grad[1]
-                                        or ctx.needs_input_grad[2]) \
-            else (None, None)
+        need_dw = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dh, dw, db = xent_bwd(h2, w, b, lab, lse, g, ctx.ignore_index,
+                              ctx.needs_input_grad[0], need_dw)
         return dh, dw, db, None, None
 
 

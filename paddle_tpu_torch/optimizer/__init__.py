@@ -75,7 +75,11 @@ class Adam:
                         ok: Optional[torch.Tensor] = None) -> None:
         """One update of every parameter with a gradient, in place. With
         ``ok`` given, everything keeps its old value where it is False,
-        the step counter included."""
+        the step counter included. A parameter whose gradient is None (or
+        missing) is skipped, moments and decay included: a direct caller
+        gets that. ``static.TrainStep`` never passes None: it gives a
+        parameter the loss does not reach a zero gradient, as JAX does, so
+        AdamW decays it and its moments decay."""
         step = state["step"] + 1
         step_f = step.to(torch.float32)
         lr_c = self.learning_rate * torch.sqrt(

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu.static.TrainStep``. The JAX class compiles
 forward, backward and the update into one donated-state XLA program;
 here the same step runs eagerly: the model's forward and the loss under
 a per-step dropout stream (``core.random.step_generator(seed, call)``),
-``torch.autograd.grad`` over the trainable parameters, and the
+``torch.autograd.grad`` over the trainable parameters (a parameter the
+loss does not reach gets a zero gradient, as JAX gives it), and the
 optimizer's in-place update of the model's own parameters.
 
 The skip-step guard (``skip_nonfinite_steps``, read at construction):
@@ -66,12 +67,15 @@ class TrainStep:
         names = list(self.params)
         grads = torch.autograd.grad(loss, [self.params[n] for n in names],
                                     allow_unused=True)
-        grads = dict(zip(names, grads))
+        # a parameter the loss does not reach gets a zero gradient, as JAX
+        # differentiates every parameter: AdamW still decays it and its
+        # moments, and the skip guard and the fused routes cover it
+        grads = {n: torch.zeros_like(self.params[n]) if g is None else g
+                 for n, g in zip(names, grads)}
         ok = None
         if self._skip_guard:
             ok = torch.stack([torch.isfinite(g).all()
-                              for g in grads.values()
-                              if g is not None]).all()
+                              for g in grads.values()]).all()
             self.nonfinite_steps += (~ok).to(torch.int64)
         self.optimizer.apply_gradients(self.params, grads, self.state, ok)
         return {"loss": loss.detach()}

@@ -178,6 +178,62 @@ def test_skip_step_guard_discards_a_poisoned_update(pair):
     assert not torch.equal(pm.cls.decoder_bias, before["cls.decoder_bias"])
 
 
+# a parameter the loss does not reach without token_type_ids
+TOKEN_TYPES = "bert.embeddings.token_type_embeddings.weight"
+
+
+def test_ten_steps_without_token_types_match_jax(pair):
+    # without token_type_ids their embedding gets no gradient; JAX gives
+    # it a zero one, so AdamW decays it (and its zero moments stay zero):
+    # TrainStep does the same, and every parameter follows JAX
+    jm, pm = pair
+    kw = dict(learning_rate=1e-3, weight_decay=0.01,
+              apply_decay_param_fun=_no_decay)
+    jstep = JaxTrainStep(jm, JaxAdamW(**kw), lambda out, m, n:
+                         jax_pretraining_loss(out, m, n))
+    pstep = TrainStep(pm, AdamW(**kw), pretraining_loss)
+    start = dict(pm.named_parameters())[TOKEN_TYPES].detach().clone()
+    for i in range(10):
+        ids, _, mask, pos, mlm, nsp = _batch(seed=i)
+        jstep(jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+              masked_positions=jnp.asarray(pos),
+              labels=(jnp.asarray(mlm), jnp.asarray(nsp)))
+        pstep(_t(ids), attention_mask=_t(mask), masked_positions=_t(pos),
+              labels=(_t(mlm), _t(nsp)))
+    jstep.sync_to_model()
+    own = dict(pm.named_parameters())
+    assert not torch.equal(own[TOKEN_TYPES], start)  # decayed
+    for name in (TOKEN_TYPES,):
+        for k in ("m", "v"):
+            assert not pstep.state["slots"][name][k].any()
+    for name, v in jm.param_dict().items():
+        if name.endswith("k_proj.bias"):
+            # an exactly-zero gradient that both sides see as fp32 noise
+            # (test_ten_step_train_trajectory_matches_jax)
+            continue
+        assert np.max(np.abs(own[name].detach().numpy()
+                             - np.asarray(v))) <= 1e-5, name
+
+
+def test_skip_step_guard_keeps_a_parameter_without_gradient(pair):
+    _, pm = pair
+    step = TrainStep(pm, AdamW(learning_rate=1e-3),
+                     lambda out, m, n, s: pretraining_loss(out, m, n) * s)
+    ids, _, mask, pos, mlm, nsp = _batch()
+    kw = dict(attention_mask=_t(mask), masked_positions=_t(pos))
+    one = torch.tensor(1.0)
+    step(_t(ids), labels=(_t(mlm), _t(nsp), one), **kw)
+    p = dict(pm.named_parameters())[TOKEN_TYPES]
+    before = p.detach().clone()
+    step(_t(ids), labels=(_t(mlm), _t(nsp), torch.tensor(np.inf)), **kw)
+    assert torch.equal(p, before)
+    assert int(step.state["step"]) == 1
+    assert int(step.nonfinite_steps) == 1
+    step(_t(ids), labels=(_t(mlm), _t(nsp), one), **kw)
+    assert int(step.state["step"]) == 2
+    assert not torch.equal(p, before)  # AdamW decays it again
+
+
 @pytest.mark.parametrize("cls_pair", ["adam", "adamw"])
 def test_optimizer_update_matches_jax(cls_pair):
     rng = np.random.default_rng(2)

@@ -157,8 +157,8 @@ class TestRoutingAndCounters:
             "paged_attention_multiquery": 0, "flash_attention_fwd": 0,
             "flash_attention_bwd_fused": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0, "fused_xent_fwd": 0,
-            "fused_xent_bwd_dh": 0, "fused_xent_bwd_dw": 0, "adam_leaf": 0,
-            "adam_flat": 0}
+            "fused_xent_bwd_dlog": 0, "fused_xent_bwd_dh": 0,
+            "fused_xent_bwd_dw": 0, "adam_leaf": 0, "adam_flat": 0}
 
     def test_kernel_wrappers_refuse_cpu_tensors(self):
         with pytest.raises(ValueError, match="CUDA"):

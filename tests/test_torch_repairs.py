@@ -2,12 +2,13 @@
 of every layer and model constructor.
 
 Head dims: the CUDA flash kernels are built for every multiple of 16 up
-to 128 and for 256; ``flash_attention`` zero-pads any other head dim up
-to 256 to the next of them and keeps the scale of the unpadded dim, and
-raises above 256. The CUDA route runs only on the card
-(``chip_smoke.py`` holds D = 40, 48, 80, 96, 112 and 256 against the
-plain version there); here the plan is checked as a pure function, and
-the padding identity on the plain version the kernels are held against.
+to 128 and for 256, 384 and 512; ``flash_attention`` zero-pads any other
+head dim up to 512 to the next of them and keeps the scale of the
+unpadded dim, and raises above 512. The CUDA route runs only on the card
+(``chip_smoke.py`` holds D = 40, 48, 80, 96, 112, 256, 320, 384 and 512
+against the plain version there); here the plan is checked as a pure
+function, and the padding identity on the plain version the kernels are
+held against.
 
 Devices: an entry point runs on the card unless the caller asks for the
 CPU, so every constructor that takes ``device`` raises without a GPU when
@@ -31,7 +32,8 @@ from paddle_tpu_torch import nn as pnn
     (8, 16, "fused"), (40, 48, "fused"), (48, 48, "fused"),
     (64, 64, "fused"), (72, 80, "split"), (96, 96, "split"),
     (120, 128, "split"), (128, 128, "split"), (136, 256, "split"),
-    (256, 256, "split")])
+    (256, 256, "split"), (300, 384, "split"), (384, 384, "split"),
+    (400, 512, "split"), (512, 512, "split")])
 def test_flash_head_dim_plan(d, kd, route_128):
     # the kernels' head dim, and the backward route at 128 rows: the fused
     # kernel holds 128 rows up to D = 64, 64 up to 128, and none at 256
@@ -42,16 +44,29 @@ def test_flash_head_dim_plan(d, kd, route_128):
                                             else "fused")
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [520, 640])
 def test_flash_head_dims_above_256_raise(d):
-    with pytest.raises(ValueError, match="up to 256"):
+    # above 512 since 384 and 512 are built (test_flash_head_dims_384_512)
+    with pytest.raises(ValueError, match="up to 512"):
         fa.kernel_head_dim(d)
     q = torch.zeros(1, 4, 2, d)
-    with pytest.raises(ValueError, match="up to 256"):
+    with pytest.raises(ValueError, match="up to 512"):
         fa.flash_attention(q, q, q, bthd=True)
 
 
-@pytest.mark.parametrize("d", [8, 40, 136])
+@pytest.mark.parametrize("d", [384, 512])
+def test_flash_head_dims_384_512(d):
+    # built, so the wrapper passes them to the kernel entry unpadded: on
+    # CPU tensors that entry's device check is what raises
+    assert d in fa.HEAD_DIMS and fa.kernel_head_dim(d) == d
+    assert fa.kernel_head_dim(d - 8) == d
+    assert fa.fused_rows(d) == 0  # the split backward route
+    q = torch.zeros(1, 4, 2, d)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(q, q, q, bthd=True)
+
+
+@pytest.mark.parametrize("d", [8, 40, 136, 300])
 def test_zero_padded_head_dim_is_the_same_attention(d):
     # what the wrapper does around the kernels: pad q, k, v with zero
     # columns to the kernels' head dim, keep 1/sqrt(d), slice the output;

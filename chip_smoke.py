@@ -20,13 +20,14 @@ in order:
    1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
    attention, forward and both backward routes, with and without
    dropout, key bias, causal masking, ragged lengths and head dims 16 to
-   512, D = 40 and 320 through the wrapper's zero padding) or
+   512, D = 40 and 320 through the wrapper's zero padding, D = 640 and
+   1024 as head-dim slices; dK/dV bitwise equal run to run) or
    ``XENT_TOL``/``XENT_GRAD_TOL`` (the fused softmax cross-entropy's
    forward and its chunked backward, dlog + dW/db + dh, at BERT-base's
    MLM head and at ragged shapes: H = 1600, H = 45, V not a multiple of
    the chunk, a chunk wider than V, every row ignored; the backward also
    against its chunked plain version, bitwise equal run to run and with
-   one gradient asked for),
+   one gradient asked for; the forward bitwise equal run to run),
    and the Adam kernel bitwise (both variants on BERT-base's own leaves,
    AdamW's decay, the skip guard false), and times the kernel, the
    plain version, one PyTorch library call computing the same function
@@ -112,11 +113,11 @@ STEP_LOSS_RTOL = 1e-5
 GRAD_REL_TOL = 2e-5
 STEP_PARAM_TOL = 2e-5
 # fused xent kernels vs plain: fp32 logits summed over H in another order
-# (chunks of 32 against cuBLAS's; the backward in 3xTF32, whose dropped
-# lo.lo term is ~2^-22 of a product), the online logsumexp against torch's
+# (stages of 32 or 64 against cuBLAS's, in 3xTF32, whose dropped lo.lo
+# term is ~2^-22 of a product), the online logsumexp against torch's
 # two-pass one. Loss and lse absolute (a loss of ~10); gradients relative
 # to each gradient's largest entry (dW and db sum over 4096 rows). An H100
-# measured 7.6e-6 (loss) and 4.1e-6 (dh, fp32 SIMT); a wrong tile or mask
+# measured 7.2e-6 (loss) and 3.6e-6 (gradients); a wrong tile or mask
 # gives 1e-1
 XENT_TOL = 1e-4
 XENT_GRAD_TOL = 1e-4
@@ -169,10 +170,22 @@ LN_SHAPES = ((8, 1e-5), (16, 1e-5), (512, 1e-5), (4096, 1e-5),
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores (the unit the SIMT kernels run on) and dense TF32 on the
 # tensor cores, of which 3xTF32 (three products per fp32 product: the xent
-# backward) gets a third
+# kernels and the flash dK/dV kernel) gets a third
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+
+# the kernels redesigned for the tensor cores and their design, for the
+# kernels line (the fp32 SIMT designs they replaced are timed in PERF.md)
+DESIGNS = {
+    "flash_attention_bwd_dkv": (
+        "3xTF32 mma.sync tiles, K/V resident, cp.async ring over query "
+        "tiles, two blocks per SM; replaced fp32 SIMT FMA tiles"),
+    "fused_xent_fwd": (
+        "3xTF32 wgmma m64n128k8, W split once per stage in shared memory, "
+        "128x128 logits tiles folded in registers; replaced fp32 SIMT FMA "
+        "tiles"),
+}
 
 GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
                   num_heads=12, intermediate_size=3072,
@@ -439,6 +452,10 @@ FLASH_CASES = [
     ("d512_bhtd", 1, 64, 90, 2, 512, False, False, False, 0.0),
     ("d512_causal_bias", 1, 130, 130, 2, 512, True, True, True, 0.1),
     ("d320_padded", 1, 80, 80, 2, 320, True, False, False, 0.1),
+    # above 512: 640 zero-padded to 768 and run as 2 slices of 384 (through
+    # the wrapper), 1024 as 2 slices of 512 (the kernels directly)
+    ("d640_causal_bias", 1, 100, 100, 2, 640, True, True, True, 0.1),
+    ("d1024_bhtd_ragged", 1, 90, 130, 2, 1024, False, False, False, 0.0),
 ]
 
 
@@ -474,9 +491,11 @@ def flash_backward(fa, route, args, kw):
 
 
 def flash_bounds(b, h, tq, tk, d, causal, bias):
-    """(bytes, flops) of each flash kernel's function on these shapes:
-    inputs read once, outputs written once; flops of the products over
-    the score entries a causal or full mask keeps."""
+    """(bytes, flops, peak) of each flash kernel's function on these
+    shapes: inputs read once, outputs written once; flops of the products
+    over the score entries a causal or full mask keeps; the peak of the
+    unit the kernel runs on (the FMA units; dK/dV 3xTF32 on the tensor
+    cores)."""
     if causal:
         entries = b * h * sum(min(tk, max(0, i + tk - tq + 1))
                               for i in range(tq))
@@ -487,20 +506,25 @@ def flash_bounds(b, h, tq, tk, d, causal, bias):
     stats = 4 * 2 * b * h * tq  # lse and delta
     return {
         "flash_attention_fwd": (4 * (2 * rows_q + 2 * rows_k + b * h * tq)
-                                + extra, 4 * entries * d),
+                                + extra, 4 * entries * d, PEAK_FP32_FLOPS),
         "flash_attention_bwd_dq": (4 * (3 * rows_q + 2 * rows_k) + stats
-                                   + extra, 6 * entries * d),
+                                   + extra, 6 * entries * d,
+                                   PEAK_FP32_FLOPS),
         "flash_attention_bwd_dkv": (4 * (2 * rows_q + 4 * rows_k) + stats
-                                    + extra, 8 * entries * d),
+                                    + extra, 8 * entries * d,
+                                    PEAK_3XTF32_FLOPS),
         "flash_attention_bwd_fused": (4 * (3 * rows_q + 4 * rows_k) + stats
-                                      + extra, 10 * entries * d),
+                                      + extra, 10 * entries * d,
+                                      PEAK_FP32_FLOPS),
     }
 
 
 def check_flash(torch, timer):
     """Each flash kernel against the plain version (forward: out and
-    lse; backward: autograd of the plain forward) on FLASH_CASES; times
-    at the two paths' own calls. Returns the kernels' results."""
+    lse; backward: autograd of the plain forward) on FLASH_CASES, the
+    dK/dV kernel bitwise equal on a second run at the seq-512 path's
+    call; times at the two paths' own calls. Returns the kernels'
+    results."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     F = torch.nn.functional
     rng = np.random.default_rng(SEED + 3)
@@ -537,12 +561,19 @@ def check_flash(torch, timer):
             e[g_name] = float((g - pg).abs().max())
         finite = all(bool(torch.isfinite(x).all())
                      for x in (out, lse) + tuple(grads) if x is not None)
+        if name == "path_seq512":
+            # deterministic: no atomics, the same sums in the same order
+            e["dkv_bitwise_run_to_run"] = all(
+                torch.equal(x, y) for x, y in zip(
+                    grads[1:], fa.flash_bwd_dkv(*args, **kw)))
         cases[name] = dict(route=route, shape=[b, tq, tk, h, d],
                            kernel_head_dim=fa.kernel_head_dim(d),
+                           head_dim_plan=fa.head_dim_plan(d),
                            layout="bthd" if bthd else "bhtd", causal=causal,
                            bias=bias, dropout_p=p, max_abs_err=e)
         log(f"flash {name}: route {route}, errors {json.dumps(e)}")
-        if not (finite and e["out"] <= FLASH_TOL
+        if not (finite and e.get("dkv_bitwise_run_to_run", True)
+                and e["out"] <= FLASH_TOL
                 and e.get("lse", 0.0) <= FLASH_TOL
                 and max(e["dq"], e["dk"], e["dv"]) <= FLASH_GRAD_TOL):
             raise AssertionError(f"flash attention case {name}: kernels "
@@ -729,14 +760,14 @@ def xent_bounds(n_used, v, hd, n, bias):
     """(bytes, flops, peak) of each xent kernel's function and of the
     backward as a whole: inputs read once, outputs written once; flops of
     the rows whose label is not ignored (an ignored row's loss and
-    gradient need no logits). The forward runs on the FP32 FMA units, the
-    backward in 3xTF32. Each backward kernel's own function passes the
-    logit gradient D ([N, V] over all chunks) between them."""
+    gradient need no logits). Every product runs in 3xTF32 on the tensor
+    cores. Each backward kernel's own function passes the logit gradient
+    D ([N, V] over all chunks) between them."""
     ins = 4 * (n * hd + v * hd + (v if bias else 0)) + 8 * n
     dlog = 4 * n * v
     prod = 2 * n_used * v * hd
     return {
-        "fused_xent_fwd": (ins + 4 * 2 * n, prod, PEAK_FP32_FLOPS),
+        "fused_xent_fwd": (ins + 4 * 2 * n, prod, PEAK_3XTF32_FLOPS),
         "fused_xent_bwd_dlog": (ins + 4 * 2 * n + dlog, prod,
                                 PEAK_3XTF32_FLOPS),
         "fused_xent_bwd_dw": (dlog + 4 * (n * hd + v * hd
@@ -779,6 +810,7 @@ def check_fused_xent(torch, timer):
         t = xent_inputs(torch, rng, n, v, hd, bias, ignored)
         h, w, b, lab, g = t["h"], t["w"], t["b"], t["lab"], t["g"]
         loss, lse = fx.xent_fwd(h, w, b, lab)
+        loss2, lse2 = fx.xent_fwd(h, w, b, lab)
         args = (h, w, b, lab, lse, g)
         dh, dw, db = fx.xent_bwd(*args)
         again = fx.xent_bwd(*args)
@@ -799,6 +831,8 @@ def check_fused_xent(torch, timer):
              "lse": float((lse - plse)[used].abs().max())
              if bool(used.any()) else 0.0,
              "ignored_loss_exact_0": bool((loss[ignored_rows] == 0).all()),
+             "forward_bitwise_run_to_run": torch.equal(loss, loss2)
+             and torch.equal(lse, lse2),
              "ignored_dh_exact_0": bool((dh[ignored_rows] == 0).all()),
              "bitwise_run_to_run": all(
                  torch.equal(x, y) for x, y in zip(
@@ -836,7 +870,8 @@ def check_fused_xent(torch, timer):
             results = time_xent(torch, timer, fx, F, t, args, ploss, leaves,
                                 xent_bounds(int(used.sum()), v, hd, n,
                                             bias))
-        del loss, lse, dh, dw, db, again, dh_only, dw_only, db_only
+        del loss, lse, loss2, lse2, dh, dw, db, again, dh_only, dw_only
+        del db_only
         del chunked, ploss, plse, pgrads, leaves, args, t, got
     for k in names:
         results[k].update(max_abs_err=errs[k], shape=(
@@ -1631,6 +1666,8 @@ def kernel_line(results: dict, counts: dict) -> dict:
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "shape": r["shape"]})
+        if name in DESIGNS:
+            line[-1]["design"] = DESIGNS[name]
     return {"kernels": line}
 
 

@@ -11,7 +11,7 @@
 //   flash_attention_bwd_dq     _bwd_dq_kernel (dq, tiled over queries,
 //                              scanning keys)
 //   flash_attention_bwd_dkv    _bwd_dkv_kernel (dk and dv, tiled over keys,
-//                              scanning queries)
+//                              scanning queries; 3xTF32 tensor cores)
 //
 // Semantics (those of the Pallas kernels):
 // - Layout by strides. q/k/v/out/dO/dq/dk/dv are read and written through
@@ -35,16 +35,40 @@
 // forward does 4 * B*H * Tq*Tk * D = 6.4 GFLOP against ~50 MB moved (q, k,
 // v, out), ~128 flops per byte, far above the ~20 where fp32 arithmetic
 // outside the tensor cores (67 TFLOP/s, TF32 stays off for parity) takes
-// over from 3.35 TB/s. The backward does 2.5x the forward's products. The
-// design keeps every score tile on chip (O(T) device-memory traffic) and
-// feeds the FMA units from shared memory with 16-byte loads: a 64 x 64
-// score tile per 256-thread block, each thread owning a 4 x 4 micro-tile
-// (rows ty + 16 i, columns tx + 16 j) so one float4 load of a row feeds
-// four FMAs per operand, and rows are padded to D + 4 floats so a
-// half-warp's row loads spread over all 32 banks. A thread owns the same
-// rows in the score tile and in the output tile, so the online-softmax
-// state (m, l) and the rescale stay in registers; row reductions are
-// shuffles across the 16 lanes that share a row.
+// over from 3.35 TB/s. The backward does 2.5x the forward's products. Every
+// kernel keeps its score tiles on chip (O(T) device-memory traffic).
+//
+// The forward, dq and fused kernels run on the FMA units, fed from shared
+// memory with 16-byte loads: a 64 x 64 score tile per 256-thread block,
+// each thread owning a 4 x 4 micro-tile (rows ty + 16 i, columns tx + 16 j)
+// so one float4 load of a row feeds four FMAs per operand, and rows are
+// padded to D + 4 floats so a half-warp's row loads spread over all 32
+// banks. A thread owns the same rows in the score tile and in the output
+// tile, so the online-softmax state (m, l) and the rescale stay in
+// registers; row reductions are shuffles across the 16 lanes that share a
+// row.
+//
+// The dK/dV kernel runs its four products on the tensor cores in 3xTF32
+// (tf32_mma.cuh: hi/lo tf32 splits, lo.hi + hi.lo + hi.hi, about fp32's
+// accuracy at 165 TFLOP/s): S^T = K Q^T and dP^T = V dO^T (both operands
+// K-major), then dV += Pv^T dO and dK += dS^T Q (dO and Q read MN-major,
+// which wgmma's tf32 does not take, hence mma.sync with fragments loaded by
+// hand). A block owns BK keys (64 up to D = 128, 32 at 256, 16 above) and
+// keeps K, V and the dK, dV tiles (in registers) while it scans the query
+// tiles of BQ rows (32 up to D = 256, 16 above) through a two-step
+// cp.async ring of Q, dO, lse and delta: the next step's copies are in
+// flight while the current one is computed on. Up to D = 64 two blocks
+// share an SM (89 KB of shared memory, at most 128 registers), which hides
+// more of the tensor cores' latency than one block with 64-row query
+// tiles. Per step, S^T and dP^T sum 32 head-dim columns per fresh register
+// tile, the softmax gradient (bias, causal mask, dropout) goes to shared
+// Pv^T and dS^T tiles, and each step's dK/dV contribution is summed in
+// fresh register tiles, then added with fp32 adds (the tensor cores' sums
+// are not rounded to nearest; their error grows with the length of a sum).
+// Each k-step loads and splits a warp's fragments first, then runs the
+// lo.hi, hi.lo and hi.hi passes over its independent products. Shared
+// rows of D + 4 floats keep the K-major fragment loads free of bank
+// conflicts; the MN-major ones of phase 2 meet two-way conflicts.
 //
 // The TPU scans K/V blocks along a sequential grid axis with state in
 // VMEM scratch. CUDA blocks run in no order, so each CUDA block owns one
@@ -54,22 +78,28 @@
 // and 64 x 64 sub-tiles of s/p/dp are computed once each and feed dq, dk
 // and dv together. Its row limit is the port's tile: 128 rows for
 // D <= 64, 64 for D <= 128 (what 227 KB of shared memory holds); longer
-// sequences take the dq and dkv kernels. Simple first: no tensor cores,
-// no cp.async/TMA pipelining yet.
+// sequences take the dq and dkv kernels.
 //
 // Head dims: the kernels are instantiated for D = 16, 32, ..., 128 (every
 // multiple of 16), 256, 384 and 512; the wrapper zero-pads any other
 // D <= 512 to the next of these (zero columns leave q.k and the output
-// unchanged; the scale stays 1/sqrt of the unpadded D). A thread owns
-// C = D / 16 output columns. The tiles shrink with D so that the dq and dkv
-// kernels' four operand tiles fit 227 KB of shared memory: 64 rows up to
-// D = 128, 32 rows (2 x 2 micro-tiles per thread) at D = 256 (64 would
-// need 284-302 KB), 16 rows (one score entry per thread) at D = 384 and
-// 512 (32 would need 269 KB for dq at D = 512). The fused backward, which
-// holds a whole (batch, head), is not built above D = 128.
+// unchanged; the scale stays 1/sqrt of the unpadded D). A head dim above
+// 512 runs as n = ceil(D / 512) slices of an instantiated width Ds (the
+// wrapper pads D to n * Ds): the grid gains a slice axis, and a block forms
+// its scores (and dP) over the whole head dim, streaming q/k (dO/v) through
+// its shared tiles one slice at a time with its own slice last, then
+// writes only its slice of out, dq, dk or dv (lse by slice 0). At D <= 512
+// there is one slice and nothing is streamed twice. In the SIMT kernels a
+// thread owns C = D / 16 output columns, and the tiles shrink with D so
+// that the dq kernel's four operand tiles fit 227 KB of shared memory: 64
+// rows up to D = 128, 32 rows (2 x 2 micro-tiles per thread) at D = 256,
+// 16 rows (one score entry per thread) at D = 384 and 512. The fused
+// backward, which holds a whole (batch, head), is not built above D = 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -324,12 +354,15 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
   const int q0 = blockIdx.x * T;
+  // head-dim slices (P.D = nsl * D above 512): this block writes slice sl
+  const int nsl = P.D / D, sl = blockIdx.z;
+  const float* qb = q + b * P.q.b + h * P.q.h;
   const float* kb = k + b * P.k.b + h * P.k.h;
   const float* vb = v + b * P.v.b + h * P.v.h;
   const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
 
-  // the TPU kernel scales q before the product
-  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, T, P.Tq, P.scale);
+  // the TPU kernel scales q before the product; with one slice, q stays
+  if (nsl == 1) load_rows<D>(Qs, qb, P.q.t, q0, T, P.Tq, P.scale);
 
   uint32_t u[MI] = {};
   if (seed) {
@@ -350,13 +383,18 @@ __global__ void __launch_bounds__(kThreads)
   const int upper = key_tiles(P, q0, T);
   for (int j = 0; j < upper; ++j) {
     const int k0 = j * T;
-    __syncthreads();  // the previous tile's K/V/P are consumed
-    load_rows<D>(Ks, kb, P.k.t, k0, T, P.Tk, 1.f);
-    load_rows<D>(Vs, vb, P.v.t, k0, T, P.Tk, 1.f);
-    __syncthreads();
-
     float s[MI][MI] = {};
-    dot_tile<D, MI>(s, Qs, ty, Ks, tx);
+    // the scores over every slice of the head dim, this block's own slice
+    // last, so V's slice and the output's columns are this block's
+    for (int i = 1; i <= nsl; ++i) {
+      const int c = (sl + i) % nsl * D;
+      __syncthreads();  // the previous slice's or tile's K/V/P are consumed
+      if (nsl > 1) load_rows<D>(Qs, qb + c, P.q.t, q0, T, P.Tq, P.scale);
+      load_rows<D>(Ks, kb + c, P.k.t, k0, T, P.Tk, 1.f);
+      if (i == nsl) load_rows<D>(Vs, vb + c, P.v.t, k0, T, P.Tk, 1.f);
+      __syncthreads();
+      dot_tile<D, MI>(s, Qs, ty, Ks, tx);
+    }
 
     float bj[MI];
 #pragma unroll
@@ -395,7 +433,7 @@ __global__ void __launch_bounds__(kThreads)
     acc_pm<D, MI>(acc, Ps, ty, Vs, tx * C);
   }
 
-  float* ob = out + b * P.o.b + h * P.o.h;
+  float* ob = out + b * P.o.b + h * P.o.h + sl * D;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int qp = q0 + ty + 16 * i;
@@ -408,7 +446,8 @@ __global__ void __launch_bounds__(kThreads)
       if (seed) o[c] = o[c] / P.keep_prob;
     }
     store_c<C>(ob + qp * P.o.t + tx * C, o);
-    if (tx == 0) lse[(long long)g * P.Tq + qp] = m[i] + logf(safe_l);
+    if (tx == 0 && sl == 0)
+      lse[(long long)g * P.Tq + qp] = m[i] + logf(safe_l);
   }
 }
 
@@ -492,13 +531,18 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
   const int q0 = blockIdx.x * T;
+  // head-dim slices (P.D = nsl * D above 512): this block writes slice sl
+  const int nsl = P.D / D, sl = blockIdx.z;
+  const float* qb = q + b * P.q.b + h * P.q.h;
+  const float* ob = dout + b * P.dout.b + h * P.dout.h;
   const float* kb = k + b * P.k.b + h * P.k.h;
   const float* vb = v + b * P.v.b + h * P.v.h;
   const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
 
-  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, T, P.Tq, 1.f);
-  load_rows<D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, q0, T,
-               P.Tq, 1.f);
+  if (nsl == 1) {
+    load_rows<D>(Qs, qb, P.q.t, q0, T, P.Tq, 1.f);
+    load_rows<D>(dOs, ob, P.dout.t, q0, T, P.Tq, 1.f);
+  }
   float lq[MI], dlt[MI];
   uint32_t u[MI] = {};
   const uint32_t hh = seed ? head_hash(seed, g) : 0u;
@@ -520,14 +564,22 @@ __global__ void __launch_bounds__(kThreads)
   const int upper = key_tiles(P, q0, T);
   for (int j = 0; j < upper; ++j) {
     const int k0 = j * T;
-    __syncthreads();
-    load_rows<D>(Ks, kb, P.k.t, k0, T, P.Tk, 1.f);
-    load_rows<D>(Vs, vb, P.v.t, k0, T, P.Tk, 1.f);
-    __syncthreads();
-
     float s[MI][MI] = {}, dp[MI][MI] = {};
-    dot_tile<D, MI>(s, Qs, ty, Ks, tx);
-    dot_tile<D, MI>(dp, dOs, ty, Vs, tx);
+    // s and dp over every slice of the head dim, this block's own slice
+    // last, so K's slice is the one dq's columns need
+    for (int i = 1; i <= nsl; ++i) {
+      const int c = (sl + i) % nsl * D;
+      __syncthreads();
+      if (nsl > 1) {
+        load_rows<D>(Qs, qb + c, P.q.t, q0, T, P.Tq, 1.f);
+        load_rows<D>(dOs, ob + c, P.dout.t, q0, T, P.Tq, 1.f);
+      }
+      load_rows<D>(Ks, kb + c, P.k.t, k0, T, P.Tk, 1.f);
+      load_rows<D>(Vs, vb + c, P.v.t, k0, T, P.Tk, 1.f);
+      __syncthreads();
+      dot_tile<D, MI>(s, Qs, ty, Ks, tx);
+      dot_tile<D, MI>(dp, dOs, ty, Vs, tx);
+    }
 #pragma unroll
     for (int jj = 0; jj < MI; ++jj) {
       const int kp = k0 + tx + 16 * jj;
@@ -548,7 +600,7 @@ __global__ void __launch_bounds__(kThreads)
     acc_pm<D, MI>(acc, dSs, ty, Ks, tx * C);
   }
 
-  float* db = dq + b * P.dq.b + h * P.dq.h;
+  float* db = dq + b * P.dq.b + h * P.dq.h + sl * D;
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
     const int qp = q0 + ty + 16 * i;
@@ -557,11 +609,54 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// backward: dk, dv (key tile per block, scanning query tiles)
+// backward: dk, dv (key tile per block, scanning query tiles), 3xTF32
 // ---------------------------------------------------------------------------
 
+// Tiles of the dK/dV kernel at head-dim slice D (see the note above): BK key
+// rows per block (what the dK and dV register tiles hold), BQ query rows
+// per step of the scan, two steps in flight; up to D = 64 two blocks share
+// an SM (89 KB of shared memory and at most 128 registers each), above
+// one. Phase 1 (S^T = K Q^T and dP^T = V dO^T, [BK x BQ]): W1 warps, each
+// one 16-row fragment row x NT1 fragment columns. Phase 2 (dV += Pv^T dO,
+// dK += dS^T Q, [BK x D]): 8 warps, warp w owning fragment row w % MT and
+// the NJ fragment columns w / MT + NG j.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+struct DkvCfg {
+  static constexpr int BK = D <= 128 ? 64 : D <= 256 ? 32 : 16;
+  static constexpr int BQ = D <= 256 ? 32 : 16;
+  static constexpr int kBlocks = D <= 64 ? 2 : 1;  // per SM
+  static constexpr int LD = D + 4;    // K, V, Q, dO rows (K-major banks)
+  static constexpr int LDP = BQ + 4;  // Pv^T and dS^T rows
+  static constexpr int MT = BK / 16;
+  static constexpr int T1 = MT * (BQ / 8);  // phase 1's 16 x 8 fragments
+  static constexpr int NT1 = T1 >= 8 ? T1 / 8 : 1;
+  static constexpr int W1 = T1 / NT1;
+  static constexpr int NG = 8 / MT;
+  static constexpr int NJ = D / 8 / NG;
+  static constexpr int KV = 2 * BK * LD;          // K and V
+  static constexpr int QS = 2 * BQ * LD + 2 * BQ;  // a step: Q, dO, lse, delta
+  static constexpr size_t kSmem =
+      (size_t)(KV + 2 * QS + 2 * BK * LDP) * sizeof(float);
+  static_assert(W1 <= 8 && NJ * NG * 8 == D, "warp tiling");
+};
+
+// Rows [row0, row0 + R) of one head (D floats each, row stride ts) into
+// shared rows of stride D + 4 by cp.async; rows at or past limit are
+// zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        long long ts, int row0, int limit) {
+  constexpr int V4 = D / 4, LD = D + 4;
+  for (int idx = threadIdx.x; idx < R * V4; idx += kThreads) {
+    const int r = idx / V4, c = (idx % V4) * 4;
+    const bool ok = row0 + r < limit;
+    tf32::cp_async16(dst + r * LD + c, ok ? src + (row0 + r) * ts + c : src,
+                     ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, DkvCfg<D>::kBlocks)
     flash_bwd_dkv_kernel(Problem P, const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v,
@@ -571,68 +666,251 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ bias,
                          const int* __restrict__ seed,
                          float* __restrict__ dk, float* __restrict__ dv) {
-  constexpr int C = D / 16;
-  constexpr int LD = D + 4;
-  constexpr int T = tile_rows(D), MI = T / 16, PLD = p_ld(T);
+  using Cfg = DkvCfg<D>;
+  constexpr int BK = Cfg::BK, BQ = Cfg::BQ, LD = Cfg::LD, LDP = Cfg::LDP;
+  constexpr int MT = Cfg::MT, NT1 = Cfg::NT1, NG = Cfg::NG, NJ = Cfg::NJ;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
-  float* Vs = Ks + T * LD;
-  float* Qs = Vs + T * LD;
-  float* dOs = Qs + T * LD;
-  float* PvT = dOs + T * LD;
-  float* dST = PvT + T * PLD;
-  float* lse_s = dST + T * PLD;
-  float* delta_s = lse_s + T;
+  float* Vs = Ks + BK * LD;
+  float* ring = Vs + BK * LD;  // 2 steps of Q, dO, lse, delta
+  float* PvT = ring + 2 * Cfg::QS;
+  float* dST = PvT + BK * LDP;
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
-  const int k0 = blockIdx.x * T;
+  const int k0 = blockIdx.x * BK;
+  // head-dim slices (P.D = nsl * D above 512): this block writes slice sl
+  const int nsl = P.D / D, sl = blockIdx.z;
+  const float* kb = k + b * P.k.b + h * P.k.h;
+  const float* vb = v + b * P.v.b + h * P.v.h;
   const float* qb = q + b * P.q.b + h * P.q.h;
   const float* ob = dout + b * P.dout.b + h * P.dout.h;
-
-  load_rows<D>(Ks, k + b * P.k.b + h * P.k.h, P.k.t, k0, T, P.Tk, 1.f);
-  load_rows<D>(Vs, v + b * P.v.b + h * P.v.h, P.v.t, k0, T, P.Tk, 1.f);
-  float bk[MI];
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int kp = k0 + ty + 16 * i;
-    bk[i] = (bias && kp < P.Tk) ? bias[(long long)b * P.Tk + kp] : 0.f;
-  }
   const uint32_t hh = seed ? head_hash(seed, g) : 0u;
+  const float inv_keep = 1.f / P.keep_prob;
 
-  float dka[MI][C], dva[MI][C];
+  // K, V (slice c) and step `st`'s Q, dO (slice c), lse and delta
+  auto load_kv = [&](int c) {
+    cp_rows<BK, D>(Ks, kb + c, P.k.t, k0, P.Tk);
+    cp_rows<BK, D>(Vs, vb + c, P.v.t, k0, P.Tk);
+  };
+  auto load_q = [&](int st, int q0, int c) {
+    float* Qs = ring + st * Cfg::QS;
+    cp_rows<BQ, D>(Qs, qb + c, P.q.t, q0, P.Tq);
+    cp_rows<BQ, D>(Qs + BQ * LD, ob + c, P.dout.t, q0, P.Tq);
+    float* st_s = Qs + 2 * BQ * LD;
+    for (int r = threadIdx.x; r < BQ; r += kThreads) {
+      const bool ok = q0 + r < P.Tq;
+      const long long at = (long long)g * P.Tq + q0 + r;
+      tf32::cp_async4(st_s + r, ok ? lse + at : lse, ok);
+      tf32::cp_async4(st_s + BQ + r, ok ? delta + at : delta, ok);
+    }
+  };
+
+  // phase 1: warp < W1 owns key rows m1 .. m1 + 15, query columns n1 ..
+  // n1 + 8 NT1 - 1 of the step's tiles
+  const bool p1 = warp < Cfg::W1;
+  const int m1 = (warp % MT) * 16, n1 = (warp / MT) * NT1 * 8;
+  float bk[2];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int half = 0; half < 2; ++half) {
+    const int kp = k0 + m1 + gid + 8 * half;
+    bk[half] = (bias && kp < P.Tk) ? bias[(long long)b * P.Tk + kp] : 0.f;
+  }
+  // phase 2: key rows m2 .. m2 + 15, head-dim columns 8 (ng + NG j) ..
+  const int m2 = (warp % MT) * 16, ng = warp / MT;
+  float dka[NJ][4], dva[NJ][4];
 #pragma unroll
-    for (int c = 0; c < C; ++c) dka[i][c] = dva[i][c] = 0.f;
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
 
-  const int num_q = (P.Tq + T - 1) / T;
-  for (int iq = first_query_tile(P, k0, T); iq < num_q; ++iq) {
-    const int q0 = iq * T;
+  const int num_q = (P.Tq + BQ - 1) / BQ;
+  const int iq0 = first_query_tile(P, k0, BQ);
+  // one slice: K and V stay, the query tiles stream through a 2-step
+  // cp.async ring; several: every (query tile, slice) step reloads all four
+  // operands (the buffers hold one slice), this block's own slice last so
+  // that phase 2 finds its Q and dO columns in place
+  const bool ring2 = nsl == 1;
+  if (ring2 && iq0 < num_q) {
+    load_kv(0);
+    load_q(0, iq0 * BQ, 0);
+    tf32::cp_async_commit();
+  }
+  for (int iq = iq0; iq < num_q; ++iq) {
+    const int q0 = iq * BQ;
+    int st = 0;
+    float sT[NT1][4], dpT[NT1][4];
+#pragma unroll
+    for (int j = 0; j < NT1; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
+    for (int i = 1; i <= nsl; ++i) {
+      if (ring2) {
+        // the other step's buffers were consumed before the last barrier
+        st = (iq - iq0) & 1;
+        if (iq + 1 < num_q) load_q(st ^ 1, q0 + BQ, 0);
+        tf32::cp_async_commit();
+        tf32::cp_async_wait<1>();
+      } else {
+        const int c = (sl + i) % nsl * D;
+        __syncthreads();  // the previous slice's operands are consumed
+        load_kv(c);
+        load_q(0, q0, c);
+        tf32::cp_async_commit();
+        tf32::cp_async_wait<0>();
+      }
+      __syncthreads();
+      if (!p1) continue;
+      const float* Qs = ring + st * Cfg::QS;
+      const float* dOs = Qs + BQ * LD;
+      // S^T and dP^T over this slice, 32 columns of the head dim per fresh
+      // register tile
+#pragma unroll 1
+      for (int d0 = 0; d0 < D; d0 += 32) {
+        float ps[NT1][4], pd[NT1][4];
+#pragma unroll
+        for (int j = 0; j < NT1; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ps[j][e] = pd[j][e] = 0.f;
+#pragma unroll
+        for (int kk = d0; kk < d0 + 32; kk += 8) {
+          if (kk >= D) break;  // D = 16, 48, 80, 112: a half stage
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          uint32_t qh[NT1][2], ql[NT1][2], oh[NT1][2], ol[NT1][2];
+          tf32::frag_a<true, LD>(Ks, m1, kk, kh, kl);
+          tf32::frag_a<true, LD>(Vs, m1, kk, vh, vl);
+#pragma unroll
+          for (int j = 0; j < NT1; ++j) {
+            tf32::frag_b<true, LD>(Qs, n1 + 8 * j, kk, qh[j], ql[j]);
+            tf32::frag_b<true, LD>(dOs, n1 + 8 * j, kk, oh[j], ol[j]);
+          }
+          // each pass runs 2 NT1 independent products: small terms first
+#pragma unroll
+          for (int j = 0; j < NT1; ++j) {
+            tf32::mma(ps[j], kl, qh[j]);
+            tf32::mma(pd[j], vl, oh[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NT1; ++j) {
+            tf32::mma(ps[j], kh, ql[j]);
+            tf32::mma(pd[j], vh, ol[j]);
+          }
+#pragma unroll
+          for (int j = 0; j < NT1; ++j) {
+            tf32::mma(ps[j], kh, qh[j]);
+            tf32::mma(pd[j], vh, oh[j]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < NT1; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            sT[j][e] += ps[j][e];
+            dpT[j][e] += pd[j][e];
+          }
+      }
+    }
+    const float* Qs = ring + st * Cfg::QS;
+    const float* dOs = Qs + BQ * LD;
+    if (p1) {
+      // Pv^T and dS^T of the warp's entries: key rows m1 + gid (+ 8),
+      // query columns n1 + 8 j + 2 tig (+ 1)
+      const float* lse_s = Qs + 2 * BQ * LD;
+      const float* delta_s = lse_s + BQ;
+#pragma unroll
+      for (int j = 0; j < NT1; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ql = n1 + 8 * j + 2 * tig + e, qp = q0 + ql;
+          const float lq = lse_s[ql], dq = delta_s[ql];
+          const uint32_t u = seed ? row_hash(hh, qp) : 0u;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int kl = m1 + gid + 8 * half, kp = k0 + kl;
+            const float sv = sT[j][2 * half + e] * P.scale + bk[half];
+            const float p = visible(P, qp, kp) ? expf(sv - lq) : 0.f;
+            float pv = p, dp = dpT[j][2 * half + e];
+            if (seed) {
+              const bool keep = keep_bit(u, kp, P.threshold);
+              pv = keep ? p * inv_keep : 0.f;
+              dp = keep ? dp * inv_keep : 0.f;
+            }
+            PvT[kl * LDP + ql] = pv;
+            dST[kl * LDP + ql] = p * (dp - dq) * P.scale;
+          }
+        }
+    }
     __syncthreads();
-    load_rows<D>(Qs, qb, P.q.t, q0, T, P.Tq, 1.f);
-    load_rows<D>(dOs, ob, P.dout.t, q0, T, P.Tq, 1.f);
-    load_row_stats(lse_s, delta_s, lse, delta, P, g, q0, T);
-    __syncthreads();
-
-    float sT[MI][MI] = {}, dpT[MI][MI] = {};
-    dot_tile<D, MI>(sT, Ks, ty, Qs, tx);
-    dot_tile<D, MI>(dpT, Vs, ty, dOs, tx);
-    grad_core_t<MI>(P, sT, dpT, bk, lse_s, delta_s, seed, hh, q0, k0, ty,
-                    tx, PvT, dST);
-    __syncthreads();
-    acc_pm<D, MI>(dva, PvT, ty, dOs, tx * C);
-    acc_pm<D, MI>(dka, dST, ty, Qs, tx * C);
+    // dV += Pv^T dO and dK += dS^T Q over the step's BQ queries, into fresh
+    // register tiles added with fp32 adds
+    float pk[NJ][4], pv[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pk[j][e] = pv[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < BQ; kk += 8) {
+      uint32_t ph[4], pl[4], sh[4], sl4[4];
+      tf32::frag_a<true, LDP>(PvT, m2, kk, ph, pl);
+      tf32::frag_a<true, LDP>(dST, m2, kk, sh, sl4);
+      // two fragment columns at a time (the last alone where NJ is odd),
+      // each pass over up to 4 independent products: small terms first
+#pragma unroll
+      for (int j0 = 0; j0 < NJ; j0 += 2) {
+        constexpr int W = 2;
+        uint32_t oh[W][2], ol[W][2], qh[W][2], ql[W][2];
+#pragma unroll
+        for (int u = 0; u < W; ++u) {
+          if (j0 + u >= NJ) continue;
+          const int n = (ng + NG * (j0 + u)) * 8;
+          tf32::frag_b<false, LD>(dOs, n, kk, oh[u], ol[u]);
+          tf32::frag_b<false, LD>(Qs, n, kk, qh[u], ql[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < W; ++u) {
+          if (j0 + u >= NJ) continue;
+          tf32::mma(pv[j0 + u], pl, oh[u]);
+          tf32::mma(pk[j0 + u], sl4, qh[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < W; ++u) {
+          if (j0 + u >= NJ) continue;
+          tf32::mma(pv[j0 + u], ph, ol[u]);
+          tf32::mma(pk[j0 + u], sh, ql[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < W; ++u) {
+          if (j0 + u >= NJ) continue;
+          tf32::mma(pv[j0 + u], ph, oh[u]);
+          tf32::mma(pk[j0 + u], sh, qh[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dka[j][e] += pk[j][e];
+        dva[j][e] += pv[j][e];
+      }
+    __syncthreads();  // Pv^T, dS^T and this step's ring slot are consumed
   }
 
-  float* dkb = dk + b * P.dk.b + h * P.dk.h;
-  float* dvb = dv + b * P.dv.b + h * P.dv.h;
+  float* dkb = dk + b * P.dk.b + h * P.dk.h + sl * D;
+  float* dvb = dv + b * P.dv.b + h * P.dv.h + sl * D;
 #pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int kp = k0 + ty + 16 * i;
+  for (int half = 0; half < 2; ++half) {
+    const int kp = k0 + m2 + gid + 8 * half;
     if (kp >= P.Tk) continue;
-    store_c<C>(dkb + kp * P.dk.t + tx * C, dka[i]);
-    store_c<C>(dvb + kp * P.dv.t + tx * C, dva[i]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = (ng + NG * j) * 8 + 2 * tig;
+      *reinterpret_cast<float2*>(dkb + kp * P.dk.t + c) =
+          make_float2(dka[j][2 * half], dka[j][2 * half + 1]);
+      *reinterpret_cast<float2*>(dvb + kp * P.dv.t + c) =
+          make_float2(dva[j][2 * half], dva[j][2 * half + 1]);
+    }
   }
 }
 
@@ -780,15 +1058,25 @@ bool too_many_heads(const Problem& P) {
   return (long long)P.B * P.H > 65535;
 }
 
-// One block per (query tile, batch * head).
-dim3 q_grid(const Problem& P, int D) {
-  const int T = tile_rows(D);
-  return dim3((P.Tq + T - 1) / T, P.B * P.H);
+// Head-dim slices of a call: one up to 512 (the widest instantiation),
+// else ceil(D / 512) slices of D / slices columns each, which must be a
+// head dim the kernels are built for (kernels/flash_attention.py
+// head_dim_plan makes it so). 0 when D cannot be sliced so.
+int slices(int D) {
+  const int n = (D + 511) / 512;
+  return D % n == 0 ? n : 0;
 }
 
-// Dynamic shared memory of each kernel, in bytes: at most 208 KB (the
-// fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB, dkv 143 KB;
-// at D = 512 fwd 98 KB, dq 130 KB, dkv 132 KB.
+// One block per (query tile, batch * head, head-dim slice).
+dim3 q_grid(const Problem& P, int D) {
+  const int T = tile_rows(D);
+  return dim3((P.Tq + T - 1) / T, P.B * P.H, P.D / D);
+}
+
+// Dynamic shared memory of the SIMT kernels, in bytes: at most 208 KB
+// (the fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB; at
+// D = 512 fwd 98 KB, dq 130 KB. The dK/dV kernel's is DkvCfg::kSmem: 89
+// KB at D = 64, 154 KB at 128, 209 KB at 256, 201 KB at 512.
 constexpr size_t fwd_smem(int D) {
   return (size_t)(3 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
@@ -796,11 +1084,6 @@ constexpr size_t fwd_smem(int D) {
 constexpr size_t dq_smem(int D) {
   return (size_t)(4 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
-}
-constexpr size_t dkv_smem(int D) {
-  return (size_t)(4 * tile_rows(D) * (D + 4) +
-                  2 * tile_rows(D) * p_ld(tile_rows(D)) +
-                  2 * tile_rows(D)) * sizeof(float);
 }
 constexpr size_t fused_smem(int D, int NT) {
   return (size_t)(4 * NT * kTile * (D + 4) + 2 * kTile * p_ld(kTile) +
@@ -839,7 +1122,8 @@ cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
 }
 
 // The head dims the kernels are built for (kernels/flash_attention.py
-// HEAD_DIMS; the wrapper pads any other D <= 512 up to one of them).
+// HEAD_DIMS; the wrapper pads any other D <= 512 up to one of them, and a
+// D above 512 to slices of one of them).
 #define DISPATCH_D(D, ...)                                    \
   switch (D) {                                                \
     case 16: { constexpr int kD = 16; __VA_ARGS__; } break;   \
@@ -872,11 +1156,12 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
   Problem P;
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
-  if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
+  const int n = slices(P.D);
+  if (too_many_heads(P) || n == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D, err = launch(flash_fwd_kernel<kD>, q_grid(P, kD),
-                               fwd_smem(kD), stream, P, q, k, v, bias, seed,
-                               out, lse));
+  DISPATCH_D(P.D / n, err = launch(flash_fwd_kernel<kD>, q_grid(P, kD),
+                                   fwd_smem(kD), stream, P, q, k, v, bias,
+                                   seed, out, lse));
   return (int)err;
 }
 
@@ -891,11 +1176,12 @@ extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
   Problem P;
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
-  if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
+  const int n = slices(P.D);
+  if (too_many_heads(P) || n == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D, err = launch(flash_bwd_dq_kernel<kD>, q_grid(P, kD),
-                               dq_smem(kD), stream, P, q, k, v, dout, lse,
-                               delta, bias, seed, dq));
+  DISPATCH_D(P.D / n, err = launch(flash_bwd_dq_kernel<kD>, q_grid(P, kD),
+                                   dq_smem(kD), stream, P, q, k, v, dout,
+                                   lse, delta, bias, seed, dq));
   return (int)err;
 }
 
@@ -910,13 +1196,16 @@ extern "C" int flash_attention_bwd_dkv(const float* q, const float* k,
   Problem P;
   if (!make_problem(dims, scale, causal, keep_prob, threshold, &P))
     return (int)cudaGetLastError();
-  if (too_many_heads(P)) return (int)cudaErrorInvalidValue;
-  const int T = tile_rows(P.D);
-  dim3 grid((P.Tk + T - 1) / T, P.B * P.H);
+  const int n = slices(P.D);
+  if (too_many_heads(P) || n == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D, err = launch(flash_bwd_dkv_kernel<kD>, grid,
-                               dkv_smem(kD), stream, P, q, k, v, dout, lse,
-                               delta, bias, seed, dk, dv));
+  DISPATCH_D(P.D / n, {
+    constexpr int BK = DkvCfg<kD>::BK;
+    err = launch(flash_bwd_dkv_kernel<kD>,
+                 dim3((P.Tk + BK - 1) / BK, P.B * P.H, n),
+                 DkvCfg<kD>::kSmem, stream, P, q, k, v, dout, lse, delta,
+                 bias, seed, dk, dv);
+  });
   return (int)err;
 }
 

@@ -30,298 +30,78 @@
 //
 // What bounds them on the card: operations. The forward does 2 N V H flops
 // (1.9e11 at BERT-base's N = 4096, V = 30522, H = 768) against ~100 MB
-// read; the backward 6 N V H (logits once, then dW and dh).
+// read; the backward 6 N V H (logits once, then dW and dh). All four
+// products run on the tensor cores in 3xTF32 (tf32_mma.cuh): about fp32's
+// accuracy at a third of the dense TF32 rate, 165 of 495 TFLOP/s, against
+// 67 for the FP32 FMA units. The tensor cores' fp32 sums are not rounded
+// to nearest and their error grows with the number of products summed into
+// one register, so every product sums a stage of K into a fresh register
+// tile and adds it to its output tile with fp32 adds.
 //
-// Forward: fp32 SIMT tiles on the FMA units (67 TFLOP/s): 256 threads,
-// each owning a 4 x 4 micro-tile of a 64 x 64 logits tile that accumulates
-// over H in 32-wide chunks staged through shared memory (rows padded to 36
-// floats, so the float4 reads of a quarter-warp hit distinct banks), the
-// next chunk's float4 loads in flight in registers while the current one
-// is multiplied. A block owns a 64-row tile and a contiguous split of the
-// vocab tiles, folding each logits tile into a running (max, sum, picked)
-// per row in registers; the vocabulary is split over ~16 blocks per SM so
-// that N / 64 row tiles fill the card, and a merge kernel combines the
-// splits' partials.
+// Forward: the logits h . W^T are K-major x K-major (H contiguous in both),
+// the one layout wgmma takes for tf32, so they run on wgmma. A 256-thread
+// block (two warpgroups, 64 rows each) owns a 128-row tile of h and a
+// contiguous split of the 128-column vocab tiles (the wrapper picks the
+// split count so that the (row tile, split) blocks fill whole waves of one
+// block per SM), and walks (tile, 64-deep k-block) stages through a
+// two-stage cp.async ring of raw h and W. Per stage, the block splits W's
+// tile once into hi and lo tiles in wgmma's unswizzled K-major layout (the
+// B operand must sit in shared memory), each warp splits its A fragments of
+// h in registers, and each warpgroup runs 8 k-steps x (lo.hi, hi.lo,
+// hi.hi) wgmma m64n128k8 products into a fresh 64-register tile, waited
+// for and added with fp32 adds (24 tensor-core sums per register). When a
+// tile's last stage is in, each thread folds its 2 rows x 32 columns of
+// logits (plus bias, masked past V) into a running (max, sum of exp,
+// picked logit) per row, in registers; a warp owns its 16 rows across all
+// 128 columns, so at the end the four lanes of a row combine by shuffles
+// and one writes the split's partial, and the merge kernel combines the
+// splits. The logits never leave the registers.
 //
-// Backward: three products of one template per vocabulary chunk, on the
-// tensor cores in 3xTF32 (mma.sync.aligned.m16n8k8, .tf32 operands): each
-// operand is split in registers as hi = cvt.rna.tf32(x), lo =
-// cvt.rna.tf32(x - hi), and lo.hi + hi.lo + hi.hi accumulate in fp32, which
-// keeps about fp32's accuracy (plain TF32 keeps ~3 digits) at a third of
-// the TF32 rate: 165 of 495 TFLOP/s, against 67 for the FMA units.
+// Backward: one mma.sync product template serves its three products:
+// - A block computes a 128 x BN output tile with 8 warps, each owning
+//   64 x BN / 4 (4 x BN / 32 fragments of 16 x 8); operands pass through
+//   shared memory in stages of depth 32, a ring of 4 filled by cp.async (16
+//   bytes a thread where H % 4 == 0 and the data is 16-byte aligned, else
+//   4), zero-filled past every edge (src-size 0). Fragments are loaded by
+//   hand, so an operand may be K-major (h and W in the logits, D in dh) or
+//   MN-major (D and h in dW, W in dh): wgmma takes tf32 operands only
+//   K-major, which the dW product's are not. Shared rows are padded
+//   (K-major: 36 floats; MN-major: width + 8) so that each fragment load of
+//   a warp hits 32 distinct banks. Each k-step of 8 splits all of a warp's
+//   fragments first, then runs the lo.hi, hi.lo and hi.hi passes, each of
+//   4 x BN / 32 independent products, 12 tensor-core sums per register of
+//   a stage's fresh tile, whatever K is (K = N = 4096 in dW). The two tiles
+//   take ~200 registers: one 256-thread block per SM.
 // - One recompute: the logits of a chunk are computed once and their
 //   gradient D stored ([N, Vc], 32 MB at N = 4096, Vc = 2048, which stays
 //   in the 50 MB L2 between the product that writes it and the two that
 //   read it). The pair does 6 N V H flops where the TPU's does 8.
-// - The template: a block computes a 128 x BN output tile with 8 warps,
-//   each owning 64 x BN / 4 (4 x BN / 32 fragments of 16 x 8); operands
-//   pass through shared memory in stages of depth 32, a ring of 4 filled by
-//   cp.async (16 bytes a thread where H % 4 == 0 and the data is 16-byte
-//   aligned, else 4), zero-filled past every edge (src-size 0). Fragments
-//   are loaded by hand, so an operand may be K-major (h and W in the
-//   logits, D in dh) or MN-major (D and h in dW, W in dh): wgmma takes tf32
-//   operands only K-major, which the dW product's are not. Shared rows are
-//   padded (K-major: 36 floats; MN-major: width + 8) so that each fragment
-//   load of a warp hits 32 distinct banks. Each k-step of 8 splits all of
-//   a warp's fragments first, then runs the lo.hi, hi.lo and hi.hi passes,
-//   each of 4 x BN / 32 independent products.
-// - Accuracy: the tensor cores' fp32 sums are not rounded to nearest, and
-//   their error grows with the number of products summed into one
-//   register (K / 8 x 3). So each stage's products go into a fresh
-//   register tile, which is then added into the output tile with fp32
-//   adds: 12 tensor-core sums per register, whatever K is (K = N = 4096 in
-//   dW). The two tiles take ~200 registers: one 256-thread block per SM.
 // - Waves on 132 SMs: logits tiles are 128 x 128 (512 per chunk at
 //   N = 4096: 3.9 waves), dW and dh tiles 128 x 96 (H = 768 is 8 x 96: dW
 //   16 x 8 = 128 tiles at Vc = 2048, one wave; dh 32 x 8 = 256, two).
-// - Deterministic: no atomics. Each output element is summed by one thread
-//   in a fixed order; db by one thread per column (the first H tile's
-//   blocks) in row order; dh is read, added to and written once per chunk,
-//   in chunk order.
 // - Ignored rows and columns past V get D exactly 0 (no exp is evaluated
 //   there); they are not compacted away, so the backward needs no
 //   device-to-host sync. No hidden-size cap: H is only a loop bound.
-// Not yet: wgmma, TMA, warp specialisation, a persistent grid.
+//
+// Deterministic: no atomics. Each output element is summed by one thread
+// in a fixed order; db by one thread per column (the first H tile's
+// blocks) in row order; dh is read, added to and written once per chunk,
+// in chunk order; the forward's partials are combined in a fixed order.
+// Not yet: TMA, warp specialisation, a persistent grid, wgmma in the
+// backward.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int kKC = 32;        // H chunk staged per step
-constexpr int kLdk = kKC + 4;  // padded row stride of a staged chunk
-constexpr int kVT = 64;        // columns of a logits tile (vocab or rows)
+constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
-
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Staging of an R x W tile of a row-major [n, H] matrix (rows x0.., columns
-// c0..) through registers into shared memory (row stride W + 4): fetch()
-// issues a thread's loads, stash() stores them, so the next tile's loads
-// are in flight while the current one is computed on. With `vec` (H % 4
-// == 0 and 16-byte aligned data) a thread moves float4s, else floats;
-// rows past n and columns past H read as 0.
-template <int R, int W>
-struct Stage {
-  static constexpr int kPer = R * W / kThreads;  // floats per thread
-  float r[kPer];
-
-  __device__ __forceinline__ void fetch(const float* __restrict__ X, int x0,
-                                        int n, int H, int c0, bool vec) {
-    if (vec) {
-#pragma unroll
-      for (int u = 0; u < kPer / 4; ++u) {
-        const int idx = threadIdx.x + u * kThreads;
-        const int row = idx / (W / 4), col = (idx % (W / 4)) * 4;
-        const int gr = x0 + row, gc = c0 + col;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (gr < n && gc < H)
-          v = *reinterpret_cast<const float4*>(X + (long long)gr * H + gc);
-        r[4 * u] = v.x; r[4 * u + 1] = v.y; r[4 * u + 2] = v.z;
-        r[4 * u + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int idx = threadIdx.x + u * kThreads;
-        const int row = idx / W, col = idx % W;
-        const int gr = x0 + row, gc = c0 + col;
-        r[u] = (gr < n && gc < H) ? X[(long long)gr * H + gc] : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void stash(float* S, bool vec) const {
-    constexpr int LD = W + 4;
-    if (vec) {
-#pragma unroll
-      for (int u = 0; u < kPer / 4; ++u) {
-        const int idx = threadIdx.x + u * kThreads;
-        const int row = idx / (W / 4), col = (idx % (W / 4)) * 4;
-        *reinterpret_cast<float4*>(S + row * LD + col) =
-            make_float4(r[4 * u], r[4 * u + 1], r[4 * u + 2], r[4 * u + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int idx = threadIdx.x + u * kThreads;
-        S[(idx / W) * LD + idx % W] = r[u];
-      }
-    }
-  }
-};
-
-// acc[i][j] += A[a0 + ty + 16 i] . B[b0 + tx + 16 j] over the H columns of
-// row-major A [na, H] and B [nb, H]; rows past na / nb read as 0. Streams
-// 32-column chunks of the 16 MA rows of A and 16 MB rows of B through two
-// buffers each of shared memory (As: 2 x 16 MA rows, Bs: 2 x 16 MB rows,
-// row stride kLdk), the next chunk's loads in flight while the current
-// one is multiplied. Begins with a barrier (the caller's earlier use of
-// As/Bs is over) and ends with one.
-template <int MA, int MB>
-__device__ __forceinline__ void tile_dot(float (&acc)[MA][MB],
-                                         const float* __restrict__ A, int a0,
-                                         int na, const float* __restrict__ B,
-                                         int b0, int nb, int H, bool vec,
-                                         float* As, float* Bs) {
-  constexpr int RA = 16 * MA, RB = 16 * MB;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int chunks = (H + kKC - 1) / kKC;
-  Stage<RA, kKC> sa;
-  Stage<RB, kKC> sb;
-  __syncthreads();
-  sa.fetch(A, a0, na, H, 0, vec);
-  sb.fetch(B, b0, nb, H, 0, vec);
-  sa.stash(As, vec);
-  sb.stash(Bs, vec);
-  __syncthreads();
-  for (int ch = 0; ch < chunks; ++ch) {
-    const float* Ac = As + (ch & 1) * RA * kLdk;
-    const float* Bc = Bs + (ch & 1) * RB * kLdk;
-    const bool more = ch + 1 < chunks;
-    if (more) {
-      sa.fetch(A, a0, na, H, (ch + 1) * kKC, vec);
-      sb.fetch(B, b0, nb, H, (ch + 1) * kKC, vec);
-    }
-#pragma unroll 4
-    for (int c = 0; c < kKC; c += 4) {
-      float4 a[MA], b[MB];
-#pragma unroll
-      for (int i = 0; i < MA; ++i)
-        a[i] = *reinterpret_cast<const float4*>(Ac + (ty + 16 * i) * kLdk + c);
-#pragma unroll
-      for (int j = 0; j < MB; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Bc + (tx + 16 * j) * kLdk + c);
-#pragma unroll
-      for (int i = 0; i < MA; ++i)
-#pragma unroll
-        for (int j = 0; j < MB; ++j)
-          acc[i][j] += a[i].x * b[j].x + a[i].y * b[j].y + a[i].z * b[j].z +
-                       a[i].w * b[j].w;
-    }
-    if (more) {
-      sa.stash(As + ((ch + 1) & 1) * RA * kLdk, vec);
-      sb.stash(Bs + ((ch + 1) & 1) * RB * kLdk, vec);
-    }
-    __syncthreads();
-  }
-}
 
 __device__ __forceinline__ long long clamp_label(long long lab, int V) {
   return lab < 0 ? 0 : (lab >= V ? V - 1 : lab);
-}
-
-// ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-// Partial (m, s, picked) of rows [64 bx, 64 bx + 64) over the vocab tiles
-// of split by: part[0|1|2][by * N + n].
-__global__ void __launch_bounds__(kThreads)
-    xent_fwd_partial_kernel(const float* __restrict__ h,
-                            const float* __restrict__ w,
-                            const float* __restrict__ bias,
-                            const long long* __restrict__ labels, int N,
-                            int V, int H, bool vec,
-                            float* __restrict__ part) {
-  __shared__ __align__(16) float As[2 * 64 * kLdk];
-  __shared__ __align__(16) float Bs[2 * kVT * kLdk];
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int r0 = blockIdx.x * 64;
-  const int tiles = (V + kVT - 1) / kVT;
-  const int per = (tiles + gridDim.y - 1) / gridDim.y;
-  const int t0 = blockIdx.y * per;
-  const int t1 = min(tiles, t0 + per);
-
-  long long lab[4];
-  float m[4], s[4], pk[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = r0 + ty + 16 * i;
-    lab[i] = n < N ? clamp_label(labels[n], V) : -1;
-    m[i] = kNeg;
-    s[i] = 0.f;
-    pk[i] = 0.f;
-  }
-
-  for (int t = t0; t < t1; ++t) {
-    const int v0 = t * kVT;
-    float acc[4][4] = {};
-    tile_dot<4, 4>(acc, h, r0, N, w, v0, V, H, vec, As, Bs);
-    float bj[4];
-    bool ok[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int v = v0 + tx + 16 * j;
-      ok[j] = v < V;
-      bj[j] = (ok[j] && bias) ? bias[v] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = ok[j] ? acc[i][j] + bj[j] : kNeg;
-        acc[i][j] = x;
-        mt = fmaxf(mt, x);
-        if (ok[j] && v0 + tx + 16 * j == lab[i]) pk[i] += x;
-      }
-      const float m_new = fmaxf(m[i], row_max16(mt));
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ps += ok[j] ? expf(acc[i][j] - m_new) : 0.f;
-      s[i] = s[i] * expf(m[i] - m_new) + row_sum16(ps);
-      m[i] = m_new;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float p = row_sum16(pk[i]);  // one lane holds the picked logit
-    const int n = r0 + ty + 16 * i;
-    if (tx == 0 && n < N) {
-      const long long at = (long long)blockIdx.y * N + n;
-      part[at] = m[i];
-      part[(long long)gridDim.y * N + at] = s[i];
-      part[2LL * gridDim.y * N + at] = p;
-    }
-  }
-}
-
-// lse and loss of each row from its splits' partials.
-__global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
-                                      const long long* __restrict__ labels,
-                                      int N, int splits,
-                                      long long ignore_index,
-                                      float* __restrict__ loss,
-                                      float* __restrict__ lse) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const long long sn = (long long)splits * N;
-  float mx = kNeg;
-  for (int k = 0; k < splits; ++k)
-    mx = fmaxf(mx, part[(long long)k * N + n]);
-  float sum = 0.f, picked = 0.f;
-  for (int k = 0; k < splits; ++k) {
-    const long long at = (long long)k * N + n;
-    sum += part[sn + at] * expf(part[at] - mx);
-    picked += part[2 * sn + at];
-  }
-  const float l = mx + logf(sum);
-  lse[n] = l;
-  loss[n] = labels[n] == ignore_index ? 0.f : l - picked;
 }
 
 // ---------------------------------------------------------------------------
@@ -359,29 +139,6 @@ struct BwdArgs {
   bool vec;        // 16-byte copies of h and W
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows [r0, r0 + R) x columns [c0, c0 + C) of m into shared memory of row
 // stride LD; what lies outside m's rows x cols reads as 0. With vec, cols
 // is a multiple of 4 and every row 16-byte aligned.
@@ -397,7 +154,7 @@ __device__ __forceinline__ void load_tile(float* s, const Mat& m, int r0,
       const int r = i / (C / 4), c = (i % (C / 4)) * 4;
       const int gr = r0 + r, gc = c0 + c;
       const bool ok = gr < m.rows && gc < m.cols;
-      cp_async16(s + r * LD + c, ok ? m.p + gr * m.ld + gc : m.p, ok);
+      tf32::cp_async16(s + r * LD + c, ok ? m.p + gr * m.ld + gc : m.p, ok);
     }
   } else {
     constexpr int kPer = R * C / kThreads;
@@ -407,44 +164,8 @@ __device__ __forceinline__ void load_tile(float* s, const Mat& m, int r0,
       const int r = i / C, c = i % C;
       const int gr = r0 + r, gc = c0 + c;
       const bool ok = gr < m.rows && gc < m.cols;
-      cp_async4(s + r * LD + c, ok ? m.p + gr * m.ld + gc : m.p, ok);
+      tf32::cp_async4(s + r * LD + c, ok ? m.p + gr * m.ld + gc : m.p, ok);
     }
-  }
-}
-
-// Element (mn, k) of a staged operand: K-major tiles are stored [mn][k],
-// MN-major ones [k][mn].
-template <bool kKMajor, int LD>
-__device__ __forceinline__ float frag(const float* s, int mn, int k) {
-  return kKMajor ? s[mn * LD + k] : s[k * LD + mn];
-}
-
-// x = hi + lo, both tf32 (the low 13 mantissa bits 0), rounded to nearest.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
-}
-
-// c += a . b on a 16 x 8 x 8 tile (PTX fragment layouts: a0 (g, t), a1
-// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4,
-// n g); c0/c1 (g, 2t / 2t + 1), c2/c3 (g + 8, ...), g = lane / 4,
-// t = lane % 4); with kZero, c = a . b.
-template <bool kZero>
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  if constexpr (kZero) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-          "f"(0.f));
-  } else {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
   }
 }
 
@@ -528,14 +249,14 @@ __device__ __forceinline__ void xent_bwd_product(const BwdArgs& a) {
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < KT) load_stage(s, s * kBKd);
-    cp_async_commit();
+    tf32::cp_async_commit();
   }
   for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<kStages - 2>();
+    tf32::cp_async_wait<kStages - 2>();
     __syncthreads();  // stage kt landed; stage kt - 1 is consumed
     const int nk = kt + kStages - 1;
     if (nk < KT) load_stage(nk % kStages, nk * kBKd);
-    cp_async_commit();
+    tf32::cp_async_commit();
     const float* as = As + (kt % kStages) * Cfg::A_SZ;
     const float* bs = Bs + (kt % kStages) * Cfg::B_SZ;
     if (do_db) {
@@ -551,42 +272,30 @@ __device__ __forceinline__ void xent_bwd_product(const BwdArgs& a) {
     for (int kk = 0; kk < kBKd; kk += 8) {
       uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wn + j * 8 + gid;
-        split_tf32(frag<Cfg::kBK, LDB>(bs, n, kk + tig), bh[j][0], bl[j][0]);
-        split_tf32(frag<Cfg::kBK, LDB>(bs, n, kk + tig + 4), bh[j][1],
-                   bl[j][1]);
-      }
+      for (int j = 0; j < NT; ++j)
+        tf32::frag_b<Cfg::kBK, LDB>(bs, wn + j * 8, kk, bh[j], bl[j]);
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = wm + i * 16 + gid;
-        split_tf32(frag<Cfg::kAK, LDA>(as, m, kk + tig), ah[i][0], al[i][0]);
-        split_tf32(frag<Cfg::kAK, LDA>(as, m + 8, kk + tig), ah[i][1],
-                   al[i][1]);
-        split_tf32(frag<Cfg::kAK, LDA>(as, m, kk + tig + 4), ah[i][2],
-                   al[i][2]);
-        split_tf32(frag<Cfg::kAK, LDA>(as, m + 8, kk + tig + 4), ah[i][3],
-                   al[i][3]);
-      }
+      for (int i = 0; i < MT; ++i)
+        tf32::frag_a<Cfg::kAK, LDA>(as, wm + i * 16, kk, ah[i], al[i]);
       // small terms first; each pass runs MT x NT independent products
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
           if (kk == 0)
-            mma_tf32<true>(part[i][j], al[i], bh[j]);
+            tf32::mma<true>(part[i][j], al[i], bh[j]);
           else
-            mma_tf32<false>(part[i][j], al[i], bh[j]);
+            tf32::mma(part[i][j], al[i], bh[j]);
         }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32<false>(part[i][j], ah[i], bl[j]);
+        for (int j = 0; j < NT; ++j) tf32::mma(part[i][j], ah[i], bl[j]);
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32<false>(part[i][j], ah[i], bh[j]);
+        for (int j = 0; j < NT; ++j) tf32::mma(part[i][j], ah[i], bh[j]);
     }
 #pragma unroll
     for (int i = 0; i < MT; ++i)
@@ -595,7 +304,7 @@ __device__ __forceinline__ void xent_bwd_product(const BwdArgs& a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
   }
-  cp_async_wait<0>();
+  tf32::cp_async_wait<0>();
 
   // epilogue: a thread holds rows m0 + wm + 16 i + gid (+ 8) and columns
   // n0 + wn + 8 j + 2 tig (+ 1)
@@ -707,6 +416,286 @@ cudaError_t launch_product(Kernel kernel, dim3 grid, const BwdArgs& a,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// forward: 3xTF32 wgmma logits tiles folded into per-row partials
+// ---------------------------------------------------------------------------
+
+// d (+)= a . B on a 64 x 128 x 8 tile of one warpgroup (wgmma, sm_90a): a
+// is the warp's A fragment (the mma.sync layout; the warp's 16 rows of the
+// 64), B is read from shared memory through its descriptor, d holds
+// (row g (+ 8), columns 8 j + 2 t (+ 1)) at d[4 j + 2 half + e]. kScaleD 0
+// overwrites d. The product is asynchronous: wgmma.fence before it,
+// commit and wait after.
+template <int kScaleD>
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(kScaleD));
+}
+
+// The shared-memory descriptor of a K-major, unswizzled wgmma operand of
+// 64 columns: core matrices of 8 rows x 16 bytes, 128 bytes apart along K
+// (the leading byte offset) and 2048 bytes apart along N (the stride byte
+// offset).
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((s & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(2048 >> 4) << 32);
+}
+
+// Keeps the compiler from reading d before the products that write it have
+// been waited for.
+__device__ __forceinline__ void wgmma_fence_operands(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+struct FwdArgs {
+  const float* h;
+  const float* w;
+  const float* bias;
+  const long long* labels;
+  float* part;  // [3, splits, N]: max, sum of exp, picked logit
+  int N, V, H;
+  bool vec;  // 16-byte copies of h and W
+};
+
+// (m, s) <- the online-softmax union of (m, s) and (om, os).
+__device__ __forceinline__ void merge_ms(float& m, float& s, float om,
+                                         float os) {
+  const float mn = fmaxf(m, om);
+  s = s * expf(m - mn) + os * expf(om - mn);
+  m = mn;
+}
+
+// The forward's stages are 64 deep (24 tensor-core sums per register of a
+// fresh tile; 32 deep, the products drain the wgmma pipe twice as often:
+// 3.1 ms against 2.9 at BERT-base's head on an H100), two in the ring.
+constexpr int kFK = 64;
+constexpr int kFS = 2;
+constexpr int kFwdLd = kFK + 4;        // raw h and W rows in the ring
+constexpr int kFwdRaw = kBM * kFwdLd;  // one operand's stage, floats
+constexpr int kFwdB = kBM * kFK;       // one split W tile, words
+constexpr size_t kFwdSmem =
+    (size_t)(2 * kFS * kFwdRaw + 2 * kFwdB) * sizeof(float);
+
+// Partial (m, s, picked) of rows [128 bx, 128 bx + 128) over the vocab tiles
+// of split by: part[0|1|2][by * N + n].
+__global__ void __launch_bounds__(kThreads, 1)
+    xent_fwd_partial_kernel(FwdArgs a) {
+  constexpr int BN = 128;
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                 // kFS raw h stages [128][68]
+  float* Bs = As + kFS * kFwdRaw;   // kFS raw W stages [128][68]
+  uint32_t* Bh = reinterpret_cast<uint32_t*>(Bs + kFS * kFwdRaw);
+  uint32_t* Bl = Bh + kFwdB;        // the stage's W, split, wgmma layout
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  // warpgroup warp / 4 owns rows 64 (warp / 4) ..; its warp w % 4 the 16
+  // rows wr .. wr + 15 of them, all 128 columns
+  const int wr = (warp >> 2) * 64 + (warp & 3) * 16;
+  const int m0 = blockIdx.x * kBM;
+  const int tiles = (a.V + BN - 1) / BN;
+  const int per = (tiles + gridDim.y - 1) / gridDim.y;
+  const int t0 = blockIdx.y * per, t1 = min(tiles, t0 + per);
+  const int KT = (a.H + kFK - 1) / kFK;
+  const int iters = t1 > t0 ? (t1 - t0) * KT : 0;
+  const Mat A{a.h, a.H, a.N, a.H}, B{a.w, a.H, a.V, a.H};
+  const uint64_t desc_h = wgmma_desc(Bh), desc_l = wgmma_desc(Bl);
+
+  // stage `it` of the ring: k-block it % KT of the split's tile it / KT
+  auto load_stage = [&](int stage, int it) {
+    const int n0 = (t0 + it / KT) * BN, k0 = (it % KT) * kFK;
+    load_tile<kBM, kFK, kFwdLd>(As + stage * kFwdRaw, A, m0, k0, a.vec);
+    load_tile<BN, kFK, kFwdLd>(Bs + stage * kFwdRaw, B, n0, k0, a.vec);
+  };
+
+  // the running (max, sum, picked) of the thread's rows m0 + wr + gid
+  // (+ 8)
+  float rm[2], rs[2], rp[2];
+  int lab[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int n = m0 + wr + gid + 8 * half;
+    lab[half] = n < a.N ? (int)clamp_label(a.labels[n], a.V) : -1;
+    rm[half] = kNeg;
+    rs[half] = 0.f;
+    rp[half] = 0.f;
+  }
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kFS - 1; ++s) {
+    if (s < iters) load_stage(s, s);
+    tf32::cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    tf32::cp_async_wait<kFS - 2>();
+    __syncthreads();  // stage it landed; the last stage's products are done
+    const int nk = it + kFS - 1;
+    if (nk < iters) load_stage(nk % kFS, nk);
+    tf32::cp_async_commit();
+    const float* as = As + (it % kFS) * kFwdRaw;
+    const float* bs = Bs + (it % kFS) * kFwdRaw;
+    // W's tile split once for both warpgroups into hi and lo, element
+    // (n, k) at word (n % 8) 4 + (n / 8) 512 + (k / 4) 32 + k % 4; eight
+    // threads store one 128-byte core matrix
+#pragma unroll
+    for (int u = 0; u < kFwdB / 4 / kThreads; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      const int n = (i & 7) + ((i >> 7) << 3), k4 = (i >> 3) & 15;
+      const float4 v =
+          *reinterpret_cast<const float4*>(bs + n * kFwdLd + k4 * 4);
+      uint4 h, l;
+      tf32::split(v.x, h.x, l.x);
+      tf32::split(v.y, h.y, l.y);
+      tf32::split(v.z, h.z, l.z);
+      tf32::split(v.w, h.w, l.w);
+      const int o = (n & 7) * 4 + (n >> 3) * 512 + k4 * 32;
+      *reinterpret_cast<uint4*>(Bh + o) = h;
+      *reinterpret_cast<uint4*>(Bl + o) = l;
+    }
+    // the generic-proxy stores become visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    uint32_t ah[kFK / 8][4], al[kFK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kFK / 8; ++kk)
+      tf32::frag_a<true, kFwdLd>(as, wr, kk * 8, ah[kk], al[kk]);
+    // the stage's 24 products per register into a fresh tile (part), small
+    // terms first; k-step kk starts 2 core matrices (256 bytes) further
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kFK / 8; ++kk) {
+      if (kk == 0)
+        wgmma_m64n128k8<0>(part, al[kk], desc_h);
+      else
+        wgmma_m64n128k8<1>(part, al[kk], desc_h + 16 * kk);
+      wgmma_m64n128k8<1>(part, ah[kk], desc_l + 16 * kk);
+      wgmma_m64n128k8<1>(part, ah[kk], desc_h + 16 * kk);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_fence_operands(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    if (it % KT != KT - 1) continue;
+    // the tile is complete: fold it into the rows' running state; a
+    // thread holds columns n0 + 8 j + 2 tig (+ 1)
+    const int c0 = (t0 + it / KT) * BN + 2 * tig;
+    float bj[16][2];
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + e;
+        bj[j][e] = c < a.V && a.bias ? a.bias[c] : 0.f;
+      }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mt = kNeg;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * j + e;
+          float& x = acc[4 * j + 2 * half + e];
+          x = c < a.V ? x + bj[j][e] : kNeg;
+          mt = fmaxf(mt, x);
+          if (c == lab[half]) rp[half] += x;
+        }
+      const float m_new = fmaxf(rm[half], mt);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = acc[4 * j + 2 * half + e];
+          ps += c0 + 8 * j + e < a.V ? expf(x - m_new) : 0.f;
+          x = 0.f;
+        }
+      rs[half] = rs[half] * expf(rm[half] - m_new) + ps;
+      rm[half] = m_new;
+    }
+  }
+  tf32::cp_async_wait<0>();
+
+  // the four lanes that share a row, then one lane writes the partial
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, rm[half], o);
+      const float os = __shfl_xor_sync(0xffffffffu, rs[half], o);
+      rp[half] += __shfl_xor_sync(0xffffffffu, rp[half], o);
+      merge_ms(rm[half], rs[half], om, os);
+    }
+    const int n = m0 + wr + gid + 8 * half;
+    if (tig == 0 && n < a.N) {
+      const long long at = (long long)blockIdx.y * a.N + n;
+      const long long sn = (long long)gridDim.y * a.N;
+      a.part[at] = rm[half];
+      a.part[sn + at] = rs[half];
+      a.part[2 * sn + at] = rp[half];
+    }
+  }
+}
+
+// lse and loss of each row from its splits' partials.
+__global__ void xent_fwd_merge_kernel(const float* __restrict__ part,
+                                      const long long* __restrict__ labels,
+                                      int N, int splits,
+                                      long long ignore_index,
+                                      float* __restrict__ loss,
+                                      float* __restrict__ lse) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= N) return;
+  const long long sn = (long long)splits * N;
+  float mx = kNeg;
+  for (int k = 0; k < splits; ++k)
+    mx = fmaxf(mx, part[(long long)k * N + n]);
+  float sum = 0.f, picked = 0.f;
+  for (int k = 0; k < splits; ++k) {
+    const long long at = (long long)k * N + n;
+    sum += part[sn + at] * expf(part[at] - mx);
+    picked += part[2 * sn + at];
+  }
+  const float l = mx + logf(sum);
+  lse[n] = l;
+  loss[n] = labels[n] == ignore_index ? 0.f : l - picked;
+}
+
 }  // namespace
 
 // part: [3, splits, N] scratch; loss, lse: [N].
@@ -717,10 +706,15 @@ extern "C" int fused_xent_fwd(const float* h, const float* w,
                               long long ignore_index, void* stream) {
   if (bad_dims(N, V, H) || splits <= 0 || splits > 65535)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + 63) / 64, splits);
-  xent_fwd_partial_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      h, w, bias, labels, N, V, H, vec_ok(h, w, H), part);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaFuncSetAttribute(
+      xent_fwd_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kFwdSmem);
+  if (err != cudaSuccess) return (int)err;
+  FwdArgs a{h, w, bias, labels, part, N, V, H, vec_ok(h, w, H)};
+  dim3 grid((N + kBM - 1) / kBM, splits);
+  xent_fwd_partial_kernel<<<grid, kThreads, kFwdSmem,
+                            (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   xent_fwd_merge_kernel<<<(N + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       part, labels, N, splits, ignore_index, loss, lse);

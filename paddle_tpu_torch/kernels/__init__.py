@@ -147,10 +147,10 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     kernel seed, a one-element device tensor, from the ``dropout``
     stream. The rest runs ``ops.attention.scaled_dot_product_attention``.
 
-    The CUDA kernels take every head dim the gate admits up to 512
-    (those outside ``flash_attention.HEAD_DIMS`` zero-padded to the next
-    one); a CUDA call the gate admits above 512 (``d % 128 == 0``)
-    raises, the gap ``ROADMAP.md`` section C records.
+    The CUDA kernels take every head dim the gate admits: those outside
+    ``flash_attention.HEAD_DIMS`` are zero-padded to the next one, and
+    a head dim above 512 runs as slices of one of them
+    (``flash_attention.head_dim_plan``).
     """
     bthd = layout == "bthd"
     t_axis = 1 if bthd else 2

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``_build/<name>-<hash>.so``, which ``ctypes`` loads. The hash covers
-the source text and the flags, so an edited source rebuilds and an
-unchanged one is reused. Building happens at first use (never at
-import), and ``build_all()`` starts one ``nvcc`` per source at once.
+the source text, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source or header rebuilds and an unchanged one is reused.
+Building happens at first use (never at import), and ``build_all()``
+starts one ``nvcc`` per source at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check()`` raises on a non-zero code. A failed build or launch raises:
@@ -106,7 +107,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the source, the headers every source may include, and the flags
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"

@@ -27,16 +27,19 @@ The backward takes the fused kernel when both sequences fit its tile
 each equal one tile) with the port's tile, 128 rows at D <= 64 and 64 at
 D <= 128, what a Hopper block's 227 KB of shared memory holds of Q, K, V,
 dO and a dQ accumulator. Longer sequences, and every sequence at D > 128,
-take the dq and dkv kernels. ``delta = rowsum(dO * out)`` is a torch
-reduction, as it is an XLA op in the JAX package.
+take the dq and dkv kernels (the dkv kernel on the tensor cores in
+3xTF32). ``delta = rowsum(dO * out)`` is a torch reduction, as it is an
+XLA op in the JAX package.
 
 The kernels are built for the head dims in ``HEAD_DIMS`` (every multiple
-of 16 up to 128, and 256, 384 and 512). :func:`flash_attention`
-zero-pads any other head dim up to 512 to the next of them
-(:func:`kernel_head_dim`) and slices the output: zero columns change
-neither q.k nor the output, and the scale stays ``1/sqrt`` of the
-unpadded dim. A head dim above 512 raises. The kernel entry points
-themselves take fp32 CUDA tensors whose head dim is in ``HEAD_DIMS``,
+of 16 up to 128, and 256, 384 and 512). A head dim above 512 runs as
+slices of one of them (:func:`head_dim_plan`): the grid gains a slice
+axis, each block forms its scores over the whole head dim and writes its
+own slice of the output or gradient. :func:`flash_attention` zero-pads
+any other head dim to the kernels' (:func:`kernel_head_dim`) and slices
+the output: zero columns change neither q.k nor the output, and the
+scale stays ``1/sqrt`` of the unpadded dim. The kernel entry points
+themselves take fp32 CUDA tensors whose head dim is a kernel head dim,
 contiguous in that dim, with the other strides multiples of 4 floats and
 16-byte aligned data; anything else raises.
 """
@@ -54,11 +57,14 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
            "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
            "backward_route", "fused_rows", "kernel_head_dim",
-           "dropout_keep_mask", "dropout_threshold", "HEAD_DIMS"]
+           "head_dim_plan", "dropout_keep_mask", "dropout_threshold",
+           "HEAD_DIMS"]
 
 NEG_INF = -1e30
 # the head dims the kernels are instantiated for (DISPATCH_D in the source)
 HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 256, 384, 512)
+# the widest head-dim slice one block holds (slices() in the source)
+MAX_SLICE = HEAD_DIMS[-1]
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 fwd_launches = 0
@@ -70,15 +76,24 @@ _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
 
 
+def head_dim_plan(d: int) -> Tuple[int, int]:
+    """``(slices, width)`` the kernels run a head dim ``d`` as: one slice
+    of the smallest of ``HEAD_DIMS`` >= d up to 512; above,
+    ``ceil(d / 512)`` slices of the smallest of ``HEAD_DIMS`` that holds
+    ``d / slices`` (640 runs as 2 x 384, 1024 as 2 x 512)."""
+    if d <= 0:
+        raise ValueError(f"flash attention head dim must be positive, "
+                         f"got {d}")
+    n = -(-d // MAX_SLICE)
+    part = -(-d // n)
+    return n, next(kd for kd in HEAD_DIMS if kd >= part)
+
+
 def kernel_head_dim(d: int) -> int:
-    """The head dim the kernels run a head dim ``d`` at: the smallest
-    of ``HEAD_DIMS`` >= d (the wrapper zero-pads up to it). Raises above
-    512, which no kernel is built for (``ROADMAP.md`` section C)."""
-    for kd in HEAD_DIMS:
-        if kd >= d:
-            return kd
-    raise ValueError(f"flash attention kernels take head dims up to "
-                     f"{HEAD_DIMS[-1]}, got {d}")
+    """The head dim the kernels run a head dim ``d`` at (the wrapper
+    zero-pads up to it): slices x width of :func:`head_dim_plan`."""
+    n, width = head_dim_plan(d)
+    return n * width
 
 
 def fused_rows(d: int) -> int:
@@ -241,9 +256,10 @@ class _Call:
             raise ValueError(f"flash attention shapes disagree: q "
                              f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                              f"{tuple(v.shape)}")
-        if self.d not in HEAD_DIMS:
+        if kernel_head_dim(self.d) != self.d:
             raise ValueError(f"flash attention kernels are built for head "
-                             f"dims {HEAD_DIMS}, got {self.d} (the "
+                             f"dims {HEAD_DIMS} and slices of them above "
+                             f"{MAX_SLICE}, got {self.d} (the "
                              f"flash_attention wrapper pads the others)")
         if kv_bias is not None and (
                 kv_bias.shape != (self.b, self.tk) or kv_bias.device != dev
@@ -424,9 +440,10 @@ def flash_attention(q, k, v, causal: bool = False,
     """Flash attention on CUDA tensors through the kernels, forward and
     backward (an autograd Function). Raises on CPU tensors: the router
     (``kernels.maybe_flash_attention``) sends those to
-    :func:`flash_attention_plain`. A head dim outside ``HEAD_DIMS`` is
-    zero-padded to :func:`kernel_head_dim` around the Function (autograd
-    slices the gradients back), with the scale of the unpadded dim."""
+    :func:`flash_attention_plain`. A head dim the kernels do not run as
+    it is is zero-padded to :func:`kernel_head_dim` around the Function
+    (autograd slices the gradients back), with the scale of the unpadded
+    dim."""
     d = q.shape[-1]
     kd = kernel_head_dim(d)
     if kd != d:

@@ -3,7 +3,10 @@ wrappers, their autograd Function, and the plain version.
 
 The kernels (``csrc/fused_softmax_xent.cu``) replace the Pallas kernels
 of ``paddle_tpu/kernels/fused_softmax_xent.py``: ``_fwd_kernel`` (the
-streamed logsumexp and picked logit), and ``_backward`` with its
+streamed logsumexp and picked logit: here a partial per (row tile, vocab
+split) from 3xTF32 tensor-core logits tiles, then a merge per row;
+:func:`fused_xent_fwd_split_plain` is that decomposition in plain
+PyTorch), and ``_backward`` with its
 ``_bwd_dh_kernel`` and ``_bwd_dw_kernel``: here the vocabulary runs in
 chunks of :func:`bwd_chunk` columns, and for each chunk one kernel
 recomputes the logits into their gradient ``D`` (an ``[N, Vc]``
@@ -32,6 +35,7 @@ shape; anything else raises.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -40,8 +44,8 @@ import torch
 from . import _build
 
 __all__ = ["fused_linear_xent", "fused_linear_xent_plain",
-           "fused_xent_bwd_chunked_plain", "xent_fwd", "xent_bwd",
-           "vocab_splits", "bwd_chunk"]
+           "fused_xent_fwd_split_plain", "fused_xent_bwd_chunked_plain",
+           "xent_fwd", "xent_bwd", "vocab_splits", "bwd_chunk"]
 
 # kernel launches since the last reset (kernels.reset_launch_counts): the
 # forward entry launches two kernels (partials per vocab split, merge);
@@ -52,8 +56,12 @@ dlog_launches = 0
 dw_launches = 0
 dh_launches = 0
 
-_VOCAB_TILE = 64      # vocab columns of a logits tile (kVT in the source)
-_ROW_TILE = 64        # rows of a forward block
+# the forward's logits tile: 128 rows x 128 vocab columns (kBM and the
+# partial kernel's BN in the source)
+_VOCAB_TILE = 128
+_ROW_TILE = 128
+# the running max's start, as the kernels keep it (never -inf)
+_NEG = -1e30
 # the backward's chunk: Vc columns, a multiple of the products' 128-row
 # tile (kBM in the source), its [N, Vc] scratch kept to 256 MB where 128
 # columns allow (bwd_chunk)
@@ -144,13 +152,60 @@ def fused_xent_bwd_chunked_plain(h2: torch.Tensor, w: torch.Tensor,
     return dh, dw, db
 
 
+@functools.lru_cache(maxsize=None)
 def vocab_splits(n: int, v: int, sm_count: int) -> int:
-    """Vocab splits of the forward's grid: ~16 (row tile, split) blocks
-    per SM, so the last partial wave is a small share of the work; at
-    most one split per vocab tile."""
+    """Vocab splits of the forward's grid. Its (row tile, split) blocks
+    run one per SM, each over ``ceil(tiles / splits)`` vocab tiles, so
+    the count taken is the one whose waves end soonest:
+    ``ceil(row_tiles * splits / sm_count)`` waves of ``ceil(tiles /
+    splits)`` tiles; the fewest splits among equals. Cached: the search
+    runs over every tile count, the same for each call at one shape."""
     row_tiles = -(-n // _ROW_TILE)
     tiles = -(-v // _VOCAB_TILE)
-    return max(1, min(tiles, -(-16 * sm_count // row_tiles)))
+    return min(range(1, tiles + 1), key=lambda s: (
+        -(-row_tiles * s // sm_count) * -(-tiles // s), s))
+
+
+def fused_xent_fwd_split_plain(h2: torch.Tensor, w: torch.Tensor,
+                               b: Optional[torch.Tensor], lab: torch.Tensor,
+                               splits: int, ignore_index: int = -100
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernels' decomposition in plain PyTorch: ``(loss,
+    lse)`` of ``h2`` ``[N, H]``, ``w`` ``[V, H]``, ``b`` ``[V]`` or None,
+    labels ``[N]``. The vocabulary's 128-column tiles go to ``splits``
+    (the kernel's :func:`vocab_splits`) contiguous splits of
+    ``ceil(tiles / splits)`` tiles, the last ones possibly empty; each
+    split gives every row a partial ``(max, sum of exp, picked logit)``,
+    max starting at -1e30 (an empty split: (-1e30, 0, 0)), and the merge
+    combines them: ``lse = M + log(sum_k s_k exp(m_k - M))``, loss ``lse
+    - sum_k picked_k``, exactly 0 where the label is ``ignore_index``;
+    labels are clamped into range before they pick."""
+    n, v = h2.shape[0], w.shape[0]
+    tiles = -(-v // _VOCAB_TILE)
+    per = -(-tiles // splits)
+    logits = h2.float() @ w.float().T
+    if b is not None:
+        logits = logits + b.float()
+    hot = lab.clamp(0, v - 1)
+    rows = torch.arange(n, device=h2.device)
+    neg = torch.full((n,), _NEG, dtype=torch.float32, device=h2.device)
+    parts = []
+    for k in range(splits):
+        c0 = min(v, k * per * _VOCAB_TILE)
+        c1 = min(v, (k + 1) * per * _VOCAB_TILE)
+        x = logits[:, c0:c1]
+        m = torch.maximum(neg, x.amax(dim=1)) if c1 > c0 else neg
+        inside = (hot >= c0) & (hot < c1)
+        picked = torch.where(inside, logits[rows, hot],
+                             torch.zeros_like(neg))
+        parts.append((m, torch.exp(x - m[:, None]).sum(dim=1), picked))
+    mx = torch.stack([neg] + [m for m, _, _ in parts]).amax(dim=0)
+    total = sum(s * torch.exp(m - mx) for m, s, _ in parts)
+    lse = mx + torch.log(total)
+    picked = sum(p for _, _, p in parts)
+    loss = torch.where(lab != ignore_index, lse - picked,
+                       torch.zeros_like(lse))
+    return loss, lse
 
 
 def _sms(dev: torch.device) -> int:

@@ -67,6 +67,10 @@ CASES = [
     ("bhtd", True, True, 2, 2, 24, 24, 32, 0.1),
     ("bhtd", True, False, 1, 2, 24, 72, 16, 0.1),
     ("bthd", False, False, 1, 2, 20, 20, 64, 0.1),
+    # above 512, where the CUDA kernels run head-dim slices (640 as two
+    # of 384): the dq + dkv pair, and one 32-row tile of the fused kernel
+    ("bhtd", True, True, 1, 2, 24, 40, 640, 0.1),
+    ("bhtd", False, False, 1, 1, 20, 20, 640, 0.0),
 ]
 
 

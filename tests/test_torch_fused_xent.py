@@ -151,11 +151,73 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("n,v,sms,splits", [
-    (4096, 30522, 132, 33), (77, 300, 132, 5), (64, 64, 132, 1),
-    (100000, 30522, 132, 2)])
+    (4096, 30522, 132, 239), (77, 300, 132, 3), (64, 64, 132, 1),
+    (100000, 30522, 132, 239), (1000, 513, 132, 5), (300, 1000, 132, 8),
+    (4096, 30522, 16, 1)])
 def test_forward_vocab_splits(n, v, sms, splits):
-    # ~16 blocks per SM over (row tile, split), at most one per vocab tile
+    # one (128-row tile, split) block per SM; the split count whose waves
+    # end soonest, at most one split per 128-column vocab tile: at
+    # BERT-base's MLM head 32 row tiles x 239 splits fill 57.9 waves of
+    # 132 blocks (58 waves of one tile each)
     assert fx.vocab_splits(n, v, sms) == splits
+    tiles, rows = -(-v // 128), -(-n // 128)
+
+    def cost(s):
+        return -(-rows * s // sms) * -(-tiles // s)
+    assert all(cost(splits) <= cost(s) for s in range(1, tiles + 1))
+
+
+# (N, V, H, bias, splits, labels in the last ragged tile): V = 300 is 3
+# vocab tiles, the last of 44 columns; 4 splits of one tile leave the last
+# split without a column; 2 splits give one two tiles
+SPLIT_CASES = [(14, 300, 32, True, 4, True), (13, 300, 48, False, 4, True),
+               (21, 513, 64, True, 2, False),
+               (9, 1024, 16, True, fx.vocab_splits(9, 1024, 132), False)]
+
+
+@pytest.mark.parametrize("n,v,h,with_bias,splits,last_tile", SPLIT_CASES)
+def test_forward_split_merge_matches_jax_fwd_kernel(n, v, h, with_bias,
+                                                    splits, last_tile):
+    # the forward kernels' decomposition (partials per vocab split, then
+    # the merge) against the JAX _fwd_kernel in interpret mode, with the
+    # tiles fused_linear_softmax_xent picks
+    hidden, weight, bias, labels, _ = _case((n,), v, h, seed=n + v)
+    if last_tile:
+        labels[1:4] = [v - 1, 256, v - 40]  # inside the last ragged tile
+    bn = min(jax_fx._ROW_BLOCK, jax_fx._ceil_to(n, 8))
+    bv = min(jax_fx._VOCAB_BLOCK, jax_fx._ceil_to(v, 128))
+    b2 = jnp.asarray(bias) if with_bias else jnp.zeros((v,), jnp.float32)
+    want_loss, want_lse = jax_fx._forward(
+        jnp.asarray(hidden), jnp.asarray(weight), b2,
+        jnp.asarray(labels.astype(np.int32)), -100, bn, bv, True)
+    loss, lse = fx.fused_xent_fwd_split_plain(
+        torch.from_numpy(hidden), torch.from_numpy(weight),
+        torch.from_numpy(bias) if with_bias else None,
+        torch.from_numpy(labels), splits)
+    used = labels != -100
+    assert np.max(np.abs(loss.numpy() - np.asarray(want_loss))) <= LOSS_TOL
+    assert np.max(np.abs(lse.numpy()[used] - np.asarray(want_lse)[used])) \
+        <= LOSS_TOL
+    assert np.all(loss.numpy()[~used] == 0.0)  # ignored rows: exactly 0
+    # the same function as the materialised plain version
+    ploss, plse = fx.fused_linear_xent_plain(
+        torch.from_numpy(hidden), torch.from_numpy(weight),
+        torch.from_numpy(bias) if with_bias else None,
+        torch.from_numpy(labels), return_lse=True)
+    assert float((loss - ploss).abs().max()) <= LOSS_TOL
+    assert float((lse - plse).abs().max()) <= LOSS_TOL
+
+
+def test_forward_split_without_a_column_is_neutral():
+    # a split past the last vocab tile contributes (-1e30, 0, 0): the
+    # result is that of the splits that hold columns
+    hidden, weight, bias, labels, _ = _case((6,), 300, 16, seed=11)
+    args = [torch.from_numpy(a) for a in (hidden, weight, bias, labels)]
+    a = fx.fused_xent_fwd_split_plain(*args, splits=3)
+    b = fx.fused_xent_fwd_split_plain(*args, splits=4)
+    assert -(-3 // 4) * 3 == 3  # 4 splits of one tile: the last is empty
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # --- a small BERT with the fused head --------------------------------------

@@ -2,13 +2,13 @@
 of every layer and model constructor.
 
 Head dims: the CUDA flash kernels are built for every multiple of 16 up
-to 128 and for 256, 384 and 512; ``flash_attention`` zero-pads any other
-head dim up to 512 to the next of them and keeps the scale of the
-unpadded dim, and raises above 512. The CUDA route runs only on the card
-(``chip_smoke.py`` holds D = 40, 48, 80, 96, 112, 256, 320, 384 and 512
-against the plain version there); here the plan is checked as a pure
-function, and the padding identity on the plain version the kernels are
-held against.
+to 128 and for 256, 384 and 512, and run a head dim above 512 as slices
+of one of them; ``flash_attention`` zero-pads any other head dim to the
+kernels' and keeps the scale of the unpadded dim. The CUDA route runs
+only on the card (``chip_smoke.py`` holds D = 40, 48, 80, 96, 112, 256,
+320, 384, 512, 640 and 1024 against the plain version there); here the
+plan is checked as a pure function, and the padding identity on the
+plain version the kernels are held against.
 
 Devices: an entry point runs on the card unless the caller asks for the
 CPU, so every constructor that takes ``device`` raises without a GPU when
@@ -44,13 +44,22 @@ def test_flash_head_dim_plan(d, kd, route_128):
                                             else "fused")
 
 
-@pytest.mark.parametrize("d", [520, 640])
-def test_flash_head_dims_above_256_raise(d):
-    # above 512 since 384 and 512 are built (test_flash_head_dims_384_512)
-    with pytest.raises(ValueError, match="up to 512"):
-        fa.kernel_head_dim(d)
+@pytest.mark.parametrize("d,slices,width", [
+    (520, 2, 384), (640, 2, 384), (768, 2, 384), (1024, 2, 512),
+    (1100, 3, 384), (1536, 3, 512)])
+def test_flash_head_dim_slices_above_512(d, slices, width):
+    # above 512 the kernels run ceil(d / 512) slices of a built head dim,
+    # zero-padded up to slices * width, always on the split backward route;
+    # the wrapper passes the padded dim to the kernel entry, whose device
+    # check is what raises on CPU tensors
+    assert fa.head_dim_plan(d) == (slices, width)
+    assert width in fa.HEAD_DIMS and width * (slices - 1) < d
+    assert fa.kernel_head_dim(d) == slices * width >= d
+    assert fa.head_dim_plan(slices * width) == (slices, width)
+    assert fa.fused_rows(d) == 0
+    assert fa.backward_route(16, 16, d) == "split"
     q = torch.zeros(1, 4, 2, d)
-    with pytest.raises(ValueError, match="up to 512"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention(q, q, q, bthd=True)
 
 

@@ -21,7 +21,10 @@ in order:
    attention, forward and both backward routes, with and without
    dropout, key bias, causal masking, ragged lengths and head dims 16 to
    512, D = 40 and 320 through the wrapper's zero padding, D = 640 and
-   1024 as head-dim slices; dK/dV bitwise equal run to run) or
+   1024 as head-dim slices; the forward, dq and dK/dV bitwise equal run
+   to run; ``flash_attention_with_lse`` on both backward routes with both
+   cotangents, through its router on a path of its own, launches
+   counted) or
    ``XENT_TOL``/``XENT_GRAD_TOL`` (the fused softmax cross-entropy's
    forward and its chunked backward, dlog + dW/db + dh, at BERT-base's
    MLM head and at ragged shapes: H = 1600, H = 45, V not a multiple of
@@ -33,7 +36,11 @@ in order:
    plain version, one PyTorch library call computing the same function
    (a yardstick the port never calls) and the card's bound for the work;
    the LayerNorm backward (plain PyTorch) is checked and timed too,
-   with the kernel's forward through its autograd Function;
+   with the kernel's forward through its autograd Function; bf16
+   operands go through each wrapper's cast path (LayerNorm, also fp16;
+   flash attention on both backward routes; the fused xent) against the
+   plain version on the same bf16 inputs within ``BF16_TOL``, every
+   output and gradient in the JAX package's dtype;
 4. trains BERT-base (``BertConfig()``, random weights from a seed, fp32)
    through ``TrainStep`` with ``AdamW(1e-4, weight_decay=0.01)``, 5 steps
    per run (``TRAIN_RUNS``): batch 8, seq 512 (flash forward + the dq and
@@ -121,6 +128,13 @@ STEP_PARAM_TOL = 2e-5
 # gives 1e-1
 XENT_TOL = 1e-4
 XENT_GRAD_TOL = 1e-4
+# bf16 operands through the wrappers' cast path (the kernels read fp32
+# copies) against the plain versions on the same bf16 inputs, both on the
+# card: both compute in fp32 and round once to bf16, so a bf16 output or
+# gradient agrees to one bf16 step of its largest entry (a value in
+# [2^e, 2^(e+1)) rounds in steps of 2^(e-7)); fp32 outputs (the xent loss,
+# db of an fp32 bias) keep their fp32 tolerances
+BF16_TOL = 2.0 ** -7
 # the fused training run's peak device memory at b8 x s512, in GiB (4.00
 # before the chunked backward; its scratch adds 32 MB)
 FUSED_PEAK_GB = 4.25
@@ -143,7 +157,14 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                 "train_seq128_pallas_adam": ("layer_norm",
                                              "flash_attention_fwd",
                                              "flash_attention_bwd_fused",
-                                             "adam_flat")}
+                                             "adam_flat"),
+                # flash_attention_with_lse (no caller on the main path:
+                # ring attention is not ported yet), forward and backward
+                # through its router on both backward routes
+                "flash_with_lse": ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv",
+                                   "flash_attention_bwd_fused")}
 # the fused flags of slice 3 (all off by default, as in the JAX package)
 FUSED_FLAGS = {"fused_softmax_xent": True, "fused_adam": True}
 # BERT-base pretraining as the JAX package's bench runs it
@@ -178,6 +199,17 @@ PEAK_3XTF32_FLOPS = 495e12 / 3
 # the kernels redesigned for the tensor cores and their design, for the
 # kernels line (the fp32 SIMT designs they replaced are timed in PERF.md)
 DESIGNS = {
+    "flash_attention_fwd": (
+        "3xTF32 mma.sync, 128 query rows a block (16 a warp, the online "
+        "softmax in registers in the fragment layout), cp.async ring of "
+        "32-key K/V tiles, P fed from registers to O += P V (V read in "
+        "key pairs), two blocks per SM at D <= 64; replaced fp32 SIMT FMA "
+        "tiles"),
+    "flash_attention_bwd_dq": (
+        "3xTF32 mma.sync, Q and dO resident (128 rows a block, 16 a "
+        "warp), cp.async ring of 32-key K/V tiles, dS formed in registers "
+        "and fed to dQ += dS K (K read in key pairs), no atomics, two "
+        "blocks per SM at D <= 64; replaced fp32 SIMT FMA tiles"),
     "flash_attention_bwd_dkv": (
         "3xTF32 mma.sync tiles, K/V resident, cp.async ring over query "
         "tiles, two blocks per SM; replaced fp32 SIMT FMA tiles"),
@@ -494,8 +526,8 @@ def flash_bounds(b, h, tq, tk, d, causal, bias):
     """(bytes, flops, peak) of each flash kernel's function on these
     shapes: inputs read once, outputs written once; flops of the products
     over the score entries a causal or full mask keeps; the peak of the
-    unit the kernel runs on (the FMA units; dK/dV 3xTF32 on the tensor
-    cores)."""
+    unit the kernel runs on (3xTF32 on the tensor cores: the forward, dq
+    and dK/dV up to D = 128; the FMA units: the fused backward)."""
     if causal:
         entries = b * h * sum(min(tk, max(0, i + tk - tq + 1))
                               for i in range(tq))
@@ -506,10 +538,10 @@ def flash_bounds(b, h, tq, tk, d, causal, bias):
     stats = 4 * 2 * b * h * tq  # lse and delta
     return {
         "flash_attention_fwd": (4 * (2 * rows_q + 2 * rows_k + b * h * tq)
-                                + extra, 4 * entries * d, PEAK_FP32_FLOPS),
+                                + extra, 4 * entries * d, PEAK_3XTF32_FLOPS),
         "flash_attention_bwd_dq": (4 * (3 * rows_q + 2 * rows_k) + stats
                                    + extra, 6 * entries * d,
-                                   PEAK_FP32_FLOPS),
+                                   PEAK_3XTF32_FLOPS),
         "flash_attention_bwd_dkv": (4 * (2 * rows_q + 4 * rows_k) + stats
                                     + extra, 8 * entries * d,
                                     PEAK_3XTF32_FLOPS),
@@ -566,13 +598,20 @@ def check_flash(torch, timer):
             e["dkv_bitwise_run_to_run"] = all(
                 torch.equal(x, y) for x, y in zip(
                     grads[1:], fa.flash_bwd_dkv(*args, **kw)))
+            e["fwd_bitwise_run_to_run"] = all(
+                torch.equal(x, y) for x, y in zip(
+                    (out, lse), fa.flash_fwd(q, k, v, **kw)))
+            e["dq_bitwise_run_to_run"] = torch.equal(
+                grads[0], fa.flash_bwd_dq(*args, **kw))
         cases[name] = dict(route=route, shape=[b, tq, tk, h, d],
                            kernel_head_dim=fa.kernel_head_dim(d),
                            head_dim_plan=fa.head_dim_plan(d),
                            layout="bthd" if bthd else "bhtd", causal=causal,
                            bias=bias, dropout_p=p, max_abs_err=e)
         log(f"flash {name}: route {route}, errors {json.dumps(e)}")
-        if not (finite and e.get("dkv_bitwise_run_to_run", True)
+        bitwise = all(val for key, val in e.items()
+                      if key.endswith("_bitwise_run_to_run"))
+        if not (finite and bitwise
                 and e["out"] <= FLASH_TOL
                 and e.get("lse", 0.0) <= FLASH_TOL
                 and max(e["dq"], e["dk"], e["dv"]) <= FLASH_GRAD_TOL):
@@ -664,6 +703,10 @@ def time_flash(torch, timer, fa, F, t, kw, pout, leaves, route, args,
                   else plain_bwd_ms,
                   "library_ms": lib["fwd_ms"] if fwd else lib["bwd_ms"],
                   "bound_ms": bms, "bound_by": by}
+        if bounds[n][2] != PEAK_FP32_FLOPS:
+            # the bound of the same work on the FMA units, which the
+            # kernel ran on before its redesign
+            out[n]["fma_bound_ms"] = bound(*bounds[n][:2])[0]
     return out
 
 
@@ -711,6 +754,212 @@ def check_layer_norm_backward(torch, timer):
                lib_out, lib_leaves, g, retain_graph=True)),
            "bound_ms": bms, "bound_by": by}
     log(f"layer_norm backward (plain PyTorch): {json.dumps(res)}")
+    return res
+
+
+# (name, B, T, H, D, causal): flash_attention_with_lse's path, BTHD, on
+# the dq + dkv route (seq 512, BERT-base's shape) and the fused route
+# (seq 128)
+LSE_CASES = [("split_seq512", 8, 512, 12, 64, False),
+             ("fused_seq128_causal", 32, 128, 12, 64, True)]
+
+
+def check_flash_lse(torch, timer):
+    """flash_attention_with_lse: (out, lse), both differentiable. Its path
+    (no caller on the main path yet) runs the entry through its router,
+    forward and backward with both cotangents nonzero, on LSE_CASES, with
+    the launch counts set to 0 just before and read just after; then each
+    output and gradient is held against the plain version
+    (flash_attention_with_lse_plain, autograd) within FLASH_TOL /
+    FLASH_GRAD_TOL, and the entry (forward + backward) is timed at the
+    seq-512 case against the plain version and the bound. Returns (the
+    kernels line's result, the path's launch counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(SEED + 17)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape,
+                                                    np.float32)).cuda()
+
+    inputs = {name: ((randn(b, t, h, d), randn(b, t, h, d),
+                      randn(b, t, h, d)), randn(b, t, h, d),
+                     randn(b, h, t), causal)
+              for name, b, t, h, d, causal in LSE_CASES}
+
+    def run(fn, qkv, w1, w2, causal):
+        leaves = [x.clone().requires_grad_() for x in qkv]
+        o, lse = fn(*leaves, causal=causal)
+        grads = torch.autograd.grad((o, lse), leaves, (w1, w2))
+        return o.detach(), lse.detach(), grads
+
+    def entry(*x, causal):
+        return kernels.maybe_flash_attention_with_lse(*x, causal=causal,
+                                                      layout="bthd")
+
+    def plain(*x, causal):
+        return fa.flash_attention_with_lse_plain(*x, causal=causal,
+                                                 bthd=True)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = {name: run(entry, *inp) for name, inp in inputs.items()}
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want_counts = dict({k: 0 for k in counts}, flash_attention_fwd=2,
+                       flash_attention_bwd_dq=1, flash_attention_bwd_dkv=1,
+                       flash_attention_bwd_fused=1)
+    if counts != want_counts:
+        raise AssertionError(f"flash_attention_with_lse launches {counts} "
+                             f"!= {want_counts}")
+    errs, err_out, err_grad = {}, 0.0, 0.0
+    for name, inp in inputs.items():
+        want = run(plain, *inp)
+        e = {"out": float((got[name][0] - want[0]).abs().max()),
+             "lse": float((got[name][1] - want[1]).abs().max())}
+        for g_name, a, w in zip(("dq", "dk", "dv"), got[name][2], want[2]):
+            e[g_name] = float((a - w).abs().max())
+        finite = all(bool(torch.isfinite(x).all()) for x in
+                     got[name][:2] + tuple(got[name][2]))
+        errs[name] = e
+        log(f"flash_attention_with_lse {name}: errors {json.dumps(e)}")
+        err_out = max(err_out, e["out"], e["lse"])
+        err_grad = max(err_grad, e["dq"], e["dk"], e["dv"])
+        if not (finite and max(e["out"], e["lse"]) <= FLASH_TOL
+                and max(e["dq"], e["dk"], e["dv"]) <= FLASH_GRAD_TOL):
+            raise AssertionError(f"flash_attention_with_lse {name}: "
+                                 f"differs from plain: {e} (tolerances "
+                                 f"{FLASH_TOL}, {FLASH_GRAD_TOL}), finite "
+                                 f"{finite}")
+        del want
+    name, b, t, h, d, causal = LSE_CASES[0]
+    inp = inputs[name]
+    # the function's own products: S and O forward; dP, dV, dQ, dK back
+    entries = b * h * t * t
+    bms, by = bound(4 * (4 * b * h * t * d + 4 * b * h * t * d
+                         + 2 * b * h * t), 12 * entries * d,
+                    PEAK_3XTF32_FLOPS)
+    sq, sk, sv = (x.transpose(1, 2).clone().requires_grad_()
+                  for x in inp[0])
+    sdout = inp[1].transpose(1, 2)
+
+    def sdpa():
+        o = torch.nn.functional.scaled_dot_product_attention(sq, sk, sv)
+        torch.autograd.grad(o, (sq, sk, sv), sdout)
+
+    res = {"ms": timer(lambda: run(entry, *inp), iters=10),
+           "plain_ms": timer(lambda: run(plain, *inp), iters=10),
+           "library_ms": None,
+           "sdpa_fwd_bwd_ms_without_lse": timer(sdpa, iters=10),
+           "bound_ms": bms, "bound_by": by,
+           "max_abs_err": max(err_out, err_grad),
+           "max_abs_err_outputs": err_out, "max_abs_err_grads": err_grad,
+           "cases": errs,
+           "shape": f"{name}: B,T,H,D = {b},{t},{h},{d} BTHD, forward + "
+                    f"backward with both cotangents (errors: both routes)"}
+    log(f"flash_attention_with_lse: {json.dumps(res)}")
+    return res, counts
+
+
+def check_bf16(torch):
+    """bf16 operands through each wrapper's cast path on the card (the
+    CUDA kernels in fp32 inside), against the plain version on the same
+    bf16 inputs: LayerNorm at [4096, 768] (and fp16), flash attention on
+    both backward routes, the fused softmax cross-entropy at BERT-base's
+    MLM head (bf16 hidden and weight, fp32 bias). Every output and
+    gradient dtype is the JAX package's (LN and flash in the input dtype,
+    the xent loss fp32, each gradient in its input's dtype); values within
+    BF16_TOL of the largest entry (fp32 results: their fp32
+    tolerances)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_softmax_xent as fx
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    rng = np.random.default_rng(SEED + 19)
+    bf = torch.bfloat16
+
+    def dev(a, dt=bf):
+        return torch.from_numpy(np.asarray(a, np.float32)).to("cuda", dt)
+
+    def through(fn, args, cot):
+        """fn(*args) and the gradients of sum(out * cot) w.r.t. the
+        floating args."""
+        leaves = [a.clone().requires_grad_() if a.is_floating_point()
+                  else a for a in args]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, [x for x in leaves
+                                          if x.requires_grad], cot)
+        return out.detach(), grads
+
+    def compare(name, got, want, tols, out_absolute=False):
+        """Each of out and the gradients within its tolerance of the
+        plain version's: relative to the largest entry, or absolute for
+        out where ``out_absolute`` (the xent loss, as check_fused_xent
+        holds it)."""
+        (out, grads), (pout, pgrads) = got, want
+        e, dtypes_ok = {}, True
+        for what, a, w, tol in zip(("out",) + tuple(
+                f"d{i}" for i in range(len(grads))), (out,) + grads,
+                (pout,) + pgrads, tols):
+            dtypes_ok = dtypes_ok and a.dtype == w.dtype
+            e[what] = float((a.float() - w.float()).abs().max()) \
+                if what == "out" and out_absolute \
+                else rel_err(a.float(), w.float())
+            if not (bool(torch.isfinite(a).all()) and e[what] <= tol):
+                raise AssertionError(f"bf16 {name}: {what} differs from "
+                                     f"plain by {e[what]} > {tol}")
+        e["dtypes"] = [str(x.dtype) for x in (out,) + grads]
+        if not dtypes_ok:
+            raise AssertionError(f"bf16 {name}: dtypes {e['dtypes']} are "
+                                 f"not the plain version's")
+        log(f"bf16 {name}: {json.dumps(e)}")
+        return e
+
+    res = {}
+    for dt in (bf, torch.float16):
+        args = (dev(rng.standard_normal((4096, 768)), dt),
+                dev(1 + 0.1 * rng.standard_normal(768), dt),
+                dev(0.1 * rng.standard_normal(768), dt))
+        cot = dev(rng.standard_normal((4096, 768)), dt)
+        res[f"layer_norm_{str(dt)[6:]}"] = compare(
+            f"layer_norm {dt}", through(
+                lambda *x: ln.layer_norm(*x, 1e-12), args, cot),
+            through(lambda *x: ln.layer_norm_plain(*x, 1e-12), args, cot),
+            (BF16_TOL,) * 4)
+        if res[f"layer_norm_{str(dt)[6:]}"]["dtypes"] != [str(dt)] * 4:
+            raise AssertionError(f"layer_norm {dt}: output or gradient "
+                                 f"not in {dt}")
+    for case in ("path_seq512", "path_seq128"):
+        name, b, tq, tk, h, d, bthd, causal, bias, p = next(
+            c for c in FLASH_CASES if c[0] == case)
+        t, kw = flash_inputs(torch, rng, b, tq, tk, h, d, bthd, bias, p)
+        kw["causal"] = causal
+        args = tuple(t[x].to(bf) for x in ("q", "k", "v"))
+        cot = t["dout"].to(bf)
+        route = fa.backward_route(tq, tk, d)
+        e = compare(f"flash {case} ({route})",
+                    through(lambda *x: fa.flash_attention(*x, **kw), args,
+                            cot),
+                    through(lambda *x: fa.flash_attention_plain(*x, **kw),
+                            args, cot), (BF16_TOL,) * 4)
+        if e["dtypes"] != ["torch.bfloat16"] * 4:
+            raise AssertionError(f"flash {case}: output or gradient not "
+                                 f"bf16: {e['dtypes']}")
+        res[f"flash_{route}"] = e
+    name, n, v, hd, bias, ignored = XENT_CASES[0]
+    t = xent_inputs(torch, rng, n, v, hd, bias, ignored)
+    args = (t["h"].to(bf), t["w"].to(bf), t["b"])
+    e = compare("fused_xent", through(
+        lambda h_, w_, b_: fx.fused_linear_xent(h_, w_, b_, t["lab"]),
+        args, t["g"]), through(
+        lambda h_, w_, b_: fx.fused_linear_xent_plain(h_, w_, b_,
+                                                      t["lab"]),
+        args, t["g"]), (XENT_TOL, BF16_TOL, BF16_TOL, XENT_GRAD_TOL),
+        out_absolute=True)
+    if e["dtypes"] != ["torch.float32", "torch.bfloat16", "torch.bfloat16",
+                       "torch.float32"]:
+        raise AssertionError(f"fused xent bf16 dtypes {e['dtypes']}")
+    res["fused_xent"] = e
+    REPORT["bf16"] = res
     return res
 
 
@@ -1648,6 +1897,11 @@ def kernel_line(results: dict, counts: dict) -> dict:
         "adam_leaf": ("train_seq512_fused", adam_src, f"{adam_ref}:54"),
         "adam_flat": ("train_seq128_pallas_adam", adam_src,
                       f"{adam_ref}:34"),
+        # an entry over the flash kernels (forward, dq + dkv or fused):
+        # its launches are theirs on its own path
+        "flash_attention_with_lse": (
+            "flash_with_lse", "paddle_tpu_torch/kernels/flash_attention.py",
+            f"{flash_ref}:807", PATH_KERNELS["flash_with_lse"]),
     }
     for path, names in PATH_KERNELS.items():
         for name in names:
@@ -1655,12 +1909,14 @@ def kernel_line(results: dict, counts: dict) -> dict:
                 raise AssertionError(f"kernel {name} was never launched "
                                      f"on the {path} path")
     line = []
-    for name, (path, src, replaces) in meta.items():
+    for name, (path, src, replaces, *counters) in meta.items():
+        counters = counters[0] if counters else (name,)
         r = results[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "path": path,
-                     "launches": counts[path][name],
-                     "launches_by_path": {p: counts[p][name]
+                     "launches": sum(counts[path][c] for c in counters),
+                     "launches_by_path": {p: sum(counts[p][c]
+                                                 for c in counters)
                                           for p in PATH_KERNELS},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -1706,11 +1962,14 @@ def main() -> int:
     timer = Timer(torch)
     results = check_kernels(torch, timer)
     results.update(check_flash(torch, timer))
+    results["flash_attention_with_lse"], lse_counts = check_flash_lse(
+        torch, timer)
     results.update(check_fused_xent(torch, timer))
     results.update(check_fused_adam(torch, timer))
     ln_bwd = check_layer_norm_backward(torch, timer)
     results["layer_norm"]["max_abs_err"] = max(
         results["layer_norm"]["max_abs_err"], ln_bwd["forward_max_abs_err"])
+    bf16 = check_bf16(torch)
     del timer  # frees the 1 GiB flush buffer for the training runs
     torch.cuda.empty_cache()
 
@@ -1719,11 +1978,11 @@ def main() -> int:
                                         n_req=16, lo=16, hi=512,
                                         max_new=32, pool_blocks=1024,
                                         n_spec=4)
-    counts.update(serve_counts)
+    counts.update(serve_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
-                  layer_norm_backward=ln_bwd, launches=counts,
+                  layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **serving)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -4,12 +4,13 @@
 // paddle_tpu/kernels/flash_attention.py:
 //
 //   flash_attention_fwd        _flash_fwd_kernel (online-softmax forward,
-//                              writes out and the row logsumexp lse)
+//                              writes out and the row logsumexp lse;
+//                              3xTF32 tensor cores up to D = 128)
 //   flash_attention_bwd_fused  _bwd_fused_kernel (dq, dk, dv from one pass
 //                              over s/p/dp when both sequences fit one
 //                              fused tile)
 //   flash_attention_bwd_dq     _bwd_dq_kernel (dq, tiled over queries,
-//                              scanning keys)
+//                              scanning keys; 3xTF32 up to D = 128)
 //   flash_attention_bwd_dkv    _bwd_dkv_kernel (dk and dv, tiled over keys,
 //                              scanning queries; 3xTF32 tensor cores)
 //
@@ -33,24 +34,57 @@
 //
 // What bounds them on the card: operations. At BERT's [8, 512, 12, 64] the
 // forward does 4 * B*H * Tq*Tk * D = 6.4 GFLOP against ~50 MB moved (q, k,
-// v, out), ~128 flops per byte, far above the ~20 where fp32 arithmetic
-// outside the tensor cores (67 TFLOP/s, TF32 stays off for parity) takes
-// over from 3.35 TB/s. The backward does 2.5x the forward's products. Every
-// kernel keeps its score tiles on chip (O(T) device-memory traffic).
+// v, out), ~128 flops per byte; the backward does 2.5x the forward's
+// products. Every kernel keeps its score tiles on chip (O(T) device-memory
+// traffic). TF32 stays off for parity, so a product runs either on the FMA
+// units in fp32 (67 TFLOP/s) or on the tensor cores in 3xTF32 (tf32_mma.cuh:
+// hi/lo tf32 splits, lo.hi + hi.lo + hi.hi, about fp32's accuracy at 165
+// TFLOP/s).
 //
-// The forward, dq and fused kernels run on the FMA units, fed from shared
-// memory with 16-byte loads: a 64 x 64 score tile per 256-thread block,
-// each thread owning a 4 x 4 micro-tile (rows ty + 16 i, columns tx + 16 j)
-// so one float4 load of a row feeds four FMAs per operand, and rows are
-// padded to D + 4 floats so a half-warp's row loads spread over all 32
-// banks. A thread owns the same rows in the score tile and in the output
-// tile, so the online-softmax state (m, l) and the rescale stay in
-// registers; row reductions are shuffles across the 16 lanes that share a
-// row.
+// The forward and dq kernels up to D = 128 run on the tensor cores in
+// 3xTF32 mma.sync. A block owns BQ = 128 query rows, 16 per warp, resident
+// in shared memory (the forward's Q scaled by `scale` first, as the TPU
+// kernel; dq's Q and dO), and scans key tiles of 32 rows through a two-step
+// cp.async ring of K and V: the next tile's copies are in flight while the
+// current one is computed on. Up to D = 64 two blocks share an SM (68 KB
+// and 102 KB of shared memory, at most 128 registers), which hides more
+// latency than one block with 64-key tiles (measured on an H100). A warp
+// forms its 16 x BK scores S = Q K^T (and dq's dP = dO V^T) with both operands
+// K-major, 32 head-dim columns per fresh register tile added with fp32 adds
+// (the tensor cores' sums are not rounded to nearest; their error grows
+// with the length of a sum). Each warp owns its rows across the whole key
+// tile, so the online softmax (m, l, alpha) or dq's dS = p (dp keep / (1 -
+// p) - delta) scale lives in registers in the accumulator fragment layout,
+// and a row's max and sum take only the 4-lane quad shuffle. That fragment
+// is then the A operand of O += P V (dQ += dS K) as it stands: the product
+// reads V (K) MN-major in a permuted key order (tf32::frag_b_pairs), so P
+// and dS never go through shared memory. Four 8-column output fragments at
+// a time sum the tile's BK keys in a fresh register tile, added into the
+// accumulator (the forward's scaled by alpha). A warp whose rows all mask a
+// key tile (causal) skips its products: they would add exactly 0; a tile
+// that no mask reaches (edge_tile) skips the per-entry mask. exp is the
+// hardware's ex2.approx (__expf: at most 2 + 1.16 |x| ulps, so for the
+// x <= 0 it takes here at most ~2.4e-7 absolute on p, within the checks'
+// 2e-5), measured faster than the accurate expf on an H100. There are
+// no atomics: each output is written once, in a fixed order, so both
+// kernels are bitwise equal from run to run. Above D = 128 they keep the
+// fp32 SIMT tiles below: at D = 256 a warp's 16 x D accumulator alone takes
+// 128 of a thread's 255 registers, and the forward's 128 resident rows plus
+// a two-step ring of 32-row K/V tiles take 260 KB of shared memory, more
+// than the 227 KB a block has.
 //
-// The dK/dV kernel runs its four products on the tensor cores in 3xTF32
-// (tf32_mma.cuh: hi/lo tf32 splits, lo.hi + hi.lo + hi.hi, about fp32's
-// accuracy at 165 TFLOP/s): S^T = K Q^T and dP^T = V dO^T (both operands
+// The SIMT kernels (the fused backward; the forward and dq above D = 128)
+// run on the FMA units, fed from shared memory with 16-byte loads: a score
+// tile per 256-thread block, each thread owning a micro-tile (rows ty + 16
+// i, columns tx + 16 j) so one float4 load of a row feeds four FMAs per
+// operand, and rows are padded to D + 4 floats so a half-warp's row loads
+// spread over all 32 banks. A thread owns the same rows in the score tile
+// and in the output tile, so the online-softmax state (m, l) and the
+// rescale stay in registers; row reductions are shuffles across the 16
+// lanes that share a row.
+//
+// The dK/dV kernel runs its four products on the tensor cores in 3xTF32:
+// S^T = K Q^T and dP^T = V dO^T (both operands
 // K-major), then dV += Pv^T dO and dK += dS^T Q (dO and Q read MN-major,
 // which wgmma's tf32 does not take, hence mma.sync with fragments loaded by
 // hand). A block owns BK keys (64 up to D = 128, 32 at 256, 16 above) and
@@ -63,8 +97,7 @@
 // tiles. Per step, S^T and dP^T sum 32 head-dim columns per fresh register
 // tile, the softmax gradient (bias, causal mask, dropout) goes to shared
 // Pv^T and dS^T tiles, and each step's dK/dV contribution is summed in
-// fresh register tiles, then added with fp32 adds (the tensor cores' sums
-// are not rounded to nearest; their error grows with the length of a sum).
+// fresh register tiles, then added with fp32 adds.
 // Each k-step loads and splits a warp's fragments first, then runs the
 // lo.hi, hi.lo and hi.hi passes over its independent products. Shared
 // rows of D + 4 floats keep the K-major fragment loads free of bank
@@ -89,12 +122,13 @@
 // its scores (and dP) over the whole head dim, streaming q/k (dO/v) through
 // its shared tiles one slice at a time with its own slice last, then
 // writes only its slice of out, dq, dk or dv (lse by slice 0). At D <= 512
-// there is one slice and nothing is streamed twice. In the SIMT kernels a
-// thread owns C = D / 16 output columns, and the tiles shrink with D so
-// that the dq kernel's four operand tiles fit 227 KB of shared memory: 64
-// rows up to D = 128, 32 rows (2 x 2 micro-tiles per thread) at D = 256,
-// 16 rows (one score entry per thread) at D = 384 and 512. The fused
-// backward, which holds a whole (batch, head), is not built above D = 128.
+// there is one slice and nothing is streamed twice (the 3xTF32 forward
+// and dq, at D <= 128, never see more than one). In the SIMT forward and dq
+// a thread owns C = D / 16 output columns, and the tiles shrink with D so
+// that the dq kernel's four operand tiles fit 227 KB of shared memory: 32
+// rows (2 x 2 micro-tiles per thread) at D = 256, 16 rows (one score entry
+// per thread) at D = 384 and 512. The fused backward (64 x 64 SIMT tiles),
+// which holds a whole (batch, head), is not built above D = 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,14 +137,15 @@
 
 namespace {
 
-constexpr int kTile = 64;          // rows of a tile at D <= 128
-constexpr int kThreads = 256;      // 16 x 16 threads per tile
+constexpr int kTile = 64;          // rows of the fused backward's tiles
+constexpr int kThreads = 256;      // threads of every block
 constexpr float kNegInf = -1e30f;
 constexpr uint32_t kGolden = 0x9E3779B9u;
 
-// Rows of a q tile and of a k tile at head dim D (see the note above).
+// Rows of a q tile and of a k tile of the SIMT forward and dq at head dim
+// D >= 256 (see the note above).
 __host__ __device__ constexpr int tile_rows(int D) {
-  return D > 256 ? 16 : D > 128 ? 32 : kTile;
+  return D > 256 ? 16 : 32;
 }
 // Padded row stride of a score tile of T columns.
 __host__ __device__ constexpr int p_ld(int T) { return T + 4; }
@@ -311,14 +346,24 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
-// Key tiles (of T rows) a query tile starting at q0 scans: all, or
-// (causal) those up to its last row's last visible key, at least one (as
+// Key tiles (of BK rows) a query tile of BQ rows starting at q0 scans: all,
+// or (causal) those up to its last row's last visible key, at least one (as
 // the TPU kernel).
-__device__ __forceinline__ int key_tiles(const Problem& P, int q0, int T) {
-  const int num_k = (P.Tk + T - 1) / T;
+__device__ __forceinline__ int key_tiles(const Problem& P, int q0, int BQ,
+                                         int BK) {
+  const int num_k = (P.Tk + BK - 1) / BK;
   if (!P.causal) return num_k;
-  const int upper = floor_div(q0 + T - 1 + P.Tk - P.Tq, T) + 1;
+  const int upper = floor_div(q0 + BQ - 1 + P.Tk - P.Tq, BK) + 1;
   return upper < 1 ? 1 : (upper > num_k ? num_k : upper);
+}
+
+// True when a key tile of BK rows starting at k0 may hold an entry that a
+// warp's 16 query rows starting at r0 must mask: keys past Tk, or (causal)
+// keys past the first row's last visible key. Elsewhere every entry is
+// visible (rows past Tq are computed but never written).
+__device__ __forceinline__ bool edge_tile(const Problem& P, int r0, int k0,
+                                          int BK) {
+  return k0 + BK > P.Tk || (P.causal && k0 + BK - 1 > r0 + P.Tk - P.Tq);
 }
 
 // First query tile a key tile starting at k0 needs (causal), else 0.
@@ -330,13 +375,431 @@ __device__ __forceinline__ int first_query_tile(const Problem& P, int k0,
   return lower < 0 ? 0 : (lower > num_q ? num_q : lower);
 }
 
+// Rows [row0, row0 + R) of one head (D floats each, row stride ts) into
+// shared rows of stride D + 4 by cp.async; rows at or past limit are
+// zero-filled.
+template <int R, int D>
+__device__ __forceinline__ void cp_rows(float* dst, const float* src,
+                                        long long ts, int row0, int limit) {
+  constexpr int V4 = D / 4, LD = D + 4;
+  for (int idx = threadIdx.x; idx < R * V4; idx += kThreads) {
+    const int r = idx / V4, c = (idx % V4) * 4;
+    const bool ok = row0 + r < limit;
+    tf32::cp_async16(dst + r * LD + c, ok ? src + (row0 + r) * ts + c : src,
+                     ok);
+  }
+}
+
 // ---------------------------------------------------------------------------
-// forward
+// the forward and dq kernels at D <= 128: 3xTF32 tensor-core tiles
+// ---------------------------------------------------------------------------
+
+// Tiles of the 3xTF32 forward and dq kernels at head dim D <= 128 (see the
+// note above): BQ = 128 query rows per block, 16 per warp, resident; key
+// tiles of BK = 32 rows stream through a two-step cp.async ring of K and
+// V; up to D = 64 two blocks share an SM.
+template <int D>
+struct QCfg {
+  static constexpr int BQ = 16 * (kThreads / 32);
+  static constexpr int BK = 32;
+  static constexpr int kBlocks = D <= 64 ? 2 : 1;
+  static constexpr int LD = D + 4;     // shared rows (LD = 4 mod 32: no bank
+                                       // conflict for either fragment order)
+  static constexpr int NT = BK / 8;    // 8-key fragment columns of S
+  static constexpr int ND = D / 8;     // 8-column fragment columns of O, dQ
+  static constexpr int KV = 2 * BK * LD;  // one ring step: K and V
+  // forward: Q and two ring steps; dq: Q, dO and two ring steps
+  static constexpr size_t kFwdSmem =
+      (size_t)(BQ * LD + 2 * KV) * sizeof(float);
+  static constexpr size_t kDqSmem =
+      (size_t)(2 * BQ * LD + 2 * KV) * sizeof(float);
+  static_assert(D % 8 == 0 && D <= 128, "3xTF32 tiles take D <= 128");
+};
+
+// Reductions across the 4 lanes (a quad) that share the rows of an m16n8
+// accumulator fragment.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// acc = A[m0, m0 + 16) . B[0, 8 NT)^T over the head dim D, both K-major
+// shared tiles (row stride LD): a warp's 16 x 8 NT score fragments. 32 head-
+// dim columns go into a fresh register tile, added into acc with fp32 adds;
+// each k-step loads and splits the fragments first, then runs the lo.hi,
+// hi.lo and hi.hi passes over NT independent products.
+template <int D, int NT, int LD>
+__device__ __forceinline__ void score_tile(float (&acc)[NT][4],
+                                           const float* A, int m0,
+                                           const float* B) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 1
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    float f[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[j][e] = 0.f;
+#pragma unroll
+    for (int kk = d0; kk < d0 + 32; kk += 8) {
+      if (kk >= D) break;  // D = 16, 48, 80, 112: a half stage
+      uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+      tf32::frag_a<true, LD>(A, m0, kk, ah, al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tf32::frag_b<true, LD>(B, 8 * j, kk, bh[j], bl[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) tf32::mma(f[j], al, bh[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) tf32::mma(f[j], ah, bl[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) tf32::mma(f[j], ah, bh[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += f[j][e];
+  }
+}
+
+// acc = acc * alpha + P . M over one key tile: P a warp's 16 x 8 NT score
+// fragments (after the softmax, in registers: frag_a_acc), M the tile's
+// MN-major [key][D] shared rows (row stride LD) read in frag_b_pairs' key
+// order. Four 8-column fragments at a time go into a fresh register tile
+// (the whole tile's 8 NT keys summed there), which is added into acc, rows
+// g scaled by alpha0 and rows g + 8 by alpha1.
+template <int ND, int NT, int LD>
+__device__ __forceinline__ void acc_tile(float (&acc)[ND][4],
+                                         const float (&p)[NT][4],
+                                         const float* M, float alpha0,
+                                         float alpha1) {
+#pragma unroll
+  for (int n0 = 0; n0 < ND; n0 += 4) {
+    float f[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[u][e] = 0.f;
+#pragma unroll
+    for (int kj = 0; kj < NT; ++kj) {
+      uint32_t ph[4], pl[4], bh[4][2], bl[4][2];
+      tf32::frag_a_acc(p[kj], ph, pl);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (n0 + u < ND)
+          tf32::frag_b_pairs<LD>(M, (n0 + u) * 8, kj * 8, bh[u], bl[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (n0 + u < ND) tf32::mma(f[u], pl, bh[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (n0 + u < ND) tf32::mma(f[u], ph, bl[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (n0 + u < ND) tf32::mma(f[u], ph, bh[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (n0 + u >= ND) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n0 + u][e] = acc[n0 + u][e] * (e < 2 ? alpha0 : alpha1) +
+                         f[u][e];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, QCfg<D>::kBlocks)
+    flash_fwd_kernel(Problem P, const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ seed, float* __restrict__ out,
+                     float* __restrict__ lse) {
+  using Cfg = QCfg<D>;
+  constexpr int BQ = Cfg::BQ, BK = Cfg::BK, LD = Cfg::LD, NT = Cfg::NT;
+  constexpr int ND = Cfg::ND;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* ring = Qs + BQ * LD;  // 2 steps of K, V
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int g = blockIdx.y, b = g / P.H, h = g % P.H;
+  const int q0 = blockIdx.x * BQ, m0 = warp * 16;
+  const float* kb = k + b * P.k.b + h * P.k.h;
+  const float* vb = v + b * P.v.b + h * P.v.h;
+  const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
+  auto load_kv = [&](int st, int k0) {
+    float* Ks = ring + st * Cfg::KV;
+    cp_rows<BK, D>(Ks, kb, P.k.t, k0, P.Tk);
+    cp_rows<BK, D>(Ks + BK * LD, vb, P.v.t, k0, P.Tk);
+  };
+  const int upper = key_tiles(P, q0, BQ, BK);
+  load_kv(0, 0);
+  tf32::cp_async_commit();
+  // the TPU kernel scales q before the product
+  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, BQ, P.Tq, P.scale);
+
+  // this thread's rows of the warp's 16: qp0 (fragment row g), qp1 (g + 8)
+  const int qp0 = q0 + m0 + gid, qp1 = qp0 + 8;
+  uint32_t u0 = 0u, u1 = 0u;
+  if (seed) {
+    const uint32_t hh = head_hash(seed, g);
+    u0 = row_hash(hh, qp0);
+    u1 = row_hash(hh, qp1);
+  }
+  // causal: past this key every row of the warp sees nothing
+  const int warp_last = q0 + m0 + 15 + P.Tk - P.Tq;
+
+  float o[ND][4], m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int j = 0; j < upper; ++j) {
+    const int st = j & 1, k0 = j * BK;
+    // the other step's slot was consumed before the last barrier
+    if (j + 1 < upper) load_kv(st ^ 1, k0 + BK);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = ring + st * Cfg::KV;
+    const float* Vs = Ks + BK * LD;
+    // a key tile that every row of the warp masks would leave o, m and l
+    // exactly as they are (alpha 1, p 0): skip its products
+    if (!P.causal || k0 <= warp_last) {
+      float s[NT][4];
+      score_tile<D, NT, LD>(s, Qs, m0, Ks);
+      // bias, masks and the online softmax of the warp's rows, in the
+      // fragment layout: entry (jn, e) is row e < 2 ? qp0 : qp1, key
+      // k0 + 8 jn + 2 tig + (e & 1)
+      uint32_t vis = ~0u;
+      float mt[2] = {kNegInf, kNegInf};
+      if (edge_tile(P, q0 + m0, k0, BK)) {
+        vis = 0u;
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kp = k0 + 8 * jn + 2 * tig + c;
+            const float bk = (bias_row && kp < P.Tk) ? bias_row[kp] : 0.f;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int e = 2 * r + c;
+              const bool ok = visible(P, r ? qp1 : qp0, kp);
+              s[jn][e] = ok ? s[jn][e] + bk : kNegInf;
+              vis |= (uint32_t)ok << (4 * jn + e);
+            }
+          }
+      } else if (bias_row) {
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float bk = bias_row[k0 + 8 * jn + 2 * tig + c];
+            s[jn][c] += bk;
+            s[jn][2 + c] += bk;
+          }
+      }
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[jn][e]);
+      float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_r[r], quad_max(mt[r]));
+        alpha[r] = __expf(m_r[r] - m_new);
+        m_r[r] = m_new;
+      }
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = (vis >> (4 * jn + e)) & 1u ? __expf(s[jn][e] - m_r[r])
+                                               : 0.f;
+          // l sums the undropped p; dropout zeroes only the numerator
+          ps[r] += p;
+          if (seed && !keep_bit(r ? u1 : u0, k0 + 8 * jn + 2 * tig + (e & 1),
+                                P.threshold))
+            p = 0.f;
+          s[jn][e] = p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * alpha[r] + quad_sum(ps[r]);
+      acc_tile<ND, NT, LD>(o, s, Vs, alpha[0], alpha[1]);
+    }
+    __syncthreads();  // this step's slot is consumed before it is refilled
+  }
+
+  float* ob = out + b * P.o.b + h * P.o.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? qp1 : qp0;
+    if (qp >= P.Tq) continue;
+    const float safe_l = fmaxf(l_r[r], 1e-30f);
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd) {
+      float o0 = o[jd][2 * r] / safe_l, o1 = o[jd][2 * r + 1] / safe_l;
+      if (seed) {
+        o0 = o0 / P.keep_prob;
+        o1 = o1 / P.keep_prob;
+      }
+      *reinterpret_cast<float2*>(ob + qp * P.o.t + jd * 8 + 2 * tig) =
+          make_float2(o0, o1);
+    }
+    if (tig == 0) lse[(long long)g * P.Tq + qp] = m_r[r] + logf(safe_l);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, QCfg<D>::kBlocks)
+    flash_bwd_dq_kernel(Problem P, const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ seed,
+                        float* __restrict__ dq) {
+  using Cfg = QCfg<D>;
+  constexpr int BQ = Cfg::BQ, BK = Cfg::BK, LD = Cfg::LD, NT = Cfg::NT;
+  constexpr int ND = Cfg::ND;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + BQ * LD;
+  float* ring = dOs + BQ * LD;  // 2 steps of K, V
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int g = blockIdx.y, b = g / P.H, h = g % P.H;
+  const int q0 = blockIdx.x * BQ, m0 = warp * 16;
+  const float* kb = k + b * P.k.b + h * P.k.h;
+  const float* vb = v + b * P.v.b + h * P.v.h;
+  const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
+  auto load_kv = [&](int st, int k0) {
+    float* Ks = ring + st * Cfg::KV;
+    cp_rows<BK, D>(Ks, kb, P.k.t, k0, P.Tk);
+    cp_rows<BK, D>(Ks + BK * LD, vb, P.v.t, k0, P.Tk);
+  };
+  const int upper = key_tiles(P, q0, BQ, BK);
+  // Q and dO stay for the whole scan; they land with the first ring step
+  cp_rows<BQ, D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, q0, P.Tq);
+  cp_rows<BQ, D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, q0,
+                 P.Tq);
+  load_kv(0, 0);
+  tf32::cp_async_commit();
+
+  // this thread's rows of the warp's 16: qp0 (fragment row g), qp1 (g + 8)
+  const int qp0 = q0 + m0 + gid, qp1 = qp0 + 8;
+  float lq[2], dlt[2];
+  uint32_t u[2] = {0u, 0u};
+  const uint32_t hh = seed ? head_hash(seed, g) : 0u;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? qp1 : qp0;
+    const bool in = qp < P.Tq;
+    lq[r] = in ? lse[(long long)g * P.Tq + qp] : 0.f;
+    dlt[r] = in ? delta[(long long)g * P.Tq + qp] : 0.f;
+    if (seed) u[r] = row_hash(hh, qp);
+  }
+  const float inv_keep = 1.f / P.keep_prob;
+  // causal: past this key every row of the warp sees nothing
+  const int warp_last = q0 + m0 + 15 + P.Tk - P.Tq;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int j = 0; j < upper; ++j) {
+    const int st = j & 1, k0 = j * BK;
+    // the other step's slot was consumed before the last barrier
+    if (j + 1 < upper) load_kv(st ^ 1, k0 + BK);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<1>();
+    __syncthreads();
+    const float* Ks = ring + st * Cfg::KV;
+    const float* Vs = Ks + BK * LD;
+    // a key tile that every row of the warp masks adds exactly 0 to dq
+    if (!P.causal || k0 <= warp_last) {
+      float s[NT][4], dp[NT][4];
+      score_tile<D, NT, LD>(s, Qs, m0, Ks);
+      score_tile<D, NT, LD>(dp, dOs, m0, Vs);
+      // dS = p (dp keep / (1 - p) - delta) scale, in the fragment layout:
+      // entry (jn, e) is row e < 2 ? qp0 : qp1, key k0 + 8 jn + 2 tig +
+      // (e & 1); it replaces s. A tile no mask reaches skips the mask.
+      const bool edge = edge_tile(P, q0 + m0, k0, BK);
+      auto ds_entries = [&](int jn, int c, float bk) {
+        const int kp = k0 + 8 * jn + 2 * tig + c;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 2 * r + c;
+          const float sv = s[jn][e] * P.scale + bk;
+          const float p = (!edge || visible(P, r ? qp1 : qp0, kp))
+                              ? __expf(sv - lq[r])
+                              : 0.f;
+          float d = dp[jn][e];
+          if (seed)
+            d = keep_bit(u[r], kp, P.threshold) ? d * inv_keep : 0.f;
+          s[jn][e] = p * (d - dlt[r]) * P.scale;
+        }
+      };
+      if (edge) {
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int kp = k0 + 8 * jn + 2 * tig + c;
+            ds_entries(jn, c, (bias_row && kp < P.Tk) ? bias_row[kp] : 0.f);
+          }
+      } else {
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            ds_entries(jn, c,
+                       bias_row ? bias_row[k0 + 8 * jn + 2 * tig + c] : 0.f);
+      }
+      // dQ += dS K, K read MN-major in key pairs
+      acc_tile<ND, NT, LD>(acc, s, Ks, 1.f, 1.f);
+    }
+    __syncthreads();  // this step's slot is consumed before it is refilled
+  }
+
+  float* db = dq + b * P.dq.b + h * P.dq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? qp1 : qp0;
+    if (qp >= P.Tq) continue;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<float2*>(db + qp * P.dq.t + jd * 8 + 2 * tig) =
+          make_float2(acc[jd][2 * r], acc[jd][2 * r + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the forward and dq kernels above D = 128: fp32 SIMT tiles
 // ---------------------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(Problem P, const float* __restrict__ q,
+    flash_fwd_simt_kernel(Problem P, const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias,
@@ -380,7 +843,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
   }
 
-  const int upper = key_tiles(P, q0, T);
+  const int upper = key_tiles(P, q0, T, T);
   for (int j = 0; j < upper; ++j) {
     const int k0 = j * T;
     float s[MI][MI] = {};
@@ -504,12 +967,12 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
 }
 
 // ---------------------------------------------------------------------------
-// backward: dq (query tile per block, scanning key tiles)
+// backward: dq above D = 128 (query tile per block, scanning key tiles), SIMT
 // ---------------------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(Problem P, const float* __restrict__ q,
+    flash_bwd_dq_simt_kernel(Problem P, const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ dout,
@@ -561,7 +1024,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[i][c] = 0.f;
 
-  const int upper = key_tiles(P, q0, T);
+  const int upper = key_tiles(P, q0, T, T);
   for (int j = 0; j < upper; ++j) {
     const int k0 = j * T;
     float s[MI][MI] = {}, dp[MI][MI] = {};
@@ -639,21 +1102,6 @@ struct DkvCfg {
       (size_t)(KV + 2 * QS + 2 * BK * LDP) * sizeof(float);
   static_assert(W1 <= 8 && NJ * NG * 8 == D, "warp tiling");
 };
-
-// Rows [row0, row0 + R) of one head (D floats each, row stride ts) into
-// shared rows of stride D + 4 by cp.async; rows at or past limit are
-// zero-filled.
-template <int R, int D>
-__device__ __forceinline__ void cp_rows(float* dst, const float* src,
-                                        long long ts, int row0, int limit) {
-  constexpr int V4 = D / 4, LD = D + 4;
-  for (int idx = threadIdx.x; idx < R * V4; idx += kThreads) {
-    const int r = idx / V4, c = (idx % V4) * 4;
-    const bool ok = row0 + r < limit;
-    tf32::cp_async16(dst + r * LD + c, ok ? src + (row0 + r) * ts + c : src,
-                     ok);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, DkvCfg<D>::kBlocks)
@@ -1067,16 +1515,18 @@ int slices(int D) {
   return D % n == 0 ? n : 0;
 }
 
-// One block per (query tile, batch * head, head-dim slice).
-dim3 q_grid(const Problem& P, int D) {
-  const int T = tile_rows(D);
+// One block per (query tile, batch * head, head-dim slice), query tiles of
+// T rows.
+dim3 q_grid(const Problem& P, int D, int T) {
   return dim3((P.Tq + T - 1) / T, P.B * P.H, P.D / D);
 }
 
 // Dynamic shared memory of the SIMT kernels, in bytes: at most 208 KB
 // (the fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB; at
 // D = 512 fwd 98 KB, dq 130 KB. The dK/dV kernel's is DkvCfg::kSmem: 89
-// KB at D = 64, 154 KB at 128, 209 KB at 256, 201 KB at 512.
+// KB at D = 64, 154 KB at 128, 209 KB at 256, 201 KB at 512; the 3xTF32
+// forward's and dq's QCfg::kFwdSmem / kDqSmem: 68 and 102 KB at D = 64,
+// 132 and 198 KB at D = 128.
 constexpr size_t fwd_smem(int D) {
   return (size_t)(3 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
@@ -1101,6 +1551,40 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(args...);
   return cudaGetLastError();
+}
+
+// The forward and dq kernels at head-dim slice D: 3xTF32 tiles up to
+// D = 128 (a 16-row warp tile's accumulator and its fresh tile take D
+// registers a thread, and the resident tiles plus the ring 198 KB of shared
+// memory at 128), the SIMT tiles above.
+template <int D>
+cudaError_t launch_fwd(void* stream, const Problem& P, const float* q,
+                       const float* k, const float* v, const float* bias,
+                       const int* seed, float* out, float* lse) {
+  if constexpr (D <= 128) {
+    return launch(flash_fwd_kernel<D>, q_grid(P, D, QCfg<D>::BQ),
+                  QCfg<D>::kFwdSmem, stream, P, q, k, v, bias, seed, out,
+                  lse);
+  } else {
+    return launch(flash_fwd_simt_kernel<D>, q_grid(P, D, tile_rows(D)),
+                  fwd_smem(D), stream, P, q, k, v, bias, seed, out, lse);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(void* stream, const Problem& P, const float* q,
+                      const float* k, const float* v, const float* dout,
+                      const float* lse, const float* delta, const float* bias,
+                      const int* seed, float* dq) {
+  if constexpr (D <= 128) {
+    return launch(flash_bwd_dq_kernel<D>, q_grid(P, D, QCfg<D>::BQ),
+                  QCfg<D>::kDqSmem, stream, P, q, k, v, dout, lse, delta,
+                  bias, seed, dq);
+  } else {
+    return launch(flash_bwd_dq_simt_kernel<D>, q_grid(P, D, tile_rows(D)),
+                  dq_smem(D), stream, P, q, k, v, dout, lse, delta, bias,
+                  seed, dq);
+  }
 }
 
 // The fused kernel at D's row count (fused_rows below); not built for
@@ -1159,9 +1643,8 @@ extern "C" int flash_attention_fwd(const float* q, const float* k,
   const int n = slices(P.D);
   if (too_many_heads(P) || n == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D / n, err = launch(flash_fwd_kernel<kD>, q_grid(P, kD),
-                                   fwd_smem(kD), stream, P, q, k, v, bias,
-                                   seed, out, lse));
+  DISPATCH_D(P.D / n, err = launch_fwd<kD>(stream, P, q, k, v, bias, seed,
+                                          out, lse));
   return (int)err;
 }
 
@@ -1179,9 +1662,8 @@ extern "C" int flash_attention_bwd_dq(const float* q, const float* k,
   const int n = slices(P.D);
   if (too_many_heads(P) || n == 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
-  DISPATCH_D(P.D / n, err = launch(flash_bwd_dq_kernel<kD>, q_grid(P, kD),
-                                   dq_smem(kD), stream, P, q, k, v, dout,
-                                   lse, delta, bias, seed, dq));
+  DISPATCH_D(P.D / n, err = launch_dq<kD>(stream, P, q, k, v, dout, lse,
+                                         delta, bias, seed, dq));
   return (int)err;
 }
 

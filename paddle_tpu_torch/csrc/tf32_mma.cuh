@@ -95,6 +95,35 @@ __device__ __forceinline__ void frag_b(const float* s, int n0, int k0,
   }
 }
 
+// The B fragment of k [k0, k0 + 8) x n [n0, n0 + 8) from an MN-major shared
+// tile ([k][n], row stride LD), split, in a permuted k order: fragment row t
+// is tile row k0 + 2t and fragment row t + 4 is tile row k0 + 2t + 1. In that
+// order the A operand of the product is an m16n8 accumulator fragment as it
+// stands (frag_a_acc): a product's result feeds the next product from
+// registers, with no trip through shared memory. With LD = 4 mod 32 the
+// warp's loads meet no bank conflict (banks 8t + g).
+template <int LD>
+__device__ __forceinline__ void frag_b_pairs(const float* s, int n0, int k0,
+                                             uint32_t (&hi)[2],
+                                             uint32_t (&lo)[2]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
+  split(p[0], hi[0], lo[0]);
+  split(p[LD], hi[1], lo[1]);
+}
+
+// The A fragment, split, that an accumulator fragment c (c0/c1 at row g,
+// columns 2t / 2t + 1; c2/c3 at row g + 8) is in frag_b_pairs' k order:
+// a0 (g, t) = c0, a1 (g + 8, t) = c2, a2 (g, t + 4) = c1, a3 = c3.
+__device__ __forceinline__ void frag_a_acc(const float (&c)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split(c[0], hi[0], lo[0]);
+  split(c[2], hi[1], lo[1]);
+  split(c[1], hi[2], lo[2]);
+  split(c[3], hi[3], lo[3]);
+}
+
 // cp.async of 16 or 4 bytes; with ok false the destination is zero-filled
 // (src-size 0) and src is not read.
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,

@@ -11,6 +11,8 @@ rows >= 8) do not apply to these kernels.
 dim, mask shape, train/eval minimum sequence length): what the gate
 admits goes to flash attention (kernels on CUDA, their plain version on
 the CPU), the rest to the plain ``ops.attention`` composition.
+``maybe_flash_attention_with_lse`` is the entry ring attention builds on
+(``(out, lse)``, both differentiable; no gate, as in the JAX package).
 ``maybe_fused_linear_xent`` routes by the ``fused_softmax_xent`` flag:
 off, the composed projection and ``ops.loss``; on, the fused kernels (or
 their plain version). ``maybe_fused_adam`` is the optimizer's one call
@@ -40,6 +42,7 @@ from . import paged_attention as _pa
 
 __all__ = ["maybe_layer_norm", "maybe_paged_attention",
            "maybe_paged_attention_multiquery", "maybe_flash_attention",
+           "maybe_flash_attention_with_lse",
            "fused_softmax_xent_enabled", "maybe_fused_linear_xent",
            "maybe_fused_adam", "launch_counts", "reset_launch_counts"]
 
@@ -184,6 +187,20 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     return scaled_dot_product_attention(q, k, v, mask=mask, scale=scale,
                                         causal=causal, dropout_p=dropout_p,
                                         training=training)
+
+
+def maybe_flash_attention_with_lse(q, k, v, causal: bool = False,
+                                   scale: Optional[float] = None,
+                                   layout: str = "bhtd"):
+    """``(out, lse)`` of attention over q/k/v ``[B, H, T, D]``
+    (``layout="bhtd"``) or ``[B, T, H, D]`` (``"bthd"``), both
+    differentiable; lse ``[B, H, Tq]`` fp32, out in q's layout and dtype.
+    No dropout and no bias, as the JAX package's
+    ``flash_attention_with_lse``. CPU tensors take the plain version,
+    CUDA tensors the flash kernels (or raise)."""
+    impl = _fa.flash_attention_with_lse_plain if q.device.type == "cpu" \
+        else _fa.flash_attention_with_lse
+    return impl(q, k, v, causal=causal, scale=scale, bthd=layout == "bthd")
 
 
 def fused_softmax_xent_enabled() -> bool:

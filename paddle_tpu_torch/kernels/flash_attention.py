@@ -42,23 +42,40 @@ scale stays ``1/sqrt`` of the unpadded dim. The kernel entry points
 themselves take fp32 CUDA tensors whose head dim is a kernel head dim,
 contiguous in that dim, with the other strides multiples of 4 floats and
 16-byte aligned data; anything else raises.
+
+Dtypes, as the JAX kernels: q, k and v may be fp32, bf16 or fp16, and
+``kv_bias`` too; the kernels read them as fp32 (:func:`flash_attention`
+casts on the way in), ``out`` comes back in q's dtype, each gradient in
+its input's dtype, ``lse`` in fp32. The cast path is one autograd
+Function over a set of kernel functions (:class:`FlashKernels`); the
+CPU tests run it with :data:`PLAIN_KERNELS`, the kernels' plain
+stand-ins, in the CUDA kernels' place.
+
+:func:`flash_attention_with_lse` is the JAX package's entry of the same
+name: ``(out, lse)``, both differentiable, no dropout and no bias. It
+runs the same kernels; lse's cotangent folds into the backward's delta
+(``delta = rowsum(dO * out) - dlse``), so it needs no kernel of its own.
+:func:`flash_attention_with_lse_plain` is its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from ._dtypes import cast as _cast, check as _check_dtypes
 
-__all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
-           "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
-           "backward_route", "fused_rows", "kernel_head_dim",
-           "head_dim_plan", "dropout_keep_mask", "dropout_threshold",
-           "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_with_lse", "flash_attention_with_lse_plain",
+           "flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_fwd_plain", "flash_bwd_plain", "FlashKernels", "KERNELS",
+           "PLAIN_KERNELS", "backward_route", "fused_rows",
+           "kernel_head_dim", "head_dim_plan", "dropout_keep_mask",
+           "dropout_threshold", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 # the head dims the kernels are instantiated for (DISPATCH_D in the source)
@@ -151,17 +168,10 @@ def dropout_keep_mask(seed: torch.Tensor, b: int, h: int, tq: int, tk: int,
     return (bits >= dropout_threshold(dropout_p)).reshape(b, h, tq, tk)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, causal: bool = False,
-                          scale: Optional[float] = None,
-                          dropout_p: float = 0.0,
-                          seed: Optional[torch.Tensor] = None,
-                          kv_bias: Optional[torch.Tensor] = None,
-                          bthd: bool = False, return_lse: bool = False):
-    """The kernels' plain PyTorch version: materialised scores, the same
-    masks and dropout hash, autograd for the gradient (``kv_bias`` gets
-    none). The oracle of the kernels, and their stand-in for CPU
-    tensors. With ``return_lse`` also returns ``lse`` ``[B, H, Tq]``."""
+def _plain(q, k, v, causal, scale, dropout_p, seed, kv_bias, bthd):
+    """(out, lse) in plain PyTorch, both differentiable: materialised
+    scores in fp32, the kernels' masks and dropout hash; out in q's
+    dtype and layout, lse ``[B, H, Tq]`` fp32."""
     if dropout_p > 0.0 and seed is None:
         raise ValueError("flash_attention: dropout_p > 0 requires a seed")
     if scale is None:
@@ -180,6 +190,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
         k_pos = torch.arange(tk, device=q.device)[None, :]
         valid = q_pos + (tk - tq) >= k_pos
         s = s.masked_fill(~valid, NEG_INF)
+    # d lse / ds = p whatever m is, so m need not carry a gradient
     m = s.amax(dim=-1, keepdim=True).detach()
     e = torch.exp(s - m)
     if valid is not None:
@@ -192,9 +203,84 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     if bthd:
         out = out.transpose(1, 2)
-    if return_lse:
-        return out, (m + torch.log(l)).squeeze(-1).detach()
-    return out
+    return out, (m + torch.log(l)).squeeze(-1)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = False,
+                          scale: Optional[float] = None,
+                          dropout_p: float = 0.0,
+                          seed: Optional[torch.Tensor] = None,
+                          kv_bias: Optional[torch.Tensor] = None,
+                          bthd: bool = False, return_lse: bool = False):
+    """The kernels' plain PyTorch version: materialised scores, the same
+    masks and dropout hash, autograd for the gradient (``kv_bias`` gets
+    none). The oracle of the kernels, and their stand-in for CPU
+    tensors. Computes in fp32 from any input dtype; the output in q's
+    dtype. With ``return_lse`` also returns ``lse`` ``[B, H, Tq]`` fp32,
+    detached."""
+    out, lse = _plain(q, k, v, causal, scale, dropout_p, seed, kv_bias,
+                      bthd)
+    return (out, lse.detach()) if return_lse else out
+
+
+def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, causal: bool = False,
+                                   scale: Optional[float] = None,
+                                   bthd: bool = False):
+    """:func:`flash_attention_with_lse` in plain PyTorch: ``(out, lse)``
+    with both differentiable through autograd (``lse = m + log(sum
+    exp(s - m))``, whose gradient is p)."""
+    return _plain(q, k, v, causal, scale, 0.0, None, None, bthd)
+
+
+def flash_fwd_plain(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, dropout_p: float = 0.0,
+                    seed=None, kv_bias=None, bthd: bool = False):
+    """The forward kernel's plain stand-in: ``(out, lse)`` as
+    :func:`flash_fwd` returns them, on any device."""
+    with torch.no_grad():
+        return flash_attention_plain(q, k, v, causal, scale, dropout_p,
+                                     seed, kv_bias, bthd, return_lse=True)
+
+
+def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool = False,
+                    scale: Optional[float] = None, dropout_p: float = 0.0,
+                    seed=None, kv_bias=None, bthd: bool = False):
+    """The backward kernels' function in plain PyTorch: ``(dq, dk, dv)``
+    from the saved ``lse`` and ``delta`` (``[B, H, Tq]``), as the dq, dkv
+    and fused kernels compute them: ``p = exp(q.k scale + bias - lse)``
+    (0 where masked), ``dS = p (dP keep / (1 - p) - delta) scale``,
+    ``dq = dS k``, ``dk = dS^T q``, ``dv = (p keep / (1 - p))^T dO``.
+    Their stand-in for CPU tensors in the cast path's tests."""
+    if dropout_p > 0.0 and seed is None:
+        raise ValueError("flash_attention: dropout_p > 0 requires a seed")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if bthd:
+        q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if kv_bias is not None:
+        s = s + kv_bias.float()[:, None, None, :]
+    p = torch.exp(s - lse.float()[..., None])
+    if causal:
+        q_pos = torch.arange(tq, device=q.device)[:, None]
+        k_pos = torch.arange(tk, device=q.device)[None, :]
+        p = p.masked_fill(q_pos + (tk - tq) < k_pos, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, v)
+    pv = p
+    if dropout_p > 0.0:
+        keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p)
+        pv = torch.where(keep, p, torch.zeros_like(p)) / (1.0 - dropout_p)
+        dp = torch.where(keep, dp, torch.zeros_like(dp)) / (1.0 - dropout_p)
+    ds = p * (dp - delta.float()[..., None]) * scale
+    grads = (torch.einsum("bhqk,bhkd->bhqd", ds, k),
+             torch.einsum("bhqk,bhqd->bhkd", ds, q),
+             torch.einsum("bhqk,bhqd->bhkd", pv, dout))
+    return tuple(g.transpose(1, 2) if bthd else g for g in grads)
 
 
 # --- the CUDA kernels ------------------------------------------------------
@@ -401,49 +487,96 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, causal: bool = False,
     return dq, dk, dv
 
 
+class FlashKernels(NamedTuple):
+    """The kernel functions the autograd Function runs: the forward
+    (``(out, lse)``), the dq kernel, the dkv kernel (``(dk, dv)``) and
+    the fused backward (``(dq, dk, dv)``), each with the signature of
+    :func:`flash_fwd` / :func:`flash_bwd_dq` and on fp32 operands."""
+    fwd: Callable
+    dq: Callable
+    dkv: Callable
+    fused: Callable
+
+
+def _bwd_dq_plain(*args, **kw):
+    return flash_bwd_plain(*args, **kw)[0]
+
+
+def _bwd_dkv_plain(*args, **kw):
+    return flash_bwd_plain(*args, **kw)[1:]
+
+
+# the CUDA kernels, and their plain stand-ins (for the cast path's tests)
+KERNELS = FlashKernels(flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+                       flash_bwd_fused)
+PLAIN_KERNELS = FlashKernels(flash_fwd_plain, _bwd_dq_plain, _bwd_dkv_plain,
+                             flash_bwd_plain)
+
+
+def _fp32(t: torch.Tensor) -> torch.Tensor:
+    """A bf16/fp16 operand as the fp32 copy the kernels read (contiguous
+    where its strides would not be readable); an fp32 one as it is."""
+    f = _cast(t)
+    return f if f is t or _kernel_readable(f) else f.contiguous()
+
+
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, kv_bias, seed, causal, scale, dropout_p,
-                bthd):
-        out, lse = flash_fwd(q, k, v, causal, scale, dropout_p, seed,
-                             kv_bias, bthd)
-        ctx.save_for_backward(q, k, v, out, lse, kv_bias, seed)
-        ctx.opts = (causal, scale, dropout_p, bthd)
-        return out
+    """``(out, lse)`` through ``kernels``, forward and backward, both
+    outputs differentiable. The one cast path of every dtype: q, k, v and
+    ``kv_bias`` read as fp32, out returned in q's dtype, lse in fp32, and
+    each gradient in its input's dtype. lse's cotangent folds into delta
+    (``delta = rowsum(dO * out) - dlse``), as the JAX package's
+    ``_bwd_lse`` does; an output that gets no cotangent contributes
+    nothing."""
 
     @staticmethod
-    def backward(ctx, dout):
+    def forward(ctx, q, k, v, kv_bias, seed, causal, scale, dropout_p,
+                bthd, kernels):
+        qf, kf, vf = (_fp32(t) for t in (q, k, v))
+        bias = _cast(kv_bias)
+        bias = bias if bias is kv_bias else bias.contiguous()
+        out, lse = kernels.fwd(qf, kf, vf, causal, scale, dropout_p, seed,
+                               bias, bthd)
+        ctx.save_for_backward(qf, kf, vf, out, lse, bias, seed)
+        ctx.opts = (causal, scale, dropout_p, bthd, kernels)
+        ctx.dtypes = (q.dtype, k.dtype, v.dtype)
+        ctx.set_materialize_grads(False)
+        return _cast(out, q.dtype), lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
         q, k, v, out, lse, kv_bias, seed = ctx.saved_tensors
-        causal, scale, dropout_p, bthd = ctx.opts
+        causal, scale, dropout_p, bthd, kernels = ctx.opts
+        dout = torch.zeros_like(out) if dout is None else _fp32(dout)
         # dO as autograd hands it over, in a layout the kernels read
         if not _kernel_readable(dout):
             dout = dout.contiguous()
         delta = (dout * out).sum(dim=-1)
-        delta = (delta.transpose(1, 2) if bthd else delta).contiguous()
+        delta = delta.transpose(1, 2) if bthd else delta
+        if dlse is not None:
+            delta = delta - _cast(dlse)
+        delta = delta.contiguous()
         args = (q, k, v, dout, lse, delta, causal, scale, dropout_p, seed,
                 kv_bias, bthd)
         tq, d = lse.shape[2], q.shape[3]
         tk = k.shape[1] if bthd else k.shape[2]
         if backward_route(tq, tk, d) == "fused":
-            dq, dk, dv = flash_bwd_fused(*args)
+            dq, dk, dv = kernels.fused(*args)
         else:
-            dq = flash_bwd_dq(*args)
-            dk, dv = flash_bwd_dkv(*args)
-        return dq, dk, dv, None, None, None, None, None, None
+            dq = kernels.dq(*args)
+            dk, dv = kernels.dkv(*args)
+        dq, dk, dv = (_cast(g, dt) for g, dt in zip((dq, dk, dv),
+                                                     ctx.dtypes))
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = False,
-                    scale: Optional[float] = None, dropout_p: float = 0.0,
-                    seed: Optional[torch.Tensor] = None,
-                    kv_bias: Optional[torch.Tensor] = None,
-                    bthd: bool = False) -> torch.Tensor:
-    """Flash attention on CUDA tensors through the kernels, forward and
-    backward (an autograd Function). Raises on CPU tensors: the router
-    (``kernels.maybe_flash_attention``) sends those to
-    :func:`flash_attention_plain`. A head dim the kernels do not run as
-    it is is zero-padded to :func:`kernel_head_dim` around the Function
+def _flash(q, k, v, causal, scale, dropout_p, seed, kv_bias, bthd,
+           kernels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` through the Function, a head dim the kernels do not
+    run as it is zero-padded to :func:`kernel_head_dim` around it
     (autograd slices the gradients back), with the scale of the unpadded
     dim."""
+    _check_dtypes("flash attention", q=q, k=k, v=v, kv_bias=kv_bias)
     d = q.shape[-1]
     kd = kernel_head_dim(d)
     if kd != d:
@@ -451,6 +584,38 @@ def flash_attention(q, k, v, causal: bool = False,
             scale = 1.0 / math.sqrt(d)
         q, k, v = (torch.nn.functional.pad(t, (0, kd - d))
                    for t in (q, k, v))
-    out = _FlashAttention.apply(q, k, v, kv_bias, seed, causal, scale,
-                                float(dropout_p), bthd)
-    return out if kd == d else out[..., :d]
+    out, lse = _FlashAttention.apply(q, k, v, kv_bias, seed, causal, scale,
+                                     float(dropout_p), bthd, kernels)
+    return (out if kd == d else out[..., :d]), lse
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    scale: Optional[float] = None, dropout_p: float = 0.0,
+                    seed: Optional[torch.Tensor] = None,
+                    kv_bias: Optional[torch.Tensor] = None,
+                    bthd: bool = False,
+                    kernels: FlashKernels = KERNELS) -> torch.Tensor:
+    """Flash attention on CUDA tensors through the kernels, forward and
+    backward (an autograd Function), in fp32, bf16 or fp16 (see the
+    module note). Raises on CPU tensors: the router
+    (``kernels.maybe_flash_attention``) sends those to
+    :func:`flash_attention_plain`. A head dim the kernels do not run as
+    it is is zero-padded to :func:`kernel_head_dim`. ``kernels`` is what
+    the Function runs; the CPU tests pass :data:`PLAIN_KERNELS`."""
+    return _flash(q, k, v, causal, scale, dropout_p, seed, kv_bias, bthd,
+                  kernels)[0]
+
+
+def flash_attention_with_lse(q, k, v, causal: bool = False,
+                             scale: Optional[float] = None,
+                             bthd: bool = False,
+                             kernels: FlashKernels = KERNELS
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``flash_attention_with_lse``: ``(out, lse)``
+    with both differentiable, the building block for combining partial
+    attention over sharded K/V (ring attention). No dropout and no bias.
+    The same kernels and cast path as :func:`flash_attention`; lse
+    ``[B, H, Tq]`` fp32. Raises on CPU tensors: the router
+    (``kernels.maybe_flash_attention_with_lse``) sends those to
+    :func:`flash_attention_with_lse_plain`."""
+    return _flash(q, k, v, causal, scale, 0.0, None, None, bthd, kernels)

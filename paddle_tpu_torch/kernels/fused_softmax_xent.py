@@ -31,21 +31,30 @@ The kernels take fp32 CUDA tensors: ``hidden`` ``[..., H]``, ``weight``
 ``[V, H]`` contiguous (the tied word embedding is read in place),
 ``bias`` ``[V]`` or None, integer ``labels`` of ``hidden``'s leading
 shape; anything else raises.
+
+Dtypes, as the JAX kernels: ``hidden``, ``weight`` and ``bias`` may be
+fp32, bf16 or fp16. :func:`fused_linear_xent` reads them as fp32 (the
+kernels' operands), returns the loss in fp32 and each gradient in its
+input's dtype. That cast path is one autograd Function over a pair of
+kernel functions (:class:`XentKernels`); the CPU tests run it with
+:data:`PLAIN_KERNELS`, the kernels' plain stand-ins.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _build
+from ._dtypes import cast as _cast, check as _check_dtypes
 
 __all__ = ["fused_linear_xent", "fused_linear_xent_plain",
            "fused_xent_fwd_split_plain", "fused_xent_bwd_chunked_plain",
-           "xent_fwd", "xent_bwd", "vocab_splits", "bwd_chunk"]
+           "xent_fwd", "xent_bwd", "vocab_splits", "bwd_chunk",
+           "XentKernels", "KERNELS", "PLAIN_KERNELS"]
 
 # kernel launches since the last reset (kernels.reset_launch_counts): the
 # forward entry launches two kernels (partials per vocab split, merge);
@@ -321,12 +330,53 @@ def xent_bwd(h2, w, b, lab, lse, g, ignore_index: int = -100,
     return dh, dw, db
 
 
+class XentKernels(NamedTuple):
+    """The kernel functions the autograd Function runs, on fp32
+    operands: the forward (:func:`xent_fwd`'s signature, ``(loss, lse)``)
+    and the backward (:func:`xent_bwd`'s, ``(dh, dw, db)``)."""
+    fwd: Callable
+    bwd: Callable
+
+
+def _fwd_plain(h2, w, b, lab, ignore_index: int = -100):
+    with torch.no_grad():
+        return fused_linear_xent_plain(h2, w, b, lab, ignore_index,
+                                       return_lse=True)
+
+
+def _bwd_plain(h2, w, b, lab, lse, g, ignore_index: int = -100,
+               need_dh: bool = True, need_dw: bool = True):
+    dh, dw, db = fused_xent_bwd_chunked_plain(h2, w, b, lab, lse, g,
+                                              ignore_index)
+    return (dh if need_dh else None, dw if need_dw else None,
+            db if need_dw else None)
+
+
+# the CUDA kernels, and their plain stand-ins (for the cast path's tests)
+KERNELS = XentKernels(xent_fwd, xent_bwd)
+PLAIN_KERNELS = XentKernels(_fwd_plain, _bwd_plain)
+
+
+def _fp32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bf16/fp16 operand as the contiguous fp32 copy the kernels read;
+    an fp32 one (or None) as it is."""
+    f = _cast(t)
+    return f if f is t else f.contiguous()
+
+
 class _FusedLinearXent(torch.autograd.Function):
+    """The loss through ``kernels``, forward and backward. The one cast
+    path of every dtype: hidden, weight and bias read as fp32, the loss
+    in fp32, each gradient in its input's dtype."""
+
     @staticmethod
-    def forward(ctx, h2, w, b, lab, ignore_index):
-        loss, lse = xent_fwd(h2, w, b, lab, ignore_index)
-        ctx.save_for_backward(h2, w, b, lab, lse)
+    def forward(ctx, h2, w, b, lab, ignore_index, kernels):
+        hf, wf, bf = _fp32(h2), _fp32(w), _fp32(b)
+        loss, lse = kernels.fwd(hf, wf, bf, lab, ignore_index)
+        ctx.save_for_backward(hf, wf, bf, lab, lse)
         ctx.ignore_index = ignore_index
+        ctx.kernels = kernels
+        ctx.dtypes = (h2.dtype, w.dtype, None if b is None else b.dtype)
         return loss
 
     @staticmethod
@@ -334,21 +384,27 @@ class _FusedLinearXent(torch.autograd.Function):
         h2, w, b, lab, lse = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
         need_dw = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        dh, dw, db = xent_bwd(h2, w, b, lab, lse, g, ctx.ignore_index,
-                              ctx.needs_input_grad[0], need_dw)
-        return dh, dw, db, None, None
+        grads = ctx.kernels.bwd(h2, w, b, lab, lse, g, ctx.ignore_index,
+                                ctx.needs_input_grad[0], need_dw)
+        dh, dw, db = (_cast(x, dt) for x, dt in zip(grads, ctx.dtypes))
+        return dh, dw, db, None, None, None
 
 
 def fused_linear_xent(hidden: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor], labels: torch.Tensor,
-                      ignore_index: int = -100) -> torch.Tensor:
-    """Per-position loss of labels' shape through the kernels, forward
-    and backward (an autograd Function). Raises on CPU tensors: the
-    router (``kernels.maybe_fused_linear_xent``) sends those to
-    :func:`fused_linear_xent_plain`."""
+                      ignore_index: int = -100,
+                      kernels: XentKernels = KERNELS) -> torch.Tensor:
+    """Per-position fp32 loss of labels' shape through the kernels,
+    forward and backward (an autograd Function); hidden, weight and bias
+    in fp32, bf16 or fp16 (see the module note). Raises on CPU tensors:
+    the router (``kernels.maybe_fused_linear_xent``) sends those to
+    :func:`fused_linear_xent_plain`. ``kernels`` is what the Function
+    runs; the CPU tests pass :data:`PLAIN_KERNELS`."""
+    _check_dtypes("fused softmax-xent", hidden=hidden, weight=weight,
+                  bias=bias)
     lead = labels.shape
     n = math.prod(lead)
     h2 = hidden.reshape(n, hidden.shape[-1]).contiguous()
     lab = labels.reshape(n).to(torch.int64).contiguous()
-    return _FusedLinearXent.apply(h2, weight, bias, lab,
-                                  int(ignore_index)).reshape(lead)
+    return _FusedLinearXent.apply(h2, weight, bias, lab, int(ignore_index),
+                                  kernels).reshape(lead)

@@ -10,8 +10,10 @@ the dq + dkv pair) are compared. The dropout keep masks must be
 identical: the port reproduces the JAX kernels' counter hash bit for
 bit, so the tolerances below are fp32 summation-order tolerances even
 at dropout 0.1. Also checked: the port's backward-route rule, the
-routing gate, the LayerNorm backward, and that the CUDA wrappers refuse
-CPU tensors.
+routing gate, the LayerNorm backward, that the CUDA wrappers refuse
+CPU tensors, and ``flash_attention_with_lse`` (its plain version, the
+autograd Function over the kernels' plain stand-ins, and its router)
+against the JAX entry of that name with both cotangents nonzero.
 """
 
 import numpy as np
@@ -299,3 +301,90 @@ def test_cpu_routes_count_no_launch():
                            "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "layer_norm"}
     assert all(v == 0 for v in counts.values())
+
+
+# flash_attention_with_lse (the JAX package's entry of that name): (B, H,
+# Tq, Tk, D, causal). With BLOCK_Q/BLOCK_K at 32, T = 24 takes the JAX
+# fused backward and 72/136 its dq + dkv pair; the port's cast path
+# takes its fused route up to 128 rows (D <= 64) and the dq + dkv pair at
+# 136, where delta - dlse reaches both of its kernels
+LSE_CASES = [
+    (1, 2, 24, 24, 32, False),
+    (1, 2, 24, 24, 32, True),
+    (1, 2, 136, 136, 32, False),
+    (1, 2, 136, 136, 16, True),
+    (1, 2, 40, 72, 16, True),
+]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal", LSE_CASES)
+def test_flash_with_lse_matches_jax(jax_tiles, b, h, tq, tk, d, causal):
+    """(out, lse) and the gradients of sum(out * w1) + sum(lse * w2), both
+    cotangents nonzero: the plain version (the CPU router's) and the cast
+    path's autograd Function over the kernels' plain stand-ins, which
+    folds dlse into delta as the CUDA route does."""
+    rng = np.random.default_rng(tq + tk + d)
+    q = rng.standard_normal((b, h, tq, d), np.float32)
+    k = rng.standard_normal((b, h, tk, d), np.float32)
+    v = rng.standard_normal((b, h, tk, d), np.float32)
+    w1 = rng.standard_normal((b, h, tq, d), np.float32)
+    w2 = rng.standard_normal((b, h, tq), np.float32)
+
+    def jax_loss(q_, k_, v_):
+        o, lse = jax_fa.flash_attention_with_lse(q_, k_, v_, causal, None,
+                                                 True)
+        return jnp.sum(o * w1) + jnp.sum(lse * w2), (o, lse)
+
+    (_, (want_o, want_lse)), jgrads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    runs = {
+        "plain": lambda *x: fa.flash_attention_with_lse_plain(
+            *x, causal=causal),
+        "cast_path": lambda *x: fa.flash_attention_with_lse(
+            *x, causal=causal, kernels=fa.PLAIN_KERNELS),
+        "router": lambda *x: kernels.maybe_flash_attention_with_lse(
+            *x, causal=causal),
+    }
+    for name, run in runs.items():
+        leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        o, lse = run(*leaves)
+        assert lse.shape == (b, h, tq) and lse.dtype == torch.float32
+        ((o * torch.from_numpy(w1)).sum()
+         + (lse * torch.from_numpy(w2)).sum()).backward()
+        assert np.max(np.abs(o.detach().numpy() - np.asarray(want_o))) \
+            <= OUT_TOL, name
+        assert np.max(np.abs(lse.detach().numpy()
+                             - np.asarray(want_lse))) <= OUT_TOL, name
+        for g_name, t, jg in zip("qkv", leaves, jgrads):
+            err = np.max(np.abs(t.grad.numpy() - np.asarray(jg)))
+            assert err <= GRAD_TOL, (name, g_name, err)
+
+
+def test_flash_with_lse_layouts_and_launches():
+    # BTHD gives the BHTD result in its own layout; the CPU route counts
+    # no launch; each output alone carries a gradient
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 20, 16),
+                                                    np.float32))
+               for _ in range(3))
+    kernels.reset_launch_counts()
+    o, lse = kernels.maybe_flash_attention_with_lse(q, k, v, causal=True)
+    ot, lset = kernels.maybe_flash_attention_with_lse(
+        *(x.transpose(1, 2) for x in (q, k, v)), causal=True,
+        layout="bthd")
+    assert torch.allclose(ot.transpose(1, 2), o, atol=1e-6)
+    assert torch.allclose(lset, lse, atol=1e-6)
+    assert all(n == 0 for n in kernels.launch_counts().values())
+    for pick in (0, 1):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        got = torch.autograd.grad(fa.flash_attention_with_lse(
+            *leaves, causal=True, kernels=fa.PLAIN_KERNELS)[pick].sum(),
+            leaves)
+        ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        # lse does not reach v: its gradient there is exactly 0
+        want = torch.autograd.grad(fa.flash_attention_with_lse_plain(
+            *ref_leaves, causal=True)[pick].sum(), ref_leaves,
+            allow_unused=True, materialize_grads=True)
+        for a, e in zip(got, want):
+            assert float((a - e).abs().max()) <= GRAD_TOL, pick

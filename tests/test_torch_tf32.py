@@ -1,6 +1,7 @@
 """PyTorch port: the 3xTF32 arithmetic of the tensor-core kernels.
 
-The xent kernels and the flash dK/dV kernel (``csrc/tf32_mma.cuh``)
+The xent kernels and the flash forward, dq and dK/dV kernels
+(``csrc/tf32_mma.cuh``)
 split each fp32 operand into two TF32 numbers (``hi = rna(x)``, ``lo =
 rna(x - hi)``, ``cvt.rna.tf32.f32``'s rounding: to nearest, ties away
 from zero) and sum ``lo.hi + hi.lo + hi.hi`` in fp32, a stage of the
@@ -8,11 +9,14 @@ reduction per fresh tile. Here a plain emulation of that scheme is held
 against float64 products of the same numpy inputs at the reduction
 lengths of the kernels' main-path calls: K = 768 (the xent logits over
 BERT-base's hidden size) and K = 64 and 512 (the dK/dV kernel's S^T and
-dP^T over a head dim; dV and dK over a query tile). This checks the
+dP^T over a head dim; dV and dK over a query tile). Then the flash
+forward's and dq's tile arithmetic as a whole (3xTF32 products by key
+tile, the online softmax, fresh tiles) is emulated and held against the
+JAX flash kernel in interpret mode at [1, 2, 512, 64]. This checks the
 scheme, not the kernels: ``round_tf32`` is a copy of the header's
 rounding, and the kernels' accuracy is held on the card by
-``chip_smoke.py``'s ``XENT_TOL`` and ``FLASH_GRAD_TOL`` checks against
-their plain versions.
+``chip_smoke.py``'s ``XENT_TOL``, ``FLASH_TOL`` and ``FLASH_GRAD_TOL``
+checks against their plain versions.
 """
 
 import numpy as np
@@ -100,3 +104,109 @@ def test_three_pass_product_matches_fp32(m, k, n, stage):
     one = round_tf32(torch.from_numpy(a)) @ round_tf32(
         torch.from_numpy(b))
     assert np.abs(one.double().numpy() - want).max() / scale > 50 * err
+
+
+# --- the flash forward's and dq's tile arithmetic -------------------------
+#
+# The forward and dq kernels (D <= 128) run each key tile of BK = 32 keys
+# as 3xTF32 products: S = (q scale) K^T over the head dim in stages of 32
+# columns, each into a fresh tile added in fp32; the online softmax by key
+# tile (m, l, alpha; l sums the undropped p); O = O alpha + (P V over the
+# tile's keys, a fresh tile). dq: S and dP = dO V^T likewise, dS = p (dP
+# keep / (1 - p) - delta) scale, dQ += (dS K, a fresh tile). The emulation
+# below repeats that arithmetic in plain PyTorch (the tensor cores' own
+# sums, not rounded to nearest, are not emulated: fp32 sums stand in) and
+# is held against the JAX flash kernel in interpret mode.
+
+FLASH_TOL = 2e-5
+FLASH_GRAD_TOL = 5e-5
+TILE_KEYS = 32
+HEAD_STAGE = 32
+
+
+def _scores(a, b):
+    """a @ b^T in stages of HEAD_STAGE head-dim columns, 3xTF32."""
+    return matmul_3xtf32(a, b.T, HEAD_STAGE)
+
+
+def emulate_fwd(q, k, v, scale, causal=False, keep=None, p_drop=0.0):
+    """(out, lse) of one head, [T, D] operands, by key tiles."""
+    tq, tk = q.shape[0], k.shape[0]
+    qs = q * scale
+    m = torch.full((tq, 1), -1e30)
+    l = torch.zeros(tq, 1)
+    o = torch.zeros(tq, q.shape[1])
+    rows = torch.arange(tq)[:, None]
+    for k0 in range(0, tk, TILE_KEYS):
+        kt, vt = k[k0:k0 + TILE_KEYS], v[k0:k0 + TILE_KEYS]
+        cols = torch.arange(k0, k0 + kt.shape[0])[None, :]
+        vis = torch.ones(tq, kt.shape[0], dtype=torch.bool)
+        if causal:
+            vis = rows + (tk - tq) >= cols
+        s = torch.where(vis, _scores(qs, kt), torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(dim=1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(vis, torch.exp(s - m_new), torch.tensor(0.0))
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        m = m_new
+        if keep is not None:
+            p = torch.where(keep[:, k0:k0 + kt.shape[0]], p,
+                            torch.tensor(0.0))
+        o = o * alpha + matmul_3xtf32(p, vt, TILE_KEYS)
+    safe_l = l.clamp_min(1e-30)
+    out = o / safe_l
+    if keep is not None:
+        out = out / (1.0 - p_drop)
+    return out, (m + torch.log(safe_l))[:, 0]
+
+
+def emulate_dq(q, k, v, dout, lse, delta, scale, causal=False, keep=None,
+               p_drop=0.0):
+    """dq of one head from the saved lse and delta, by key tiles."""
+    tq, tk = q.shape[0], k.shape[0]
+    dq = torch.zeros_like(q)
+    rows = torch.arange(tq)[:, None]
+    for k0 in range(0, tk, TILE_KEYS):
+        kt, vt = k[k0:k0 + TILE_KEYS], v[k0:k0 + TILE_KEYS]
+        cols = torch.arange(k0, k0 + kt.shape[0])[None, :]
+        p = torch.exp(_scores(q, kt) * scale - lse[:, None])
+        if causal:
+            p = torch.where(rows + (tk - tq) >= cols, p, torch.tensor(0.0))
+        dp = _scores(dout, vt)
+        if keep is not None:
+            dp = torch.where(keep[:, k0:k0 + kt.shape[0]],
+                             dp / (1.0 - p_drop), torch.tensor(0.0))
+        ds = p * (dp - delta[:, None]) * scale
+        dq = dq + matmul_3xtf32(ds, kt, TILE_KEYS)
+    return dq
+
+
+@pytest.mark.parametrize("causal,p_drop", [(False, 0.0), (True, 0.1)])
+def test_flash_tile_emulation_matches_jax(causal, p_drop):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from paddle_tpu.kernels import flash_attention as jax_fa
+    from paddle_tpu_torch.kernels.flash_attention import dropout_keep_mask
+
+    b, h, t, d, seed = 1, 2, 512, 64, 77
+    rng = np.random.default_rng(d + int(causal))
+    q, k, v, ct = (rng.standard_normal((b, h, t, d)).astype(np.float32)
+                   for _ in range(4))
+    out, vjp = jax.vjp(lambda q_: jax_fa.flash_attention(
+        q_, jnp.asarray(k), jnp.asarray(v), causal, None, True, p_drop,
+        jnp.int32(seed) if p_drop else None), jnp.asarray(q))
+    (jdq,) = vjp(jnp.asarray(ct))
+    keep = dropout_keep_mask(torch.tensor([seed], dtype=torch.int32), b, h,
+                             t, t, p_drop) if p_drop else None
+    scale = 1.0 / np.sqrt(d)
+    for g in range(b * h):
+        args = [torch.from_numpy(x[0, g]) for x in (q, k, v)]
+        kg = None if keep is None else keep[0, g]
+        o, lse = emulate_fwd(*args, scale, causal, kg, p_drop)
+        err = float(np.max(np.abs(o.numpy() - np.asarray(out[0, g]))))
+        assert err <= FLASH_TOL, ("out", g, err)
+        dout = torch.from_numpy(ct[0, g])
+        delta = (dout * o).sum(dim=1)
+        dq = emulate_dq(*args, dout, lse, delta, scale, causal, kg, p_drop)
+        err = float(np.max(np.abs(dq.numpy() - np.asarray(jdq[0, g]))))
+        assert err <= FLASH_GRAD_TOL, ("dq", g, err)

@@ -17,12 +17,16 @@ in order:
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes its paths give it, within ``TOL`` (layer norm at the
    serving shapes and at training's [4096, 768] with eps 1e-5 and
-   1e-12, paged attention) or ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
+   1e-12, paged attention, the single-query kernel also against its
+   split-KV decomposition on lens at its chunk edges, bitwise equal run
+   to run, and timed at the engine's decode lens too) or
+   ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
    attention, forward and both backward routes, with and without
    dropout, key bias, causal masking, ragged lengths and head dims 16 to
    512, D = 40 and 320 through the wrapper's zero padding, D = 640 and
    1024 as head-dim slices; the forward, dq and dK/dV bitwise equal run
-   to run; ``flash_attention_with_lse`` on both backward routes with both
+   to run, and the fused backward on every fused-route case;
+   ``flash_attention_with_lse`` on both backward routes with both
    cotangents, through its router on a path of its own, launches
    counted) or
    ``XENT_TOL``/``XENT_GRAD_TOL`` (the fused softmax cross-entropy's
@@ -191,13 +195,13 @@ LN_SHAPES = ((8, 1e-5), (16, 1e-5), (512, 1e-5), (4096, 1e-5),
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores (the unit the SIMT kernels run on) and dense TF32 on the
 # tensor cores, of which 3xTF32 (three products per fp32 product: the xent
-# kernels and the flash dK/dV kernel) gets a third
+# kernels and the flash kernels up to D = 128) gets a third
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 
-# the kernels redesigned for the tensor cores and their design, for the
-# kernels line (the fp32 SIMT designs they replaced are timed in PERF.md)
+# the kernels redesigned since their port and their design, for the
+# kernels line (the designs they replaced are timed in PERF.md)
 DESIGNS = {
     "flash_attention_fwd": (
         "3xTF32 mma.sync, 128 query rows a block (16 a warp, the online "
@@ -217,6 +221,21 @@ DESIGNS = {
         "3xTF32 wgmma m64n128k8, W split once per stage in shared memory, "
         "128x128 logits tiles folded in registers; replaced fp32 SIMT FMA "
         "tiles"),
+    "flash_attention_bwd_fused": (
+        "3xTF32 mma.sync, one block per (batch, head): Q and dO resident, "
+        "cp.async ring of 16-key K/V sub-tiles; per sub-tile the dq "
+        "kernel's step (dS in registers, dQ += dS K accumulated in "
+        "registers over the scan), then Pv^T and dS^T through shared "
+        "memory for dV and dK written straight out; lo of each split "
+        "passed unrounded; no atomics, two blocks per SM at D <= 64; "
+        "replaced fp32 SIMT FMA tiles"),
+    "paged_attention": (
+        "split-KV: one block per (head, sequence, 128-token chunk) over a "
+        "work list of the real chunks; a 32-token K/V tile a warp by "
+        "cp.async, lane-per-token q.k, one max and one sum per tile, lanes "
+        "over D for P V; the chunks merged in chunk order by the block "
+        "that draws the last ticket, in one launch; replaced one block per "
+        "(head, sequence) with a per-token online softmax"),
 }
 
 GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
@@ -326,6 +345,53 @@ def sdpa_inputs(torch, t, bs, qmax):
     return q, kd, vd, mask
 
 
+def check_paged(torch, pa, args, what: str):
+    """The single-query kernel against paged_attention_plain (rows with a
+    context: the plain version's empty row is a uniform average, the
+    kernel's and the JAX kernel's 0) and against its split decomposition
+    paged_attention_split_plain (every row), bitwise equal on a second
+    run. Returns both errors."""
+    got = pa.paged_attention(*args)
+    again = pa.paged_attention(*args)
+    want = pa.paged_attention_plain(*args)
+    split = pa.paged_attention_split_plain(*args)
+    torch.cuda.synchronize()
+    rows = args[4] > 0
+    err = float((got[rows] - want[rows]).abs().max())
+    split_err = float((got - split).abs().max())
+    if not (torch.isfinite(got).all() and err <= TOL and split_err <= TOL
+            and torch.equal(got, again)):
+        raise AssertionError(
+            f"paged_attention kernel ({what}) differs from plain by {err} "
+            f"and from the split plain version by {split_err} (tolerance "
+            f"{TOL}), or from itself run to run: "
+            f"{not torch.equal(got, again)}")
+    return err, split_err
+
+
+def time_paged(torch, timer, pa, t, args, bs, used_blocks) -> dict:
+    """Times of the single-query kernel, its plain version and SDPA over
+    the gathered K/V (the yardstick the port never calls), and the bound:
+    q, K and V of every context token and the table entries read once,
+    the output written once."""
+    F = torch.nn.functional
+    b, h, d = t["q"].shape
+    ntok = int(t["lens"].clamp_min(0).sum())
+    bms, by = bound(4 * (2 * b * h * d + 2 * ntok * h * d + used_blocks + b),
+                    4 * ntok * h * d)
+    q, kd, vd, mask = sdpa_inputs(torch, t, bs, None)
+    want = pa.paged_attention_plain(*args)
+    rows = t["lens"] > 0
+    lib_err = float((F.scaled_dot_product_attention(
+        q, kd, vd, attn_mask=mask)[:, :, 0][rows] - want[rows]).abs().max())
+    return {"ms": timer(lambda: pa.paged_attention(*args)),
+            "plain_ms": timer(lambda: pa.paged_attention_plain(*args)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask)),
+            "library_max_abs_err": lib_err, "bound_ms": bms,
+            "bound_by": by}
+
+
 def check_kernels(torch, timer):
     from paddle_tpu_torch.kernels import layer_norm as ln
     from paddle_tpu_torch.kernels import paged_attention as pa
@@ -371,36 +437,41 @@ def check_kernels(torch, timer):
                                  shapes=per_shape)
 
     # single-query paged decode: B=16, 12 x 64 heads, bs 16, ragged lens
-    # from 1 to 1024 with block remainders
+    # from 1 to 1024 with block remainders; then lens on the kernel's
+    # chunk edges (an empty row included), and the engine's own decode
+    # lens (timed)
     h, d, bs = 12, 64, 16
     lens = [1, 17, 64, 100, 128, 255, 256, 333, 400, 511, 512, 640, 777,
             900, 1000, 1024]
     t, used_blocks = paged_inputs(torch, rng, len(lens), None, h, d, bs,
                                   lens)
     args = (t["q"], t["k"], t["v"], t["tbl"], t["lens"])
-    got = pa.paged_attention(*args)
-    want = pa.paged_attention_plain(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not (torch.isfinite(got).all() and err <= TOL):
-        raise AssertionError(f"paged_attention kernel differs from plain "
-                             f"by {err} > {TOL}")
-    ntok = sum(lens)
-    b = len(lens)
-    bms, by = bound(4 * (2 * b * h * d + 2 * ntok * h * d + used_blocks + b),
-                    4 * ntok * h * d)
-    q, kd, vd, mask = sdpa_inputs(torch, t, bs, None)
-    lib_err = float((F.scaled_dot_product_attention(
-        q, kd, vd, attn_mask=mask)[:, :, 0] - want).abs().max())
-    results["paged_attention"] = {
-        "max_abs_err": err, "shape": f"B={b} H={h} D={d} bs={bs} "
-                                     f"lens 1..1024 (sum {ntok})",
-        "ms": timer(lambda: pa.paged_attention(*args)),
-        "plain_ms": timer(lambda: pa.paged_attention_plain(*args)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, attn_mask=mask)),
-        "library_max_abs_err": lib_err,
-        "bound_ms": bms, "bound_by": by}
+    err, split_err = check_paged(torch, pa, args, "main shape")
+    results["paged_attention"] = dict(
+        time_paged(torch, timer, pa, t, args, bs, used_blocks),
+        max_abs_err=err, split_plain_max_abs_err=split_err,
+        shape=f"B={len(lens)} H={h} D={d} bs={bs} lens 1..1024 (sum "
+              f"{sum(lens)})")
+    c = pa.CHUNK_TOKENS
+    edge = [c, c + 1, c - 1, 1, 2 * c, 2 * c + 1, 3 * c - 1, 4 * c, 31, 32,
+            33, 0, 5 * c + 7]
+    te, _ = paged_inputs(torch, rng, len(edge), None, h, d, bs, edge)
+    eargs = (te["q"], te["k"], te["v"], te["tbl"], te["lens"])
+    e_err, e_split = check_paged(torch, pa, eargs, "chunk-edge lens")
+    results["paged_attention"]["max_abs_err"] = max(err, e_err)
+    results["paged_attention"]["split_plain_max_abs_err"] = max(split_err,
+                                                                e_split)
+    results["paged_attention"]["chunk_edge_lens"] = edge
+    # the engine's decode: 16 prompts of 16..512 tokens (run_serving's),
+    # half way through their 32 new tokens
+    engine = [int(n) + 16 for n in np.linspace(16, 512, 16)]
+    tg, g_used = paged_inputs(torch, rng, len(engine), None, h, d, bs,
+                              engine)
+    gargs = (tg["q"], tg["k"], tg["v"], tg["tbl"], tg["lens"])
+    g_err, g_split = check_paged(torch, pa, gargs, "engine lens")
+    results["paged_attention"]["engine_lens"] = dict(
+        time_paged(torch, timer, pa, tg, gargs, bs, g_used), lens=engine,
+        max_abs_err=g_err, split_plain_max_abs_err=g_split)
     log(f"paged_attention: {json.dumps(results['paged_attention'])}")
 
     # multi-query verify window: Qmax = 4, ragged q_lens
@@ -424,6 +495,7 @@ def check_kernels(torch, timer):
                                           *one[2:])):
         raise AssertionError("multi-query Qmax == 1 is not bit-identical "
                              "to the single-query kernel")
+    ntok, b = sum(lens), len(lens)
     rows_keys = sum(min(n - ql + qi + 1, n) if qi < ql else n
                     for n, ql in zip(lens, qlens) for qi in range(4))
     bms, by = bound(4 * (2 * b * 4 * h * d + 2 * ntok * h * d + used_blocks
@@ -526,8 +598,8 @@ def flash_bounds(b, h, tq, tk, d, causal, bias):
     """(bytes, flops, peak) of each flash kernel's function on these
     shapes: inputs read once, outputs written once; flops of the products
     over the score entries a causal or full mask keeps; the peak of the
-    unit the kernel runs on (3xTF32 on the tensor cores: the forward, dq
-    and dK/dV up to D = 128; the FMA units: the fused backward)."""
+    unit the kernel runs on (3xTF32 on the tensor cores: every flash
+    kernel up to D = 128)."""
     if causal:
         entries = b * h * sum(min(tk, max(0, i + tk - tq + 1))
                               for i in range(tq))
@@ -547,16 +619,16 @@ def flash_bounds(b, h, tq, tk, d, causal, bias):
                                     PEAK_3XTF32_FLOPS),
         "flash_attention_bwd_fused": (4 * (3 * rows_q + 4 * rows_k) + stats
                                       + extra, 10 * entries * d,
-                                      PEAK_FP32_FLOPS),
+                                      PEAK_3XTF32_FLOPS),
     }
 
 
 def check_flash(torch, timer):
     """Each flash kernel against the plain version (forward: out and
     lse; backward: autograd of the plain forward) on FLASH_CASES, the
-    dK/dV kernel bitwise equal on a second run at the seq-512 path's
-    call; times at the two paths' own calls. Returns the kernels'
-    results."""
+    forward, dq and dK/dV kernels bitwise equal on a second run at the
+    seq-512 path's call and the fused backward on every fused-route case;
+    times at the two paths' own calls. Returns the kernels' results."""
     from paddle_tpu_torch.kernels import flash_attention as fa
     F = torch.nn.functional
     rng = np.random.default_rng(SEED + 3)
@@ -581,10 +653,16 @@ def check_flash(torch, timer):
             out = fa.flash_attention(*kleaves, **kw)
             grads = torch.autograd.grad(out, kleaves, dout)
             out, lse = out.detach(), None
+            if route == "fused":
+                again = [x.clone().requires_grad_() for x in (q, k, v)]
+                regrads = torch.autograd.grad(
+                    fa.flash_attention(*again, **kw), again, dout)
         else:
             out, lse = fa.flash_fwd(q, k, v, **kw)
             args = (q, k, v, dout, lse, flash_delta(torch, dout, out, bthd))
             grads = flash_backward(fa, route, args, kw)
+            if route == "fused":
+                regrads = fa.flash_bwd_fused(*args, **kw)
         torch.cuda.synchronize()
         e = {"out": float((out - pout_v).abs().max())}
         if lse is not None:
@@ -593,6 +671,11 @@ def check_flash(torch, timer):
             e[g_name] = float((g - pg).abs().max())
         finite = all(bool(torch.isfinite(x).all())
                      for x in (out, lse) + tuple(grads) if x is not None)
+        if route == "fused":
+            # deterministic: no atomics, every output written once
+            e["fused_bitwise_run_to_run"] = all(
+                torch.equal(x, y) for x, y in zip(grads, regrads))
+            del regrads
         if name == "path_seq512":
             # deterministic: no atomics, the same sums in the same order
             e["dkv_bitwise_run_to_run"] = all(
@@ -1821,7 +1904,11 @@ def run_serving(torch, config: dict, device: str, n_req: int, lo: int,
     if device == "cuda":
         report["decode_profile"] = profile_decode(torch, model, prompts,
                                                   pool_blocks)
-        log(f"decode profile: {json.dumps(report['decode_profile'])}")
+        prof = report["decode_profile"]
+        log(f"decode profile: {json.dumps(prof)}")
+        log(f"decode step: paged_attention "
+            f"{prof['paged_attention_ms_per_step']} device ms of "
+            f"{prof['device_ms_per_step']}")
     return report, counts
 
 
@@ -1852,10 +1939,15 @@ def profile_decode(torch, model, prompts, pool_blocks: int,
     while eng.active():
         eng.step()
     device_ms = sum(r[0] for r in rows)
+    paged = [r for r in rows if "paged_attention" in r[2]]
     return {"steps": steps, "batch": len(prompts),
             "wall_ms_per_step": wall_ms,
             "device_ms_per_step": device_ms if rows else None,
             "device_busy_share": device_ms / wall_ms if rows else None,
+            "paged_attention_ms_per_step": sum(r[0] for r in paged)
+            if rows else None,
+            "paged_attention_launches_per_step": sum(r[1] for r in paged)
+            if rows else None,
             "top_ms_per_step_launches_name": rows[:12]}
 
 

@@ -8,7 +8,7 @@
 //                              3xTF32 tensor cores up to D = 128)
 //   flash_attention_bwd_fused  _bwd_fused_kernel (dq, dk, dv from one pass
 //                              over s/p/dp when both sequences fit one
-//                              fused tile)
+//                              fused tile; 3xTF32 tensor cores)
 //   flash_attention_bwd_dq     _bwd_dq_kernel (dq, tiled over queries,
 //                              scanning keys; 3xTF32 up to D = 128)
 //   flash_attention_bwd_dkv    _bwd_dkv_kernel (dk and dv, tiled over keys,
@@ -73,10 +73,10 @@
 // a two-step ring of 32-row K/V tiles take 260 KB of shared memory, more
 // than the 227 KB a block has.
 //
-// The SIMT kernels (the fused backward; the forward and dq above D = 128)
-// run on the FMA units, fed from shared memory with 16-byte loads: a score
-// tile per 256-thread block, each thread owning a micro-tile (rows ty + 16
-// i, columns tx + 16 j) so one float4 load of a row feeds four FMAs per
+// The SIMT kernels (the forward and dq above D = 128) run on the FMA
+// units, fed from shared memory with 16-byte loads: a score tile per
+// 256-thread block, each thread owning a micro-tile (rows ty + 16 i,
+// columns tx + 16 j) so one float4 load of a row feeds four FMAs per
 // operand, and rows are padded to D + 4 floats so a half-warp's row loads
 // spread over all 32 banks. A thread owns the same rows in the score tile
 // and in the output tile, so the online-softmax state (m, l) and the
@@ -105,13 +105,39 @@
 //
 // The TPU scans K/V blocks along a sequential grid axis with state in
 // VMEM scratch. CUDA blocks run in no order, so each CUDA block owns one
-// (batch*head, tile) and runs the scan as a loop inside the block. The
-// fused backward holds one (batch, head) whole: Q, K, V, dO and a dQ
-// accumulator of all its rows stay in shared memory (208 KB at D = 64),
-// and 64 x 64 sub-tiles of s/p/dp are computed once each and feed dq, dk
-// and dv together. Its row limit is the port's tile: 128 rows for
-// D <= 64, 64 for D <= 128 (what 227 KB of shared memory holds); longer
-// sequences take the dq and dkv kernels.
+// (batch*head, tile) and runs the scan as a loop inside the block.
+//
+// The fused backward holds one (batch, head) whole and computes each
+// s/p/dp entry once for dq, dk and dv, on the tensor cores in 3xTF32. Its
+// row limit is the port's tile: 128 rows for D <= 64, 64 for D <= 128;
+// longer sequences take the dq and dkv kernels. Q and dO stay resident in
+// shared memory; K and V stream through a two-step cp.async ring of 16-key
+// sub-tiles, so that up to D = 64 two blocks share an SM (102 KB of shared
+// memory, at most 128 registers), which an H100 ran faster than K and V
+// resident in 32-key sub-tiles with one block per SM. For each sub-tile:
+// - phase 1 is the dq kernel's step: a warp owns 16 query rows, forms S =
+//   Q K^T and dP = dO V^T from K-major operands, Pv and dS in registers in
+//   the fragment layout, and dQ += dS K with dS fed from registers
+//   (tf32::frag_b_pairs): dQ accumulates in registers over the whole scan,
+//   with no shared accumulator. The warp also writes Pv and dS to shared
+//   transposed tiles [key][query] (rows of R + 8 floats);
+// - after a barrier, phase 2 is the dK/dV kernel's: the 8 warps (4 a
+//   product) form the sub-tile's dV = Pv^T dO and dK = dS^T Q over the
+//   query rows that see it, Pv^T and dS^T read as A operands in query-pair
+//   order by 8-byte loads (tf32::frag_a_pairs) so that dO and Q are read
+//   MN-major in the same order (frag_b_pairs) without bank conflicts, 32
+//   query rows per fresh register tile; the results go straight to device
+//   memory.
+// The next sub-tile's barrier separates this phase 2 from the next phase 1,
+// so one Pv^T/dS^T pair and two barriers a sub-tile do. Its splits pass lo
+// unrounded (tf32::split<true>, at most 2^-21 of an operand against 2^-22):
+// every warp splits every K/V fragment it loads, and halving the integer
+// work of a split measured faster on an H100. The forward's lessons carry
+// over: __expf, sub-tiles no mask reaches skip the per-entry mask, and
+// causal sub-tiles a warp's rows cannot see are skipped (phase 2 then
+// starts at the first warp that computed them). No atomics: every
+// output is written once, in a fixed order, so the kernel is bitwise equal
+// from run to run.
 //
 // Head dims: the kernels are instantiated for D = 16, 32, ..., 128 (every
 // multiple of 16), 256, 384 and 512; the wrapper zero-pads any other
@@ -127,8 +153,8 @@
 // a thread owns C = D / 16 output columns, and the tiles shrink with D so
 // that the dq kernel's four operand tiles fit 227 KB of shared memory: 32
 // rows (2 x 2 micro-tiles per thread) at D = 256, 16 rows (one score entry
-// per thread) at D = 384 and 512. The fused backward (64 x 64 SIMT tiles),
-// which holds a whole (batch, head), is not built above D = 128.
+// per thread) at D = 384 and 512. The fused backward, which holds a whole
+// (batch, head), is not built above D = 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,7 +163,6 @@
 
 namespace {
 
-constexpr int kTile = 64;          // rows of the fused backward's tiles
 constexpr int kThreads = 256;      // threads of every block
 constexpr float kNegInf = -1e30f;
 constexpr uint32_t kGolden = 0x9E3779B9u;
@@ -314,28 +339,6 @@ __device__ __forceinline__ void acc_pm(float (&out)[MI][D / 16],
   }
 }
 
-// out[i][c] += sum_k PT[k][ra + 16 i] * M[k][col0 + c]: the same product
-// with the score tile stored transposed (the fused kernel's 64-row tiles).
-template <int D>
-__device__ __forceinline__ void acc_ptm(float (&out)[4][D / 16],
-                                        const float* PT, int ra,
-                                        const float* M, int col0) {
-  constexpr int C = D / 16;
-  constexpr int LD = D + 4;
-  constexpr int PLD = p_ld(kTile);
-#pragma unroll 4
-  for (int kk = 0; kk < kTile; ++kk) {
-    float m[C];
-    load_c<C>(M + kk * LD + col0, m);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float pv = PT[kk * PLD + ra + 16 * i];
-#pragma unroll
-      for (int c = 0; c < C; ++c) out[i][c] += pv * m[c];
-    }
-  }
-}
-
 __device__ __forceinline__ bool visible(const Problem& P, int q_pos,
                                         int k_pos) {
   return q_pos < P.Tq && k_pos < P.Tk &&
@@ -432,8 +435,9 @@ __device__ __forceinline__ float quad_sum(float v) {
 // shared tiles (row stride LD): a warp's 16 x 8 NT score fragments. 32 head-
 // dim columns go into a fresh register tile, added into acc with fp32 adds;
 // each k-step loads and splits the fragments first, then runs the lo.hi,
-// hi.lo and hi.hi passes over NT independent products.
-template <int D, int NT, int LD>
+// hi.lo and hi.hi passes over NT independent products. kFast: the split of
+// tf32::split<true>.
+template <int D, int NT, int LD, bool kFast = false>
 __device__ __forceinline__ void score_tile(float (&acc)[NT][4],
                                            const float* A, int m0,
                                            const float* B) {
@@ -452,10 +456,10 @@ __device__ __forceinline__ void score_tile(float (&acc)[NT][4],
     for (int kk = d0; kk < d0 + 32; kk += 8) {
       if (kk >= D) break;  // D = 16, 48, 80, 112: a half stage
       uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
-      tf32::frag_a<true, LD>(A, m0, kk, ah, al);
+      tf32::frag_a<true, LD, kFast>(A, m0, kk, ah, al);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
-        tf32::frag_b<true, LD>(B, 8 * j, kk, bh[j], bl[j]);
+        tf32::frag_b<true, LD, kFast>(B, 8 * j, kk, bh[j], bl[j]);
 #pragma unroll
       for (int j = 0; j < NT; ++j) tf32::mma(f[j], al, bh[j]);
 #pragma unroll
@@ -470,13 +474,71 @@ __device__ __forceinline__ void score_tile(float (&acc)[NT][4],
   }
 }
 
+// score_tile for two products at once, s = A1[m0, m0 + 16) . B1^T and dp =
+// A2[m0, m0 + 16) . B2^T over D: each pass runs both products' 2 NT
+// independent fragments, twice the chains score_tile has in flight.
+template <int D, int NT, int LD, bool kFast = false>
+__device__ __forceinline__ void score_tiles2(float (&s)[NT][4],
+                                             float (&dp)[NT][4],
+                                             const float* A1, const float* B1,
+                                             const float* A2, const float* B2,
+                                             int m0) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 1
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    float f[NT][4], g[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) f[j][e] = g[j][e] = 0.f;
+#pragma unroll
+    for (int kk = d0; kk < d0 + 32; kk += 8) {
+      if (kk >= D) break;  // D = 16, 48, 80, 112: a half stage
+      uint32_t ah[4], al[4], ch[4], cl[4];
+      uint32_t bh[NT][2], bl[NT][2], eh[NT][2], el[NT][2];
+      tf32::frag_a<true, LD, kFast>(A1, m0, kk, ah, al);
+      tf32::frag_a<true, LD, kFast>(A2, m0, kk, ch, cl);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tf32::frag_b<true, LD, kFast>(B1, 8 * j, kk, bh[j], bl[j]);
+        tf32::frag_b<true, LD, kFast>(B2, 8 * j, kk, eh[j], el[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tf32::mma(f[j], al, bh[j]);
+        tf32::mma(g[j], cl, eh[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tf32::mma(f[j], ah, bl[j]);
+        tf32::mma(g[j], ch, el[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        tf32::mma(f[j], ah, bh[j]);
+        tf32::mma(g[j], ch, eh[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] += f[j][e];
+        dp[j][e] += g[j][e];
+      }
+  }
+}
+
 // acc = acc * alpha + P . M over one key tile: P a warp's 16 x 8 NT score
 // fragments (after the softmax, in registers: frag_a_acc), M the tile's
 // MN-major [key][D] shared rows (row stride LD) read in frag_b_pairs' key
 // order. Four 8-column fragments at a time go into a fresh register tile
 // (the whole tile's 8 NT keys summed there), which is added into acc, rows
 // g scaled by alpha0 and rows g + 8 by alpha1.
-template <int ND, int NT, int LD>
+template <int ND, int NT, int LD, bool kFast = false>
 __device__ __forceinline__ void acc_tile(float (&acc)[ND][4],
                                          const float (&p)[NT][4],
                                          const float* M, float alpha0,
@@ -491,11 +553,12 @@ __device__ __forceinline__ void acc_tile(float (&acc)[ND][4],
 #pragma unroll
     for (int kj = 0; kj < NT; ++kj) {
       uint32_t ph[4], pl[4], bh[4][2], bl[4][2];
-      tf32::frag_a_acc(p[kj], ph, pl);
+      tf32::frag_a_acc<kFast>(p[kj], ph, pl);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (n0 + u < ND)
-          tf32::frag_b_pairs<LD>(M, (n0 + u) * 8, kj * 8, bh[u], bl[u]);
+          tf32::frag_b_pairs<LD, kFast>(M, (n0 + u) * 8, kj * 8, bh[u],
+                                        bl[u]);
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (n0 + u < ND) tf32::mma(f[u], pl, bh[u]);
@@ -915,58 +978,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// backward: shared score-tile math
-// ---------------------------------------------------------------------------
-
-// One thread's MI x MI entries of the transposed tiles p_v^T and ds^T for
-// key rows k0 + ty + 16 i and query columns q0 + tx + 16 j, given
-// sT = K.Q (unscaled) and dpT = V.dO. lse/delta are the query tile's
-// (shared, indexed by local column). Stores into PvT and dST (row stride
-// p_ld(16 MI)).
-template <int MI>
-__device__ __forceinline__ void grad_core_t(
-    const Problem& P, const float (&sT)[MI][MI], const float (&dpT)[MI][MI],
-    const float (&bk)[MI], const float* lse_s, const float* delta_s,
-    const int* seed, uint32_t hh, int q0, int k0, int ty, int tx,
-    float* PvT, float* dST) {
-  constexpr int PLD = p_ld(16 * MI);
-#pragma unroll
-  for (int jj = 0; jj < MI; ++jj) {
-    const int ql = tx + 16 * jj, qp = q0 + ql;
-    const float lq = lse_s[ql], dq = delta_s[ql];
-    const uint32_t u = seed ? row_hash(hh, qp) : 0u;
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const int kl = ty + 16 * i, kp = k0 + kl;
-      const float sv = sT[i][jj] * P.scale + bk[i];
-      const float p = visible(P, qp, kp) ? expf(sv - lq) : 0.f;
-      float pv = p, dp = dpT[i][jj];
-      if (seed) {
-        const bool keep = keep_bit(u, kp, P.threshold);
-        pv = keep ? p / P.keep_prob : 0.f;
-        dp = keep ? dp / P.keep_prob : 0.f;
-      }
-      PvT[kl * PLD + ql] = pv;
-      dST[kl * PLD + ql] = p * (dp - dq) * P.scale;
-    }
-  }
-}
-
-// lse and delta of query rows [q0, q0 + n) into shared memory (0 past Tq).
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
-                                               const float* lse,
-                                               const float* delta,
-                                               const Problem& P, int g,
-                                               int q0, int n) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    const bool in = q0 + r < P.Tq;
-    const long long at = (long long)g * P.Tq + q0 + r;
-    lse_s[r] = in ? lse[at] : 0.f;
-    delta_s[r] = in ? delta[at] : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // backward: dq above D = 128 (query tile per block, scanning key tiles), SIMT
 // ---------------------------------------------------------------------------
 
@@ -1363,11 +1374,43 @@ __global__ void __launch_bounds__(kThreads, DkvCfg<D>::kBlocks)
 }
 
 // ---------------------------------------------------------------------------
-// backward: fused dq, dk, dv for one whole (batch, head) of <= NT tiles
+// backward: fused dq, dk, dv for one whole (batch, head), 3xTF32
 // ---------------------------------------------------------------------------
 
-template <int D, int NT>
-__global__ void __launch_bounds__(kThreads)
+// Tiles of the fused backward at head dim D <= 128 (see the note above): R
+// query and key rows of one (batch, head) at most (fused_rows below), Q
+// and dO resident, key sub-tiles of BK rows through an NSLOT-step cp.async
+// ring of K and V; up to D = 64 two blocks share an SM (102 KB of shared
+// memory, at most 128 registers). Phase 1 (S, dP, dS and dQ += dS K): R /
+// 16 warps of 16 query rows. Phase 2 (dV = Pv^T dO and dK = dS^T Q over the
+// sub-tile's keys): 8 warps, 4 a product, warp w % 4 owning fragment row
+// (w % 4) % MT and the NJ fragment columns (w % 4) / MT + NG j.
+template <int D>
+struct FusedCfg {
+  static constexpr int R = D <= 64 ? 128 : 64;
+  static constexpr int BK = 16;
+  static constexpr int NSLOT = 2;
+  static constexpr int kBlocks = D <= 64 ? 2 : 1;  // per SM
+  static constexpr bool kFast = true;  // tf32::split<true>
+  static constexpr int LD = D + 4;     // Q, dO, K, V rows
+  static constexpr int LDP = R + 8;    // Pv^T, dS^T rows (8 mod 32: the
+                                       // pairs' 8-byte loads meet no
+                                       // bank conflict)
+  static constexpr int NT = BK / 8;    // 8-key fragment columns of S
+  static constexpr int ND = D / 8;     // 8-column fragment columns of dQ
+  static constexpr int MT = BK / 16;   // 16-key fragment rows of dK, dV
+  static constexpr int NG = 4 / MT;
+  static constexpr int NJ = (ND + NG - 1) / NG;
+  static constexpr int KV = 2 * BK * LD;  // one sub-tile: K and V
+  static constexpr size_t kSmem =
+      (size_t)(2 * R * LD + NSLOT * KV + 2 * BK * LDP) * sizeof(float);
+  static_assert(D % 16 == 0 && D <= 128 && BK % 16 == 0 && BK <= 64 &&
+                    NSLOT >= 2 && R % BK == 0,
+                "fused backward tiles");
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, FusedCfg<D>::kBlocks)
     flash_bwd_fused_kernel(Problem P, const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -1378,102 +1421,202 @@ __global__ void __launch_bounds__(kThreads)
                            const int* __restrict__ seed,
                            float* __restrict__ dq, float* __restrict__ dk,
                            float* __restrict__ dv) {
-  constexpr int C = D / 16;
-  constexpr int LD = D + 4;
-  constexpr int R = NT * kTile;
-  constexpr int PLD = p_ld(kTile);
+  using Cfg = FusedCfg<D>;
+  constexpr int R = Cfg::R, BK = Cfg::BK, LD = Cfg::LD, LDP = Cfg::LDP;
+  constexpr int NT = Cfg::NT, ND = Cfg::ND, NSLOT = Cfg::NSLOT;
+  constexpr int MT = Cfg::MT, NG = Cfg::NG, NJ = Cfg::NJ;
+  constexpr bool kFast = Cfg::kFast;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
   float* dOs = Qs + R * LD;
-  float* Ks = dOs + R * LD;
-  float* Vs = Ks + R * LD;
-  float* PvT = Vs + R * LD;
-  float* dST = PvT + kTile * PLD;
-  float* dQs = dST + kTile * PLD;  // [R][D]
-  float* lse_s = dQs + R * D;
-  float* delta_s = lse_s + R;
+  float* ring = dOs + R * LD;             // NSLOT sub-tiles of K, V
+  float* PvT = ring + NSLOT * Cfg::KV;    // [BK][LDP]
+  float* dST = PvT + BK * LDP;            // [BK][LDP]
 
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
   const int g = blockIdx.y, b = g / P.H, h = g % P.H;
-  load_rows<D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, 0, R, P.Tq, 1.f);
-  load_rows<D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, 0, R,
-               P.Tq, 1.f);
-  load_rows<D>(Ks, k + b * P.k.b + h * P.k.h, P.k.t, 0, R, P.Tk, 1.f);
-  load_rows<D>(Vs, v + b * P.v.b + h * P.v.h, P.v.t, 0, R, P.Tk, 1.f);
-  load_row_stats(lse_s, delta_s, lse, delta, P, g, 0, R);
-  for (int i = threadIdx.x; i < R * D; i += kThreads) dQs[i] = 0.f;
+  const float* kb = k + b * P.k.b + h * P.k.h;
+  const float* vb = v + b * P.v.b + h * P.v.h;
+  const float* bias_row = bias ? bias + (long long)b * P.Tk : nullptr;
+  auto load_kv = [&](int j) {
+    float* Ks = ring + (j % NSLOT) * Cfg::KV;
+    cp_rows<BK, D>(Ks, kb, P.k.t, j * BK, P.Tk);
+    cp_rows<BK, D>(Ks + BK * LD, vb, P.v.t, j * BK, P.Tk);
+  };
+  const int nk = (P.Tk + BK - 1) / BK;
+  // Q and dO stay for the whole scan and land with the first sub-tile;
+  // NSLOT - 1 sub-tiles are in flight before the scan starts
+  cp_rows<R, D>(Qs, q + b * P.q.b + h * P.q.h, P.q.t, 0, P.Tq);
+  cp_rows<R, D>(dOs, dout + b * P.dout.b + h * P.dout.h, P.dout.t, 0, P.Tq);
+  load_kv(0);
+  tf32::cp_async_commit();
+  for (int j = 1; j < NSLOT - 1; ++j) {
+    if (j < nk) load_kv(j);
+    tf32::cp_async_commit();
+  }
+
+  // phase 1: this warp's query rows m0 .. m0 + 15; this thread's qp0
+  // (fragment row g) and qp1 (g + 8)
+  const int m0 = warp * 16;
+  const bool p1 = m0 < R && m0 < P.Tq;
+  const int qp0 = m0 + gid, qp1 = qp0 + 8;
+  float lq[2], dlt[2];
+  uint32_t u[2] = {0u, 0u};
   const uint32_t hh = seed ? head_hash(seed, g) : 0u;
-  __syncthreads();
-
-  for (int kj = 0; kj < NT && kj * kTile < P.Tk; ++kj) {
-    const int k0 = kj * kTile;
-    const float* Kt = Ks + k0 * LD;
-    const float* Vt = Vs + k0 * LD;
-    float bk[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty + 16 * i;
-      bk[i] = (bias && kp < P.Tk) ? bias[(long long)b * P.Tk + kp] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? qp1 : qp0;
+    const bool in = qp < P.Tq;
+    lq[r] = in ? lse[(long long)g * P.Tq + qp] : 0.f;
+    dlt[r] = in ? delta[(long long)g * P.Tq + qp] : 0.f;
+    if (seed) u[r] = row_hash(hh, qp);
+  }
+  const float inv_keep = 1.f / P.keep_prob;
+  const int off = P.Tk - P.Tq;
+  // causal: past this key every row of the warp sees nothing
+  const int warp_last = m0 + 15 + off;
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  // phase 2: product pr (0: dV from Pv^T and dO, 1: dK from dS^T and Q),
+  // key rows mt * 16 .. of the sub-tile, fragment columns cg + NG j
+  const int pr = warp >> 2, mt = (warp & 3) % MT, cg = (warp & 3) / MT;
+  const float* A2 = pr ? dST : PvT;
+  const float* B2 = pr ? Qs : dOs;
+  float* out2 = pr ? dk + b * P.dk.b + h * P.dk.h
+                   : dv + b * P.dv.b + h * P.dv.h;
+  const long long ts2 = pr ? P.dk.t : P.dv.t;
+  // query rows phase 2 sums over: up to Tq rounded to a fragment's 8 (the
+  // rows past Tq carry p = 0)
+  const int qhi = (P.Tq + 7) & ~7;
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = j * BK;
+    // the slot refilled held sub-tile j - 1, consumed before the last
+    // phase-1 barrier
+    if (j + NSLOT - 1 < nk) load_kv(j + NSLOT - 1);
+    tf32::cp_async_commit();
+    tf32::cp_async_wait<NSLOT - 1>();
+    // sub-tile j has landed; the last sub-tile's phase 2 is done with
+    // Pv^T and dS^T
+    __syncthreads();
+    const float* Ks = ring + (j % NSLOT) * Cfg::KV;
+    const float* Vs = Ks + BK * LD;
+    // a sub-tile every row of the warp masks adds exactly 0 to dq and
+    // nothing phase 2 reads: skip it
+    if (p1 && (!P.causal || k0 <= warp_last)) {
+      float s[NT][4], dp[NT][4];
+      score_tiles2<D, NT, LD, kFast>(s, dp, Qs, Ks, dOs, Vs, m0);
+      // Pv = p keep / (1 - p) and dS = p (dp keep / (1 - p) - delta)
+      // scale in the fragment layout: entry (jn, e) is row e < 2 ? qp0 :
+      // qp1, key k0 + 8 jn + 2 tig + (e & 1). Both go to the transposed
+      // shared tiles, dS also replaces s for dQ += dS K. A sub-tile no
+      // mask reaches (keys, causal, or query rows past Tq) skips the mask.
+      const bool edge = k0 + BK > P.Tk || m0 + 16 > P.Tq ||
+                        (P.causal && k0 + BK - 1 > m0 + off);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int kl = 8 * jn + 2 * tig + c, kp = k0 + kl;
+          const float bk =
+              (bias_row && (!edge || kp < P.Tk)) ? bias_row[kp] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c, qp = r ? qp1 : qp0;
+            const float sv = s[jn][e] * P.scale + bk;
+            const float p = (!edge || visible(P, qp, kp))
+                                ? __expf(sv - lq[r])
+                                : 0.f;
+            float pv = p, d = dp[jn][e];
+            if (seed) {
+              const bool keep = keep_bit(u[r], kp, P.threshold);
+              pv = keep ? p * inv_keep : 0.f;
+              d = keep ? d * inv_keep : 0.f;
+            }
+            const float ds = p * (d - dlt[r]) * P.scale;
+            PvT[kl * LDP + qp] = pv;
+            dST[kl * LDP + qp] = ds;
+            s[jn][e] = ds;
+          }
+        }
+      // dQ += dS K, K read MN-major in key pairs
+      acc_tile<ND, NT, LD, kFast>(dqa, s, Ks, 1.f, 1.f);
     }
-    float dka[4][C], dva[4][C];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < C; ++c) dka[i][c] = dva[i][c] = 0.f;
+    __syncthreads();  // Pv^T and dS^T are complete
 
-    for (int qi = 0; qi < NT && qi * kTile < P.Tq; ++qi) {
-      const int q0 = qi * kTile;
-      // a causal query tile that ends before this key tile sees none of it
-      if (P.causal && q0 + kTile - 1 + (P.Tk - P.Tq) < k0) continue;
-      const float* Qt = Qs + q0 * LD;
-      const float* dOt = dOs + q0 * LD;
-      float sT[4][4] = {}, dpT[4][4] = {};
-      dot_tile<D, 4>(sT, Kt, ty, Qt, tx);
-      dot_tile<D, 4>(dpT, Vt, ty, dOt, tx);
-      grad_core_t<4>(P, sT, dpT, bk, lse_s + q0, delta_s + q0, seed, hh, q0,
-                     k0, ty, tx, PvT, dST);
-      __syncthreads();
-      acc_pm<D, 4>(dva, PvT, ty, dOt, tx * C);
-      acc_pm<D, 4>(dka, dST, ty, Qt, tx * C);
-      // dq rows q0 + ty + 16 i: sum over this key tile of ds * K; each
-      // thread owns its rows and columns of the accumulator
-      float dqa[4][C];
+    // phase 2: this sub-tile's dV or dK over the query rows that see it
+    // (causal: from the first warp that computed it), 32 rows per fresh
+    // register tile; a sub-tile no row sees gets zeros
+    const int qlo = P.causal ? max(0, floor_div(k0 - off, 16) * 16) : 0;
+    float acc2[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-        for (int c = 0; c < C; ++c) dqa[i][c] = 0.f;
-      acc_ptm<D>(dqa, dST, ty, Kt, tx * C);
+      for (int e = 0; e < 4; ++e) acc2[jj][e] = 0.f;
+    for (int c0 = qlo; c0 < qhi; c0 += 32) {
+      // the small terms (lo.hi, hi.lo) and hi.hi in separate fresh tiles:
+      // 2 NJ independent chains of products
+      float f[NJ][4], fb[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int jj = 0; jj < NJ; ++jj)
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          dQs[(q0 + ty + 16 * i) * D + tx * C + c] += dqa[i][c];
-      __syncthreads();  // PvT/dST are rewritten by the next sub-tile
+        for (int e = 0; e < 4; ++e) f[jj][e] = fb[jj][e] = 0.f;
+      const int c1 = min(c0 + 32, qhi);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int kq = c0 + 8 * u;
+        if (kq >= c1) break;
+        uint32_t ah[4], al[4], bh[NJ][2], bl[NJ][2];
+        tf32::frag_a_pairs<LDP, kFast>(A2, mt * 16, kq, ah, al);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (cg + NG * jj < ND)
+            tf32::frag_b_pairs<LD, kFast>(B2, (cg + NG * jj) * 8, kq,
+                                          bh[jj], bl[jj]);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (cg + NG * jj < ND) tf32::mma(f[jj], al, bh[jj]);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (cg + NG * jj < ND) tf32::mma(fb[jj], ah, bh[jj]);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj)
+          if (cg + NG * jj < ND) tf32::mma(f[jj], ah, bl[jj]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc2[jj][e] += fb[jj][e] + f[jj][e];
     }
-
-    float* dkb = dk + b * P.dk.b + h * P.dk.h;
-    float* dvb = dv + b * P.dv.b + h * P.dv.h;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty + 16 * i;
+    for (int half = 0; half < 2; ++half) {
+      const int kp = k0 + mt * 16 + gid + 8 * half;
       if (kp >= P.Tk) continue;
-      store_c<C>(dkb + kp * P.dk.t + tx * C, dka[i]);
-      store_c<C>(dvb + kp * P.dv.t + tx * C, dva[i]);
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) {
+        const int n = cg + NG * jj;
+        if (n >= ND) continue;
+        *reinterpret_cast<float2*>(out2 + kp * ts2 + n * 8 + 2 * tig) =
+            make_float2(acc2[jj][2 * half], acc2[jj][2 * half + 1]);
+      }
     }
   }
 
-  // every thread wrote only its own accumulator entries; no barrier needed
-  // before reading them back in the same ownership
+  if (!p1) return;
   float* dqb = dq + b * P.dq.b + h * P.dq.h;
-  for (int qi = 0; qi < NT; ++qi) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = qi * kTile + ty + 16 * i;
-      if (qp >= P.Tq) continue;
-      float r[C];
-      load_c<C>(dQs + qp * D + tx * C, r);
-      store_c<C>(dqb + qp * P.dq.t + tx * C, r);
-    }
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r ? qp1 : qp0;
+    if (qp >= P.Tq) continue;
+#pragma unroll
+    for (int jd = 0; jd < ND; ++jd)
+      *reinterpret_cast<float2*>(dqb + qp * P.dq.t + jd * 8 + 2 * tig) =
+          make_float2(dqa[jd][2 * r], dqa[jd][2 * r + 1]);
   }
 }
 
@@ -1521,12 +1664,12 @@ dim3 q_grid(const Problem& P, int D, int T) {
   return dim3((P.Tq + T - 1) / T, P.B * P.H, P.D / D);
 }
 
-// Dynamic shared memory of the SIMT kernels, in bytes: at most 208 KB
-// (the fused kernel at D = 64); at D = 256 fwd 104 KB, dq 138 KB; at
-// D = 512 fwd 98 KB, dq 130 KB. The dK/dV kernel's is DkvCfg::kSmem: 89
-// KB at D = 64, 154 KB at 128, 209 KB at 256, 201 KB at 512; the 3xTF32
-// forward's and dq's QCfg::kFwdSmem / kDqSmem: 68 and 102 KB at D = 64,
-// 132 and 198 KB at D = 128.
+// Dynamic shared memory of the SIMT kernels, in bytes: at D = 256 fwd 104
+// KB, dq 138 KB; at D = 512 fwd 98 KB, dq 130 KB. The dK/dV kernel's is
+// DkvCfg::kSmem: 89 KB at D = 64, 154 KB at 128, 209 KB at 256, 201 KB at
+// 512; the 3xTF32 forward's and dq's QCfg::kFwdSmem / kDqSmem: 68 and 102
+// KB at D = 64, 132 and 198 KB at D = 128; the fused backward's
+// FusedCfg::kSmem: 102 KB at D = 64, 108 KB at 128.
 constexpr size_t fwd_smem(int D) {
   return (size_t)(3 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
@@ -1535,12 +1678,6 @@ constexpr size_t dq_smem(int D) {
   return (size_t)(4 * tile_rows(D) * (D + 4) +
                   tile_rows(D) * p_ld(tile_rows(D))) * sizeof(float);
 }
-constexpr size_t fused_smem(int D, int NT) {
-  return (size_t)(4 * NT * kTile * (D + 4) + 2 * kTile * p_ld(kTile) +
-                  NT * kTile * D + 2 * NT * kTile) *
-         sizeof(float);
-}
-
 // Launch `kernel` with `smem` bytes of dynamic shared memory, raising the
 // per-kernel limit above the 48 KB default once.
 template <typename Kernel, typename... Args>
@@ -1587,8 +1724,8 @@ cudaError_t launch_dq(void* stream, const Problem& P, const float* q,
   }
 }
 
-// The fused kernel at D's row count (fused_rows below); not built for
-// D > 128, whose whole (batch, head) does not fit shared memory.
+// The fused kernel: 3xTF32 tiles up to D = 128; not built above, where a
+// whole (batch, head) does not fit shared memory.
 template <int D>
 cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
                          const float* q, const float* k, const float* v,
@@ -1598,8 +1735,7 @@ cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
   if constexpr (D > 128) {
     return cudaErrorInvalidValue;
   } else {
-    constexpr int NT = D <= 64 ? 2 : 1;
-    return launch(flash_bwd_fused_kernel<D, NT>, grid, fused_smem(D, NT),
+    return launch(flash_bwd_fused_kernel<D>, grid, FusedCfg<D>::kSmem,
                   stream, P, q, k, v, dout, lse, delta, bias, seed, dq, dk,
                   dv);
   }
@@ -1625,9 +1761,9 @@ cudaError_t launch_fused(dim3 grid, void* stream, const Problem& P,
   }
 
 // Rows of one (batch, head) the fused backward holds whole: 128 for
-// D <= 64, 64 for D <= 128, none above (kernels/flash_attention.py routes
-// by the same rule, fused_rows()).
-int fused_rows(int D) { return D <= 64 ? 2 * kTile : D <= 128 ? kTile : 0; }
+// D <= 64, 64 for D <= 128, none above (FusedCfg::R;
+// kernels/flash_attention.py routes by the same rule, fused_rows()).
+int fused_rows(int D) { return D <= 64 ? 128 : D <= 128 ? 64 : 0; }
 
 }  // namespace
 

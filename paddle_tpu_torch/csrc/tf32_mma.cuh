@@ -1,5 +1,6 @@
 // 3xTF32 tensor-core products and cp.async copies for sm_90a, shared by
-// fused_softmax_xent.cu and flash_attention.cu.
+// fused_softmax_xent.cu and flash_attention.cu (the copies also by
+// paged_attention.cu).
 //
 // 3xTF32: each fp32 operand is split as hi = rna(x), lo = rna(x - hi)
 // (cvt.rna.tf32.f32's rounding), and lo.hi + hi.lo + hi.hi accumulate in fp32
@@ -34,9 +35,16 @@ __device__ __forceinline__ uint32_t rna(float x) {
 }
 
 // x = hi + lo, both tf32 (the low 13 mantissa bits 0), rounded to nearest.
+// With kFast, lo = x - hi is passed as it is: the tensor cores read a tf32
+// operand's top 19 bits and ignore the low 13, so lo is truncated there
+// (CUTLASS's fast 3xTF32 split). That drops 2^-10 of lo, at most 2^-21 of
+// x (against 2^-22 with lo rounded), for half the integer work of a split
+// (two integer operations instead of four).
+template <bool kFast = false>
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = rna(x);
-  lo = rna(x - __uint_as_float(hi));
+  const float r = x - __uint_as_float(hi);
+  lo = kFast ? __float_as_uint(r) : rna(r);
 }
 
 // c += a . b on a 16 x 8 x 8 tile; with kZero, c = a . b.
@@ -59,39 +67,39 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
 
 // The A fragment of rows [m0, m0 + 16) x k [k0, k0 + 8), split: from a
 // K-major shared tile ([m][k], row stride LD) or an MN-major one ([k][m]).
-template <bool kKMajor, int LD>
+template <bool kKMajor, int LD, bool kFast = false>
 __device__ __forceinline__ void frag_a(const float* s, int m0, int k0,
                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if constexpr (kKMajor) {
     const float* p = s + (m0 + g) * LD + k0 + t;
-    split(p[0], hi[0], lo[0]);
-    split(p[8 * LD], hi[1], lo[1]);
-    split(p[4], hi[2], lo[2]);
-    split(p[8 * LD + 4], hi[3], lo[3]);
+    split<kFast>(p[0], hi[0], lo[0]);
+    split<kFast>(p[8 * LD], hi[1], lo[1]);
+    split<kFast>(p[4], hi[2], lo[2]);
+    split<kFast>(p[8 * LD + 4], hi[3], lo[3]);
   } else {
     const float* p = s + (k0 + t) * LD + m0 + g;
-    split(p[0], hi[0], lo[0]);
-    split(p[8], hi[1], lo[1]);
-    split(p[4 * LD], hi[2], lo[2]);
-    split(p[4 * LD + 8], hi[3], lo[3]);
+    split<kFast>(p[0], hi[0], lo[0]);
+    split<kFast>(p[8], hi[1], lo[1]);
+    split<kFast>(p[4 * LD], hi[2], lo[2]);
+    split<kFast>(p[4 * LD + 8], hi[3], lo[3]);
   }
 }
 
 // The B fragment of k [k0, k0 + 8) x n [n0, n0 + 8), split: from a K-major
 // shared tile ([n][k], row stride LD) or an MN-major one ([k][n]).
-template <bool kKMajor, int LD>
+template <bool kKMajor, int LD, bool kFast = false>
 __device__ __forceinline__ void frag_b(const float* s, int n0, int k0,
                                        uint32_t (&hi)[2], uint32_t (&lo)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   if constexpr (kKMajor) {
     const float* p = s + (n0 + g) * LD + k0 + t;
-    split(p[0], hi[0], lo[0]);
-    split(p[4], hi[1], lo[1]);
+    split<kFast>(p[0], hi[0], lo[0]);
+    split<kFast>(p[4], hi[1], lo[1]);
   } else {
     const float* p = s + (k0 + t) * LD + n0 + g;
-    split(p[0], hi[0], lo[0]);
-    split(p[4 * LD], hi[1], lo[1]);
+    split<kFast>(p[0], hi[0], lo[0]);
+    split<kFast>(p[4 * LD], hi[1], lo[1]);
   }
 }
 
@@ -102,26 +110,47 @@ __device__ __forceinline__ void frag_b(const float* s, int n0, int k0,
 // stands (frag_a_acc): a product's result feeds the next product from
 // registers, with no trip through shared memory. With LD = 4 mod 32 the
 // warp's loads meet no bank conflict (banks 8t + g).
-template <int LD>
+template <int LD, bool kFast = false>
 __device__ __forceinline__ void frag_b_pairs(const float* s, int n0, int k0,
                                              uint32_t (&hi)[2],
                                              uint32_t (&lo)[2]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float* p = s + (k0 + 2 * t) * LD + n0 + g;
-  split(p[0], hi[0], lo[0]);
-  split(p[LD], hi[1], lo[1]);
+  split<kFast>(p[0], hi[0], lo[0]);
+  split<kFast>(p[LD], hi[1], lo[1]);
+}
+
+// The A fragment of rows [m0, m0 + 16) x k [k0, k0 + 8) from a K-major
+// shared tile ([m][k], row stride LD, 8-byte aligned rows), split, in
+// frag_b_pairs' k order: a0/a2 are tile columns k0 + 2t / k0 + 2t + 1 of
+// row g, a1/a3 the same of row g + 8, one 8-byte load each. With LD = 8
+// mod 32 a half-warp's loads meet no bank conflict.
+template <int LD, bool kFast = false>
+__device__ __forceinline__ void frag_a_pairs(const float* s, int m0, int k0,
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float2 r0 =
+      *reinterpret_cast<const float2*>(s + (m0 + g) * LD + k0 + 2 * t);
+  const float2 r1 =
+      *reinterpret_cast<const float2*>(s + (m0 + g + 8) * LD + k0 + 2 * t);
+  split<kFast>(r0.x, hi[0], lo[0]);
+  split<kFast>(r1.x, hi[1], lo[1]);
+  split<kFast>(r0.y, hi[2], lo[2]);
+  split<kFast>(r1.y, hi[3], lo[3]);
 }
 
 // The A fragment, split, that an accumulator fragment c (c0/c1 at row g,
 // columns 2t / 2t + 1; c2/c3 at row g + 8) is in frag_b_pairs' k order:
 // a0 (g, t) = c0, a1 (g + 8, t) = c2, a2 (g, t + 4) = c1, a3 = c3.
+template <bool kFast = false>
 __device__ __forceinline__ void frag_a_acc(const float (&c)[4],
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  split(c[0], hi[0], lo[0]);
-  split(c[2], hi[1], lo[1]);
-  split(c[1], hi[2], lo[2]);
-  split(c[3], hi[3], lo[3]);
+  split<kFast>(c[0], hi[0], lo[0]);
+  split<kFast>(c[2], hi[1], lo[1]);
+  split<kFast>(c[1], hi[2], lo[2]);
+  split<kFast>(c[3], hi[3], lo[3]);
 }
 
 // cp.async of 16 or 4 bytes; with ok false the destination is zero-filled

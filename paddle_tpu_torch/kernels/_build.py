@@ -45,10 +45,9 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _P],
     },
     "paged_attention": {
-        # q, k_pool, v_pool, tables, lens, out,
-        # B, H, D, n_blocks, block_size, max_blocks, scale, stream
-        "paged_attention_fwd": [_P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _F, _P],
+        # q, k_pool, v_pool, tables, lens, out, part, tickets,
+        # B, H, D, n_blocks, block_size, max_blocks, chunk, scale, stream
+        "paged_attention_fwd": [_P] * 8 + [_I] * 7 + [_F, _P],
         # q, q_lens, k_pool, v_pool, tables, lens, out,
         # B, Qmax, H, D, n_blocks, block_size, max_blocks, scale, stream
         "paged_attention_mq_fwd": [_P, _P, _P, _P, _P, _P, _P,

@@ -12,21 +12,33 @@ Shapes: q ``[B, H, D]`` (multi-query: ``[B, Qmax, H, D]`` plus ``q_lens``
 and clamped into the pool); ``context_lens`` ``[B]`` int counting every
 valid token, the query's own included. fp32 throughout. Head dim at
 most 128: the C entry refuses a larger one, and its launch check raises.
+
+The single-query kernel splits each context into chunks of
+``CHUNK_TOKENS`` tokens, one CUDA block per (head, sequence, chunk),
+and merges the chunks' softmax states in chunk order (the source note
+gives the design). :func:`paged_attention_split_plain` is that
+decomposition in plain PyTorch, chunk partials and merge, held against
+the JAX kernel by the CPU tests and against the kernel on the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_multiquery",
-           "paged_attention_plain", "paged_attention_multiquery_plain"]
+           "paged_attention_plain", "paged_attention_multiquery_plain",
+           "paged_attention_split_plain", "CHUNK_TOKENS"]
 
 _NEG_INF = -1e30
+# tokens of one work item of the single-query kernel, one CUDA block per
+# (head, sequence, chunk): its 4 warps' 32-token tiles (kChunk in the
+# source, which refuses another value)
+CHUNK_TOKENS = 128
 
 # kernel launches since the last reset (kernels.reset_launch_counts)
 launches = 0
@@ -57,6 +69,51 @@ def paged_attention_plain(q, k_pool, v_pool, block_tables, context_lens,
                       _NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bht,bthd->bhd", p, v).to(q.dtype)
+
+
+def paged_attention_split_plain(q, k_pool, v_pool, block_tables,
+                                context_lens, scale: Optional[float] = None,
+                                chunk_tokens: int = CHUNK_TOKENS
+                                ) -> torch.Tensor:
+    """The single-query kernel's decomposition in plain PyTorch: each
+    sequence's context cut into chunks of ``chunk_tokens`` tokens, a
+    softmax partial (m, l, acc) per chunk, then the partials merged in
+    chunk order: ``M = max m_c``, ``L = sum l_c e^(m_c - M)``, ``out =
+    sum acc_c e^(m_c - M) / max(L, 1e-30)``. The context is clamped to
+    what the table addresses, as the kernel clamps it; an empty row
+    gives 0."""
+    if chunk_tokens <= 0:
+        raise ValueError(f"chunk_tokens must be positive, got "
+                         f"{chunk_tokens}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    k = _gather(k_pool, block_tables).float()
+    v = _gather(v_pool, block_tables).float()
+    b, t, h, d = k.shape
+    n_ch = -(-t // chunk_tokens)
+    pad = n_ch * chunk_tokens - t
+    s = torch.einsum("bhd,bthd->bht", q.float() * scale, k)
+    lens = context_lens.to(q.device).long().clamp(0, t)
+    valid = torch.arange(t, device=q.device)[None, None, :] \
+        < lens[:, None, None]
+    s = torch.nn.functional.pad(s.masked_fill(~valid, _NEG_INF), (0, pad),
+                                value=_NEG_INF)
+    valid = torch.nn.functional.pad(valid.expand(b, h, t), (0, pad))
+    v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    s = s.reshape(b, h, n_ch, chunk_tokens)
+    valid = valid.reshape(b, h, n_ch, chunk_tokens)
+    v = v.reshape(b, n_ch, chunk_tokens, h, d)
+    # each chunk's partial: its own max, the sum and P V under that max
+    m_c = s.amax(dim=-1)
+    p = torch.exp(s - m_c[..., None]) * valid
+    l_c = p.sum(dim=-1)
+    acc_c = torch.einsum("bhcx,bcxhd->bhcd", p, v)
+    # the merge, in chunk order
+    m = m_c.amax(dim=-1, keepdim=True)
+    w = torch.exp(m_c - m)
+    l = (l_c * w).sum(dim=-1)
+    out = (acc_c * w[..., None]).sum(dim=2)
+    return (out / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def paged_attention_multiquery_plain(q, q_lens, k_pool, v_pool,
@@ -118,15 +175,36 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
             or context_lens.shape != (b,):
         raise ValueError("paged attention shapes disagree")
     out = torch.empty_like(q)
+    n_blocks, bs = k_pool.shape[:2]
+    max_blocks = block_tables.shape[1]
+    max_chunks = max(1, -(-max_blocks * bs // CHUNK_TOKENS))
+    # the chunks' (acc, M, L), read only where a sequence has several
+    part = torch.empty(b * h * max_chunks * (d + 2) if max_chunks > 1
+                       else 1, dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = _tickets(q.device, stream, b * h)
     lib = _build.library("paged_attention")
     code = lib.paged_attention_fwd(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-        b, h, d, k_pool.shape[0], k_pool.shape[1], block_tables.shape[1],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        part.data_ptr(), tickets.data_ptr(), b, h, d, n_blocks, bs,
+        max_blocks, CHUNK_TOKENS, float(scale), stream)
     _build.check("paged_attention", code, "paged_attention_fwd")
     launches += 1
     return out
+
+
+# the single-query kernel's merge tickets, per (device, stream): zeroed
+# once, and every launch leaves the ones it used at zero again
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _TICKETS.get((device, stream))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _TICKETS[(device, stream)] = t
+    return t
 
 
 def paged_attention_multiquery(q, q_lens, k_pool, v_pool, block_tables,

@@ -17,9 +17,17 @@ in order:
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes its paths give it, within ``TOL`` (layer norm at the
    serving shapes and at training's [4096, 768] with eps 1e-5 and
-   1e-12, paged attention, the single-query kernel also against its
-   split-KV decomposition on lens at its chunk edges, bitwise equal run
-   to run, and timed at the engine's decode lens too) or
+   1e-12, at 45 and 770 columns (scalar loads) and at [64, 4096] (a row
+   above the register cap), bitwise equal run to run, with the launch
+   floor (an empty kernel under the same timer); paged attention, the
+   single-query kernel also against its split-KV decomposition on lens
+   at its chunk edges, bitwise equal run to run, and timed at the
+   engine's decode lens too) or ``VERIFY_TOL`` (the multi-query verify
+   kernel against its plain version and its split-KV decomposition at
+   the main shape, on windows straddling chunk edges, at Qmax 9 and at
+   the engine's own verify shape, timed there too; bitwise equal run to
+   run, the merge tickets left zero, Qmax 1 bit-identical to the
+   single-query kernel) or
    ``FLASH_TOL``/``FLASH_GRAD_TOL`` (flash
    attention, forward and both backward routes, with and without
    dropout, key bias, causal masking, ragged lengths and head dims 16 to
@@ -191,6 +199,26 @@ TRAIN_STEPS = 5
 # transform 1e-12)
 LN_SHAPES = ((8, 1e-5), (16, 1e-5), (512, 1e-5), (4096, 1e-5),
              (4096, 1e-12))
+# (rows, cols) beyond the paths' own: the warp-per-row kernel's scalar
+# loads (cols % 4 != 0) and a row above its register cap (block per row)
+LN_EXTRA_SHAPES = ((64, 45), (64, 770), (64, 4096))
+# the paged kernels' main shape: 16 sequences of 12 heads of 64, block
+# size 16, ragged lens from 1 to 1024 with block remainders; the verify
+# window VERIFY_QMAX rows with ragged q_lens (never above the context)
+PAGED_LENS = [1, 17, 64, 100, 128, 255, 256, 333, 400, 511, 512, 640, 777,
+              900, 1000, 1024]
+PAGED_HEADS, PAGED_DIM, PAGED_BS = 12, 64, 16
+VERIFY_QMAX = 4
+VERIFY_QLENS = [min(q, n) for q, n in zip([4, 1, 3, 2] * 4, PAGED_LENS)]
+# the verify kernel against its plain versions: fp32 sums in another
+# order (~5e-7 observed on the single-query kernel); a wrong mask or merge
+# gives 1e-1
+VERIFY_TOL = 5e-6
+# the engine runs: 16 requests of 16..512 prompt tokens and 32 new ones,
+# the first 4 of them again speculative (k = 3, windows of 4)
+SERVING = dict(n_req=16, lo=16, hi=512, max_new=32, pool_blocks=1024,
+               n_spec=4)
+SPEC_K = 3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores (the unit the SIMT kernels run on) and dense TF32 on the
@@ -236,6 +264,20 @@ DESIGNS = {
         "over D for P V; the chunks merged in chunk order by the block "
         "that draws the last ticket, in one launch; replaced one block per "
         "(head, sequence) with a per-token online softmax"),
+    "paged_attention_multiquery": (
+        "the single-query kernel's split-KV design with the whole window "
+        "in the block: each 32-token K/V tile copied once and used by "
+        "every window row (groups of 4 rows a pass), per-row causal "
+        "limits with p = 0 past them, one max and one sum per row and "
+        "tile, every row's chunks merged in chunk order by the last "
+        "ticket; replaced one block per (head, sequence, window row) with "
+        "a per-token online softmax"),
+    "layer_norm": (
+        "one warp per row, 4 rows a block, the row in registers (float4 "
+        "where aligned); x, w and b loaded in one round before the shuffle "
+        "reductions (mean, then the centred sum of squares), no block "
+        "barrier; a block per row above 1024 columns; replaced a 256-thread "
+        "block per row with three passes and block reductions"),
 }
 
 GPT2_SMALL = dict(vocab_size=50257, hidden_size=768, num_layers=12,
@@ -392,20 +434,66 @@ def time_paged(torch, timer, pa, t, args, bs, used_blocks) -> dict:
             "bound_by": by}
 
 
-def check_kernels(torch, timer):
-    from paddle_tpu_torch.kernels import layer_norm as ln
-    from paddle_tpu_torch.kernels import paged_attention as pa
-    F = torch.nn.functional
-    rng = np.random.default_rng(SEED)
-    results = {}
+def check_verify(torch, pa, args, what: str):
+    """The verify kernel against paged_attention_multiquery_plain and its
+    split decomposition paged_attention_multiquery_split_plain (every row,
+    padded ones included), bitwise equal on a second run, within
+    VERIFY_TOL. Returns both errors."""
+    got = pa.paged_attention_multiquery(*args)
+    again = pa.paged_attention_multiquery(*args)
+    want = pa.paged_attention_multiquery_plain(*args)
+    split = pa.paged_attention_multiquery_split_plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    split_err = float((got - split).abs().max())
+    if not (torch.isfinite(got).all() and err <= VERIFY_TOL
+            and split_err <= VERIFY_TOL and torch.equal(got, again)):
+        raise AssertionError(
+            f"paged_attention_multiquery kernel ({what}) differs from plain "
+            f"by {err} and from the split plain version by {split_err} "
+            f"(tolerance {VERIFY_TOL}), or from itself run to run: "
+            f"{not torch.equal(got, again)}")
+    return err, split_err
 
-    # layer norm at the serving shapes (decode [B, 768], prefill [T, 768],
-    # eps 1e-5) and the training shape [B*T, 768] = [4096, 768] with the
-    # encoder's eps 1e-5 and the embeddings' and MLM transform's 1e-12
+
+def time_verify(torch, timer, pa, t, args, bs, used_blocks) -> dict:
+    """Times of the verify kernel, its plain version and SDPA over the
+    gathered K/V with the window mask, and the bound: q, K and V of every
+    context token and the table entries and lengths read once, the
+    output written once; 4 flops per (row, visible key, dim)."""
+    F = torch.nn.functional
+    b, qmax, h, d = t["q"].shape
+    lens, qlens = t["lens"].tolist(), t["qlens"].tolist()
+    rows_keys = sum(min(n - ql + qi + 1, n) if qi < ql else n
+                    for n, ql in zip(lens, qlens) for qi in range(qmax))
+    bms, by = bound(4 * (2 * b * qmax * h * d + 2 * sum(lens) * h * d
+                         + used_blocks + 2 * b), 4 * rows_keys * h * d)
+    q, kd, vd, mask = sdpa_inputs(torch, t, bs, qmax)
+    return {"ms": timer(lambda: pa.paged_attention_multiquery(*args)),
+            "plain_ms": timer(lambda: pa.paged_attention_multiquery_plain(
+                *args)),
+            "library_ms": timer(lambda: F.scaled_dot_product_attention(
+                q, kd, vd, attn_mask=mask)),
+            "bound_ms": bms, "bound_by": by}
+
+
+def engine_prompt_lens() -> list:
+    """Prompt lengths of run_serving's requests (make_prompts' lengths do
+    not depend on the vocabulary)."""
+    return [len(p) for p in make_prompts(SERVING["n_req"], SERVING["lo"],
+                                         SERVING["hi"], 2)]
+
+
+def check_layer_norm(torch, timer, ln, rng) -> dict:
+    """The LayerNorm kernel against layer_norm_plain at the paths' shapes
+    (timed, with the launch floor: an empty kernel under the same timer)
+    and at LN_EXTRA_SHAPES, bitwise equal on a second run everywhere."""
+    F = torch.nn.functional
     err = 0.0
     per_shape = {}
-    for rows, eps in LN_SHAPES:
-        cols = 768
+    shapes = [(rows, 768, eps) for rows, eps in LN_SHAPES] + [
+        (rows, cols, 1e-5) for rows, cols in LN_EXTRA_SHAPES]
+    for rows, cols, eps in shapes:
         x = torch.from_numpy(rng.standard_normal((rows, cols),
                                                  np.float32)).cuda()
         w = torch.from_numpy(1 + 0.1 * rng.standard_normal(
@@ -413,36 +501,46 @@ def check_kernels(torch, timer):
         b = torch.from_numpy(0.1 * rng.standard_normal(
             cols, np.float32)).cuda()
         got = ln.layer_norm(x, w, b, eps)
+        again = ln.layer_norm(x, w, b, eps)
         want = ln.layer_norm_plain(x, w, b, eps)
         torch.cuda.synchronize()
         e = float((got - want).abs().max())
+        if not (e <= TOL and torch.equal(got, again)):
+            raise AssertionError(
+                f"layer_norm kernel at [{rows},{cols}] differs from plain "
+                f"by {e} > {TOL}, or from itself run to run: "
+                f"{not torch.equal(got, again)}")
         err = max(err, e)
-        bms, by = bound((2 * rows * cols + 2 * cols) * 4, 8 * rows * cols)
         key = f"[{rows},{cols}] eps {eps:g}"
-        per_shape[key] = {
-            "max_abs_err": e,
-            "ms": timer(lambda: ln.layer_norm(x, w, b, eps)),
-            "plain_ms": timer(lambda: ln.layer_norm_plain(x, w, b, eps)),
-            "library_ms": timer(lambda: F.layer_norm(x, (cols,), w, b,
-                                                     eps)),
-            "bound_ms": bms, "bound_by": by}
+        per_shape[key] = {"max_abs_err": e}
+        if cols == 768:
+            bms, by = bound((2 * rows * cols + 2 * cols) * 4,
+                            8 * rows * cols)
+            per_shape[key].update(
+                ms=timer(lambda: ln.layer_norm(x, w, b, eps)),
+                plain_ms=timer(lambda: ln.layer_norm_plain(x, w, b, eps)),
+                library_ms=timer(lambda: F.layer_norm(x, (cols,), w, b,
+                                                      eps)),
+                bound_ms=bms, bound_by=by)
         log(f"layer_norm {key}: {json.dumps(per_shape[key])}")
-    if not err <= TOL:
-        raise AssertionError(f"layer_norm kernel differs from plain by "
-                             f"{err} > {TOL}")
-    results["layer_norm"] = dict(per_shape["[16,768] eps 1e-05"],
-                                 max_abs_err=err,
-                                 shape="[16,768] eps 1e-05 (errors: every "
-                                       "shape)",
-                                 shapes=per_shape)
+    floor = timer(lambda: torch.cuda._sleep(0))
+    log(f"launch floor (an empty kernel, same timer): {floor} ms")
+    return dict(per_shape["[16,768] eps 1e-05"], max_abs_err=err,
+                shape="[16,768] eps 1e-05 (errors: every shape)",
+                launch_floor_ms=floor, shapes=per_shape)
 
-    # single-query paged decode: B=16, 12 x 64 heads, bs 16, ragged lens
-    # from 1 to 1024 with block remainders; then lens on the kernel's
-    # chunk edges (an empty row included), and the engine's own decode
-    # lens (timed)
-    h, d, bs = 12, 64, 16
-    lens = [1, 17, 64, 100, 128, 255, 256, 333, 400, 511, 512, 640, 777,
-            900, 1000, 1024]
+
+def check_kernels(torch, timer):
+    from paddle_tpu_torch.kernels import layer_norm as ln
+    from paddle_tpu_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(SEED)
+    results = {"layer_norm": check_layer_norm(torch, timer, ln, rng)}
+
+    # single-query paged decode at the main shape; then lens on the
+    # kernel's chunk edges (an empty row included), and the engine's own
+    # decode lens (timed)
+    h, d, bs = PAGED_HEADS, PAGED_DIM, PAGED_BS
+    lens = PAGED_LENS
     t, used_blocks = paged_inputs(torch, rng, len(lens), None, h, d, bs,
                                   lens)
     args = (t["q"], t["k"], t["v"], t["tbl"], t["lens"])
@@ -462,9 +560,10 @@ def check_kernels(torch, timer):
     results["paged_attention"]["split_plain_max_abs_err"] = max(split_err,
                                                                 e_split)
     results["paged_attention"]["chunk_edge_lens"] = edge
-    # the engine's decode: 16 prompts of 16..512 tokens (run_serving's),
-    # half way through their 32 new tokens
-    engine = [int(n) + 16 for n in np.linspace(16, 512, 16)]
+    # the engine's decode: run_serving's prompts half way through their
+    # new tokens
+    half = SERVING["max_new"] // 2
+    engine = sorted(n + half for n in engine_prompt_lens())
     tg, g_used = paged_inputs(torch, rng, len(engine), None, h, d, bs,
                               engine)
     gargs = (tg["q"], tg["k"], tg["v"], tg["tbl"], tg["lens"])
@@ -474,19 +573,39 @@ def check_kernels(torch, timer):
         max_abs_err=g_err, split_plain_max_abs_err=g_split)
     log(f"paged_attention: {json.dumps(results['paged_attention'])}")
 
-    # multi-query verify window: Qmax = 4, ragged q_lens
-    # a window never exceeds its context (ctx counts the window)
-    qlens = [min(q, n) for q, n in zip([4, 1, 3, 2] * 4, lens)]
-    t, used_blocks = paged_inputs(torch, rng, len(lens), 4, h, d, bs, lens,
-                                  qlens)
-    args = (t["q"], t["qlens"], t["k"], t["v"], t["tbl"], t["lens"])
-    got = pa.paged_attention_multiquery(*args)
-    want = pa.paged_attention_multiquery_plain(*args)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not (torch.isfinite(got).all() and err <= TOL):
-        raise AssertionError(f"paged_attention_multiquery kernel differs "
-                             f"from plain by {err} > {TOL}")
+    # the multi-query verify window at the main shape (timed); windows
+    # straddling chunk edges, a window as long as its context, padded rows
+    # and chunks wholly past some rows' limits; Qmax 9 (three row groups);
+    # the engine's own verify shape (timed)
+    def verify_case(lens, qlens, qmax):
+        t, used = paged_inputs(torch, rng, len(lens), qmax, h, d, bs, lens,
+                               qlens)
+        return t, used, (t["q"], t["qlens"], t["k"], t["v"], t["tbl"],
+                         t["lens"])
+
+    qm = VERIFY_QMAX
+    t, used_blocks, args = verify_case(lens, VERIFY_QLENS, qm)
+    errs = [check_verify(torch, pa, args, "main shape")]
+    res = dict(time_verify(torch, timer, pa, t, args, bs, used_blocks),
+               shape=f"B={len(lens)} Qmax={qm} H={h} D={d} bs={bs} lens "
+                     f"1..1024 (sum {sum(lens)})")
+    verify_edge = [c + 1, c + 2, c + 3, c, 2 * c + 1, 2 * c + 2, 3 * c,
+                   4 * c + 3, 4, 3, 33, 5 * c + 7]
+    edge_qlens = [4, 4, 4, 4, 4, 3, 2, 4, 4, 3, 1, 4]
+    errs.append(check_verify(torch, pa, verify_case(
+        verify_edge, edge_qlens, qm)[2], "chunk-edge windows"))
+    wide = ([9, 130, 300, 1000, 20, 257], [9, 9, 5, 9, 1, 7])
+    errs.append(check_verify(torch, pa, verify_case(*wide, 9)[2],
+                             "Qmax 9"))
+    # the engine's verify: the speculative prompts half way through their
+    # new tokens, windows of k + 1
+    spec = [n + half for n in engine_prompt_lens()[:SERVING["n_spec"]]]
+    ts, s_used, sargs = verify_case(spec, [SPEC_K + 1] * len(spec),
+                                    SPEC_K + 1)
+    errs.append(check_verify(torch, pa, sargs, "engine verify"))
+    res["engine_verify"] = dict(
+        time_verify(torch, timer, pa, ts, sargs, bs, s_used), lens=spec,
+        max_abs_err=errs[-1][0], split_plain_max_abs_err=errs[-1][1])
     # Qmax == 1 must be bit-identical to the single-query kernel
     one = (t["q"][:, :1].contiguous(), torch.ones_like(t["qlens"]),
            t["k"], t["v"], t["tbl"], t["lens"])
@@ -495,24 +614,16 @@ def check_kernels(torch, timer):
                                           *one[2:])):
         raise AssertionError("multi-query Qmax == 1 is not bit-identical "
                              "to the single-query kernel")
-    ntok, b = sum(lens), len(lens)
-    rows_keys = sum(min(n - ql + qi + 1, n) if qi < ql else n
-                    for n, ql in zip(lens, qlens) for qi in range(4))
-    bms, by = bound(4 * (2 * b * 4 * h * d + 2 * ntok * h * d + used_blocks
-                         + 2 * b), 4 * rows_keys * h * d)
-    q, kd, vd, mask = sdpa_inputs(torch, t, bs, 4)
-    results["paged_attention_multiquery"] = {
-        "max_abs_err": err, "shape": f"B={b} Qmax=4 H={h} D={d} bs={bs} "
-                                     f"lens 1..1024",
-        "qmax1_bitwise": True,
-        "ms": timer(lambda: pa.paged_attention_multiquery(*args)),
-        "plain_ms": timer(lambda: pa.paged_attention_multiquery_plain(
-            *args)),
-        "library_ms": timer(lambda: F.scaled_dot_product_attention(
-            q, kd, vd, attn_mask=mask)),
-        "bound_ms": bms, "bound_by": by}
-    log(f"paged_attention_multiquery: "
-        f"{json.dumps(results['paged_attention_multiquery'])}")
+    # every launch leaves the merge tickets it used at zero
+    torch.cuda.synchronize()
+    if any(int(tk.count_nonzero()) for tk in pa._TICKETS.values()):
+        raise AssertionError("paged attention left a merge ticket set")
+    res.update(max_abs_err=max(e for e, _ in errs),
+               split_plain_max_abs_err=max(e for _, e in errs),
+               qmax1_bitwise=True, tickets_zero=True,
+               chunk_edge_windows=[verify_edge, edge_qlens], qmax9=wide)
+    results["paged_attention_multiquery"] = res
+    log(f"paged_attention_multiquery: {json.dumps(res)}")
     return results
 
 
@@ -1563,6 +1674,7 @@ def profile_train(torch, step, data, gate: int, flags=None) -> dict:
     flash = sum(r[0] for r in rows if "flash_" in r[2])
     xent = sum(r[0] for r in rows if "xent_" in r[2])
     adam = sum(r[0] for r in rows if "adam_multi" in r[2])
+    ln = sum(r[0] for r in rows if "layer_norm_" in r[2])
     gemm = sum(r[0] for r in rows if "gemm" in r[2].lower()
                or "sgemm" in r[2].lower())
     # the profiler's own host work lengthens the profiled step: the busy
@@ -1572,7 +1684,8 @@ def profile_train(torch, step, data, gate: int, flags=None) -> dict:
             "device_ms": device_ms if rows else None,
             "device_busy_share": device_ms / wall_ms if rows else None,
             "flash_kernels_ms": flash, "xent_kernels_ms": xent,
-            "adam_kernel_ms": adam, "gemm_ms": gemm,
+            "adam_kernel_ms": adam, "layer_norm_kernel_ms": ln,
+            "gemm_ms": gemm,
             "device_launches": sum(r[1] for r in rows),
             "top_ms_launches_name": rows[:15]}
 
@@ -1874,11 +1987,11 @@ def run_serving(torch, config: dict, device: str, n_req: int, lo: int,
 
     few = prompts[:n_spec]
     tokens, stats = run("serving", prompts, late=n_req // 2)
-    spec_tokens, spec_stats = run("speculative", few, k=3)
+    spec_tokens, spec_stats = run("speculative", few, k=SPEC_K)
     # sampling at temperature > 0, plain and speculative, same seeds
     hot_tokens, hot_stats = run("sampled", few, temperature=TEMPERATURE)
-    hot_spec_tokens, hot_spec_stats = run("sampled_speculative", few, k=3,
-                                          temperature=TEMPERATURE)
+    hot_spec_tokens, hot_spec_stats = run("sampled_speculative", few,
+                                          k=SPEC_K, temperature=TEMPERATURE)
 
     dense = dense_reference(torch, model, prompts, max_new)
     ties = hold_against(torch, model, prompts, tokens, dense,
@@ -1907,7 +2020,9 @@ def run_serving(torch, config: dict, device: str, n_req: int, lo: int,
         prof = report["decode_profile"]
         log(f"decode profile: {json.dumps(prof)}")
         log(f"decode step: paged_attention "
-            f"{prof['paged_attention_ms_per_step']} device ms of "
+            f"{prof['paged_attention_ms_per_step']} device ms and "
+            f"layer_norm {prof['layer_norm_ms_per_step']} "
+            f"({prof['layer_norm_launches_per_step']} launches) of "
             f"{prof['device_ms_per_step']}")
     return report, counts
 
@@ -1939,16 +2054,19 @@ def profile_decode(torch, model, prompts, pool_blocks: int,
     while eng.active():
         eng.step()
     device_ms = sum(r[0] for r in rows)
-    paged = [r for r in rows if "paged_attention" in r[2]]
-    return {"steps": steps, "batch": len(prompts),
-            "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms if rows else None,
-            "device_busy_share": device_ms / wall_ms if rows else None,
-            "paged_attention_ms_per_step": sum(r[0] for r in paged)
-            if rows else None,
-            "paged_attention_launches_per_step": sum(r[1] for r in paged)
-            if rows else None,
-            "top_ms_per_step_launches_name": rows[:12]}
+    out = {"steps": steps, "batch": len(prompts),
+           "wall_ms_per_step": wall_ms,
+           "device_ms_per_step": device_ms if rows else None,
+           "device_busy_share": device_ms / wall_ms if rows else None}
+    # the port's kernels in the step (warm L2, unlike the kernel timer)
+    for name in ("paged_attention", "layer_norm"):
+        mine = [r for r in rows if name in r[2]]
+        out[f"{name}_ms_per_step"] = sum(r[0] for r in mine) \
+            if rows else None
+        out[f"{name}_launches_per_step"] = sum(r[1] for r in mine) \
+            if rows else None
+    out["top_ms_per_step_launches_name"] = rows[:12]
+    return out
 
 
 def kernel_line(results: dict, counts: dict) -> dict:
@@ -2067,9 +2185,7 @@ def main() -> int:
 
     training, counts = run_training_phases(torch)
     serving, serve_counts = run_serving(torch, GPT2_SMALL, "cuda",
-                                        n_req=16, lo=16, hi=512,
-                                        max_new=32, pool_blocks=1024,
-                                        n_spec=4)
+                                        **SERVING)
     counts.update(serve_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)

@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with a Hopper card::
 
-    python3 -m paddle_tpu_torch.kernels.design_ab fused_bwd paged
+    python3 -m paddle_tpu_torch.kernels.design_ab paged paged_mq ln_16
 
 Each experiment of ``EXPERIMENTS`` names a kernel library, the call it
 times (``chip_smoke.py``'s own shapes) and a set of variants. A variant
@@ -104,7 +104,7 @@ _PAGED_TICKET = """\
     if (threadIdx.x == 0) last_s = ticket(A.tickets + bh) == n_ch - 1;
     __syncthreads();
     if (!last_s) continue;
-    if (d < D) {"""
+"""
 _PAGED_TICKET_FENCES = """\
     __threadfence();
     __syncthreads();
@@ -113,16 +113,16 @@ _PAGED_TICKET_FENCES = """\
     __syncthreads();
     if (!last_s) continue;
     __threadfence();
-    if (d < D) {"""
+"""
 _PAGED_MERGE_ONE_ROUND = """\
       // the first 8 chunks' (M, L, acc) in one round of loads, then the
       // merge in chunk order: M = max, then L and acc under M
-      const float* pc = A.part + bh * A.max_chunks * (D + 2);
+      const float* pc = A.part + (bh * A.max_chunks * Qmax + qi) * (D + 2);
       float mk[8], lk[8], ak[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
         if (k >= n_ch) break;
-        const float* pk = pc + k * (D + 2);
+        const float* pk = pc + k * cs;
         mk[k] = __ldcg(pk + D);
         lk[k] = __ldcg(pk + D + 1);
         ak[k] = __ldcg(pk + d);
@@ -131,8 +131,7 @@ _PAGED_MERGE_ONE_ROUND = """\
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         if (k < n_ch) Mx = fmaxf(Mx, mk[k]);
-      for (int k = 8; k < n_ch; ++k)
-        Mx = fmaxf(Mx, __ldcg(pc + k * (D + 2) + D));
+      for (int k = 8; k < n_ch; ++k) Mx = fmaxf(Mx, __ldcg(pc + k * cs + D));
       float Lx = 0.f, ox = 0.f;
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
@@ -142,27 +141,69 @@ _PAGED_MERGE_ONE_ROUND = """\
         ox += ak[k] * cw;
       }
       for (int k = 8; k < n_ch; ++k) {
-        const float* pk = pc + k * (D + 2);
+        const float* pk = pc + k * cs;
         const float cw = expf(__ldcg(pk + D) - Mx);
         Lx += __ldcg(pk + D + 1) * cw;
         ox += __ldcg(pk + d) * cw;
       }
 """
 _PAGED_MERGE_TWO_ROUNDS = """\
-      const float* pc = A.part + bh * A.max_chunks * (D + 2);
+      const float* pc = A.part + (bh * A.max_chunks * Qmax + qi) * (D + 2);
       float Mx = kNegInf;
 #pragma unroll 8
-      for (int k = 0; k < n_ch; ++k)
-        Mx = fmaxf(Mx, __ldcg(pc + k * (D + 2) + D));
+      for (int k = 0; k < n_ch; ++k) Mx = fmaxf(Mx, __ldcg(pc + k * cs + D));
       float Lx = 0.f, ox = 0.f;
 #pragma unroll 8
       for (int k = 0; k < n_ch; ++k) {
-        const float* pk = pc + k * (D + 2);
+        const float* pk = pc + k * cs;
         const float cw = expf(__ldcg(pk + D) - Mx);
         Lx += __ldcg(pk + D + 1) * cw;
         ox += __ldcg(pk + d) * cw;
       }
 """
+# each copy reads its row's table entry (the first split design), not one
+# read a token shared by shuffle
+_PAGED_TABLE_PER_COPY = [
+    (_PAGED_COPY_ONCE, _PAGED_COPY),
+    ("template <int E, bool kVec>\n__device__ __forceinline__ void "
+     "copy_tile(", "template <bool kVec>\n__device__ __forceinline__ void "
+     "copy_tile("),
+    ("copy_tile<E, kVec>(A, b, h, t0, t_end, Ks, Vs, LDK);",
+     "copy_tile<kVec>(A, b, h, t0, t_end, Ks, Vs, LDK);")]
+# timing only: every chunk writes its own rows' output, no merge
+_PAGED_NO_MERGE = [("        if (n_ch == 1) {\n          A.out[",
+                    "        if (true) {\n          A.out["),
+                   ("    if (n_ch == 1) continue;", "    if (true) continue;")]
+# timing only: tiles copied, not computed on
+_PAGED_NO_COMPUTE = [("      if (n > 0) {\n        // q_r.k",
+                      "      if (false) {\n        // q_r.k")]
+
+_LN_LATE_WB = [
+    ("""\
+      if (c < cols) {
+        xa = *reinterpret_cast<const float4*>(xr + c);
+        wa = *reinterpret_cast<const float4*>(w + c);
+        ba = *reinterpret_cast<const float4*>(b + c);
+      }""", """\
+      if (c < cols) xa = *reinterpret_cast<const float4*>(xr + c);"""),
+    ("""\
+  const float rstd = rsqrtf(warp_sum(ss) / cols + eps);
+""", """\
+  const float rstd = rsqrtf(warp_sum(ss) / cols + eps);
+  if constexpr (kVec) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      const int c = col(4 * i);
+      float4 wa = make_float4(0.f, 0.f, 0.f, 0.f), ba = wa;
+      if (c < cols) {
+        wa = *reinterpret_cast<const float4*>(w + c);
+        ba = *reinterpret_cast<const float4*>(b + c);
+      }
+      put4(wv + 4 * i, wa);
+      put4(bv + 4 * i, ba);
+    }
+  }
+""")]
 
 # experiment -> (library, call, {variant: substitutions}, {variant: chunk})
 EXPERIMENTS: Dict[str, dict] = {
@@ -200,15 +241,7 @@ EXPERIMENTS: Dict[str, dict] = {
         "library": "paged_attention",
         "call": "paged_decode",
         "variants": {
-            # each lane reads one token's table entry, the copies take it
-            # by shuffle (one round of table reads, not one per copy)
-            "table_once_per_token": [
-                (_PAGED_COPY, _PAGED_COPY_ONCE),
-                ("template <bool kVec>\n__device__ __forceinline__ void "
-                 "copy_tile(", "template <int E, bool kVec>\n__device__ "
-                 "__forceinline__ void copy_tile("),
-                ("copy_tile<kVec>(A, b, h, t0, t_end, Ks, Vs, LDK);",
-                 "copy_tile<E, kVec>(A, b, h, t0, t_end, Ks, Vs, LDK);")],
+            "table_read_per_copy": _PAGED_TABLE_PER_COPY,
             # every thread fences; atomicAdd without acquire-release
             "fence_every_thread": [(_PAGED_TICKET, _PAGED_TICKET_FENCES)],
             # the merge's loads in two rounds (max, then sums)
@@ -217,18 +250,42 @@ EXPERIMENTS: Dict[str, dict] = {
             # 2 warps, chunks of 64 tokens
             "two_warps_chunk64": [("constexpr int kSplitWarps = 4;",
                                    "constexpr int kSplitWarps = 2;")],
-            # timing only: every chunk writes its own output, no merge
-            "instrument_no_merge": [("    if (n_ch == 1) {",
-                                     "    if (true) {")],
-            # timing only: tiles copied, not computed on
-            "instrument_no_compute": [(
-                "    if (t0 < t_end) {\n"
-                "      const int n = min(kTile, t_end - t0);",
-                "    if (false) {\n"
-                "      const int n = min(kTile, t_end - t0);")],
+            "instrument_no_merge": _PAGED_NO_MERGE,
+            "instrument_no_compute": _PAGED_NO_COMPUTE,
         },
         "chunk": {"two_warps_chunk64": 64},
     },
+    "paged_mq": {
+        "library": "paged_attention",
+        "call": "paged_verify",
+        "variants": {
+            # window rows a pass over the shared tiles: 2 (two passes at
+            # Qmax = 4), 8 (one pass, half its rows empty)
+            **{f"row_group_{g}": [("constexpr int kRowGroup = 4;",
+                                   f"constexpr int kRowGroup = {g};")]
+               for g in (2, 8)},
+            "table_read_per_copy": _PAGED_TABLE_PER_COPY,
+            "instrument_no_merge": _PAGED_NO_MERGE,
+            "instrument_no_compute": _PAGED_NO_COMPUTE,
+        },
+    },
+    **{f"ln_{rows}": {
+        "library": "layer_norm",
+        "call": f"layer_norm_{rows}",
+        "variants": {
+            # the design the warp-per-row kernel replaced: a block of 256
+            # threads per row
+            "block_per_row": [(
+                "  if (rows > 0 && cols > 0 && cols <= kMaxCols) {",
+                "  if (false) {")],
+            "rows_a_block_2": [("constexpr int kRowWarps = 4;",
+                                "constexpr int kRowWarps = 2;")],
+            "rows_a_block_8": [("constexpr int kRowWarps = 4;",
+                                "constexpr int kRowWarps = 8;")],
+            # w and b loaded after the reductions: a second round trip
+            "w_b_after_reductions": _LN_LATE_WB,
+        },
+    } for rows in (16, 4096)},
 }
 
 
@@ -275,6 +332,7 @@ def _call(torch, cs, name: str):
     """(run, reference outputs) of an experiment's call."""
     import numpy as np
     from . import flash_attention as fa
+    from . import layer_norm as ln
     from . import paged_attention as pa
     rng = np.random.default_rng(cs.SEED)
     if name == "fused_bwd_seq128":
@@ -286,9 +344,23 @@ def _call(torch, cs, name: str):
                 cs.flash_delta(torch, t["dout"], out, True))
         return (lambda: fa.flash_bwd_fused(*args, **kw),
                 fa.flash_bwd_plain(*args, **kw))
-    lens = [1, 17, 64, 100, 128, 255, 256, 333, 400, 511, 512, 640, 777,
-            900, 1000, 1024]
-    t, _ = cs.paged_inputs(torch, rng, len(lens), None, 12, 64, 16, lens)
+    if name.startswith("layer_norm_"):
+        rows = int(name.rsplit("_", 1)[1])
+        x, w, b = (torch.from_numpy(a).cuda() for a in (
+            rng.standard_normal((rows, 768), np.float32),
+            1 + 0.1 * rng.standard_normal(768, np.float32),
+            0.1 * rng.standard_normal(768, np.float32)))
+        return ((lambda: (ln.layer_norm(x, w, b, 1e-5),)),
+                (ln.layer_norm_plain(x, w, b, 1e-5),))
+    lens = cs.PAGED_LENS
+    shape = (cs.PAGED_HEADS, cs.PAGED_DIM, cs.PAGED_BS)
+    if name == "paged_verify":
+        t, _ = cs.paged_inputs(torch, rng, len(lens), cs.VERIFY_QMAX, *shape,
+                               lens, cs.VERIFY_QLENS)
+        args = (t["q"], t["qlens"], t["k"], t["v"], t["tbl"], t["lens"])
+        return ((lambda: (pa.paged_attention_multiquery(*args),)),
+                (pa.paged_attention_multiquery_plain(*args),))
+    t, _ = cs.paged_inputs(torch, rng, len(lens), None, *shape, lens)
     args = (t["q"], t["k"], t["v"], t["tbl"], t["lens"])
     return ((lambda: (pa.paged_attention(*args),)),
             (pa.paged_attention_plain(*args),))

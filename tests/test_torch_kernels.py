@@ -120,7 +120,10 @@ class TestMultiQueryPlain:
 
 
 class TestLayerNormPlain:
-    @pytest.mark.parametrize("rows,cols", [(16, 128), (8, 256)])
+    # the last two: the warp-per-row kernel's register cap (1024 columns)
+    # and a row above it (the block-per-row kernel's)
+    @pytest.mark.parametrize("rows,cols", [(16, 128), (8, 256), (8, 1024),
+                                           (16, 4096)])
     def test_matches_jax_kernel(self, rows, cols):
         rng = np.random.RandomState(7)
         x = rng.randn(rows, cols).astype(np.float32)

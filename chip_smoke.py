@@ -70,7 +70,19 @@ in order:
    flags and again with ``fused_softmax_xent`` and ``fused_adam``: one
    forward and backward, comparing the loss and every parameter's
    gradient, then one ``TrainStep``, comparing the loss and every
-   updated parameter;
+   updated parameter; then BERT-base in bf16 as the JAX bench builds it
+   (``BF16_RUNS``: ``cast_model_to_low_precision(model, "bfloat16")``,
+   ``AdamW(1e-4, weight_decay=0.01, fused_state=...)``), b8 x s512, 5
+   steps under the default flags per leaf and 5 with the fused flags over
+   the flat fused state: finite losses, exact launch counts, every
+   parameter bf16 and every master and moment fp32, the fused run
+   profiled; the 2-layer BERT in bf16 with a padded row, card against
+   CPU, under both flag sets (``BF16_*`` tolerances); an fp16
+   ``TrainStep(amp_dtype="float16", scaler=GradScaler())`` fed a poisoned
+   batch twice (nothing changes, the scale halves, no host sync in the
+   step) and then clean steps until one applies; ``run_steps`` over two
+   stacked batches against two calls, bit for bit, and an ``EvalStep``
+   forward;
 6. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
    weights from a seed; half of the requests join mid-decode) and holds
    every token against the port's dense ``generate()``; repeats four
@@ -150,6 +162,22 @@ BF16_TOL = 2.0 ** -7
 # the fused training run's peak device memory at b8 x s512, in GiB (4.00
 # before the chunked backward; its scratch adds 32 MB)
 FUSED_PEAK_GB = 4.25
+# bf16 card against CPU (2-layer BERT, one step, both in bf16): the card's
+# kernels read fp32 copies and round once, the CPU's LayerNorm, matmuls and
+# GELU round bf16 in other places, so the two differ at bf16's precision.
+# A CPU emulation of the card's LayerNorm cast path gave a loss 4.9e-4
+# apart, gradients up to 3.0% of their leaf's largest entry and 0.25% of
+# master entries more than lr/2 apart; cuBLAS's and the GELU's own
+# rounding add to that on the card. A lost cast (a gradient left unscaled
+# or in the wrong dtype, a master not written) is off by ~100%. After one
+# step a master entry moves by ~lr whatever its gradient's size, so a
+# near-zero gradient whose sign bf16 rounding flips sends it ~2 lr the
+# other way: the masters are checked by the share of entries more than
+# lr/2 apart, and none may be more than Adam's two steps apart
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_GRAD_TOL = 0.1
+BF16_MASTER_SHARE = 0.01
+BF16_MASTER_MAX_LR = 2.05
 # the kernels each path of the main path must launch: plain decode,
 # speculative decode (a self-draft's dense forwards plus the verify),
 # and BERT training at seq 512 (split backward) and seq 128 (fused)
@@ -170,6 +198,18 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                                              "flash_attention_fwd",
                                              "flash_attention_bwd_fused",
                                              "adam_flat"),
+                # BERT-base in bf16 as the JAX bench builds it: the same
+                # kernels through the wrappers' fp32 cast path, the Adam
+                # kernel on the fp32 masters (one flat master under
+                # fused_state)
+                "train_seq512_bf16": ("layer_norm", "flash_attention_fwd",
+                                      "flash_attention_bwd_dq",
+                                      "flash_attention_bwd_dkv"),
+                "train_seq512_bf16_fused": (
+                    "layer_norm", "flash_attention_fwd",
+                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                    "fused_xent_fwd", "fused_xent_bwd_dlog",
+                    "fused_xent_bwd_dh", "fused_xent_bwd_dw", "adam_leaf"),
                 # flash_attention_with_lse (no caller on the main path:
                 # ring attention is not ported yet), forward and backward
                 # through its router on both backward routes
@@ -191,8 +231,18 @@ TRAIN_RUNS = {"train_seq512": dict(batch=8, seq=512, gate=512),
               "train_seq128_pallas_adam": dict(
                   batch=32, seq=128, gate=128,
                   flags={"use_pallas_adam": True})}
+# the JAX bench's own build (bench.py:372-383): the model cast with
+# cast_model_to_low_precision(..., "bfloat16"), then AdamW(1e-4,
+# weight_decay=0.01, fused_state=...); default flags per leaf, and the fused
+# loss and Adam kernel over the flat fused state
+BF16_RUNS = {"train_seq512_bf16": dict(batch=8, seq=512, gate=512,
+                                       fused_state=False),
+             "train_seq512_bf16_fused": dict(batch=8, seq=512, gate=512,
+                                             flags=FUSED_FLAGS,
+                                             fused_state=True)}
 # the runs profiled with torch.profiler (one step each)
-PROFILED_RUNS = ("train_seq512", "train_seq512_fused")
+PROFILED_RUNS = ("train_seq512", "train_seq512_fused", "train_seq512_bf16",
+                 "train_seq512_bf16_fused")
 TRAIN_STEPS = 5
 # (rows, eps) of the LayerNorm kernel's calls: serving decode and prefill,
 # and BERT training's [B*T, 768] (encoder eps 1e-5; embeddings and MLM
@@ -1465,6 +1515,10 @@ def check_fused_adam(torch, timer):
         "flat_ge1024": dict(variant="flat", ok=yes, keep=big),
         "flat_weight_decay": dict(variant="flat", ok=yes, keep=big,
                                   wd=0.01),
+        # a scheduled rate: lr * wd read on the device
+        "leaf_lr_wd_on_device": dict(variant="leaf", ok=yes,
+                                     lr_wd=torch.tensor(
+                                         [1.3e-6], device="cuda")),
     }
     report = {}
     for name, kw in checks.items():
@@ -1568,12 +1622,32 @@ def expected_launches(seq: int, layers: int, d: int, flags=None,
             "adam_flat": flat}
 
 
-def make_train_step(model):
+def make_train_step(model, fused_state=None, loss_fn=None, **kw):
+    """The JAX bench's step: AdamW(1e-4, weight_decay=0.01) over
+    ``pretraining_loss`` (or ``loss_fn``); ``kw`` to TrainStep."""
     from paddle_tpu_torch.models import pretraining_loss
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.static import TrainStep
-    return TrainStep(model, AdamW(1e-4, weight_decay=0.01),
-                     pretraining_loss, seed=SEED)
+    return TrainStep(model, AdamW(1e-4, weight_decay=0.01,
+                                  fused_state=fused_state),
+                     loss_fn or pretraining_loss, seed=SEED, **kw)
+
+
+def check_low_precision_state(torch, step, dtype, what: str) -> dict:
+    """Every trainable parameter in ``dtype``, and every master and moment
+    fp32 (per leaf, or the flat fused state's)."""
+    bad = [n for n, p in step.params.items() if p.dtype != dtype]
+    state = step.state
+    tensors = dict(state.get("fused", {}))
+    for n, slots in state["slots"].items():
+        tensors.update({f"{n}.{k}": t for k, t in slots.items()})
+    bad += [k for k, t in tensors.items() if t.dtype != torch.float32]
+    masters = [k for k in tensors if k.endswith("master")]
+    if bad or not masters:
+        raise AssertionError(f"{what}: dtypes wrong for {bad[:8]} "
+                             f"(masters: {len(masters)})")
+    return {"params": len(step.params), "fp32_state_tensors": len(tensors),
+            "masters": len(masters), "fused_state": "fused" in state}
 
 
 def flag_scope(flags: dict):
@@ -1586,15 +1660,16 @@ def flag_scope(flags: dict):
 
 
 def run_training(torch, model, name: str, batch: int, seq: int,
-                 gate: int, flags=None, max_peak_gb=None):
+                 gate: int, flags=None, max_peak_gb=None, fused_state=None):
     """TRAIN_STEPS TrainSteps at (batch, seq) with the flash gate at
     ``gate`` and ``flags`` set; launch counts set to 0 just before and
     read just after; the peak device memory at most ``max_peak_gb`` GiB
-    where given. Returns (stats, counts, the step, its batch)."""
+    where given. A low-precision model must keep its dtype and fp32
+    masters and moments. Returns (stats, counts, the step, its batch)."""
     from paddle_tpu_torch import kernels
     cfg = model.config
     data = bert_batch(torch, cfg, batch, seq, "cuda", SEED + seq)
-    step = make_train_step(model)
+    step = make_train_step(model, fused_state)
     restore = flag_scope(dict(flags or {},
                               flash_attention_min_seq_train=gate))
     losses, step_ms = [], []
@@ -1625,9 +1700,13 @@ def run_training(torch, model, name: str, batch: int, seq: int,
     if max_peak_gb is not None and peak_gb > max_peak_gb:
         raise AssertionError(f"{name}: peak memory {peak_gb} GiB > "
                              f"{max_peak_gb}")
+    dtype = next(iter(step.params.values())).dtype
+    state = None if dtype == torch.float32 else \
+        check_low_precision_state(torch, step, dtype, name)
     steady = float(np.median(step_ms[1:]))
     stats = {"batch": batch, "seq": seq, "flags": flags or {},
-             "steps": TRAIN_STEPS,
+             "dtype": str(dtype), "fused_state": bool(fused_state),
+             "optimizer_state": state, "steps": TRAIN_STEPS,
              "losses": losses, "step_ms": step_ms,
              "step_ms_median_after_first": steady,
              "tokens_per_s": batch * seq / steady * 1e3,
@@ -1675,8 +1754,10 @@ def profile_train(torch, step, data, gate: int, flags=None) -> dict:
     xent = sum(r[0] for r in rows if "xent_" in r[2])
     adam = sum(r[0] for r in rows if "adam_multi" in r[2])
     ln = sum(r[0] for r in rows if "layer_norm_" in r[2])
-    gemm = sum(r[0] for r in rows if "gemm" in r[2].lower()
-               or "sgemm" in r[2].lower())
+    # cuBLAS's kernels: the fp32 SIMT ones carry "gemm"; on Hopper its bf16
+    # tensor-core kernels may be named nvjet_* or *xmma*
+    gemm = sum(r[0] for r in rows if any(
+        k in r[2].lower() for k in ("gemm", "nvjet", "xmma", "cutlass")))
     # the profiler's own host work lengthens the profiled step: the busy
     # share of an unprofiled step is device_ms over that step's wall time
     # (run_training's step_ms)
@@ -1686,6 +1767,7 @@ def profile_train(torch, step, data, gate: int, flags=None) -> dict:
             "flash_kernels_ms": flash, "xent_kernels_ms": xent,
             "adam_kernel_ms": adam, "layer_norm_kernel_ms": ln,
             "gemm_ms": gemm,
+            "gemm_share": gemm / device_ms if rows else None,
             "device_launches": sum(r[1] for r in rows),
             "top_ms_launches_name": rows[:15]}
 
@@ -1785,13 +1867,12 @@ def card_against_cpu(torch, flags=None) -> dict:
     return res
 
 
-def run_training_phases(torch) -> tuple:
-    """Phases 4-5. Returns (report, launch counts of each training
-    run)."""
-    from paddle_tpu_torch.models import BertConfig, BertForPretraining
-    model = BertForPretraining(BertConfig(), device="cuda", seed=SEED)
-    report, counts = {}, {}
-    for name, run in TRAIN_RUNS.items():
+def run_train_set(torch, model, runs: dict, report: dict,
+                  counts: dict) -> None:
+    """Each run of ``runs`` on ``model`` in turn (run_training), the
+    PROFILED_RUNS profiled after theirs; fills ``report`` and
+    ``counts``."""
+    for name, run in runs.items():
         stats, counts[name], step, data = run_training(torch, model, name,
                                                        **run)
         report[name] = stats
@@ -1804,11 +1885,284 @@ def run_training_phases(torch) -> tuple:
             report[f"profile_{name}"] = prof
             log(f"train profile ({name}): {json.dumps(prof)}")
         del step, data
+
+
+def run_training_phases(torch) -> tuple:
+    """Phases 4-5 and the bf16 phases. Returns (report, launch counts of
+    each training run)."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    report, counts = {}, {}
+    model = BertForPretraining(BertConfig(), device="cuda", seed=SEED)
+    run_train_set(torch, model, TRAIN_RUNS, report, counts)
     del model
     torch.cuda.empty_cache()
     report["card_against_cpu"] = card_against_cpu(torch)
     report["card_against_cpu_fused"] = card_against_cpu(torch, FUSED_FLAGS)
+    model = cast_model_to_low_precision(
+        BertForPretraining(BertConfig(), device="cuda", seed=SEED),
+        "bfloat16")
+    run_train_set(torch, model, BF16_RUNS, report, counts)
+    del model
+    torch.cuda.empty_cache()
+    report["card_against_cpu_bf16"] = card_against_cpu_bf16(torch)
+    report["card_against_cpu_bf16_fused"] = card_against_cpu_bf16(
+        torch, FUSED_FLAGS, fused_state=True)
+    report["grad_scaler"] = check_grad_scaler(torch)
+    report["run_steps_eval"] = check_run_steps_and_eval(torch)
     return report, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: bf16 and fp16 through TrainStep on a 2-layer full-width BERT
+# ---------------------------------------------------------------------------
+
+def small_bert(torch, device: str, dtype):
+    """The 2-layer full-width BERT (dropout 0) from SEED, cast to
+    ``dtype`` as the JAX bench casts (parameters only)."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    return cast_model_to_low_precision(
+        BertForPretraining(cfg, device=device, seed=SEED), dtype)
+
+
+def padded_batch(torch, cfg, device, seed: int):
+    """bert_batch at batch 2, seq 512, with an attention mask that pads
+    the second row from position 384 (its keys reach the flash kernels as
+    a -inf bias)."""
+    ids, mlm, nsp = bert_batch(torch, cfg, 2, 512, device, seed)
+    mask = torch.ones(2, 512, dtype=torch.int64, device=device)
+    mask[1, 384:] = 0
+    return ids, mask, mlm, nsp
+
+
+def card_against_cpu_bf16(torch, flags=None, fused_state=None) -> dict:
+    """The 2-layer full-width BERT in bf16 (dropout 0, batch 2, seq 512,
+    a padded row) on the card (kernels through their cast path) and on
+    the CPU (plain versions) from the same bf16 weights, with ``flags``:
+    one forward and backward, whose loss and every bf16 gradient must
+    agree within the BF16_* tolerances; then one TrainStep (fp32 masters
+    and moments, ``fused_state``), after which the loss and the masters
+    must agree. The card must launch what expected_launches says, the
+    CPU nothing."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import pretraining_loss
+    cpu = small_bert(torch, "cpu", "bfloat16")
+    card = small_bert(torch, "cuda", "bfloat16")
+    card.load_state_dict(cpu.state_dict())
+    cfg = cpu.config
+    data = padded_batch(torch, cfg, "cpu", SEED + 13)
+    losses, grad_losses, grads, masters, counts, state = {}, {}, {}, {}, \
+        {}, {}
+    restore = flag_scope(flags or {})
+    try:
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            ids, mask, mlm, nsp = (x.to(dev) for x in data)
+            names = [n for n, _ in model.named_parameters()]
+            kernels.reset_launch_counts()
+            loss = pretraining_loss(model(ids, attention_mask=mask), mlm,
+                                    nsp)
+            grads[dev] = {n: g for n, g in zip(names, torch.autograd.grad(
+                loss, list(model.parameters()), allow_unused=True))
+                if g is not None}
+            counts[f"grad_{dev}"] = kernels.launch_counts()
+            grad_losses[dev] = float(loss.detach())
+            step = make_train_step(model, fused_state)
+            kernels.reset_launch_counts()
+            losses[dev] = float(step(ids, attention_mask=mask,
+                                     labels=(mlm, nsp))["loss"])
+            counts[f"step_{dev}"] = kernels.launch_counts()
+            state[dev] = check_low_precision_state(
+                torch, step, torch.bfloat16, f"card vs cpu bf16 {dev}")
+            masters[dev] = master_dict(step)
+    finally:
+        restore()
+    if any(g.dtype != torch.bfloat16 for d in grads.values()
+           for g in d.values()):
+        raise AssertionError("card vs cpu bf16: a gradient is not bf16")
+    rel = grad_gaps(torch, grads["cuda"], grads["cpu"])
+    worst_grad = max(rel, key=rel.get)
+    lr = 1e-4
+    gaps = {n: (m.cpu() - masters["cpu"][n]).abs()
+            for n, m in masters["cuda"].items()}
+    total = sum(g.numel() for g in gaps.values())
+    share = sum(int((g > lr / 2).sum()) for g in gaps.values()) / total
+    worst = max(gaps, key=lambda n: float(gaps[n].max()))
+    res = {"flags": flags or {}, "fused_state": bool(fused_state),
+           "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+           "loss_rel_diff": max(abs(a["cuda"] - a["cpu"]) / abs(a["cpu"])
+                                for a in (grad_losses, losses)),
+           "grad_max_rel_gap": rel[worst_grad], "worst_grad": worst_grad,
+           "grad_rel_gap_by_leaf": rel,
+           "master_share_over_half_lr": share,
+           "master_max_diff_over_lr": float(gaps[worst].max()) / lr,
+           "worst_master": worst, "master_entries": total,
+           "state": state["cuda"], "launches": counts}
+    log(f"card vs cpu bf16: {json.dumps({k: v for k, v in res.items() if k != 'grad_rel_gap_by_leaf'})}")
+    kw = dict(rows=2 * 512, vocab=cfg.vocab_size)
+    want = {"grad": expected_launches(512, 2, 64, flags, update=False,
+                                      **kw),
+            "step": expected_launches(512, 2, 64, flags, **kw)}
+    if any(counts[f"{what}_cuda"] != want[what]
+           or any(counts[f"{what}_cpu"].values())
+           for what in ("grad", "step")):
+        raise AssertionError(f"card vs cpu bf16 launches: {counts} (card "
+                             f"should be {want}, cpu all 0)")
+    if not (res["loss_rel_diff"] <= BF16_STEP_LOSS_RTOL
+            and res["grad_max_rel_gap"] <= BF16_GRAD_TOL
+            and share <= BF16_MASTER_SHARE
+            and res["master_max_diff_over_lr"] <= BF16_MASTER_MAX_LR):
+        raise AssertionError(
+            f"bf16 card and CPU disagree: {res} (tolerances "
+            f"{BF16_STEP_LOSS_RTOL} loss relative, {BF16_GRAD_TOL} "
+            f"gradient relative, {BF16_MASTER_SHARE} of masters beyond "
+            f"lr/2, none beyond {BF16_MASTER_MAX_LR} lr)")
+    return res
+
+
+def master_dict(step) -> dict:
+    """Each parameter's fp32 master by name (its slice of the flat
+    master under fused_state)."""
+    state = step.state
+    if "fused" not in state:
+        return {n: s["master"] for n, s in state["slots"].items()}
+    flat, out, off = state["fused"]["master"], {}, 0
+    for n in sorted(step.params):
+        k = step.params[n].numel()
+        out[n] = flat[off:off + k]
+        off += k
+    return out
+
+
+def snapshot(step) -> dict:
+    """Clones of a step's parameters, optimizer state and scaler state."""
+    state = step.state
+    out = {f"param.{n}": p.detach().clone() for n, p in step.params.items()}
+    out["opt.step"] = state["step"].clone()
+    for n, slots in state["slots"].items():
+        out.update({f"opt.{n}.{k}": t.clone() for k, t in slots.items()})
+    out.update({f"opt.fused.{k}": t.clone()
+                for k, t in state.get("fused", {}).items()})
+    out.update({f"scaler.{k}": t.clone()
+                for k, t in (step.scaler_state or {}).items()})
+    return out
+
+
+def check_grad_scaler(torch) -> dict:
+    """One fp16 TrainStep(amp_dtype="float16", scaler=GradScaler()) on the
+    2-layer full-width BERT cast to fp16, fed a poisoned batch (the loss
+    times inf) twice: after each, the parameters, fp32 masters, moments
+    and step counter are bit for bit what they were, the scale halves at
+    the second (decr_every_n_nan_or_inf = 2), and neither step
+    synchronises with the host (CUDA sync debug mode "error" raises on
+    any synchronising call). Then a clean step."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.models import pretraining_loss
+    model = small_bert(torch, "cuda", "float16")
+    ids, mask, mlm, nsp = padded_batch(torch, model.config, "cuda",
+                                       SEED + 17)
+    scaler = GradScaler()
+    step = make_train_step(
+        model, loss_fn=lambda out, m, n, s: pretraining_loss(out, m, n) * s,
+        amp_dtype="float16", scaler=scaler)
+    poison = torch.tensor(float("inf"), device="cuda")
+    one = torch.tensor(1.0, device="cuda")
+    before = snapshot(step)
+    torch.cuda.synchronize()
+    scales = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(scaler.decr_every_n_nan_or_inf):
+            step(ids, attention_mask=mask, labels=(mlm, nsp, poison))
+            scales.append({k: v.clone() for k, v in step.scaler_state.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    after = snapshot(step)
+    changed = [k for k in before if not k.startswith("scaler.")
+               and not torch.equal(before[k], after[k])]
+    got = [{k: float(v) for k, v in s.items()} for s in scales]
+    init = scaler.init_loss_scaling
+    want = [{"scale": init, "good_steps": 0.0, "bad_steps": 1.0},
+            {"scale": init * scaler.decr_ratio, "good_steps": 0.0,
+             "bad_steps": 0.0}]
+    res = {"unchanged": not changed, "scaler_states": got,
+           "nonfinite_steps": int(step.nonfinite_steps),
+           "state_tensors": len(before), "sync_free": True}
+    # clean steps until one applies: an fp16 gradient that overflows at
+    # the scale skips its step too, and the scale halves every second one
+    scale_log = []
+    while int(step.state["step"]) == 0 and len(scale_log) < 10:
+        scale_log.append(float(step.scaler_state["scale"]))
+        res["clean_loss"] = float(step(ids, attention_mask=mask,
+                                       labels=(mlm, nsp, one))["loss"])
+    res.update(clean_steps_to_apply=len(scale_log),
+               scale_at_clean_steps=scale_log,
+               params_moved=not all(torch.equal(p, before[f"param.{n}"])
+                                    for n, p in step.params.items()))
+    log(f"grad scaler (fp16): {json.dumps(res)}")
+    if changed or got != want or res["nonfinite_steps"] != 2:
+        raise AssertionError(f"grad scaler: changed {changed[:8]}, scaler "
+                             f"states {got} (want {want}), "
+                             f"{res['nonfinite_steps']} non-finite steps")
+    if int(step.state["step"]) != 1 or not res["params_moved"] \
+            or not np.isfinite(res["clean_loss"]) or not all(
+                bool(torch.isfinite(p).all()) for p in step.params.values()):
+        raise AssertionError(f"grad scaler: no clean step applied in "
+                             f"{len(scale_log)} or it left non-finite "
+                             f"values: {res}")
+    return res
+
+
+def check_run_steps_and_eval(torch) -> dict:
+    """run_steps over K = 2 stacked batches against two calls of a twin
+    step from the same bf16 weights: the same losses, extra metric and
+    parameters bit for bit; then an EvalStep forward, equal to the
+    model's own eval-mode forward, finite, in bf16, the training mode
+    restored after."""
+    from paddle_tpu_torch.static import EvalStep
+    models = [small_bert(torch, "cuda", "bfloat16") for _ in range(2)]
+    models[1].load_state_dict(models[0].state_dict())
+    cfg = models[0].config
+    batches = [padded_batch(torch, cfg, "cuda", SEED + 21 + i)
+               for i in range(2)]
+    metric = {"nsp_logit_mean": lambda out, m, n: out[1].float().mean()}
+    calls, multi = (make_train_step(m, extra_metrics=metric)
+                    for m in models)
+    want = [calls(ids, attention_mask=mask, labels=(mlm, nsp))
+            for ids, mask, mlm, nsp in batches]
+    ids, mask, mlm, nsp = (torch.stack(parts) for parts in zip(*batches))
+    got = multi.run_steps(ids, attention_mask=mask, labels=(mlm, nsp))
+    same_metrics = all(torch.equal(got[k], torch.stack([w[k] for w in want]))
+                       for k in ("loss", "nsp_logit_mean"))
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        models[0].parameters(), models[1].parameters()))
+    ids, mask, mlm, nsp = batches[0]
+    model = models[0]
+    out, metrics = EvalStep(model, {"nsp_acc": lambda o, n: (
+        o[1].argmax(-1) == n).float().mean()})(None, None, ids, None, mask,
+                                               labels=(nsp,))
+    restored = model.training
+    model.eval()
+    with torch.no_grad():
+        ref = model(ids, None, mask)
+    model.train()
+    res = {"run_steps_losses": got["loss"].tolist(),
+           "calls_losses": [float(w["loss"]) for w in want],
+           "same_metrics": same_metrics, "same_params": same_params,
+           "eval_equal": all(torch.equal(a, b) for a, b in zip(out, ref)),
+           "eval_finite": all(bool(torch.isfinite(o.float()).all())
+                              for o in out),
+           "eval_dtype": str(out[0].dtype), "eval_nsp_acc": float(
+               metrics["nsp_acc"]), "training_restored": restored}
+    log(f"run_steps and EvalStep: {json.dumps(res)}")
+    if not (same_metrics and same_params and res["eval_equal"]
+            and res["eval_finite"] and out[0].dtype == torch.bfloat16
+            and restored):
+        raise AssertionError(f"run_steps / EvalStep: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------

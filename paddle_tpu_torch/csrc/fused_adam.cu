@@ -24,10 +24,11 @@
 // Launch: a table of leaves, int64 [L][8] = (p, g, m, v, numel, first
 // chunk, decay flag, 0), in device memory; the grid has one block per
 // 8192-element chunk of every leaf, and a block finds its leaf by binary
-// search over the first-chunk column. lr_c (the bias-corrected rate) and
-// ok (the skip-step guard) are read from device memory, so the step needs
-// no host sync; with ok false the kernel writes nothing, which is what the
-// unfused path's torch.where(ok, new, old) leaves.
+// search over the first-chunk column. lr_c (the bias-corrected rate), ok
+// (the skip-step guard) and, where given, lr_wd (the decay coefficient of a
+// scheduled rate) are read from device memory, so the step needs no host
+// sync; with ok false the kernel writes nothing, which is what the unfused
+// path's torch.where(ok, new, old) leaves.
 //
 // What bounds it on the card: bytes. Per element it reads p, g, m, v and
 // writes p, m, v (28 bytes) for ~15 flops: 110 M elements of BERT-base move
@@ -74,8 +75,10 @@ __device__ __forceinline__ void adam(float& p, float g, float& m, float& v,
 __global__ void __launch_bounds__(kThreads)
     adam_multi_kernel(const long long* __restrict__ table, int n_leaves,
                       const float* __restrict__ lr_c,
-                      const bool* __restrict__ ok, Scalars a) {
+                      const bool* __restrict__ ok,
+                      const float* __restrict__ lr_wd, Scalars a) {
   if (ok && !*ok) return;
+  if (lr_wd) a.lr_wd = *lr_wd;
   const long long chunk = blockIdx.x;
   // the last leaf whose first chunk is <= this block's
   int lo = 0, hi = n_leaves - 1;
@@ -127,17 +130,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // table: int64 [n_leaves][8] on the device (see the note above); n_chunks:
 // the total number of 8192-element chunks; lr_c: a float on the device;
-// ok: a bool on the device, or null (always update).
+// ok: a bool on the device, or null (always update); lr_wd_dev: a float on
+// the device that replaces lr_wd, or null.
 extern "C" int fused_adam_multi(const long long* table, int n_leaves,
                                 int n_chunks, const float* lr_c,
-                                const bool* ok, float b1, float c1, float b2,
-                                float c2, float eps, float lr_wd, float wd,
+                                const bool* ok, const float* lr_wd_dev,
+                                float b1, float c1, float b2, float c2,
+                                float eps, float lr_wd, float wd,
                                 int variant, void* stream) {
   if (n_leaves <= 0 || n_chunks <= 0 || (variant != 0 && variant != 1))
     return (int)cudaErrorInvalidValue;
   const Scalars a{b1, c1, b2, c2, eps, lr_wd, wd, variant};
   adam_multi_kernel<<<n_chunks, kThreads, 0, (cudaStream_t)stream>>>(
-      table, n_leaves, lr_c, ok, a);
+      table, n_leaves, lr_c, ok, lr_wd_dev, a);
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,7 @@ main path went through the kernels.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -237,7 +237,8 @@ def maybe_fused_adam(params: Sequence[torch.Tensor],
                      grads: Sequence[torch.Tensor],
                      ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                      decay: Sequence[bool], lr_c: torch.Tensor,
-                     beta1: float, beta2: float, eps: float, lr_wd: float,
+                     beta1: float, beta2: float, eps: float,
+                     lr_wd: Union[float, torch.Tensor],
                      ok: Optional[torch.Tensor] = None,
                      variant: str = "leaf") -> None:
     """Paddle's Adam update of every given leaf in place (variant

@@ -76,9 +76,10 @@ SOURCES: Dict[str, Dict[str, list]] = {
         "fused_xent_bwd_dh": [_P] * 3 + [_I] * 6 + [_P],
     },
     "fused_adam": {
-        # table, n_leaves, n_chunks, lr_c, ok, b1, 1 - b1, b2, 1 - b2, eps,
-        # lr * wd, weight_decay, variant, stream
-        "fused_adam_multi": [_P, _I, _I, _P, _P] + [_F] * 7 + [_I, _P],
+        # table, n_leaves, n_chunks, lr_c, ok, lr * wd on the device (or
+        # null), b1, 1 - b1, b2, 1 - b2, eps, lr * wd, weight_decay,
+        # variant, stream
+        "fused_adam_multi": [_P, _I, _I, _P, _P, _P] + [_F] * 7 + [_I, _P],
     },
 }
 

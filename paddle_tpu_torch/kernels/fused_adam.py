@@ -14,15 +14,17 @@ already folded into ``lr_c``,
 
 and then, for the leaves whose ``decay`` flag is set, AdamW's decoupled
 ``p_new - (lr wd) p_old``. One launch updates every leaf of a step in
-place; ``lr_c`` and the skip-step guard's ``ok`` stay on the device, and
-with ``ok`` False nothing is written. On the card the kernel equals
+place; ``lr_c``, the skip-step guard's ``ok`` and, for a scheduled
+rate, ``lr wd`` stay on the device, and with ``ok`` False nothing is
+written. In bf16 training the leaves are the fp32 master weights (see
+``optimizer``). On the card the kernel equals
 :func:`adam_multi_plain` bit for bit (each operation rounded on its own,
 as PyTorch's eager ops round them).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -66,18 +68,23 @@ def adam_multi_plain(params: Sequence[torch.Tensor],
                      grads: Sequence[torch.Tensor],
                      ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                      decay: Sequence[bool], lr_c: torch.Tensor,
-                     beta1: float, beta2: float, eps: float, lr_wd: float,
+                     beta1: float, beta2: float, eps: float,
+                     lr_wd: Union[float, torch.Tensor],
                      ok: Optional[torch.Tensor] = None,
                      variant: str = "leaf",
                      weight_decay: float = 0.0) -> None:
     """:func:`adam_multi`'s plain version: the same update of every leaf,
     in place, one leaf at a time; ``torch.where(ok, new, old)`` for the
-    skip-step guard."""
+    skip-step guard. Moments stored in bf16 (``optimizer_moment_dtype``)
+    are read as fp32 and stored back rounded: the math is fp32 either
+    way. ``lr_wd`` may be a float or a one-element fp32 tensor (a
+    scheduled learning rate)."""
     for p, g, m, v, dec in zip(params, grads, ms, vs, decay):
+        m32, v32 = m.float(), v.float()  # the tensors themselves if fp32
         if variant == "leaf":
-            new = adam_leaf_plain(p, g, m, v, lr_c, beta1, beta2, eps)
+            new = adam_leaf_plain(p, g, m32, v32, lr_c, beta1, beta2, eps)
         else:
-            new = adam_flat_plain(p, g, m, v, lr_c, beta1, beta2, eps,
+            new = adam_flat_plain(p, g, m32, v32, lr_c, beta1, beta2, eps,
                                   weight_decay)
         p_new = new[0] - lr_wd * p if dec else new[0]
         for dst, val in ((m, new[1]), (v, new[2]), (p, p_new)):
@@ -87,14 +94,17 @@ def adam_multi_plain(params: Sequence[torch.Tensor],
 def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                decay: Sequence[bool], lr_c: torch.Tensor, beta1: float,
-               beta2: float, eps: float, lr_wd: float,
+               beta2: float, eps: float,
+               lr_wd: Union[float, torch.Tensor],
                ok: Optional[torch.Tensor] = None, variant: str = "leaf",
                weight_decay: float = 0.0) -> None:
     """One launch of the kernel over every leaf: updates ``params``,
     ``ms`` and ``vs`` in place. Leaves are contiguous float32 CUDA
     tensors of matching sizes; ``lr_c`` a one-element float32 and ``ok``
-    (or None) a one-element bool tensor on the same card. Raises on
-    anything else (CPU tensors go to :func:`adam_multi_plain`)."""
+    (or None) a one-element bool tensor on the same card; ``lr_wd`` a
+    float, or a one-element float32 tensor there (read on the device: a
+    scheduled learning rate needs no host sync). Raises on anything else
+    (CPU tensors go to :func:`adam_multi_plain`)."""
     global leaf_launches, flat_launches
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}")
@@ -122,12 +132,14 @@ def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
         chunks += -(-n // CHUNK)
     if not rows:
         return
-    for t, what in ((lr_c, "lr_c"), (ok, "ok")):
+    lr_wd_dev = lr_wd if isinstance(lr_wd, torch.Tensor) else None
+    for t, what in ((lr_c, "lr_c"), (ok, "ok"), (lr_wd_dev, "lr_wd")):
         if t is not None and (t.device != dev or t.numel() != 1):
             raise TypeError(f"{what} must be a one-element tensor on {dev}")
     if lr_c.dtype != torch.float32 or (ok is not None
-                                       and ok.dtype != torch.bool):
-        raise TypeError("lr_c must be float32 and ok bool")
+                                       and ok.dtype != torch.bool) or (
+            lr_wd_dev is not None and lr_wd_dev.dtype != torch.float32):
+        raise TypeError("lr_c and lr_wd must be float32 and ok bool")
     # the leaf table travels by one asynchronous copy from pinned memory
     # (PyTorch's pinned allocator keeps the block until the copy is done)
     host = torch.tensor(rows, dtype=torch.int64).pin_memory()
@@ -136,9 +148,11 @@ def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     # ctypes rounds to float32 as PyTorch hands them to a float32 kernel
     code = _build.library("fused_adam").fused_adam_multi(
         table.data_ptr(), len(rows), chunks, lr_c.data_ptr(),
-        None if ok is None else ok.data_ptr(), beta1, 1 - beta1, beta2,
-        1 - beta2, eps, lr_wd, weight_decay, VARIANTS.index(variant),
-        torch.cuda.current_stream(dev).cuda_stream)
+        None if ok is None else ok.data_ptr(),
+        None if lr_wd_dev is None else lr_wd_dev.data_ptr(), beta1,
+        1 - beta1, beta2, 1 - beta2, eps,
+        0.0 if lr_wd_dev is not None else lr_wd, weight_decay,
+        VARIANTS.index(variant), torch.cuda.current_stream(dev).cuda_stream)
     _build.check("fused_adam", code, "fused_adam_multi")
     if variant == "leaf":
         leaf_launches += 1

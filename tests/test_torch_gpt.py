@@ -136,7 +136,8 @@ def test_model_refuses_to_run_on_cpu_unasked():
 
 
 @pytest.mark.parametrize("first", ["kernels", "nn", "serving_llm",
-                                   "models", "static"])
+                                   "models", "static", "amp", "optimizer",
+                                   "clip"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -144,7 +145,11 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.serving_llm import LLMEngine; "
             "from paddle_tpu_torch.kernels import maybe_layer_norm; "
             "from paddle_tpu_torch.models import BertForPretraining; "
-            "from paddle_tpu_torch.static import TrainStep")
+            "from paddle_tpu_torch.static import TrainStep; "
+            "from paddle_tpu_torch.amp import GradScaler; "
+            "from paddle_tpu_torch.optimizer.lr import LinearWarmup; "
+            "from paddle_tpu_torch.regularizer import L2Decay; "
+            "from paddle_tpu_torch.core.dtype import convert_dtype")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -178,5 +183,9 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/ops/loss.py", "paddle_tpu_torch/ops/attention.py",
         "paddle_tpu_torch/optimizer/__init__.py",
         "paddle_tpu_torch/static/__init__.py",
-        "paddle_tpu_torch/core/random.py"}
+        "paddle_tpu_torch/core/random.py",
+        "paddle_tpu_torch/amp/__init__.py", "paddle_tpu_torch/clip.py",
+        "paddle_tpu_torch/regularizer.py",
+        "paddle_tpu_torch/optimizer/lr.py",
+        "paddle_tpu_torch/core/dtype.py", "paddle_tpu_torch/nn/layer.py"}
     assert banned == []

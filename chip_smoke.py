@@ -64,7 +64,16 @@ in order:
    ``use_pallas_adam`` (plus the flat Adam kernel). Every loss must be
    finite and each step must launch exactly the kernels its path needs
    (``expected_launches``); then profiles one default and one fused
-   seq-512 step with ``torch.profiler``;
+   seq-512 step with ``torch.profiler``. Each run is done twice from the
+   same weights, seed and batches: eager (``compiled=False``), then as
+   ``TrainStep``'s captured step (``<run>_captured``: the first step
+   eager, then one CUDA graph, replayed for every later step), whose
+   launch counts (the graph's, added at each replay) must be the same,
+   whose every loss and parameter must equal the eager run's
+   (``captured_against_eager``: bit for bit, or within the
+   card-against-CPU limits), and which is profiled (step ms, busy
+   share, host launch calls, capture ms, peak allocated and reserved
+   memory);
 5. runs a 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the
    card and the same model on the CPU (plain versions), under the default
    flags and again with ``fused_softmax_xent`` and ``fused_adam``: one
@@ -80,9 +89,13 @@ in order:
    CPU, under both flag sets (``BF16_*`` tolerances); an fp16
    ``TrainStep(amp_dtype="float16", scaler=GradScaler())`` fed a poisoned
    batch twice (nothing changes, the scale halves, no host sync in the
-   step) and then clean steps until one applies; ``run_steps`` over two
-   stacked batches against two calls, bit for bit, and an ``EvalStep``
-   forward;
+   step) and then clean steps until one applies, eager and captured (the
+   poisoned and clean steps checked are replays); ``run_steps`` over three
+   stacked batches against three calls, bit for bit, eager and captured,
+   and an ``EvalStep`` forward; the captured step against the eager one
+   under a host-driven ``ReduceOnPlateau`` whose rate changes between two
+   replays, and a second batch shape, which must capture a second
+   graph;
 6. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
    weights from a seed; half of the requests join mid-decode) and holds
    every token against the port's dense ``generate()``; repeats four
@@ -109,6 +122,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 
@@ -217,6 +231,13 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                                    "flash_attention_bwd_dq",
                                    "flash_attention_bwd_dkv",
                                    "flash_attention_bwd_fused")}
+# every training run has a captured twin (TrainStep's CUDA graph): the
+# same kernels, launched by the graph's replays
+CAPTURED = "_captured"
+PATH_KERNELS.update({name + CAPTURED: PATH_KERNELS[name] for name in (
+    "train_seq512", "train_seq128", "train_seq512_fused",
+    "train_seq128_pallas_adam", "train_seq512_bf16",
+    "train_seq512_bf16_fused")})
 # the fused flags of slice 3 (all off by default, as in the JAX package)
 FUSED_FLAGS = {"fused_softmax_xent": True, "fused_adam": True}
 # BERT-base pretraining as the JAX package's bench runs it
@@ -1660,21 +1681,26 @@ def flag_scope(flags: dict):
 
 
 def run_training(torch, model, name: str, batch: int, seq: int,
-                 gate: int, flags=None, max_peak_gb=None, fused_state=None):
+                 gate: int, flags=None, max_peak_gb=None, fused_state=None,
+                 compiled: bool = False):
     """TRAIN_STEPS TrainSteps at (batch, seq) with the flash gate at
-    ``gate`` and ``flags`` set; launch counts set to 0 just before and
-    read just after; the peak device memory at most ``max_peak_gb`` GiB
-    where given. A low-precision model must keep its dtype and fp32
-    masters and moments. Returns (stats, counts, the step, its batch)."""
+    ``gate`` and ``flags`` set, eager or (``compiled``) captured: the
+    first step eager, then one capture and a replay per step; launch
+    counts set to 0 just before and read just after; the peak device
+    memory at most ``max_peak_gb`` GiB where given. A low-precision model
+    must keep its dtype and fp32 masters and moments. Returns (stats,
+    counts, the step, its batch)."""
     from paddle_tpu_torch import kernels
     cfg = model.config
     data = bert_batch(torch, cfg, batch, seq, "cuda", SEED + seq)
-    step = make_train_step(model, fused_state)
+    step = make_train_step(model, fused_state, compiled=compiled)
     restore = flag_scope(dict(flags or {},
                               flash_attention_min_seq_train=gate))
     losses, step_ms = [], []
     try:
         torch.cuda.synchronize()
+        # the reserved peak from this run's own blocks, not the last run's
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         for _ in range(TRAIN_STEPS):
@@ -1700,6 +1726,9 @@ def run_training(torch, model, name: str, batch: int, seq: int,
     if max_peak_gb is not None and peak_gb > max_peak_gb:
         raise AssertionError(f"{name}: peak memory {peak_gb} GiB > "
                              f"{max_peak_gb}")
+    if compiled and step.captures != 1:
+        raise AssertionError(f"{name}: {step.captures} captures over "
+                             f"{TRAIN_STEPS} steps of one shape")
     dtype = next(iter(step.params.values())).dtype
     state = None if dtype == torch.float32 else \
         check_low_precision_state(torch, step, dtype, name)
@@ -1711,7 +1740,10 @@ def run_training(torch, model, name: str, batch: int, seq: int,
              "step_ms_median_after_first": steady,
              "tokens_per_s": batch * seq / steady * 1e3,
              "launches_per_step": per_step,
-             "peak_memory_gb": peak_gb}
+             "peak_memory_gb": peak_gb,
+             "peak_reserved_gb": torch.cuda.max_memory_reserved() / 2 ** 30,
+             "compiled": compiled, "captures": step.captures,
+             "capture_ms": step.capture_ms}
     log(f"{name}: {json.dumps(stats)}")
     return stats, counts, step, data
 
@@ -1732,9 +1764,27 @@ def device_rows(prof, steps: int):
     return rows
 
 
+# the CUDA API calls (cuda* and cu*) by which the host starts device work
+HOST_LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel",
+                     "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
+
+
+def host_launches(prof, steps: int) -> dict:
+    """Per step, how often the host called each of HOST_LAUNCH_CALLS
+    (torch.profiler's CPU-side runtime events)."""
+    out = {}
+    for evt in prof.key_averages():
+        if evt.key in HOST_LAUNCH_CALLS:
+            out[evt.key] = out.get(evt.key, 0) + evt.count / steps
+    return out
+
+
 def profile_train(torch, step, data, gate: int, flags=None) -> dict:
     """Where a training step's time goes: torch.profiler over one step,
-    device time by kernel and the device's busy share of the wall time."""
+    device time by kernel, the device's busy share of the wall time and
+    the host's launch calls (one ``cudaGraphLaunch`` for a replay)."""
     from torch.profiler import ProfilerActivity, profile
     restore = flag_scope(dict(flags or {},
                               flash_attention_min_seq_train=gate))
@@ -1769,6 +1819,7 @@ def profile_train(torch, step, data, gate: int, flags=None) -> dict:
             "gemm_ms": gemm,
             "gemm_share": gemm / device_ms if rows else None,
             "device_launches": sum(r[1] for r in rows),
+            "host_launch_calls": host_launches(prof, 1),
             "top_ms_launches_name": rows[:15]}
 
 
@@ -1817,7 +1868,7 @@ def card_against_cpu(torch, flags=None) -> dict:
                 if g is not None}
             counts[f"grad_{dev}"] = kernels.launch_counts()
             grad_losses[dev] = float(loss.detach())
-            step = make_train_step(model)
+            step = make_train_step(model, compiled=False)
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             losses[dev] = float(step(ids, labels=(mlm, nsp))["loss"])
@@ -1867,24 +1918,114 @@ def card_against_cpu(torch, flags=None) -> dict:
     return res
 
 
+def host_copy(tensors: dict) -> dict:
+    """Copies of ``tensors`` in host memory (a snapshot kept on the card
+    would add to the next run's peak device memory)."""
+    return {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+
+
+def end_state(step) -> dict:
+    """Host copies of a step's parameters and, for a low-precision model,
+    of its fp32 masters (``master.<name>``)."""
+    out = dict(step.params)
+    if next(iter(step.params.values())).element_size() < 4:
+        out.update({f"master.{n}": m for n, m in master_dict(step).items()})
+    return host_copy(out)
+
+
+def captured_against_eager(torch, eager: dict, captured: dict,
+                           eager_end: dict, captured_end: dict,
+                           lr: float = 1e-4) -> dict:
+    """A captured run against the eager run from the same weights, seed
+    and batches: every step's loss and every parameter (and fp32 master)
+    after the last step. Bit for bit, or else within the card-against-CPU
+    limits: fp32 STEP_LOSS_RTOL and STEP_PARAM_TOL; bf16
+    BF16_STEP_LOSS_RTOL, at most BF16_MASTER_SHARE of master entries
+    beyond lr/2 and none beyond BF16_MASTER_MAX_LR lr a step. Raises
+    otherwise; returns the gaps."""
+    steps = len(eager["losses"])
+    loss_gap = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        captured["losses"], eager["losses"]))
+    gaps = {k: (captured_end[k].float() - t.float()).abs()
+            for k, t in eager_end.items()}
+    params = [k for k in gaps if not k.startswith("master.")]
+    masters = [k for k in gaps if k.startswith("master.")]
+    res = {"steps": steps,
+           "losses_equal": captured["losses"] == eager["losses"],
+           "params_equal": all(float(gaps[k].max()) == 0.0 for k in gaps),
+           "loss_max_rel_gap": loss_gap,
+           "param_max_abs_gap": max(float(gaps[k].max()) for k in params),
+           "tensors_compared": len(gaps)}
+    res["bitwise"] = res["losses_equal"] and res["params_equal"]
+    if masters:
+        total = sum(gaps[k].numel() for k in masters)
+        res["master_share_over_half_lr"] = sum(
+            int((gaps[k] > lr / 2).sum()) for k in masters) / total
+        res["master_max_gap_over_lr"] = max(
+            float(gaps[k].max()) for k in masters) / lr
+        ok = (loss_gap <= BF16_STEP_LOSS_RTOL
+              and res["master_share_over_half_lr"] <= BF16_MASTER_SHARE
+              and res["master_max_gap_over_lr"]
+              <= BF16_MASTER_MAX_LR * steps)
+    else:
+        ok = loss_gap <= STEP_LOSS_RTOL \
+            and res["param_max_abs_gap"] <= STEP_PARAM_TOL
+    if not (res["bitwise"] or ok):
+        raise AssertionError(f"captured and eager steps disagree: {res}")
+    return res
+
+
 def run_train_set(torch, model, runs: dict, report: dict,
                   counts: dict) -> None:
-    """Each run of ``runs`` on ``model`` in turn (run_training), the
-    PROFILED_RUNS profiled after theirs; fills ``report`` and
-    ``counts``."""
+    """Each run of ``runs`` on ``model`` in turn (run_training): eager,
+    then its captured twin (``<name>_captured``) from the same weights,
+    seed and batches, held against it (captured_against_eager); the
+    PROFILED_RUNS and every twin profiled after their steps (a twin whose
+    profile shows no device time takes the eager run's device time, the
+    same kernels). Fills ``report`` and ``counts``."""
     for name, run in runs.items():
+        start = host_copy(dict(model.named_parameters()))
         stats, counts[name], step, data = run_training(torch, model, name,
                                                        **run)
         report[name] = stats
+        eager_end = end_state(step)
         if name in PROFILED_RUNS:
-            prof = profile_train(torch, step, data, run["gate"],
-                                 run.get("flags"))
-            if prof["device_ms"]:
-                prof["device_busy_share_unprofiled"] = \
-                    prof["device_ms"] / stats["step_ms_median_after_first"]
-            report[f"profile_{name}"] = prof
-            log(f"train profile ({name}): {json.dumps(prof)}")
+            report[f"profile_{name}"] = profile_run(torch, step, data, run,
+                                                    stats, name)
         del step, data
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        del start
+        twin = name + CAPTURED
+        cstats, counts[twin], step, data = run_training(
+            torch, model, twin, compiled=True, **run)
+        report[twin] = cstats
+        vs = captured_against_eager(torch, stats, cstats, eager_end,
+                                    end_state(step))
+        report[f"{twin}_vs_eager"] = vs
+        log(f"{twin} against eager: {json.dumps(vs)}")
+        del eager_end
+        prof = profile_run(torch, step, data, run, cstats, twin)
+        eager_prof = report.get(f"profile_{name}")
+        if not prof["device_ms"] and eager_prof and eager_prof["device_ms"]:
+            prof["device_ms_from_eager_run"] = eager_prof["device_ms"]
+            prof["device_busy_share_unprofiled"] = \
+                eager_prof["device_ms"] / cstats["step_ms_median_after_first"]
+        report[f"profile_{twin}"] = prof
+        del step, data
+
+
+def profile_run(torch, step, data, run: dict, stats: dict,
+                name: str) -> dict:
+    """profile_train of one more step of ``step``, with the busy share of
+    the unprofiled steps (device ms over their median wall ms)."""
+    prof = profile_train(torch, step, data, run["gate"], run.get("flags"))
+    if prof["device_ms"]:
+        prof["device_busy_share_unprofiled"] = \
+            prof["device_ms"] / stats["step_ms_median_after_first"]
+    log(f"train profile ({name}): {json.dumps(prof)}")
+    return prof
 
 
 def run_training_phases(torch) -> tuple:
@@ -1909,7 +2050,10 @@ def run_training_phases(torch) -> tuple:
     report["card_against_cpu_bf16_fused"] = card_against_cpu_bf16(
         torch, FUSED_FLAGS, fused_state=True)
     report["grad_scaler"] = check_grad_scaler(torch)
+    report["grad_scaler_captured"] = check_grad_scaler(torch, compiled=True)
     report["run_steps_eval"] = check_run_steps_and_eval(torch)
+    report["captured_host_lr_and_shapes"] = \
+        check_captured_host_lr_and_shapes(torch)
     return report, counts
 
 
@@ -1969,7 +2113,7 @@ def card_against_cpu_bf16(torch, flags=None, fused_state=None) -> dict:
                 if g is not None}
             counts[f"grad_{dev}"] = kernels.launch_counts()
             grad_losses[dev] = float(loss.detach())
-            step = make_train_step(model, fused_state)
+            step = make_train_step(model, fused_state, compiled=False)
             kernels.reset_launch_counts()
             losses[dev] = float(step(ids, attention_mask=mask,
                                      labels=(mlm, nsp))["loss"])
@@ -2050,14 +2194,19 @@ def snapshot(step) -> dict:
     return out
 
 
-def check_grad_scaler(torch) -> dict:
+def check_grad_scaler(torch, compiled: bool = False) -> dict:
     """One fp16 TrainStep(amp_dtype="float16", scaler=GradScaler()) on the
     2-layer full-width BERT cast to fp16, fed a poisoned batch (the loss
     times inf) twice: after each, the parameters, fp32 masters, moments
     and step counter are bit for bit what they were, the scale halves at
     the second (decr_every_n_nan_or_inf = 2), and neither step
     synchronises with the host (CUDA sync debug mode "error" raises on
-    any synchronising call). Then a clean step."""
+    any synchronising call). Then clean steps until one applies.
+    ``compiled``: the captured step, whose first step (eager, then the
+    capture, which synchronises) takes the poisoned batch before the
+    sync check; the two poisoned steps checked are replays (the scale
+    halves at the first of them, the second poisoned step), as are the
+    clean ones."""
     from paddle_tpu_torch.amp import GradScaler
     from paddle_tpu_torch.models import pretraining_loss
     model = small_bert(torch, "cuda", "float16")
@@ -2066,17 +2215,23 @@ def check_grad_scaler(torch) -> dict:
     scaler = GradScaler()
     step = make_train_step(
         model, loss_fn=lambda out, m, n, s: pretraining_loss(out, m, n) * s,
-        amp_dtype="float16", scaler=scaler)
+        amp_dtype="float16", scaler=scaler, compiled=compiled)
     poison = torch.tensor(float("inf"), device="cuda")
     one = torch.tensor(1.0, device="cuda")
     before = snapshot(step)
     torch.cuda.synchronize()
     scales = []
+
+    def poisoned() -> None:
+        step(ids, attention_mask=mask, labels=(mlm, nsp, poison))
+        scales.append({k: v.clone() for k, v in step.scaler_state.items()})
+    if compiled:
+        poisoned()
+        torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(scaler.decr_every_n_nan_or_inf):
-            step(ids, attention_mask=mask, labels=(mlm, nsp, poison))
-            scales.append({k: v.clone() for k, v in step.scaler_state.items()})
+            poisoned()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -2088,7 +2243,11 @@ def check_grad_scaler(torch) -> dict:
     want = [{"scale": init, "good_steps": 0.0, "bad_steps": 1.0},
             {"scale": init * scaler.decr_ratio, "good_steps": 0.0,
              "bad_steps": 0.0}]
-    res = {"unchanged": not changed, "scaler_states": got,
+    if compiled:
+        want.append({"scale": init * scaler.decr_ratio, "good_steps": 0.0,
+                     "bad_steps": 1.0})
+    res = {"compiled": compiled, "unchanged": not changed,
+           "scaler_states": got,
            "nonfinite_steps": int(step.nonfinite_steps),
            "state_tensors": len(before), "sync_free": True}
     # clean steps until one applies: an fp16 gradient that overflows at
@@ -2099,11 +2258,12 @@ def check_grad_scaler(torch) -> dict:
         res["clean_loss"] = float(step(ids, attention_mask=mask,
                                        labels=(mlm, nsp, one))["loss"])
     res.update(clean_steps_to_apply=len(scale_log),
-               scale_at_clean_steps=scale_log,
+               scale_at_clean_steps=scale_log, captures=step.captures,
                params_moved=not all(torch.equal(p, before[f"param.{n}"])
                                     for n, p in step.params.items()))
-    log(f"grad scaler (fp16): {json.dumps(res)}")
-    if changed or got != want or res["nonfinite_steps"] != 2:
+    log(f"grad scaler (fp16{', captured' if compiled else ''}): "
+        f"{json.dumps(res)}")
+    if changed or got != want or res["nonfinite_steps"] != len(want):
         raise AssertionError(f"grad scaler: changed {changed[:8]}, scaler "
                              f"states {got} (want {want}), "
                              f"{res['nonfinite_steps']} non-finite steps")
@@ -2113,32 +2273,45 @@ def check_grad_scaler(torch) -> dict:
         raise AssertionError(f"grad scaler: no clean step applied in "
                              f"{len(scale_log)} or it left non-finite "
                              f"values: {res}")
+    if step.captures != int(compiled):
+        raise AssertionError(f"grad scaler: {step.captures} captures")
     return res
 
 
 def check_run_steps_and_eval(torch) -> dict:
-    """run_steps over K = 2 stacked batches against two calls of a twin
-    step from the same bf16 weights: the same losses, extra metric and
+    """run_steps over K = 3 stacked batches against three calls of a twin
+    step from the same bf16 weights, eager and captured (one capture
+    each, after the first step): the same losses, extra metric and
     parameters bit for bit; then an EvalStep forward, equal to the
     model's own eval-mode forward, finite, in bf16, the training mode
     restored after."""
     from paddle_tpu_torch.static import EvalStep
-    models = [small_bert(torch, "cuda", "bfloat16") for _ in range(2)]
-    models[1].load_state_dict(models[0].state_dict())
-    cfg = models[0].config
-    batches = [padded_batch(torch, cfg, "cuda", SEED + 21 + i)
-               for i in range(2)]
-    metric = {"nsp_logit_mean": lambda out, m, n: out[1].float().mean()}
-    calls, multi = (make_train_step(m, extra_metrics=metric)
-                    for m in models)
-    want = [calls(ids, attention_mask=mask, labels=(mlm, nsp))
-            for ids, mask, mlm, nsp in batches]
-    ids, mask, mlm, nsp = (torch.stack(parts) for parts in zip(*batches))
-    got = multi.run_steps(ids, attention_mask=mask, labels=(mlm, nsp))
-    same_metrics = all(torch.equal(got[k], torch.stack([w[k] for w in want]))
-                       for k in ("loss", "nsp_logit_mean"))
-    same_params = all(torch.equal(a, b) for a, b in zip(
-        models[0].parameters(), models[1].parameters()))
+    res = {}
+    for compiled in (False, True):
+        models = [small_bert(torch, "cuda", "bfloat16") for _ in range(2)]
+        models[1].load_state_dict(models[0].state_dict())
+        cfg = models[0].config
+        batches = [padded_batch(torch, cfg, "cuda", SEED + 21 + i)
+                   for i in range(3)]
+        metric = {"nsp_logit_mean": lambda out, m, n: out[1].float().mean()}
+        calls, multi = (make_train_step(m, extra_metrics=metric,
+                                        compiled=compiled)
+                        for m in models)
+        want = [calls(ids, attention_mask=mask, labels=(mlm, nsp))
+                for ids, mask, mlm, nsp in batches]
+        ids, mask, mlm, nsp = (torch.stack(parts) for parts in zip(*batches))
+        got = multi.run_steps(ids, attention_mask=mask, labels=(mlm, nsp))
+        key = "captured_" if compiled else ""
+        res[f"{key}run_steps_losses"] = got["loss"].tolist()
+        res[f"{key}calls_losses"] = [float(w["loss"]) for w in want]
+        res[f"{key}same_metrics"] = all(
+            torch.equal(got[k], torch.stack([w[k] for w in want]))
+            for k in ("loss", "nsp_logit_mean"))
+        res[f"{key}same_params"] = all(torch.equal(a, b) for a, b in zip(
+            models[0].parameters(), models[1].parameters()))
+        res[f"{key}captures"] = [calls.captures, multi.captures]
+        if res[f"{key}captures"] != [int(compiled)] * 2:
+            raise AssertionError(f"run_steps: captures {res}")
     ids, mask, mlm, nsp = batches[0]
     model = models[0]
     out, metrics = EvalStep(model, {"nsp_acc": lambda o, n: (
@@ -2149,19 +2322,78 @@ def check_run_steps_and_eval(torch) -> dict:
     with torch.no_grad():
         ref = model(ids, None, mask)
     model.train()
-    res = {"run_steps_losses": got["loss"].tolist(),
-           "calls_losses": [float(w["loss"]) for w in want],
-           "same_metrics": same_metrics, "same_params": same_params,
-           "eval_equal": all(torch.equal(a, b) for a, b in zip(out, ref)),
-           "eval_finite": all(bool(torch.isfinite(o.float()).all())
-                              for o in out),
-           "eval_dtype": str(out[0].dtype), "eval_nsp_acc": float(
-               metrics["nsp_acc"]), "training_restored": restored}
+    res.update({
+        "eval_equal": all(torch.equal(a, b) for a, b in zip(out, ref)),
+        "eval_finite": all(bool(torch.isfinite(o.float()).all())
+                           for o in out),
+        "eval_dtype": str(out[0].dtype), "eval_nsp_acc": float(
+            metrics["nsp_acc"]), "training_restored": restored})
     log(f"run_steps and EvalStep: {json.dumps(res)}")
-    if not (same_metrics and same_params and res["eval_equal"]
-            and res["eval_finite"] and out[0].dtype == torch.bfloat16
-            and restored):
+    if not (res["same_metrics"] and res["same_params"]
+            and res["captured_same_metrics"] and res["captured_same_params"]
+            and res["eval_equal"] and res["eval_finite"]
+            and out[0].dtype == torch.bfloat16 and restored):
         raise AssertionError(f"run_steps / EvalStep: {res}")
+    return res
+
+
+def check_captured_host_lr_and_shapes(torch) -> dict:
+    """The captured step against the eager one on a 2-layer full-width
+    BERT (fp32, dropout 0.1) trained with a host-driven ReduceOnPlateau:
+    two steps at 1e-4, its rate changed to 5e-5 between two replays, two
+    more, then two steps of another batch shape (seq 256), which must
+    take a second capture. Every loss and parameter must equal the eager
+    twin's (within the fp32 card-against-CPU limits), and a third step
+    held at 1e-4 must end elsewhere: the change reached the update.
+    Dropping the steps must free the captured one at once, its graphs
+    and their pools with it."""
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         pretraining_loss)
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import ReduceOnPlateau
+    from paddle_tpu_torch.static import TrainStep
+    cfg = BertConfig(num_hidden_layers=2)
+    models = [BertForPretraining(cfg, device="cuda", seed=SEED)
+              for _ in range(3)]
+    for m in models[1:]:
+        m.load_state_dict(models[0].state_dict())
+    scheds = [ReduceOnPlateau(1e-4), ReduceOnPlateau(1e-4), None]
+    steps = [TrainStep(m, AdamW(s or 1e-4, weight_decay=0.01),
+                       pretraining_loss, seed=SEED, compiled=c)
+             for m, s, c in zip(models, scheds, (False, True, True))]
+    plan = [(512, 1e-4)] * 2 + [(512, 5e-5)] * 2 + [(256, 5e-5)] * 2
+    losses = [[], [], []]
+    for i, (seq, rate) in enumerate(plan):
+        ids, mlm, nsp = bert_batch(torch, cfg, 2, seq, "cuda", SEED + 30 + i)
+        for s in scheds[:2]:
+            s.current_lr = rate
+        for k, step in enumerate(steps):
+            losses[k].append(float(step(ids, labels=(mlm, nsp))["loss"]))
+    eager, captured, held = ({"losses": ls} for ls in losses)
+    ends = [end_state(s) for s in steps]
+    vs = captured_against_eager(torch, eager, captured, ends[0], ends[1])
+    moved = not all(torch.equal(a, ends[2][k]) for k, a in ends[1].items())
+    res = {"plan": plan, "captured_vs_eager": vs,
+           "captures": steps[1].captures, "held_captures": steps[2].captures,
+           "held_run_differs": moved,
+           "host_lr_after": float(steps[1].host_lr),
+           "losses": losses}
+    # a dropped step frees its graphs and their memory pools at once (no
+    # reference cycle keeps it alive)
+    alive = weakref.ref(steps[1])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    del steps
+    torch.cuda.empty_cache()
+    res.update(dropped_step_freed=alive() is None,
+               reserved_freed_gb=(before - torch.cuda.memory_reserved())
+               / 2 ** 30)
+    log(f"captured host lr and shapes: {json.dumps(res)}")
+    if res["captures"] != 2 or not moved \
+            or res["host_lr_after"] != float(np.float32(5e-5)) \
+            or not res["dropped_step_freed"]:
+        raise AssertionError(f"captured host lr / shapes: {res}")
     return res
 
 

@@ -142,7 +142,7 @@ class GradScaler:
         loss_s = scaler.scale(loss, state)
         grads, found_inf = scaler.unscale(grads, state)
         ... discard the update where found_inf ...
-        state = scaler.update(state, found_inf)
+        scaler.update(state, found_inf)   # in place; returns state
     """
 
     def __init__(self, enable: bool = True,
@@ -186,6 +186,9 @@ class GradScaler:
 
     def update(self, state, found_inf: torch.Tensor
                ) -> Dict[str, torch.Tensor]:
+        """The state after a step whose gradients were non-finite where
+        ``found_inf``: written in place (a CUDA graph of the step reads
+        it where it was captured) and returned."""
         if not self.enable:
             return state
         zero = torch.zeros_like(state["good_steps"])
@@ -199,7 +202,10 @@ class GradScaler:
         scale = torch.where(decr, torch.clamp_min(scale * self.decr_ratio,
                                                   1.0), scale)
         bad = torch.where(decr, zero, bad)
-        return {"scale": scale, "good_steps": good, "bad_steps": bad}
+        for name, val in (("scale", scale), ("good_steps", good),
+                          ("bad_steps", bad)):
+            state[name].copy_(val)
+        return state
 
 
 def decorate(optimizer, amp_lists=None,

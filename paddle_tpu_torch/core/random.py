@@ -8,10 +8,10 @@ under ``rng_scope`` (the train step binds one). Here the streams are
 - ``seed(n)`` reseeds the global generators (one per device, made on
   first use), as ``paddle.seed`` does;
 - ``rng_scope(dropout=gen)`` binds named generators for the code inside
-  (``TrainStep`` binds a fresh generator per step, made by
-  ``step_generator(seed, step, device)``), and ``next_generator(stream,
-  device)`` returns the bound one, else the ``default`` binding, else
-  the global generator of that device.
+  (``TrainStep`` binds its own generator, seeded once from its ``seed``
+  and advanced by every step, as the JAX step splits its ``rng`` key),
+  and ``next_generator(stream, device)`` returns the bound one, else the
+  ``default`` binding, else the global generator of that device.
 
 The bits differ from JAX's threefry streams, so dropout outside the
 flash-attention kernels (whose mask is a hash of the seed) cannot match
@@ -26,10 +26,8 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["seed", "default_generator", "rng_scope", "next_generator",
-           "step_generator"]
+__all__ = ["seed", "default_generator", "rng_scope", "next_generator"]
 
-_MASK64 = (1 << 64) - 1
 _lock = threading.Lock()
 _seed = 0
 _globals: Dict[torch.device, torch.Generator] = {}
@@ -93,18 +91,3 @@ def next_generator(stream: str = "default",
             return gen
     return default_generator(device)
 
-
-def _splitmix64(x: int) -> int:
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def step_generator(seed_value: int, step: int,
-                   device="cpu") -> torch.Generator:
-    """A generator on ``device`` keyed by (seed, step): the dropout stream
-    of one train step, the same for the same pair in every run."""
-    key = _splitmix64(_splitmix64(int(seed_value) & _MASK64) ^ int(step))
-    return torch.Generator(device=_canonical(device)).manual_seed(
-        key & ((1 << 63) - 1))

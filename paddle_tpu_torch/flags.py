@@ -77,6 +77,11 @@ class FlagRegistry:
                 raise KeyError(f"unknown flag '{name}'")
             return self._values[name]
 
+    def snapshot(self) -> tuple:
+        """Every flag's value, as sorted (name, value) pairs (hashable)."""
+        with self._lock:
+            return tuple(sorted(self._values.items()))
+
 
 GLOBAL_FLAGS = FlagRegistry()
 

@@ -20,7 +20,8 @@ per route and step.
 
 Each kernel counts its launches; ``launch_counts()`` reads the counts
 and ``reset_launch_counts()`` sets them to 0, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. A captured train step adds what its
+graph launches at each replay (``add_launch_counts``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ __all__ = ["maybe_layer_norm", "maybe_paged_attention",
            "maybe_paged_attention_multiquery", "maybe_flash_attention",
            "maybe_flash_attention_with_lse",
            "fused_softmax_xent_enabled", "maybe_fused_linear_xent",
-           "maybe_fused_adam", "launch_counts", "reset_launch_counts"]
+           "maybe_fused_adam", "launch_counts", "reset_launch_counts",
+           "add_launch_counts"]
 
 # (module, counter attribute) of every kernel, by the name launch_counts()
 # reports
@@ -78,6 +80,15 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod, attr in _COUNTERS.values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
+    """Adds ``times`` x ``counts`` (name -> launches) to the counters:
+    a CUDA graph's replay launches what its capture recorded without
+    running a wrapper (``static.TrainStep``)."""
+    for name, n in counts.items():
+        mod, attr = _COUNTERS[name]
+        setattr(mod, attr, getattr(mod, attr) + n * times)
 
 
 def maybe_layer_norm(x: torch.Tensor, weight: torch.Tensor,

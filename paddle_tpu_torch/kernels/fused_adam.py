@@ -19,19 +19,26 @@ rate, ``lr wd`` stay on the device, and with ``ok`` False nothing is
 written. In bf16 training the leaves are the fp32 master weights (see
 ``optimizer``). On the card the kernel equals
 :func:`adam_multi_plain` bit for bit (each operation rounded on its own,
-as PyTorch's eager ops round them).
+as PyTorch's eager ops round them). The kernel finds the leaves through
+a table of their pointers and sizes, built on the host once per set of
+pointers and kept on the device (:func:`leaf_table`); while a CUDA graph
+is captured, :func:`captured_tables` gives the table rows of a buffer
+made before the capture and fills them after it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Union
+import contextlib
+from collections import OrderedDict
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from . import _build
 
 __all__ = ["adam_leaf_plain", "adam_flat_plain", "adam_multi",
-           "adam_multi_plain", "CHUNK", "VARIANTS"]
+           "adam_multi_plain", "leaf_rows", "leaf_table", "captured_tables",
+           "CHUNK", "VARIANTS"]
 
 # kernel launches since the last reset (kernels.reset_launch_counts), by
 # variant
@@ -40,6 +47,12 @@ flat_launches = 0
 
 CHUNK = 8192  # elements per CUDA block (kChunk in the source)
 VARIANTS = ("leaf", "flat")
+# leaf tables kept on the device (leaf_table) and how many were built
+TABLES_KEPT = 8
+_tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+table_builds = 0
+# (buffer, [(table, rows)]) inside captured_tables(), else None
+_captured: Optional[tuple] = None
 
 
 def adam_leaf_plain(p, g, m, v, lr_c, beta1: float, beta2: float,
@@ -91,6 +104,108 @@ def adam_multi_plain(params: Sequence[torch.Tensor],
             dst.copy_(val if ok is None else torch.where(ok, val, dst))
 
 
+def leaf_rows(params: Sequence[torch.Tensor],
+              grads: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+              vs: Sequence[torch.Tensor], decay: Sequence[bool]
+              ) -> Tuple[Tuple[Tuple[int, ...], ...], int]:
+    """The kernel's leaf table on the host: ``(rows, chunks)``, one row
+    ``(p, g, m, v, numel, first chunk, decay, 0)`` per non-empty leaf
+    (data pointers as ints) and the chunk count. Raises unless every
+    leaf is a contiguous float32 tensor of one size on the first
+    parameter's device."""
+    dev = params[0].device
+    rows: List[Tuple[int, ...]] = []
+    chunks = 0
+    for p, g, m, v, dec in zip(params, grads, ms, vs, decay):
+        for t in (p, g, m, v):
+            if t.device != dev or t.dtype != torch.float32 \
+                    or not t.is_contiguous() or t.numel() != p.numel():
+                raise TypeError(f"fused Adam kernel takes contiguous "
+                                f"float32 leaves of one size on {dev} "
+                                f"({t.dtype}, {tuple(t.shape)}, "
+                                f"{t.device})")
+        n = p.numel()
+        if n == 0:
+            continue
+        rows.append((p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                     v.data_ptr(), n, chunks, int(bool(dec)), 0))
+        chunks += -(-n // CHUNK)
+    return tuple(rows), chunks
+
+
+def _stream_key(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream \
+        if dev.type == "cuda" else 0
+
+
+def leaf_table(rows: Tuple[Tuple[int, ...], ...],
+               dev: torch.device) -> torch.Tensor:
+    """The leaf table ``rows`` as an int64 ``[len(rows), 8]`` tensor on
+    ``dev``, built once per set of pointers: the last ``TABLES_KEPT``
+    tables are kept by (device, stream, rows), so a step whose leaves sit
+    where they sat before copies nothing. Inside
+    :func:`captured_tables` the table is rows of that block's buffer,
+    filled after the capture (capture runs nothing, and a host-to-device
+    copy captured into a graph would read its host block at every
+    replay)."""
+    global table_builds
+    if _captured is not None:
+        buf, pending = _captured
+        used = sum(len(r) for _, r in pending)
+        if used + len(rows) > buf.shape[0]:
+            raise RuntimeError(f"captured_tables({buf.shape[0]}) holds "
+                               f"too few rows for {used + len(rows)}")
+        table = buf[used:used + len(rows)]
+        pending.append((table, rows))
+        return table
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the fused Adam kernel's leaf table must be "
+                           "made inside captured_tables() while a CUDA "
+                           "graph is captured")
+    key = (dev, _stream_key(dev), rows)
+    table = _tables.get(key)
+    if table is not None:
+        _tables.move_to_end(key)
+        return table
+    host = torch.tensor(rows, dtype=torch.int64)
+    if dev.type == "cuda":
+        # one asynchronous copy from pinned memory (PyTorch's pinned
+        # allocator keeps the block until the copy is done)
+        host = host.pin_memory()
+    table = _tables[key] = host.to(dev, non_blocking=True)
+    table_builds += 1
+    while len(_tables) > TABLES_KEPT:
+        _tables.popitem(last=False)
+    return table
+
+
+@contextlib.contextmanager
+def captured_tables(capacity: int,
+                    dev: torch.device) -> Iterator[List[torch.Tensor]]:
+    """Hands the leaf tables made while a CUDA graph is captured inside
+    the block rows of one buffer of ``capacity`` rows, allocated before
+    the capture, and fills them when the block exits (after the capture).
+    The buffer must lie outside the graph's memory pool: the graph reuses
+    its pool's memory for tensors whose lifetimes do not overlap, and a
+    table filled from outside would be overwritten by a replay before
+    the kernel reads it. Yields the list of the tables: keep it as long
+    as the graph."""
+    global _captured
+    if _captured is not None:
+        raise RuntimeError("captured_tables() does not nest")
+    buf = torch.empty((capacity, 8), dtype=torch.int64, device=dev)
+    made: List[torch.Tensor] = []
+    pending: list = []
+    _captured = (buf, pending)
+    try:
+        yield made
+    finally:
+        _captured = None
+    for table, rows in pending:
+        table.copy_(torch.tensor(rows, dtype=torch.int64))
+        made.append(table)
+
+
 def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                ms: Sequence[torch.Tensor], vs: Sequence[torch.Tensor],
                decay: Sequence[bool], lr_c: torch.Tensor, beta1: float,
@@ -114,22 +229,7 @@ def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     if dev.type != "cuda":
         raise ValueError(f"fused Adam kernel needs CUDA tensors (a "
                          f"parameter is on {dev})")
-    rows: List[List[int]] = []
-    chunks = 0
-    for p, g, m, v, dec in zip(params, grads, ms, vs, decay):
-        for t in (p, g, m, v):
-            if t.device != dev or t.dtype != torch.float32 \
-                    or not t.is_contiguous() or t.numel() != p.numel():
-                raise TypeError(f"fused Adam kernel takes contiguous "
-                                f"float32 leaves of one size on {dev} "
-                                f"({t.dtype}, {tuple(t.shape)}, "
-                                f"{t.device})")
-        n = p.numel()
-        if n == 0:
-            continue
-        rows.append([p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                     v.data_ptr(), n, chunks, int(bool(dec)), 0])
-        chunks += -(-n // CHUNK)
+    rows, chunks = leaf_rows(params, grads, ms, vs, decay)
     if not rows:
         return
     lr_wd_dev = lr_wd if isinstance(lr_wd, torch.Tensor) else None
@@ -140,10 +240,7 @@ def adam_multi(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                                        and ok.dtype != torch.bool) or (
             lr_wd_dev is not None and lr_wd_dev.dtype != torch.float32):
         raise TypeError("lr_c and lr_wd must be float32 and ok bool")
-    # the leaf table travels by one asynchronous copy from pinned memory
-    # (PyTorch's pinned allocator keeps the block until the copy is done)
-    host = torch.tensor(rows, dtype=torch.int64).pin_memory()
-    table = host.to(dev, non_blocking=True)
+    table = leaf_table(rows, dev)
     # the scalars are Python floats (1 - beta1 taken in double), which
     # ctypes rounds to float32 as PyTorch hands them to a float32 kernel
     code = _build.library("fused_adam").fused_adam_multi(

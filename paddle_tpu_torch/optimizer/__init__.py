@@ -21,7 +21,9 @@ for that parameter.
 The functional API is the JAX package's: ``init(params)`` builds the
 state for a name-keyed dict of parameters, and ``apply_gradients(params,
 grads, state, ok, lr_override)`` updates them. Here the update is IN
-PLACE on the parameter and state tensors (no second copy of the model);
+PLACE on the parameter and state tensors, the step counter included (no
+second copy of the model, and a CUDA graph of the step reads every state
+tensor where it was captured);
 the step counter is a device tensor, and ``ok`` (a 0-d bool device
 tensor) selects between the new and the old values on the device, so a
 train step's skip guard costs no host sync. The learning rate is a float
@@ -241,8 +243,10 @@ class Optimizer:
                     # the master cast down (an unchanged master gives the
                     # old value back)
                     p.copy_(leaf.p32)
-        state["step"] = step if ok is None \
-            else torch.where(ok, step, state["step"])
+        # in place, as every slot: a captured step reads the counter
+        # where it was
+        state["step"].copy_(step if ok is None
+                            else torch.where(ok, step, state["step"]))
 
     def _apply_fused(self, params, grads, state, lr_t, step, ok) -> None:
         fused = state["fused"]

@@ -10,9 +10,13 @@ package's, in fp32. The object wrapper keeps the stateful
 the host).
 
 ``ReduceOnPlateau`` follows a metric and is ``host_driven``: its live
-value lives on the host, and ``static.TrainStep`` passes it to the
-optimizer as ``lr_override`` (``resolve_lr`` refuses nothing here,
-since nothing is traced: an eager caller reads the host state each call).
+value lives on the host, and ``static.TrainStep`` writes it into a
+persistent fp32 device tensor before each step and passes that tensor to
+the optimizer as ``lr_override`` (the JAX step takes it as an fp32
+argument), so a captured step reads the value of the moment. The
+constant tables a scheduler needs on the device (``PiecewiseDecay``'s
+boundaries and values, ``MultiStepDecay``'s milestones) are built at its
+first call and kept.
 """
 
 from __future__ import annotations
@@ -40,6 +44,20 @@ def _step_tensor(step: Step) -> torch.Tensor:
 
 def _f32(step: Step) -> torch.Tensor:
     return _step_tensor(step).to(torch.float32)
+
+
+def _const(owner, name: str, values, dtype: torch.dtype,
+           device: torch.device) -> torch.Tensor:
+    """``values`` as a tensor on ``device``, built at the first call for
+    that (name, dtype, device) and kept on ``owner``: a host-to-device
+    copy inside the step would cost a copy per step, and a CUDA graph of
+    the step cannot capture one."""
+    cache = owner.__dict__.setdefault("_consts", {})
+    key = (name, dtype, device)
+    t = cache.get(key)
+    if t is None:
+        t = cache[key] = torch.tensor(values, dtype=dtype, device=device)
+    return t
 
 
 class LRScheduler:
@@ -96,11 +114,11 @@ class PiecewiseDecay(LRScheduler):
 
     def lr_at(self, step):
         step = _step_tensor(step)
-        bounds = torch.tensor(self.boundaries, dtype=step.dtype,
-                              device=step.device)
+        bounds = _const(self, "boundaries", self.boundaries, step.dtype,
+                        step.device)
         idx = torch.searchsorted(bounds, step, right=True)
-        return torch.tensor(self.values, dtype=torch.float32,
-                            device=step.device)[idx]
+        return _const(self, "values", self.values, torch.float32,
+                      step.device)[idx]
 
 
 class NaturalExpDecay(LRScheduler):
@@ -222,8 +240,8 @@ class MultiStepDecay(LRScheduler):
 
     def lr_at(self, step):
         step = _step_tensor(step)
-        bounds = torch.tensor(self.milestones, dtype=step.dtype,
-                              device=step.device)
+        bounds = _const(self, "milestones", self.milestones, step.dtype,
+                        step.device)
         idx = torch.searchsorted(bounds, step, right=True)
         return self.base_lr * torch.pow(self.gamma, idx.to(torch.float32))
 

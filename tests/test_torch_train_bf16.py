@@ -273,7 +273,9 @@ def test_run_steps_holds_a_host_lr_for_its_steps(pair):
     real = step.optimizer.apply_gradients
 
     def spy(*a, lr_override=None):
-        seen.append(lr_override)
+        # the host rate reaches the update as the step's fp32 device
+        # tensor host_lr, rewritten before each step: read it now
+        seen.append(None if lr_override is None else float(lr_override))
         return real(*a, lr_override=lr_override)
     step.optimizer.apply_gradients = spy
     a, kw, lab = _port_args(_batch(0))
@@ -282,7 +284,8 @@ def test_run_steps_holds_a_host_lr_for_its_steps(pair):
                    masked_positions=torch.stack([kw["masked_positions"]] * 2))
     sched.current_lr = 5e-4
     step(*a, labels=lab, **kw)
-    assert seen == [1e-3, 1e-3, 5e-4]
+    # fp32, as the JAX step takes a host rate (jnp.float32)
+    assert seen == [float(np.float32(r)) for r in (1e-3, 1e-3, 5e-4)]
 
 
 def test_eval_step_matches_jax(pair):

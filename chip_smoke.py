@@ -96,6 +96,29 @@ in order:
    under a host-driven ``ReduceOnPlateau`` whose rate changes between two
    replays, and a second batch shape, which must capture a second
    graph;
+5c. feeds, checkpoints, resumes and evaluates BERT (b8 x s512, 72
+   masked positions a row as the JAX bench feeds it, dropout 0.1,
+   captured steps; ``RESUME_*``): BERT-base in bf16 with the fused flags
+   over the flat fused state fed for 8 steps from ``DataLoader`` with 2
+   worker processes through a pinned ``DeviceLoader``, against the same
+   step on the same batches made on the card beforehand (the same
+   losses bit for bit; loader wait, step ms and busy share beside each
+   other); the same model trained 8 steps uninterrupted, and again
+   stopped after 4, saved with ``io.AsyncCheckpointer`` (host_state
+   included), step 5 run at once while the writer works, a new epoch's
+   workers forked (``iter_from(4)``), the step-4 checkpoint restored in
+   place into the live captured step and step 5 replayed by its graph
+   (no new capture; its loss and every leaf bit for bit the
+   uninterrupted run's after step 5), everything dropped and built
+   afresh, ``restore_latest`` + ``TrainStep.set_state_dict``, 4 more
+   steps: losses 5-8 and every leaf of the training state (parameters,
+   fp32 masters, moments, step counter, generator) bit for bit the
+   uninterrupted run's, the checkpoint bit for bit the state at step 4
+   (a torn save shows there), ``verify`` clean; the same at 2 layers in
+   fp32 under the default flags; then the bf16 BERT-base eval forward
+   through the captured ``EvalStep`` against the eager one, bit for bit,
+   both timed, and a metric that synchronises with the host refused by
+   name;
 6. serves 16 requests through ``LLMEngine`` at GPT-2-small width (random
    weights from a seed; half of the requests join mid-decode) and holds
    every token against the port's dense ``generate()``; repeats four
@@ -119,6 +142,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -262,6 +286,28 @@ BF16_RUNS = {"train_seq512_bf16": dict(batch=8, seq=512, gate=512,
                                              flags=FUSED_FLAGS,
                                              fused_state=True)}
 # the runs profiled with torch.profiler (one step each)
+# phase 5c: the fed, resumed and evaluated runs. BERT at full width, b8 x
+# s512 as the JAX bench feeds it (72 masked positions a row, bench.py's
+# 15% rounded to 8), RESUME_STEPS captured steps saved at RESUME_AT; the
+# bf16 fused run at full depth, the fp32 default run at 2 layers (its
+# checkpoint format and resume are the same; the depth keeps the script in
+# time)
+RESUME_BATCH, RESUME_SEQ, RESUME_MASKED = 8, 512, 72
+RESUME_STEPS, RESUME_AT, RESUME_WORKERS = 8, 4, 2
+RESUME_RUNS = {"resume_bf16_fused": dict(layers=12, dtype="bfloat16",
+                                         flags=FUSED_FLAGS,
+                                         fused_state=True),
+               "resume_fp32": dict(layers=2, dtype="float32", flags={},
+                                   fused_state=False)}
+EVAL_CALLS = 6
+# the checkpoints of the resume runs (removed after each run)
+CKPT_DIR = "chip_smoke_ckpt"
+PATH_KERNELS.update({
+    "data_feed": PATH_KERNELS["train_seq512_bf16_fused"],
+    "resume_bf16_fused": PATH_KERNELS["train_seq512_bf16_fused"],
+    "resume_fp32": PATH_KERNELS["train_seq512"],
+    # eval attention below flash_attention_min_seq is the plain path
+    "eval_captured": ("layer_norm",)})
 PROFILED_RUNS = ("train_seq512", "train_seq512_fused", "train_seq512_bf16",
                  "train_seq512_bf16_fused")
 TRAIN_STEPS = 5
@@ -2398,6 +2444,470 @@ def check_captured_host_lr_and_shapes(torch) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: fed, resumed and evaluated: the DataLoader with workers and the
+# pinned DeviceLoader, a checkpoint saved while training goes on and
+# restored into a fresh step, the captured EvalStep
+# ---------------------------------------------------------------------------
+
+class PretrainSamples:
+    """Synthetic BERT pretraining samples from a seed, as the JAX bench
+    feeds them (``bench.py``): token ids, segment ids (the second
+    sentence from a random split), an attention mask (a padded tail of
+    up to a quarter of the sequence), ``RESUME_MASKED`` sorted masked
+    positions within the unpadded part, their MLM labels and an NSP
+    label; numpy, int64. A map-style dataset (``paddle_tpu_torch.data.
+    Dataset``'s protocol)."""
+
+    def __init__(self, n: int, seq: int, vocab: int, seed: int) -> None:
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(seq * 3 // 4, seq + 1, n)
+        self.ids = rng.integers(0, vocab, (n, seq))
+        split = rng.integers(seq // 4, seq * 3 // 4, n)
+        self.types = (np.arange(seq)[None, :] >= split[:, None]).astype(
+            np.int64)
+        self.mask = (np.arange(seq)[None, :] < lens[:, None]).astype(
+            np.int64)
+        self.ids *= self.mask
+        self.pos = np.stack([np.sort(rng.choice(n_, RESUME_MASKED,
+                                                replace=False))
+                             for n_ in lens]).astype(np.int64)
+        self.mlm = np.take_along_axis(self.ids, self.pos, axis=1)
+        self.nsp = rng.integers(0, 2, n)
+
+    def __getitem__(self, i):
+        return (self.ids[i], self.types[i], self.mask[i], self.pos[i],
+                self.mlm[i], self.nsp[i])
+
+    def __len__(self):
+        return len(self.ids)
+
+
+def feed_step(step, batch):
+    """One TrainStep on a fed batch (ids, types, mask, positions, MLM
+    labels, NSP labels); returns the loss, synchronised."""
+    ids, types, mask, pos, mlm, nsp = batch
+    return float(step(ids, types, mask, masked_positions=pos,
+                      labels=(mlm, nsp))["loss"])
+
+
+def make_loader(torch, ds, workers: int = RESUME_WORKERS):
+    """The DataLoader of these phases: a seeded shuffle (numpy's
+    default_rng, so the JAX package's order), batches of RESUME_BATCH,
+    ``workers`` worker processes, a bounded wait."""
+    from paddle_tpu_torch.data import BatchSampler, DataLoader, RandomSampler
+    return DataLoader(ds, batch_sampler=BatchSampler(
+        RandomSampler(ds, seed=SEED), batch_size=RESUME_BATCH,
+        drop_last=True), num_workers=workers, timeout=120.0)
+
+
+def resume_model(torch, layers: int, dtype):
+    """BERT at full width (dropout 0.1) from SEED on the card, cast to
+    ``dtype`` as the JAX bench casts (parameters only)."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig(num_hidden_layers=layers),
+                               device="cuda", seed=SEED)
+    if dtype != "float32":
+        model = cast_model_to_low_precision(model, dtype)
+    return model
+
+
+def state_on_host(step) -> dict:
+    """Synchronised host copies of every leaf of ``step.state_dict()``."""
+    from paddle_tpu_torch import io
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in io.flatten(step.state_dict()).items()}
+
+
+def equal_states(torch, a: dict, b: dict) -> list:
+    """The leaves in which two host states differ bit for bit (or that
+    one of them lacks)."""
+    def bits(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or a[k].shape != b[k].shape
+                  or not torch.equal(bits(a[k]), bits(b[k])))
+
+
+def path_launches(name: str, counts: dict, per_step: dict, steps: int):
+    """Raises unless ``counts`` are ``steps`` times ``per_step``."""
+    want = {k: steps * n for k, n in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want} "
+                             f"({steps} steps of {per_step})")
+
+
+def run_feed(torch, step, batches, steps: int) -> dict:
+    """``steps`` TrainSteps on ``batches`` (an iterable of device
+    batches): the first (eager, then the capture) alone, the rest under
+    torch.profiler: their wall, device time and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    it = iter(batches)
+    losses = [feed_step(step, next(it))]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = [step(*b[:3], masked_positions=b[3], labels=b[4:])["loss"]
+                for _, b in zip(range(steps - 1), it)]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    losses += [float(o) for o in outs]
+    rows = device_rows(prof, steps - 1)
+    step_ms = wall_ms / (steps - 1)
+    device_ms = sum(r[0] for r in rows) if rows else None
+    return {"losses": losses, "step_ms": step_ms,
+            "tokens_per_s": RESUME_BATCH * RESUME_SEQ / step_ms * 1e3,
+            "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / step_ms if rows else None}
+
+
+def timed_step(torch, step, batch) -> tuple:
+    """``(loss, stream ms)``: feed_step between two events on the current
+    stream (the step's device time plus any wait for its host calls)."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
+    loss = feed_step(step, batch)
+    marks[1].record()
+    marks[1].synchronize()
+    return loss, marks[0].elapsed_time(marks[1])
+
+
+def check_data_feed(torch) -> tuple:
+    """BERT-base in bf16 with the fused flags over the flat fused state
+    (the main path), captured, fed for RESUME_STEPS steps from
+    ``DataLoader(num_workers=RESUME_WORKERS)`` through ``DeviceLoader``
+    (staged in its pinned arena), against the same step on the same
+    batches made on the card beforehand, from the same weights:
+    the same losses bit for bit, the loader's wait per batch, step ms
+    and busy share side by side. Returns (report, launch counts of the
+    fed run)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.data import DeviceLoader
+    model = resume_model(torch, 12, "bfloat16")
+    cfg = model.config
+    ds = PretrainSamples(RESUME_STEPS * RESUME_BATCH, RESUME_SEQ,
+                         cfg.vocab_size, SEED + 40)
+    start = host_copy(dict(model.named_parameters()))
+    restore = flag_scope(FUSED_FLAGS)
+    try:
+        premade = [tuple(t.to("cuda") for t in b)
+                   for b in make_loader(torch, ds, workers=0)]
+        torch.cuda.synchronize()
+        step = make_train_step(model, fused_state=True, compiled=True)
+        ref = run_feed(torch, step, premade, RESUME_STEPS)
+        del step, premade
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                p.copy_(start[n])
+        step = make_train_step(model, fused_state=True, compiled=True)
+        feed = DeviceLoader(make_loader(torch, ds), buffer_size=2)
+        kernels.reset_launch_counts()
+        fed = run_feed(torch, step, feed, RESUME_STEPS)
+        counts = kernels.launch_counts()
+    finally:
+        restore()
+    per_step = expected_launches(RESUME_SEQ, cfg.num_hidden_layers,
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 FUSED_FLAGS,
+                                 rows=RESUME_BATCH * RESUME_MASKED,
+                                 vocab=cfg.vocab_size)
+    path_launches("data_feed", counts, per_step, RESUME_STEPS)
+    res = {"batch": RESUME_BATCH, "seq": RESUME_SEQ,
+           "masked_per_row": RESUME_MASKED, "workers": RESUME_WORKERS,
+           "steps": RESUME_STEPS, "premade": ref, "fed": fed,
+           "loader_wait_ms": feed.wait_ms,
+           "loader_wait_ms_median_after_first": float(np.median(
+               feed.wait_ms[1:])),
+           "arena": dict(feed.arena.stats),
+           "same_losses": fed["losses"] == ref["losses"],
+           "captures": step.captures}
+    log(f"data feed: {json.dumps(res)}")
+    if not res["same_losses"] or not all(np.isfinite(fed["losses"])):
+        raise AssertionError(f"data feed: the fed run's losses "
+                             f"{fed['losses']} != {ref['losses']}")
+    del step, feed, model
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def check_resume(torch, name: str, layers: int, dtype: str, flags: dict,
+                 fused_state: bool) -> tuple:
+    """Run A: RESUME_STEPS captured steps fed by the worker DataLoader
+    through a pinned DeviceLoader. Run B, from the same weights, seed
+    and loader: RESUME_AT steps, then ``AsyncCheckpointer.save`` of
+    ``step.state_dict()`` with host_state {global_step, epoch,
+    batch_in_epoch}, then step RESUME_AT + 1 at once while the writer
+    works; a fresh loader's ``iter_from(RESUME_AT)`` forks its workers
+    while the writer may still run; once it is written, the checkpoint is
+    restored in place into run B's live captured step, whose graph
+    replays step RESUME_AT + 1 on the same batch: no new capture, the
+    loss of that step bit for bit and every leaf equal to run A's after
+    that step (a restore that missed an address the graph reads, the
+    generator's registered state included, shows there); then the
+    model, step, optimizer,
+    loader and checkpointer are dropped, built afresh, ``restore_latest``
+    and ``set_state_dict`` restore, and the run goes on to RESUME_STEPS.
+    Losses RESUME_AT+1..RESUME_STEPS and every leaf of the state
+    (parameters, fp32 masters, moments, step counter, generator) must
+    equal run A's bit for bit, and the saved checkpoint the state at step
+    RESUME_AT (a torn save shows there). Every step's stream time is
+    taken beside its wall time, and the fetch of the step during the
+    write apart. Two saves at the end time the
+    fresh checkpointer's first save (pinning its host memory) and a later
+    one (reusing it). Returns (report, launch counts of both runs)."""
+    from paddle_tpu_torch import io, kernels
+    from paddle_tpu_torch.data import DeviceLoader
+    ckpt_dir = os.path.join(CKPT_DIR, name)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restore = flag_scope(flags)
+    try:
+        model = resume_model(torch, layers, dtype)
+        cfg = model.config
+        ds = PretrainSamples(RESUME_STEPS * RESUME_BATCH, RESUME_SEQ,
+                             cfg.vocab_size, SEED + 50)
+        kernels.reset_launch_counts()
+        # run A, uninterrupted
+        step = make_train_step(model, fused_state=fused_state,
+                               compiled=True)
+        losses_a, ms_a, stream_ms_a = [], [], []
+        for batch in DeviceLoader(make_loader(torch, ds)):
+            t0 = time.perf_counter()
+            loss, ms = timed_step(torch, step, batch)
+            losses_a.append(loss)
+            ms_a.append((time.perf_counter() - t0) * 1e3)
+            stream_ms_a.append(ms)
+            if len(losses_a) == RESUME_AT + 1:
+                after_a = state_on_host(step)
+        end_a = state_on_host(step)
+        del step, model
+        # run B: stopped at RESUME_AT, saved while it goes on, resumed
+        model = resume_model(torch, layers, dtype)
+        step = make_train_step(model, fused_state=fused_state,
+                               compiled=True)
+        feed = iter(DeviceLoader(make_loader(torch, ds)))
+        losses_b = [feed_step(step, next(feed)) for _ in range(RESUME_AT)]
+        at_save = state_on_host(step)
+        ck = io.AsyncCheckpointer(ckpt_dir, max_to_keep=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(step.state_dict(), step=RESUME_AT,
+                host_state={"global_step": RESUME_AT, "epoch": 0,
+                            "batch_in_epoch": RESUME_AT})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        # whether the enqueued copies had run by then, and the device time
+        # of the next step (events on the stream around it)
+        after_save = torch.cuda.Event()
+        after_save.record()
+        copies_done = after_save.query()
+        writing_at_next_step = ck._thread.is_alive()
+        t0 = time.perf_counter()
+        batch = next(feed)
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        loss_next, next_stream_ms = timed_step(torch, step, batch)
+        next_step_ms = (time.perf_counter() - t0) * 1e3
+        # a new epoch's workers fork while the writer may still run
+        fresh = iter(DeviceLoader(make_loader(torch, ds).iter_from(
+            RESUME_AT)))
+        first = next(fresh)
+        writing_at_fork = ck._thread is not None and ck._thread.is_alive()
+        t0 = time.perf_counter()
+        ck.wait()
+        wait_s = time.perf_counter() - t0
+        writer_s = ck.last_write_s
+        path = os.path.join(ckpt_dir, f"ckpt-{RESUME_AT}")
+        saved = io.load(path)
+        # restored in place under the live graph, step RESUME_AT + 1 again
+        captures_before = step.captures
+        step.set_state_dict(saved)
+        loss_again = feed_step(step, batch)
+        inplace_differ = equal_states(torch, state_on_host(step), after_a)
+        inplace = {"captures_before": captures_before,
+                   "captures_after": step.captures, "loss": loss_again,
+                   "state_leaves_differing": inplace_differ}
+        del feed, step, model, ck, batch, after_a
+        torch.cuda.empty_cache()
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        problems = io.verify(path)
+        verify_s = time.perf_counter() - t0
+        torn = equal_states(torch, saved, at_save)
+        del at_save, saved
+        # the fresh process
+        model = resume_model(torch, layers, dtype)
+        step = make_train_step(model, fused_state=fused_state,
+                               compiled=True)
+        ck = io.AsyncCheckpointer(ckpt_dir)
+        t0 = time.perf_counter()
+        flat, at = ck.restore_latest()
+        step.set_state_dict(flat)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del flat
+        host_state = ck.host_state()
+        losses_r = [feed_step(step, first)]
+        losses_r += [feed_step(step, b) for b in fresh]
+        counts = kernels.launch_counts()
+        end_b = state_on_host(step)
+        captures = step.captures
+        # the fresh checkpointer's first save pins its host memory; saved
+        # again, it reuses it
+        save_ms_at_end, writer_s_at_end = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(step.state_dict(), step=RESUME_STEPS,
+                    host_state={"global_step": RESUME_STEPS, "epoch": 0,
+                                "batch_in_epoch": RESUME_STEPS})
+            save_ms_at_end.append((time.perf_counter() - t0) * 1e3)
+            ck.wait()
+            writer_s_at_end.append(ck.last_write_s)
+        kept = ck.intact_steps()
+        del step, model, fresh
+    finally:
+        restore()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    differ = equal_states(torch, end_a, end_b)
+    steady_a = float(np.median(ms_a[1:]))
+    res = {"layers": layers, "dtype": dtype, "flags": flags,
+           "fused_state": fused_state, "batch": RESUME_BATCH,
+           "seq": RESUME_SEQ, "steps": RESUME_STEPS, "saved_at": RESUME_AT,
+           "losses_uninterrupted": losses_a,
+           "losses_before_save": losses_b, "loss_during_write": loss_next,
+           "losses_resumed": losses_r,
+           "resumed_equal": losses_r == losses_a[RESUME_AT:]
+           and losses_b == losses_a[:RESUME_AT]
+           and loss_next == losses_a[RESUME_AT],
+           "state_leaves": len(end_a), "state_leaves_differing": differ,
+           "checkpoint_equals_saved_state": not torn,
+           "checkpoint_leaves_differing": torn,
+           "verify_problems": problems, "restored_step": at,
+           "host_state": host_state, "checkpoint_bytes": ckpt_bytes,
+           "save_host_blocking_ms": save_ms, "writer_s": writer_s,
+           "wait_for_writer_s": wait_s,
+           "writer_busy_at_next_step": writing_at_next_step,
+           "writer_busy_at_worker_fork": writing_at_fork,
+           "step_ms_during_write": next_step_ms,
+           "copies_done_when_save_returned": copies_done,
+           "batch_fetch_ms_during_write": fetch_ms,
+           "step_stream_ms_during_write": next_stream_ms,
+           "step_ms_uninterrupted_median": steady_a,
+           "step_ms_uninterrupted_at_same_step": ms_a[RESUME_AT],
+           "step_stream_ms_uninterrupted": stream_ms_a,
+           "verify_s": verify_s, "restore_s": restore_s,
+           "captures_after_restore": captures,
+           "inplace_restore_under_graph": inplace,
+           "inplace_restore_equal": loss_again == loss_next
+           and captures_before == inplace["captures_after"]
+           and not inplace_differ,
+           "end_saves_host_blocking_ms": save_ms_at_end,
+           "end_saves_writer_s": writer_s_at_end, "checkpoints_kept": kept}
+    log(f"resume ({name}): {json.dumps(res)}")
+    if not res["resumed_equal"] or not res["inplace_restore_equal"] \
+            or differ or torn or problems \
+            or at != RESUME_AT or host_state["batch_in_epoch"] != RESUME_AT \
+            or kept != [RESUME_AT, RESUME_STEPS]:
+        raise AssertionError(f"resume ({name}): {res}")
+    per_step = expected_launches(RESUME_SEQ, layers,
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 flags, rows=RESUME_BATCH * RESUME_MASKED,
+                                 vocab=cfg.vocab_size)
+    # run A's steps, run B's before and during the write and its replay
+    # after the restore in place, the resumed ones
+    path_launches(name, counts, per_step, 2 * RESUME_STEPS + 2)
+    return res, counts
+
+
+def eval_launches(layers: int) -> dict:
+    """Kernel launches of one eval forward: attention below
+    flash_attention_min_seq takes the plain path, so LayerNorm is the
+    forward's kernel (2 a layer, the embeddings', the MLM transform's)."""
+    out = {k: 0 for k in expected_launches(RESUME_SEQ, layers, 64)}
+    out["layer_norm"] = 2 * layers + 2
+    return out
+
+
+def check_eval_captured(torch) -> tuple:
+    """BERT-base in bf16 (the JAX bench's cast), eval forward at RESUME_BATCH
+    x RESUME_SEQ through the captured ``EvalStep`` against the eager one,
+    on EVAL_CALLS batches: outputs and metrics bit for bit, both timed
+    (median host wall of a synchronised call); a metric that synchronises
+    with the host must raise naming itself. Returns (report, launch
+    counts of the captured calls)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.static import EvalStep
+    model = resume_model(torch, 12, "bfloat16")
+    cfg = model.config
+    ds = PretrainSamples(EVAL_CALLS * RESUME_BATCH, RESUME_SEQ,
+                         cfg.vocab_size, SEED + 60)
+    batches = [tuple(t.to("cuda") for t in b)
+               for b in make_loader(torch, ds, workers=0)]
+    metrics = {"nsp_acc": lambda out, nsp: (out[1].argmax(-1) == nsp)
+               .float().mean(),
+               "mlm_logit_max": lambda out, nsp: out[0].float().amax()}
+    eager = EvalStep(model, metrics, compiled=False)
+    captured = EvalStep(model, metrics)
+
+    def run(es):
+        outs, ms = [], []
+        for ids, types, mask, pos, _, nsp in batches:
+            t0 = time.perf_counter()
+            out, met = es(None, None, ids, types, mask, pos, labels=(nsp,))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append((out, met))
+        return outs, ms
+
+    want, eager_ms = run(eager)
+    kernels.reset_launch_counts()
+    got, cap_ms = run(captured)
+    counts = kernels.launch_counts()
+    same = all(all(torch.equal(a, b) for a, b in zip(g[0], w[0]))
+               and all(torch.equal(g[1][k], w[1][k]) for k in metrics)
+               for g, w in zip(got, want))
+    try:
+        EvalStep(model, {"host_metric": lambda out, nsp: float(
+            out[1].sum())})(None, None, *batches[0][:4],
+                            labels=(batches[0][5],))
+        named = False
+    except RuntimeError as e:
+        named = "host_metric" in str(e)
+    res = {"batch": RESUME_BATCH, "seq": RESUME_SEQ, "calls": EVAL_CALLS,
+           "bitwise": same, "captures": captured.captures,
+           "capture_ms": captured.capture_ms,
+           "eager_ms": eager_ms, "captured_ms": cap_ms,
+           "eager_ms_median_after_first": float(np.median(eager_ms[1:])),
+           "captured_ms_median_after_first": float(np.median(cap_ms[1:])),
+           "nsp_acc": [float(g[1]["nsp_acc"]) for g in got],
+           "host_sync_metric_raises_named": named,
+           "out_dtype": str(got[0][0][0].dtype)}
+    log(f"eval captured: {json.dumps(res)}")
+    want_counts = {k: EVAL_CALLS * n for k, n in eval_launches(
+        cfg.num_hidden_layers).items()}
+    if not same or captured.captures != 1 or not named \
+            or counts != want_counts:
+        raise AssertionError(f"eval captured: {res}, launches {counts} "
+                             f"(want {want_counts})")
+    del eager, captured, model, batches, got, want
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def run_resume_phases(torch) -> tuple:
+    """Phase 5c. Returns (report, launch counts of each path)."""
+    report, counts = {}, {}
+    report["data_feed"], counts["data_feed"] = check_data_feed(torch)
+    for name, run in RESUME_RUNS.items():
+        report[name], counts[name] = check_resume(torch, name, **run)
+    report["eval_captured"], counts["eval_captured"] = \
+        check_eval_captured(torch)
+    return report, counts
+
+
+# ---------------------------------------------------------------------------
 # phase 6: serving through the engine
 # ---------------------------------------------------------------------------
 
@@ -2770,15 +3280,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     training, counts = run_training_phases(torch)
+    resume, resume_counts = run_resume_phases(torch)
     serving, serve_counts = run_serving(torch, GPT2_SMALL, "cuda",
                                         **SERVING)
-    counts.update(serve_counts, flash_with_lse=lse_counts)
+    counts.update(resume_counts, **serve_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
                   layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
-                  **serving)
+                  **resume, **serving)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

@@ -12,6 +12,15 @@ transposed. ``load_jax_params`` loads such a dict into a module after
 checking keys and shapes strictly. ``opt_state_from_jax`` carries an
 ``Optimizer.init``/``apply_gradients`` state across, so both packages
 can train on from the same point.
+
+The whole training state crosses both ways: ``train_state_from_jax``
+turns a JAX ``TrainStep.state`` (its leaves as numpy arrays, the ``rng``
+key as its raw bits, ``jax.random.key_data``) into the tree the port's
+``TrainStep.set_state_dict`` restores, and ``train_state_to_jax`` turns
+the port's ``TrainStep.state_dict()`` into numpy leaves in the JAX
+state's structure (bf16 as ``ml_dtypes.bfloat16``, which only a JAX
+user needs and so is imported there alone), without the port's
+generator: the JAX step keeps its own ``rng``.
 """
 
 from __future__ import annotations
@@ -22,7 +31,8 @@ import numpy as np
 import torch
 
 __all__ = ["tensor_from_numpy", "params_from_jax", "load_jax_params",
-           "opt_state_from_jax"]
+           "opt_state_from_jax", "train_state_from_jax",
+           "train_state_to_jax"]
 
 
 def tensor_from_numpy(value: object) -> torch.Tensor:
@@ -98,3 +108,39 @@ def opt_state_from_jax(state: Mapping[str, object],
                 raise ValueError(f"fused {k} has {tuple(t.shape)} entries, "
                                  f"the parameters {total}")
     return out
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def train_state_from_jax(state: Mapping[str, object]) -> dict:
+    """A JAX ``TrainStep.state`` (``{"params", "buffers", "opt", "rng"[,
+    "scaler"]}``, numpy or array-like leaves, ``rng`` as its raw key
+    bits) as a tree of CPU tensors in the dtypes JAX stored, for the
+    port's ``TrainStep.set_state_dict`` (which seeds its generator from
+    ``rng``)."""
+    return _map_tree(tensor_from_numpy, dict(state))
+
+
+def _to_numpy(t) -> np.ndarray:
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # a JAX user's dependency, needed by it alone
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def train_state_to_jax(state: Mapping[str, object]) -> dict:
+    """The port's ``TrainStep.state_dict()`` as numpy leaves in the JAX
+    ``TrainStep.state``'s structure, without ``generator`` (the JAX step
+    keeps its own ``rng``): ``jax_step.state.update(jax.tree.map(
+    jnp.asarray, train_state_to_jax(port_step.state_dict())))``."""
+    return _map_tree(_to_numpy, {k: v for k, v in state.items()
+                                 if k != "generator"})

@@ -3,9 +3,9 @@
 A typed, env-overridable registry (``FLAGS_<name>`` in the environment
 overrides a default at import), settable with ``set_flags`` and read
 with ``get_flags``. It holds the flags the ported paths read (the
-paged-KV LLM engine's, and the attention routing and train-step flags
-of BERT pretraining), with the names and defaults of
-``paddle_tpu.flags``.
+paged-KV LLM engine's, the attention routing and train-step flags of
+BERT pretraining, and those of the checkpoints and the input pipeline),
+with the names and defaults of ``paddle_tpu.flags``.
 """
 
 from __future__ import annotations
@@ -234,3 +234,23 @@ define_flag("optimizer_moment_dtype", "float32",
             "relative rounding on stored m/v. bf16 moments take the "
             "unfused update (the Adam kernel is fp32-only). Read at "
             "optimizer init.")
+
+# ---------------------------------------------------------------------------
+# checkpoints and the input pipeline (io, data, core.arena)
+# ---------------------------------------------------------------------------
+define_flag("checkpoint_verify", True,
+            "Verify checkpoint integrity on load: require the COMMIT "
+            "marker and check each leaf's recorded CRC32 before "
+            "deserializing (io.load / AsyncCheckpointer.restore). Off "
+            "skips the CRC pass (size and existence checks stay on — "
+            "they are free). Corrupt or uncommitted checkpoints are "
+            "skipped by restore with a fallback to the newest intact "
+            "one.")
+define_flag("allocator_strategy", "xla",
+            "Host staging allocator strategy (xla | arena), under the "
+            "JAX package's name and default (ref: allocator_strategy "
+            "flags.cc, auto_growth_best_fit_allocator.cc). The port reads "
+            "neither value: its DeviceLoader always stages a card feed "
+            "through core.arena.HostStagingArena (recycled page-aligned "
+            "pinned blocks, zero steady-state mallocs), as a copy from "
+            "pageable memory is not asynchronous on the card.")

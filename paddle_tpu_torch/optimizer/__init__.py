@@ -73,9 +73,10 @@ from .. import kernels
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
 from . import lr
-from .lr import resolve_lr
+from .lr import LRScheduler, resolve_lr
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "Adam", "AdamW", "AdamOptimizer", "LRScheduler",
+           "lr"]
 
 # the use_pallas_adam route's least leaf size (the JAX package's)
 _FLAT_MIN_NUMEL = 1024
@@ -128,6 +129,31 @@ class Optimizer:
         self._fused_state = fused_state
         # {name: (need_clip, regularizer)} (set_param_meta)
         self._param_meta: Dict[str, tuple] = {}
+        self._eager_state: Optional[dict] = None
+
+    def get_lr(self) -> float:
+        """The current rate as a host float: a scheduler's ``get_lr()``,
+        else the float itself."""
+        if isinstance(self.learning_rate, LRScheduler):
+            return self.learning_rate.get_lr()
+        return float(self.learning_rate)
+
+    def set_lr(self, value: float) -> None:
+        """Replaces the rate with ``value``. ``static.TrainStep`` reads a
+        float rate into its ``host_lr`` before each step, so the new rate
+        takes effect at the next step, a captured one's next replay
+        included."""
+        self.learning_rate = value
+
+    def state_dict(self) -> dict:
+        """The state set by :meth:`set_state_dict`, else ``{}``, as in the
+        JAX package: the state a train step updates is ``init``'s tree,
+        held by the step (``TrainStep.state``; its ``state_dict()`` is
+        the checkpointable whole)."""
+        return self._eager_state or {}
+
+    def set_state_dict(self, state) -> None:
+        self._eager_state = state
 
     def set_param_meta(self, meta) -> None:
         """Per-parameter metadata ``{name: (need_clip, regularizer)}``:
@@ -375,3 +401,7 @@ class AdamW(Adam):
         if fn is not None and name is not None and not fn(name):
             return None
         return self.decoupled_weight_decay
+
+
+# the fluid.optimizer spelling
+AdamOptimizer = Adam

@@ -89,6 +89,12 @@ class LRScheduler:
             print(f"Epoch {self.last_epoch}: {type(self).__name__} set "
                   f"learning rate to {self.get_lr()}.")
 
+    def state_dict(self) -> dict:
+        return {"last_epoch": self.last_epoch}
+
+    def set_state_dict(self, state: dict) -> None:
+        self.last_epoch = state["last_epoch"]
+
 
 class NoamDecay(LRScheduler):
     def __init__(self, d_model: int, warmup_steps: int,

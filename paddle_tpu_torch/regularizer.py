@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["WeightDecayRegularizer", "L1Decay", "L2Decay"]
+__all__ = ["WeightDecayRegularizer", "L1Decay", "L2Decay",
+           "L1DecayRegularizer", "L2DecayRegularizer"]
 
 
 class WeightDecayRegularizer:
@@ -37,3 +38,8 @@ class L1Decay(WeightDecayRegularizer):
 
     def __call__(self, param, grad):
         return grad + self.coeff * torch.sign(param)
+
+
+# the fluid spellings
+L2DecayRegularizer = L2Decay
+L1DecayRegularizer = L1Decay

@@ -24,10 +24,14 @@ eagerly.
   scales the loss, unscales the gradients in their dtype and checks
   them, discards a non-finite step whatever the flag, and updates its
   state in place, all on the device (``scaler_state``).
-- A host-driven scheduler (``ReduceOnPlateau``) reaches the optimizer as
-  ``lr_override``: its live host value is written into ``host_lr``, a
-  persistent fp32 device tensor, before each step (the JAX step takes it
-  as an fp32 argument).
+- A float rate and a host-driven scheduler (``ReduceOnPlateau``) reach
+  the optimizer as ``lr_override``: the live host value (the float as
+  ``optimizer.set_lr`` last left it, or the scheduler's ``get_lr()``) is
+  written into ``host_lr``, a persistent fp32 device tensor, before each
+  step (the JAX step takes a scheduler's as an fp32 argument, and
+  rounds a float to fp32 as ``jnp.asarray(lr, float32)``). A scheduler
+  that computes its rate on the device from the step counter reads
+  nothing from the host.
 - ``extra_metrics`` ``{name: fn(outputs, *labels)}`` are computed on the
   step's own forward outputs, before the update.
 - ``run_steps`` runs K stacked batches as K steps (see there).
@@ -36,8 +40,8 @@ eagerly.
 card, off on the CPU; ``compiled=True`` with CPU parameters raises). A
 step's signature is the shapes, dtypes and devices of its tensor
 inputs, the values of its other inputs, every flag's value (the flags
-choose the kernels' routes inside the step), the model's training mode,
-whether a host-driven rate is given, and a float learning rate. The
+choose the kernels' routes inside the step), the model's training mode
+and whether a host rate is given. The
 first step of a new signature runs eagerly on a side stream (the
 warm-up, a real step); then the step is captured into a CUDA graph over
 static input buffers, which records its kernels and runs nothing, so
@@ -56,8 +60,30 @@ JAX tracker's ``jit_traces_total``) and ``capture_ms`` their host time.
 A failed capture or replay raises; nothing falls back to the eager
 step. Python values read during the capture (the optimizer's and the
 scaler's hyperparameters, a scheduler's constants) are baked into the
-graph. Assigning ``state``, ``scaler_state`` or calling
+graph; the rate is not, as it is read from ``host_lr``, so a new rate
+(``optimizer.set_lr``) between two replays takes effect at the next one
+with the same graph. Assigning ``state``, ``scaler_state`` or calling
 ``reset_from_model`` drops the graphs, and so does dropping the step.
+
+**The checkpointable state** (``state_dict()`` / ``set_state_dict()``):
+the whole training state as one tree with the JAX ``TrainStep.state``'s
+leaf paths, ``params/<name>``, ``buffers/<name>``, ``opt/step``,
+``opt/slots/<name>/{m,v[,master]}``, ``opt/fused/{m,v,master}`` and
+``scaler/...``, plus ``generator``, the step generator's state as uint8
+(a key the JAX state lacks, so the JAX package's ``io.load(path,
+target=step.state)`` passes it by and keeps its own ``rng``). Saved with
+``io.save``/``io.AsyncCheckpointer``, a port manifest lists the JAX
+one's leaves, shapes and dtypes, but for the generator leaf in place of
+``rng``. ``set_state_dict`` writes IN PLACE (``copy_`` into every
+parameter, master, moment, step counter and scaler tensor, and the
+generator's seed and offset set), so the captured graphs stay valid:
+they read fixed addresses. A JAX checkpoint's ``rng`` key seeds the
+generator by one rule (:func:`seed_from_key_bits`); it cannot be
+continued, as Philox is not threefry.
+
+``EvalStep`` is captured too (one CUDA graph per signature of its inputs,
+its parameter source and the flags), its metric functions inside the
+graph, as they run inside the JAX package's jit.
 
 Not ported: the observability probes, fault multipliers and the
 divergence-rollback LR scale; buffers the forward updates are not
@@ -70,17 +96,20 @@ import contextlib
 import time
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import amp as _amp
+from .. import io as _io
 from .. import kernels
+from ..convert import tensor_from_numpy
 from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
-from ..optimizer import Optimizer
+from ..optimizer import LRScheduler, Optimizer
 
-__all__ = ["TrainStep", "EvalStep"]
+__all__ = ["TrainStep", "EvalStep", "seed_from_key_bits"]
 
 
 def _labels(labels) -> tuple:
@@ -89,11 +118,14 @@ def _labels(labels) -> tuple:
 
 
 def _host_lr(optimizer) -> Optional[float]:
-    """The live value of a host-driven scheduler (a host float, no
-    device read), else None."""
-    sched = getattr(optimizer, "learning_rate", None)
-    if getattr(sched, "host_driven", False):
-        return float(sched.get_lr())
+    """The live host value of the rate: a float rate, or a host-driven
+    scheduler's (no device read); None for a scheduler computed on the
+    device."""
+    rate = optimizer.learning_rate
+    if not isinstance(rate, LRScheduler):
+        return float(rate)
+    if rate.host_driven:
+        return float(rate.get_lr())
     return None
 
 
@@ -153,7 +185,10 @@ def _clone_tree(tree):
     if isinstance(tree, dict):
         return {k: _clone_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_clone_tree(v) for v in tree)
+        vals = [_clone_tree(v) for v in tree]
+        if hasattr(tree, "_fields"):  # a namedtuple (MLMHeadOutput)
+            return type(tree)(*vals)
+        return type(tree)(vals)
     return tree
 
 
@@ -183,15 +218,14 @@ class _Graph:
         self.launches: Dict[str, int] = {}
         self.keep: list = []
 
-    def replay(self, inputs) -> Dict[str, Any]:
+    def replay(self, inputs):
         """Copies ``inputs`` into the buffers, replays the graph, adds its
         launches to the counters and returns clones of its outputs (the
         next replay overwrites them)."""
         _copy_tree(self.inputs, inputs)
         self.graph.replay()
         kernels.add_launch_counts(self.launches)
-        return {k: v.clone() if isinstance(v, torch.Tensor) else v
-                for k, v in self.outputs.items()}
+        return _clone_tree(self.outputs)
 
 
 # the side stream of every step's warm-up and capture, by device: one
@@ -219,16 +253,70 @@ class _CudaGraphs:
         current.wait_stream(self.stream)
         return out
 
-    def capture(self, fn: Callable[[], Any], generator: torch.Generator,
-                table_rows: int) -> tuple:
-        """``(graph, tensors to keep with it)``; ``table_rows`` bounds the
-        rows of the fused Adam kernel's leaf tables in the step."""
+    def capture(self, fn: Callable[[], Any],
+                generator: Optional[torch.Generator] = None,
+                table_rows: int = 0) -> tuple:
+        """``(graph, tensors to keep with it)``; ``generator`` (if any) is
+        registered with the graph, and ``table_rows`` bounds the rows of
+        the fused Adam kernel's leaf tables in the step."""
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
-        with _adam.captured_tables(table_rows, self.device) as tables:
+        if generator is not None:
+            graph.register_generator_state(generator)
+        tables = _adam.captured_tables(table_rows, self.device) \
+            if table_rows else contextlib.nullcontext([])
+        with tables as keep:
             with torch.cuda.graph(graph, stream=self.stream):
                 fn()
-        return graph, tables
+        return graph, keep
+
+    @contextlib.contextmanager
+    def host_sync_check(self, what: str):
+        """Raises, naming ``what``, if the code inside synchronises with
+        the host (which a capture cannot record): CUDA's sync debug mode
+        "error" for its duration."""
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            raise RuntimeError(
+                f"{what} synchronises with the host, which a captured step "
+                f"cannot record: return a device tensor instead of a host "
+                f"value, or pass compiled=False ({e})") from e
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def _capture(owner, graph: _Graph, body: Callable[[], None],
+             generator: Optional[torch.Generator] = None,
+             table_rows: int = 0) -> None:
+    """Records ``body`` into ``graph`` with ``owner``'s backend. The
+    capture runs nothing, so what its wrappers counted is taken back off
+    the counters and kept as the launches of one replay; ``owner``'s
+    ``captures`` and ``capture_ms`` grow."""
+    t0 = time.perf_counter()
+    before = kernels.launch_counts()
+    graph.graph, graph.keep = owner._backend.capture(body, generator,
+                                                     table_rows)
+    after = kernels.launch_counts()
+    graph.launches = {k: n - before[k] for k, n in after.items()
+                      if n != before[k]}
+    kernels.add_launch_counts(graph.launches, -1)
+    owner.captures += 1
+    owner.capture_ms += (time.perf_counter() - t0) * 1e3
+
+
+def seed_from_key_bits(bits) -> int:
+    """The seed a JAX PRNG key's raw uint32 words give the port's step
+    generator: words 0 and 1 as one 64-bit integer, word 0 high (a
+    missing word is 0). ``jax.random.key(n)`` for ``n < 2**32`` holds
+    ``[0, n]``, so it seeds the generator with ``n``."""
+    words = [int(w) & 0xFFFFFFFF
+             for w in np.asarray(bits).reshape(-1)[:2].tolist()]
+    words += [0] * (2 - len(words))
+    return (words[0] << 32) | words[1]
 
 
 class TrainStep:
@@ -347,8 +435,8 @@ class TrainStep:
         return metrics
 
     def _lr(self) -> Optional[torch.Tensor]:
-        """``host_lr`` holding the host-driven scheduler's live value
-        (written outside any graph), else None."""
+        """``host_lr`` holding the rate's live host value (written
+        outside any graph), else None."""
         lr = _host_lr(self.optimizer)
         if lr is None:
             return None
@@ -363,10 +451,8 @@ class TrainStep:
         if not self.compiled:
             return self._step(args, labels, kwargs, lr)
         inputs = (args, labels, kwargs)
-        rate = self.optimizer.learning_rate
         key = (_signature(inputs), GLOBAL_FLAGS.snapshot(),
-               self.model.training, lr is None,
-               rate if isinstance(rate, (int, float)) else None)
+               self.model.training, lr is None)
         graph = self._graphs.get(key)
         if graph is not None:
             return graph.replay(inputs)
@@ -378,24 +464,13 @@ class TrainStep:
         return metrics
 
     def _capture(self, graph: _Graph, lr) -> None:
-        """Records the step over ``graph``'s buffers. The capture runs
-        nothing, so what its wrappers counted is taken back off the
-        counters and kept as the launches of one replay."""
-        t0 = time.perf_counter()
-        before = kernels.launch_counts()
+        """Records the step over ``graph``'s buffers."""
 
         def body() -> None:
             graph.outputs = self._step(*graph.inputs, lr)
 
         # every leaf in at most one table (a flat fused master is one)
-        graph.graph, graph.keep = self._backend.capture(
-            body, self.generator, len(self.params) + 1)
-        after = kernels.launch_counts()
-        graph.launches = {k: n - before[k] for k, n in after.items()
-                          if n != before[k]}
-        kernels.add_launch_counts(graph.launches, -1)
-        self.captures += 1
-        self.capture_ms += (time.perf_counter() - t0) * 1e3
+        _capture(self, graph, body, self.generator, len(self.params) + 1)
 
     def __call__(self, *args, labels=(), **kwargs) -> Dict[str,
                                                            torch.Tensor]:
@@ -405,8 +480,8 @@ class TrainStep:
                                                             torch.Tensor]:
         """K steps over K stacked batches: every tensor of ``args``,
         ``labels`` and ``kwargs`` carries a leading axis K. The steps draw
-        the same dropout streams as K calls, a host-driven scheduler's
-        live value is read once and held for the K steps, and the
+        the same dropout streams as K calls, the rate's live host value
+        (``host_lr``) is read once and held for the K steps, and the
         metrics come back stacked on a leading K axis
         (``metrics["loss"][-1]`` is the latest). Runs the K steps one by
         one, each as a call would (a replay when captured); the JAX
@@ -434,6 +509,57 @@ class TrainStep:
                        if p.requires_grad}
         self._graphs.clear()
 
+    def sync_to_model(self) -> None:
+        """A no-op: the step updates the model's own parameters in place,
+        so the model holds the trained values after every step (the JAX
+        step's donated state has to be written back)."""
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The whole training state as one tree of the live tensors, with
+        the JAX ``TrainStep.state``'s leaf paths (see the module note);
+        ``generator`` is a copy of the generator's state."""
+        tree = {"params": dict(self.model.named_parameters()),
+                "buffers": dict(self.model.named_buffers()),
+                "opt": self.state,
+                "generator": self.generator.get_state()}
+        if self.scaler_state is not None:
+            tree["scaler"] = self.scaler_state
+        return tree
+
+    @torch.no_grad()
+    def set_state_dict(self, state) -> None:
+        """Restores a ``state_dict()`` tree, or ``io.load``'s flat dict of
+        leaf paths (the port's checkpoint or the JAX package's), in place.
+        Every parameter, buffer and optimizer leaf must be there with its
+        shape and dtype (ValueError naming each one that is not, or that
+        the step lacks); the scaler's are optional (a checkpoint without
+        them keeps the step's). The generator takes ``generator``, else
+        is seeded from a JAX ``rng`` key (:func:`seed_from_key_bits`),
+        else keeps its state."""
+        given = {k: v if isinstance(v, torch.Tensor) else
+                 tensor_from_numpy(v) for k, v in _io.flatten(state).items()}
+        gen = given.pop("generator", None)
+        key = given.pop("rng", None)
+        own = _io.flatten({k: v for k, v in self.state_dict().items()
+                           if k != "generator"})
+        missing = [k for k in own
+                   if k not in given and not k.startswith("scaler/")]
+        unexpected = [k for k in given if k not in own]
+        wrong = [f"{k}: {tuple(given[k].shape)} {given[k].dtype} != "
+                 f"{tuple(t.shape)} {t.dtype}" for k, t in own.items()
+                 if k in given and (given[k].shape != t.shape
+                                    or given[k].dtype != t.dtype)]
+        if missing or unexpected or wrong:
+            raise ValueError(f"TrainStep.set_state_dict: missing={missing} "
+                             f"unexpected={unexpected} mismatched={wrong}")
+        for k, t in own.items():
+            if k in given:
+                t.copy_(given[k])
+        if gen is not None:
+            self.generator.set_state(gen.to(torch.uint8).cpu())
+        elif key is not None:
+            self.generator.manual_seed(seed_from_key_bits(key))
+
 
 class EvalStep:
     """Inference step: ``EvalStep(model, metric_fns)(params, buffers,
@@ -441,18 +567,44 @@ class EvalStep:
     returns ``(outputs, {name: fn(outputs, *labels)})``. ``params`` /
     ``buffers`` (name -> tensor) replace the model's own for the call
     (``torch.func.functional_call``); None uses the model's. The model's
-    training mode is restored after."""
+    training mode is restored after.
+
+    ``compiled`` (None: the card captures, the CPU runs eagerly;
+    ``compiled=True`` on the CPU raises) captures the forward and the
+    metric functions as one CUDA graph per signature: the inputs' shapes,
+    dtypes and other values, the ``params``/``buffers`` dicts' (copied
+    into the graph's static buffers at each call) or None, the addresses
+    of the model's own parameters and buffers (read where they are, so
+    weights loaded in place are seen by the next replay, and replaced
+    ones make a new signature), and every flag's value. The first call of
+    a signature runs eagerly (the warm-up), under a check that no metric
+    function synchronises with the host: one that does raises, naming
+    it, as a capture cannot record it; nothing falls back to eager.
+    Outputs come back as clones; the graphs are dropped with the step."""
 
     def __init__(self, model: nn.Module,
-                 metric_fns: Optional[Dict[str, Callable]] = None) -> None:
+                 metric_fns: Optional[Dict[str, Callable]] = None,
+                 compiled: Optional[bool] = None) -> None:
         self.model = model
         self.metric_fns = dict(metric_fns or {})
+        first = next(iter(list(model.parameters())
+                          + list(model.buffers())), None)
+        self.device = torch.device("cpu") if first is None else first.device
+        on_card = self.device.type == "cuda"
+        if compiled and not on_card:
+            raise ValueError(f"EvalStep(compiled=True) captures a CUDA "
+                             f"graph, but the model is on {self.device}")
+        self.compiled = on_card if compiled is None else bool(compiled)
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._backend = _CudaGraphs(self.device) if self.compiled else None
+        self.captures = 0
+        self.capture_ms = 0.0
 
     @torch.no_grad()
-    def __call__(self, params: Optional[Dict[str, torch.Tensor]] = None,
-                 buffers: Optional[Dict[str, torch.Tensor]] = None,
-                 *args: Any, labels=()):
-        labels = _labels(labels)
+    def _step(self, params, buffers, args, labels, check_sync=False):
+        """The forward and the metrics: what the eager step runs and the
+        graph records; ``check_sync`` runs each metric under the
+        backend's host-sync check."""
         was_training = self.model.training
         self.model.eval()
         try:
@@ -464,6 +616,36 @@ class EvalStep:
         finally:
             if was_training:
                 self.model.train()
-        metrics = {name: fn(out, *labels)
-                   for name, fn in self.metric_fns.items()}
+        metrics = {}
+        for name, fn in self.metric_fns.items():
+            check = self._backend.host_sync_check(f"EvalStep metric "
+                                                  f"{name!r}") \
+                if check_sync else contextlib.nullcontext()
+            with check:
+                metrics[name] = fn(out, *labels)
         return out, metrics
+
+    def __call__(self, params: Optional[Dict[str, torch.Tensor]] = None,
+                 buffers: Optional[Dict[str, torch.Tensor]] = None,
+                 *args: Any, labels=()):
+        labels = _labels(labels)
+        if not self.compiled:
+            return self._step(params, buffers, args, labels)
+        inputs = (params, buffers, args, labels)
+        own = tuple(t.data_ptr() for t in list(self.model.parameters())
+                    + list(self.model.buffers()))
+        key = (_signature(inputs), own, GLOBAL_FLAGS.snapshot())
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph.replay(inputs)
+        result = self._backend.warm_up(
+            lambda: self._step(params, buffers, args, labels,
+                               check_sync=True))
+        graph = _Graph(inputs)
+
+        def body() -> None:
+            graph.outputs = self._step(*graph.inputs)
+
+        _capture(self, graph, body)
+        self._graphs[key] = graph
+        return result

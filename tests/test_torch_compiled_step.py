@@ -18,11 +18,18 @@ cannot run here, so these tests hold what the capture depends on:
   schedulers build their tables once, the fused Adam kernel's leaf
   table is built once per set of pointers (and inside a capture made
   empty and filled after it), and a replay adds its graph's launches to
-  the counters.
+  the counters;
+- (e) a new rate (``optimizer.set_lr``) between two replays takes
+  effect at the next replay of the same graph, through ``host_lr``, and
+  a restored state (``set_state_dict``) is what the next replay trains;
+- (f) ``EvalStep``: eager against the JAX ``EvalStep``, and its captured
+  body (one graph per signature of the inputs and the parameter source)
+  against the eager forward, bit for bit.
 
 A small BERT (2 layers, hidden 64, 2 heads, vocab 512, seq 32).
 """
 
+import contextlib
 import gc
 import weakref
 
@@ -38,9 +45,11 @@ from paddle_tpu.models import BertConfig as JaxBertConfig  # noqa: E402
 from paddle_tpu.models import BertForPretraining as JaxBert  # noqa: E402
 from paddle_tpu.models import pretraining_loss as jax_pretraining_loss  # noqa: E402,E501
 from paddle_tpu.optimizer import AdamW as JaxAdamW  # noqa: E402
+from paddle_tpu.static import EvalStep as JaxEvalStep  # noqa: E402
 from paddle_tpu.static import TrainStep as JaxTrainStep  # noqa: E402
 
 from paddle_tpu_torch import amp, kernels, set_flags  # noqa: E402
+from paddle_tpu_torch import io as port_io  # noqa: E402
 from paddle_tpu_torch import static as port_static  # noqa: E402
 from paddle_tpu_torch.convert import load_jax_params  # noqa: E402
 from paddle_tpu_torch.kernels import fused_adam  # noqa: E402
@@ -48,7 +57,7 @@ from paddle_tpu_torch.models import (BertConfig,  # noqa: E402
                                      BertForPretraining, pretraining_loss)
 from paddle_tpu_torch.optimizer import AdamW  # noqa: E402
 from paddle_tpu_torch.optimizer import lr as port_lr  # noqa: E402
-from paddle_tpu_torch.static import TrainStep  # noqa: E402
+from paddle_tpu_torch.static import EvalStep, TrainStep  # noqa: E402
 
 SMALL = dict(vocab_size=512, hidden_size=64, num_hidden_layers=2,
              num_attention_heads=2, intermediate_size=128,
@@ -116,6 +125,10 @@ class EagerGraphs:
         kernels.add_launch_counts(self.count)
         self.graphs.append(_Replayer(fn))
         return self.graphs[-1], []
+
+    def host_sync_check(self, what):
+        # the card's check uses CUDA's sync debug mode; the CPU has none
+        return contextlib.nullcontext()
 
 
 def _compiled(step, backend=None):
@@ -522,3 +535,188 @@ def test_the_capture_takes_back_what_it_counted():
             assert counts["flash_attention_fwd"] == 2 * n
     finally:
         kernels.reset_launch_counts()
+
+
+# -- (e) a new rate, a restored state -----------------------------------
+
+def test_set_lr_between_replays_takes_effect_at_the_next_call():
+    eager_model, cap_model = _twins()
+    eager = TrainStep(eager_model, AdamW(1e-3), pretraining_loss, seed=2)
+    cap = _compiled(TrainStep(cap_model, AdamW(1e-3), pretraining_loss,
+                              seed=2))
+    seen = []
+    real = cap.optimizer.apply_gradients
+
+    def spy(*a, lr_override=None):
+        seen.append(lr_override)
+        return real(*a, lr_override=lr_override)
+    cap.optimizer.apply_gradients = spy
+    for i in range(6):
+        if i == 3:
+            for s in (eager, cap):
+                s.optimizer.set_lr(2.5e-4)
+        args, labels = _port_batch(i)
+        want = eager(*args, labels=labels)
+        got = cap(*args, labels=labels)
+        assert torch.equal(got["loss"], want["loss"]), i
+        assert float(cap.host_lr) == np.float32(0.001 if i < 3 else 2.5e-4)
+    _assert_same_params(eager_model, cap_model)
+    # the update reads the rate from host_lr, so the one graph took both
+    assert seen and all(t is cap.host_lr for t in seen)
+    assert cap.captures == 1 and len(cap._graphs) == 1
+    assert cap.optimizer.get_lr() == 2.5e-4
+
+
+def test_a_restored_state_is_what_the_next_replay_trains():
+    eager_model, cap_model = _twins()
+    eager = TrainStep(eager_model, AdamW(1e-3, fused_state=True),
+                      pretraining_loss, seed=4)
+    cap = _compiled(TrainStep(cap_model, AdamW(1e-3, fused_state=True),
+                              pretraining_loss, seed=4))
+    for i in range(2):
+        args, labels = _port_batch(i)
+        eager(*args, labels=labels)
+        cap(*args, labels=labels)
+    saved = {k: v.clone() for k, v in
+             port_io.flatten(eager.state_dict()).items()}
+    for i in range(2, 4):  # the captured step trains on, then goes back
+        args, labels = _port_batch(i)
+        cap(*args, labels=labels)
+    cap.set_state_dict(saved)
+    assert cap.captures == 1  # the graph stays: every write was in place
+    for i in range(2, 5):
+        args, labels = _port_batch(i)
+        want = eager(*args, labels=labels)
+        got = cap(*args, labels=labels)
+        assert torch.equal(got["loss"], want["loss"]), i
+    _assert_same_params(eager_model, cap_model)
+    assert torch.equal(cap.generator.get_state(),
+                       eager.generator.get_state())
+
+
+# -- (f) EvalStep ---------------------------------------------------------
+
+def _eval_inputs(seed=9, t=T):
+    (ids, types, mask, pos), (mlm, nsp) = _port_batch(seed, t)
+    return (ids, types, mask, pos), (nsp,)
+
+
+EVAL_METRICS = {"nsp_acc": lambda out, nsp: (out[1].argmax(-1) == nsp)
+                .float().mean(),
+                "mlm_max": lambda out, nsp: out[0].amax()}
+
+
+def test_eager_eval_step_matches_jax():
+    pt.seed(0)
+    jm = JaxBert(JaxBertConfig(**SMALL))
+    pm = BertForPretraining(BertConfig(**SMALL), device="cpu")
+    load_jax_params(pm, {k: np.asarray(v)
+                         for k, v in jm.param_dict().items()})
+    ids, types, mask, pos, mlm, nsp = _batch(seed=9)
+    jmetrics = {"nsp_acc": lambda out, n: (out[1].argmax(-1) == n)
+                .astype(jnp.float32).mean(),
+                "mlm_max": lambda out, n: out[0].max()}
+    jout, jmet = JaxEvalStep(jm, jmetrics)(
+        jm.param_dict(), jm.buffer_dict(), jnp.asarray(ids),
+        jnp.asarray(types), jnp.asarray(mask), jnp.asarray(pos),
+        labels=(jnp.asarray(nsp),))
+    pm.train()
+    step = EvalStep(pm, EVAL_METRICS)
+    assert not step.compiled  # the CPU runs eagerly
+    pout, pmet = step(None, None, _t(ids), _t(types), _t(mask), _t(pos),
+                      labels=(_t(nsp),))
+    assert pm.training  # restored
+    for a, e in zip(pout, jout):
+        assert not a.requires_grad
+        assert np.max(np.abs(a.numpy() - np.asarray(e))) <= 2e-5
+    assert float(pmet["nsp_acc"]) == float(jmet["nsp_acc"])
+    assert abs(float(pmet["mlm_max"]) - float(jmet["mlm_max"])) <= 2e-5
+
+
+def test_eval_step_compiled_true_on_the_cpu_raises():
+    with pytest.raises(ValueError, match="compiled=True"):
+        EvalStep(_model(SMALL), compiled=True)
+
+
+def _compiled_eval(model, backend=None):
+    step = EvalStep(model, EVAL_METRICS)
+    step.compiled = True
+    step._backend = backend or EagerGraphs()
+    return step
+
+
+def test_captured_eval_body_equals_the_eager_forward_bitwise():
+    model = _model(SMALL)
+    model.train()
+    eager, backend = EvalStep(model, EVAL_METRICS), EagerGraphs()
+    cap = _compiled_eval(model, backend)
+    outs = []
+    for seed in range(4):
+        args, labels = _eval_inputs(seed)
+        want = eager(None, None, *args, labels=labels)
+        got = cap(None, None, *args, labels=labels)
+        for a, b in zip(got[0], want[0]):
+            assert torch.equal(a, b), seed
+        for k in EVAL_METRICS:
+            assert torch.equal(got[1][k], want[1][k]), (seed, k)
+        outs.append((got[0][0], got[0][0].clone()))
+        assert model.training
+    assert cap.captures == 1 and backend.graphs[0].replays == 3
+    for kept, copy in outs:  # clones: a later replay overwrites nothing
+        assert torch.equal(kept, copy)
+    # weights loaded in place: the next replay reads them
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.5)
+    args, labels = _eval_inputs(7)
+    want = eager(None, None, *args, labels=labels)
+    got = cap(None, None, *args, labels=labels)
+    assert torch.equal(got[0][0], want[0][0]) and cap.captures == 1
+
+
+def test_eval_captures_per_signature_and_parameter_source():
+    model = _model(SMALL)
+    eager, cap = EvalStep(model, EVAL_METRICS), _compiled_eval(model)
+    args, labels = _eval_inputs(1)
+    cap(None, None, *args, labels=labels)
+    cap(None, None, *args, labels=labels)
+    assert cap.captures == 1
+    args16, labels16 = _eval_inputs(2, t=16)  # another shape
+    cap(None, None, *args16, labels=labels16)
+    assert cap.captures == 2
+    # a params dict: copied into the graph's static buffers at each call
+    halves = [{n: p.detach() * s for n, p in model.named_parameters()}
+              for s in (0.5, 0.25)]
+    for params in halves + halves:
+        want = eager(params, None, *args, labels=labels)
+        got = cap(params, None, *args, labels=labels)
+        assert torch.equal(got[0][0], want[0][0])
+    assert cap.captures == 3
+    # a parameter object replaced on the model: a new signature
+    model.cls.decoder_bias = torch.nn.Parameter(
+        model.cls.decoder_bias.detach() + 1.0)
+    want = eager(None, None, *args, labels=labels)
+    got = cap(None, None, *args, labels=labels)
+    assert torch.equal(got[0][0], want[0][0]) and cap.captures == 4
+    set_flags({"flash_attention_min_seq": 16})
+    try:  # another route
+        cap(None, None, *args, labels=labels)
+    finally:
+        set_flags({"flash_attention_min_seq": 8192})
+    assert cap.captures == 5
+
+
+def test_a_dropped_eval_step_frees_its_graphs_at_once():
+    gc.disable()
+    try:
+        step = _compiled_eval(_model(SMALL), _NoOpGraphs())
+        step._backend.host_sync_check = lambda what: \
+            contextlib.nullcontext()
+        args, labels = _eval_inputs(1)
+        step(None, None, *args, labels=labels)
+        graph = weakref.ref(next(iter(step._graphs.values())))
+        alive = weakref.ref(step)
+        del step
+        assert alive() is None and graph() is None
+    finally:
+        gc.enable()

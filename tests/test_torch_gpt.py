@@ -137,7 +137,8 @@ def test_model_refuses_to_run_on_cpu_unasked():
 
 @pytest.mark.parametrize("first", ["kernels", "nn", "serving_llm",
                                    "models", "static", "amp", "optimizer",
-                                   "clip"])
+                                   "clip", "io", "data", "preemption",
+                                   "core.arena"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -149,7 +150,12 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.amp import GradScaler; "
             "from paddle_tpu_torch.optimizer.lr import LinearWarmup; "
             "from paddle_tpu_torch.regularizer import L2Decay; "
-            "from paddle_tpu_torch.core.dtype import convert_dtype")
+            "from paddle_tpu_torch.core.dtype import convert_dtype; "
+            "from paddle_tpu_torch.io import AsyncCheckpointer; "
+            "from paddle_tpu_torch.data import DataLoader, DeviceLoader; "
+            "from paddle_tpu_torch.data.worker import MultiprocessIter; "
+            "from paddle_tpu_torch.preemption import guard; "
+            "from paddle_tpu_torch.core.arena import HostStagingArena")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -187,5 +193,8 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/amp/__init__.py", "paddle_tpu_torch/clip.py",
         "paddle_tpu_torch/regularizer.py",
         "paddle_tpu_torch/optimizer/lr.py",
-        "paddle_tpu_torch/core/dtype.py", "paddle_tpu_torch/nn/layer.py"}
+        "paddle_tpu_torch/core/dtype.py", "paddle_tpu_torch/nn/layer.py",
+        "paddle_tpu_torch/io/__init__.py", "paddle_tpu_torch/data/__init__.py",
+        "paddle_tpu_torch/data/worker.py", "paddle_tpu_torch/preemption.py",
+        "paddle_tpu_torch/core/arena.py", "paddle_tpu_torch/convert.py"}
     assert banned == []

@@ -469,3 +469,136 @@ def test_fused_adam_route_updates_the_fp32_masters(monkeypatch, fused_state,
     masters = [base[1]["fused"]["master"]] if fused_state else \
         [base[1]["slots"][k]["master"] for k in SHAPES]
     assert all(m.dtype == torch.float32 for m in masters)
+
+
+# -- C4: the public names the JAX objects have ---------------------------
+
+@pytest.mark.parametrize("make", ["float", "scheduler"])
+def test_get_lr_matches_jax(make):
+    if make == "float":
+        js, ps = JaxAdamW(3e-4), AdamW(3e-4)
+    else:
+        js = JaxAdam(jax_lr.StepDecay(0.1, step_size=2, gamma=0.5))
+        ps = Adam(port_lr.StepDecay(0.1, step_size=2, gamma=0.5))
+    for _ in range(5):
+        assert isinstance(ps.get_lr(), float)
+        assert ps.get_lr() == pytest.approx(js.get_lr(), rel=TOL)
+        if make == "scheduler":
+            js.learning_rate.step()
+            ps.learning_rate.step()
+
+
+def test_set_lr_matches_jax():
+    js, ps = JaxAdamW(jax_lr.CosineAnnealingDecay(0.1, T_max=4)), \
+        AdamW(port_lr.CosineAnnealingDecay(0.1, T_max=4))
+    js.set_lr(2.5e-3)
+    ps.set_lr(2.5e-3)
+    assert ps.learning_rate == js.learning_rate == 2.5e-3
+    assert ps.get_lr() == js.get_lr() == 2.5e-3
+    # the update uses the new rate, as JAX's does
+    out = _run_both(lambda: _with_lr(JaxAdam(0.5), 1e-2),
+                    lambda: _with_lr(Adam(0.5), 1e-2), "float32", steps=2)
+    _compare(*out, "float32")
+
+
+def _with_lr(opt, value):
+    opt.set_lr(value)
+    return opt
+
+
+def test_optimizer_state_dict_matches_jax():
+    js, ps = JaxAdamW(1e-3), AdamW(1e-3)
+    assert ps.state_dict() == js.state_dict() == {}
+    state = {"step": 4, "note": "kept"}
+    js.set_state_dict(state)
+    ps.set_state_dict(state)
+    assert ps.state_dict() == js.state_dict() == state
+
+
+@pytest.mark.parametrize("name", ["noam", "step", "cosine", "warmup_sched",
+                                  "plateau"])
+def test_scheduler_state_dict_matches_jax(name):
+    js, ps = _schedulers(jax_lr)[name], _schedulers(port_lr)[name]
+    for _ in range(3):
+        js.step()
+        ps.step()
+    assert ps.state_dict() == js.state_dict() == {
+        "last_epoch": js.last_epoch}
+    # restored into fresh schedulers, both read the same rate there
+    js2, ps2 = _schedulers(jax_lr)[name], _schedulers(port_lr)[name]
+    js2.set_state_dict({"last_epoch": 7})
+    ps2.set_state_dict(js2.state_dict())
+    assert ps2.last_epoch == js2.last_epoch == 7
+    assert ps2.get_lr() == pytest.approx(js2.get_lr(), rel=TOL)
+
+
+def test_lr_scheduler_is_reexported_as_in_jax():
+    from paddle_tpu import optimizer as jax_opt
+    from paddle_tpu_torch import optimizer as port_opt
+    assert port_opt.LRScheduler is port_lr.LRScheduler
+    assert jax_opt.LRScheduler is jax_lr.LRScheduler
+    assert isinstance(_schedulers(port_lr)["step"], port_opt.LRScheduler)
+
+
+def test_adam_optimizer_alias_matches_jax():
+    from paddle_tpu import optimizer as jax_opt
+    from paddle_tpu_torch import optimizer as port_opt
+    assert port_opt.AdamOptimizer is port_opt.Adam
+    assert jax_opt.AdamOptimizer is jax_opt.Adam
+    out = _run_both(lambda: jax_opt.AdamOptimizer(1e-2),
+                    lambda: port_opt.AdamOptimizer(1e-2), "float32")
+    _compare(*out, "float32")
+
+
+@pytest.mark.parametrize("kind", ["L1", "L2"])
+def test_regularizer_aliases_match_jax(kind):
+    cls = getattr(regularizer, f"{kind}DecayRegularizer")
+    jcls = getattr(jax_reg, f"{kind}DecayRegularizer")
+    assert cls is getattr(regularizer, f"{kind}Decay")
+    rng = np.random.default_rng(3)
+    p, g = (rng.standard_normal((4, 5)).astype(np.float32)
+            for _ in range(2))
+    got = cls(0.01)(torch.from_numpy(p), torch.from_numpy(g))
+    want = np.asarray(jcls(0.01)(jnp.asarray(p), jnp.asarray(g)))
+    assert np.max(np.abs(got.numpy() - want)) <= TOL
+
+
+def test_sync_to_model_matches_jax():
+    # after sync_to_model the model holds the trained parameters in both
+    # packages (a no-op in the port: it trains the model's own tensors)
+    import paddle_tpu as pt
+    from paddle_tpu.models import BertConfig as JaxBertConfig
+    from paddle_tpu.models import BertForPretraining as JaxBert
+    from paddle_tpu.models import pretraining_loss as jax_loss
+    from paddle_tpu.static import TrainStep as JaxTrainStep
+
+    from paddle_tpu_torch.convert import load_jax_params
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         pretraining_loss)
+    from paddle_tpu_torch.static import TrainStep
+    small = dict(vocab_size=128, hidden_size=32, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=64,
+                 hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 max_position_embeddings=32)
+    pt.seed(0)
+    jm = JaxBert(JaxBertConfig(**small))
+    pm = BertForPretraining(BertConfig(**small), device="cpu")
+    load_jax_params(pm, {k: np.asarray(v)
+                         for k, v in jm.param_dict().items()})
+    jstep = JaxTrainStep(jm, JaxAdamW(1e-3), lambda o, a, b: jax_loss(o, a,
+                                                                       b))
+    pstep = TrainStep(pm, AdamW(1e-3), pretraining_loss)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 128, (2, 16))
+    mlm, nsp = rng.integers(0, 128, (2, 16)), rng.integers(0, 2, (2,))
+    jstep(jnp.asarray(ids), labels=(jnp.asarray(mlm), jnp.asarray(nsp)))
+    pstep(torch.from_numpy(ids), labels=(torch.from_numpy(mlm),
+                                         torch.from_numpy(nsp)))
+    assert pstep.sync_to_model() is None
+    jstep.sync_to_model()
+    own = dict(pm.named_parameters())
+    for name, v in jm.param_dict().items():
+        if name.endswith("k_proj.bias"):
+            continue  # an exactly-zero gradient: both step on fp32 noise
+        assert np.max(np.abs(own[name].detach().numpy()
+                             - np.asarray(v))) <= 1e-5, name

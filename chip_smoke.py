@@ -12,8 +12,9 @@ in order:
 1. requires a CUDA device (exits 2 otherwise), turns TF32 off and prints
    the card's name and power limit as ``nvidia-smi`` reports them;
 2. builds every CUDA kernel from ``paddle_tpu_torch/csrc`` with ``nvcc``
-   for ``sm_90a`` (one process per source, all at once) and prints the
-   build time and ptxas report;
+   for ``sm_90a`` (one process per source, all at once), and beside them
+   the serving transport's library from the repository's ``csrc/*.cc``
+   with ``g++``, and prints the build times and ptxas report;
 3. holds each kernel against its plain PyTorch version on the card at
    the shapes its paths give it, within ``TOL`` (layer norm at the
    serving shapes and at training's [4096, 768] with eps 1e-5 and
@@ -126,6 +127,22 @@ in order:
    tokens and an accept rate of 1.0; then serves those four at
    temperature 0.8, plain and speculative, and requires the same sampled
    tokens and an accept rate of 1.0 again;
+6b. serves the same model over TCP: two ``inference.Server`` backends
+   (an ``LLMEngine`` each, self-draft, 1024-block pools) behind a
+   ``Router`` with probes on (``WIRE``). The 16 requests go through the
+   router from 4 client threads with ``Client.generate_stream`` and are
+   held against phase 6's in-process tokens; the router's added latency
+   is the same 4 requests one at a time direct to a backend and then
+   through it; 4 speculative streams (k = 3) are held against the plain
+   tokens with every draft token accepted; 4 streams at temperature 0.8,
+   placed on one backend by prefix affinity, lose it after
+   ``WIRE_FAILOVER_AFTER`` tokens (the backend is stopped) and must each
+   equal an uninterrupted in-process run bit for bit (4 failovers).
+   Around each of the three runs the launch counts must equal the
+   engines' forwards times 25 LN and 12 paged (or verify) launches;
+   any negative terminal frame, short stream, port left bound or thread
+   left running fails the run. Client-side tokens/s, TTFT p50 and
+   inter-chunk p50 are logged beside the in-process numbers;
 7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
@@ -147,6 +164,8 @@ import subprocess
 import sys
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 
@@ -221,6 +240,11 @@ BF16_MASTER_MAX_LR = 2.05
 # and BERT training at seq 512 (split backward) and seq 128 (fused)
 PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                 "speculative": ("layer_norm", "paged_attention_multiquery"),
+                # the same engine paths served over the wire (phase 6b)
+                "wire": ("layer_norm", "paged_attention"),
+                "wire_speculative": ("layer_norm",
+                                     "paged_attention_multiquery"),
+                "wire_failover": ("layer_norm", "paged_attention"),
                 "train_seq512": ("layer_norm", "flash_attention_fwd",
                                  "flash_attention_bwd_dq",
                                  "flash_attention_bwd_dkv"),
@@ -407,6 +431,13 @@ REPORT: dict = {}
 def log(msg: str) -> None:
     print(msg, flush=True)
     REPORT.setdefault("log", []).append(msg)
+
+
+def timed(fn) -> float:
+    """Seconds ``fn()`` takes."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def bound(nbytes: float, flops: float, peak: float = PEAK_FP32_FLOPS):
@@ -3044,7 +3075,9 @@ def dense_reference(torch, model, prompts, max_new: int):
 def run_serving(torch, config: dict, device: str, n_req: int, lo: int,
                 hi: int, max_new: int, pool_blocks: int, n_spec: int):
     """Phases 4-5 (any device, so it can be rehearsed on the CPU at a
-    small config). Returns (report, launch counts of each engine run)."""
+    small config). Returns (report, launch counts of each engine run,
+    what ``run_wire`` serves again: the model, the prompts, the plain
+    run's tokens and stats)."""
     from paddle_tpu_torch import kernels, set_flags
     from paddle_tpu_torch.serving_llm import LLMEngine
     model = build_model(torch, config, device)
@@ -3120,7 +3153,9 @@ def run_serving(torch, config: dict, device: str, n_req: int, lo: int,
             f"layer_norm {prof['layer_norm_ms_per_step']} "
             f"({prof['layer_norm_launches_per_step']} launches) of "
             f"{prof['device_ms_per_step']}")
-    return report, counts
+    served = {"model": model, "prompts": prompts, "tokens": tokens,
+              "stats": stats}
+    return report, counts, served
 
 
 def profile_decode(torch, model, prompts, pool_blocks: int,
@@ -3163,6 +3198,397 @@ def profile_decode(torch, model, prompts, pool_blocks: int,
             if rows else None
     out["top_ms_per_step_launches_name"] = rows[:12]
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: GPT-2-small served over the wire: clients -> Router -> two
+# inference.Server backends -> LLMStreamBridge -> LLMEngine -> kernels
+# ---------------------------------------------------------------------------
+
+# the wire runs: the 16 greedy requests from 4 client threads; the router's
+# added latency (4 requests direct to a backend, then through the router);
+# 4 speculative streams; then 4 sampled streams placed on one backend by
+# prefix affinity (a shared 64-token prefix), whose backend is stopped once
+# each has WIRE_FAILOVER_AFTER tokens
+WIRE = dict(clients=4, latency_probes=4, failover_streams=4,
+            failover_prefix=64, failover_tail=32, failover_max_new=64,
+            probe_interval_s=0.5)
+WIRE_FAILOVER_AFTER = 4
+
+
+class ForwardCounter:
+    """Counts the engines' model forwards by kind while a wire run is
+    served, from the engine method that made each: a prefill chunk, a
+    decode step (12 paged launches at 12 layers), a verify forward (12
+    verify launches, or 12 paged ones when every window is one token),
+    a draft proposal (the self-draft is the model itself). Every forward
+    runs 2 LayerNorms a layer and the final one. Installed as an
+    instance attribute over ``model.forward_with_attn``; the serving
+    threads call it concurrently."""
+
+    def __init__(self, model):
+        import threading
+        self.model = model
+        self.layers = len(model.blocks)
+        self._inner = model.forward_with_attn
+        self._lock = threading.Lock()
+        self.reset()
+        model.forward_with_attn = self._forward
+
+    def _forward(self, ids, positions, attn_fn):
+        kind = sys._getframe(1).f_code.co_name
+        if kind == "_decode_speculative" and ids.shape[1] == 1:
+            kind = "_decode"  # a verify of one-token windows: single-query
+        t0 = time.perf_counter()
+        out = self._inner(ids, positions, attn_fn)
+        dt = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            self.calls[kind] = self.calls.get(kind, 0) + 1
+            self.host_ms[kind] = self.host_ms.get(kind, 0.0) + dt
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self.calls, self.host_ms = {}, {}
+
+    def host_ms_mean(self) -> dict:
+        """Mean host ms a forward of each kind (the forward's enqueue:
+        the device runs behind it), GIL waits included."""
+        return {k: self.host_ms[k] / n for k, n in self.calls.items()}
+
+    def expected_launches(self) -> dict:
+        c = self.calls
+        return {"layer_norm": (2 * self.layers + 1) * sum(c.values()),
+                "paged_attention": self.layers * c.get("_decode", 0),
+                "paged_attention_multiquery":
+                    self.layers * c.get("_decode_speculative", 0)}
+
+    def restore(self) -> None:
+        del self.model.forward_with_attn
+
+
+class WireStreams:
+    """Streams through one port ``Client`` each, timed on the client:
+    TTFT from the first read (the frame goes out there) to the first
+    chunk, and every gap between two chunks. A negative terminal frame
+    raises in ``Client.generate_stream``; it is kept and fails the run."""
+
+    def __init__(self):
+        import threading
+        self.tokens, self.ttft_ms, self.gaps_ms = {}, [], []
+        self.errors = []
+        self._lock = threading.Lock()
+
+    def run(self, port: int, i: int, prompt, **kw) -> None:
+        from paddle_tpu_torch.inference import Client
+        toks, gaps = [], []
+        try:
+            with Client(port=port, timeout_s=120.0,
+                        deadline_s=120.0) as cli:
+                t_prev = t0 = time.perf_counter()
+                for ch in cli.generate_stream(prompt, **kw):
+                    now = time.perf_counter()
+                    if not toks:
+                        ttft = (now - t0) * 1e3
+                    else:
+                        gaps.append((now - t_prev) * 1e3)
+                    t_prev = now
+                    toks.extend(int(x) for x in ch.reshape(-1))
+        except Exception as e:  # noqa: BLE001 — recorded, fails the run
+            with self._lock:
+                self.errors.append(f"stream {i}: {type(e).__name__}: {e}")
+            return
+        with self._lock:
+            self.tokens[i] = toks
+            self.ttft_ms.append(ttft)
+            self.gaps_ms.extend(gaps)
+
+    def check(self, what: str, n: int, max_new: int) -> list:
+        if self.errors:
+            raise AssertionError(f"{what}: {self.errors}")
+        short = [i for i in range(n) if len(self.tokens.get(i, ())) != max_new]
+        if short:
+            raise AssertionError(f"{what}: streams {short} are short")
+        return [self.tokens[i] for i in range(n)]
+
+    def stats(self, wall_s: Optional[float] = None) -> dict:
+        n_tok = sum(len(t) for t in self.tokens.values())
+        out = {"streams": len(self.tokens), "tokens": n_tok,
+               "ttft_ms_p50": float(np.median(self.ttft_ms)),
+               "inter_chunk_ms_p50": float(np.median(self.gaps_ms))}
+        if wall_s is not None:
+            out.update(wall_s=wall_s, tokens_per_s=n_tok / wall_s)
+        return out
+
+
+def serve_threads(streams: WireStreams, port: int, prompts, clients: int,
+                  **kw) -> float:
+    """``prompts`` through ``clients`` threads (thread k takes prompts
+    k, k + clients, ...), request i sampled with seed SEED + i. Returns
+    the wall seconds."""
+    import threading
+
+    def worker(k):
+        for i in range(k, len(prompts), clients):
+            streams.run(port, i, prompts[i], seed=SEED + i, **kw)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(k,))
+               for k in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        if th.is_alive():
+            raise AssertionError("a wire client thread did not finish")
+    return time.perf_counter() - t0
+
+
+def wire_counted(torch, name: str, counter, engines, fn, counts: dict):
+    """Run ``fn`` with every launch count and the forward counts set to 0
+    just before it and read just after; on the card each kernel of the
+    run's path must have launched, exactly as often as the engines'
+    forwards imply. The pools must drain clean."""
+    from paddle_tpu_torch import kernels
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    counter.reset()
+    kernels.reset_launch_counts()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    counts[name] = kernels.launch_counts()
+    want = counter.expected_launches()
+    REPORT.setdefault("wire_forwards", {})[name] = {
+        "calls": dict(counter.calls),
+        "host_ms_mean": counter.host_ms_mean()}
+    for eng in engines:
+        if eng.allocator.num_used != 0:
+            raise AssertionError(f"{name}: {eng.allocator.num_used} KV "
+                                 f"blocks leaked")
+        eng.allocator.check()
+    if engines[0].device.type == "cuda":
+        for k in PATH_KERNELS[name]:
+            if counts[name][k] <= 0:
+                raise AssertionError(f"{name}: {k} never launched")
+        for k, n in want.items():
+            if counts[name][k] != n:
+                raise AssertionError(
+                    f"{name}: {counts[name][k]} {k} launches, the engines' "
+                    f"forwards {dict(counter.calls)} imply {n}")
+    log(f"{name}: launches {json.dumps({k: counts[name][k] for k in want})}"
+        f" from forwards {json.dumps(counter.calls)}, host ms a forward "
+        f"{json.dumps(counter.host_ms_mean())}")
+    return out
+
+
+def failover_prompts(vocab: int, n: int, prefix: int, tail: int):
+    """``n`` prompts sharing one ``prefix``-token start (whole KV blocks,
+    so prefix affinity places them together), each with its own tail."""
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, vocab, size=prefix).tolist()
+    return [shared + rng.integers(0, vocab, size=tail).tolist()
+            for _ in range(n)]
+
+
+def stop_holder(router, servers, n: int) -> int:
+    """Stop the one backend holding all ``n`` open streams. Returns its
+    index."""
+    snap = router.snapshot()
+    busy = [b for b in snap["backends"] if b["streams_active"] > 0]
+    if len(busy) != 1 or busy[0]["streams_active"] != n:
+        raise AssertionError(f"failover: the {n} streams are not on one "
+                             f"backend: {snap}")
+    port = int(busy[0]["name"].rsplit(":", 1)[1])
+    idx = next(k for k, s in enumerate(servers) if s.port == port)
+    servers[idx].stop()
+    return idx
+
+
+def run_wire(torch, served: dict, max_new: int, pool_blocks: int,
+             n_spec: int, clients: int, latency_probes: int,
+             failover_streams: int, failover_prefix: int,
+             failover_tail: int, failover_max_new: int,
+             probe_interval_s: float):
+    """Phase 6b (any device, so it can be rehearsed on the CPU). Returns
+    (report, launch counts of each wire run)."""
+    import socket
+    import threading
+    from paddle_tpu_torch import set_flags
+    from paddle_tpu_torch.inference import Client, Server
+    from paddle_tpu_torch.serving_llm import LLMEngine, Router
+    model, prompts = served["model"], served["prompts"]
+    device = model.device
+    vocab = model.config.vocab_size
+    threads_before = set(threading.enumerate())
+    counts, report = {}, {}
+
+    # the uninterrupted in-process runs the failover streams are held to
+    fo_prompts = failover_prompts(vocab, failover_streams, failover_prefix,
+                                  failover_tail)
+    ref_eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                        max_decode_batch=16, device=device)
+    fo_ref, _ = serve(torch, ref_eng, fo_prompts, failover_max_new,
+                      temperature=TEMPERATURE)
+    del ref_eng
+
+    counter = ForwardCounter(model)
+    engines = [LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                         max_decode_batch=16, draft_model=model,
+                         device=device) for _ in range(2)]
+    servers = [Server(None, llm_engine=e) for e in engines]
+    router = Router([("127.0.0.1", s.port) for s in servers],
+                    probe_interval_s=probe_interval_s).start()
+    ports = [router.port] + [s.port for s in servers]
+    try:
+        # greedy: the 16 requests from `clients` threads, held against
+        # the in-process engine's tokens
+        wire = WireStreams()
+        wall = wire_counted(
+            torch, "wire", counter, engines,
+            lambda: serve_threads(wire, router.port, prompts, clients,
+                                  max_new_tokens=max_new), counts)
+        tokens = wire.check("wire", len(prompts), max_new)
+        report["wire"] = wire.stats(wall)
+        report["wire_near_ties"] = hold_against(
+            torch, model, prompts, tokens, served["tokens"],
+            "wire vs in-process engine")
+
+        # the router's added latency: the same requests one at a time,
+        # straight to a backend and then through the router
+        lat = {}
+        for via, port in (("direct", servers[0].port),
+                          ("router", router.port)):
+            probe = WireStreams()
+            for i in range(latency_probes):
+                probe.run(port, i, prompts[i], max_new_tokens=max_new)
+            hold_against(torch, model, prompts[:latency_probes],
+                         probe.check(via, latency_probes, max_new),
+                         served["tokens"][:latency_probes], f"{via} probe")
+            lat[via] = probe.stats()
+        report["router_added_ms"] = {
+            "ttft_p50": lat["router"]["ttft_ms_p50"]
+            - lat["direct"]["ttft_ms_p50"],
+            "inter_chunk_p50": lat["router"]["inter_chunk_ms_p50"]
+            - lat["direct"]["inter_chunk_ms_p50"],
+            "direct": lat["direct"], "router": lat["router"]}
+
+        # speculative (self-draft, k = SPEC_K) through the router, held
+        # as the in-process speculative run: against the plain tokens,
+        # every draft token accepted
+        few = prompts[:n_spec]
+        before = [(e.spec_proposed_total, e.spec_accepted_total)
+                  for e in engines]
+        set_flags({"speculative_k": SPEC_K})
+        try:
+            spec = WireStreams()
+            wall = wire_counted(
+                torch, "wire_speculative", counter, engines,
+                lambda: serve_threads(spec, router.port, few, clients,
+                                      max_new_tokens=max_new), counts)
+        finally:
+            set_flags({"speculative_k": 0})
+        spec_ties = hold_against(torch, model, few,
+                                 spec.check("wire speculative", n_spec,
+                                            max_new),
+                                 served["tokens"][:n_spec],
+                                 "wire speculative vs plain")
+        proposed = sum(e.spec_proposed_total - b[0]
+                       for e, b in zip(engines, before))
+        accepted = sum(e.spec_accepted_total - b[1]
+                       for e, b in zip(engines, before))
+        if proposed == 0 or (accepted != proposed and not spec_ties):
+            raise AssertionError(f"wire speculative: accepted {accepted} "
+                                 f"of {proposed} self-draft tokens")
+        report["wire_speculative"] = dict(spec.stats(wall),
+                                          proposed=proposed,
+                                          accepted=accepted)
+
+        # failover at temperature 0.8: the streams placed on one backend,
+        # which is stopped mid-generation; the router resumes each on the
+        # other with the sample offset
+        set_flags({"router_prefix_affinity": True})
+        fo_before = router.snapshot()["failovers_total"]
+
+        def failover():
+            clis = [Client(port=router.port, timeout_s=120.0,
+                           deadline_s=120.0) for _ in fo_prompts]
+            try:
+                gens, toks = [], []
+                for i, (cli, p) in enumerate(zip(clis, fo_prompts)):
+                    # one at a time, so each finds the first's placement
+                    g = cli.generate_stream(
+                        p, max_new_tokens=failover_max_new,
+                        temperature=TEMPERATURE, seed=SEED + i)
+                    toks.append([int(next(g)[0])])
+                    gens.append(g)
+                for tk, g in zip(toks, gens):
+                    while len(tk) < WIRE_FAILOVER_AFTER:
+                        tk.append(int(next(g)[0]))
+                victim = stop_holder(router, servers, len(gens))
+                for tk, g in zip(toks, gens):
+                    tk.extend(int(c[0]) for c in g)
+                return victim, toks
+            finally:
+                for cli in clis:
+                    cli.close()
+
+        try:
+            victim, fo_tokens = wire_counted(torch, "wire_failover", counter,
+                                             engines, failover, counts)
+        finally:
+            set_flags({"router_prefix_affinity": False})
+        for i, tk in enumerate(fo_tokens):
+            if len(tk) != failover_max_new:
+                raise AssertionError(f"failover stream {i} has {len(tk)} "
+                                     f"tokens")
+        failovers = router.snapshot()["failovers_total"] - fo_before
+        if failovers != failover_streams:
+            raise AssertionError(f"failover: {failovers} failovers for "
+                                 f"{failover_streams} streams")
+        report["wire_failover"] = {
+            "streams": failover_streams, "stopped_backend": victim,
+            "failovers": failovers, "after_tokens": WIRE_FAILOVER_AFTER,
+            "near_ties": hold_against(torch, model, fo_prompts, fo_tokens,
+                                      fo_ref, "failover vs uninterrupted",
+                                      temperature=TEMPERATURE)}
+        report["router"] = router.snapshot()
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+        counter.restore()
+    # nothing left behind: every port closed, every thread ended
+    for port in ports:
+        try:
+            socket.create_connection(("127.0.0.1", port), timeout=2).close()
+        except ConnectionRefusedError:
+            continue
+        raise AssertionError(f"wire: port {port} is still bound")
+    deadline = time.monotonic() + 10.0
+    while True:
+        left = [t for t in threading.enumerate()
+                if t not in threads_before and t.is_alive()]
+        if not left:
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"wire: threads left running: {left}")
+        time.sleep(0.05)
+    inproc = served["stats"]
+    report["in_process"] = {k: inproc[k] for k in (
+        "tokens_per_s", "ttft_ms_p50", "step_ms_p50", "decode_step_ms_p50")}
+    w = report["wire"]
+    log(f"wire: {w['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{w['ttft_ms_p50']:.2f} ms, inter-chunk p50 "
+        f"{w['inter_chunk_ms_p50']:.3f} ms; in process: "
+        f"{inproc['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{inproc['ttft_ms_p50']:.2f} ms, decode step p50 "
+        f"{inproc['decode_step_ms_p50']:.3f} ms; router adds "
+        f"{report['router_added_ms']['ttft_p50']:.3f} ms TTFT p50, "
+        f"{report['router_added_ms']['inter_chunk_p50']:.3f} ms "
+        f"inter-chunk p50")
+    log(f"wire report: {json.dumps(report)}")
+    return report, counts
 
 
 def kernel_line(results: dict, counts: dict) -> dict:
@@ -3239,6 +3665,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    from paddle_tpu_torch import native
     from paddle_tpu_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3251,8 +3678,12 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+    with ThreadPoolExecutor(1) as pool:
+        # the serving transport's library (g++) builds beside the kernels
+        native_s = pool.submit(timed, native.build)
+        _build.build_all()
+        log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
+        log(f"native build: {native_s.result():.1f} s (g++, csrc/*.cc)")
     for name, text in sorted(_build.build_logs.items()):
         func = ""
         for ln in text.splitlines():
@@ -3281,15 +3712,19 @@ def main() -> int:
 
     training, counts = run_training_phases(torch)
     resume, resume_counts = run_resume_phases(torch)
-    serving, serve_counts = run_serving(torch, GPT2_SMALL, "cuda",
-                                        **SERVING)
-    counts.update(resume_counts, **serve_counts, flash_with_lse=lse_counts)
+    serving, serve_counts, served = run_serving(torch, GPT2_SMALL, "cuda",
+                                                **SERVING)
+    wire, wire_counts = run_wire(torch, served, SERVING["max_new"],
+                                 SERVING["pool_blocks"], SERVING["n_spec"],
+                                 **WIRE)
+    counts.update(resume_counts, **serve_counts, **wire_counts,
+                  flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
                   layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
-                  **resume, **serving)
+                  **resume, **serving, **wire)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

@@ -3,9 +3,10 @@
 A typed, env-overridable registry (``FLAGS_<name>`` in the environment
 overrides a default at import), settable with ``set_flags`` and read
 with ``get_flags``. It holds the flags the ported paths read (the
-paged-KV LLM engine's, the attention routing and train-step flags of
-BERT pretraining, and those of the checkpoints and the input pipeline),
-with the names and defaults of ``paddle_tpu.flags``.
+paged-KV LLM engine's, the serving wire's and the router's, the
+attention routing and train-step flags of BERT pretraining, and those
+of the checkpoints and the input pipeline), with the names and defaults
+of ``paddle_tpu.flags``.
 """
 
 from __future__ import annotations
@@ -159,6 +160,94 @@ define_flag("speculative_draft_layers", 1,
 define_flag("speculative_draft_tie_embeddings", True,
             "Share the target's token and position embeddings (and so the"
             " tied output head) with the auto-built draft model.")
+
+# ---------------------------------------------------------------------------
+# the serving wire (inference.Server, serving_llm.router)
+# ---------------------------------------------------------------------------
+define_flag("serving_queue_deadline_ms", 0,
+            "Inference server load shedding: a queued request older "
+            "than this many milliseconds when the batcher picks it up "
+            "is answered with an error instead of being served "
+            "(counted in requests_shed_total and the native "
+            "serving.shed_total stat). 0 (default) disables shedding. "
+            "Age is measured from when the server first dequeues the "
+            "request off the native transport.")
+define_flag("serving_drain_deadline_s", 5.0,
+            "Graceful drain budget for inference.Server. When a "
+            "drain starts (SIGTERM under Server.serve_forever, or "
+            "Server.drain()), new requests are refused immediately "
+            "(tensor requests error-replied, streams shed with a "
+            "terminal frame) and in-flight generations may keep "
+            "decoding for up to this many seconds; sequences still "
+            "running at the deadline are cancelled with a terminal "
+            "negative-status frame so no client is left hanging.")
+define_flag("router_failover_budget", 2,
+            "Front-door router (serving_llm/router.py): maximum "
+            "mid-stream failovers per client stream. A stream that "
+            "already delivered tokens is resumed on a surviving "
+            "backend (prompt+delivered re-issued with the sample "
+            "offset, bitwise-exact continuation) at most this many "
+            "times before the router gives up with a terminal error "
+            "that names the delivered count. Read per failover "
+            "decision.")
+define_flag("router_retry_budget", 2,
+            "Front-door router: maximum re-sends of an UNSTARTED "
+            "(zero tokens delivered) stream or idempotent tensor "
+            "request to another backend after a connect/deadline "
+            "failure. Started streams never consume this — they fail "
+            "over instead (never blind-resent). Read per retry "
+            "decision.")
+define_flag("router_retry_backoff_s", 0.05,
+            "Front-door router: base of the jittered exponential "
+            "backoff slept before each unstarted-request retry "
+            "(actual sleep is base * 2^(attempt-1) * uniform[0.5,1) "
+            "— full-jitter, so N clients retrying a blip don't "
+            "stampede the survivor). 0 disables the sleep (tests). "
+            "Read per retry.")
+define_flag("router_breaker_threshold", 3,
+            "Front-door router: consecutive connect/deadline "
+            "failures (data path or probe) that trip a backend's "
+            "circuit breaker closed -> open. Drain refusals and "
+            "admission rejections are NOT failures — they park the "
+            "backend as draining/saturated without touching the "
+            "breaker. Read lazily per breaker decision.")
+define_flag("router_breaker_backoff_s", 0.5,
+            "Front-door router: open-state backoff of a freshly "
+            "tripped circuit breaker — how long the backend is left "
+            "alone before the single half-open probe. Doubles on "
+            "every re-open (failed probe) up to "
+            "FLAGS_router_breaker_backoff_max_s; any success resets "
+            "it. Read lazily per breaker decision.")
+define_flag("router_breaker_backoff_max_s", 30.0,
+            "Front-door router: cap on the doubling open-state "
+            "breaker backoff, bounding how stale a recovered "
+            "backend's exile can get. Read lazily per breaker "
+            "decision.")
+define_flag("router_probe_interval_s", 1.0,
+            "Front-door router: period of the backend health-probe "
+            "thread (PTSC STATS round trip reading serving.draining, "
+            "plus an optional exporter GET /healthz). Probe failures "
+            "feed the breaker; a tripped breaker's backend is probed "
+            "again only after its backoff (the half-open single "
+            "probe). Read per probe cycle.")
+define_flag("router_backend_deadline_s", 30.0,
+            "Front-door router: per-chunk deadline on router->backend "
+            "streams and total deadline on proxied tensor requests. A "
+            "backend silent past this is treated as dead: breaker "
+            "failure plus retry (unstarted) or deterministic failover "
+            "(started). Read per backend attempt.")
+define_flag("router_prefix_affinity", False,
+            "Front-door router: prefix-affinity pick(). On, the "
+            "router hashes each prompt's leading FULL KV blocks "
+            "(FLAGS_kv_block_size tokens each) and routes to the "
+            "backend that most recently served the longest matching "
+            "prefix (LRU placement memory, longest match wins), so "
+            "shared-prefix traffic lands where its blocks are "
+            "already hot and FLAGS_kv_prefix_sharing hits multiply "
+            "fleet-wide (kv_prefix_hit_tokens_total). No affinity "
+            "match falls back to least-loaded by live stream count "
+            "(round-robin order breaking ties). Off (default) keeps "
+            "pure round-robin. Read per stream dispatch.")
 
 # ---------------------------------------------------------------------------
 # attention routing and training (BERT pretraining)

@@ -20,6 +20,8 @@ version in the kernel's place).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..nn import functional as F
@@ -28,8 +30,10 @@ from ._dtypes import cast as _cast, check as _check_dtypes
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_backward"]
 
-# kernel launches since the last reset (kernels.reset_launch_counts)
+# kernel launches since the last reset (kernels.reset_launch_counts),
+# counted under a lock: serving threads launch concurrently
 launches = 0
+_count_lock = threading.Lock()
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -96,7 +100,8 @@ def _forward(x2: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         x2.shape[0], x2.shape[1], float(epsilon),
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check("layer_norm", code, "layer_norm_fwd")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return y
 
 

@@ -27,6 +27,7 @@ against them on the card.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -48,9 +49,11 @@ CHUNK_TOKENS = 128
 # (kRowGroup in the source)
 ROW_GROUP = 4
 
-# kernel launches since the last reset (kernels.reset_launch_counts)
+# kernel launches since the last reset (kernels.reset_launch_counts),
+# counted under a lock: serving threads launch concurrently
 launches = 0
 mq_launches = 0
+_count_lock = threading.Lock()
 
 
 def _gather(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -243,7 +246,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         raise ValueError("paged attention shapes disagree")
     out = _launch("paged_attention_fwd", q, None, k_pool, v_pool,
                   block_tables, context_lens, scale)
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out
 
 
@@ -281,5 +285,6 @@ def paged_attention_multiquery(q, q_lens, k_pool, v_pool, block_tables,
         raise ValueError("paged attention shapes disagree")
     out = _launch("paged_attention_mq_fwd", q, q_lens, k_pool, v_pool,
                   block_tables, context_lens, scale)
-    mq_launches += 1
+    with _count_lock:
+        mq_launches += 1
     return out

@@ -1,7 +1,7 @@
-"""LLM serving: paged KV cache, continuous batching, token events.
+"""LLM serving: paged KV cache, continuous batching, token events, and
+the streaming wire's engine side and front-door router.
 
-Counterpart of ``paddle_tpu.serving_llm`` (the wire server and router
-are not ported yet):
+Counterpart of ``paddle_tpu.serving_llm``:
 
 * :mod:`.kv_cache` — ``KVBlockAllocator``: fixed-size token blocks in a
   preallocated pool, per-sequence block tables, refcounted COW sharing.
@@ -10,11 +10,20 @@ are not ported yet):
 * :mod:`.engine` — ``LLMEngine``: per-layer K/V pools on the device,
   prefill through dense causal attention, decode and speculative verify
   through the hand-written paged attention kernels.
+* :mod:`.server` — ``LLMStreamBridge``: engine events to
+  ``inference.Server``'s streaming (PTST) reply frames.
+* :mod:`.router` — ``Router``: a front door over N backends with
+  health-gated rotation, per-backend circuit breakers, deterministic
+  mid-stream failover (resumed through the sample offset), retry and
+  shed discipline and prefix-affinity placement.
 """
 
 from .kv_cache import KVBlockAllocator
 from .scheduler import ContinuousBatchingScheduler, Sequence
 from .engine import AdmissionRejected, LLMEngine
+from .server import LLMStreamBridge
+from .router import Backend, BackendPool, CircuitBreaker, Router
 
 __all__ = ["KVBlockAllocator", "ContinuousBatchingScheduler", "Sequence",
-           "LLMEngine", "AdmissionRejected"]
+           "LLMEngine", "LLMStreamBridge", "AdmissionRejected",
+           "Backend", "BackendPool", "CircuitBreaker", "Router"]

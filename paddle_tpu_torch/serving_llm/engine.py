@@ -157,9 +157,13 @@ class LLMEngine:
     def add_request(self, prompt_ids, max_new_tokens: int = 16,
                     eos_token_id: Optional[int] = None,
                     temperature: float = 0.0, seed: int = 0,
-                    sample_offset: int = 0,
+                    trace_id: int = 0, sample_offset: int = 0,
                     tenant: str = tenancy.DEFAULT_TENANT,
                     priority_class: str = tenancy.DEFAULT_CLASS) -> int:
+        """Queue one generate request; returns its sequence id.
+        ``trace_id`` is the wire's id of the request (0: untraced), kept
+        on the sequence as the join key to the serving front's
+        records."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -179,6 +183,7 @@ class LLMEngine:
                        max_new_tokens=int(max_new_tokens),
                        eos_token_id=eos_token_id,
                        temperature=float(temperature), seed=int(seed),
+                       trace_id=int(trace_id),
                        sample_offset=int(sample_offset),
                        tenant=tenant, priority_class=priority_class)
         self._seqs[seq.seq_id] = seq
@@ -242,9 +247,12 @@ class LLMEngine:
             f"{budget:.1f} of {self.pool_blocks}; "
             f"retry_after_ms={retry_after_ms}", retry_after_ms)
 
-    def cancel(self, seq_id: int) -> bool:
-        """Drop a sequence (client disconnect): blocks freed, no further
-        events for it. True if it was live."""
+    def cancel(self, seq_id: int, outcome: str = "cancelled") -> bool:
+        """Drop a sequence (client disconnect; ``outcome="shed"`` when
+        the serving bridge sheds an aged waiting stream): blocks freed,
+        no further events for it. True if it was live. ``outcome`` names
+        why, as the JAX engine's sequence timeline records it; the port
+        keeps no timeline yet."""
         seq = self.scheduler.cancel(seq_id)
         self._seqs.pop(seq_id, None)
         self._projected.pop(seq_id, None)

@@ -68,6 +68,7 @@ class Sequence:
     resumed stream draws the RNG key of generated-index ``offset + i``
     — bitwise the token the dead backend would have produced next
     (docs/serving_protocol.md, "Stream failover & resume").
+    ``trace_id`` is the wire's id of the request (0: untraced).
     ``tenant``/``priority_class`` are the wire identity (tenancy.py):
     fair-share accounting keys on the tenant, victim selection and
     shed order key on the class."""
@@ -77,6 +78,7 @@ class Sequence:
     eos_token_id: Optional[int] = None
     temperature: float = 0.0
     seed: int = 0
+    trace_id: int = 0
     sample_offset: int = 0
     tenant: str = tenancy.DEFAULT_TENANT
     priority_class: str = tenancy.DEFAULT_CLASS

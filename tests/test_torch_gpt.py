@@ -138,7 +138,9 @@ def test_model_refuses_to_run_on_cpu_unasked():
 @pytest.mark.parametrize("first", ["kernels", "nn", "serving_llm",
                                    "models", "static", "amp", "optimizer",
                                    "clip", "io", "data", "preemption",
-                                   "core.arena"])
+                                   "core.arena", "native", "inference",
+                                   "serving_llm.server",
+                                   "serving_llm.router"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -155,7 +157,11 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.data import DataLoader, DeviceLoader; "
             "from paddle_tpu_torch.data.worker import MultiprocessIter; "
             "from paddle_tpu_torch.preemption import guard; "
-            "from paddle_tpu_torch.core.arena import HostStagingArena")
+            "from paddle_tpu_torch.core.arena import HostStagingArena; "
+            "from paddle_tpu_torch.native import ServingTransport; "
+            "from paddle_tpu_torch.inference import Client, Server; "
+            "from paddle_tpu_torch.serving_llm import LLMStreamBridge, "
+            "Router")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -196,5 +202,9 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/core/dtype.py", "paddle_tpu_torch/nn/layer.py",
         "paddle_tpu_torch/io/__init__.py", "paddle_tpu_torch/data/__init__.py",
         "paddle_tpu_torch/data/worker.py", "paddle_tpu_torch/preemption.py",
-        "paddle_tpu_torch/core/arena.py", "paddle_tpu_torch/convert.py"}
+        "paddle_tpu_torch/core/arena.py", "paddle_tpu_torch/convert.py",
+        "paddle_tpu_torch/native/__init__.py",
+        "paddle_tpu_torch/inference/__init__.py",
+        "paddle_tpu_torch/serving_llm/server.py",
+        "paddle_tpu_torch/serving_llm/router.py"}
     assert banned == []

@@ -80,8 +80,11 @@ in order:
    flags and again with ``fused_softmax_xent`` and ``fused_adam``: one
    forward and backward, comparing the loss and every parameter's
    gradient, then one ``TrainStep``, comparing the loss and every
-   updated parameter; then BERT-base in bf16 as the JAX bench builds it
-   (``BF16_RUNS``: ``cast_model_to_low_precision(model, "bfloat16")``,
+   updated parameter (the host CPU's model, thread count and vector
+   instruction set printed; under the default flags a third side runs
+   the same model in float64 on the CPU, and each fp32 side's gradient
+   gap to it is reported per leaf); then BERT-base in bf16 as the JAX
+   bench builds it (``BF16_RUNS``: ``cast_model_to_low_precision(model, "bfloat16")``,
    ``AdamW(1e-4, weight_decay=0.01, fused_state=...)``), b8 x s512, 5
    steps under the default flags per leaf and 5 with the fused flags over
    the flat fused state: finite losses, exact launch counts, every
@@ -143,7 +146,32 @@ in order:
    any negative terminal frame, short stream, port left bound or thread
    left running fails the run. Client-side tokens/s, TTFT p50 and
    inter-chunk p50 are logged beside the in-process numbers;
-7. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+7. observability and chaos on the card (``run_observability``): (a)
+   phase 6's serving run again with ``enable_metrics`` on: the counters
+   equal what the run counts another way (prefill chunks, decode
+   forwards and their batch sizes, admitted sequences, KV blocks
+   allocated and freed), the paged launches 12 per decode forward the
+   counters record, the launches those of the run with metrics off,
+   ``gauges_agree()`` True, every sequence's timeline queued ->
+   admitted -> prefill_chunk -> token x 32 -> finished, one step record
+   per engine step; tokens/s and decode-step p50 with metrics off and
+   on; (b) ``llm_decode:at=OBS_DECODE_AT`` over four requests in
+   process (one sequence ends with an error event, its blocks freed, the
+   others' tokens those of the fault-free run) and
+   ``llm_chunk_write:at=OBS_CHUNK_WRITE_AT`` over the wire through the
+   router (one sequence cancelled, its stream resumed on the other
+   backend after the router's deadline, every stream's tokens the
+   fault-free run's), each fault counted once and flight-recorded; (c)
+   BERT at full width and 2 layers, bf16 with the fused flags, captured,
+   under ``nonfinite_grad:step=3``: one capture over 5 steps, step 3
+   leaving every parameter, master, moment and the step counter as step
+   2 left them, ``nonfinite_steps_total`` 1 after a flush, and the run
+   equal to its eager twin bit for bit; then ``loss_spike:step=4``,
+   which the anomaly sentinel flags at step 4; the captured step's host
+   ms with metrics off and on, in turns; (d) under ``torch.profiler``
+   the engine's ``LLMEngine.step`` span around each decode step and
+   ``TrainStep``'s around each replay;
+8. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -279,6 +307,16 @@ PATH_KERNELS = {"serving": ("layer_norm", "paged_attention"),
                                    "flash_attention_bwd_dq",
                                    "flash_attention_bwd_dkv",
                                    "flash_attention_bwd_fused")}
+# phase 7 (observability and chaos): serving with metrics on, the fault
+# drills in process and over the wire, the captured bf16 fused step under
+# value faults (and its eager twin)
+PATH_KERNELS.update({
+    "obs_serving": PATH_KERNELS["serving"],
+    "obs_serving_chaos": PATH_KERNELS["serving"],
+    "obs_wire_chaos": PATH_KERNELS["wire"],
+    "obs_train_chaos": PATH_KERNELS["train_seq512_bf16_fused"],
+    "obs_train_chaos_eager": PATH_KERNELS["train_seq512_bf16_fused"],
+    "obs_train_spike": PATH_KERNELS["train_seq512_bf16_fused"]})
 # every training run has a captured twin (TrainStep's CUDA graph): the
 # same kernels, launched by the graph's replays
 CAPTURED = "_captured"
@@ -1915,22 +1953,96 @@ def grad_gaps(torch, grads: dict, ref: dict) -> dict:
     return out
 
 
+def cpu_facts(torch) -> dict:
+    """The host CPU the CPU side of a card-against-CPU check ran on: its
+    model (``/proc/cpuinfo``), torch's thread count and the vector
+    instruction set its CPU kernels use."""
+    import platform
+    model = ""
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if ln.lower().startswith(("model name", "cpu model")):
+                    model = ln.split(":", 1)[1].strip()
+                    break
+    if not model and shutil.which("lscpu"):
+        out = subprocess.run(["lscpu"], capture_output=True, text=True)
+        for ln in out.stdout.splitlines():
+            if ln.lower().startswith("model name"):
+                model = ln.split(":", 1)[1].strip()
+                break
+    return {"cpu_model": model or platform.processor() or "unknown",
+            "cpu_machine": platform.machine(), "cpu_count": os.cpu_count(),
+            "cpu_threads": torch.get_num_threads(),
+            "cpu_capability": torch.backends.cpu.get_cpu_capability()}
+
+
+def float64_grads(torch, model, ids, mlm, nsp) -> tuple:
+    """One forward and backward of ``model`` (cast to float64) on the
+    CPU: ``(loss, {name: gradient})``. Raises if any module's floating
+    output, the loss or a gradient is not float64 (a silent fp32 step
+    would make the reference worthless)."""
+    from paddle_tpu_torch.models import pretraining_loss
+    narrow = []
+
+    def hook(mod, _inp, out):
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for o in outs:
+            if isinstance(o, torch.Tensor) and o.is_floating_point() \
+                    and o.dtype != torch.float64:
+                narrow.append(f"{type(mod).__name__}: {o.dtype}")
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()]
+    try:
+        loss = pretraining_loss(model(ids), mlm, nsp)
+    finally:
+        for h in hooks:
+            h.remove()
+    names = [n for n, _ in model.named_parameters()]
+    grads = {n: g for n, g in zip(names, torch.autograd.grad(
+        loss, list(model.parameters()), allow_unused=True))
+        if g is not None}
+    narrow += [f"grad {n}: {g.dtype}" for n, g in grads.items()
+               if g.dtype != torch.float64]
+    if loss.dtype != torch.float64 or narrow:
+        raise AssertionError(f"the float64 reference ran a step in another "
+                             f"dtype: loss {loss.dtype}, {narrow[:10]}")
+    return float(loss.detach()), grads
+
+
 def card_against_cpu(torch, flags=None) -> dict:
     """A 2-layer full-width BERT (dropout 0, batch 2, seq 512) on the card
     (kernels) and on the CPU (plain versions) from the same weights and
     batch, with ``flags`` set: one forward and backward, whose loss and
     every parameter's gradient must agree (the gradients' size, which one
     Adam step hides); then one TrainStep, after which every parameter
-    must agree."""
+    must agree. Under the default flags a third side runs the same model
+    and batch on the CPU in float64 (``nn.layer.to_dtype``; the plain
+    versions keep float64 operands in float64): each fp32 side's gradient
+    gap to it is reported per leaf, as the check measures gaps, and on a
+    failure the five worst leaves say which side lies further from it."""
     from paddle_tpu_torch import kernels
     from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
                                          pretraining_loss)
+    from paddle_tpu_torch.nn.layer import to_dtype
     cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
                      attention_probs_dropout_prob=0.0)
     cpu = BertForPretraining(cfg, device="cpu", seed=SEED)
     card = BertForPretraining(cfg, device="cuda", seed=SEED)
     card.load_state_dict(cpu.state_dict())
     data = bert_batch(torch, cfg, 2, 512, "cpu", SEED + 11)
+    facts = cpu_facts(torch)
+    log(f"card vs cpu: host {json.dumps(facts)}")
+    ref64 = None
+    if not flags:
+        f64 = BertForPretraining(cfg, device="cpu", seed=SEED)
+        f64.load_state_dict(cpu.state_dict())
+        to_dtype(f64, torch.float64)
+        t0 = time.perf_counter()
+        ref64 = float64_grads(torch, f64, *data)
+        log(f"card vs cpu: float64 side {time.perf_counter() - t0:.2f} s, "
+            f"loss {ref64[0]}")
+        del f64
     grad_losses, losses, grads, counts = {}, {}, {}, {}
     restore = flag_scope(flags or {})
     try:
@@ -1961,7 +2073,7 @@ def card_against_cpu(torch, flags=None) -> dict:
             for n, p in card.named_parameters()}
     diffs = {n: float(g.max()) for n, g in gaps.items()}
     worst = max(diffs, key=diffs.get)
-    res = {"flags": flags or {},
+    res = {"flags": flags or {}, **facts,
            "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
            "loss_rel_diff": max(abs(a["cuda"] - a["cpu"]) / abs(a["cpu"])
                                 for a in (grad_losses, losses)),
@@ -1975,7 +2087,26 @@ def card_against_cpu(torch, flags=None) -> dict:
                d for n, d in diffs.items() if n.endswith("k_proj.bias")),
            "params_compared": len(diffs),
            "launches": counts}
-    log(f"card vs cpu: {json.dumps({k: v for k, v in res.items() if k != 'grad_rel_gap_by_leaf'})}")
+    worst5 = sorted(rel, key=rel.get, reverse=True)[:5]
+    if ref64 is not None:
+        to64 = {side: grad_gaps(torch, grads[side], ref64[1])
+                for side in ("cuda", "cpu")}
+        res.update(
+            loss_float64=ref64[0],
+            grad_gap_to_float64_by_leaf={
+                n: {"cuda": to64["cuda"][n], "cpu": to64["cpu"][n]}
+                for n in rel},
+            grad_max_gap_to_float64={side: max(g.values())
+                                     for side, g in to64.items()},
+            worst_leaves=[{"leaf": n, "gap": rel[n],
+                           "cuda_to_float64": to64["cuda"][n],
+                           "cpu_to_float64": to64["cpu"][n],
+                           "further_from_float64":
+                               "cuda" if to64["cuda"][n] > to64["cpu"][n]
+                               else "cpu"} for n in worst5])
+        log(f"card vs cpu: gradient gap to float64, largest per side "
+            f"{json.dumps(res['grad_max_gap_to_float64'])}")
+    log(f"card vs cpu: {json.dumps({k: v for k, v in res.items() if not k.endswith('_by_leaf')})}")  # noqa: E501
     kw = dict(rows=2 * 512, vocab=cfg.vocab_size)
     want = {"grad": expected_launches(512, 2, 64, flags, update=False,
                                       **kw),
@@ -1988,6 +2119,8 @@ def card_against_cpu(torch, flags=None) -> dict:
     if not (res["loss_rel_diff"] <= STEP_LOSS_RTOL
             and res["grad_max_rel_gap"] <= GRAD_REL_TOL
             and res["param_max_abs_diff"] <= STEP_PARAM_TOL):
+        for w in res.get("worst_leaves", []):
+            log(f"card vs cpu: worst leaf {json.dumps(w)}")
         raise AssertionError(f"card and CPU disagree: {res} (tolerances "
                              f"{STEP_LOSS_RTOL} loss relative, "
                              f"{GRAD_REL_TOL} gradient relative, "
@@ -3591,6 +3724,484 @@ def run_wire(torch, served: dict, max_new: int, pool_blocks: int,
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: observability and chaos on the card: metrics on, serving faults
+# in process and over the wire, value faults in the captured train step,
+# spans under torch.profiler
+# ---------------------------------------------------------------------------
+
+# phase 7's training: BERT at full width and 2 layers, bf16 with the fused
+# flags over the flat fused state (as BF16_RUNS' fused run), b8 x s512
+OBS_TRAIN = dict(layers=2, batch=8, seq=512, steps=5)
+# the serving chaos: the Kth llm_decode hit (per sequence per step) fails
+# its sequence; the Kth token write over the wire fails its stream, which
+# the router resumes on the other backend once its deadline passes
+OBS_DECODE_AT = 10
+OBS_CHUNK_WRITE_AT = 20
+OBS_ROUTER_DEADLINE_S = 3.0
+
+
+def metric_total(obs, name: str, field: str = "value", **labels) -> float:
+    """A series of the port's registry: a counter's or gauge's value, or
+    a histogram's ``count`` / ``sum`` (0 when absent)."""
+    m = obs.registry().get(name)
+    if m is None:
+        return 0.0
+    if m.kind == "histogram":
+        return float(getattr(m, field)(**labels))
+    v = m.value(**labels)
+    return 0.0 if v is None else float(v)
+
+
+def obs_serving(torch, served: dict, base_counts: dict, max_new: int,
+                pool_blocks: int) -> tuple:
+    """Phase 7a: phase 6's 16-request serving run again with metrics on.
+    Every counter that counts what the run counts another way must equal
+    it, the paged launches 12 per decode forward the counters record, the
+    launches those of the run with metrics off; gauges agree, every
+    sequence's timeline is queued -> admitted -> prefill_chunk -> token x
+    max_new -> finished, one step record per engine step. Returns (report,
+    launch counts)."""
+    from paddle_tpu_torch import kernels, observability as obs, set_flags
+    from paddle_tpu_torch.serving_llm import LLMEngine
+    model, prompts = served["model"], served["prompts"]
+    layers = len(model.blocks)
+    obs.reset_all()
+    set_flags({"enable_metrics": True, "llm_step_ring": 4096})
+    try:
+        eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                        max_decode_batch=16, device=model.device)
+        kernels.reset_launch_counts()
+        tokens, stats = serve(torch, eng, prompts, max_new,
+                              late=len(prompts) // 2)
+        counts = kernels.launch_counts()
+        agree = eng.allocator.gauges_agree()
+        decode_fwd = metric_total(obs, "llm_decode_batch_size", "count")
+        prefills = metric_total(obs, "llm_prefill_chunk_ms", "count")
+        records = obs.stepprof.ring().recent()
+        timelines = obs.seqtrace.ring().recent()
+        res = {
+            "stats": stats, "gauges_agree": agree,
+            "decode_forwards": decode_fwd, "prefill_chunks": prefills,
+            "decode_batch_sum": metric_total(obs, "llm_decode_batch_size",
+                                             "sum"),
+            "admitted": metric_total(obs, "llm_tenant_admitted_total",
+                                     tenant="default"),
+            "kv_blocks_alloc_total": metric_total(obs,
+                                                  "kv_blocks_alloc_total"),
+            "kv_blocks_freed_total": metric_total(obs,
+                                                  "kv_blocks_freed_total"),
+            "kv_blocks_used": metric_total(obs, "kv_blocks_used"),
+            "step_records": len(records),
+            "step_record_tokens": sum(r["tokens"] for r in records),
+            "timelines": len(timelines)}
+    finally:
+        set_flags({"enable_metrics": False, "llm_step_ring": 256})
+    want_tl = ["queued", "admitted", "prefill_chunk"] + ["token"] * max_new \
+        + ["finished"]
+    bad_tl = [tl["seq_id"] for tl in timelines
+              if [e["ev"] for e in tl["events"]] != want_tl]
+    n_tok = sum(len(t) for t in tokens)
+    checks = {
+        "tokens_equal_off": tokens == served["tokens"],
+        "launches_equal_off": counts == base_counts,
+        "paged_is_12_per_decode_forward":
+            counts["paged_attention"] == layers * decode_fwd,
+        "ln_is_25_per_forward":
+            counts["layer_norm"] == (2 * layers + 1)
+            * (decode_fwd + prefills),
+        "prefills": prefills == len(prompts),
+        "decode_batch_sum": res["decode_batch_sum"]
+        == n_tok - len(prompts),
+        "admitted": res["admitted"] == len(prompts),
+        "kv_alloc": res["kv_blocks_alloc_total"] == eng.allocator.allocs_total,
+        "kv_freed": res["kv_blocks_freed_total"] == eng.allocator.freed_total
+        == eng.allocator.allocs_total,
+        "kv_used_zero": res["kv_blocks_used"] == 0,
+        "gauges_agree": agree is True,
+        "step_records": res["step_records"] == stats["steps"],
+        "step_record_tokens": res["step_record_tokens"] == n_tok,
+        "timelines": res["timelines"] == len(prompts) and not bad_tl}
+    res["checks"] = checks
+    # the host clock spreads between runs: phase 6's run (off) and this
+    # one (on), then one more of each, in turns
+    turns = {"off": [served["stats"]], "on": [stats]}
+    for metrics in (False, True):
+        set_flags({"enable_metrics": metrics})
+        try:
+            again = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                              max_decode_batch=16, device=model.device)
+            turns["on" if metrics else "off"].append(
+                serve(torch, again, prompts, max_new,
+                      late=len(prompts) // 2)[1])
+        finally:
+            set_flags({"enable_metrics": False})
+            obs.reset_all()
+    res["metrics_off_vs_on"] = {
+        mode: {k: [st[k] for st in runs]
+               for k in ("tokens_per_s", "decode_step_ms_p50")}
+        for mode, runs in turns.items()}
+    log(f"obs serving: {json.dumps(res)}")
+    log(f"obs serving, metrics off against on (off, on, off, on): "
+        f"{json.dumps(res['metrics_off_vs_on'])}")
+    if not all(checks.values()):
+        failed = [k for k, v in checks.items() if not v]
+        raise AssertionError(f"obs serving: failed {failed}: {res}, "
+                             f"launches {counts} (off: {base_counts}), "
+                             f"timelines off {bad_tl[:4]}")
+    return res, counts
+
+
+def chaos_serving(torch, served: dict, max_new: int, pool_blocks: int,
+                  n: int) -> tuple:
+    """Phase 7b, in process: ``llm_decode:at=OBS_DECODE_AT`` over ``n``
+    requests: exactly one sequence ends with an error event, its blocks
+    freed (``check()``), every other sequence's tokens those of the
+    fault-free run, the fault counted once and flight-recorded. Returns
+    (report, launch counts)."""
+    from paddle_tpu_torch import kernels, observability as obs, set_flags
+    from paddle_tpu_torch.serving_llm import LLMEngine
+    model, prompts = served["model"], served["prompts"][:n]
+    obs.reset_all()
+    set_flags({"enable_metrics": True,
+               "fault_spec": f"llm_decode:at={OBS_DECODE_AT}"})
+    try:
+        eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                        max_decode_batch=16, device=model.device)
+        sids = [eng.add_request(p, max_new_tokens=max_new) for p in prompts]
+        kernels.reset_launch_counts()
+        toks, errors = {}, []
+        while eng.active():
+            for ev in eng.step():
+                if ev["type"] == "token":
+                    toks.setdefault(ev["seq_id"], []).append(ev["token"])
+                elif ev["type"] == "error":
+                    errors.append(ev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+    finally:
+        set_flags({"enable_metrics": False, "fault_spec": ""})
+    eng.allocator.check()
+    injected = metric_total(obs, "faults_injected_total", point="llm_decode")
+    kinds = [e["kind"] for e in obs.flight_recorder().events()]
+    res = {"requests": n, "errors": [e["seq_id"] for e in errors],
+           "error_message": errors[0]["error"] if errors else None,
+           "faults_injected": injected,
+           "flight": sorted(set(kinds)),
+           "kv_blocks_used": eng.allocator.num_used}
+    failed = errors[0]["seq_id"] if len(errors) == 1 else None
+    others = [i for i, sid in enumerate(sids) if sid != failed]
+    res["near_ties"] = hold_against(
+        torch, model, [prompts[i] for i in others],
+        [toks[sids[i]] for i in others],
+        [served["tokens"][i] for i in others], "decode chaos vs fault-free")
+    log(f"obs chaos serving: {json.dumps(res)}")
+    if len(errors) != 1 or injected != 1 or eng.allocator.num_used != 0 \
+            or "fault_injected" not in kinds or "seq_timeline" not in kinds \
+            or len(toks.get(failed, [])) >= max_new:
+        raise AssertionError(f"obs chaos serving: {res}")
+    return res, counts
+
+
+def chaos_wire(torch, served: dict, max_new: int, pool_blocks: int,
+               n: int, probe_interval_s: float) -> tuple:
+    """Phase 7b over the wire: ``n`` greedy streams from ``n`` clients
+    through a router over two backends with
+    ``llm_chunk_write:at=OBS_CHUNK_WRITE_AT``: the one failed write
+    cancels its sequence (blocks freed, one forced flight record, counted
+    once), the router resumes that stream on the other
+    backend after its deadline, and every stream's tokens equal the
+    fault-free run's. Launches as the engines' forwards imply. Returns
+    (report, launch counts)."""
+    import threading
+    from paddle_tpu_torch import observability as obs, set_flags
+    from paddle_tpu_torch.inference import Server
+    from paddle_tpu_torch.serving_llm import LLMEngine, Router
+    model, prompts = served["model"], served["prompts"][:n]
+    threads_before = set(threading.enumerate())
+    counts = {}
+    obs.reset_all()
+    counter = ForwardCounter(model)
+    engines = [LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                         max_decode_batch=16, device=model.device)
+               for _ in range(2)]
+    servers = [Server(None, llm_engine=e) for e in engines]
+    set_flags({"enable_metrics": True,
+               "router_backend_deadline_s": OBS_ROUTER_DEADLINE_S})
+    router = Router([("127.0.0.1", s.port) for s in servers],
+                    probe_interval_s=probe_interval_s).start()
+    try:
+        set_flags({"fault_spec": f"llm_chunk_write:at={OBS_CHUNK_WRITE_AT}"})
+        streams = WireStreams()
+        wall = wire_counted(
+            torch, "obs_wire_chaos", counter, engines,
+            lambda: serve_threads(streams, router.port, prompts, n,
+                                  max_new_tokens=max_new), counts)
+        tokens = streams.check("wire chaos", n, max_new)
+        snap = router.snapshot()
+    finally:
+        set_flags({"enable_metrics": False, "fault_spec": "",
+                   "router_backend_deadline_s": 30.0})
+        router.stop()
+        for s in servers:
+            s.stop()
+        counter.restore()
+    outcomes = [tl["outcome"] for tl in obs.seqtrace.ring().recent()]
+    kinds = [e["kind"] for e in obs.flight_recorder().events()]
+    res = dict(streams.stats(wall),
+               faults_injected=metric_total(obs, "faults_injected_total",
+                                            point="llm_chunk_write"),
+               cancelled_total=metric_total(
+                   obs, "serving_stream_cancelled_total"),
+               failovers=snap["failovers_total"],
+               router_failovers_total=metric_total(
+                   obs, "router_failovers_total"),
+               timeline_outcomes=sorted(outcomes),
+               flight=sorted(set(kinds)))
+    res["near_ties"] = hold_against(torch, model, prompts, tokens,
+                                    served["tokens"][:n],
+                                    "wire chaos vs fault-free")
+    log(f"obs chaos wire: {json.dumps(res)}")
+    deadline = time.monotonic() + 10.0
+    while [t for t in threading.enumerate()
+           if t not in threads_before and t.is_alive()]:
+        if time.monotonic() > deadline:
+            raise AssertionError("wire chaos: threads left running")
+        time.sleep(0.05)
+    # two engines of one process number their sequences alike, so a
+    # timeline can be retired as "superseded" by the other engine's
+    # sequence of the same id: the bridge's counter and flight record
+    # are the exact count of cancelled streams
+    if res["faults_injected"] != 1 or res["cancelled_total"] != 1 \
+            or kinds.count("serving_stream_cancelled") != 1 \
+            or outcomes.count("cancelled") > 1 or res["failovers"] != 1 \
+            or "fault_injected" not in kinds:
+        raise AssertionError(f"obs chaos wire: {res}")
+    return res, counts
+
+
+def chaos_train_run(torch, spec: str, compiled: bool, listener=None):
+    """OBS_TRAIN's steps of a fresh bf16 fused BERT from SEED with ``spec``
+    armed and metrics on, the host step count published before each step;
+    ``listener`` on the anomaly sentinel meanwhile. Returns (step, host
+    states after each step, losses, launch counts, step ms)."""
+    from paddle_tpu_torch import kernels, observability as obs
+    from paddle_tpu_torch.testing import faults
+    model = resume_model(torch, OBS_TRAIN["layers"], "bfloat16")
+    data = bert_batch(torch, model.config, OBS_TRAIN["batch"],
+                      OBS_TRAIN["seq"], "cuda", SEED + 7)
+    step = make_train_step(model, fused_state=True, compiled=compiled)
+    restore = flag_scope(dict(FUSED_FLAGS, enable_metrics=True,
+                              fault_spec=spec,
+                              flash_attention_min_seq_train=512))
+    sent = obs.anomaly_sentinel()
+    if listener is not None:
+        sent.add_listener(listener)
+    states, losses, step_ms = [], [], []
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for k in range(1, OBS_TRAIN["steps"] + 1):
+            faults.set_step_context(k)
+            t0 = time.perf_counter()
+            losses.append(float(step(data[0], labels=data[1:])["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(state_on_host(step))
+        counts = kernels.launch_counts()
+        step.sync_to_model()  # the blocking flush of the probes
+    finally:
+        faults.set_step_context(None)
+        if listener is not None:
+            sent.remove_listener(listener)
+        restore()
+    return step, states, losses, counts, step_ms
+
+
+def chaos_training(torch) -> tuple:
+    """Phase 7c: ``nonfinite_grad:step=3`` over OBS_TRAIN's steps,
+    captured: one capture, step 3 leaves every parameter, master, moment
+    and the step counter as step 2 left them, ``nonfinite_steps_total``
+    1 after the flush, the run equal to its eager twin bit for bit; then
+    ``loss_spike:step=4``, whose fourth loss the sentinel flags as a
+    spike (its warm-up fed by the runs before). Returns (report, launch
+    counts of the captured and the eager drill)."""
+    from paddle_tpu_torch import observability as obs
+    obs.reset_all()
+    spec = "nonfinite_grad:step=3"
+    cap, cstates, closs, ccounts, cms = chaos_train_run(torch, spec, True)
+    nonfinite = metric_total(obs, "nonfinite_steps_total")
+    captures = cap.captures
+    del cap
+    eager, estates, eloss, ecounts, ems = chaos_train_run(torch, spec,
+                                                          False)
+    del eager
+    moved = equal_states(torch, cstates[1], cstates[2])
+    moved = [k for k in moved if k != "generator"]
+    twin = [equal_states(torch, a, b) for a, b in zip(cstates, estates)]
+    seen = []
+    spike, sstates, sloss, scounts, _ = chaos_train_run(
+        torch, "loss_spike:step=4", True,
+        listener=lambda series, v, kind: series == "loss"
+        and seen.append(kind))
+    spike_captures = spike.captures
+    del spike, sstates
+    per_step = expected_launches(
+        OBS_TRAIN["seq"], OBS_TRAIN["layers"], 64, FUSED_FLAGS,
+        rows=OBS_TRAIN["batch"] * OBS_TRAIN["seq"], vocab=30522)
+    want = {k: OBS_TRAIN["steps"] * n for k, n in per_step.items()}
+    res = {"spec": spec, "captures": captures, "losses": closs,
+           "eager_losses": eloss, "step3_changed": moved,
+           "nonfinite_steps_total": nonfinite,
+           "twin_differs": [d for d in twin if d],
+           "spike_losses": sloss, "spike_kinds": seen,
+           "spike_captures": spike_captures,
+           "step_ms_captured": cms, "step_ms_eager": ems}
+    log(f"obs chaos training: {json.dumps(res)}")
+    torch.cuda.empty_cache()
+    if captures != 1 or moved or nonfinite != 1 or closs != eloss \
+            or any(twin) or spike_captures != 1 \
+            or seen != [None, None, None, "spike", None] \
+            or ccounts != want or ecounts != want or scounts != want:
+        raise AssertionError(f"obs chaos training: {res}, launches "
+                             f"{ccounts} / {ecounts} / {scounts} (want "
+                             f"{want})")
+    return res, {"obs_train_chaos": ccounts,
+                 "obs_train_chaos_eager": ecounts,
+                 "obs_train_spike": scounts}
+
+
+def train_metrics_off_on(torch, steps: int = 12) -> dict:
+    """The captured bf16 fused step of OBS_TRAIN's model with metrics off
+    and on, in turns (off, on, on, off), ``steps`` replays each: host ms a
+    step (CUDA-synchronised), median over each run's replays."""
+    from paddle_tpu_torch import observability as obs
+    model = resume_model(torch, OBS_TRAIN["layers"], "bfloat16")
+    data = bert_batch(torch, model.config, OBS_TRAIN["batch"],
+                      OBS_TRAIN["seq"], "cuda", SEED + 7)
+    out = {"off": [], "on": []}
+    for metrics in (False, True, True, False):
+        restore = flag_scope(dict(FUSED_FLAGS, enable_metrics=metrics,
+                                  flash_attention_min_seq_train=512))
+        try:
+            step = make_train_step(model, fused_state=True, compiled=True)
+            ms = []
+            for _ in range(steps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(data[0], labels=data[1:])
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            step.sync_to_model()
+        finally:
+            restore()
+        out["on" if metrics else "off"].append(float(np.median(ms[1:])))
+        del step
+    obs.reset_all()
+    res = {"steps": steps, "step_ms_off": out["off"],
+           "step_ms_on": out["on"],
+           "on_over_off": float(np.mean(out["on"]) / np.mean(out["off"]))}
+    log(f"obs training, metrics off against on: {json.dumps(res)}")
+    return res
+
+
+def profiled_spans(torch, served: dict, pool_blocks: int) -> dict:
+    """Phase 7d: under torch.profiler with metrics on, the engine's span
+    (``LLMEngine.step``) around each decode step and ``TrainStep``'s
+    around each replay (a ``cudaGraphLaunch`` inside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import observability as obs, set_flags
+    from paddle_tpu_torch.serving_llm import LLMEngine
+    model, prompts = served["model"], served["prompts"][:4]
+    restore = flag_scope({"enable_metrics": True})
+    try:
+        eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                        max_decode_batch=16, device=model.device)
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=8)
+        eng.step()  # the prefills
+        tmodel = resume_model(torch, OBS_TRAIN["layers"], "bfloat16")
+        data = bert_batch(torch, tmodel.config, OBS_TRAIN["batch"],
+                          OBS_TRAIN["seq"], "cuda", SEED + 7)
+        set_flags(FUSED_FLAGS)
+        step = make_train_step(tmodel, fused_state=True, compiled=True)
+        step(data[0], labels=data[1:])  # the warm-up and the capture
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.step()
+            for _ in range(2):
+                step(data[0], labels=data[1:])
+            torch.cuda.synchronize()
+        while eng.active():
+            eng.step()
+        step.sync_to_model()
+    finally:
+        set_flags({k: False for k in FUSED_FLAGS})
+        restore()
+    # a span is a host range and, on the card's timeline, a device range
+    # of the same name (the kernels it enqueued)
+    events = prof.events()
+    name = step._span_name
+
+    def host_and_device(span):
+        on_host = [e for e in events if e.name == span
+                   and str(e.device_type).endswith("CPU")]
+        on_card = [e for e in events if e.name == span
+                   and not str(e.device_type).endswith("CPU")]
+        return on_host, on_card
+
+    eng_spans, eng_dev = host_and_device("LLMEngine.step")
+    train_spans, train_dev = host_and_device(name)
+    launches = [e for e in events if e.name == "cudaGraphLaunch"]
+    inside = sum(1 for s in train_spans if any(
+        s.time_range.start <= g.time_range.start <= s.time_range.end
+        for g in launches))
+    res = {"engine_spans": len(eng_spans), "train_spans": len(train_spans),
+           "train_spans_around_a_replay": inside,
+           "engine_span_host_ms": [e.time_range.elapsed_us() / 1e3
+                                   for e in eng_spans],
+           "engine_span_device_range_ms": [
+               e.time_range.elapsed_us() / 1e3 for e in eng_dev],
+           "train_span_host_ms": [e.time_range.elapsed_us() / 1e3
+                                  for e in train_spans],
+           "train_span_device_range_ms": [
+               e.time_range.elapsed_us() / 1e3 for e in train_dev]}
+    log(f"obs spans: {json.dumps(res)}")
+    del step, tmodel
+    obs.reset_all()
+    torch.cuda.empty_cache()
+    if len(eng_spans) != 3 or len(train_spans) != 2 or inside != 2:
+        raise AssertionError(f"obs spans: {res}")
+    return res
+
+
+def run_observability(torch, served: dict, serve_counts: dict,
+                      max_new: int, pool_blocks: int, n_spec: int) -> tuple:
+    """Phase 7. Returns (report, launch counts of each path)."""
+    counts = {}
+    report = {}
+    report["obs_serving"], counts["obs_serving"] = obs_serving(
+        torch, served, serve_counts["serving"], max_new, pool_blocks)
+    report["obs_serving_chaos"], counts["obs_serving_chaos"] = \
+        chaos_serving(torch, served, max_new, pool_blocks, n_spec)
+    report["obs_wire_chaos"], wire_counts = chaos_wire(
+        torch, served, max_new, pool_blocks, n_spec,
+        WIRE["probe_interval_s"])
+    counts.update(wire_counts)
+    report["obs_train_chaos"], train_counts = chaos_training(torch)
+    counts.update(train_counts)
+    report["obs_train_metrics_off_on"] = train_metrics_off_on(torch)
+    report["obs_spans"] = profiled_spans(torch, served, pool_blocks)
+    for name in ("obs_serving", "obs_serving_chaos", "obs_train_chaos",
+                 "obs_train_chaos_eager", "obs_train_spike"):
+        for k in PATH_KERNELS[name]:
+            if counts[name][k] <= 0:
+                raise AssertionError(f"{name}: {k} never launched")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -3717,14 +4328,17 @@ def main() -> int:
     wire, wire_counts = run_wire(torch, served, SERVING["max_new"],
                                  SERVING["pool_blocks"], SERVING["n_spec"],
                                  **WIRE)
+    observ, obs_counts = run_observability(
+        torch, served, serve_counts, SERVING["max_new"],
+        SERVING["pool_blocks"], SERVING["n_spec"])
     counts.update(resume_counts, **serve_counts, **wire_counts,
-                  flash_with_lse=lse_counts)
+                  **obs_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
                   layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
-                  **resume, **serving, **wire)
+                  **resume, **serving, **wire, **observ)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

@@ -21,9 +21,13 @@ handed out, and each of its tensors is marked as used on the consumer's
 stream (``record_stream``), so its memory is not reused before the
 consumer's work on it is done. On the CPU it hands batches out as they come.
 
-Not ported: the ``data_batches_total``/``data_batch_wait_seconds``
-telemetry, and ``dataset.py``/``data_generator.py`` (the C++ native
-feed, which comes with the native transport).
+With FLAGS_enable_metrics on, iterating a ``DataLoader`` counts
+``data_batches_total`` and observes ``data_batch_wait_seconds`` (how
+long the consumer waited on the pipeline for each batch), as the JAX
+loader does.
+
+Not ported: ``dataset.py``/``data_generator.py`` (the C++ native feed,
+which comes with the native transport).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core.place import DeviceLike, resolve_device
+from ..observability import metrics as _obs_metrics
 from .worker import get_worker_info
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "Sampler",
@@ -302,8 +307,30 @@ class DataLoader:
             it.shutdown()
 
     def __iter__(self):
-        for batch in self._iter_raw():
-            yield _as_tensors(batch)
+        if not _obs_metrics.enabled():
+            for batch in self._iter_raw():
+                yield _as_tensors(batch)
+            return
+        # count batches and measure how long the consumer waited on the
+        # pipeline for each one
+        batches = _obs_metrics.counter(
+            "data_batches_total", "batches produced by DataLoader")
+        wait_h = _obs_metrics.histogram(
+            "data_batch_wait_seconds",
+            "time the training loop waited on the data pipeline")
+        it = self._iter_raw()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                wait_h.observe(time.perf_counter() - t0)
+                batches.inc()
+                yield _as_tensors(b)
+        finally:
+            it.close()
 
     def __len__(self):
         if self.batch_sampler is None:

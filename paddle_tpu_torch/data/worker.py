@@ -27,8 +27,10 @@ after the fork, and nothing else is used. ``timeout`` (seconds, 0 for
 none) bounds the wait for one batch, so a wedged worker raises instead
 of hanging the consumer.
 
-Not ported: the swallowed-error counter and flight event of the
-teardown paths.
+An error the teardown paths swallow (a payload decoded only to unlink
+its segments, a queue already closed) is counted in
+``dataloader_swallowed_errors_total{where=}`` with a flight event, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
 
 __all__ = ["WorkerInfo", "get_worker_info", "MultiprocessIter",
            "IterableMultiprocessIter"]
@@ -155,13 +160,27 @@ def _decode(obj):
     return obj
 
 
-def _decode_quietly(payload) -> None:
+def _note_swallowed(where: str, exc: BaseException) -> None:
+    """A teardown/decode-path error was deliberately swallowed: count it
+    instead of losing it — a failed leftover decode is a leaked shm
+    segment, and a string of them should be visible on a dashboard."""
+    _metrics.counter(
+        "dataloader_swallowed_errors_total",
+        "errors swallowed on DataLoader teardown/decode paths "
+        "(where: decode_sweep | decode_leftover | shutdown_put | "
+        "shutdown_close)", always=True).inc(where=where)
+    _flight.record("dataloader_swallowed_error", where=where,
+                   error=repr(exc)[:200])
+
+
+def _decode_quietly(payload, where: str) -> None:
     """Decodes a payload nobody will read, to unlink its segments; a
-    failure (a segment the other side already unlinked) is dropped."""
+    failure (a segment the other side already unlinked) is counted in
+    ``dataloader_swallowed_errors_total{where=}``, not raised."""
     try:
         _decode(payload)
-    except Exception:  # noqa: BLE001 — teardown: nothing left to tell
-        pass
+    except Exception as e:  # noqa: BLE001 — teardown: counted, not raised
+        _note_swallowed(where, e)
 
 
 def _drain_and_reap(result_qs, workers, leftovers,
@@ -181,11 +200,11 @@ def _drain_and_reap(result_qs, workers, leftovers,
                 continue
             got = True
             if item[2] is None:
-                _decode_quietly(item[1])
+                _decode_quietly(item[1], "decode_sweep")
         return got
 
     for payload in leftovers:
-        _decode_quietly(payload)
+        _decode_quietly(payload, "decode_leftover")
     # short polls: at the end of an epoch this runs on the consumer's
     # path, and the workers exit at once
     deadline = time.monotonic() + timeout
@@ -363,8 +382,9 @@ class MultiprocessIter:
         for q in self._index_qs:
             try:
                 q.put(None)
-            except (OSError, ValueError):
-                pass  # a closed queue: its worker is gone already
+            except (OSError, ValueError) as e:
+                # a closed queue: its worker is gone already
+                _note_swallowed("shutdown_put", e)
         leftovers = list(self._reorder.values())
         self._reorder.clear()
         _drain_and_reap(self._result_q, self._workers, leftovers)

@@ -5,8 +5,11 @@ overrides a default at import), settable with ``set_flags`` and read
 with ``get_flags``. It holds the flags the ported paths read (the
 paged-KV LLM engine's, the serving wire's and the router's, the
 attention routing and train-step flags of BERT pretraining, and those
-of the checkpoints and the input pipeline), with the names and defaults
-of ``paddle_tpu.flags``.
+of the checkpoints and the input pipeline, and of observability and
+fault injection), with the names and defaults of ``paddle_tpu.flags``.
+A flag may carry an ``on_change`` hook, called with the new value by
+``set_flags`` (not by an environment override at import, as in the JAX
+registry).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Union
+from typing import Any, Callable, Dict, Iterable, Optional, Union
 
 __all__ = ["GLOBAL_FLAGS", "FlagRegistry", "define_flag", "set_flags",
            "get_flags"]
@@ -26,6 +29,7 @@ class _FlagSpec:
     default: Any
     type: type
     help: str
+    on_change: Optional[Callable[[Any], None]] = None
 
 
 class FlagRegistry:
@@ -36,11 +40,12 @@ class FlagRegistry:
         self._values: Dict[str, Any] = {}
         self._lock = threading.RLock()
 
-    def define(self, name: str, default: Any, help: str = "") -> None:
+    def define(self, name: str, default: Any, help: str = "",
+               on_change: Optional[Callable[[Any], None]] = None) -> None:
         with self._lock:
             if name in self._specs:
                 raise ValueError(f"flag '{name}' already defined")
-            spec = _FlagSpec(name, default, type(default), help)
+            spec = _FlagSpec(name, default, type(default), help, on_change)
             self._specs[name] = spec
             env = os.environ.get("FLAGS_" + name)
             self._values[name] = default if env is None \
@@ -71,6 +76,8 @@ class FlagRegistry:
                         f"flag '{name}' expects {spec.type.__name__}, got "
                         f"{type(value).__name__}")
             self._values[name] = value
+            if spec.on_change is not None:
+                spec.on_change(value)
 
     def get(self, name: str) -> Any:
         with self._lock:
@@ -87,8 +94,9 @@ class FlagRegistry:
 GLOBAL_FLAGS = FlagRegistry()
 
 
-def define_flag(name: str, default: Any, help: str = "") -> None:
-    GLOBAL_FLAGS.define(name, default, help)
+def define_flag(name: str, default: Any, help: str = "",
+                on_change: Optional[Callable[[Any], None]] = None) -> None:
+    GLOBAL_FLAGS.define(name, default, help, on_change)
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
@@ -343,3 +351,126 @@ define_flag("allocator_strategy", "xla",
             "through core.arena.HostStagingArena (recycled page-aligned "
             "pinned blocks, zero steady-state mallocs), as a copy from "
             "pageable memory is not asynchronous on the card.")
+
+
+# ---------------------------------------------------------------------------
+# observability and fault injection (observability/, testing/faults.py)
+# ---------------------------------------------------------------------------
+def _enable_metrics_changed(value) -> None:
+    # keeps the metrics module's cached fast-path bool in sync (a lazy
+    # import: observability imports this module)
+    from .observability import metrics as _obs_metrics
+    _obs_metrics.set_enabled(bool(value))
+
+
+define_flag("enable_metrics", False,
+            "Master switch for the observability subsystem: metrics "
+            "registry writes, host span tracing, flight-recorder events "
+            "and the serving/training probes. Off = one cached boolean "
+            "test on every instrumented hot path (capture counts stay "
+            "on: they cost nothing per step).",
+            on_change=_enable_metrics_changed)
+define_flag("anomaly_spike_factor", 10.0,
+            "Anomaly sentinel spike threshold: a watched series (loss, "
+            "grad norm) whose value exceeds this factor times its "
+            "running EWMA (after a short warmup) is counted in "
+            "anomalies_total and logged to events.jsonl under "
+            "FLAGS_trace_dir. NaN/Inf are always flagged. 0 disables "
+            "spike detection (NaN/Inf detection stays on).")
+define_flag("divergence_streak", 5,
+            "Consecutive anomalous loss samples (NaN/Inf or EWMA spike "
+            "per FLAGS_anomaly_spike_factor) before the divergence "
+            "watchdog (observability.anomaly.DivergenceWatchdog) trips. "
+            "A clean sample resets the streak.")
+
+
+def _request_ring_changed(value) -> None:
+    from .observability import reqtrace as _obs_reqtrace
+    _obs_reqtrace.ring().resize(int(value))
+
+
+define_flag("serving_request_ring", 256,
+            "Capacity of the per-request span ring "
+            "(observability/reqtrace.py): the last N request trace "
+            "records — trace id, the lifecycle timestamps and the "
+            "derived serving_*_ms spans.",
+            on_change=_request_ring_changed)
+
+
+def _flight_buffer_changed(value) -> None:
+    from .observability import flight as _obs_flight
+    _obs_flight.recorder().resize(int(value))
+
+
+define_flag("flight_buffer_events", 512,
+            "Capacity of the crash flight recorder's in-process ring "
+            "buffer (observability/flight.py): the last N structured "
+            "events (step markers, captures, anomalies, faults) kept "
+            "and dumped to flight_<ts>.jsonl under FLAGS_trace_dir on "
+            "SIGTERM/uncaught exception/exit.",
+            on_change=_flight_buffer_changed)
+define_flag("trace_dir", "",
+            "If set, observability.export_all() writes the host "
+            "chrome-trace (host_trace.json) and the metrics snapshot "
+            "(metrics.json, metrics.prom) under this directory; the "
+            "anomaly sentinel's events.jsonl and the flight recorder's "
+            "dumps land there too.")
+
+
+def _llm_seqtrace_ring_changed(value) -> None:
+    from .observability import seqtrace as _obs_seqtrace
+    _obs_seqtrace.ring().resize(int(value))
+
+
+define_flag("llm_seqtrace_ring", 256,
+            "Capacity of the finished per-sequence lifecycle-timeline "
+            "ring (observability/seqtrace.py): the last N terminal "
+            "sequence timelines — queued/admitted/prefill_chunk/"
+            "cow_copy/preempted/spec_window/token events, each "
+            "monotonic-stamped, plus the wire trace id. Timelines "
+            "ending in error/cancelled/shed are also dumped to the "
+            "flight recorder.",
+            on_change=_llm_seqtrace_ring_changed)
+
+
+def _llm_step_ring_changed(value) -> None:
+    from .observability import stepprof as _obs_stepprof
+    _obs_stepprof.ring().resize(int(value))
+
+
+define_flag("llm_step_ring", 256,
+            "Capacity of the LLM engine step-record ring "
+            "(observability/stepprof.py): the last N step profiles — "
+            "per-phase durations (admit/prefill/decode/spec_verify plus "
+            "sample/scatter sub-segments), batch composition, KV-pool "
+            "snapshot, prefix-hit and speculative-accept deltas, stall "
+            "verdict — and the live in-flight step.",
+            on_change=_llm_step_ring_changed)
+
+
+def _fault_spec_changed(value) -> None:
+    # (re)arms the chaos-injection registry (a lazy import:
+    # testing.faults imports this module)
+    from .testing import faults as _faults
+    _faults.configure(value or None)
+
+
+define_flag("fault_spec", "",
+            "Deterministic chaos-injection spec "
+            "(paddle_tpu_torch.testing.faults). Comma-separated entries "
+            "'point[:key=value]...', e.g. "
+            "'ckpt_write:p=1:at=2,sigterm:step=7,llm_decode:at=3'. "
+            "Empty (default) disarms every point — the hit() hook is a "
+            "near-free early return.",
+            on_change=_fault_spec_changed)
+define_flag("rollback_lr_factor", 1.0,
+            "Learning-rate multiplier applied on divergence-rollback "
+            "re-entry (e.g. 0.5 halves the LR after each rollback): "
+            "TrainStep.lr_scale, which reaches the step through its "
+            "host_lr tensor, so a rescale reuses the captured graph. "
+            "1.0 leaves the LR untouched.")
+define_flag("recompile_warn_threshold", 8,
+            "Warn (once per function) when one step has been captured "
+            "for at least this many distinct input signatures — a "
+            "capture storm usually means unpadded/unbucketed input "
+            "shapes. 0 disables the warning.")

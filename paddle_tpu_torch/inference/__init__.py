@@ -14,9 +14,15 @@ package's server.
 Not ported yet: ``Config``/``Predictor``/``create_predictor``, which
 serve a ``jit.save`` export (their counterpart is ``torch.export`` per
 shape bucket), so a server here takes ``predictor=None`` and answers a
-tensor request with the error the JAX package's LLM-only server gives;
-and the server's telemetry (metrics, request spans, flight records, the
-exporter). Its own integer counters and the native STATS reply stay.
+tensor request with the error the JAX package's LLM-only server gives.
+The server's telemetry is the JAX server's (with FLAGS_enable_metrics
+on): ``requests_shed_total{kind=,tenant=}``, the request span ring
+(``observability.reqtrace``, a record per refused or shed request; the
+bridge records each stream's) and the flight records of sheds, drains
+and client reconnects. Not yet: the HTTP exporter
+(``observability.server``) and the scrape of the native transport's
+stats into the registry (``scrape_stats``); the server's own integer
+counters and the native STATS reply carry those numbers meanwhile.
 """
 
 from __future__ import annotations
@@ -33,8 +39,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import observability as obs
 from ..flags import GLOBAL_FLAGS
 from ..native import ServingTransport, stat_add, stat_reset
+from ..observability import flight as _flight
+from ..observability import reqtrace as _reqtrace
 
 __all__ = ["Server", "Client", "encode_tensors", "decode_tensors",
            "StreamInterrupted", "StreamConnectionLost", "StreamTimeout"]
@@ -204,9 +213,35 @@ class Server:
 
     @staticmethod
     def _mk_req(r) -> Dict[str, Any]:
-        rid, payload, trace_id, _ingress, is_stream = r
+        """Wrap one transport dequeue into the request-span dict the loop
+        threads through to the reply (reqtrace.STAMPS order)."""
+        rid, payload, trace_id, ingress, is_stream = r
         return {"rid": rid, "payload": payload, "trace_id": trace_id,
+                "ingress_unix": ingress, "dequeue_unix": time.time(),
                 "dequeue_mono": time.monotonic(), "stream": is_stream}
+
+    @staticmethod
+    def _req_tenancy(req: Dict[str, Any]) -> Tuple[str, str]:
+        """(tenant, class) of a request for shed accounting: a stream's
+        optional uint8 tenant descriptor, else default/standard (tensor
+        requests, malformed bodies, tenant-less frames). Memoized on the
+        req dict (the bridge sets the same keys when it admits)."""
+        from ..serving_llm import tenancy
+        if "tenant" in req:
+            return req["tenant"], req.get("class", tenancy.DEFAULT_CLASS)
+        tenant, cls = tenancy.DEFAULT_TENANT, tenancy.DEFAULT_CLASS
+        if req.get("stream"):
+            hdr = struct.calcsize("<IIfI")
+            try:
+                arrs = decode_tensors(req["payload"][hdr:])
+            except (ValueError, struct.error):
+                arrs = []  # the bridge would reject it: default tenant
+            for arr in arrs[1:]:
+                if getattr(arr, "dtype", None) == np.uint8:
+                    tenant, cls = tenancy.decode_descriptor(arr)
+                    break
+        req["tenant"], req["class"] = tenant, cls
+        return tenant, cls
 
     def _drain_transport(self) -> None:
         while True:
@@ -250,6 +285,59 @@ class Server:
                            f"queue deadline {deadline_s * 1e3:.0f}ms"
                            ).encode())
         stat_add("serving.shed_total")
+        _flight.record("serving_shed", force=True,
+                       trace_id=req.get("trace_id"),
+                       age_ms=round(age_s * 1e3, 3),
+                       deadline_ms=round(deadline_s * 1e3, 3))
+        self._count_shed(req)
+        self._record_span(req, status=-1, outcome="shed",
+                          reply_unix=time.time())
+
+    def _count_shed(self, req: Dict[str, Any]) -> None:
+        if obs.enabled():
+            from ..serving_llm import tenancy
+            tenant, _cls = self._req_tenancy(req)
+            obs.counter("requests_shed_total",
+                        "requests answered with an error because they "
+                        "sat in the serving queue longer than the "
+                        "queue deadline (kind=stream for PTST "
+                        "generates, kind=tensor otherwise; tenant= is "
+                        "the bounded tenant label, default for "
+                        "tenant-less frames)").inc(
+                kind="stream" if req.get("stream") else "tensor",
+                tenant=tenancy.tenant_label(tenant))
+
+    def _record_span(self, req: Dict[str, Any], status: int,
+                     outcome: str,
+                     reply_unix: Optional[float] = None) -> None:
+        """Close one refused request's span record (with metrics on):
+        the queue-wait / assembly / end-to-end spans, into the request
+        ring. Served streams are recorded by the bridge."""
+        if not obs.enabled():
+            return
+        rec = {"trace_id": req.get("trace_id") or 0,
+               "req_id": req.get("rid"),
+               "status": status, "outcome": outcome,
+               "ingress_unix": req.get("ingress_unix"),
+               "dequeue_unix": req.get("dequeue_unix"),
+               "assembly_unix": req.get("assembly_unix"),
+               "dispatch_unix": None,
+               "reply_unix": reply_unix}
+        if "tenant" in req:  # streams: per-tenant gap attribution
+            rec["tenant"] = req["tenant"]
+            rec["cls"] = req.get("class")
+
+        def span_ms(a, b):
+            if rec.get(a) is None or rec.get(b) is None:
+                return None
+            return max(0.0, (rec[b] - rec[a]) * 1e3)
+
+        rec["queue_wait_ms"] = span_ms("ingress_unix", "dequeue_unix")
+        rec["batch_assembly_ms"] = span_ms("dequeue_unix",
+                                           "assembly_unix")
+        rec["compute_ms"] = span_ms("dispatch_unix", "reply_unix")
+        rec["e2e_ms"] = span_ms("ingress_unix", "reply_unix")
+        _reqtrace.record(rec)
 
     def _loop(self) -> None:
         if self._llm is not None and self._llm.engine.device.type == "cuda":
@@ -287,6 +375,9 @@ class Server:
                                       b"frames)")
                 elif self._llm is None:
                     self._refuse(req, b"server has no LLM engine")
+                    self._record_span(req, status=-1,
+                                      outcome="no_engine",
+                                      reply_unix=time.time())
                 else:
                     self._llm.admit(req)
             if self._llm is not None and self._llm.active():
@@ -324,6 +415,10 @@ class Server:
             self._draining = True
             stat_reset("serving.draining")
             stat_add("serving.draining", 1)
+            _flight.record("serving_drain_begin", force=True,
+                           deadline_s=deadline_s,
+                           llm_active=self._llm is not None
+                           and self._llm.active())
         if wait:
             self._drained.wait(deadline_s + 30.0)
 
@@ -337,6 +432,9 @@ class Server:
             self.n_drain_rejected += 1
             self._refuse(req, b"server draining: not accepting new "
                               b"requests")
+            self._count_shed(req)
+            self._record_span(req, status=-1, outcome="draining",
+                              reply_unix=time.time())
         llm_busy = self._llm is not None and self._llm.active()
         if llm_busy:
             if time.perf_counter() < (self._drain_deadline_pc or 0):
@@ -345,7 +443,11 @@ class Server:
             self._llm.close(
                 message=b"server draining: drain deadline exceeded",
                 outcome="drain_deadline")
-        self._drained.set()
+        if not self._drained.is_set():
+            self._drained.set()
+            _flight.record("serving_drain_complete", force=True,
+                           rejected=self.n_drain_rejected,
+                           deadline_expired=llm_busy)
         self._stop.wait(0.02)  # idle: keep refusing stragglers
 
     def serve_forever(self, drain_deadline_s: Optional[float] = None,
@@ -486,6 +588,9 @@ class Client:
                                 deadline: Optional[float]) -> int:
         """One bounded retry step; returns the new attempt count or
         raises the terminal error."""
+        _flight.record("client_reconnect", force=True,
+                       host=self._host, port=self._port,
+                       attempt=attempts + 1)
         if attempts >= self._max_reconnects:
             raise ConnectionError(
                 f"server unreachable after {attempts} reconnect "
@@ -757,6 +862,9 @@ class Client:
                 except socket.timeout as e:
                     # mid-frame timeout: the stream position is lost
                     self._poison(gen)
+                    _flight.record("client_deadline_expired",
+                                   force=True, host=self._host,
+                                   port=self._port, tag=want_tag)
                     raise TimeoutError(
                         "deadline exceeded waiting for server reply"
                     ) from e

@@ -38,11 +38,16 @@ any later work on that stream, so a train step that runs at once and
 rewrites the same tensors in place cannot tear the save. A writer's
 failure is re-raised at the next ``save()`` or ``wait()``.
 
+Telemetry, as the JAX package's: ``checkpoint_corrupt_total`` and a
+``checkpoint_corrupt`` flight event per checkpoint a restore skipped,
+``checkpoint_failures_total`` and ``checkpoint_write_failed`` per failed
+background save, and the ``ckpt_write`` fault point before each leaf
+written (``testing.faults``).
+
 Not ported: ``save_inference_model``/``load_inference_model`` (the
 export path), the ``*_persistables``/``*_params`` Executor shims (the
-static ``Program``/``Executor``), and the telemetry hooks (the
-goodput ledger's checkpoint charge, the corrupt-checkpoint and
-save-failure counters and flight events, fault injection).
+static ``Program``/``Executor``), and the goodput ledger's checkpoint
+charge (with ``observability.goodput``).
 """
 
 from __future__ import annotations
@@ -60,6 +65,9 @@ import numpy as np
 import torch
 
 from ..flags import GLOBAL_FLAGS
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+from ..testing import faults as _faults
 
 __all__ = ["save", "load", "is_committed", "load_step", "load_host_state",
            "verify", "flatten", "AsyncCheckpointer", "save_dygraph",
@@ -264,6 +272,29 @@ def _write_npy(fpath: str, arr: np.ndarray) -> Tuple[int, int]:
     return zlib.crc32(data, zlib.crc32(head)), len(head) + data.nbytes
 
 
+def _note_corrupt(path: str, error: Any,
+                  step: Optional[int] = None) -> None:
+    """Count + flight-record a checkpoint skipped as corrupt or
+    uncommitted."""
+    _metrics.counter(
+        "checkpoint_corrupt_total",
+        "checkpoints skipped at restore time because they were "
+        "corrupt or uncommitted (restore fell back to the newest "
+        "intact one)", always=True).inc()
+    _flight.record("checkpoint_corrupt", force=True, path=str(path),
+                   step=step, error=str(error)[:300])
+
+
+def _note_save_failure(step: Optional[int], error: BaseException) -> None:
+    _metrics.counter(
+        "checkpoint_failures_total",
+        "checkpoint saves that raised (background writer failures "
+        "are re-raised at the next save()/wait())",
+        always=True).inc()
+    _flight.record("checkpoint_write_failed", force=True, step=step,
+                   error=str(error)[:300])
+
+
 def _write(host: Dict[str, Any], treedef: str, path: str,
            step: Optional[int], overwrite: bool,
            host_state: Optional[Dict[str, Any]]) -> None:
@@ -276,6 +307,7 @@ def _write(host: Dict[str, Any], treedef: str, path: str,
     leaves: Dict[str, Dict[str, Any]] = {}
     for k, v in host.items():
         arr, dtype_str = _as_array(v)
+        _faults.hit("ckpt_write", step=step)
         crc, nbytes = _write_npy(os.path.join(tmp, "data", _leaf_file(k)),
                                  arr)
         leaves[k] = {"shape": list(arr.shape), "dtype": dtype_str,
@@ -509,6 +541,7 @@ class AsyncCheckpointer:
                 self._gc()
             except BaseException as e:  # noqa: BLE001 — re-raised later
                 self._error = e
+                _note_save_failure(step, e)
             self.last_write_s = time.perf_counter() - t0
 
         self._thread = threading.Thread(target=work, daemon=True,
@@ -583,7 +616,8 @@ class AsyncCheckpointer:
                     raise ValueError(f"checkpoint {path!r}: missing COMMIT "
                                      "marker (unfinished save)")
                 return load(path, target), s
-            except (OSError, ValueError):
+            except (OSError, ValueError) as e:
+                _note_corrupt(path, e, step=s)
                 continue
         return None, None
 

@@ -134,13 +134,15 @@ def _is_key_padding_mask(mask, batch: int, tk: int) -> bool:
             and mask.shape[3] == tk)
 
 
-def _mask_to_kv_bias(mask: torch.Tensor) -> torch.Tensor:
-    """[B, 1, 1, Tk] mask -> [B, Tk] additive fp32 key bias. A bool mask
+def _mask_to_kv_bias(mask: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[B, 1, 1, Tk] mask -> [B, Tk] additive key bias in ``dtype`` (fp32,
+    the kernels'; fp64 for a float64 run's plain version). A bool mask
     is a KEEP mask (True attends); a float mask is already additive."""
     if mask.dtype == torch.bool:
         return torch.where(mask[:, 0, 0, :], 0.0,
-                           _fa.NEG_INF).to(torch.float32).contiguous()
-    return mask[:, 0, 0, :].to(torch.float32).contiguous()
+                           _fa.NEG_INF).to(dtype).contiguous()
+    return mask[:, 0, 0, :].to(dtype).contiguous()
 
 
 def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
@@ -178,7 +180,9 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
         min_seq = GLOBAL_FLAGS.get("flash_attention_min_seq_train") \
             or min_seq
     if mask_ok and q.ndim == 4 and d_ok and tk >= min_seq:
-        kv_bias = None if mask is None else _mask_to_kv_bias(mask)
+        kv_bias = None if mask is None else _mask_to_kv_bias(
+            mask, torch.float64 if q.dtype == torch.float64
+            else torch.float32)
         seed, p = None, 0.0
         if dropout_p > 0.0 and training:
             gen = _random.next_generator("dropout", q.device)

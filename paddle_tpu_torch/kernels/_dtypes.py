@@ -31,3 +31,10 @@ def cast(t: Optional[torch.Tensor],
     when it already is or is None (the fp32 path's per-call cost, as a
     decode step runs ~25 LayerNorms)."""
     return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
+def wide(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` in the dtype the plain versions compute in: fp32, or fp64
+    for an fp64 operand (so a float64 reference run on the CPU stays
+    float64 end to end). As :func:`cast` for every other dtype."""
+    return t if t is None or t.dtype == torch.float64 else cast(t)

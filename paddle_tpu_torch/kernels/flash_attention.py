@@ -67,6 +67,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from . import _build
+from . import _dtypes as _dt
 from ._dtypes import cast as _cast, check as _check_dtypes
 
 __all__ = ["flash_attention", "flash_attention_plain",
@@ -181,9 +182,9 @@ def _plain(q, k, v, causal, scale, dropout_p, seed, kv_bias, bthd):
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     # the JAX forward scales q before the product
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    s = torch.einsum("bhqd,bhkd->bhqk", _dt.wide(q) * scale, _dt.wide(k))
     if kv_bias is not None:
-        s = s + kv_bias.detach().float()[:, None, None, :]
+        s = s + _dt.wide(kv_bias.detach())[:, None, None, :]
     valid = None
     if causal:
         q_pos = torch.arange(tq, device=q.device)[:, None]
@@ -200,7 +201,7 @@ def _plain(q, k, v, causal, scale, dropout_p, seed, kv_bias, bthd):
     if dropout_p > 0.0:
         keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p)
         p = torch.where(keep, p, torch.zeros_like(p)) / (1.0 - dropout_p)
-    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, _dt.wide(v)).to(q.dtype)
     if bthd:
         out = out.transpose(1, 2)
     return out, (m + torch.log(l)).squeeze(-1)
@@ -259,13 +260,13 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool = False,
         scale = 1.0 / math.sqrt(q.shape[-1])
     if bthd:
         q, k, v, dout = (t.transpose(1, 2) for t in (q, k, v, dout))
-    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    q, k, v, dout = (_dt.wide(t) for t in (q, k, v, dout))
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
     if kv_bias is not None:
-        s = s + kv_bias.float()[:, None, None, :]
-    p = torch.exp(s - lse.float()[..., None])
+        s = s + _dt.wide(kv_bias)[:, None, None, :]
+    p = torch.exp(s - _dt.wide(lse)[..., None])
     if causal:
         q_pos = torch.arange(tq, device=q.device)[:, None]
         k_pos = torch.arange(tk, device=q.device)[None, :]
@@ -276,7 +277,7 @@ def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool = False,
         keep = dropout_keep_mask(seed, b, h, tq, tk, dropout_p)
         pv = torch.where(keep, p, torch.zeros_like(p)) / (1.0 - dropout_p)
         dp = torch.where(keep, dp, torch.zeros_like(dp)) / (1.0 - dropout_p)
-    ds = p * (dp - delta.float()[..., None]) * scale
+    ds = p * (dp - _dt.wide(delta)[..., None]) * scale
     grads = (torch.einsum("bhqk,bhkd->bhqd", ds, k),
              torch.einsum("bhqk,bhqd->bhkd", ds, q),
              torch.einsum("bhqk,bhqd->bhkd", pv, dout))

@@ -26,6 +26,7 @@ import torch
 
 from ..nn import functional as F
 from . import _build
+from . import _dtypes as _dt
 from ._dtypes import cast as _cast, check as _check_dtypes
 
 __all__ = ["layer_norm", "layer_norm_plain", "layer_norm_backward"]
@@ -40,10 +41,10 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor,
                      epsilon: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last dim in plain PyTorch (the kernel's
-    oracle, and its stand-in for CPU tensors): computed in fp32, returned
-    in x's dtype."""
-    return F.layer_norm(x.float(), weight.float(), bias.float(), epsilon,
-                        x.ndim - 1).to(x.dtype)
+    oracle, and its stand-in for CPU tensors): computed in fp32 (fp64
+    for fp64 operands), returned in x's dtype."""
+    return F.layer_norm(_dt.wide(x), _dt.wide(weight), _dt.wide(bias),
+                        epsilon, x.ndim - 1).to(x.dtype)
 
 
 def layer_norm_backward(x2: torch.Tensor, weight: torch.Tensor,

@@ -29,8 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
-__all__ = ["build", "ServingTransport", "stat_add", "stat_get",
-           "stat_reset", "stat_dump"]
+__all__ = ["build", "loaded", "ServingTransport", "stat_add",
+           "stat_get", "stat_reset", "stat_dump"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG.parent / "csrc"
@@ -122,6 +122,12 @@ def _load():
                 fn.restype = restype
             _lib = lib
     return _lib
+
+
+def loaded() -> bool:
+    """Whether the library is already loaded; never triggers a build
+    (``observability.native_stats`` reads through it)."""
+    return _lib is not None
 
 
 def _parse_stats(text: str) -> Dict[str, int]:

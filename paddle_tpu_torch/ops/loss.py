@@ -32,14 +32,15 @@ def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
 def softmax_with_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
                                ignore_index: int = -100,
                                axis: int = -1) -> torch.Tensor:
-    """Per-position ``logsumexp(logits) - logits[label]`` in fp32, with
+    """Per-position ``logsumexp(logits) - logits[label]`` in fp32 (fp64
+    for fp64 logits), with
     the class axis kept as size 1 (Paddle's shape); 0.0 where the label
     is ``ignore_index``. ``label`` has the logits' shape without the
     class axis, or with it at size 1."""
     axis = axis % logits.ndim
     lbl = label.squeeze(axis) if label.ndim == logits.ndim else label
     lbl = lbl.unsqueeze(axis).long()
-    lg32 = logits.float()
+    lg32 = logits if logits.dtype == torch.float64 else logits.float()
     lse = torch.logsumexp(lg32, dim=axis, keepdim=True)
     safe = lbl.clamp(0, logits.shape[axis] - 1)
     picked = torch.gather(lg32, axis, safe)

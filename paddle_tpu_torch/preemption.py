@@ -10,7 +10,8 @@ chain and re-delivers the signal, so the process still dies with the
 SIGTERM wait status the scheduler expects. A preempted run therefore
 resumes from the step it died at.
 
-Not ported: the ``preemptions_total`` counter and the flight event.
+The first notice a guard catches counts in ``preemptions_total`` and
+leaves a ``preemption_notice`` flight event, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ import signal
 import threading
 from typing import Optional, Tuple
 
+from .observability import flight as _flight
+from .observability import metrics as _metrics
+
 __all__ = ["PreemptedError", "PreemptionGuard", "guard"]
 
 
@@ -28,6 +32,15 @@ class PreemptedError(RuntimeError):
     signal did not end the process (a chained handler swallowed it), so
     that outer loops unwind, run their own final saves and re-raise in
     turn."""
+
+
+def _note_preempted(signum: int) -> None:
+    _metrics.counter(
+        "preemptions_total",
+        "SIGTERM preemption notices caught by a preemption guard "
+        "(graceful: finish step, checkpoint, re-raise)",
+        always=True).inc()
+    _flight.record("preemption_notice", force=True, signum=int(signum))
 
 
 class PreemptionGuard:
@@ -64,7 +77,9 @@ class PreemptionGuard:
 
     def _handler(self, signum, frame) -> None:
         self.signum = int(signum)
-        self._flag.set()
+        if not self._flag.is_set():
+            self._flag.set()
+            _note_preempted(signum)
 
     def __enter__(self) -> "PreemptionGuard":
         try:

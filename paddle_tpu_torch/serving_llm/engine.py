@@ -32,32 +32,48 @@ a generator seeded by (seed, sample_offset + i) — so speculative and
 plain decode give the same tokens at any temperature. The bits differ
 from the JAX sampler's (``fold_in`` + ``categorical``).
 
-Observability and fault-injection hooks of the JAX engine (sequence
-timelines, step profiler, metrics, flight recorder, fault points, stall
-stack diagnosis) are not part of this package yet.
+The JAX engine's hooks are all here, under the same names: the sequence
+timelines (``observability.seqtrace``), the step profiler
+(``observability.stepprof``, host clocks at the JAX points, no added
+device sync), the ``llm_*`` metrics and gauges, the flight records of
+admission rejections, stalls and KV audit failures, and the fault points
+``llm_prefill``, ``llm_chunk_prefill``, ``llm_decode``,
+``llm_spec_verify`` and ``llm_cow_copy`` (``kv_alloc`` is the
+allocator's). Not yet: the stall watchdog's thread-stack diagnosis,
+which comes with ``observability.stacks``.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import kernels
+from .. import observability as obs
 from ..core.place import resolve_device
 from ..flags import GLOBAL_FLAGS
 from ..models.gpt_lm import dense_causal_attention
+from ..observability import flight as _flight
+from ..observability import metrics as _m
+from ..observability import seqtrace as _seqtrace
+from ..observability import stepprof as _stepprof
+from ..testing import faults as _faults
 from . import tenancy
 from .kv_cache import KVBlockAllocator
 from .scheduler import ContinuousBatchingScheduler, Sequence
 
-__all__ = ["LLMEngine", "AdmissionRejected"]
+__all__ = ["LLMEngine", "AdmissionRejected", "health_snapshot"]
 
 # stall watchdog floor: a step (or inter-step gap) must exceed both the
 # floor and stall_factor * EWMA before the engine reads as stalled
 STALL_MIN_S = 0.5
+
+# live engines, for an aggregate health view (health_snapshot)
+_ENGINES: "weakref.WeakSet[LLMEngine]" = weakref.WeakSet()
 
 _MASK64 = (1 << 64) - 1
 
@@ -97,6 +113,14 @@ class AdmissionRejected(RuntimeError):
         self.retry_after_ms = int(retry_after_ms)
 
 
+def health_snapshot() -> Dict[str, Any]:
+    """Aggregate engine health: per-engine stall / KV-audit state,
+    ok=False when any live engine is unhealthy."""
+    engines = [eng.health() for eng in list(_ENGINES)]
+    ok = not any(h["stalled"] or h["audit_failed"] for h in engines)
+    return {"ok": ok, "engines": engines}
+
+
 class LLMEngine:
     """``device`` None means ``cuda`` (raises without a GPU); pass
     ``device="cpu"`` to serve on the CPU. The model (and draft) must
@@ -132,6 +156,8 @@ class LLMEngine:
                                      device=self.device)
                          for _ in range(cfg.num_layers)]
         self._seqs: Dict[int, Sequence] = {}
+        # tenant labels that ever held a live sequence (gauge zeroing)
+        self._tenant_labels_seen: set = set()
         self._next_seq = 0
         self.tokens_generated = 0
         # projected peak blocks per live sequence (watermark gate)
@@ -143,6 +169,14 @@ class LLMEngine:
         self._audit_failed = False
         self.stalls_total = 0
         self.admission_rejected_total = 0
+        # step profiler (observability/stepprof.py): per-step phase-ms
+        # accumulator, None while metrics are off or between steps
+        self._steps_total = 0
+        self._step_begin_mono: Optional[float] = None
+        self._phase_ms: Optional[Dict[str, float]] = None
+        self._spec_batch = 0  # sequences verified this step
+        self._prefix_hits_snap = 0
+        self._spec_snap = (0, 0)
         # speculative decoding (FLAGS_speculative_k): None means the
         # draft is auto-built on first use (FLAGS_speculative_draft_*);
         # draft_model=model self-drafts (accept rate 1.0)
@@ -151,6 +185,7 @@ class LLMEngine:
         self.spec_accepted_total = 0
         self.spec_verify_steps = 0
         self.spec_verify_ms_total = 0.0
+        _ENGINES.add(self)
 
     # -- request lifecycle ------------------------------------------------
 
@@ -162,8 +197,8 @@ class LLMEngine:
                     priority_class: str = tenancy.DEFAULT_CLASS) -> int:
         """Queue one generate request; returns its sequence id.
         ``trace_id`` is the wire's id of the request (0: untraced), kept
-        on the sequence as the join key to the serving front's
-        records."""
+        on the sequence and its timeline as the join key to the serving
+        front's records."""
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -189,6 +224,19 @@ class LLMEngine:
         self._seqs[seq.seq_id] = seq
         self._projected[seq.seq_id] = projected
         self.scheduler.add(seq)
+        if obs.enabled():
+            obs.counter("llm_tenant_admitted_total",
+                        "sequences accepted into the engine per "
+                        "tenant label (past the watermark AND the "
+                        "tenant KV budget; the fleet_status.py "
+                        "--tenants admitted column)").inc(
+                            tenant=tenancy.tenant_label(tenant))
+        # the timeline opens here; trace_id is the wire id the bridge
+        # carries, so request records link to this timeline
+        _seqtrace.begin(seq.seq_id, trace_id=int(trace_id),
+                        engine=id(self), prompt_tokens=len(prompt),
+                        max_new_tokens=int(max_new_tokens),
+                        tenant=tenant, cls=priority_class)
         return seq.seq_id
 
     def _projected_blocks(self, prompt: List[int], max_new: int) -> int:
@@ -226,21 +274,40 @@ class LLMEngine:
                 if (s := self._seqs.get(sid)) is not None
                 and s.tenant == tenant)
             if t_committed + projected > t_budget:
-                self._reject(projected, t_committed, t_budget,
-                             "tenant KV budget")
+                self._reject(projected, t_committed, t_budget, tenant,
+                             reason="tenant_budget")
         if watermark > 0:
             budget = watermark * self.pool_blocks
             committed = sum(self._projected.values())
             if committed + projected > budget:
-                self._reject(projected, committed, budget,
-                             "watermark budget")
+                self._reject(projected, committed, budget, tenant,
+                             reason="watermark")
         return projected
 
     def _reject(self, projected: int, committed: float, budget: float,
-                what: str) -> None:
+                tenant: str, reason: str) -> None:
+        """Count + flight-record one admission rejection and raise
+        AdmissionRejected with the retry-after hint."""
         self.admission_rejected_total += 1
         load = len(self.scheduler.running) + len(self.scheduler.waiting)
         retry_after_ms = 50 * (1 + load)
+        _flight.record("llm_admission_rejected", force=True,
+                       projected_blocks=projected,
+                       committed_blocks=committed,
+                       budget_blocks=round(budget, 1),
+                       reason=reason, tenant=tenant,
+                       retry_after_ms=retry_after_ms)
+        if obs.enabled():
+            obs.counter("llm_admission_rejected_total",
+                        "new sequences refused before prefill, per "
+                        "tenant label — by the KV-watermark admission "
+                        "gate (kv_admission_watermark) or the "
+                        "tenant's own KV budget (tenant_kv_budget); "
+                        "overload fail-fast, not a shed or a "
+                        "preemption").inc(
+                            tenant=tenancy.tenant_label(tenant))
+        what = ("tenant KV budget" if reason == "tenant_budget"
+                else "watermark budget")
         raise AdmissionRejected(
             f"admission rejected: projected {projected} KV blocks + "
             f"{committed} committed exceeds {what} "
@@ -250,12 +317,13 @@ class LLMEngine:
     def cancel(self, seq_id: int, outcome: str = "cancelled") -> bool:
         """Drop a sequence (client disconnect; ``outcome="shed"`` when
         the serving bridge sheds an aged waiting stream): blocks freed,
-        no further events for it. True if it was live. ``outcome`` names
-        why, as the JAX engine's sequence timeline records it; the port
-        keeps no timeline yet."""
+        no further events for it. True if it was live. ``outcome`` closes
+        its timeline."""
         seq = self.scheduler.cancel(seq_id)
         self._seqs.pop(seq_id, None)
         self._projected.pop(seq_id, None)
+        if seq is not None:
+            _seqtrace.finish(seq_id, outcome, tokens=len(seq.generated))
         return seq is not None
 
     def active(self) -> bool:
@@ -268,9 +336,21 @@ class LLMEngine:
         running batch. Returns token/finished/error event dicts in
         emission order. Timed by the stall watchdog (EWMA of step wall
         time, FLAGS_llm_stall_factor) and followed by the KV invariant
-        audit, which raises on a leak."""
+        audit, which raises on a leak. Each step also emits one step
+        record into the step ring (observability/stepprof.py), its
+        in-flight half registered up front so a wedged step shows
+        there while it hangs. With metrics on the step is a tracer span,
+        ``LLMEngine.step`` (a ``torch.profiler`` range too)."""
+        if obs.enabled():
+            with obs.span("LLMEngine.step"):
+                return self._step()
+        return self._step()
+
+    def _step(self) -> List[Dict[str, Any]]:
         self._step_begin_unix = time.time()
         t0 = time.perf_counter()
+        self._steps_total += 1
+        self._prof_begin()
         events: List[Dict[str, Any]] = []
         try:
             with torch.no_grad():
@@ -279,32 +359,119 @@ class LLMEngine:
             dt = time.perf_counter() - t0
             # fair-share ledger: resident context x step wall time
             self.scheduler.charge(dt)
+            stalls_before = self.stalls_total
             self._note_step(dt)
+            self._prof_end(dt, events,
+                           stalled=self.stalls_total > stalls_before)
         self._audit()
         return events
 
     def _step_inner(self) -> List[Dict[str, Any]]:
         events: List[Dict[str, Any]] = []
+        self._prof_phase("admit")
+        _t = time.perf_counter()
+        admitted: List[Sequence] = []
         try:
-            self.scheduler.admit()
+            admitted = self.scheduler.admit()
         except Exception as e:  # noqa: BLE001 — fail the one request
             # allocate() raised before the head left the waiting queue
             if self.scheduler.waiting:
                 seq = self.scheduler.waiting.popleft()
                 events.append(self._fail(seq, f"kv allocation: {e}"))
+        self._prof_acc("admit", (time.perf_counter() - _t) * 1e3)
+        for seq in admitted:
+            _seqtrace.event(seq.seq_id,
+                            "readmitted" if seq.preemptions
+                            else "admitted",
+                            cached_tokens=seq.cached_tokens,
+                            order=seq.admit_order)
         # chunked prefill tick: every running sequence with unwritten
         # context advances ONE chunk (the whole remainder when chunking
         # is off), newly admitted sequences included
+        self._prof_phase("prefill")
         for seq in [s for s in self.scheduler.running
                     if not s.prefill_done]:
             if seq not in self.scheduler.running:
                 continue  # preempted by an earlier sequence's COW
+            _t = time.perf_counter()
             try:
                 events += self._prefill_chunk(seq)
             except Exception as e:  # noqa: BLE001 — fail ONE request
                 events.append(self._fail(seq, str(e)))
+            finally:
+                self._prof_acc("prefill",
+                               (time.perf_counter() - _t) * 1e3)
+        self._prof_phase("decode")
+        _t = time.perf_counter()
+        spec0 = (self._phase_ms or {}).get("spec_verify", 0.0)
         events += self._decode()
+        dec_ms = (time.perf_counter() - _t) * 1e3 \
+            - ((self._phase_ms or {}).get("spec_verify", 0.0) - spec0)
+        self._prof_acc("decode", max(0.0, dec_ms))
+        self._publish()
         return events
+
+    # -- step profiler (observability/stepprof.py) -------------------------
+
+    def _prof_begin(self) -> None:
+        """Open the step record: arm the phase-ms accumulator and
+        register the live in-flight entry on the step ring."""
+        self._step_begin_mono = time.monotonic()
+        self._spec_batch = 0
+        if not obs.enabled():
+            self._phase_ms = None
+            return
+        self._phase_ms = {}
+        self._prefix_hits_snap = self.allocator.prefix_hit_tokens_total
+        self._spec_snap = (self.spec_proposed_total,
+                           self.spec_accepted_total)
+        _stepprof.ring().step_begin(id(self), step=self._steps_total,
+                                    begin_unix=self._step_begin_unix)
+
+    def _prof_phase(self, phase: str) -> None:
+        if self._phase_ms is not None:
+            _stepprof.ring().set_phase(id(self), phase)
+
+    def _prof_acc(self, phase: str, ms: float) -> None:
+        p = self._phase_ms
+        if p is not None:
+            p[phase] = p.get(phase, 0.0) + ms
+
+    def _prof_end(self, dt: float, events: List[Dict[str, Any]],
+                  stalled: bool) -> None:
+        """Seal the step record and append it to the step ring (also
+        observes llm_step_phase_ms{phase=})."""
+        p, self._phase_ms = self._phase_ms, None
+        if p is None:
+            return
+        run = self.scheduler.running
+        dp = self.spec_proposed_total - self._spec_snap[0]
+        da = self.spec_accepted_total - self._spec_snap[1]
+        rec = {
+            "step": self._steps_total,
+            "engine": id(self) & 0xFFFF,
+            "begin_unix": self._step_begin_unix,  # display only
+            "begin_mono": self._step_begin_mono,
+            "dur_ms": round(dt * 1e3, 3),
+            "phase_ms": {k: round(v, 3) for k, v in sorted(p.items())},
+            "batch": {
+                "prefilling": sum(1 for s in run
+                                  if not s.prefill_done),
+                "decoding": sum(1 for s in run if s.prefill_done),
+                "verifying": self._spec_batch,
+                "waiting": len(self.scheduler.waiting)},
+            "kv": {"used": self.allocator.num_used,
+                   "free": self.allocator.num_free,
+                   "shared": self.allocator.num_shared},
+            "prefix_hit_tokens": self.allocator.prefix_hit_tokens_total
+            - self._prefix_hits_snap,
+            "spec": {"proposed": dp, "accepted": da,
+                     "accept_rate": round(da / dp, 4) if dp else None},
+            "tokens": sum(1 for e in events if e["type"] == "token"),
+            "events": len(events),
+            "stalled": bool(stalled),
+        }
+        _stepprof.ring().record(id(self), rec)
 
     # -- internals --------------------------------------------------------
 
@@ -360,8 +527,13 @@ class LLMEngine:
                     f"{self.pool_blocks * self.block_size} tokens "
                     f"with no victims left")
             old, new = r
+            _t = time.perf_counter()
+            _faults.hit("llm_cow_copy")
             for pool in self._k_pools + self._v_pools:
                 pool[new] = pool[old]
+            _seqtrace.event(
+                seq.seq_id, "cow_copy", block_old=old, block_new=new,
+                ms=round((time.perf_counter() - _t) * 1e3, 3))
 
     def _prefill_chunk(self, seq: Sequence) -> List[Dict[str, Any]]:
         """One prefill chunk for ``seq``: forward the next
@@ -369,6 +541,13 @@ class LLMEngine:
         chunking is off), attending over the already-cached prefix
         gathered from the pool, and write the fresh K/V rows into the
         sequence's blocks. The final chunk samples the first token."""
+        t0 = time.perf_counter()  # before the fault hits: an injected
+        # slow chunk (sleep=) must show in this chunk's measured ms
+        if seq.ctx_len == seq.cached_tokens:
+            # first chunk of this (re)admission: the per-sequence prefill
+            # fault point fires here once
+            _faults.hit("llm_prefill")
+        _faults.hit("llm_chunk_prefill")
         if seq.dispatch_unix is None:
             seq.dispatch_unix = time.time()
         ids = seq.prompt + seq.generated  # re-prefill keeps generated
@@ -389,8 +568,10 @@ class LLMEngine:
                       for a in self._slots(seq, np.arange(c0)))
 
         def attn_fn(i, q, k, v):
+            _ts = time.perf_counter()
             self._k_pools[i][blks, offs] = k[0].float()
             self._v_pools[i][blks, offs] = v[0].float()
+            self._prof_acc("scatter", (time.perf_counter() - _ts) * 1e3)
             if cb is None:
                 return dense_causal_attention(q, k, v)
             # cached prefix (shared blocks / earlier chunks) comes from
@@ -407,6 +588,19 @@ class LLMEngine:
             attn_fn)[0, -1]
         seq.ctx_len = c0 + n
         self.allocator.note_written(seq.seq_id, ids[:seq.ctx_len])
+        chunk_ms = (time.perf_counter() - t0) * 1e3
+        if obs.enabled():
+            obs.histogram("llm_prefill_chunk_ms",
+                          "wall time of one prefill chunk "
+                          "(FLAGS_prefill_chunk_tokens; whole-prompt "
+                          "prefill when chunking is off)",
+                          buckets=_m.LATENCY_MS_BUCKETS).observe(
+                              chunk_ms)
+        # timeline event BEFORE the final chunk's first token, so the
+        # chunk lands inside the gap the token anchors
+        _seqtrace.event(seq.seq_id, "prefill_chunk",
+                        ms=round(chunk_ms, 3), ctx=seq.ctx_len,
+                        done=seq.ctx_len >= t)
         if seq.ctx_len < t:
             return []  # mid-prefill: decode keeps ticking meanwhile
         seq.prefill_done = True
@@ -416,17 +610,23 @@ class LLMEngine:
     def _grow_batch(self, k: int, events: List[Dict[str, Any]]):
         """Grow every decode-ready sequence (oldest first: preemption
         evicts from the young end) by 1 token, or — speculative — by its
-        draft window plus 1. Returns (batch, windows)."""
+        draft window plus 1. Returns (batch, windows, the host ms each
+        window's proposal took)."""
         todo = sorted((s for s in self.scheduler.running
                        if s.prefill_done and s.generated),
                       key=lambda s: s.admit_order)
         draft = self._draft() if k > 0 else None
         batch: List[Sequence] = []
         windows: Dict[int, List[int]] = {}
+        prop_ms_by: Dict[int, float] = {}
         for seq in todo:
             if seq not in self.scheduler.running:
                 continue  # preempted by an older sequence's growth
+            _t = time.perf_counter()
             try:
+                # the speculative step's point is llm_spec_verify, the
+                # plain step's llm_decode (one hit per sequence)
+                _faults.hit("llm_spec_verify" if k > 0 else "llm_decode")
                 proposal: List[int] = []
                 if k > 0:
                     # never propose past the emission budget: a window
@@ -443,8 +643,13 @@ class LLMEngine:
                     # still reads
                     self._make_writable(seq, seq.ctx_len, need)
             except Exception as e:  # noqa: BLE001 — fail ONE sequence
-                events.append(self._fail(seq, f"decode: {e}"))
+                events.append(self._fail(
+                    seq, f"{'speculative' if k > 0 else 'decode'}: {e}"))
                 continue
+            if k > 0:
+                prop_ms = (time.perf_counter() - _t) * 1e3
+                self._prof_acc("spec_verify", prop_ms)
+                prop_ms_by[seq.seq_id] = prop_ms
             if not grown:
                 if seq not in self.scheduler.running:
                     # preempted ITSELF: higher-class residents hold the
@@ -457,14 +662,15 @@ class LLMEngine:
                 continue
             batch.append(seq)
             windows[seq.seq_id] = proposal
-        return [s for s in batch if s in self.scheduler.running], windows
+        return ([s for s in batch if s in self.scheduler.running], windows,
+                prop_ms_by)
 
     def _decode(self) -> List[Dict[str, Any]]:
         k = self._spec_k()
         if k > 0:
             return self._decode_speculative(k)
         events: List[Dict[str, Any]] = []
-        batch, _ = self._grow_batch(0, events)
+        batch, _, _ = self._grow_batch(0, events)
         if not batch:
             return events
         newpos = np.asarray([s.ctx_len for s in batch])
@@ -475,8 +681,10 @@ class LLMEngine:
         lens = self._dev(newpos + 1, torch.int32)
 
         def attn_fn(i, q, k, v):
+            _ts = time.perf_counter()
             self._k_pools[i][blks, offs] = k[:, 0].float()
             self._v_pools[i][blks, offs] = v[:, 0].float()
+            self._prof_acc("scatter", (time.perf_counter() - _ts) * 1e3)
             out = kernels.maybe_paged_attention(
                 q[:, 0].float().contiguous(),
                                         self._k_pools[i],
@@ -495,6 +703,12 @@ class LLMEngine:
             for seq in batch:
                 events.append(self._fail(seq, f"decode step: {e}"))
             return events
+        if obs.enabled():
+            obs.histogram("llm_decode_batch_size",
+                          "sequences per continuous-batching decode "
+                          "step",
+                          buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0]
+                          ).observe(float(len(batch)))
         for i, seq in enumerate(batch):
             seq.ctx_len += 1
             self.allocator.note_written(
@@ -573,10 +787,11 @@ class LLMEngine:
         allocator's truncate_to, so the post-step audit sees exactly
         the committed context."""
         events: List[Dict[str, Any]] = []
-        batch, windows = self._grow_batch(k, events)
+        batch, windows, prop_ms_by = self._grow_batch(k, events)
         if not batch:
             return events
         b = len(batch)
+        self._spec_batch = b
         q_lens = np.asarray([len(windows[s.seq_id]) + 1 for s in batch])
         qmax = int(q_lens.max())
         feed = np.zeros((b, qmax), np.int64)
@@ -608,8 +823,10 @@ class LLMEngine:
         qlens_d = self._dev(q_lens, torch.int32)
 
         def attn_fn(i, q, kk, vv):
+            _ts = time.perf_counter()
             self._k_pools[i][blks, offs] = kk[rows_b, rows_q].float()
             self._v_pools[i][blks, offs] = vv[rows_b, rows_q].float()
+            self._prof_acc("scatter", (time.perf_counter() - _ts) * 1e3)
             out = kernels.maybe_paged_attention_multiquery(
                 q.float().contiguous(), qlens_d, self._k_pools[i],
                 self._v_pools[i], tbl, lens)
@@ -626,10 +843,14 @@ class LLMEngine:
             for seq in batch:
                 events.append(self._fail(seq, f"verify step: {e}"))
             return events
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        self._prof_acc("spec_verify", verify_ms)
         self.spec_verify_steps += 1
-        self.spec_verify_ms_total += (time.perf_counter() - t0) * 1e3
+        self.spec_verify_ms_total += verify_ms
+        accepted_step = 0
         # proposed counts only windows that reached the verifier
-        self.spec_proposed_total += int(q_lens.sum()) - b
+        proposed_step = int(q_lens.sum()) - b
+        self.spec_proposed_total += proposed_step
         for i, seq in enumerate(batch):
             proposal = windows[seq.seq_id]
             emitted: List[int] = []
@@ -641,6 +862,7 @@ class LLMEngine:
                     m += 1
                     continue
                 break  # first divergence: tok is the bonus token
+            accepted_step += m
             self.spec_accepted_total += m
             # window rows 0..m hold K/V for [last, d1..dm], all on the
             # accepted timeline; anything past is a rejected draft and
@@ -651,14 +873,53 @@ class LLMEngine:
             seq.ctx_len = new_ctx
             self.allocator.note_written(
                 seq.seq_id, seq.prompt + seq.generated + proposal[:m])
+            # recorded before the tokens it produced, so the window lands
+            # inside the gap those tokens anchor
+            _seqtrace.event(
+                seq.seq_id, "spec_window", proposed=len(proposal),
+                accepted=m, rollback=len(proposal) - m,
+                ms=round(prop_ms_by.get(seq.seq_id, 0.0)
+                         + verify_ms / b, 3))
             for tok in emitted:
                 events += self._emit(seq, tok)
                 if seq.seq_id not in self._seqs:
                     break  # eos/length finished the sequence
+        self._publish_spec(proposed_step, accepted_step, verify_ms,
+                           float(b))
         return events
 
-    @staticmethod
-    def _sample(seqs: List[Sequence], logits: torch.Tensor,
+    def _publish_spec(self, proposed: int, accepted: int,
+                      verify_ms: float, batch: float) -> None:
+        if not obs.enabled():
+            return
+        if proposed:
+            obs.counter("llm_spec_proposed_tokens_total",
+                        "draft tokens proposed to the target verifier "
+                        "by speculative decoding "
+                        "(FLAGS_speculative_k)").inc(proposed)
+        if accepted:
+            obs.counter("llm_spec_accepted_tokens_total",
+                        "draft tokens accepted by the target's "
+                        "longest-prefix verification — each one "
+                        "skipped a full target decode step"
+                        ).inc(accepted)
+        if self.spec_proposed_total:
+            obs.gauge("llm_spec_accept_rate",
+                      "cumulative accepted/proposed draft-token ratio "
+                      "of this engine (1.0 = every draft token "
+                      "matched the target)").set(
+                          self.spec_accepted_total
+                          / self.spec_proposed_total)
+        obs.histogram("llm_spec_verify_ms",
+                      "wall time of one batched ragged multi-query "
+                      "verify forward (speculative decoding)",
+                      buckets=_m.LATENCY_MS_BUCKETS).observe(verify_ms)
+        obs.histogram("llm_decode_batch_size",
+                      "sequences per continuous-batching decode step",
+                      buckets=[1.0, 2.0, 4.0, 8.0, 16.0, 32.0]
+                      ).observe(batch)
+
+    def _sample(self, seqs: List[Sequence], logits: torch.Tensor,
                 indices: List[int]) -> List[int]:
         """Tokens for the rows of ``logits`` ``[N, V]``: row r is the
         token at generated-index ``indices[r]`` of ``seqs[r]``. Argmax at
@@ -667,7 +928,9 @@ class LLMEngine:
         by call order, so a speculative window draws exactly what
         sequential decode would, and a stream resumed with
         ``sample_offset`` continues the original's draws. All on the
-        device; the tokens reach the host in one read."""
+        device; the tokens reach the host in one read (its host time is
+        the step record's ``sample`` sub-segment)."""
+        _t = time.perf_counter()
         logits = logits.float()
         hot = [r for r, s in enumerate(seqs) if s.temperature > 0.0]
         if hot:
@@ -680,7 +943,9 @@ class LLMEngine:
                  for r in hot], logits.shape[-1], dev)
             logits = logits.index_copy(
                 0, rows, logits[rows] / temps[:, None] + noise)
-        return logits.argmax(dim=-1).tolist()
+        tokens = logits.argmax(dim=-1).tolist()
+        self._prof_acc("sample", (time.perf_counter() - _t) * 1e3)
+        return tokens
 
     def _emit(self, seq: Sequence, token: int) -> List[Dict[str, Any]]:
         idx = len(seq.generated)
@@ -689,6 +954,7 @@ class LLMEngine:
         events: List[Dict[str, Any]] = [{
             "type": "token", "seq_id": seq.seq_id, "token": token,
             "index": idx, "dispatch_unix": seq.dispatch_unix}]
+        _seqtrace.event(seq.seq_id, "token", index=idx)
         reason = None
         if seq.eos_token_id is not None and token == seq.eos_token_id:
             reason = "eos"
@@ -701,12 +967,16 @@ class LLMEngine:
             events.append({"type": "finished", "seq_id": seq.seq_id,
                            "reason": reason,
                            "tokens": len(seq.generated)})
+            _seqtrace.finish(seq.seq_id, "finished", reason=reason,
+                             tokens=len(seq.generated))
         return events
 
     def _fail(self, seq: Sequence, error: str) -> Dict[str, Any]:
         self.scheduler.finish(seq)
         self._seqs.pop(seq.seq_id, None)
         self._projected.pop(seq.seq_id, None)
+        _seqtrace.finish(seq.seq_id, "error", error=error[:200],
+                         tokens=len(seq.generated))
         return {"type": "error", "seq_id": seq.seq_id, "error": error,
                 "tokens": len(seq.generated)}
 
@@ -718,14 +988,24 @@ class LLMEngine:
 
     def _note_step(self, dt: float) -> None:
         """EWMA stall watchdog: a step that took stall_factor times
-        longer than the running average (and past the floor) counts as
-        a stall; health() also reads a step that never returns."""
+        longer than the running average (and past the floor) is a stall
+        — forced flight event + counter; health() also reads a step that
+        never returns."""
         self._step_end_unix = time.time()
         ewma = self._step_ewma_s
         factor = self._stall_factor()
         if factor > 0 and ewma is not None \
                 and dt > max(STALL_MIN_S, factor * ewma):
             self.stalls_total += 1
+            _flight.record("llm_engine_stalled", force=True,
+                           step_s=round(dt, 4),
+                           ewma_s=round(ewma, 4), factor=factor)
+            if obs.enabled():
+                obs.counter("llm_engine_stalled_total",
+                            "engine steps flagged by the stall "
+                            "watchdog: wall time exceeded "
+                            "llm_stall_factor x the EWMA step time"
+                            ).inc()
         self._step_ewma_s = dt if ewma is None else 0.8 * ewma + 0.2 * dt
 
     def _audit(self) -> None:
@@ -733,7 +1013,9 @@ class LLMEngine:
         be consistent and no decode-phase sequence may hold cache past
         its committed context (a rejected draft window that was not
         rolled back shows up exactly there). Raises AssertionError — a
-        serving loop that leaks blocks must fail loudly."""
+        serving loop that leaks blocks must fail loudly. The
+        ``kv_blocks_*`` gauges must agree with the allocator too."""
+        agree = None
         try:
             self.allocator.check()
             for seq in self.scheduler.running:
@@ -746,11 +1028,25 @@ class LLMEngine:
                         f"but committed ctx_len is {seq.ctx_len} — "
                         f"speculative rollback missed a rejected draft "
                         f"window")
-            if self.allocator.gauges_agree() is False:
-                raise AssertionError("kv_blocks_* gauges disagree with "
-                                     "the allocator")
+            agree = self.allocator.gauges_agree()
+            if agree is False:
+                raise AssertionError(
+                    "kv_blocks_used/free gauges disagree with the "
+                    f"allocator (used={self.allocator.num_used}, "
+                    f"free={self.allocator.num_free})")
         except AssertionError:
             self._audit_failed = True
+            _flight.record("llm_kv_audit_failed", force=True,
+                           used=self.allocator.num_used,
+                           free=self.allocator.num_free,
+                           gauges_agree=agree)
+            if obs.enabled():
+                obs.counter("llm_kv_audit_failures_total",
+                            "post-step KV invariant audits that "
+                            "failed (allocator accounting broken or "
+                            "gauges drifted) — the engine reports "
+                            "unhealthy on /healthz until restart"
+                            ).inc()
             raise
 
     def health(self) -> Dict[str, Any]:
@@ -789,3 +1085,31 @@ class LLMEngine:
                         round(self.spec_verify_ms_total
                               / self.spec_verify_steps, 3)
                         if self.spec_verify_steps else None}}
+
+    def _publish(self) -> None:
+        if not obs.enabled():
+            return
+        obs.gauge("llm_running_seqs",
+                  "sequences in the continuous-batching running set"
+                  ).set(float(len(self.scheduler.running)))
+        obs.gauge("llm_waiting_seqs",
+                  "sequences queued for admission (prefill pending)"
+                  ).set(float(len(self.scheduler.waiting)))
+        obs.gauge("llm_prefilling_seqs",
+                  "admitted sequences still mid-chunked-prefill (not "
+                  "yet in the decode batch)").set(float(
+                      sum(1 for s in self.scheduler.running
+                          if not s.prefill_done)))
+        active: Dict[str, int] = {}
+        for s in self.scheduler.running:
+            lbl = tenancy.tenant_label(s.tenant)
+            active[lbl] = active.get(lbl, 0) + 1
+        g = obs.gauge("llm_tenant_active",
+                      "live sequences (running set) per tenant label "
+                      "— the fleet_status.py --tenants active column")
+        for lbl, n in active.items():
+            g.set(float(n), tenant=lbl)
+        # a tenant that just drained must read 0, not its last value
+        for lbl in self._tenant_labels_seen - set(active):
+            g.set(0.0, tenant=lbl)
+        self._tenant_labels_seen |= set(active)

@@ -26,18 +26,30 @@ Counterpart of ``paddle_tpu.serving_llm.kv_cache``, pure bookkeeping
 with the same LIFO free order, refcounts and index. ``check()`` audits
 refcounts (per-table reference counts must equal the refcount map; no
 refcount-0 block outside the free list), and the scheduler's preemption
-decisions read ``num_free``. Single-owner object (the engine's serving
-thread); no internal locking.
+decisions read ``num_free``. The ``kv_blocks_{used,free,shared}``
+gauges and the ``kv_*_total`` counters are published as the JAX
+allocator publishes them (with FLAGS_enable_metrics on), and the
+``kv_alloc`` fault point fires at the same calls. Single-owner object
+(the engine's serving thread); no internal locking.
 """
 
 from __future__ import annotations
 
+import itertools
 from collections import Counter
 from typing import Dict, List, Optional, Sequence as Seq, Tuple
 
+from .. import observability as obs
 from ..flags import GLOBAL_FLAGS
+from ..testing import faults as _faults
 
 __all__ = ["KVBlockAllocator"]
+
+# last allocator to publish the kv_blocks_* gauges (engines audit
+# gauge-vs-allocator agreement only when their own allocator wrote the
+# gauge last — several engines in one process share the registry)
+_pub_tokens = itertools.count(1)
+_last_pub_token: Optional[int] = None
 
 
 class KVBlockAllocator:
@@ -76,6 +88,8 @@ class KVBlockAllocator:
         self.alloc_failures_total = 0
         self.cow_copies_total = 0
         self.prefix_hit_tokens_total = 0
+        self._pub_token = next(_pub_tokens)
+        self._publish()
 
     # -- queries ----------------------------------------------------------
 
@@ -178,6 +192,7 @@ class KVBlockAllocator:
         reports how many leading tokens prefill may skip."""
         if seq_id in self._tables:
             raise ValueError(f"seq {seq_id} already has a block table")
+        _faults.hit("kv_alloc")
         shared: List[int] = []
         m = 0
         sharing = tokens is not None and self._sharing()
@@ -190,6 +205,7 @@ class KVBlockAllocator:
         need = self.blocks_for(n_tokens) - len(shared)
         if need > len(self._free):
             self.alloc_failures_total += 1
+            self._count("kv_alloc_failures_total")
             return False
         for b in shared:
             self._refs[b] += 1
@@ -203,7 +219,12 @@ class KVBlockAllocator:
             # the shared prefix is already-written content
             self._timelines[seq_id] = list(tokens[:m])
         self.allocs_total += need
-        self.prefix_hit_tokens_total += m
+        if need:
+            self._count("kv_blocks_alloc_total", need)
+        if m:
+            self.prefix_hit_tokens_total += m
+            self._count("kv_prefix_hit_tokens_total", m)
+        self._publish()
         return True
 
     def extend_to(self, seq_id: int, n_tokens: int) -> bool:
@@ -214,9 +235,11 @@ class KVBlockAllocator:
             raise KeyError(f"seq {seq_id} has no block table")
         if n_tokens <= self._tokens[seq_id]:
             return True
+        _faults.hit("kv_alloc")
         need = self.blocks_for(n_tokens) - len(self._tables[seq_id])
         if need > len(self._free):
             self.alloc_failures_total += 1
+            self._count("kv_alloc_failures_total")
             return False
         if need > 0:
             fresh = [self._free.pop() for _ in range(need)]
@@ -224,7 +247,9 @@ class KVBlockAllocator:
                 self._refs[b] = 1
             self._tables[seq_id] += fresh
             self.allocs_total += need
+            self._count("kv_blocks_alloc_total", need)
         self._tokens[seq_id] = int(n_tokens)
+        self._publish()
         return True
 
     def make_private(self, seq_id: int, block_idx: int):
@@ -241,6 +266,7 @@ class KVBlockAllocator:
             return None
         if not self._free:
             self.alloc_failures_total += 1
+            self._count("kv_alloc_failures_total")
             return False
         new = self._free.pop()
         self._refs[old] -= 1
@@ -248,6 +274,9 @@ class KVBlockAllocator:
         table[block_idx] = new
         self.allocs_total += 1
         self.cow_copies_total += 1
+        self._count("kv_blocks_alloc_total", 1)
+        self._count("kv_cow_copies_total")
+        self._publish()
         return (old, new)
 
     def note_written(self, seq_id: int, tokens: Seq[int]) -> None:
@@ -324,7 +353,10 @@ class KVBlockAllocator:
                 del self._index_key[table[-1]]
                 self._full_index.pop(key, None)
         self._free.extend(returned)
-        self.freed_total += len(returned)
+        if returned:
+            self.freed_total += len(returned)
+            self._count("kv_blocks_freed_total", len(returned))
+        self._publish()
         return len(returned)
 
     def free(self, seq_id: int) -> int:
@@ -339,6 +371,7 @@ class KVBlockAllocator:
         self._shared_tokens.pop(seq_id, None)
         self._timelines.pop(seq_id, None)
         if not blocks:
+            self._publish()
             return 0
         returned: List[int] = []
         for b in reversed(blocks):
@@ -350,7 +383,10 @@ class KVBlockAllocator:
                     self._full_index.pop(key, None)
                 returned.append(b)
         self._free.extend(returned)
-        self.freed_total += len(returned)
+        if returned:
+            self.freed_total += len(returned)
+            self._count("kv_blocks_freed_total", len(returned))
+        self._publish()
         return len(returned)
 
     # -- accounting -------------------------------------------------------
@@ -396,8 +432,57 @@ class KVBlockAllocator:
                     f"({self._tokens.get(sid, 0)} tokens) — "
                     f"rolled-back tokens still prefix-matchable")
 
+    def _count(self, name: str, n: int = 1) -> None:
+        if not obs.enabled():
+            return
+        help_ = {
+            "kv_blocks_alloc_total":
+                "KV cache blocks handed to sequences by the paged "
+                "allocator",
+            "kv_blocks_freed_total":
+                "KV cache blocks returned to the paged allocator's "
+                "free list",
+            "kv_alloc_failures_total":
+                "KV block allocations refused because the pool was "
+                "exhausted (triggers scheduler preemption)",
+            "kv_cow_copies_total":
+                "copy-on-write block copies: a sequence's first "
+                "divergent write to a shared block allocated a "
+                "private copy (kv_prefix_sharing)",
+            "kv_prefix_hit_tokens_total":
+                "prompt tokens satisfied from already-resident "
+                "shared blocks at allocate() time — prefill skips "
+                "recomputing them (kv_prefix_sharing)",
+        }[name]
+        obs.counter(name, help_).inc(n)
+
     def gauges_agree(self) -> Optional[bool]:
-        """Do the kv_blocks_* gauges match this allocator's counts? This
-        package publishes no gauges yet, so the answer is always None
-        (unjudgeable), as the JAX allocator's is with metrics off."""
-        return None
+        """Do the kv_blocks_* gauges match this allocator's counts?
+        None when unjudgeable (metrics off, or another allocator wrote
+        the gauges last); the engine's post-step audit consumes this."""
+        if not obs.enabled() or _last_pub_token != self._pub_token:
+            return None
+        used = obs.gauge("kv_blocks_used").value()
+        free = obs.gauge("kv_blocks_free").value()
+        shared = obs.gauge("kv_blocks_shared").value()
+        if used is None or free is None or shared is None:
+            return None
+        return int(used) == self.num_used \
+            and int(free) == self.num_free \
+            and int(shared) == self.num_shared
+
+    def _publish(self) -> None:
+        global _last_pub_token
+        if not obs.enabled():
+            return
+        _last_pub_token = self._pub_token
+        obs.gauge("kv_blocks_used",
+                  "KV cache blocks currently owned by sequences "
+                  "(paged allocator)").set(float(self.num_used))
+        obs.gauge("kv_blocks_free",
+                  "KV cache blocks on the paged allocator's free "
+                  "list").set(float(self.num_free))
+        obs.gauge("kv_blocks_shared",
+                  "KV cache blocks referenced by two or more block "
+                  "tables (prefix sharing; read-only until "
+                  "copy-on-write)").set(float(self.num_shared))

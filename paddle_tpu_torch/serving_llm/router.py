@@ -31,8 +31,14 @@ same):
   the backend that served the longest recorded prefix of its leading
   KV blocks, else by class-weighted load.
 
-Its metrics, flight records and request spans are not ported yet; the
-router's own counters are in its STATS reply and ``snapshot()``.
+Observability, as the JAX router's (with FLAGS_enable_metrics on): the
+``router_backend_state{backend=}`` and ``router_streams_active`` gauges,
+the ``router_{shed,retries,failovers}_total`` counters, the flight
+records of backend transitions, sheds and failovers, and a per-hop
+request span (``kind=router_stream``) riding the client's trace id. The
+router's own counters are in its STATS reply and ``snapshot()`` either
+way. Not yet (the HTTP exporter's part): ``snapshot_all`` and ``GET
+/router``.
 """
 
 from __future__ import annotations
@@ -49,7 +55,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Tuple
 import numpy as np
 
 from .. import inference as _inf
+from .. import observability as obs
 from ..flags import GLOBAL_FLAGS
+from ..observability import flight as _flight
+from ..observability import reqtrace as _reqtrace
 from . import tenancy
 
 __all__ = ["CircuitBreaker", "Backend", "BackendPool", "Router"]
@@ -281,6 +290,8 @@ class BackendPool:
         self._rr = 0                 # guarded-by: self._lock
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        for b in self.backends:
+            self._set_gauge(b)
 
     # -- rotation ---------------------------------------------------------
 
@@ -337,6 +348,7 @@ class BackendPool:
     def _probe_one(self, b: Backend) -> None:
         # the breaker gates probes too: while open the backend is left
         # alone; the first probe after the backoff is the half-open one
+        before = b.state()
         if b.breaker.allow():
             try:
                 out = self._probe(b)
@@ -354,22 +366,45 @@ class BackendPool:
                 b.last_error = None
                 b.breaker.record_success()
         b.last_probe_unix = time.time()
+        self.note_transition(b, before)
 
     # -- the router's data path reports here ------------------------------
 
     def note_failure(self, b: Backend, error: str = "") -> None:
         """A data-path connect/deadline failure: breaker food."""
+        before = b.state()
         if error:
             b.last_error = error[:200]
         b.breaker.record_failure()
+        self.note_transition(b, before)
 
     def note_success(self, b: Backend) -> None:
+        before = b.state()
         b.breaker.record_success()
+        self.note_transition(b, before)
 
     def note_draining(self, b: Backend) -> None:
         """The backend answered with a drain refusal: out of rotation,
         breaker untouched (drain is not death)."""
+        before = b.state()
         b.mark_draining()
+        self.note_transition(b, before)
+
+    def note_transition(self, b: Backend, before: str) -> None:
+        after = b.state()
+        self._set_gauge(b)
+        if after != before:
+            _flight.record("router_backend_transition", backend=b.name,
+                           before=before, after=after,
+                           failures=b.breaker.failures)
+
+    def _set_gauge(self, b: Backend) -> None:
+        if obs.enabled():
+            obs.gauge("router_backend_state",
+                      "router rotation state per backend: 0=closed "
+                      "(in rotation), 1=draining, 2=unhealthy, "
+                      "3=half_open, 4=open (breaker tripped)"
+                      ).set(STATE_CODES[b.state()], backend=b.name)
 
     def snapshot(self) -> List[Dict[str, Any]]:
         return [b.snapshot() for b in self.backends]
@@ -464,6 +499,8 @@ class Router:
         self._accept_thread.start()
         if self._start_probes:
             self.pool.start()
+        _flight.record("router_start", addr=self.addr,
+                       backends=[b.name for b in self.pool.backends])
         return self
 
     def stop(self) -> None:
@@ -694,7 +731,7 @@ class Router:
                             f"{last_err}".encode())
                 return
             if tried:
-                self._count("retries")
+                self._count_retry(trace_id, tried[-1])
                 self._sleep_jittered(len(tried))
             tried.append(b)
             try:
@@ -727,16 +764,26 @@ class Router:
                       eos: Optional[int], temp: float, seed: int,
                       base_offset: int,
                       tenant_cls: Optional[Tuple[str, str]] = None) -> None:
-        cls = tenant_cls[1] if tenant_cls is not None \
-            else tenancy.DEFAULT_CLASS
+        tenant, cls = tenant_cls if tenant_cls is not None else (
+            tenancy.DEFAULT_TENANT, tenancy.DEFAULT_CLASS)
+        t_ingress = time.time()
         delivered: List[int] = []
         burned: List[Backend] = []
         hints: List[int] = []
         retries = failovers = sat_rounds = 0
         last_err = "no backend available"
+        last_backend = ""
+        dispatch_unix: Optional[float] = None
+
+        def trace(outcome: str) -> None:
+            self._trace(trace_id, t_ingress, dispatch_unix, last_backend,
+                        delivered, retries, failovers, outcome, tenant,
+                        cls)
+
         with self._lock:
             self._counts["streams"] += 1
             self._streams_active += 1
+            self._set_streams_gauge()
         try:
             while True:
                 b = self._pick_backend(burned, prompt, cls)
@@ -750,15 +797,21 @@ class Router:
                             burned.clear()
                             self._sleep_jittered(sat_rounds)
                             continue
-                        self._shed(conn, wlock, tag, hints)
+                        self._shed(conn, wlock, tag, trace_id, hints,
+                                   tenant)
+                        trace("shed")
                     else:
                         self._reply(
                             conn, wlock, tag, -1,
                             f"router: no backend available after "
                             f"{len(delivered)} token(s): "
                             f"{last_err}".encode())
+                        trace("error")
                     return
                 burned.append(b)
+                last_backend = b.name
+                if dispatch_unix is None:
+                    dispatch_unix = time.time()
                 try:
                     self._run_attempt(b, conn, wlock, tag, trace_id,
                                       prompt, delivered, max_new, eos,
@@ -787,7 +840,9 @@ class Router:
                         last_err = msg
                         if not delivered and tenancy.class_rank(cls) \
                                 <= tenancy.class_rank("bulk"):
-                            self._shed(conn, wlock, tag, hints)
+                            self._shed(conn, wlock, tag, trace_id, hints,
+                                       tenant)
+                            trace("shed")
                             return
                         continue
                     else:
@@ -795,9 +850,11 @@ class Router:
                         # forward it verbatim, nothing to retry
                         self._reply(conn, wlock, tag, -1,
                                     _strip_client_prefix(msg).encode())
+                        trace("backend_error")
                         return
                 else:
                     self._reply(conn, wlock, tag, 0, b"")
+                    trace("ok")
                     return
                 # an infra failure: a started stream fails over (resumed
                 # with the offset), an unstarted one retries with backoff
@@ -809,22 +866,25 @@ class Router:
                             f"router: failover budget exhausted after "
                             f"{len(delivered)} token(s): "
                             f"{last_err}".encode())
+                        trace("failover_exhausted")
                         return
-                    self._count("failovers")
+                    self._count_failover(trace_id, b, delivered)
                 else:
                     retries += 1
                     if retries > self._retry_budget():
                         self._reply(conn, wlock, tag, -1,
                                     f"router: retry budget exhausted: "
                                     f"{last_err}".encode())
+                        trace("retry_exhausted")
                         return
-                    self._count("retries")
+                    self._count_retry(trace_id, b)
                     self._sleep_jittered(retries)
         except OSError:
             return  # a reply write failed: the client is gone
         finally:
             with self._lock:
                 self._streams_active -= 1
+                self._set_streams_gauge()
 
     def _run_attempt(self, b: Backend, conn, wlock, tag: int,
                      trace_id: int, prompt: np.ndarray,
@@ -873,15 +933,72 @@ class Router:
 
     # -- shed / counters --------------------------------------------------
 
-    def _shed(self, conn, wlock, tag: int, hints: List[int]) -> None:
-        self._count("shed")
+    def _shed(self, conn, wlock, tag: int, trace_id: int,
+              hints: List[int], tenant: str = "") -> None:
+        hint = max(hints)
+        label = tenancy.tenant_label(tenant or tenancy.DEFAULT_TENANT)
+        with self._lock:
+            self._counts["shed"] += 1
+        if obs.enabled():
+            obs.counter("router_shed_total",
+                        "streams refused at the router door because "
+                        "every backend was saturated (the reply "
+                        "carries the max retry_after_ms hint); "
+                        "tenant= is the bounded tenant label, "
+                        "default for tenant-less frames"
+                        ).inc(tenant=label)
+        _flight.record("router_shed", trace_id=trace_id,
+                       retry_after_ms=hint, tenant=label)
         self._reply(conn, wlock, tag, -1,
                     f"router: all backends saturated: "
-                    f"retry_after_ms={max(hints)}".encode())
+                    f"retry_after_ms={hint}".encode())
 
-    def _count(self, what: str) -> None:
+    def _count_retry(self, trace_id: int, b: Backend) -> None:
         with self._lock:
-            self._counts[what] += 1
+            self._counts["retries"] += 1
+        if obs.enabled():
+            obs.counter("router_retries_total",
+                        "zero-token requests re-sent to another "
+                        "backend after a connect/deadline failure "
+                        "(started streams fail over instead)").inc()
+
+    def _count_failover(self, trace_id: int, b: Backend,
+                        delivered: List[int]) -> None:
+        with self._lock:
+            self._counts["failovers"] += 1
+        if obs.enabled():
+            obs.counter("router_failovers_total",
+                        "started streams resumed on a surviving "
+                        "backend after backend death (prompt+"
+                        "delivered re-issued with the sample offset; "
+                        "continuation is bitwise-exact)").inc()
+        _flight.record("router_failover", trace_id=trace_id,
+                       dead_backend=b.name, delivered=len(delivered))
+
+    # holds-lock: self._lock
+    def _set_streams_gauge(self) -> None:
+        if obs.enabled():
+            obs.gauge("router_streams_active",
+                      "client streams currently held open by the "
+                      "router (across all backends)"
+                      ).set(self._streams_active)
+
+    def _trace(self, trace_id: int, ingress_unix: float,
+               dispatch_unix: Optional[float], backend: str,
+               delivered: List[int], retries: int, failovers: int,
+               outcome: str, tenant: str = "",
+               cls: str = "") -> None:
+        """Per-hop request span riding the client's trace id: joins
+        against the backend's own span for the same id, so the router
+        hop is visible beside it."""
+        _reqtrace.record({
+            "trace_id": trace_id, "kind": "router_stream",
+            "ingress_unix": ingress_unix,
+            "dispatch_unix": dispatch_unix,
+            "reply_unix": time.time(),
+            "backend": backend, "tokens": len(delivered),
+            "retries": retries, "failovers": failovers,
+            "outcome": outcome, "tenant": tenant, "cls": cls})
 
     def _sleep_jittered(self, attempt: int) -> None:
         base = self._retry_backoff_s()

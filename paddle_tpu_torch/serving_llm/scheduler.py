@@ -45,7 +45,9 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Deque, Dict, List, Optional
 
+from .. import observability as obs
 from ..flags import GLOBAL_FLAGS
+from ..observability import seqtrace as _seqtrace
 from . import tenancy
 from .kv_cache import KVBlockAllocator
 
@@ -319,6 +321,20 @@ class ContinuousBatchingScheduler:
         seq.preemptions += 1
         self.preemptions_total += 1
         self.waiting.appendleft(seq)
+        _seqtrace.event(seq.seq_id, "preempted",
+                        preemptions=seq.preemptions,
+                        tokens=len(seq.generated),
+                        tenant=seq.tenant, cls=seq.priority_class)
+        if obs.enabled():
+            obs.counter("kv_blocks_preempted_total",
+                        "running sequences preempted back to the "
+                        "waiting queue because the KV pool was "
+                        "exhausted (recompute-on-readmit), by "
+                        "priority class — {class=premium} staying at "
+                        "zero under bulk load is the tenant-isolation "
+                        "contract (docs/fault_tolerance.md, 'Tenant "
+                        "isolation')").inc(
+                            **{"class": seq.priority_class})
 
     def finish(self, seq: Sequence) -> None:
         self.allocator.free(seq.seq_id)

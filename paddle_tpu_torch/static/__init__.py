@@ -85,9 +85,32 @@ continued, as Philox is not threefry.
 its parameter source and the flags), its metric functions inside the
 graph, as they run inside the JAX package's jit.
 
-Not ported: the observability probes, fault multipliers and the
-divergence-rollback LR scale; buffers the forward updates are not
-guarded (the ported models have none).
+**Observability and value faults**, as the JAX step's (with
+FLAGS_enable_metrics on): a span ``TrainStep(<model>)`` around each step
+(around the replay on the card; ``EvalStep(<model>)`` likewise),
+``optimizer_steps_total``, and each capture and replay in the capture
+tracker's ``jit_*`` series (``observability.recompile``). Nothing on the
+host runs inside a graph at replay, so the probes take the JAX step's
+callback-free route: the skip verdict and the gradient global norm are
+step outputs (the ``_pt_nonfinite``/``_pt_gnorm`` leaves of the JAX step
+under a compile cache), copied with the loss to pinned host memory
+behind a CUDA event, and ``flush_signals`` hands them to the anomaly
+sentinel and to ``nonfinite_steps_total`` once the event has completed
+(``block=False``, called after every step: no sync) or at once
+(``sync_to_model``, a blocking flush). The eager step takes the same
+route, so captured and eager steps count alike. Value faults
+(``testing.faults``' ``nonfinite_grad`` and ``loss_spike``) are two fp32
+device scalars, written in place before each step while such a point is
+armed (1.0 when not firing): arming or disarming changes the signature
+once, a fault firing at ``step=N`` does not (its trigger reads the host
+step count of ``faults.set_step_context``). ``lr_scale`` (the
+divergence-rollback rescale) multiplies the rate on the host and reaches
+the step through ``host_lr``, so a rescale reuses the graph (a rate the
+step computes on the device from its counter is multiplied there by the
+scale, which ``host_lr`` then holds).
+
+Not ported: buffers the forward updates are not guarded (the ported
+models have none).
 """
 
 from __future__ import annotations
@@ -103,11 +126,16 @@ from torch import nn
 from .. import amp as _amp
 from .. import io as _io
 from .. import kernels
+from .. import observability as _obs
 from ..convert import tensor_from_numpy
 from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
+from ..observability import flight as _flight
+from ..observability.recompile import signature_text
 from ..optimizer import LRScheduler, Optimizer
+from ..optimizer.lr import resolve_lr
+from ..testing import faults as _faults
 
 __all__ = ["TrainStep", "EvalStep", "seed_from_key_bits"]
 
@@ -127,6 +155,36 @@ def _host_lr(optimizer) -> Optional[float]:
     if rate.host_driven:
         return float(rate.get_lr())
     return None
+
+
+_NONFINITE_HELP = ("train steps whose gradients contained NaN/Inf — the "
+                   "optimizer/scaler/buffer update was skipped in-graph "
+                   "(skip-step guard, FLAGS_skip_nonfinite_steps)")
+
+
+def _note_nonfinite_host(fired: bool) -> None:
+    if not fired:
+        return
+    _obs.counter("nonfinite_steps_total", _NONFINITE_HELP).inc()
+    _flight.record("nonfinite_step", force=True)
+
+
+def _register_probe_series() -> None:
+    """Registers the probes' counters, so their TYPE lines show before
+    the first incident (the JAX step registers them at trace time)."""
+    _obs.counter("nonfinite_steps_total", _NONFINITE_HELP)
+    _obs.counter("anomalies_total",
+                 "NaN/Inf and spike events seen by the anomaly sentinel")
+
+
+def apply_fault_mults(loss, grads, grad_mult, loss_mult):
+    """The step's half of the value-fault injection: the loss and every
+    floating gradient times the armed multipliers (device scalars; 1.0 is
+    inert)."""
+    loss = loss * loss_mult.to(loss.dtype)
+    grads = {n: g * grad_mult.to(g.dtype) if g.is_floating_point() else g
+             for n, g in grads.items()}
+    return loss, grads
 
 
 def _wire_param_meta(model: nn.Module, optimizer: Optimizer) -> None:
@@ -308,6 +366,25 @@ def _capture(owner, graph: _Graph, body: Callable[[], None],
     owner.capture_ms += (time.perf_counter() - t0) * 1e3
 
 
+def _tracked(owner, key, inputs, first_call: Callable[[], Any]):
+    """``owner``'s call of ``inputs`` under the capture tracker: a replay
+    of the graph of ``key`` (a hit), else ``first_call()`` (the warm-up
+    and the capture: a trace, with its signature)."""
+    rec = _obs.recompile_tracker().function(owner._span_name)
+    graph = owner._graphs.get(key)
+    if graph is not None:
+        out = graph.replay(inputs)
+        if _obs.enabled():
+            rec.on_call(0.0, traced=False)
+        return out
+    t0 = time.perf_counter()
+    out = first_call()
+    rec.note_trace(signature_text(inputs))
+    if _obs.enabled():
+        rec.on_call(time.perf_counter() - t0, traced=True)
+    return out
+
+
 def seed_from_key_bits(bits) -> int:
     """The seed a JAX PRNG key's raw uint32 words give the port's step
     generator: words 0 and 1 as one 64-bit integer, word 0 high (a
@@ -369,6 +446,20 @@ class TrainStep:
             self.seed)
         self.host_lr = torch.zeros((), dtype=torch.float32,
                                    device=self.device)
+        # host-LR rescale applied on divergence-rollback re-entry
+        # (FLAGS_rollback_lr_factor), through host_lr
+        self.lr_scale = 1.0
+        self._lr_scaled = False  # host_lr holds the scale, not the rate
+        # value-fault multipliers, written in place while a point is armed
+        self._grad_mult = torch.ones((), dtype=torch.float32,
+                                     device=self.device)
+        self._loss_mult = torch.ones((), dtype=torch.float32,
+                                     device=self.device)
+        self._faults_armed = False
+        # (host copy [nonfinite, grad norm, loss], its event or None,
+        # whether the verdict is real) of each step not yet delivered
+        self._pending_signals: list = []
+        self._span_name = f"TrainStep({type(model).__name__})"
 
     # assigning the optimizer or scaler state drops the graphs, which read
     # the old tensors
@@ -411,6 +502,9 @@ class TrainStep:
         grads = {n: torch.zeros_like(self.params[n]) if g is None else g
                  for n, g in zip(names, grads)}
         loss = loss.detach()
+        if self._faults_armed:
+            loss, grads = apply_fault_mults(loss, grads, self._grad_mult,
+                                            self._loss_mult)
         found_inf = None
         if scaler is not None:
             grads, found_inf = scaler.unscale(grads, self.scaler_state)
@@ -424,24 +518,60 @@ class TrainStep:
             with torch.no_grad():
                 for name, fn in self.extra_metrics.items():
                     metrics[name] = fn(out, *labels)
+        if _obs.enabled():
+            # the sentinel's scalars and the skip verdict ride the outputs
+            # (a graph runs no host code at replay); _drain_signals takes
+            # them off
+            norms = torch._foreach_norm(
+                [g for g in grads.values() if g.is_floating_point()], 2,
+                dtype=torch.float32)
+            metrics["_pt_gnorm"] = torch.linalg.vector_norm(
+                torch.stack(norms))
+            if found_inf is not None:
+                metrics["_pt_nonfinite"] = found_inf
         ok = None
         if found_inf is not None:
             ok = ~found_inf
             self.nonfinite_steps += found_inf.to(torch.int64)
+        if self._lr_scaled:
+            # a rate computed on the device, rescaled: host_lr holds the
+            # scale (JAX: resolve_lr(rate, step + 1) * lr_scale)
+            lr = resolve_lr(self.optimizer.learning_rate,
+                            self.state["step"] + 1) * lr
         self.optimizer.apply_gradients(self.params, grads, self.state, ok,
                                        lr_override=lr)
         if scaler is not None:
             scaler.update(self.scaler_state, found_inf)
         return metrics
 
-    def _lr(self) -> Optional[torch.Tensor]:
-        """``host_lr`` holding the rate's live host value (written
-        outside any graph), else None."""
+    def _lr(self, scaled: bool = True) -> Optional[torch.Tensor]:
+        """``host_lr`` holding the rate's live host value times
+        ``lr_scale`` (written outside any graph; the fp32 product the JAX
+        step forms on the device), or, for a rate computed on the device
+        with a scale other than 1, the scale; else None. ``scaled=False``
+        ignores the scale (``run_steps``, as in the JAX package)."""
         lr = _host_lr(self.optimizer)
-        if lr is None:
+        scale = float(self.lr_scale) if scaled else 1.0
+        self._lr_scaled = lr is None and scale != 1.0
+        if lr is None and not self._lr_scaled:
             return None
-        self.host_lr.fill_(lr)
+        if self._lr_scaled:
+            self.host_lr.fill_(scale)
+        elif scale != 1.0:
+            self.host_lr.fill_(float(np.float32(lr) * np.float32(scale)))
+        else:
+            self.host_lr.fill_(lr)
         return self.host_lr
+
+    def _arm_faults(self, enable: bool = True) -> None:
+        """Writes the value-fault multipliers of this step in place (a
+        fill, no sync) while a value point is armed; their presence is
+        part of the signature."""
+        self._faults_armed = enable and _faults.active() \
+            and _faults.value_points_armed()
+        if self._faults_armed:
+            self._grad_mult.fill_(_faults.value_mult("nonfinite_grad"))
+            self._loss_mult.fill_(_faults.value_mult("loss_spike"))
 
     def _run(self, args, labels, kwargs, lr) -> Dict[str, torch.Tensor]:
         """One step: eager, or the replay of its signature's graph (the
@@ -452,16 +582,18 @@ class TrainStep:
             return self._step(args, labels, kwargs, lr)
         inputs = (args, labels, kwargs)
         key = (_signature(inputs), GLOBAL_FLAGS.snapshot(),
-               self.model.training, lr is None)
-        graph = self._graphs.get(key)
-        if graph is not None:
-            return graph.replay(inputs)
-        metrics = self._backend.warm_up(
-            lambda: self._step(args, labels, kwargs, lr))
-        graph = _Graph(inputs)
-        self._capture(graph, lr)
-        self._graphs[key] = graph
-        return metrics
+               self.model.training, lr is None, self._lr_scaled,
+               self._faults_armed, _obs.enabled())
+
+        def first_call():
+            metrics = self._backend.warm_up(
+                lambda: self._step(args, labels, kwargs, lr))
+            graph = _Graph(inputs)
+            self._capture(graph, lr)
+            self._graphs[key] = graph
+            return metrics
+
+        return _tracked(self, key, inputs, first_call)
 
     def _capture(self, graph: _Graph, lr) -> None:
         """Records the step over ``graph``'s buffers."""
@@ -474,7 +606,62 @@ class TrainStep:
 
     def __call__(self, *args, labels=(), **kwargs) -> Dict[str,
                                                            torch.Tensor]:
-        return self._run(args, _labels(labels), kwargs, self._lr())
+        lr = self._lr()
+        self._arm_faults()
+        if not _obs.enabled():
+            return self._run(args, _labels(labels), kwargs, lr)
+        _register_probe_series()
+        with _obs.span(self._span_name):
+            metrics = self._run(args, _labels(labels), kwargs, lr)
+        _obs.counter("optimizer_steps_total",
+                     "optimizer update steps applied").inc()
+        return self._drain_signals(metrics)
+
+    # -- the probes' drain -------------------------------------------------
+
+    def _drain_signals(self, metrics: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """Takes the probe outputs off ``metrics``, queues them (a copy
+        to pinned host memory behind an event on the card) and delivers
+        what has completed."""
+        nf = metrics.pop("_pt_nonfinite", None)
+        gn = metrics.pop("_pt_gnorm", None)
+        if gn is None:
+            return metrics
+        dev = torch.stack([torch.zeros_like(gn) if nf is None
+                           else nf.to(gn.dtype), gn,
+                           metrics["loss"].float()])
+        ev = None
+        if dev.is_cuda:
+            host = torch.empty(3, dtype=dev.dtype, pin_memory=True)
+            host.copy_(dev, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        else:
+            host = dev
+        self._pending_signals.append((host, ev, nf is not None))
+        self.flush_signals(block=False)
+        return metrics
+
+    def flush_signals(self, block: bool = True) -> None:
+        """Delivers queued probe signals, in step order, to their host
+        handlers (the anomaly sentinel's ``loss`` and ``grad_norm``
+        series, ``nonfinite_steps_total``). With ``block=False`` it
+        stops at the first step whose copy has not completed
+        (``event.query()``, no sync); with ``block`` it waits for each."""
+        while self._pending_signals:
+            host, ev, has_nf = self._pending_signals[0]
+            if ev is not None and not ev.query():
+                if not block:
+                    return
+                ev.synchronize()
+            self._pending_signals.pop(0)
+            nf, gn, loss = host.tolist()
+            if has_nf:
+                _note_nonfinite_host(bool(nf))
+            sent = _obs.anomaly_sentinel()
+            sent.observe("loss", float(loss))
+            sent.observe("grad_norm", float(gn))
 
     def run_steps(self, *args, labels=(), **kwargs) -> Dict[str,
                                                             torch.Tensor]:
@@ -491,11 +678,20 @@ class TrainStep:
         if first is None or first.ndim == 0:
             raise ValueError("run_steps needs batches stacked on a "
                              "leading steps axis")
-        lr = self._lr()
-        per = [self._run(_index(args, i), _index(labels, i),
-                         _index(kwargs, i), lr)
-               for i in range(first.shape[0])]
-        return {k: torch.stack([m[k] for m in per]) for k in per[0]}
+        k = first.shape[0]
+        lr = self._lr(scaled=False)
+        self._arm_faults(enable=False)
+        span = _obs.span(self._span_name + ".multi") \
+            if _obs.enabled() else contextlib.nullcontext()
+        with span:
+            per = [self._drain_signals(
+                self._run(_index(args, i), _index(labels, i),
+                          _index(kwargs, i), lr)) for i in range(k)]
+        if _obs.enabled():
+            _obs.counter("optimizer_steps_total",
+                         "optimizer update steps applied").inc(k)
+        return {name: torch.stack([m[name] for m in per])
+                for name in per[0]}
 
     def reset_from_model(self) -> None:
         """Re-read the model's trainable parameters (after parameters
@@ -510,9 +706,11 @@ class TrainStep:
         self._graphs.clear()
 
     def sync_to_model(self) -> None:
-        """A no-op: the step updates the model's own parameters in place,
-        so the model holds the trained values after every step (the JAX
+        """Flushes the pending probe signals (blocking). Otherwise a
+        no-op: the step updates the model's own parameters in place, so
+        the model holds the trained values after every step (the JAX
         step's donated state has to be written back)."""
+        self.flush_signals()
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole training state as one tree of the live tensors, with
@@ -599,6 +797,7 @@ class EvalStep:
         self._backend = _CudaGraphs(self.device) if self.compiled else None
         self.captures = 0
         self.capture_ms = 0.0
+        self._span_name = f"EvalStep({type(model).__name__})"
 
     @torch.no_grad()
     def _step(self, params, buffers, args, labels, check_sync=False):
@@ -629,23 +828,30 @@ class EvalStep:
                  buffers: Optional[Dict[str, torch.Tensor]] = None,
                  *args: Any, labels=()):
         labels = _labels(labels)
-        if not self.compiled:
-            return self._step(params, buffers, args, labels)
+        span = _obs.span(self._span_name) if _obs.enabled() \
+            else contextlib.nullcontext()
+        with span:
+            if not self.compiled:
+                return self._step(params, buffers, args, labels)
+            return self._run(params, buffers, args, labels)
+
+    def _run(self, params, buffers, args, labels):
         inputs = (params, buffers, args, labels)
         own = tuple(t.data_ptr() for t in list(self.model.parameters())
                     + list(self.model.buffers()))
         key = (_signature(inputs), own, GLOBAL_FLAGS.snapshot())
-        graph = self._graphs.get(key)
-        if graph is not None:
-            return graph.replay(inputs)
-        result = self._backend.warm_up(
-            lambda: self._step(params, buffers, args, labels,
-                               check_sync=True))
-        graph = _Graph(inputs)
 
-        def body() -> None:
-            graph.outputs = self._step(*graph.inputs)
+        def first_call():
+            result = self._backend.warm_up(
+                lambda: self._step(params, buffers, args, labels,
+                                   check_sync=True))
+            graph = _Graph(inputs)
 
-        _capture(self, graph, body)
-        self._graphs[key] = graph
-        return result
+            def body() -> None:
+                graph.outputs = self._step(*graph.inputs)
+
+            _capture(self, graph, body)
+            self._graphs[key] = graph
+            return result
+
+        return _tracked(self, key, inputs, first_call)

@@ -605,3 +605,108 @@ def test_prefix_affinity_beats_round_robin_with_the_same_tokens(model):
     for p, got in aff_outs.items():
         ref = _direct(model, list(p), max_new_tokens=6)
         assert got == ref and rr_outs[p] == ref
+
+
+# ---------------------------------------------------------------------------
+# telemetry, against the JAX router
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _metrics_on():
+    """Metrics on in both packages (the JAX exporter kept off); both
+    packages' registries empty before and after."""
+    from paddle_tpu import observability as jax_obs
+    from paddle_tpu_torch import observability as obs
+    pt.set_flags({"enable_metrics": True, "metrics_port": -1})
+    ptt.set_flags({"enable_metrics": True})
+    jax_obs.reset_all()
+    obs.reset_all()
+    try:
+        yield jax_obs, obs
+    finally:
+        pt.set_flags({"enable_metrics": False, "metrics_port": 0})
+        ptt.set_flags({"enable_metrics": False})
+        jax_obs.reset_all()
+        obs.reset_all()
+
+
+def _router_view(mod):
+    snap = mod.registry().snapshot()
+    names = ("router_backend_state", "router_streams_active",
+             "router_retries_total", "router_failovers_total",
+             "router_shed_total")
+    metrics = {n: sorted((tuple(sorted(s["labels"].items())), s["value"])
+                         for s in snap[n]["series"])
+               for n in names if n in snap}
+    flights = [(e["kind"], e.get("before"), e.get("after"))
+               for e in mod.flight_recorder().events()
+               if e["kind"].startswith("router_")]
+    spans = [{k: r[k] for k in ("kind", "tokens", "retries", "failovers",
+                                "outcome", "tenant", "cls")}
+             for r in mod.reqtrace.recent() if r.get("kind")]
+    return metrics, flights, spans
+
+
+def test_router_telemetry_matches_jax_over_a_dead_backend():
+    """A dead backend then a live one: the retry, the breaker's
+    transitions, the stream gauge and the per-hop span read the same in
+    both packages (backend names left out: their ports differ)."""
+    out = []
+    with _metrics_on() as (jax_obs, obs):
+        for rmod, omod in ((jrouter, jax_obs), (prouter, obs)):
+            dead = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            dead.bind(("127.0.0.1", 0))
+            dead_port = dead.getsockname()[1]
+            dead.close()
+            peer = _ScriptedPeer([6, 4], final="close_clean")
+            for setf in (pt.set_flags, ptt.set_flags):
+                setf({"router_retry_backoff_s": 0.0})
+            router = rmod.Router([("127.0.0.1", dead_port),
+                                  ("127.0.0.1", peer.port)],
+                                 start_probes=False).start()
+            try:
+                with pinf.Client(port=router.port, timeout_s=10.0) as cli:
+                    assert _tokens(cli.generate_stream(
+                        [1], max_new_tokens=2)) == [6, 4]
+            finally:
+                for setf in (pt.set_flags, ptt.set_flags):
+                    setf({"router_retry_backoff_s": 0.05})
+                router.stop()
+                peer.stop()
+            metrics, flights, spans = _router_view(omod)
+            metrics["router_backend_state"] = sorted(
+                v for _, v in metrics["router_backend_state"])
+            out.append((metrics, flights, spans))
+    assert out[1] == out[0]
+    metrics, _, spans = out[1]
+    assert metrics["router_retries_total"] == [((), 1)]
+    assert metrics["router_streams_active"] == [((), 0)]
+    assert spans == [{"kind": "router_stream", "tokens": 2, "retries": 1,
+                      "failovers": 0, "outcome": "ok",
+                      "tenant": "default", "cls": "standard"}]
+
+
+def test_failover_counts_and_records_as_jax(model):
+    """A stream failed over mid-flight: router_failovers_total, its
+    flight record and the span's failovers, on the port router."""
+    with _metrics_on() as (_, obs):
+        prompt = [5, 9, 2, 7]
+        with fleet(model, paced_s=0.05, start_probes=False) as (router,
+                                                                 bes):
+            with pinf.Client(port=router.port, timeout_s=WAIT_S,
+                             deadline_s=WAIT_S) as cli:
+                for i, ch in enumerate(cli.generate_stream(
+                        prompt, max_new_tokens=6)):
+                    if i == 1:
+                        busy = [b for b in router.snapshot()["backends"]
+                                if b["streams_active"] > 0]
+                        port = int(busy[0]["name"].rsplit(":", 1)[1])
+                        next(s for s, _ in bes if s.port == port).stop()
+        assert obs.counter("router_failovers_total").value() == 1
+        ev = [e for e in obs.flight_recorder().events()
+              if e["kind"] == "router_failover"]
+        assert len(ev) == 1 and 2 <= ev[0]["delivered"] < 6
+        (span,) = [r for r in obs.reqtrace.recent()
+                   if r.get("kind") == "router_stream"]
+        assert (span["outcome"], span["failovers"], span["tokens"]) == \
+            ("ok", 1, 6)

@@ -82,6 +82,17 @@ def port_server(model, paced_s=0.0, **engine_kw):
         srv.stop()
 
 
+@contextlib.contextmanager
+def jax_server(jax_model):
+    """A JAX Server on 127.0.0.1:0 over a fresh JAX engine."""
+    eng = JaxEngine(jax_model, block_size=4, pool_blocks=32)
+    srv = jinf.Server(None, llm_engine=eng)
+    try:
+        yield srv, eng
+    finally:
+        srv.stop()
+
+
 def _tokens(chunks):
     return [int(t) for ch in chunks for t in np.asarray(ch).ravel()]
 
@@ -666,3 +677,89 @@ def test_two_processes_build_the_native_library_at_once(tmp_path):
     mtime = (tmp_path / "libptnative.so").stat().st_mtime_ns
     native.build(tmp_path)
     assert (tmp_path / "libptnative.so").stat().st_mtime_ns == mtime
+
+
+# ---------------------------------------------------------------------------
+# telemetry: the bridge's and the server's counters, spans and timelines
+# after the same streams, against a JAX server
+# ---------------------------------------------------------------------------
+
+_STREAM_METRICS = ("serving_stream_requests_total",
+                   "serving_stream_tokens_total",
+                   "serving_stream_cancelled_total",
+                   "serving_stream_errors_total", "serving_ttft_ms",
+                   "serving_tpot_ms")
+
+
+def _serve_streams(srv, fmod):
+    """Two clean streams and a malformed body, then a stream whose third
+    token write fails (``llm_chunk_write:at=3``, armed for it alone): the
+    server cancels it, and its client sees silence past the deadline."""
+    with pinf.Client(port=srv.port, timeout_s=WAIT_S) as cli:
+        for p in (PROMPT, PROMPT[:3]):
+            assert len(_tokens(cli.generate_stream(
+                p, max_new_tokens=MAX_NEW))) == MAX_NEW
+        with pytest.raises(RuntimeError):
+            list(cli.generate_stream(np.zeros(0, np.int32),
+                                     max_new_tokens=2))
+    fmod.configure("llm_chunk_write:at=3")
+    with pinf.Client(port=srv.port, timeout_s=WAIT_S) as cli:
+        got = []
+        with pytest.raises(TimeoutError):
+            for ch in cli.generate_stream(PROMPT, max_new_tokens=MAX_NEW,
+                                          deadline_s=1.0):
+                got.append(ch)
+        assert len(got) == 2
+
+
+def _telemetry(obs_mod):
+    snap = obs_mod.registry().snapshot()
+    view = {}
+    for name in _STREAM_METRICS:
+        m = snap.get(name, {"series": []})
+        view[name] = [s.get("count", s.get("value"))
+                      for s in m["series"]]
+    spans = [(r["outcome"], r["status"], r["tokens"])
+             for r in obs_mod.reqtrace.recent() if r.get("stream")]
+    timelines = sorted(tl["outcome"] for tl in obs_mod.seqtrace.ring()
+                       .recent())
+    return view, spans, timelines
+
+
+def test_bridge_and_server_telemetry_match_jax(pair):
+    from paddle_tpu import observability as jax_obs
+    from paddle_tpu.testing import faults as jax_faults
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.testing import faults
+    pt.set_flags({"enable_metrics": True, "metrics_port": -1})
+    ptt.set_flags({"enable_metrics": True})
+    jax_obs.reset_all()
+    obs.reset_all()
+    out = []
+    try:
+        for mod, fmod in ((jax_obs, jax_faults), (obs, faults)):
+            cm = port_server(pair[1]) if mod is obs else jax_server(pair[0])
+            with cm as (srv, _):
+                try:
+                    _serve_streams(srv, fmod)
+                    eng = srv._llm.engine
+                    _wait_for(lambda: eng.allocator.num_used == 0)
+                finally:
+                    fmod.configure(None)
+            out.append(_telemetry(mod))
+        assert obs.counter("faults_injected_total").value(
+            point="llm_chunk_write") == 1
+        kinds = [e["kind"] for e in obs.flight_recorder().events()]
+        assert "serving_stream_cancelled" in kinds
+    finally:
+        pt.set_flags({"enable_metrics": False, "metrics_port": 0})
+        ptt.set_flags({"enable_metrics": False})
+        jax_obs.reset_all()
+        obs.reset_all()
+    assert out[1] == out[0]
+    view, spans, timelines = out[1]
+    assert view["serving_stream_requests_total"] == [3]
+    assert view["serving_stream_cancelled_total"] == [1]
+    assert [o for o, _, _ in spans] == ["ok", "ok", "decode_error",
+                                       "cancelled"]
+    assert timelines == ["cancelled", "finished", "finished"]

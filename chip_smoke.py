@@ -171,7 +171,41 @@ in order:
    ms with metrics off and on, in turns; (d) under ``torch.profiler``
    the engine's ``LLMEngine.step`` span around each decode step and
    ``TrainStep``'s around each replay;
-8. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+8. the live observability plane on the card (``run_plane``): (a)
+   GPT-2-small served with ``enable_metrics`` on and ``metrics_port`` 0,
+   the HTTP exporter brought up by ``inference.Server``'s
+   ``maybe_start``, a thread scraping ``/metrics``, ``/healthz`` and
+   ``/varz`` every ``PLANE_SCRAPE_S`` (every answer a parseable 200):
+   phase 6's in-process run (the same tokens and launches as with the
+   plane down), then over the wire behind a ``Router`` the 16 requests
+   (a ``/trace?ms=500`` window holding ``LLMEngine.step`` spans), the
+   speculative streams and the sampled streams that fail over, each
+   launching as its forwards imply; the ``serving_*`` series bridged
+   from each transport equal its own STATS, the ``llm_*`` and stream
+   counters on ``/metrics`` the run's own counts, ``/llm/seqs`` the 16
+   requests' timelines, ``/router`` both backends and the failovers,
+   ``/alerts`` the default SLO pack, ``/healthz`` 200 naming the card;
+   (c) an ``llm_decode`` step wedged for ``PLANE_WEDGE_MS``: the hang
+   monitor's ``hang_diagnosis`` names ``_injected_wedge_sleep`` on the
+   engine thread, ``/stacks`` lists it there, ``/healthz`` is 503 during
+   the wedge and 200 after; (b) BERT-base bf16 fused over the flat fused
+   state, b8 x s512, captured, fed by ``DataLoader(num_workers=2)`` +
+   ``DeviceLoader``, an ``AsyncCheckpointer`` save mid-run, the goodput
+   ledger driven as ``hapi.fit`` drives it and the scraper polling
+   throughout (the capture included): the buckets sum to the loop's
+   wall, ``jit_compile_cold`` is the capture tracker's seconds,
+   ``checkpoint`` the save's host time, ``/goodput`` the ledger's
+   snapshot, the program card's FLOPs the analytic count of the step's
+   products (``bert_step_flops``), achieved TFLOP/s printed; the run
+   equal bit for bit to its eager twin and to a run with
+   ``program_analytics`` off; then ``/healthz`` 503 once the training
+   heartbeat is older than ``health_heartbeat_timeout_s`` (and a
+   ``train_heartbeat`` diagnosis), 200 after the next step; (d) two
+   ``FleetReporter``s push to ``/fleet/push``: counters summed, gauges
+   ``{host=}``-labelled; (e) the plane off against on in turns (off, on,
+   off, on): the captured step's ms, the decode-step p50 and the stack
+   sampler's own overhead ratio at ``PLANE_SAMPLE_HZ``;
+9. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -4202,6 +4236,813 @@ def run_observability(torch, served: dict, serve_counts: dict,
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the live observability plane on the card: the HTTP exporter
+# scraped while GPT-2-small is served over the wire and BERT-base trains
+# captured, the goodput ledger and the program card, the hang doctor, fleet
+# federation, and the plane's own cost
+# ---------------------------------------------------------------------------
+
+# the scraper's poll period and paths (8a, 8b), the serving bridge's
+# period (long: 8a scrapes the transports itself, so that two backends'
+# bridges cannot interleave their writes while they are compared)
+PLANE_SCRAPE_S = 0.1
+PLANE_SCRAPE_PATHS = ("/metrics", "/healthz", "/varz")
+PLANE_BRIDGE_S = 600.0
+# 8b: BERT-base bf16 with the fused flags over the flat fused state, b8 x
+# s512, RESUME_MASKED masked positions a row, captured, fed by 2 worker
+# processes; the checkpoint saved after PLANE_SAVE_AT steps
+PLANE_TRAIN_STEPS = 10
+PLANE_SAVE_AT = 5
+# the ledger's buckets against the loop's own wall clock; the program
+# card's FLOPs against the analytic count of the same products; the
+# checkpoint bucket against the save's and wait's times on the loop's
+# clock: between the ledger's stamp and the caller's the checkpoint
+# writer may hold the interpreter lock for up to a switch interval each
+# time, so the gap may reach two of them
+PLANE_GOODPUT_RTOL = 0.005
+PLANE_CKPT_SLACK_S = 2 * sys.getswitchinterval()
+PLANE_FLOPS_RTOL = 0.01
+# 8c: the injected step wedge (the Kth llm_decode hit sleeps), the hang
+# monitor's period, the training heartbeat's timeout
+PLANE_WEDGE_AT = 40
+PLANE_WEDGE_MS = 3000
+PLANE_HANG_CHECK_S = 0.05
+PLANE_HEARTBEAT_TIMEOUT_S = 1.0
+# 8e: steps per turn, and the stack sampler's rate while the plane is on
+PLANE_COST_STEPS = 6
+PLANE_SAMPLE_HZ = 100.0
+PATH_KERNELS.update({
+    "plane_serving": PATH_KERNELS["serving"],
+    "plane_wire": PATH_KERNELS["wire"],
+    "plane_wire_speculative": PATH_KERNELS["wire_speculative"],
+    "plane_wire_failover": PATH_KERNELS["wire_failover"],
+    "plane_train": PATH_KERNELS["train_seq512_bf16_fused"]})
+
+
+def http_get(port: int, path: str, timeout: float = 30.0) -> tuple:
+    """``(status, body)`` of a GET to the exporter on this machine."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_json(port: int, path: str, want: int = 200):
+    code, body = http_get(port, path)
+    if code != want:
+        raise AssertionError(f"GET {path}: {code} (want {want}): "
+                             f"{body[:500]}")
+    return json.loads(body)
+
+
+def prom_values(text: str) -> dict:
+    """``{"name{labels}": value}`` of a Prometheus page's samples."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            key, _, v = ln.rpartition(" ")
+            out[key] = float(v)
+    return out
+
+
+class Scraper:
+    """A thread polling ``paths`` of the exporter every ``period_s`` while
+    the code inside runs: every answer must be a 200 that parses (the
+    Prometheus page line by line, the others as JSON). With
+    ``serving_stalls`` a ``/healthz`` 503 is allowed where its body shows
+    a serving engine the stall watchdog judges stalled (a step past
+    ``llm_stall_factor`` x its EWMA and 0.5 s, which a busy host can
+    cause over the wire): it is counted, and the engines' own
+    ``stalls_total`` must then count the stall too."""
+
+    LINE = re.compile(r"^[a-zA-Z_:][\w:.]*(\{.*\})? \S+$")
+
+    def __init__(self, port: int, paths=PLANE_SCRAPE_PATHS,
+                 period_s: float = PLANE_SCRAPE_S,
+                 serving_stalls: bool = False):
+        import threading
+        self.port, self.paths, self.period_s = port, paths, period_s
+        self.serving_stalls = serving_stalls
+        self.stalled_503 = 0
+        self.bad: list = []  # (path, code) of every other non-200
+        self.codes = {p: [] for p in paths}
+        self.ms = {p: [] for p in paths}
+        self.errors: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="chip-smoke-scraper")
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+        if self._thread.is_alive():
+            raise AssertionError("the scraper thread did not stop")
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            for p in self.paths:
+                t0 = time.perf_counter()
+                try:
+                    code, body = http_get(self.port, p)
+                    if p == "/metrics":
+                        bad = [ln for ln in body.splitlines() if ln
+                               and ln[0] != "#" and not self.LINE.match(ln)]
+                        if bad:
+                            raise ValueError(f"unparsable lines {bad[:3]}")
+                    else:
+                        page = json.loads(body)
+                except Exception as e:  # noqa: BLE001 — fails the phase
+                    self.errors.append(f"{p}: {type(e).__name__}: {e}")
+                    continue
+                self.codes[p].append(code)
+                if code == 503 and p == "/healthz" and self.serving_stalls \
+                        and any(e.get("stalled") for e in (page.get(
+                            "serving") or {}).get("engines", [])):
+                    self.stalled_503 += 1
+                elif code != 200:
+                    self.bad.append((p, code))
+                self.ms[p].append((time.perf_counter() - t0) * 1e3)
+            self._stop.wait(self.period_s)
+
+    def report(self) -> dict:
+        """The scrapes by path, their p50 ms, and ``ok``: every path
+        answered, nothing failed, no unexplained non-200."""
+        res = {"scrapes": {p: len(cs) for p, cs in self.codes.items()},
+               "ms_p50": {p: float(np.median(v)) if v else None
+                          for p, v in self.ms.items()},
+               "healthz_503_serving_stalled": self.stalled_503,
+               "errors": self.errors[:5], "non_200": self.bad[:10]}
+        res["ok"] = not self.errors and not self.bad \
+            and min(res["scrapes"].values()) > 0
+        return res
+
+
+def plane_serving(torch, served: dict, base_counts: dict, max_new: int,
+                  pool_blocks: int, n_spec: int, clients: int,
+                  failover_streams: int, failover_prefix: int,
+                  failover_tail: int, failover_max_new: int,
+                  probe_interval_s: float, **_) -> tuple:
+    """Phase 8a: GPT-2-small served with ``enable_metrics`` on and
+    ``metrics_port`` 0, the exporter brought up by ``inference.Server``,
+    a scraper polling ``/metrics``, ``/healthz`` and ``/varz`` throughout:
+    phase 6's in-process run (its tokens and launches), then over the
+    wire (two backends behind a ``Router``) the 16 requests, the
+    speculative streams and the sampled streams that fail over, each
+    launching as its forwards imply; the pages must agree with what the
+    run counts. Returns (report, launch counts of each run, the
+    exporter's port)."""
+    import threading
+    from paddle_tpu_torch import kernels, observability as obs, set_flags
+    from paddle_tpu_torch.inference import Server
+    from paddle_tpu_torch.observability import server as obs_server
+    from paddle_tpu_torch.observability import slo
+    from paddle_tpu_torch.serving_llm import LLMEngine, Router
+    model, prompts = served["model"], served["prompts"]
+    device = model.device
+    counts, res, checks = {}, {}, {}
+    if obs_server.get() is not None:
+        raise AssertionError("plane: an exporter is up before the phase")
+    set_flags({"enable_metrics": True, "metrics_port": 0,
+               "hang_check_interval_s": PLANE_HANG_CHECK_S})
+    obs.reset_all()
+    counter = ForwardCounter(model)
+    engines = [LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                         max_decode_batch=16, draft_model=model,
+                         device=device) for _ in range(2)]
+    servers = [Server(None, llm_engine=e, stats_interval_s=PLANE_BRIDGE_S)
+               for e in engines]
+    exporter = obs_server.get()
+    if exporter is None:
+        raise AssertionError("plane: inference.Server brought up no "
+                             "exporter")
+    port = exporter.port
+    router = Router([("127.0.0.1", s.port) for s in servers],
+                    probe_interval_s=probe_interval_s).start()
+    try:
+        with Scraper(port, serving_stalls=True) as scraper:
+            # phase 6's in-process run with the plane up: the same tokens
+            # and the same launches as with it down
+            eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                            max_decode_batch=16, device=device)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            tokens, res["in_process"] = serve(torch, eng, prompts, max_new,
+                                              late=len(prompts) // 2)
+            torch.cuda.synchronize()
+            counts["plane_serving"] = kernels.launch_counts()
+            checks["in_process_tokens_equal_plane_down"] = \
+                tokens == served["tokens"]
+            checks["in_process_launches_equal_plane_down"] = \
+                counts["plane_serving"] == base_counts["serving"]
+            del eng
+
+            # the 16 requests over the wire, a /trace window during decode
+            obs.seqtrace.ring().reset()
+            before = prom_values(http_get(port, "/metrics")[1])
+            box = {}
+            tracer = threading.Thread(
+                target=lambda: box.update(trace=http_json(
+                    port, "/trace?ms=500")), name="chip-smoke-trace")
+            wire = WireStreams()
+
+            def greedy():
+                tracer.start()
+                return serve_threads(wire, router.port, prompts, clients,
+                                     max_new_tokens=max_new)
+
+            wall = wire_counted(torch, "plane_wire", counter, engines,
+                                greedy, counts)
+            tracer.join(timeout=60)
+            hold_against(torch, model, prompts,
+                         wire.check("plane wire", len(prompts), max_new),
+                         served["tokens"], "plane wire vs in-process")
+            res["wire"] = wire.stats(wall)
+            after = prom_values(http_get(port, "/metrics")[1])
+
+            def delta(key):
+                return after.get(key, 0.0) - before.get(key, 0.0)
+
+            n_tok = len(prompts) * max_new
+            calls = counter.calls
+            res["wire_counters"] = {
+                k: delta(k) for k in (
+                    "serving_stream_requests_total",
+                    "serving_stream_tokens_total",
+                    'llm_tenant_admitted_total{tenant="default"}',
+                    "llm_decode_batch_size_count",
+                    "llm_decode_batch_size_sum",
+                    "llm_prefill_chunk_ms_count")}
+            wc = res["wire_counters"]
+            checks["requests_counted"] = \
+                wc["serving_stream_requests_total"] == len(prompts) \
+                == wc['llm_tenant_admitted_total{tenant="default"}'] \
+                == wc["llm_prefill_chunk_ms_count"]
+            checks["tokens_counted"] = \
+                wc["serving_stream_tokens_total"] == n_tok \
+                and wc["llm_decode_batch_size_sum"] == n_tok - len(prompts)
+            checks["decode_forwards_counted"] = \
+                wc["llm_decode_batch_size_count"] == calls.get("_decode", 0)
+            seqs = http_json(port, "/llm/seqs")
+            tls = seqs["finished"] + seqs["live"]
+            res["timelines"] = {
+                "n": len(tls), "live": len(seqs["live"]),
+                "trace_ids": len({t["trace_id"] for t in tls}),
+                "outcomes": sorted({t["outcome"] for t in seqs["finished"]})}
+            checks["timelines"] = not seqs["live"] \
+                and res["timelines"]["trace_ids"] == len(prompts) \
+                and set(res["timelines"]["outcomes"]) <= {"finished",
+                                                          "superseded"}
+            spans = [e for e in box.get("trace", {}).get("traceEvents", [])
+                     if e.get("name") == "LLMEngine.step"]
+            res["trace_window_engine_steps"] = len(spans)
+            checks["trace_window_has_engine_steps"] = len(spans) > 0
+
+            # speculative streams (the verify kernel), self-draft k = 3
+            set_flags({"speculative_k": SPEC_K})
+            try:
+                spec = WireStreams()
+                wire_counted(torch, "plane_wire_speculative", counter,
+                             engines,
+                             lambda: serve_threads(spec, router.port,
+                                                   prompts[:n_spec], clients,
+                                                   max_new_tokens=max_new),
+                             counts)
+            finally:
+                set_flags({"speculative_k": 0})
+            hold_against(torch, model, prompts[:n_spec],
+                         spec.check("plane speculative", n_spec, max_new),
+                         served["tokens"][:n_spec], "plane speculative")
+
+            # the serving_* series of the bridge against each transport's
+            # own STATS, read locally (both backends still up)
+            bridged = []
+            for s in servers:
+                stats = s.scrape_stats()
+                page = prom_values(http_get(port, "/metrics?name=serving_")[1])
+                got = {k: page.get(f"serving_{k}") for k in (
+                    "accepted_total", "replied_total", "connections_total",
+                    "queue_cap", "queue_depth", "inflight")}
+                bridged.append({"stats": {k: stats.get(k) for k in got},
+                                "page": got})
+            res["bridge"] = bridged
+            checks["bridge_equals_native_stats"] = all(
+                float(b["stats"][k]) == b["page"][k]
+                for b in bridged for k in b["page"])
+
+            # sampled streams placed on one backend, which is stopped
+            set_flags({"router_prefix_affinity": True})
+            try:
+                fo_prompts = failover_prompts(model.config.vocab_size,
+                                              failover_streams,
+                                              failover_prefix, failover_tail)
+                fo_before = router.snapshot()["failovers_total"]
+
+                def failover():
+                    from paddle_tpu_torch.inference import Client
+                    clis = [Client(port=router.port, timeout_s=120.0,
+                                   deadline_s=120.0) for _ in fo_prompts]
+                    try:
+                        gens = [c.generate_stream(
+                            p, max_new_tokens=failover_max_new,
+                            temperature=TEMPERATURE, seed=SEED + i)
+                            for i, (c, p) in enumerate(zip(clis,
+                                                           fo_prompts))]
+                        toks = []
+                        for g in gens:  # one at a time: affinity places
+                            toks.append([int(next(g)[0])])
+                        for tk, g in zip(toks, gens):
+                            while len(tk) < WIRE_FAILOVER_AFTER:
+                                tk.append(int(next(g)[0]))
+                        stop_holder(router, servers, len(gens))
+                        for tk, g in zip(toks, gens):
+                            tk.extend(int(c[0]) for c in g)
+                        return toks
+                    finally:
+                        for c in clis:
+                            c.close()
+
+                fo_tokens = wire_counted(torch, "plane_wire_failover",
+                                         counter, engines, failover, counts)
+            finally:
+                set_flags({"router_prefix_affinity": False})
+            failovers = router.snapshot()["failovers_total"] - fo_before
+            checks["failover_streams_whole"] = failovers == failover_streams \
+                and all(len(t) == failover_max_new for t in fo_tokens)
+            routers = http_json(port, "/router")["routers"]
+            res["router_page"] = routers
+            checks["router_page"] = len(routers) == 1 \
+                and len(routers[0]["backends"]) == 2 \
+                and routers[0]["failovers_total"] >= failovers > 0
+
+            alerts = http_json(port, "/alerts")
+            pack = {s.name for s in slo.engine().specs()}
+            res["alerts"] = {a["slo"]: a["state"] for a in alerts["alerts"]}
+            checks["alerts_default_pack"] = len(pack) == 7 \
+                and set(res["alerts"]) == pack \
+                and all(s in slo.STATE_ORDER for s in res["alerts"].values())
+            health = http_json(port, "/healthz")
+            res["healthz"] = {k: health.get(k) for k in (
+                "status", "devices", "device_count")}
+            checks["healthz_names_the_card"] = health["ok"] and any(
+                torch.cuda.get_device_name(0) in d
+                for d in health["devices"])
+        res["engine_stalls"] = sum(e.stalls_total for e in engines)
+        checks["stalled_503s_are_counted_stalls"] = \
+            scraper.stalled_503 == 0 or res["engine_stalls"] > 0
+        res["scraper"] = scraper.report()
+        checks["scrapes_all_answered"] = res["scraper"]["ok"]
+        res["varz_versions"] = http_json(port, "/varz")["versions"]
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+        counter.restore()
+    res["checks"] = checks
+    log(f"plane serving (8a): {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"plane serving: failed "
+                             f"{[k for k, v in checks.items() if not v]}: "
+                             f"{res}")
+    return res, counts, port
+
+
+def plane_hang(torch, served: dict, port: int, pool_blocks: int,
+               n: int) -> dict:
+    """Phase 8c, serving: ``llm_decode:at=PLANE_WEDGE_AT:sleep=...`` wedges
+    one engine step for PLANE_WEDGE_MS (far past ``llm_stall_factor`` x
+    its EWMA) on a named engine thread; while it hangs the hang monitor's
+    ``hang_diagnosis`` must name ``_injected_wedge_sleep`` as the culprit
+    frame, ``/stacks`` must list the engine thread in that frame and
+    ``/healthz`` must answer 503; after it, 200 again."""
+    import threading
+    from paddle_tpu_torch import observability as obs, set_flags
+    from paddle_tpu_torch.serving_llm import LLMEngine
+    from paddle_tpu_torch.observability import stacks
+    model, prompts = served["model"], served["prompts"][:n]
+    eng = LLMEngine(model, block_size=16, pool_blocks=pool_blocks,
+                    max_decode_batch=16, device=model.device)
+    box = {}
+    # a new episode: 8a's busy host may have had a diagnosis debounced
+    # within the doctor's window
+    stacks.doctor().reset()
+
+    def ours(e):
+        return e["kind"] == "hang_diagnosis" and e["source"] == "serving" \
+            and (e.get("culprit") or {}).get("thread") == "chip-smoke-engine"
+
+    set_flags({"fault_spec":
+               f"llm_decode:at={PLANE_WEDGE_AT}:sleep={PLANE_WEDGE_MS}"})
+    t0 = time.perf_counter()
+    th = threading.Thread(target=lambda: box.update(out=serve(
+        torch, eng, prompts, SERVING["max_new"])), name="chip-smoke-engine")
+    try:
+        th.start()
+        diag = stacks_page = health = None
+        deadline = time.monotonic() + PLANE_WEDGE_MS / 1e3
+        while time.monotonic() < deadline and diag is None:
+            diag = next((e for e in obs.flight_recorder().events()
+                         if ours(e)), None)
+            time.sleep(0.02)
+        if diag is not None:
+            stacks_page = http_json(port, "/stacks")
+            health = http_get(port, "/healthz")
+        detected_s = time.perf_counter() - t0
+        th.join(timeout=120)
+    finally:
+        set_flags({"fault_spec": ""})
+    after = http_get(port, "/healthz")
+    engine_rec = next((t for t in (stacks_page or {}).get("threads", [])
+                       if t["name"] == "chip-smoke-engine"), None)
+    culprit = (diag or {}).get("culprit") or {}
+    res = {"diagnosis": diag and {k: diag.get(k) for k in (
+        "source", "culprit", "detail")},
+           "detected_after_s": detected_s,
+           "stacks_engine_thread": engine_rec and {
+               k: engine_rec.get(k) for k in ("state", "top", "frame")},
+           "healthz_during": health and health[0],
+           "healthz_after": after[0],
+           "stalls": eng.stalls_total,
+           "diagnoses": sum(1 for e in obs.flight_recorder().events()
+                            if ours(e))}
+    checks = {
+        "engine_finished": not th.is_alive() and "out" in box
+        and all(len(t) == SERVING["max_new"] for t in box["out"][0]),
+        "diagnosis_names_the_wedge": str(culprit.get("frame", "")).endswith(
+            ":_injected_wedge_sleep")
+        and culprit.get("thread") == "chip-smoke-engine",
+        "stacks_lists_the_engine": engine_rec is not None
+        and str(engine_rec.get("top", "")).endswith(":_injected_wedge_sleep"),
+        "healthz_503_while_wedged": res["healthz_during"] == 503,
+        "healthz_200_after": res["healthz_after"] == 200,
+        # the wedge's step, and any a busy host stalled besides
+        "stall_counted": eng.stalls_total >= 1,
+        "one_diagnosis_of_the_wedge": res["diagnoses"] == 1}
+    res["checks"] = checks
+    log(f"plane hang (8c, serving): {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"plane hang: failed "
+                             f"{[k for k, v in checks.items() if not v]}: "
+                             f"{res}")
+    return res
+
+
+def bert_step_flops(cfg, batch: int, seq: int, rows: int) -> dict:
+    """The products of one fused BERT pretraining step as the card counts
+    them: the dense matmuls (per layer the four projections and the two
+    FFN products, the pooler and NSP classifier on the [CLS] rows, the MLM
+    transform on the ``rows`` masked rows) x 3 for forward plus backward;
+    the flash kernels' products over the full score matrix (forward 2,
+    dq 3, dK/dV 4: the backward recomputes the scores); the fused xent's
+    logits product once forward and 3 times backward (dlog, dW, dh).
+    ``model`` is the algorithmic count (every product x 3, no
+    recompute), the numerator of a model-FLOP rate."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    n, layers = batch * seq, cfg.num_hidden_layers
+    dense = 3 * (layers * (4 * 2 * n * h * h + 2 * 2 * n * h * i)
+                 + 2 * batch * h * h + 2 * batch * h * 2 + 2 * rows * h * h)
+    scores = batch * cfg.num_attention_heads * seq * seq
+    head_d = h // cfg.num_attention_heads
+    flash = layers * (2 + 3 + 4) * 2 * scores * head_d
+    xent = 4 * 2 * rows * v * h
+    model = dense + 3 * layers * 2 * 2 * scores * head_d \
+        + 3 * 2 * rows * v * h
+    return {"dense": dense, "flash": flash, "xent": xent,
+            "total": dense + flash + xent, "model": model}
+
+
+def plane_training(torch, port: int) -> tuple:
+    """Phase 8b, and 8c's heartbeat. BERT-base bf16 with the fused flags
+    over the flat fused state, b8 x s512, captured, fed by
+    ``DataLoader(num_workers=2)`` through ``DeviceLoader``, an
+    ``AsyncCheckpointer`` save after PLANE_SAVE_AT steps, the goodput
+    ledger driven as ``hapi.fit`` drives it, the scraper polling the
+    exporter throughout (the capture included). Checks: the ledger's
+    buckets sum to the loop's wall within PLANE_GOODPUT_RTOL,
+    ``jit_compile_cold`` is the capture tracker's seconds, ``checkpoint``
+    the save's and wait's measured host time, ``/goodput`` is
+    ``ledger().snapshot()``, the program card's FLOPs the analytic count
+    within PLANE_FLOPS_RTOL; the run equals its eager twin and a run
+    with ``program_analytics`` off bit for bit (losses and every leaf of
+    the state). Then ``/healthz`` turns 503 once the heartbeat is older
+    than ``health_heartbeat_timeout_s`` and 200 after the next step.
+    Returns (report, launch counts of the captured run)."""
+    from paddle_tpu_torch import io, kernels, observability as obs
+    from paddle_tpu_torch.data import DeviceLoader
+    from paddle_tpu_torch.observability import goodput, server as obs_server
+    model = resume_model(torch, 12, "bfloat16")
+    cfg = model.config
+    ds = PretrainSamples(PLANE_TRAIN_STEPS * RESUME_BATCH, RESUME_SEQ,
+                         cfg.vocab_size, SEED + 80)
+    start = host_copy(dict(model.named_parameters()))
+    ckpt_dir = os.path.join(CKPT_DIR, "plane")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restore = flag_scope(dict(FUSED_FLAGS, enable_metrics=True,
+                              program_analytics=True))
+    name = "TrainStep(BertForPretraining)"
+    led = obs.goodput_ledger()
+    hb = obs.gauge(obs_server.HEARTBEAT_GAUGE)
+    res, checks = {}, {}
+    try:
+        premade = [tuple(t.to("cuda") for t in b)
+                   for b in make_loader(torch, ds, workers=0)]
+        torch.cuda.synchronize()
+        # the main run
+        step = make_train_step(model, fused_state=True, compiled=True)
+        obs.program_cards().reset()
+        led.reset()
+        ck = io.AsyncCheckpointer(ckpt_dir, max_to_keep=1)
+        feed = iter(DeviceLoader(make_loader(torch, ds), buffer_size=2))
+        losses, step_ms, ckpt_s = [], [], 0.0
+        tracked = sum(obs.recompile_tracker().get(name).stats()[
+            "compile_times_s"]) if obs.recompile_tracker().get(name) else 0.0
+        kernels.reset_launch_counts()
+        with Scraper(port) as scraper:
+            t_wall = time.perf_counter()
+            led.start()
+            for k in range(PLANE_TRAIN_STEPS):
+                t0 = time.perf_counter()
+                batch = next(feed)
+                led.attribute("data_wait", time.perf_counter() - t0)
+                compile_before = goodput.compile_seconds_total()
+                cache_before = goodput.compile_cache_stats()
+                t0 = time.perf_counter()
+                losses.append(feed_step(step, batch))
+                dt = time.perf_counter() - t0
+                compile_dt = min(dt, max(0.0, goodput.compile_seconds_total()
+                                         - compile_before))
+                if compile_dt > 0:
+                    led.attribute(goodput.classify_compile_bucket(
+                        cache_before), compile_dt)
+                led.attribute("step_compute", dt - compile_dt)
+                step_ms.append(dt * 1e3)
+                hb.set(time.time())
+                if k + 1 == PLANE_SAVE_AT:
+                    state = step.state_dict()
+                    t0 = time.perf_counter()
+                    ck.save(state, step=k + 1,
+                            host_state={"global_step": k + 1})
+                    ckpt_s += time.perf_counter() - t0
+                    del state
+            t0 = time.perf_counter()
+            ck.wait()
+            ckpt_s += time.perf_counter() - t0
+            led.stop()
+            wall = time.perf_counter() - t_wall
+            counts = kernels.launch_counts()
+        res["scraper"] = scraper.report()
+        checks["scrapes_all_answered"] = res["scraper"]["ok"]
+        snap = led.snapshot()
+        page = http_json(port, "/goodput")
+        rec = obs.recompile_tracker().get(name).stats()
+        card = obs.program_cards().latest(name)
+        end_main = state_on_host(step)
+        # 8c: the training heartbeat goes stale, then the next step
+        from paddle_tpu_torch import set_flags
+        set_flags({"health_heartbeat_timeout_s": PLANE_HEARTBEAT_TIMEOUT_S})
+        try:
+            time.sleep(PLANE_HEARTBEAT_TIMEOUT_S * 1.5)
+            stale = http_get(port, "/healthz")
+            feed_step(step, premade[0])
+            hb.set(time.time())
+            fresh = http_get(port, "/healthz")
+        finally:
+            set_flags({"health_heartbeat_timeout_s": 300.0})
+        heartbeat_diag = [e for e in obs.flight_recorder().events()
+                          if e["kind"] == "hang_diagnosis"
+                          and e["source"] == "train_heartbeat"]
+        del step, feed, ck
+
+        # the eager twin, then the captured run with analytics off, from
+        # the same weights on the same batches
+        twins = {}
+        for twin, compiled, analytics in (("eager", False, True),
+                                          ("analytics_off", True, False)):
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    p.copy_(start[n])
+            set_flags({"program_analytics": analytics})
+            step = make_train_step(model, fused_state=True,
+                                   compiled=compiled)
+            tl = [feed_step(step, b) for b in premade]
+            twins[twin] = (tl, state_on_host(step))
+            del step
+        set_flags({"program_analytics": True})
+    finally:
+        restore()
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    flops = bert_step_flops(cfg, RESUME_BATCH, RESUME_SEQ,
+                            RESUME_BATCH * RESUME_MASKED)
+    replay_ms = float(np.median(step_ms[1:]))
+    buckets_sum = sum(snap["buckets"].values())
+    tracker_s = sum(rec["compile_times_s"]) - tracked
+    res.update({
+        "steps": PLANE_TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+        "replay_ms_median": replay_ms, "loop_wall_s": wall,
+        "ledger": snap, "tracker_capture_s": tracker_s,
+        "checkpoint_host_s": ckpt_s,
+        "card": {k: card.get(k) for k in (
+            "signature", "flops", "cost_analysis", "memory_analysis",
+            "peak_bytes_estimate", "counting_seconds", "harvest_seconds",
+            "unavailable", "flops_by_op")} if card else None,
+        "analytic_flops": flops,
+        "achieved_tflops": card["flops"] / (replay_ms / 1e3) / 1e12
+        if card else None,
+        "achieved_model_tflops": flops["model"] / (replay_ms / 1e3) / 1e12,
+        "captures": rec["traces"],
+        "healthz_stale": stale[0], "healthz_after_step": fresh[0],
+        "heartbeat_diagnoses": len(heartbeat_diag),
+        "twin_losses": {k: v[0] for k, v in twins.items()}})
+    checks.update({
+        "buckets_sum_to_wall": abs(buckets_sum - wall)
+        <= PLANE_GOODPUT_RTOL * wall,
+        "compile_is_capture_seconds": tracker_s > 0 and abs(
+            snap["buckets"]["jit_compile_cold"] - tracker_s)
+        <= 1e-9 * max(1.0, tracker_s),
+        "cache_hit_bucket_zero": snap["buckets"]["jit_compile_cache_hit"]
+        == 0.0,
+        "checkpoint_is_save_time": 0.0 < snap["buckets"]["checkpoint"]
+        <= ckpt_s and ckpt_s - snap["buckets"]["checkpoint"]
+        <= PLANE_CKPT_SLACK_S + PLANE_GOODPUT_RTOL * ckpt_s,
+        "goodput_page_is_snapshot": page == json.loads(json.dumps(snap)),
+        "card_flops_analytic": card is not None and abs(
+            card["flops"] - flops["total"]) <= PLANE_FLOPS_RTOL
+        * flops["total"],
+        "finite_losses": all(np.isfinite(losses)),
+        "captured_equals_eager": twins["eager"][0] == losses
+        and not equal_states(torch, twins["eager"][1], end_main),
+        "analytics_change_no_bit": twins["analytics_off"][0] == losses
+        and not equal_states(torch, twins["analytics_off"][1], end_main),
+        "one_capture": rec["traces"] == 1,
+        "healthz_503_when_heartbeat_stale": stale[0] == 503
+        and json.loads(stale[1]).get("wedged") is True,
+        "healthz_200_after_next_step": fresh[0] == 200,
+        "heartbeat_diagnosed": len(heartbeat_diag) == 1})
+    res["checks"] = checks
+    per_step = expected_launches(RESUME_SEQ, cfg.num_hidden_layers,
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 FUSED_FLAGS,
+                                 rows=RESUME_BATCH * RESUME_MASKED,
+                                 vocab=cfg.vocab_size)
+    log(f"plane training (8b): {json.dumps(res)}")
+    log(f"plane training: card {res['card'] and res['card']['flops']:.6g} "
+        f"FLOPs a step (analytic {flops['total']:.6g}), replay "
+        f"{replay_ms:.3f} ms median: {res['achieved_tflops']:.2f} TFLOP/s "
+        f"counted, {res['achieved_model_tflops']:.2f} TFLOP/s model")
+    if not all(checks.values()):
+        raise AssertionError(f"plane training: failed "
+                             f"{[k for k, v in checks.items() if not v]}")
+    path_launches("plane_train", counts, per_step, PLANE_TRAIN_STEPS)
+    return res, counts
+
+
+def plane_fleet(torch, port: int) -> dict:
+    """Phase 8d: two ``FleetReporter``s (hosts chip-w0 and chip-w1) push
+    this process's registry to the exporter's ``/fleet/push``: ``/fleet``
+    must sum the counters and label the gauges ``{host=}``, and
+    ``/fleet/health`` count both hosts fresh."""
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.observability import fleet
+    obs.counter("chip_smoke_fleet_probe_total", "8d probe").inc(3)
+    obs.gauge("chip_smoke_fleet_probe_depth", "8d probe").set(2.5)
+    hosts = ("chip-w0", "chip-w1")
+    reps = [fleet.FleetReporter(f"127.0.0.1:{port}", host_id=h,
+                                interval_s=60.0) for h in hosts]
+    try:
+        pushed = [r.push_once() for r in reps]
+        page = prom_values(http_get(
+            port, "/fleet?name=chip_smoke_fleet_")[1])
+        health = http_json(port, "/fleet/health")
+        gp = http_json(port, "/fleet/goodput")
+    finally:
+        for r in reps:
+            r.stop()
+    res = {"pushed": pushed, "page": page,
+           "health_hosts": sorted(health["hosts"]),
+           "goodput_hosts": sorted(gp["hosts"])}
+    checks = {
+        "pushed": all(pushed),
+        "counters_summed": page.get("chip_smoke_fleet_probe_total") == 6.0,
+        "gauges_host_labelled": all(
+            page.get(f'chip_smoke_fleet_probe_depth{{host="{h}"}}') == 2.5
+            for h in hosts),
+        "hosts_fresh": set(hosts) <= set(health["hosts"])
+        and not any(v["stale"] for v in health["hosts"].values()),
+        "goodput_per_host": set(hosts) <= set(gp["hosts"]),
+        "reporters_stopped": not any(r._thread.is_alive() for r in reps)}
+    res["checks"] = checks
+    log(f"plane fleet (8d): {json.dumps(res)}")
+    if not all(checks.values()):
+        raise AssertionError(f"plane fleet: failed "
+                             f"{[k for k, v in checks.items() if not v]}: "
+                             f"{res}")
+    return res
+
+
+def plane_cost(torch, served: dict, port: int, pool_blocks: int,
+               max_new: int) -> dict:
+    """Phase 8e: the plane off against on, in turns (off, on, off, on):
+    on is ``enable_metrics``, the tsdb sampler, the stack sampler at
+    PLANE_SAMPLE_HZ and the scraper polling every PLANE_SCRAPE_S; off is
+    none of them (the idle exporter thread stays). Per turn: the
+    captured BERT-base bf16 fused step's host ms (median of its steps
+    after the first: a turn's first step may capture) and phase 6's
+    decode-step p50 in process; per on-turn the stack sampler's own
+    ``stack_sampler_overhead_ratio``."""
+    import contextlib
+    from paddle_tpu_torch import observability as obs, set_flags
+    from paddle_tpu_torch.observability import stacks, tsdb
+    from paddle_tpu_torch.serving_llm import LLMEngine
+    model = resume_model(torch, 12, "bfloat16")
+    cfg = model.config
+    ds = PretrainSamples(PLANE_COST_STEPS * RESUME_BATCH, RESUME_SEQ,
+                         cfg.vocab_size, SEED + 90)
+    restore = flag_scope(dict(FUSED_FLAGS, enable_metrics=False,
+                              stack_sample_hz=0.0))
+    turns = []
+    try:
+        premade = [tuple(t.to("cuda") for t in b)
+                   for b in make_loader(torch, ds, workers=0)]
+        step = make_train_step(model, fused_state=True, compiled=True)
+        for on in (False, True, False, True):
+            stacks.sampler().reset()
+            tsdb.stop()
+            set_flags({"enable_metrics": on,
+                       "stack_sample_hz": PLANE_SAMPLE_HZ if on else 0.0})
+            if on:
+                tsdb.start()
+            scrape = Scraper(port) if on else contextlib.nullcontext()
+            with scrape:
+                ms = []
+                for b in premade:
+                    t0 = time.perf_counter()
+                    feed_step(step, b)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                eng = LLMEngine(served["model"], block_size=16,
+                                pool_blocks=pool_blocks, max_decode_batch=16,
+                                device=served["model"].device)
+                _, st = serve(torch, eng, served["prompts"], max_new,
+                              late=len(served["prompts"]) // 2)
+                del eng
+                ratio = stacks.sampler().overhead_ratio() if on else None
+            turns.append({"plane": "on" if on else "off",
+                          "train_step_ms_median": float(np.median(ms[1:])),
+                          "decode_step_ms_p50": st["decode_step_ms_p50"],
+                          "tokens_per_s": st["tokens_per_s"],
+                          "stack_sampler_overhead_ratio": ratio,
+                          "stack_samples": stacks.sampler().status()[
+                              "samples_total"]})
+        del step
+    finally:
+        stacks.sampler().reset()
+        tsdb.stop()
+        restore()
+    torch.cuda.empty_cache()
+    res = {"turns": turns, "sample_hz": PLANE_SAMPLE_HZ,
+           "scrape_period_s": PLANE_SCRAPE_S}
+    log(f"plane cost (8e, off/on/off/on): {json.dumps(res)}")
+    if not all(t["stack_samples"] > 0 for t in turns if t["plane"] == "on"):
+        raise AssertionError(f"plane cost: the sampler never ticked: {res}")
+    return res
+
+
+def run_plane(torch, served: dict, serve_counts: dict, max_new: int,
+              pool_blocks: int, n_spec: int) -> tuple:
+    """Phase 8. Returns (report, launch counts of each path). The plane
+    is torn down after it: exporter, reporters, samplers, monitor."""
+    from paddle_tpu_torch import observability as obs, set_flags
+    from paddle_tpu_torch.observability import fleet, server as obs_server
+    report, counts = {}, {}
+    try:
+        report["plane_serving"], c, port = plane_serving(
+            torch, served, serve_counts, max_new, pool_blocks, n_spec,
+            **WIRE)
+        counts.update(c)
+        report["plane_hang_serving"] = plane_hang(torch, served, port,
+                                                  pool_blocks, n_spec)
+        report["plane_training"], counts["plane_train"] = plane_training(
+            torch, port)
+        report["plane_fleet"] = plane_fleet(torch, port)
+        report["plane_cost"] = plane_cost(torch, served, port, pool_blocks,
+                                          max_new)
+    finally:
+        fleet.stop_reporter()
+        obs_server.stop()
+        set_flags({"enable_metrics": False, "metrics_port": 0,
+                   "hang_check_interval_s": 1.0})
+        obs.reset_all()
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -4331,14 +5172,17 @@ def main() -> int:
     observ, obs_counts = run_observability(
         torch, served, serve_counts, SERVING["max_new"],
         SERVING["pool_blocks"], SERVING["n_spec"])
+    plane, plane_counts = run_plane(
+        torch, served, serve_counts, SERVING["max_new"],
+        SERVING["pool_blocks"], SERVING["n_spec"])
     counts.update(resume_counts, **serve_counts, **wire_counts,
-                  **obs_counts, flash_with_lse=lse_counts)
+                  **obs_counts, **plane_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
                   layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
-                  **resume, **serving, **wire, **observ)
+                  **resume, **serving, **wire, **observ, **plane)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

@@ -474,3 +474,120 @@ define_flag("recompile_warn_threshold", 8,
             "for at least this many distinct input signatures — a "
             "capture storm usually means unpadded/unbucketed input "
             "shapes. 0 disables the warning.")
+
+
+# ---------------------------------------------------------------------------
+# the live observability plane (observability/server.py and what it reads)
+# ---------------------------------------------------------------------------
+define_flag("metrics_port", 0,
+            "TCP port for the live observability HTTP exporter "
+            "(observability/server.py). 0 (default) = bind an "
+            "EPHEMERAL port — the chosen port is published via the "
+            "observability_server_port gauge and one log line, so "
+            "parallel runs never collide; a negative value disables "
+            "the exporter. When FLAGS_enable_metrics is on, "
+            "inference.Server starts (idempotently shares) a "
+            "daemon-threaded stdlib HTTP server exposing /metrics "
+            "(Prometheus text), /healthz (device liveness + train "
+            "heartbeat), /varz (full JSON snapshot incl. program "
+            "cards), /trace?ms=N (on-demand chrome-trace window), "
+            "/goodput (wall-time ledger) and /flight (event ring "
+            "buffer).")
+define_flag("program_analytics", True,
+            "Build a program card per captured step signature "
+            "(observability/xprof.py) while FLAGS_enable_metrics is on: "
+            "the FLOPs of the eager warm-up step that precedes each "
+            "capture (torch.utils.flop_counter plus the hand-written "
+            "kernels' own counts) and the peak allocated bytes around "
+            "the warm-up and the capture. A capture-time-only cost, "
+            "nothing per replay. Off skips the cards entirely.")
+define_flag("fleet_push_interval_s", 2.0,
+            "Seconds between fleet-federation snapshot pushes from a "
+            "worker's FleetReporter to the rank-0 aggregator "
+            "(observability/fleet.py). The reporter starts when the "
+            "observability exporter comes up and PT_FLEET_AGGREGATOR "
+            "is set; a push is one stdlib HTTP POST and a failed push "
+            "is counted (fleet_push_failures_total), never raised.")
+define_flag("fleet_stale_after_s", 15.0,
+            "The /fleet/health endpoint marks a host stale (and "
+            "answers HTTP 503) when its last snapshot push is older "
+            "than this many seconds — a SIGKILLed worker flips the "
+            "fleet unhealthy while its last snapshot keeps serving in "
+            "the merged /fleet view. 0 disables staleness (hosts are "
+            "then only unhealthy if they pushed health.ok=false).")
+
+
+def _tsdb_ring_changed(value) -> None:
+    from .observability import tsdb as _obs_tsdb
+    _obs_tsdb.ring().resize(int(value))
+
+
+define_flag("tsdb_ring", 512,
+            "Per-series capacity of the in-process time-series ring "
+            "(observability/tsdb.py): each watched metric keeps the "
+            "last N sampler snapshots (monotonic-stamped) so windowed "
+            "rate()/increase()/quantile_over_window() — and therefore "
+            "SLO burn-rate evaluation — are answerable locally. "
+            "Rotation-style eviction, oldest out first; memory bound "
+            "is watched-series count times this.",
+            on_change=_tsdb_ring_changed)
+define_flag("tsdb_interval_s", 1.0,
+            "Seconds between tsdb sampler ticks (observability/"
+            "tsdb.py): each tick snapshots every watched metric from "
+            "the registry into its ring and re-evaluates the SLO "
+            "alert state machines (observability/slo.py). The sampler "
+            "thread starts with the observability exporter; the "
+            "interval is re-read every tick so live set_flags() "
+            "changes apply.")
+define_flag("slo_window_scale", 1.0,
+            "Multiplier on every SLO burn-rate window "
+            "(observability/slo.py): the fast 5m/1h and slow 30m/6h "
+            "pairs all scale by this, so tests and chaos drills can "
+            "run the production alert arithmetic in seconds (e.g. "
+            "0.01 makes the fast pair 3s/36s). 1.0 in production.")
+define_flag("health_heartbeat_timeout_s", 300.0,
+            "The /healthz endpoint reports unhealthy (HTTP 503) when a "
+            "training heartbeat exists but is older than this many "
+            "seconds — a wedged training loop reads unhealthy while the "
+            "process is still up. 0 disables the staleness check.")
+
+
+def _stack_sample_hz_changed(value) -> None:
+    from .observability import stacks as _obs_stacks
+    _obs_stacks.sampler().apply_rate(value)
+
+
+define_flag("stack_sample_hz", 0.0,
+            "Ticks per second of the continuous stack-sampling "
+            "profiler (observability/stacks.py): each tick folds "
+            "every Python thread's stack into a bounded profile "
+            "(collapsed-text + Chrome flame export at /stacks). "
+            "0 (the default) disables sampling; the rate is re-read "
+            "every tick so live set_flags() changes apply. Measured "
+            "self-overhead is exported as "
+            "stack_sampler_overhead_ratio.",
+            on_change=_stack_sample_hz_changed)
+define_flag("stack_profile_max", 512,
+            "Cap on distinct folded stacks the sampling profiler "
+            "keeps (observability/stacks.py): new stacks past the "
+            "cap aggregate into a per-thread [overflow] bucket and "
+            "count stack_profile_dropped_total, so a deep-recursion "
+            "workload cannot grow the profile unboundedly.")
+define_flag("hang_check_interval_s", 1.0,
+            "Seconds between hang-monitor ticks (observability/"
+            "stacks.py): the monitor watches for a *live* wedge — a "
+            "serving engine whose current step is stalled (engine "
+            "step stamps) or a training heartbeat past "
+            "FLAGS_health_heartbeat_timeout_s — and captures + "
+            "classifies all thread stacks while the hang is in "
+            "progress, recording a hang_diagnosis flight event "
+            "naming the culprit frame. <= 0 disables the monitor.")
+
+# the profiler compat shim's (profiler.py)
+define_flag("profile_dir", "",
+            "If set, profiler.start_profiler() writes its "
+            "torch.profiler chrome traces under this directory.")
+define_flag("benchmark", False,
+            "Block on each step for accurate timing "
+            "(profiler.StepTimer synchronises the card before it "
+            "stops).")

@@ -19,10 +19,12 @@ The server's telemetry is the JAX server's (with FLAGS_enable_metrics
 on): ``requests_shed_total{kind=,tenant=}``, the request span ring
 (``observability.reqtrace``, a record per refused or shed request; the
 bridge records each stream's) and the flight records of sheds, drains
-and client reconnects. Not yet: the HTTP exporter
-(``observability.server``) and the scrape of the native transport's
-stats into the registry (``scrape_stats``); the server's own integer
-counters and the native STATS reply carry those numbers meanwhile.
+and client reconnects. A server also brings up the HTTP exporter
+(``observability.server.maybe_start``: metrics on and
+``metrics_port`` >= 0) and a bridge thread that scrapes the native
+transport's stats into the registry (``scrape_stats``: ``serving_*``
+gauges and counters) every ``stats_interval_s``, once more at
+``stop()``.
 """
 
 from __future__ import annotations
@@ -165,7 +167,7 @@ class Server:
                  wait_ms: int = 2, queue_cap: int = 512,
                  max_payload: int = 64 << 20,
                  queue_deadline_ms: Optional[int] = None,
-                 llm_engine=None):
+                 llm_engine=None, stats_interval_s: float = 1.0):
         if predictor is not None:
             raise NotImplementedError(
                 "tensor serving (Predictor) is not ported yet: pass "
@@ -204,6 +206,51 @@ class Server:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name=f"serving-{self.port}")
         self._thread.start()
+        # live observability: the flag-gated HTTP exporter, and a bridge
+        # thread that scrapes the native transport's stats into the
+        # metrics registry so server internals ride the same /metrics
+        from ..observability import server as _obs_server
+        _obs_server.maybe_start()
+        self._stats_interval_s = max(0.05, float(stats_interval_s))
+        self._bridge = threading.Thread(target=self._bridge_loop,
+                                        daemon=True,
+                                        name=f"serving-stats-{self.port}")
+        self._bridge.start()
+
+    def _bridge_loop(self) -> None:
+        while not self._stop.wait(self._stats_interval_s):
+            self.scrape_stats()
+        self.scrape_stats()  # final snapshot so totals survive stop()
+
+    def scrape_stats(self) -> Dict[str, int]:
+        """One bridge pass: pull the native transport stats into the
+        metrics registry (gauges for levels, set_total for the native
+        monotonic counters). Returns the raw stats dict."""
+        stats = self.transport.stats()
+        if not stats or not obs.enabled():
+            return stats
+        gauges = {"queue_depth": "serving_queue_depth",
+                  "inflight": "serving_inflight",
+                  "connections_active": "serving_connections_active",
+                  "queue_cap": "serving_queue_cap"}
+        counters = {"accepted_total": "serving_accepted_total",
+                    "replied_total": "serving_replied_total",
+                    "reply_dropped_total": "serving_reply_dropped_total",
+                    "oversized_total": "serving_oversized_total",
+                    "connections_total": "serving_connections_total"}
+        for key, name in gauges.items():
+            if key in stats:
+                obs.gauge(name, f"native serving transport {key}"
+                          ).set(float(stats[key]))
+        for key, name in counters.items():
+            if key in stats:
+                obs.counter(name, f"native serving transport {key}"
+                            ).set_total(float(stats[key]))
+        if "uptime_ms" in stats:
+            obs.gauge("serving_uptime_seconds",
+                      "native serving transport uptime"
+                      ).set(stats["uptime_ms"] / 1e3)
+        return stats
 
     def _queue_deadline_s(self) -> float:
         v = self.queue_deadline_ms
@@ -478,6 +525,7 @@ class Server:
         transport. Idempotent."""
         self._stop.set()
         self._thread.join(timeout=5)
+        self._bridge.join(timeout=5)
         if self._llm is not None:
             self._llm.close()
         self.transport.stop()

@@ -44,10 +44,14 @@ Telemetry, as the JAX package's: ``checkpoint_corrupt_total`` and a
 background save, and the ``ckpt_write`` fault point before each leaf
 written (``testing.faults``).
 
+The host-blocking parts of ``AsyncCheckpointer.save`` and ``wait`` are
+charged to the goodput ledger's ``checkpoint`` bucket
+(``observability.goodput``; the writer thread overlaps training and is
+not charged).
+
 Not ported: ``save_inference_model``/``load_inference_model`` (the
-export path), the ``*_persistables``/``*_params`` Executor shims (the
-static ``Program``/``Executor``), and the goodput ledger's checkpoint
-charge (with ``observability.goodput``).
+export path) and the ``*_persistables``/``*_params`` Executor shims (the
+static ``Program``/``Executor``).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ import torch
 
 from ..flags import GLOBAL_FLAGS
 from ..observability import flight as _flight
+from ..observability import goodput as _goodput
 from ..observability import metrics as _metrics
 from ..testing import faults as _faults
 
@@ -496,6 +501,13 @@ def verify(path: str) -> List[str]:
     return problems
 
 
+def _ckpt_measure():
+    """Goodput-ledger context for the HOST-BLOCKING parts of a save (the
+    writer thread overlaps training and is not charged): a no-op context
+    unless the ledger runs and metrics are on."""
+    return _goodput.ledger().measure("checkpoint")
+
+
 class AsyncCheckpointer:
     """Saves ``ckpt-<step>`` directories under ``directory`` in a writer
     thread (see the module note), keeping the newest ``max_to_keep``.
@@ -526,32 +538,34 @@ class AsyncCheckpointer:
              host_state: Optional[Dict[str, Any]] = None) -> None:
         """Waits for the previous save, enqueues the host copies and
         returns; the writer thread writes ``ckpt-<step>``."""
-        self.wait()  # the writer is done with the pinned copies
-        host, events = _host_copies(flatten(state), non_blocking=True,
-                                    buffers=self._pinned)
-        treedef = _treedef(state)
-        path = os.path.join(self.directory, f"ckpt-{step}")
+        with _ckpt_measure():
+            self.wait()  # the writer is done with the pinned copies
+            host, events = _host_copies(flatten(state), non_blocking=True,
+                                        buffers=self._pinned)
+            treedef = _treedef(state)
+            path = os.path.join(self.directory, f"ckpt-{step}")
 
-        def work() -> None:
-            t0 = time.perf_counter()
-            try:
-                for ev in events:
-                    ev.synchronize()
-                _write(host, treedef, path, step, True, host_state)
-                self._gc()
-            except BaseException as e:  # noqa: BLE001 — re-raised later
-                self._error = e
-                _note_save_failure(step, e)
-            self.last_write_s = time.perf_counter() - t0
+            def work() -> None:
+                t0 = time.perf_counter()
+                try:
+                    for ev in events:
+                        ev.synchronize()
+                    _write(host, treedef, path, step, True, host_state)
+                    self._gc()
+                except BaseException as e:  # noqa: BLE001 — re-raised later
+                    self._error = e
+                    _note_save_failure(step, e)
+                self.last_write_s = time.perf_counter() - t0
 
-        self._thread = threading.Thread(target=work, daemon=True,
-                                        name="checkpoint-writer")
-        self._thread.start()
+            self._thread = threading.Thread(target=work, daemon=True,
+                                            name="checkpoint-writer")
+            self._thread.start()
 
     def wait(self) -> None:
         if self._thread is not None:
-            self._thread.join()
-            self._thread = None
+            with _ckpt_measure():
+                self._thread.join()
+                self._thread = None
         self._raise_pending()
 
     def _complete_steps(self) -> Dict[int, str]:

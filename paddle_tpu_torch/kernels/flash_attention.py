@@ -66,6 +66,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..observability import xprof as _xprof
 from . import _build
 from . import _dtypes as _dt
 from ._dtypes import cast as _cast, check as _check_dtypes
@@ -323,6 +324,9 @@ class _Call:
 
     ROLES = ("q", "k", "v", "out", "dout", "dq", "dk", "dv")
 
+    def entries(self) -> int:
+        return score_entries(self.b, self.h, self.tq, self.tk, self.causal)
+
     def __init__(self, q, k, v, causal, scale, dropout_p, seed, kv_bias,
                  bthd):
         if dropout_p > 0.0 and seed is None:
@@ -396,6 +400,24 @@ class _Call:
                               self.stream)
 
 
+def score_entries(b: int, h: int, tq: int, tk: int, causal: bool) -> int:
+    """The score entries a flash call's mask keeps (causal: the lower
+    triangle aligned to the last key), over which its products run."""
+    if not causal:
+        return b * h * tq * tk
+    return b * h * sum(min(tk, max(0, i + tk - tq + 1)) for i in range(tq))
+
+
+def _count_flops(name: str, call: "_Call", products: int) -> None:
+    """Adds a launch's work to the program card counting FLOPs, if any
+    (``observability.xprof``: the counter cannot see a ``ctypes``
+    launch): ``products`` matrix products over the score entries the
+    mask keeps, 2 x entries x D each (``chip_smoke.flash_bounds``)."""
+    if _xprof.counting():
+        _xprof.add_kernel_flops(name, 2 * products * call.entries()
+                                * call.d)
+
+
 def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
               dropout_p: float = 0.0, seed=None, kv_bias=None,
               bthd: bool = False):
@@ -412,6 +434,7 @@ def flash_fwd(q, k, v, causal: bool = False, scale: Optional[float] = None,
         out.data_ptr(), lse.data_ptr(), *tail)
     _build.check("flash_attention", code, "flash_attention_fwd")
     fwd_launches += 1
+    _count_flops("flash_attention_fwd", call, 2)  # QK^T, PV
     return out, lse
 
 
@@ -442,6 +465,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, causal: bool = False,
         *tail)
     _build.check("flash_attention", code, "flash_attention_bwd_dq")
     dq_launches += 1
+    _count_flops("flash_attention_bwd_dq", call, 3)  # S, dP, dQ
     return dq
 
 
@@ -461,6 +485,7 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = False,
         dv.data_ptr(), *tail)
     _build.check("flash_attention", code, "flash_attention_bwd_dkv")
     dkv_launches += 1
+    _count_flops("flash_attention_bwd_dkv", call, 4)  # S, dP, dV, dK
     return dk, dv
 
 
@@ -485,6 +510,7 @@ def flash_bwd_fused(q, k, v, dout, lse, delta, causal: bool = False,
         dk.data_ptr(), dv.data_ptr(), *tail)
     _build.check("flash_attention", code, "flash_attention_bwd_fused")
     fused_launches += 1
+    _count_flops("flash_attention_bwd_fused", call, 5)  # S, dP, dV, dK, dQ
     return dq, dk, dv
 
 

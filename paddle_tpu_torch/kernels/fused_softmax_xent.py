@@ -48,6 +48,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..observability import xprof as _xprof
 from . import _build
 from ._dtypes import cast as _cast, check as _check_dtypes
 
@@ -278,6 +279,8 @@ def xent_fwd(h2: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         int(ignore_index), _stream(h2.device))
     _build.check("fused_softmax_xent", code, "fused_xent_fwd")
     fwd_launches += 2
+    if _xprof.counting():  # the logits product (chip_smoke.xent_bounds)
+        _xprof.add_kernel_flops("fused_xent_fwd", 2 * n * v * hd)
     return loss, lse
 
 
@@ -315,18 +318,27 @@ def xent_bwd(h2, w, b, lab, lse, g, ignore_index: int = -100,
             vc, chunk, int(ignore_index), stream)
         _build.check("fused_softmax_xent", code, "fused_xent_bwd_dlog")
         dlog_launches += 1
+        counting = _xprof.counting()  # one product of 2 n vc hd each
+        if counting:
+            _xprof.add_kernel_flops("fused_xent_bwd_dlog", 2 * n * vc * hd)
         if need_dw:
             code = lib.fused_xent_bwd_dw(
                 dlog.data_ptr(), h2.data_ptr(), dw.data_ptr(), _ptr(db), n,
                 hd, v0, vc, chunk, stream)
             _build.check("fused_softmax_xent", code, "fused_xent_bwd_dw")
             dw_launches += 1
+            if counting:
+                _xprof.add_kernel_flops("fused_xent_bwd_dw",
+                                        2 * n * vc * hd)
         if need_dh:
             code = lib.fused_xent_bwd_dh(
                 dlog.data_ptr(), w.data_ptr(), dh.data_ptr(), n, hd, v0, vc,
                 chunk, int(v0 > 0), stream)
             _build.check("fused_softmax_xent", code, "fused_xent_bwd_dh")
             dh_launches += 1
+            if counting:
+                _xprof.add_kernel_flops("fused_xent_bwd_dh",
+                                        2 * n * vc * hd)
     return dh, dw, db
 
 

@@ -16,14 +16,23 @@ written for the JAX package read the port unchanged:
 - :mod:`anomaly`   — the NaN/Inf and spike sentinel on step scalars.
 - :mod:`reqtrace`, :mod:`seqtrace`, :mod:`stepprof` — the serving
   plane's request spans, sequence timelines and engine step records.
+- :mod:`server`    — the live HTTP exporter (``/metrics``, ``/healthz``,
+  ``/varz``, ``/trace``, ``/goodput``, ``/alerts``, ``/slo``,
+  ``/flight``, ``/requests``, ``/llm/*``, ``/stacks``, ``/fleet*``,
+  ``/router``), and what it serves beside the core:
+- :mod:`tsdb`, :mod:`slo` — windowed time-series rings over the registry
+  and the multi-window burn-rate SLO alerts judged on them;
+- :mod:`goodput`   — the exclusive wall-time ledger of a training run;
+- :mod:`xprof`     — program cards (FLOPs and peak memory) per captured
+  step signature;
+- :mod:`stacks`    — the hang doctor (stack capture, sampling profiler,
+  wedge monitor);
+- :mod:`fleet`     — cross-host federation (push, merge, serve);
+- :mod:`trace_agg` — chrome-trace roll-ups of host spans and CUDA
+  kernels.
 
 Everything instrument-shaped is gated on ``FLAGS_enable_metrics``: off
 (the default) is one cached boolean test on every hot path.
-
-Not ported yet (the second part of the observability port): the HTTP
-exporter (``server.py``) and what only it and ``hapi`` read
-(``stacks``, ``slo``, ``tsdb``, ``goodput``, ``fleet``, ``xprof``,
-``trace_agg``).
 """
 
 from __future__ import annotations
@@ -36,23 +45,29 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..flags import GLOBAL_FLAGS
-from . import (anomaly, flight, metrics, recompile, reqtrace, rotation,
-               seqtrace, stepprof, tracer)
+from . import (anomaly, fleet, flight, goodput, metrics, recompile,
+               reqtrace, rotation, seqtrace, server, slo, stacks, stepprof,
+               trace_agg, tracer, tsdb, xprof)
 from .anomaly import sentinel as anomaly_sentinel
 from .flight import recorder as flight_recorder
+from .goodput import ledger as goodput_ledger
 from .metrics import (counter, enabled, gauge, histogram, registry,
                       set_enabled)
 from .recompile import tracker as recompile_tracker
 from .tracer import export_chrome_trace, span
 from .tracer import tracer as get_tracer
+from .xprof import cards as program_cards
 
-__all__ = ["metrics", "tracer", "recompile", "anomaly", "flight",
-           "rotation", "reqtrace", "seqtrace", "stepprof",
+__all__ = ["metrics", "tracer", "recompile", "trace_agg", "xprof",
+           "anomaly", "server", "goodput", "flight", "rotation",
+           "fleet", "reqtrace", "seqtrace", "stepprof", "tsdb", "slo",
+           "stacks",
            "counter", "gauge", "histogram", "registry", "enabled",
            "set_enabled", "span", "export_chrome_trace", "get_tracer",
-           "recompile_tracker", "anomaly_sentinel", "native_stats",
-           "flight_recorder", "observe_traced", "device_memory_stats",
-           "export_all", "reset_all"]
+           "recompile_tracker", "program_cards", "anomaly_sentinel",
+           "native_stats", "goodput_ledger", "flight_recorder",
+           "observe_traced", "device_memory_stats", "export_all",
+           "reset_all"]
 
 # bytes_in_use plus the extra allocator fields ``full=True`` reports
 _FULL_MEM_KEYS = ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")
@@ -65,11 +80,13 @@ def device_memory_stats(include_unavailable: bool = False,
     Default: ``{device: bytes_in_use}``. With ``full=True`` each device
     maps to ``{bytes_in_use, peak_bytes_in_use, bytes_limit}``
     (``torch.cuda.memory_stats``' ``allocated_bytes.all.current`` and
-    ``.peak``, and the card's total memory from ``mem_get_info``). The
-    CPU has no allocator stats: with no card the result is empty (JAX
-    skips its CPU devices likewise), and ``include_unavailable=True``
-    reports ``{"cpu": 0}`` (zeros with ``full``) so dashboards keep the
-    series."""
+    ``.peak``, and the card's total memory from its cached properties).
+    Host-side reads only: the exporter calls this from its own thread,
+    where a device query could invalidate another thread's CUDA-graph
+    capture. The CPU has no allocator stats: with no card the result is
+    empty (JAX skips its CPU devices likewise), and
+    ``include_unavailable=True`` reports ``{"cpu": 0}`` (zeros with
+    ``full``) so dashboards keep the series."""
     out: Dict[str, Any] = {}
     if not torch.cuda.is_available():
         if include_unavailable:
@@ -80,7 +97,7 @@ def device_memory_stats(include_unavailable: bool = False,
         used = int(ms.get("allocated_bytes.all.current", 0))
         name = f"cuda:{i}"
         if full:
-            _free, total = torch.cuda.mem_get_info(i)
+            total = torch.cuda.get_device_properties(i).total_memory
             out[name] = {"bytes_in_use": used,
                          "peak_bytes_in_use":
                              int(ms.get("allocated_bytes.all.peak", 0)),
@@ -125,16 +142,22 @@ def observe_traced(name: str, value: Any, kind: str = "gauge") -> None:
 def export_all(path: Optional[str] = None) -> Dict[str, str]:
     """Write the host chrome trace + snapshots under ``path`` (default
     FLAGS_trace_dir, then ``pt_trace`` in the temporary directory);
-    returns the written paths. Emits the JSON snapshot
-    (``metrics.json``: metrics + capture records + native stats) and the
-    Prometheus text exposition (``metrics.prom``)."""
+    returns the written paths. Emits the JSON snapshot (``metrics.json``:
+    metrics + capture records + program cards + goodput ledger + SLO
+    alerts and tsdb ring stats + native stats) and the Prometheus text
+    exposition (``metrics.prom``, the exporter's ``/metrics`` page)."""
     if path is None:
         path = GLOBAL_FLAGS.get("trace_dir") or os.path.join(
             tempfile.gettempdir(), "pt_trace")
     os.makedirs(path, exist_ok=True)
     out = {"trace": get_tracer().export(path)}
+    goodput_ledger().publish()
     snap = {"metrics": registry().snapshot(),
             "recompile": recompile_tracker().snapshot(),
+            "programs": program_cards().snapshot(),
+            "goodput": goodput_ledger().snapshot(),
+            "alerts": slo.engine().alerts_view(),
+            "tsdb": tsdb.ring().stats(),
             "native_stats": native_stats()}
     mpath = os.path.join(path, "metrics.json")
     with open(mpath, "w") as f:
@@ -142,20 +165,30 @@ def export_all(path: Optional[str] = None) -> Dict[str, str]:
     out["metrics"] = mpath
     ppath = os.path.join(path, "metrics.prom")
     with open(ppath, "w") as f:
-        f.write(registry().prometheus_text())
+        f.write(server.metrics_text())
     out["prometheus"] = ppath
     return out
 
 
 def reset_all() -> None:
-    """Clear metrics, spans, capture records, anomaly state, the flight
-    buffer and the request-span / seq-timeline / step-record rings
-    (tests / new runs)."""
+    """Clear metrics, spans, capture records, program cards, anomaly
+    state, the goodput ledger, the flight buffer, the request-span /
+    seq-timeline / step-record rings, the fleet aggregator store, the
+    tsdb sample ring (stopping its sampler thread), the SLO alert engine
+    and the hang-doctor plane (stack sampler + monitor stopped, profile
+    cleared) (tests / new runs)."""
     registry().reset()
     get_tracer().reset()
     recompile_tracker().reset()
+    program_cards().reset()
     anomaly_sentinel().reset()
+    goodput_ledger().reset()
     flight_recorder().reset()
     reqtrace.ring().reset()
     seqtrace.ring().reset()
     stepprof.ring().reset()
+    fleet.aggregator().reset()
+    tsdb.stop()
+    tsdb.ring().reset()
+    slo.engine().reset()
+    stacks.reset()

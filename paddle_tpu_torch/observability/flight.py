@@ -19,13 +19,11 @@ repeated crashes keep only the newest two files.
 
 The dump file is line-parseable: a ``flight_header`` record first,
 one record per buffered event, and a closing ``final_metrics`` record
-carrying the registry snapshot.
+carrying the registry + goodput snapshots and the SLO verdict + tsdb
+ring state; a fatal-signal dump also records every thread's stack.
 
 Counterpart of ``paddle_tpu.observability.flight``, the same event
-layout. The JAX dump's goodput, SLO/tsdb and thread-stack sections come
-with those modules (the second part of the observability port); until
-then ``final_metrics`` carries the registry alone and a signal dump
-carries no stacks.
+layout.
 """
 
 from __future__ import annotations
@@ -113,7 +111,23 @@ class FlightRecorder:
         header = {"kind": "flight_header", "reason": reason,
                   "ts_unix": time.time(), "pid": os.getpid(),
                   "events": len(events), "capacity": self.capacity}
-        snap: Dict[str, Any] = {"metrics": _metrics.registry().snapshot()}
+        try:
+            snap: Dict[str, Any] = {"metrics": _metrics.registry().snapshot()}
+            from . import goodput as _goodput
+            snap["goodput"] = _goodput.ledger().snapshot()
+        except Exception:  # noqa: BLE001 — a dump must never raise
+            snap = {"metrics": {}}
+        try:
+            # the SLO verdict + tsdb ring state must survive a crash
+            # the same way the registry does (the alert that was
+            # firing when the process died is the postmortem headline)
+            from . import slo as _slo
+            from . import tsdb as _tsdb
+            snap["alerts"] = _slo.engine().alerts_view()
+            snap["tsdb"] = _tsdb.ring().stats()
+        # ptlint: disable=silent-failure -- a dump must never raise; the final record simply ships without the SLO section
+        except Exception:  # noqa: BLE001
+            pass
         final = {"kind": "final_metrics", "ts_unix": time.time()}
         final.update(snap)
         try:
@@ -150,6 +164,14 @@ class FlightRecorder:
 
     def _on_signal(self, signum, frame) -> None:
         self.record("signal", force=True, signum=int(signum))
+        try:
+            # all-thread stacks ride the fatal dump: the last question
+            # a postmortem asks is "what was every thread executing"
+            from . import stacks as _stacks
+            _stacks.dump_to_flight(f"signal:{int(signum)}")
+        # ptlint: disable=silent-failure -- the dump itself must proceed even if stack capture breaks mid-death
+        except Exception:  # noqa: BLE001
+            pass
         self.dump(f"signal:{int(signum)}")
         prev = self._prev_handlers.get(signum)
         # restore whatever was there and re-deliver, so the process

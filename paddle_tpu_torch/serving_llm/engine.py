@@ -39,8 +39,10 @@ device sync), the ``llm_*`` metrics and gauges, the flight records of
 admission rejections, stalls and KV audit failures, and the fault points
 ``llm_prefill``, ``llm_chunk_prefill``, ``llm_decode``,
 ``llm_spec_verify`` and ``llm_cow_copy`` (``kv_alloc`` is the
-allocator's). Not yet: the stall watchdog's thread-stack diagnosis,
-which comes with ``observability.stacks``.
+allocator's), and the stall watchdog's thread-stack diagnosis (the hang
+doctor of ``observability.stacks``: a post-hoc ``serving_step``
+diagnosis here; the live one mid-wedge is the hang monitor's, which
+reads :func:`health_snapshot`).
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from ..models.gpt_lm import dense_causal_attention
 from ..observability import flight as _flight
 from ..observability import metrics as _m
 from ..observability import seqtrace as _seqtrace
+from ..observability import stacks as _stacks
 from ..observability import stepprof as _stepprof
 from ..testing import faults as _faults
 from . import tenancy
@@ -1000,6 +1003,14 @@ class LLMEngine:
             _flight.record("llm_engine_stalled", force=True,
                            step_s=round(dt, 4),
                            ewma_s=round(ewma, 4), factor=factor)
+            # hang doctor: capture + classify thread stacks for the
+            # post-hoc record (the live capture mid-wedge is the hang
+            # monitor's job: this path runs after the step returned).
+            # Debounced per source inside the doctor; never raises.
+            _stacks.doctor().on_stall(
+                "serving_step",
+                detail={"step_s": round(dt, 4),
+                        "ewma_s": round(ewma, 4), "factor": factor})
             if obs.enabled():
                 obs.counter("llm_engine_stalled_total",
                             "engine steps flagged by the stall "

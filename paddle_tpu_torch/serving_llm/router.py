@@ -37,8 +37,8 @@ the ``router_{shed,retries,failovers}_total`` counters, the flight
 records of backend transitions, sheds and failovers, and a per-hop
 request span (``kind=router_stream``) riding the client's trace id. The
 router's own counters are in its STATS reply and ``snapshot()`` either
-way. Not yet (the HTTP exporter's part): ``snapshot_all`` and ``GET
-/router``.
+way, and every started router is in the module-level registry that
+:func:`snapshot_all` reads (the exporter's ``GET /router``).
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ import socket
 import struct
 import threading
 import time
+import weakref
 import zlib
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Tuple
@@ -61,7 +62,8 @@ from ..observability import flight as _flight
 from ..observability import reqtrace as _reqtrace
 from . import tenancy
 
-__all__ = ["CircuitBreaker", "Backend", "BackendPool", "Router"]
+__all__ = ["CircuitBreaker", "Backend", "BackendPool", "Router",
+           "snapshot_all"]
 
 # wire constants, as inference.Client's
 _MAGIC = 0x56535450         # 'PTSV' tensor request
@@ -441,6 +443,18 @@ def _retry_hint(msg: str) -> Optional[int]:
     return int(msg[j:k]) if k > j else None
 
 
+# live routers for the exporter's GET /router endpoint
+_ROUTERS: "weakref.WeakSet[Router]" = weakref.WeakSet()
+
+
+def snapshot_all() -> List[Dict[str, Any]]:
+    """JSON-ready snapshots of every live router in this process
+    (the exporter's ``GET /router`` body)."""
+    outs = [r.snapshot() for r in list(_ROUTERS)]
+    outs.sort(key=lambda s: s.get("addr", ""))
+    return outs
+
+
 class Router:
     """The front door: accepts client connections speaking the serving
     frames and fans work out over the pool.
@@ -499,6 +513,7 @@ class Router:
         self._accept_thread.start()
         if self._start_probes:
             self.pool.start()
+        _ROUTERS.add(self)
         _flight.record("router_start", addr=self.addr,
                        backends=[b.name for b in self.pool.backends])
         return self
@@ -525,6 +540,7 @@ class Router:
         t, self._accept_thread = self._accept_thread, None
         if t is not None:
             t.join(timeout=5.0)
+        _ROUTERS.discard(self)
 
     def __enter__(self) -> "Router":
         return self

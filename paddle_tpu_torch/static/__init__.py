@@ -132,6 +132,7 @@ from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
 from ..observability import flight as _flight
+from ..observability import xprof as _xprof
 from ..observability.recompile import signature_text
 from ..optimizer import LRScheduler, Optimizer
 from ..optimizer.lr import resolve_lr
@@ -322,8 +323,12 @@ class _CudaGraphs:
             graph.register_generator_state(generator)
         tables = _adam.captured_tables(table_rows, self.device) \
             if table_rows else contextlib.nullcontext([])
+        # thread_local: only this thread's unsafe CUDA calls invalidate
+        # the capture, so another thread (the exporter answering a
+        # scrape, a serving engine) may keep using the card meanwhile
         with tables as keep:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
                 fn()
         return graph, keep
 
@@ -366,10 +371,13 @@ def _capture(owner, graph: _Graph, body: Callable[[], None],
     owner.capture_ms += (time.perf_counter() - t0) * 1e3
 
 
-def _tracked(owner, key, inputs, first_call: Callable[[], Any]):
+def _tracked(owner, key, inputs, first_call: Callable[[Callable], Any]):
     """``owner``'s call of ``inputs`` under the capture tracker: a replay
-    of the graph of ``key`` (a hit), else ``first_call()`` (the warm-up
-    and the capture: a trace, with its signature)."""
+    of the graph of ``key`` (a hit), else ``first_call(count)`` (the
+    warm-up and the capture: a trace, with its signature), which runs
+    the warm-up inside ``count()``: the program card's FLOP counter when
+    program analytics are on (``observability.xprof``), the card's
+    memory window spanning the warm-up and the capture."""
     rec = _obs.recompile_tracker().function(owner._span_name)
     graph = owner._graphs.get(key)
     if graph is not None:
@@ -378,11 +386,30 @@ def _tracked(owner, key, inputs, first_call: Callable[[], Any]):
             rec.on_call(0.0, traced=False)
         return out
     t0 = time.perf_counter()
-    out = first_call()
-    rec.note_trace(signature_text(inputs))
+    sig = signature_text(inputs)
+    card = _xprof.Harvest(owner._span_name, sig, owner.device) \
+        if _xprof.enabled() else None
+    out = first_call(contextlib.nullcontext if card is None
+                     else card.counting)
+    if card is not None:
+        card.finish()
+    rec.note_trace(sig)
     if _obs.enabled():
         rec.on_call(time.perf_counter() - t0, traced=True)
     return out
+
+
+def _eager_carded(owner, inputs, run: Callable[[], Any]):
+    """An eager step's call: the first call of each signature runs under
+    a program card's FLOP counter when program analytics are on (the
+    eager counterpart of the card a capture takes; no extra step)."""
+    if not _xprof.enabled():
+        return run()
+    sig = signature_text(inputs)
+    if sig in owner._carded:
+        return run()
+    owner._carded.add(sig)
+    return _xprof.harvest(owner._span_name, run, sig, owner.device)
 
 
 def seed_from_key_bits(bits) -> int:
@@ -435,6 +462,7 @@ class TrainStep:
         self._backend = _CudaGraphs(self.device) if self.compiled else None
         self.captures = 0
         self.capture_ms = 0.0
+        self._carded: set = set()  # eager signatures with a program card
         self.state = optimizer.init(self.params)
         self.scaler_state = None if scaler is None \
             else scaler.init(self.device)
@@ -579,15 +607,18 @@ class TrainStep:
         graph is captured after it)."""
         self.calls += 1
         if not self.compiled:
-            return self._step(args, labels, kwargs, lr)
+            return _eager_carded(self, (args, labels, kwargs),
+                                 lambda: self._step(args, labels, kwargs,
+                                                    lr))
         inputs = (args, labels, kwargs)
         key = (_signature(inputs), GLOBAL_FLAGS.snapshot(),
                self.model.training, lr is None, self._lr_scaled,
                self._faults_armed, _obs.enabled())
 
-        def first_call():
-            metrics = self._backend.warm_up(
-                lambda: self._step(args, labels, kwargs, lr))
+        def first_call(count):
+            with count():
+                metrics = self._backend.warm_up(
+                    lambda: self._step(args, labels, kwargs, lr))
             graph = _Graph(inputs)
             self._capture(graph, lr)
             self._graphs[key] = graph
@@ -797,6 +828,7 @@ class EvalStep:
         self._backend = _CudaGraphs(self.device) if self.compiled else None
         self.captures = 0
         self.capture_ms = 0.0
+        self._carded: set = set()  # eager signatures with a program card
         self._span_name = f"EvalStep({type(model).__name__})"
 
     @torch.no_grad()
@@ -832,7 +864,9 @@ class EvalStep:
             else contextlib.nullcontext()
         with span:
             if not self.compiled:
-                return self._step(params, buffers, args, labels)
+                return _eager_carded(
+                    self, (params, buffers, args, labels),
+                    lambda: self._step(params, buffers, args, labels))
             return self._run(params, buffers, args, labels)
 
     def _run(self, params, buffers, args, labels):
@@ -841,10 +875,11 @@ class EvalStep:
                     + list(self.model.buffers()))
         key = (_signature(inputs), own, GLOBAL_FLAGS.snapshot())
 
-        def first_call():
-            result = self._backend.warm_up(
-                lambda: self._step(params, buffers, args, labels,
-                                   check_sync=True))
+        def first_call(count):
+            with count():
+                result = self._backend.warm_up(
+                    lambda: self._step(params, buffers, args, labels,
+                                       check_sync=True))
             graph = _Graph(inputs)
 
             def body() -> None:

@@ -161,7 +161,9 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.native import ServingTransport; "
             "from paddle_tpu_torch.inference import Client, Server; "
             "from paddle_tpu_torch.serving_llm import LLMStreamBridge, "
-            "Router")
+            "Router; "
+            "from paddle_tpu_torch.observability import server, fleet; "
+            "from paddle_tpu_torch import profiler")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -206,5 +208,9 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/native/__init__.py",
         "paddle_tpu_torch/inference/__init__.py",
         "paddle_tpu_torch/serving_llm/server.py",
-        "paddle_tpu_torch/serving_llm/router.py"}
+        "paddle_tpu_torch/serving_llm/router.py",
+        "paddle_tpu_torch/profiler.py"} | {
+        f"paddle_tpu_torch/observability/{m}.py"
+        for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
+                  "fleet", "trace_agg")}
     assert banned == []

@@ -613,19 +613,19 @@ def test_prefix_affinity_beats_round_robin_with_the_same_tokens(model):
 
 @contextlib.contextmanager
 def _metrics_on():
-    """Metrics on in both packages (the JAX exporter kept off); both
+    """Metrics on in both packages (both exporters kept off); both
     packages' registries empty before and after."""
     from paddle_tpu import observability as jax_obs
     from paddle_tpu_torch import observability as obs
     pt.set_flags({"enable_metrics": True, "metrics_port": -1})
-    ptt.set_flags({"enable_metrics": True})
+    ptt.set_flags({"enable_metrics": True, "metrics_port": -1})
     jax_obs.reset_all()
     obs.reset_all()
     try:
         yield jax_obs, obs
     finally:
         pt.set_flags({"enable_metrics": False, "metrics_port": 0})
-        ptt.set_flags({"enable_metrics": False})
+        ptt.set_flags({"enable_metrics": False, "metrics_port": 0})
         jax_obs.reset_all()
         obs.reset_all()
 

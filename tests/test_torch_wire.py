@@ -732,7 +732,7 @@ def test_bridge_and_server_telemetry_match_jax(pair):
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.testing import faults
     pt.set_flags({"enable_metrics": True, "metrics_port": -1})
-    ptt.set_flags({"enable_metrics": True})
+    ptt.set_flags({"enable_metrics": True, "metrics_port": -1})
     jax_obs.reset_all()
     obs.reset_all()
     out = []
@@ -753,7 +753,7 @@ def test_bridge_and_server_telemetry_match_jax(pair):
         assert "serving_stream_cancelled" in kinds
     finally:
         pt.set_flags({"enable_metrics": False, "metrics_port": 0})
-        ptt.set_flags({"enable_metrics": False})
+        ptt.set_flags({"enable_metrics": False, "metrics_port": 0})
         jax_obs.reset_all()
         obs.reset_all()
     assert out[1] == out[0]

@@ -53,7 +53,12 @@ in order:
    operands go through each wrapper's cast path (LayerNorm, also fp16;
    flash attention on both backward routes; the fused xent) against the
    plain version on the same bf16 inputs within ``BF16_TOL``, every
-   output and gradient in the JAX package's dtype;
+   output and gradient in the JAX package's dtype; then
+   (``check_pinned_capture``) the captured steps' side stream is none of
+   64 default-priority pool streams, and a fused Adam leaf table built
+   on it, whose frame is held past its return and let go inside a
+   capture on that stream (as a stack sampler or a garbage collection
+   lets go), leaves pinned allocation working;
 4. trains BERT-base (``BertConfig()``, random weights from a seed, fp32)
    through ``TrainStep`` with ``AdamW(1e-4, weight_decay=0.01)``, 5 steps
    per run (``TRAIN_RUNS``): batch 8, seq 512 (flash forward + the dq and
@@ -1273,6 +1278,61 @@ def check_flash_lse(torch, timer):
                     f"backward with both cotangents (errors: both routes)"}
     log(f"flash_attention_with_lse: {json.dumps(res)}")
     return res, counts
+
+
+def check_pinned_capture(torch) -> dict:
+    """Phase 3, last: PyTorch's pinned allocator records an event on the
+    streams a pinned block was copied on when the block is freed; freed
+    while one of them is captured, the block leaves an event that fails
+    every later pinned allocation of the process ("invalid argument").
+    Checks that the side stream of the captured steps is none of 64
+    default-priority pool streams (a DeviceLoader's stream), and that a
+    fused Adam leaf table built on the side stream, as a warm-up builds
+    it, with its frame held past its return and let go inside a capture
+    on that stream, leaves a pinned allocation after the capture
+    working."""
+    import gc
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.kernels import fused_adam
+    dev = torch.device("cuda")
+    side = static._CudaGraphs(dev).stream
+    pool = [torch.cuda.Stream(dev) for _ in range(64)]
+    aliased = sum(s.cuda_stream == side.cuda_stream for s in pool)
+    x = torch.zeros(1 << 12, device=dev)
+    rows = ((x.data_ptr(),) * 4 + (x.numel(), 0, 0, 0),)
+    held = []
+
+    def hold(frame, event, arg):
+        if event == "return" and frame.f_code is fused_adam.leaf_table.__code__:
+            held.append(frame)
+
+    sys.setprofile(hold)
+    try:
+        with torch.cuda.stream(side):
+            fused_adam.leaf_table(rows, dev)
+    finally:
+        sys.setprofile(None)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        y = x * 2
+        n_held = len(held)
+        held.clear()
+        gc.collect()
+    del graph, y
+    torch.cuda.synchronize()
+    try:
+        torch.empty(3, pin_memory=True)
+        after = "ok"
+    except RuntimeError as e:
+        after = str(e).splitlines()[0]
+    res = {"pool_streams_aliasing_side": aliased, "frames_held": n_held,
+           "pinned_alloc_after_capture": after}
+    log(f"pinned capture: {json.dumps(res)}")
+    if aliased or n_held != 1 or after != "ok":
+        raise AssertionError(f"pinned capture: {res}")
+    return res
 
 
 def check_bf16(torch):
@@ -5159,6 +5219,7 @@ def main() -> int:
     results["layer_norm"]["max_abs_err"] = max(
         results["layer_norm"]["max_abs_err"], ln_bwd["forward_max_abs_err"])
     bf16 = check_bf16(torch)
+    pinned = check_pinned_capture(torch)
     del timer  # frees the 1 GiB flush buffer for the training runs
     torch.cuda.empty_cache()
 
@@ -5180,7 +5241,8 @@ def main() -> int:
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
-                  layer_norm_backward=ln_bwd, bf16=bf16, launches=counts,
+                  layer_norm_backward=ln_bwd, bf16=bf16,
+                  pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane)
     os.makedirs("chiprun_out", exist_ok=True)

@@ -47,9 +47,11 @@ flat_launches = 0
 
 CHUNK = 8192  # elements per CUDA block (kChunk in the source)
 VARIANTS = ("leaf", "flat")
-# leaf tables kept on the device (leaf_table) and how many were built
+# leaf tables kept on the device (leaf_table), each with the host tensor
+# it was copied from, and how many were built
 TABLES_KEPT = 8
-_tables: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+_tables: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = \
+    OrderedDict()
 table_builds = 0
 # (buffer, [(table, rows)]) inside captured_tables(), else None
 _captured: Optional[tuple] = None
@@ -163,16 +165,22 @@ def leaf_table(rows: Tuple[Tuple[int, ...], ...],
                            "made inside captured_tables() while a CUDA "
                            "graph is captured")
     key = (dev, _stream_key(dev), rows)
-    table = _tables.get(key)
-    if table is not None:
+    kept = _tables.get(key)
+    if kept is not None:
         _tables.move_to_end(key)
-        return table
+        return kept[0]
     host = torch.tensor(rows, dtype=torch.int64)
     if dev.type == "cuda":
-        # one asynchronous copy from pinned memory (PyTorch's pinned
-        # allocator keeps the block until the copy is done)
+        # one asynchronous copy from pinned memory. The pinned block is
+        # kept with the table and let go only by the eviction below,
+        # which never runs inside a capture: PyTorch's pinned allocator
+        # records an event on the copy's stream when the block is freed,
+        # and a block freed while that stream is captured (by a thread
+        # that held this frame, or a garbage collection) leaves an event
+        # that fails every later pinned allocation of the process
         host = host.pin_memory()
-    table = _tables[key] = host.to(dev, non_blocking=True)
+    table = host.to(dev, non_blocking=True)
+    _tables[key] = (table, host)
     table_builds += 1
     while len(_tables) > TABLES_KEPT:
         _tables.popitem(last=False)

@@ -288,7 +288,13 @@ class _Graph:
 
 
 # the side stream of every step's warm-up and capture, by device: one
-# per device, as cuBLAS keeps a workspace for each stream it meets
+# per device, as cuBLAS keeps a workspace for each stream it meets. It is
+# taken from PyTorch's pool of high-priority streams, which nothing else
+# in the package draws from: the default-priority pool hands its 32
+# streams out in turn, so a later ``torch.cuda.Stream()`` (a
+# DeviceLoader's) would come back as this one, and a pinned host block
+# copied on it and freed during a capture makes every later pinned
+# allocation of the process fail
 _side_streams: Dict[torch.device, Any] = {}
 
 
@@ -301,7 +307,7 @@ class _CudaGraphs:
     def __init__(self, device: torch.device) -> None:
         self.device = device
         if device not in _side_streams:
-            _side_streams[device] = torch.cuda.Stream(device)
+            _side_streams[device] = torch.cuda.Stream(device, priority=-1)
         self.stream = _side_streams[device]
 
     def warm_up(self, fn: Callable[[], Any]) -> Any:

@@ -49,7 +49,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(autouse=True)
 def _isolated():
     jax_on = jax_metrics.enabled()
+    # both registries start empty: a test file run earlier in this
+    # process may have left instruments in either
     obs.reset_all()
+    jax_obs.reset_all()
     try:
         yield
     finally:

@@ -34,7 +34,10 @@ from paddle_tpu_torch.observability import server as obs_server  # noqa: E402
 @pytest.fixture(autouse=True)
 def _isolated():
     jax_on = jax_metrics.enabled()
+    # both registries start empty: a test file run earlier in this
+    # process may have left instruments in either
     obs.reset_all()
+    jax_obs.reset_all()
     try:
         yield
     finally:

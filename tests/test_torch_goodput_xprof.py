@@ -56,7 +56,10 @@ FLOPS_RTOL = 1e-3
 @pytest.fixture(autouse=True)
 def _isolated():
     jax_on = jax_metrics.enabled()
+    # both registries start empty: a test file run earlier in this
+    # process may have left instruments in either
     obs.reset_all()
+    jax_obs.reset_all()
     try:
         yield
     finally:

@@ -210,7 +210,39 @@ in order:
    ``{host=}``-labelled; (e) the plane off against on in turns (off, on,
    off, on): the captured step's ms, the decode-step p50 and the stack
    sampler's own overhead ratio at ``PLANE_SAMPLE_HZ``;
-9. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+9. the inference export and the Predictor on the card
+   (``run_predictor``): BERT-base (``BertConfig()``, random weights from
+   ``SEED``, fp32) saved with ``jit.save`` at ``[None, 128]``
+   (``input_ids``, ``token_type_ids``, ``attention_mask``) and loaded
+   with ``create_predictor(Config(dir))``; batches ``PRED_BATCHES`` (1,
+   3, 8, 17, 64: buckets 1, 4, 8, 32, 64) each run twice, every replay
+   bit for bit the eager model at the padded batch (sliced), within
+   ``TOL`` of it at the exact batch, its outputs CUDA tensors until
+   ``copy_to_cpu``, exactly 25 LayerNorm launches a call and one capture
+   per bucket touched; the same weights exported on the CPU, loaded on
+   the card (moved there whole, or refused naming its platform) and on
+   the CPU, the card's result within ``GRAD_REL_TOL`` of the CPU's;
+   ``clone()`` allocating nothing and equal; ``Server(pred,
+   max_batch=16, wait_ms=2)`` answering 8 ``Client`` threads x 8
+   requests of 1-4 rows, each reply within ``TOL`` of ``pred.run`` on
+   the request alone, batches merged (``serving.batch*`` stats), a
+   malformed request answered with its ``decode_error`` and the loop
+   serving on; seq 512 at buckets 8 and 32; a bf16 copy at bucket 8 bit
+   for bit its own eager run, its outputs bf16 and within
+   ``PRED_BF16_NOISE`` (2) times the gap of the bf16 model's plain
+   composition (LayerNorm through ``layer_norm_plain``) to the fp32
+   model (bf16 rounding noise, measured in the run); ``kernels.maybe_flash_attention`` under
+   no_grad at head dim 128 with a key-padding mask, both layouts and
+   causal settings, each call one flash forward launch and within
+   ``FLASH_TOL`` of ``flash_attention_plain``; a 2-layer head-dim-128
+   BERT exported with the flash gate lowered to seq 512, its program
+   holding the flash forward operator, served at bucket 4 with the same
+   checks as BERT-base (5 LayerNorm and 2 flash forward launches a
+   call). Per bucket: capture ms, replay p50, the
+   eager forward's ms, ``run()``'s ms and host overhead, sequences/s;
+   over the wire requests/s and p50/p99 latency; the phase's peak
+   memory, each beside the card's name and power limit;
+10. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -223,6 +255,7 @@ printed. Every number and message also goes to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -5103,6 +5136,599 @@ def run_plane(torch, served: dict, serve_counts: dict, max_new: int,
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the inference export, the Predictor and tensor serving
+# ---------------------------------------------------------------------------
+
+# BERT-base served as tensors: exported with jit.save at [None, PRED_SEQ]
+# (input_ids, token_type_ids, attention_mask), loaded with
+# create_predictor(Config(dir)) and run at PRED_BATCHES (buckets 1, 4, 8,
+# 32 and 64 of the default ladder); seq 512 at buckets 8 and 32; a bf16
+# copy at bucket 8; the card against a CPU export at PRED_CPU_BATCH
+PRED_SEQ = 128
+PRED_BATCHES = (1, 3, 8, 17, 64)
+PRED_SEQ512_BATCHES = (5, 20)
+PRED_BF16_BATCH = 6
+# the bf16 predictor's gap to the fp32 model, at most this many times
+# the bf16 plain composition's (two draws of one rounding noise; a
+# wrong cast or scale is O(1))
+PRED_BF16_NOISE = 2.0
+PRED_CPU_BATCH = 8
+PRED_TIMING_ITERS = 10
+# the predictor behind a Server: CLIENTS threads x REQUESTS requests of
+# LO..HI rows each
+PRED_WIRE = dict(clients=8, requests=8, lo=1, hi=4, max_batch=16,
+                 wait_ms=2)
+# the exported artifacts of phase 9 (removed after each run)
+PRED_DIR = "chip_smoke_export"
+# where phase 9 builds its models and expects the predictor's outputs (a
+# CPU rehearsal sets "cpu")
+PRED_DEVICE = "cuda"
+PRED_INPUTS = ("input_ids", "token_type_ids", "attention_mask")
+# LayerNorm launches of one BERT-base forward: the embeddings' and two in
+# each of 12 layers (attention at head dim 64 below 8192 keys takes the
+# plain composition at eval)
+PRED_LN_PER_FORWARD = 25
+# a head-dim-128 BERT (BertConfig()'s width, hidden // 128 heads) at
+# PRED_FLASH_LAYERS layers, exported and served at seq PRED_FLASH_SEQ with
+# flash_attention_min_seq lowered to it: the eval route through the flash
+# forward operator (the default gate admits head dim 128 at eval from
+# 8192 keys); and the router called directly at PRED_FLASH_ROUTER
+# [B, H, T, D] under no_grad with a [B, 1, 1, T] key-padding mask
+PRED_FLASH_LAYERS = 2
+PRED_FLASH_SEQ = 512
+PRED_FLASH_BATCHES = (3,)
+PRED_FLASH_ROUTER = (4, 6, 512, 128)
+PATH_KERNELS.update({"predictor": ("layer_norm",),
+                     "predictor_seq512": ("layer_norm",),
+                     "predictor_bf16": ("layer_norm",),
+                     "predictor_flash": ("layer_norm",
+                                         "flash_attention_fwd"),
+                     "predictor_wire": ("layer_norm",)})
+
+
+def predictor_specs(jit, seq: int) -> list:
+    return [jit.InputSpec([None, seq], "int64", name=n) for n in PRED_INPUTS]
+
+
+def predictor_inputs(cfg, batch: int, seq: int, seed: int) -> list:
+    """Token ids, token types and a ragged keep-mask (each row keeps a
+    prefix of at least half the sequence), int64 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (batch, seq))
+    types = rng.integers(0, 2, (batch, seq))
+    keep = rng.integers(seq // 2, seq + 1, batch)
+    mask = (np.arange(seq)[None, :] < keep[:, None]).astype(np.int64)
+    return [ids.astype(np.int64), types.astype(np.int64), mask]
+
+
+def bucket_of(buckets, batch: int) -> int:
+    """The bucket a batch is padded to (a batch above the ladder runs as
+    it is)."""
+    return next((b for b in buckets if b >= batch), batch)
+
+
+def pad_rows(arrs: list, to: int) -> list:
+    """The predictor's padding: the last row repeated up to ``to``."""
+    return [np.concatenate([a, np.repeat(a[-1:], to - a.shape[0], axis=0)])
+            for a in arrs]
+
+
+def eager_forward(torch, model, arrs: list) -> list:
+    """The eager model's outputs on the card, on the host."""
+    with torch.no_grad():
+        out = model(*(torch.from_numpy(a).to(PRED_DEVICE) for a in arrs))
+    return [o.cpu() for o in out]
+
+
+def as_tensor(torch, a):
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(a)
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    return {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: n for k, n in counts.items() if n}
+
+
+def device_ms(torch, fn, iters: int = PRED_TIMING_ITERS) -> float:
+    """Median device ms of ``fn`` (CUDA events around each call)."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms))
+
+
+def host_ms(torch, fn, iters: int = PRED_TIMING_ITERS) -> float:
+    """Median host ms of ``fn`` followed by a synchronise."""
+    ms = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def predictor_path(torch, pred, model, batches, seq: int, seed: int,
+                   name: str, card: str, exact_tol: Optional[float] = TOL,
+                   per_forward: Optional[dict] = None) -> tuple:
+    """Runs each batch twice through ``pred`` (the first call of a new
+    bucket is its warm-up and capture, every later one a replay), with
+    the launch counts set to 0 before and read after; then holds each
+    replay against the eager model at the padded batch (bit for bit,
+    sliced) and at the exact batch (within ``exact_tol``; None: the gap
+    is only reported), and times each bucket. Every call must launch
+    ``per_forward`` (default: BERT-base's LayerNorms). Returns (report,
+    launch counts of the path)."""
+    from paddle_tpu_torch import kernels
+    cfg = model.config
+    buckets = pred.config.batch_buckets()
+    runs, captures0 = [], pred.captures
+    kernels.reset_launch_counts()
+    for b in batches:
+        arrs = predictor_inputs(cfg, b, seq, seed + b)
+        cms0, c0 = pred.capture_ms, kernels.launch_counts()
+        first = pred.run(arrs)
+        c1 = kernels.launch_counts()
+        again = pred.run(arrs)
+        c2 = kernels.launch_counts()
+        on_card = all(pred.get_output_handle(n)._value.device.type
+                      == PRED_DEVICE for n in pred.get_output_names())
+        runs.append(dict(batch=b, arrs=arrs, first=first, again=again,
+                         first_launches=launch_delta(c0, c1),
+                         replay_launches=launch_delta(c1, c2),
+                         capture_ms=pred.capture_ms - cms0,
+                         outputs_on_card=on_card))
+    counts = kernels.launch_counts()
+    per_forward = nonzero(per_forward if per_forward is not None
+                          else {"layer_norm": PRED_LN_PER_FORWARD})
+    report = {"seq": seq, "card": card, "buckets": {}}
+    for r in runs:
+        b = r["batch"]
+        bucket = bucket_of(buckets, b)
+        padded = eager_forward(torch, model, pad_rows(r["arrs"], bucket))
+        exact = eager_forward(torch, model, r["arrs"])
+        got = [as_tensor(torch, o) for o in r["again"]]
+        first = [as_tensor(torch, o) for o in r["first"]]
+        bitwise = all(torch.equal(g, p[:b]) for g, p in zip(got, padded))
+        warm_equal = all(torch.equal(g, f) for g, f in zip(got, first))
+        err = max(float((g.float() - e.float()).abs().max())
+                  for g, e in zip(got, exact))
+        graph = pred._shared.graphs[tuple(
+            ((bucket, seq), torch.int64) for _ in PRED_INPUTS)]
+        dev_pad = [torch.from_numpy(a).to(PRED_DEVICE)
+                   for a in pad_rows(r["arrs"], bucket)]
+
+        def eager_call():
+            with torch.no_grad():
+                model(*dev_pad)
+
+        replay = device_ms(torch, graph.graph.replay)
+        eager = device_ms(torch, eager_call)
+        run_ms = host_ms(torch, lambda: pred.run(r["arrs"]))
+        rec = {"batch": b, "bucket": bucket, "bitwise_padded": bitwise,
+               "replay_equals_first_call": warm_equal,
+               "max_abs_err_exact": err,
+               "outputs_on_card": r["outputs_on_card"],
+               "first_call_launches": r["first_launches"],
+               "replay_launches": r["replay_launches"],
+               "capture_ms": r["capture_ms"], "replay_ms_p50": replay,
+               "eager_ms_p50": eager, "run_ms_p50": run_ms,
+               "host_overhead_ms": run_ms - replay,
+               "seqs_per_s": b / run_ms * 1e3,
+               "bucket_seqs_per_s_device": bucket / replay * 1e3}
+        report["buckets"][str(b)] = rec
+        log(f"{name} batch {b} (bucket {bucket}) [{card}]: "
+            f"{json.dumps(rec)}")
+        if not (bitwise and warm_equal and r["outputs_on_card"]
+                and (exact_tol is None or err <= exact_tol)
+                and r["replay_launches"] == per_forward
+                and r["first_launches"] == per_forward):
+            raise AssertionError(f"{name} batch {b}: {rec}")
+    touched = len({bucket_of(buckets, b) for b in batches})
+    report["captures"] = pred.captures - captures0
+    want = {k: n * 2 * len(batches) for k, n in per_forward.items()}
+    if report["captures"] != touched or nonzero(counts) != want:
+        raise AssertionError(f"{name}: {report['captures']} captures for "
+                             f"{touched} buckets, launches {counts} (want "
+                             f"{want})")
+    return report, counts
+
+
+@contextlib.contextmanager
+def plain_layer_norm():
+    """The LayerNorm kernel's plain version (``layer_norm_plain`` on the
+    normalised dims merged into rows, plain PyTorch on any device) in the
+    eval operator's place: a model's plain composition on the card."""
+    from paddle_tpu_torch.kernels import custom_ops
+    from paddle_tpu_torch.kernels import layer_norm as ln
+
+    def plain(x, weight, bias, epsilon, begin_norm_axis):
+        return ln.layer_norm_plain(
+            x.flatten(begin_norm_axis), weight.reshape(-1),
+            bias.reshape(-1), epsilon).reshape(x.shape)
+
+    op = custom_ops.layer_norm
+    custom_ops.layer_norm = plain
+    try:
+        yield
+    finally:
+        custom_ops.layer_norm = op
+
+
+def predictor_bf16_against_plain(torch, pred, model, fp32_model, seq: int,
+                                 seed: int) -> dict:
+    """The bf16 predictor (LayerNorm's bf16 cast path through the
+    operator) at PRED_BF16_BATCH against the same bf16 model's plain
+    composition on the card (LayerNorm through ``layer_norm_plain``),
+    both at the padded batch, sliced, and both against the fp32 model.
+    Kernel and plain version differ by fp32 summation order, so a
+    LayerNorm output now and then rounds to the other bf16 neighbour,
+    and 12 layers carry such flips on as bf16 rounding noise: the two
+    routes differ from each other by about as much as each differs from
+    fp32. So each output of the predictor must lie within
+    PRED_BF16_NOISE times the plain composition's own gap to the fp32
+    model (each gap over the reference's largest entry); a wrong cast or
+    scale lands at O(1). Every output bf16, and the plain run launching
+    no kernel."""
+    from paddle_tpu_torch import kernels
+
+    def gap(got, want):
+        return [float((g.float() - w.float()).abs().max()
+                      / w.float().abs().max()) for g, w in zip(got, want)]
+
+    arrs = predictor_inputs(model.config, PRED_BF16_BATCH, seq,
+                            seed + PRED_BF16_BATCH)
+    bucket = bucket_of(pred.config.batch_buckets(), PRED_BF16_BATCH)
+    padded = pad_rows(arrs, bucket)
+    got = [as_tensor(torch, o) for o in pred.run(arrs)]
+    c0 = kernels.launch_counts()
+    with plain_layer_norm():
+        plain = [o[:PRED_BF16_BATCH] for o in
+                 eager_forward(torch, model, padded)]
+    plain_launches = launch_delta(c0, kernels.launch_counts())
+    fp32 = [o[:PRED_BF16_BATCH] for o in
+            eager_forward(torch, fp32_model, padded)]
+    res = {"batch": PRED_BF16_BATCH, "bucket": bucket,
+           "dtypes": [str(g.dtype) for g in got],
+           "rel_err": gap(got, plain), "plain_rel_err_to_fp32":
+           gap(plain, fp32), "rel_err_to_fp32": gap(got, fp32),
+           "plain_launches": plain_launches}
+    log(f"predictor bf16 against plain: {json.dumps(res)}")
+    if any(g.dtype != torch.bfloat16 for g in got) or plain_launches \
+            or any(e > PRED_BF16_NOISE * lim for e, lim in zip(
+                res["rel_err_to_fp32"], res["plain_rel_err_to_fp32"])):
+        raise AssertionError(f"predictor bf16 against plain: {res} "
+                             f"(limit {PRED_BF16_NOISE}x the plain gap)")
+    return res
+
+
+def predictor_flash_router(torch) -> dict:
+    """``kernels.maybe_flash_attention`` under no_grad at
+    PRED_FLASH_ROUTER (head dim 128) with a ragged [B, 1, 1, T]
+    key-padding mask, flash_attention_min_seq lowered to T, both layouts
+    and both causal settings: the eval route through the flash forward
+    operator, each call within FLASH_TOL of ``flash_attention_plain`` on
+    the same inputs and launching exactly one flash forward (none on a
+    CPU rehearsal)."""
+    from paddle_tpu_torch import get_flags, kernels, set_flags
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    b, h, t, d = PRED_FLASH_ROUTER
+    gen = torch.Generator(device=PRED_DEVICE).manual_seed(SEED + 93)
+    keep = torch.randint(t // 2, t + 1, (b,), generator=gen,
+                         device=PRED_DEVICE)
+    mask = (torch.arange(t, device=PRED_DEVICE)[None, :]
+            < keep[:, None])[:, None, None, :]
+    bias = torch.where(mask[:, 0, 0, :], 0.0, fa.NEG_INF)
+    per_call = nonzero({"flash_attention_fwd":
+                        int(PRED_DEVICE == "cuda")})
+    res = {}
+    old = get_flags(["flash_attention_min_seq"])
+    set_flags({"flash_attention_min_seq": t})
+    try:
+        for layout in ("bhtd", "bthd"):
+            shape = (b, t, h, d) if layout == "bthd" else (b, h, t, d)
+            q, k, v = (torch.randn(shape, generator=gen,
+                                   device=PRED_DEVICE) for _ in range(3))
+            for causal in (False, True):
+                c0 = kernels.launch_counts()
+                with torch.no_grad():
+                    got = kernels.maybe_flash_attention(
+                        q, k, v, mask=mask, causal=causal, layout=layout)
+                launched = launch_delta(c0, kernels.launch_counts())
+                want = fa.flash_attention_plain(
+                    q, k, v, causal=causal, kv_bias=bias,
+                    bthd=layout == "bthd")
+                e = {"max_abs_err": float((got - want).abs().max()),
+                     "launches": launched,
+                     "finite": bool(torch.isfinite(got).all())}
+                res[f"{layout}_causal{int(causal)}"] = e
+                if not (e["finite"] and e["max_abs_err"] <= FLASH_TOL
+                        and launched == per_call
+                        and got.shape == q.shape):
+                    raise AssertionError(
+                        f"flash router {layout} causal {causal}: {e} "
+                        f"(limit {FLASH_TOL}, launches {per_call})")
+    finally:
+        set_flags(old)
+    log(f"predictor flash router {list(PRED_FLASH_ROUTER)}: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def predictor_flash_model(torch, jit, inference, card: str) -> tuple:
+    """A head-dim-128 BERT at PRED_FLASH_LAYERS layers, exported at
+    [None, PRED_FLASH_SEQ] with flash_attention_min_seq lowered to the
+    sequence (the gate is read while tracing, so the program holds the
+    flash forward operator), served at PRED_FLASH_BATCHES: the same
+    checks as BERT-base's path, with every call launching the
+    LayerNorms and one flash forward a layer."""
+    from paddle_tpu_torch import get_flags, set_flags
+    from paddle_tpu_torch.models import BertConfig, BertModel
+    base = BertConfig()
+    cfg = BertConfig(num_hidden_layers=PRED_FLASH_LAYERS,
+                     num_attention_heads=base.hidden_size // 128)
+    gen = torch.Generator(device=PRED_DEVICE).manual_seed(SEED + 94)
+    model = BertModel(cfg, device=PRED_DEVICE, generator=gen).eval()
+    d = os.path.join(PRED_DIR, "bert_head_dim_128")
+    per_forward = {}
+    if PRED_DEVICE == "cuda":
+        per_forward = {"layer_norm": 1 + 2 * PRED_FLASH_LAYERS,
+                       "flash_attention_fwd": PRED_FLASH_LAYERS}
+    old = get_flags(["flash_attention_min_seq"])
+    set_flags({"flash_attention_min_seq": PRED_FLASH_SEQ})
+    try:
+        jit.save(model, d, input_spec=predictor_specs(jit, PRED_FLASH_SEQ))
+        pred = inference.create_predictor(inference.Config(d))
+        ops = [str(n.target) for n in pred._shared.module.graph.nodes]
+        held = ops.count("paddle_tpu_torch.flash_attention.default")
+        if held != PRED_FLASH_LAYERS:
+            raise AssertionError(f"predictor_flash: the program holds "
+                                 f"{held} flash operators, not "
+                                 f"{PRED_FLASH_LAYERS}")
+        return predictor_path(torch, pred, model, PRED_FLASH_BATCHES,
+                              PRED_FLASH_SEQ, SEED + 83, "predictor_flash",
+                              card, per_forward=per_forward)
+    finally:
+        set_flags(old)
+
+
+def predictor_card_against_cpu(torch, model, jit, inference, seq: int,
+                               card_out: list) -> dict:
+    """The same weights exported on the CPU: loaded on the card (the
+    program moved there whole, or refused naming its platform) and on
+    the CPU; the card's result at PRED_CPU_BATCH held against the CPU
+    predictor's, every output within GRAD_REL_TOL of its largest
+    entry."""
+    from paddle_tpu_torch.models import BertModel
+    cfg = model.config
+    arrs = predictor_inputs(cfg, PRED_CPU_BATCH, seq, SEED + 90)
+    cpu_model = BertModel(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    d = os.path.join(PRED_DIR, "bert_base_cpu")
+    t0 = time.perf_counter()
+    jit.save(cpu_model, d, input_spec=predictor_specs(jit, seq))
+    export_s = time.perf_counter() - t0
+    res = {"batch": PRED_CPU_BATCH, "cpu_export_s": export_s}
+    try:
+        moved = inference.create_predictor(inference.Config(d))
+        card = moved.run(arrs)
+        res["cpu_export_on_card"] = "moved"
+        res["moved_equals_card_export"] = all(
+            torch.equal(as_tensor(torch, a), as_tensor(torch, b))
+            for a, b in zip(card, card_out))
+        del moved
+    except ValueError as e:
+        if "'cpu'" not in str(e):
+            raise
+        res["cpu_export_on_card"] = f"refused: {e}"
+        card = card_out
+    cpu_pred = inference.create_predictor(inference.Config(d, device="cpu"))
+    t0 = time.perf_counter()
+    cpu = cpu_pred.run(arrs)
+    res["cpu_run_s"] = time.perf_counter() - t0
+    res["rel_err"] = [float(np.abs(a - c).max() / np.abs(c).max())
+                      for a, c in zip(card, cpu)]
+    log(f"predictor card against CPU: {json.dumps(res)}")
+    if max(res["rel_err"]) > GRAD_REL_TOL \
+            or res.get("moved_equals_card_export") is False:
+        raise AssertionError(f"predictor card against CPU: {res}")
+    return res
+
+
+def predictor_clone(torch, pred, cfg, seq: int) -> dict:
+    """``clone()`` shares the weights, graphs and lock: it allocates
+    nothing, its run captures nothing new and equals the parent's."""
+    arrs = predictor_inputs(cfg, PRED_CPU_BATCH, seq, SEED + 91)
+    want = pred.run(arrs)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    clone = pred.clone()
+    clone_bytes = torch.cuda.memory_allocated() - before
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    caps = pred.captures
+    got = clone.run(arrs)
+    peak = torch.cuda.max_memory_allocated() - base
+    weights = sum(t.numel() * t.element_size()
+                  for t in pred._shared.params.values())
+    res = {"clone_alloc_bytes": clone_bytes, "run_peak_delta_bytes": peak,
+           "weights_bytes": weights,
+           "shares": clone._shared is pred._shared,
+           "new_captures": pred.captures - caps,
+           "equal": all(torch.equal(as_tensor(torch, a),
+                                    as_tensor(torch, b))
+                        for a, b in zip(got, want))}
+    log(f"predictor clone: {json.dumps(res)}")
+    if clone_bytes != 0 or peak > 0.01 * weights or not res["shares"] \
+            or res["new_captures"] or not res["equal"]:
+        raise AssertionError(f"predictor clone: {res}")
+    return res
+
+
+def predictor_wire(torch, pred, cfg, seq: int, max_batch: int, wait_ms: int,
+                   clients: int, requests: int, lo: int, hi: int) -> tuple:
+    """``Server(pred)`` answering ``clients`` threads of ``requests``
+    requests each (``lo``..``hi`` rows): every reply within TOL of
+    ``pred.run`` on that request alone, batches formed (the native
+    ``serving.*`` stats), a malformed request answered with its
+    ``decode_error`` and the loop still serving. Returns (report,
+    launch counts of the server's runs)."""
+    from paddle_tpu_torch import kernels, set_flags
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import Client, Server
+    rng = np.random.default_rng(SEED + 92)
+    reqs = [[predictor_inputs(cfg, int(rng.integers(lo, hi + 1)), seq,
+                              SEED + 1000 + 100 * c + i)
+             for i in range(requests)] for c in range(clients)]
+    want = [[pred.run(r) for r in rs] for rs in reqs]
+    set_flags({"enable_metrics": True, "metrics_port": -1})
+    try:
+        srv = Server(pred, max_batch=max_batch, wait_ms=wait_ms)
+        try:
+            with Client(port=srv.port) as cli:
+                stats0 = cli.stats()
+            got = [[None] * requests for _ in range(clients)]
+            lat = []
+
+            def client(c):
+                with Client(port=srv.port) as cli:
+                    for i, r in enumerate(reqs[c]):
+                        t0 = time.perf_counter()
+                        got[c][i] = cli.infer(r)
+                        lat.append((time.perf_counter() - t0) * 1e3)
+
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(clients) as pool:
+                list(pool.map(client, range(clients)))
+            wall = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            batches = srv.n_batches
+            with Client(port=srv.port) as cli:
+                stats1 = cli.stats()
+                try:
+                    cli.infer([np.float32(1.0).reshape(())])
+                    malformed = "answered"
+                except RuntimeError as e:
+                    malformed = str(e)
+                after = cli.infer(reqs[0][0])
+        finally:
+            srv.stop()
+        outcomes = [s["outcome"] for s in obs.reqtrace.recent()]
+    finally:
+        set_flags({"enable_metrics": False, "metrics_port": 0})
+        obs.reset_all()
+    err = max(float(np.abs(g - w).max()) for gs, ws in zip(got, want)
+              for gr, wr in zip(gs, ws) for g, w in zip(gr, wr))
+    delta = {k: stats1.get(k, 0) - stats0.get(k, 0) for k in stats1
+             if k.startswith("serving.batch")}
+    n = clients * requests
+    res = {"requests": n, "max_batch": max_batch, "wait_ms": wait_ms,
+           "max_abs_err": err, "batches": batches, "stats": delta,
+           "requests_per_s": n / wall,
+           "latency_ms_p50": float(np.percentile(lat, 50)),
+           "latency_ms_p99": float(np.percentile(lat, 99)),
+           "malformed_reply": malformed,
+           "decode_errors": outcomes.count("decode_error"),
+           "ok_spans": outcomes.count("ok"),
+           "served_after_malformed": all(
+               np.array_equal(a, b) for a, b in zip(after, want[0][0]))}
+    log(f"predictor wire: {json.dumps(res)}")
+    multi_row = delta.get("serving.batches_total", 0) \
+        - delta.get("serving.batch_size_le_4", 0)
+    if err > TOL or batches >= n or delta.get(
+            "serving.batches_total") != batches or multi_row <= 0 \
+            or "leading batch dim" not in malformed \
+            or res["decode_errors"] != 1 or res["ok_spans"] < n \
+            or not res["served_after_malformed"] \
+            or nonzero(counts) != nonzero(
+                {"layer_norm": PRED_LN_PER_FORWARD * batches}):
+        raise AssertionError(f"predictor wire: {res}, launches {counts}")
+    return res, counts
+
+
+def run_predictor(torch) -> tuple:
+    """Phase 9. Returns (report, launch counts of each path)."""
+    import copy
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BertConfig, BertModel
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    report, counts = {}, {}
+    shutil.rmtree(PRED_DIR, ignore_errors=True)
+    try:
+        cfg = BertConfig()
+        gen = torch.Generator(device=PRED_DEVICE).manual_seed(SEED)
+        model = BertModel(cfg, device=PRED_DEVICE, generator=gen).eval()
+        exports = {}
+
+        def export(m, name, seq):
+            d = os.path.join(PRED_DIR, name)
+            t0 = time.perf_counter()
+            jit.save(m, d, input_spec=predictor_specs(jit, seq))
+            exports[name] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            pred = inference.create_predictor(inference.Config(d))
+            exports[name + "_load"] = time.perf_counter() - t0
+            return pred
+
+        pred = export(model, "bert_base", PRED_SEQ)
+        report["predictor"], counts["predictor"] = predictor_path(
+            torch, pred, model, PRED_BATCHES, PRED_SEQ, SEED + 80,
+            "predictor", card)
+        ref = predictor_inputs(cfg, PRED_CPU_BATCH, PRED_SEQ, SEED + 90)
+        report["predictor_card_vs_cpu"] = predictor_card_against_cpu(
+            torch, model, jit, inference, PRED_SEQ, pred.run(ref))
+        report["predictor_clone"] = predictor_clone(torch, pred, cfg,
+                                                    PRED_SEQ)
+        report["predictor_wire"], counts["predictor_wire"] = \
+            predictor_wire(torch, pred, cfg, PRED_SEQ, **PRED_WIRE)
+        del pred
+        pred512 = export(model, "bert_base_seq512", 512)
+        report["predictor_seq512"], counts["predictor_seq512"] = \
+            predictor_path(torch, pred512, model, PRED_SEQ512_BATCHES, 512,
+                           SEED + 81, "predictor_seq512", card)
+        del pred512
+        bf16 = cast_model_to_low_precision(copy.deepcopy(model), "bfloat16")
+        pred_bf16 = export(bf16, "bert_base_bf16", PRED_SEQ)
+        report["predictor_bf16"], counts["predictor_bf16"] = \
+            predictor_path(torch, pred_bf16, bf16, (PRED_BF16_BATCH,),
+                           PRED_SEQ, SEED + 82, "predictor_bf16", card,
+                           exact_tol=None)
+        report["predictor_bf16_vs_plain"] = predictor_bf16_against_plain(
+            torch, pred_bf16, bf16, model, PRED_SEQ, SEED + 82)
+        del pred_bf16, bf16, model
+        report["predictor_flash_router"] = predictor_flash_router(torch)
+        report["predictor_flash"], counts["predictor_flash"] = \
+            predictor_flash_model(torch, jit, inference, card)
+        report["predictor_exports_s"] = exports
+        report["predictor_peak_gib"] = torch.cuda.max_memory_allocated() \
+            / 2 ** 30
+        report["predictor_phase_s"] = time.perf_counter() - t_phase
+        log(f"predictor: exports {json.dumps(exports)}, peak "
+            f"{report['predictor_peak_gib']:.3f} GiB, phase "
+            f"{report['predictor_phase_s']:.1f} s [{card}]")
+    finally:
+        shutil.rmtree(PRED_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -5186,6 +5812,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    REPORT["card"] = card
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -5236,15 +5863,20 @@ def main() -> int:
     plane, plane_counts = run_plane(
         torch, served, serve_counts, SERVING["max_new"],
         SERVING["pool_blocks"], SERVING["n_spec"])
+    del served
+    torch.cuda.empty_cache()
+    predictor, pred_counts = run_predictor(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
-                  **obs_counts, **plane_counts, flash_with_lse=lse_counts)
+                  **obs_counts, **plane_counts, **pred_counts,
+                  flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
                   layer_norm_backward=ln_bwd, bf16=bf16,
                   pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
-                  **resume, **serving, **wire, **observ, **plane)
+                  **resume, **serving, **wire, **observ, **plane,
+                  **predictor)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

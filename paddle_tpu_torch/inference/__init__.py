@@ -1,26 +1,42 @@
-"""The serving wire: the tensor codec, ``Server`` and ``Client``.
+"""Inference: ``Config``/``Predictor`` over an exported program, the
+tensor codec, ``Server`` and ``Client``.
 
-Counterpart of ``paddle_tpu.inference``'s serving half. The native
-transport (``native.ServingTransport``: sockets, framing, the bounded
-queue) takes the frames of ``docs/serving_protocol.md``; :class:`Server`
-is the compute half on its own thread: it dequeues requests, hands every
+Counterpart of ``paddle_tpu.inference``. Export a model with
+``paddle_tpu_torch.jit.save(model, d, input_spec=[jit.InputSpec([None,
+128], "int64", name="input_ids"), ...])`` (a ``torch.export`` program of
+its eval forward, the kernels as the ``paddle_tpu_torch::`` operators),
+then ``pred = create_predictor(Config(d))`` loads it onto the card
+(``Config(d, device="cpu")`` for the CPU, as the tests run it) and
+``pred.run([ids, types, mask])`` returns host arrays. With
+``ir_optim`` on (the default) each batch is padded to a bucket of
+``Config.batch_buckets()`` and, on the card, each bucket is one CUDA
+graph, captured after one eager warm-up and replayed after;
+``clone()`` shares the weights, the graphs and the run lock.
+
+The native transport (``native.ServingTransport``: sockets, framing,
+the bounded queue) takes the frames of ``docs/serving_protocol.md``;
+:class:`Server` is the compute half on its own thread: it batches
+concurrent tensor requests of one row signature into one
+``predictor.run`` (``Server(pred, max_batch=16, wait_ms=2)``;
+``Client(port=srv.port).infer([ids, types, mask])``), and hands every
 streaming-generate ('PTST') frame to an ``LLMStreamBridge`` over an
-``LLMEngine`` and steps the engine while generations are in flight,
+``LLMEngine``, stepping the engine while generations are in flight and
 admitting new prefills into the running decode batch (continuous
 batching). :class:`Client` speaks the same frames. Both are byte for
 byte the JAX package's: either package's client talks to either
 package's server.
 
-Not ported yet: ``Config``/``Predictor``/``create_predictor``, which
-serve a ``jit.save`` export (their counterpart is ``torch.export`` per
-shape bucket), so a server here takes ``predictor=None`` and answers a
-tensor request with the error the JAX package's LLM-only server gives.
-The server's telemetry is the JAX server's (with FLAGS_enable_metrics
-on): ``requests_shed_total{kind=,tenant=}``, the request span ring
-(``observability.reqtrace``, a record per refused or shed request; the
-bridge records each stream's) and the flight records of sheds, drains
-and client reconnects. A server also brings up the HTTP exporter
-(``observability.server.maybe_start``: metrics on and
+The server's telemetry is the JAX server's: the native stats
+``serving.batches_total``, ``serving.batch_rows_total``,
+``serving.batch_size_le_*`` and ``serving.batch_errors_total`` (in the
+STATS reply), and with FLAGS_enable_metrics on ``serving_batch_size``,
+``serving_requests_total``, ``serving_errors_total``, the
+``serving_*_ms`` span histograms, ``requests_shed_total{kind=,tenant=}``,
+the request span ring (``observability.reqtrace``: a record per tensor
+request, ``ok``, ``decode_error`` or ``execute_error``, and per refused
+or shed one; the bridge records each stream's) and the flight records
+of sheds, drains and client reconnects. A server also brings up the
+HTTP exporter (``observability.server.maybe_start``: metrics on and
 ``metrics_port`` >= 0) and a bridge thread that scrapes the native
 transport's stats into the registry (``scrape_stats``: ``serving_*``
 gauges and counters) every ``stats_interval_s``, once more at
@@ -42,12 +58,14 @@ import numpy as np
 import torch
 
 from .. import observability as obs
+from ..core.dtype import convert_dtype
 from ..flags import GLOBAL_FLAGS
 from ..native import ServingTransport, stat_add, stat_reset
 from ..observability import flight as _flight
 from ..observability import reqtrace as _reqtrace
 
-__all__ = ["Server", "Client", "encode_tensors", "decode_tensors",
+__all__ = ["Config", "PrecisionType", "Predictor", "create_predictor",
+           "Tensor", "Server", "Client", "encode_tensors", "decode_tensors",
            "StreamInterrupted", "StreamConnectionLost", "StreamTimeout"]
 
 
@@ -84,6 +102,331 @@ class StreamConnectionLost(StreamInterrupted, ConnectionError):
 
 class StreamTimeout(StreamInterrupted, TimeoutError):
     pass
+
+
+class PrecisionType:
+    """(ref: paddle_api.h PaddlePrecision) The JAX package's names and
+    values; ``Config.set_precision`` stores one and nothing reads it, as
+    in the JAX package."""
+    Float32 = "float32"
+    Half = "bfloat16"
+    Bfloat16 = "bfloat16"
+    Int8 = "int8"
+
+
+class Config:
+    """Predictor configuration (ref: analysis_config.h AnalysisConfig).
+
+    ``model_dir`` holds a ``jit.save`` artifact (``params/``,
+    ``module.pt2``, ``meta.json``). ``device`` None means the card
+    (``core.place.resolve_device``); pass ``"cpu"`` for the CPU."""
+
+    def __init__(self, model_dir: str, device=None):
+        self.model_dir = model_dir
+        self._ir_optim = True
+        self._memory_optim = True
+        self._profile = False
+        self._precision = PrecisionType.Float32
+        self._max_batch_size = 64
+        self._batch_buckets: Optional[List[int]] = None
+        self._device = device
+
+    # -- parity surface (reference names) --------------------------------
+    def switch_ir_optim(self, on: bool = True) -> None:
+        """On: each batch is padded to a shape bucket and, on the card,
+        each bucket runs as one CUDA graph. Off: the exported program
+        runs eagerly at each exact shape."""
+        self._ir_optim = bool(on)
+
+    def enable_memory_optim(self, on: bool = True) -> None:
+        self._memory_optim = bool(on)
+
+    def enable_profile(self) -> None:
+        """Counts runs and their microseconds into the native stats
+        ``inference.runs`` / ``inference.us``."""
+        self._profile = True
+
+    def set_precision(self, p: str) -> None:
+        self._precision = p
+
+    def set_max_batch_size(self, n: int) -> None:
+        self._max_batch_size = int(n)
+
+    def set_batch_buckets(self, sizes: Sequence[int]) -> None:
+        """Explicit bucket ladder; default is powers of two up to
+        max_batch_size."""
+        self._batch_buckets = sorted(int(s) for s in sizes)
+
+    def disable_glog_info(self) -> None:  # parity no-op
+        pass
+
+    def batch_buckets(self) -> List[int]:
+        if self._batch_buckets:
+            return self._batch_buckets
+        out, b = [], 1
+        while b < self._max_batch_size:
+            out.append(b)
+            b *= 2
+        out.append(self._max_batch_size)
+        return out
+
+
+def _host_value(o):
+    """A tensor as the host value the wire and the caller take: a numpy
+    array, or a CPU tensor for bfloat16 (which numpy lacks)."""
+    if not isinstance(o, torch.Tensor):
+        return np.asarray(o)
+    t = o.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+class Tensor:
+    """Input/output handle (ref: paddle_api.h ZeroCopyTensor).
+
+    Inputs: ``copy_from_cpu`` stages a host array (or a CPU tensor).
+    Outputs: the value stays a device tensor until ``copy_to_cpu``."""
+
+    def __init__(self, name: str, spec_shape: Tuple, dtype: str):
+        self.name = name
+        self._spec_shape = tuple(spec_shape)
+        self._dtype = dtype
+        self._value = None
+
+    def copy_from_cpu(self, arr) -> None:
+        if not isinstance(arr, torch.Tensor):
+            arr = np.asarray(arr)
+        if arr.ndim != len(self._spec_shape):
+            raise ValueError(
+                f"input {self.name}: rank {arr.ndim} does not match spec "
+                f"{self._spec_shape}")
+        for have, want in zip(arr.shape[1:], self._spec_shape[1:]):
+            if want is not None and have != want:
+                raise ValueError(
+                    f"input {self.name}: shape {tuple(arr.shape)} does not "
+                    f"match spec {self._spec_shape}")
+        self._value = arr
+
+    def reshape(self, shape) -> None:
+        if self._value is not None:
+            self._value = self._value.reshape(shape)
+
+    def copy_to_cpu(self):
+        if self._value is None:
+            raise ValueError(f"tensor {self.name} has no value")
+        return _host_value(self._value)
+
+    @property
+    def shape(self):
+        return None if self._value is None else tuple(self._value.shape)
+
+
+class _Shared:
+    """What a predictor shares with its clones: the loaded program, the
+    weights on the device, the captured graphs (one per input
+    signature), their counters and the run lock. Also the owner
+    ``static._capture`` books a capture to (``_backend``, ``captures``,
+    ``capture_ms``)."""
+
+    def __init__(self, config: Config) -> None:
+        from .. import jit as jit_mod
+        from ..static import _CudaGraphs
+        translated = jit_mod.load(config.model_dir, config._device)
+        self.meta = translated.meta
+        self.device = translated.device
+        self.module = translated._module
+        self.params = translated._params
+        self.buffers = translated._buffers
+        self.graphs: Dict[tuple, Any] = {}
+        self._backend = _CudaGraphs(self.device) \
+            if self.device.type == "cuda" else None
+        self.captures = 0
+        self.capture_ms = 0.0
+        self.run_lock = threading.Lock()
+
+    def call(self, args):
+        with torch.no_grad():
+            return self.module(self.params, self.buffers, *args)
+
+    def replay(self, args: List[torch.Tensor]):
+        """The outputs of the graph of ``args``' signature (a CPU tensor
+        each): copies them into its static inputs and replays it
+        (``static._Graph.replay``, which adds the replay's kernel
+        launches to the counters and clones the outputs). The first call
+        of a signature runs the program eagerly on the capture's side
+        stream (the warm-up, whose outputs it returns), then captures it
+        into a graph. Hold ``run_lock``."""
+        from ..static import _capture, _Graph
+        key = tuple((tuple(a.shape), a.dtype) for a in args)
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph.replay(args)
+        graph = _Graph([a.to(self.device) for a in args])
+        out = self._backend.warm_up(lambda: self.call(graph.inputs))
+
+        def body() -> None:
+            graph.outputs = self.call(graph.inputs)
+
+        _capture(self, graph, body)
+        self.graphs[key] = graph
+        return out
+
+
+class Predictor:
+    """Serving executor over a ``jit.save`` artifact
+    (ref: analysis_predictor.cc AnalysisPredictor::Run/ZeroCopyRun).
+
+    Loads the program with ``jit.load`` and moves the weights to the
+    device once. With ``ir_optim`` on and every input's batch dim
+    dynamic, a batch is padded up to ``config.batch_buckets()`` by
+    repeating its last row, and the outputs sliced back; on the card
+    each padded shape (a batch above the largest bucket keeps its own)
+    is captured once as a CUDA graph after one eager warm-up, then
+    replayed, the counterpart of one XLA executable per bucket; the CPU
+    runs the program eagerly. With ``ir_optim`` off the program runs
+    eagerly at each exact shape. A failed capture or launch raises;
+    nothing runs eagerly or on the CPU instead. The host inputs reach
+    the device by a plain copy into the graph's static inputs, outside
+    any capture, and the outputs are copied out of the graph's under
+    the run lock, which a clone shares with its parent (the next replay
+    overwrites them). ``captures`` and ``capture_ms`` count the
+    captures; each replay adds its graph's kernel launches to the
+    counters (``kernels.launch_counts``). ``clone()`` shares the
+    weights, the graphs and the run lock."""
+
+    def __init__(self, config: Config, _shared: Optional[_Shared] = None):
+        self.config = config
+        self._shared = _Shared(config) if _shared is None else _shared
+        specs = self._shared.meta["input_spec"]
+        self._inputs = [Tensor(s.get("name", f"x{i}"), tuple(s["shape"]),
+                               s["dtype"])
+                        for i, s in enumerate(specs)]
+        self._poly_batch = [bool(s["shape"]) and s["shape"][0] is None
+                            for s in specs]
+        self._outputs: List[Tensor] = []
+        self._n_runs = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self._shared.device
+
+    @property
+    def captures(self) -> int:
+        return self._shared.captures
+
+    @property
+    def capture_ms(self) -> float:
+        return self._shared.capture_ms
+
+    # -- reference API ---------------------------------------------------
+    def get_input_names(self) -> List[str]:
+        return [t.name for t in self._inputs]
+
+    def get_input_handle(self, name: str) -> Tensor:
+        for t in self._inputs:
+            if t.name == name:
+                return t
+        raise KeyError(name)
+
+    get_input_tensor = get_input_handle
+
+    def get_output_names(self) -> List[str]:
+        return [t.name for t in self._outputs]
+
+    def get_output_handle(self, name: str) -> Tensor:
+        for t in self._outputs:
+            if t.name == name:
+                return t
+        raise KeyError(name)
+
+    get_output_tensor = get_output_handle
+
+    def run(self, inputs: Optional[Sequence] = None):
+        """Execute. Either pass arrays positionally or stage them on the
+        input handles first (zero-copy style). Returns host values (numpy
+        arrays; CPU tensors for bfloat16) and fills the output handles,
+        whose values stay on the device."""
+        if inputs is not None:
+            for t, a in zip(self._inputs, inputs):
+                t.copy_from_cpu(a)
+        args = [t._value for t in self._inputs]
+        if any(a is None for a in args):
+            missing = [t.name for t in self._inputs if t._value is None]
+            raise ValueError(f"inputs not set: {missing}")
+        t0 = time.perf_counter()
+        outs = self._run_batched(args)
+        self._n_runs += 1
+        outs_list = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+        host = [_host_value(o) for o in outs_list]
+        if self.config._profile:
+            stat_add("inference.runs", 1)
+            stat_add("inference.us", int((time.perf_counter() - t0) * 1e6))
+        self._outputs = []
+        for i, o in enumerate(outs_list):
+            t = Tensor(f"out{i}", tuple(o.shape), str(o.dtype))
+            t._value = o
+            self._outputs.append(t)
+        return host
+
+    zero_copy_run = run
+
+    def _host_args(self, args) -> List[torch.Tensor]:
+        """The staged inputs as CPU tensors of their specs' dtypes (an
+        integer input may come in another integer width, a float in
+        another float width, as the JAX export takes them)."""
+        out = []
+        for t, a in zip(self._inputs, args):
+            h = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))
+            want = convert_dtype(t._dtype)
+            if h.dtype != want:
+                if h.dtype.is_floating_point != want.is_floating_point \
+                        or h.dtype == torch.bool or want == torch.bool:
+                    raise ValueError(f"input {t.name}: dtype {h.dtype} "
+                                     f"does not match spec {t._dtype}")
+                h = h.to(want)
+            out.append(h)
+        return out
+
+    def _run_batched(self, args):
+        batch = args[0].shape[0] if (args and self._poly_batch
+                                     and self._poly_batch[0]) else None
+        pad_to = None
+        if (batch is not None and self.config._ir_optim
+                and all(self._poly_batch)):
+            for b in self.config.batch_buckets():
+                if b >= batch:
+                    pad_to = b
+                    break
+        host = self._host_args(args)
+        if pad_to is not None and pad_to != batch:
+            # repeat the final row: inert padding for any pointwise or
+            # row-wise head (zeros can still NaN under 1/x-style heads)
+            host = [torch.cat([a, a[-1:].expand(pad_to - a.shape[0],
+                                                *a.shape[1:])])
+                    for a in host]
+        shared = self._shared
+        with shared.run_lock:
+            if shared._backend is not None and self.config._ir_optim:
+                outs = shared.replay(host)
+            else:
+                outs = shared.call([a.to(shared.device) for a in host])
+        if pad_to is not None and pad_to != batch:
+            outs = _slice_leading(outs, batch)
+        return outs
+
+    def clone(self) -> "Predictor":
+        return Predictor(self.config, _shared=self._shared)
+
+
+def _slice_leading(outs, n):
+    if isinstance(outs, (tuple, list)):
+        return type(outs)(_slice_leading(o, n) for o in outs)
+    return outs[:n] if hasattr(outs, "shape") and outs.ndim >= 1 else outs
+
+
+def create_predictor(config: Config) -> Predictor:
+    """(ref: paddle_infer::CreatePredictor / create_paddle_predictor)."""
+    return Predictor(config)
 
 
 # ------------------------------------------------------------------ codec
@@ -152,27 +495,31 @@ def decode_tensors(buf: bytes) -> List:
 # ----------------------------------------------------------------- server
 
 class Server:
-    """Serving loop over the native transport (csrc/serving.cc).
+    """Dynamic-batching serving loop over the native transport
+    (csrc/serving.cc).
 
-    Streaming-generate requests go to ``llm_engine`` (an
-    ``LLMEngine``) through an ``LLMStreamBridge``; requests that arrive
-    within ``wait_ms`` of each other (up to ``max_batch``) are admitted
-    together. The loop runs on its own thread, so the engine's device
-    work does too: a CUDA engine's device is made current there.
-    ``predictor`` must be None (tensor serving is not ported yet): a
-    tensor request is answered with an error. The server starts on
+    Requests that arrive within ``wait_ms`` of each other (up to
+    ``max_batch``) form a group. Tensor requests go to ``predictor`` (a
+    :class:`Predictor`): the group's requests with the same per-row
+    signature are concatenated along the batch dim, run as ONE bucketed
+    ``predictor.run`` and the replies sliced back per request.
+    Streaming-generate requests go to ``llm_engine`` (an ``LLMEngine``)
+    through an ``LLMStreamBridge``. Either may be None: a request for
+    the missing half gets an error reply. The loop runs on its own
+    thread, so the device work does too: the predictor's (or a CUDA
+    engine's) device is made current there. The server starts on
     construction; ``port`` 0 takes an ephemeral port (``.port``)."""
 
-    def __init__(self, predictor=None, port: int = 0, max_batch: int = 32,
-                 wait_ms: int = 2, queue_cap: int = 512,
+    # batch-size buckets published to the native stat registry (and the
+    # STATS reply): cumulative "le" semantics like the Python histogram
+    _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+    def __init__(self, predictor: Optional[Predictor] = None, port: int = 0,
+                 max_batch: int = 32, wait_ms: int = 2, queue_cap: int = 512,
                  max_payload: int = 64 << 20,
                  queue_deadline_ms: Optional[int] = None,
                  llm_engine=None, stats_interval_s: float = 1.0):
-        if predictor is not None:
-            raise NotImplementedError(
-                "tensor serving (Predictor) is not ported yet: pass "
-                "predictor=None and llm_engine=")
-        self.predictor = None
+        self.predictor = predictor
         self._llm = None
         if llm_engine is not None:
             from ..serving_llm.server import LLMStreamBridge
@@ -194,8 +541,9 @@ class Server:
         self._drain_deadline_pc: Optional[float] = None
         self._drained = threading.Event()
         self.n_drain_rejected = 0
-        # n_batches and n_requests count tensor batches, which wait for
-        # the predictor; n_errors counts failed engine steps
+        # n_batches and n_requests count tensor batches and the requests
+        # they answered; n_errors counts the requests of failed batches
+        # and the failed engine steps
         self.n_batches = 0
         self.n_requests = 0
         self.n_errors = 0
@@ -356,9 +704,15 @@ class Server:
 
     def _record_span(self, req: Dict[str, Any], status: int,
                      outcome: str,
-                     reply_unix: Optional[float] = None) -> None:
-        """Close one refused request's span record (with metrics on):
-        the queue-wait / assembly / end-to-end spans, into the request
+                     dispatch_unix: Optional[float] = None,
+                     reply_unix: Optional[float] = None,
+                     batch_rows: Optional[int] = None,
+                     batch_members: Optional[int] = None,
+                     error: Optional[str] = None) -> None:
+        """Close one tensor request's or refused request's span record
+        (with metrics on): the queue-wait / assembly / compute /
+        end-to-end spans, observed into the ``serving_*_ms`` histograms
+        for a served request (status 0), and the record into the request
         ring. Served streams are recorded by the bridge."""
         if not obs.enabled():
             return
@@ -368,8 +722,14 @@ class Server:
                "ingress_unix": req.get("ingress_unix"),
                "dequeue_unix": req.get("dequeue_unix"),
                "assembly_unix": req.get("assembly_unix"),
-               "dispatch_unix": None,
+               "dispatch_unix": dispatch_unix,
                "reply_unix": reply_unix}
+        if batch_rows is not None:
+            rec["batch_rows"] = batch_rows
+        if batch_members is not None:
+            rec["batch_members"] = batch_members
+        if error is not None:
+            rec["error"] = error
         if "tenant" in req:  # streams: per-tenant gap attribution
             rec["tenant"] = req["tenant"]
             rec["cls"] = req.get("class")
@@ -384,13 +744,36 @@ class Server:
                                            "assembly_unix")
         rec["compute_ms"] = span_ms("dispatch_unix", "reply_unix")
         rec["e2e_ms"] = span_ms("ingress_unix", "reply_unix")
+        if status == 0:
+            from ..observability import metrics as _m
+            spans = {
+                "serving_queue_wait_ms":
+                    ("native-queue wait: frame ingress to batcher "
+                     "dequeue", rec["queue_wait_ms"]),
+                "serving_batch_assembly_ms":
+                    ("dynamic-batch window: dequeue to batch close",
+                     rec["batch_assembly_ms"]),
+                "serving_compute_ms":
+                    ("predictor dispatch to reply written (XLA run "
+                     "+ scatter)", rec["compute_ms"]),
+                "serving_e2e_ms":
+                    ("whole server-side round trip: ingress to "
+                     "reply written", rec["e2e_ms"]),
+            }
+            for name, (help_, v) in spans.items():
+                if v is not None:
+                    obs.histogram(name, help_,
+                                  buckets=_m.LATENCY_MS_BUCKETS).observe(v)
         _reqtrace.record(rec)
 
     def _loop(self) -> None:
-        if self._llm is not None and self._llm.engine.device.type == "cuda":
-            # the current device is per thread, and the kernels launch on
-            # the current stream of the engine's device
-            torch.cuda.set_device(self._llm.engine.device)
+        # the current device is per thread, and the kernels launch on the
+        # current stream of their tensors' device
+        for dev in (getattr(self.predictor, "device", None),
+                    self._llm.engine.device if self._llm is not None
+                    else None):
+            if dev is not None and dev.type == "cuda":
+                torch.cuda.set_device(dev)
         while not self._stop.is_set():
             if self._draining:
                 self._drain_tick()
@@ -415,20 +798,114 @@ class Server:
                 if nxt is None:
                     break
                 group.append(nxt)
-            for req in group:
-                if not req.get("stream"):
-                    self._refuse(req, b"server has no predictor (LLM-only "
-                                      b"server: use streaming generate "
-                                      b"frames)")
-                elif self._llm is None:
+            for req in [r for r in group if r.get("stream")]:
+                if self._llm is None:
                     self._refuse(req, b"server has no LLM engine")
                     self._record_span(req, status=-1,
                                       outcome="no_engine",
                                       reply_unix=time.time())
                 else:
                     self._llm.admit(req)
+            plain = [r for r in group if not r.get("stream")]
+            if plain:
+                try:
+                    self._serve_group(plain)
+                except Exception:  # noqa: BLE001
+                    # one bad batch must not kill the serving loop;
+                    # members not yet answered time out client-side
+                    traceback.print_exc()
             if self._llm is not None and self._llm.active():
                 self._llm_step()
+
+    def _serve_group(self, group) -> None:
+        """Answer a group of tensor requests: decode each (a malformed
+        one gets a ``decode_error`` reply), batch those of one per-row
+        signature into one ``predictor.run`` and reply each its rows (an
+        ``execute_error`` reply to every member of a failed batch)."""
+        # batch-assembly stamp: the dynamic-batch window just closed
+        t_assembly = time.time()
+        decoded = []
+        for req in group:
+            req["assembly_unix"] = t_assembly
+            try:
+                if self.predictor is None:
+                    raise ValueError(
+                        "server has no predictor (LLM-only server: "
+                        "use streaming generate frames)")
+                arrs = decode_tensors(req["payload"])
+                # batching concatenates along dim 0: every tensor needs one
+                if not arrs or any(a.ndim == 0 for a in arrs):
+                    raise ValueError(
+                        "request must carry >=1 tensors, each with a "
+                        "leading batch dim")
+                decoded.append((req, arrs))
+            except Exception as e:  # noqa: BLE001
+                self.transport.reply(req["rid"], str(e).encode(),
+                                     status=-1)
+                self._record_span(req, status=-1, outcome="decode_error",
+                                  reply_unix=time.time())
+        # group by per-row signature (shape minus batch dim + dtypes)
+        sigs: Dict[Tuple, List[Tuple[Dict, List]]] = {}
+        for req, arrs in decoded:
+            sig = tuple((tuple(a.shape[1:]), str(a.dtype)) for a in arrs)
+            sigs.setdefault(sig, []).append((req, arrs))
+        for members in sigs.values():
+            t_dispatch = time.time()
+            try:
+                rows = [m[1][0].shape[0] for m in members]
+                joined = [_concat([m[1][i] for m in members])
+                          for i in range(len(members[0][1]))]
+                outs = self.predictor.run(joined)
+                self.n_batches += 1
+                self._note_batch(len(members), sum(rows))
+                off = 0
+                for (req, _), r in zip(members, rows):
+                    part = [o[off:off + r] for o in outs]
+                    self.transport.reply(req["rid"], encode_tensors(part))
+                    off += r
+                    self.n_requests += 1
+                    self._record_span(req, status=0, outcome="ok",
+                                      dispatch_unix=t_dispatch,
+                                      reply_unix=time.time(),
+                                      batch_rows=sum(rows),
+                                      batch_members=len(members))
+            except Exception as e:  # noqa: BLE001
+                self.n_errors += len(members)
+                self._note_error(len(members))
+                for req, _ in members:
+                    self.transport.reply(req["rid"], str(e).encode(),
+                                         status=-1)
+                    self._record_span(req, status=-1,
+                                      outcome="execute_error",
+                                      dispatch_unix=t_dispatch,
+                                      reply_unix=time.time(),
+                                      error=str(e)[:200])
+
+    def _note_batch(self, n_members: int, n_rows: int) -> None:
+        """Batch accounting on both planes: the native stat registry
+        (always on: it backs the STATS reply) and the gated metrics
+        registry (the /metrics page)."""
+        stat_add("serving.batches_total")
+        stat_add("serving.batch_rows_total", n_rows)
+        for b in self._BATCH_BUCKETS:
+            if n_rows <= b:
+                stat_add(f"serving.batch_size_le_{b}")
+        stat_add("serving.batch_size_le_inf")
+        if obs.enabled():
+            obs.histogram("serving_batch_size",
+                          "rows per merged serving batch",
+                          buckets=[float(b) for b in self._BATCH_BUCKETS]
+                          ).observe(float(n_rows))
+            obs.counter("serving_requests_total",
+                        "requests answered by the dynamic batcher"
+                        ).inc(n_members)
+
+    def _note_error(self, n_members: int) -> None:
+        stat_add("serving.batch_errors_total")
+        if obs.enabled():
+            obs.counter("serving_errors_total",
+                        "requests answered with an error status"
+                        ).inc(n_members)
 
     def _llm_step(self) -> None:
         """One engine step. A step that raises ends every open stream
@@ -535,6 +1012,15 @@ class Server:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+def _concat(parts: List):
+    """Rows of several requests as one batch: numpy arrays, or CPU
+    tensors (bfloat16) where the codec gave those."""
+    if any(isinstance(p, torch.Tensor) for p in parts):
+        return torch.cat([p if isinstance(p, torch.Tensor)
+                          else torch.from_numpy(p) for p in parts])
+    return np.concatenate(parts, axis=0)
 
 
 # ----------------------------------------------------------------- client

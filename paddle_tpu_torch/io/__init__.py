@@ -49,8 +49,14 @@ charged to the goodput ledger's ``checkpoint`` bucket
 (``observability.goodput``; the writer thread overlaps training and is
 not charged).
 
-Not ported: ``save_inference_model``/``load_inference_model`` (the
-export path) and the ``*_persistables``/``*_params`` Executor shims (the
+``save_inference_model`` exports a layer through ``jit.save`` (a
+non-layer model saves its ``params`` alone, with an ``inference.json``
+marker, as the JAX package does); ``load_inference_model(dir, model=)``
+fills a port model from either package's artifact, both of which keep
+their weights in ``params/`` in checkpoint v3 under the same dotted
+names.
+
+Not ported: the ``*_persistables``/``*_params`` Executor shims (the
 static ``Program``/``Executor``).
 """
 
@@ -76,7 +82,7 @@ from ..testing import faults as _faults
 
 __all__ = ["save", "load", "is_committed", "load_step", "load_host_state",
            "verify", "flatten", "AsyncCheckpointer", "save_dygraph",
-           "load_dygraph"]
+           "load_dygraph", "save_inference_model", "load_inference_model"]
 
 _SENTINEL_KEY = "__paddle_tpu_ckpt__"
 _VERSION = 3                    # v3 adds host_state + PRNG-key leaves
@@ -651,3 +657,56 @@ def save_dygraph(state_dict: Dict[str, Any], path: str) -> None:
 
 def load_dygraph(path: str):
     return load(path + ".pdparams"), None
+
+
+def save_inference_model(dirname: str, model, example_args,
+                         params: Optional[Dict[str, Any]] = None) -> None:
+    """Export a serving artifact (ref: io.py save_inference_model:52):
+    a layer's eval forward at the example inputs' shapes through
+    ``jit.save``; for any other model, ``params`` alone (a checkpoint
+    under ``params/``) and an ``inference.json`` marker."""
+    from .. import jit as jit_mod
+    if isinstance(model, torch.nn.Module):
+        spec = [jit_mod.InputSpec(tuple(a.shape), a.dtype)
+                for a in (_as_example(a) for a in example_args)]
+        jit_mod.save(model, dirname, input_spec=spec)
+        return
+    save(params or {}, os.path.join(dirname, "params"))
+    meta = {"format": "paddle_tpu_inference", "version": _VERSION}
+    with open(os.path.join(dirname, "inference.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def _as_example(a):
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.from_numpy(np.asarray(a))
+
+
+def load_inference_model(dirname: str, model=None, device=None):
+    """A serving artifact of either package, or a params-only one. With
+    ``model`` (a port module), its parameters and buffers are filled in
+    place from the artifact's ``params/`` (names it lacks are kept) and
+    it is returned; without, a port export loads as a
+    ``jit.TranslatedLayer`` on ``device`` (None: the card), a JAX export
+    is refused by name, and a params-only artifact returns its flat
+    ``{name: tensor}``."""
+    from .. import jit as jit_mod
+    exported = any(os.path.exists(os.path.join(dirname, f))
+                   for f in ("module.pt2", "module.bin"))
+    if exported and model is None:
+        return jit_mod.load(dirname, device)
+    flat = load(os.path.join(dirname, "params"))
+    if exported:
+        # {"params": {...}, "buffers": {...}} flattened to "/"-joined keys
+        flat = {k.split("/", 1)[1]: v for k, v in flat.items()
+                if k.startswith(("params/", "buffers/"))}
+    state = {k.replace("/", "."): v for k, v in flat.items()}
+    if model is None:
+        return state
+    own = model.state_dict()
+    with torch.no_grad():
+        for k, v in state.items():
+            if k in own:
+                own[k].copy_(v.to(own[k].dtype))
+    return model

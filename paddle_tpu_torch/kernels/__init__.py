@@ -18,6 +18,11 @@ off, the composed projection and ``ops.loss``; on, the fused kernels (or
 their plain version). ``maybe_fused_adam`` is the optimizer's one call
 per route and step.
 
+Where no gradient is wanted (grad mode off, or no operand requiring one)
+the layer-norm and flash routes call the kernels' forwards as operators
+of their own (``kernels.custom_ops``), which ``torch.export`` records in
+an exported program (``jit.save``).
+
 Each kernel counts its launches; ``launch_counts()`` reads the counts
 and ``reset_launch_counts()`` sets them to 0, so a run can show that its
 main path went through the kernels. A captured train step adds what its
@@ -35,6 +40,7 @@ from ..flags import GLOBAL_FLAGS
 from ..nn import functional as F
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.loss import softmax_with_cross_entropy
+from . import custom_ops as _ops
 from . import flash_attention as _fa
 from . import fused_adam as _adam
 from . import fused_softmax_xent as _fx
@@ -94,7 +100,13 @@ def add_launch_counts(counts: Dict[str, int], times: int = 1) -> None:
 def maybe_layer_norm(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor, epsilon: float,
                      begin_norm_axis: int) -> torch.Tensor:
-    """Affine LayerNorm over dims ``[begin_norm_axis:)``."""
+    """Affine LayerNorm over dims ``[begin_norm_axis:)``. Where no
+    gradient is wanted it is the ``paddle_tpu_torch::layer_norm`` operator
+    (``kernels.custom_ops``: what ``torch.export`` records), with the same
+    implementations as below."""
+    if not _ops.wants_grad(x, weight, bias):
+        return _ops.layer_norm(x, weight, bias, float(epsilon),
+                               int(begin_norm_axis))
     if x.device.type == "cpu":
         return F.layer_norm(x, weight, bias, epsilon, begin_norm_axis)
     # the kernel normalises the last dim: trailing normalised dims merge
@@ -161,7 +173,10 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
     Admitted calls run the CUDA kernels on CUDA tensors and their plain
     version on CPU tensors; with dropout in training each call draws its
     kernel seed, a one-element device tensor, from the ``dropout``
-    stream. The rest runs ``ops.attention.scaled_dot_product_attention``.
+    stream. An admitted call without dropout that wants no gradient is
+    the ``paddle_tpu_torch::flash_attention`` operator (the forward
+    alone; ``kernels.custom_ops``). The rest runs
+    ``ops.attention.scaled_dot_product_attention``.
 
     The CUDA kernels take every head dim the gate admits: those outside
     ``flash_attention.HEAD_DIMS`` are zero-padded to the next one, and
@@ -183,6 +198,10 @@ def maybe_flash_attention(q, k, v, mask=None, scale: Optional[float] = None,
         kv_bias = None if mask is None else _mask_to_kv_bias(
             mask, torch.float64 if q.dtype == torch.float64
             else torch.float32)
+        if not (dropout_p > 0.0 and training) \
+                and not _ops.wants_grad(q, k, v):
+            return _ops.flash_attention(q, k, v, kv_bias, bool(causal),
+                                        scale, bthd)
         seed, p = None, 0.0
         if dropout_p > 0.0 and training:
             gen = _random.next_generator("dropout", q.device)

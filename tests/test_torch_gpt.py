@@ -140,7 +140,8 @@ def test_model_refuses_to_run_on_cpu_unasked():
                                    "clip", "io", "data", "preemption",
                                    "core.arena", "native", "inference",
                                    "serving_llm.server",
-                                   "serving_llm.router"])
+                                   "serving_llm.router", "jit",
+                                   "kernels.custom_ops"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -159,7 +160,9 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.preemption import guard; "
             "from paddle_tpu_torch.core.arena import HostStagingArena; "
             "from paddle_tpu_torch.native import ServingTransport; "
-            "from paddle_tpu_torch.inference import Client, Server; "
+            "from paddle_tpu_torch.inference import Client, Server, "
+            "create_predictor; "
+            "from paddle_tpu_torch.jit import InputSpec, save, load; "
             "from paddle_tpu_torch.serving_llm import LLMStreamBridge, "
             "Router; "
             "from paddle_tpu_torch.observability import server, fleet; "
@@ -209,7 +212,8 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/inference/__init__.py",
         "paddle_tpu_torch/serving_llm/server.py",
         "paddle_tpu_torch/serving_llm/router.py",
-        "paddle_tpu_torch/profiler.py"} | {
+        "paddle_tpu_torch/profiler.py", "paddle_tpu_torch/jit.py",
+        "paddle_tpu_torch/kernels/custom_ops.py"} | {
         f"paddle_tpu_torch/observability/{m}.py"
         for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
                   "fleet", "trace_agg")}

@@ -247,9 +247,19 @@ def test_tensor_request_to_llm_only_server_is_an_error_reply(pair, client):
             assert len(cli.generate([1, 2], max_new_tokens=2)) == 2
 
 
-def test_server_refuses_a_predictor():
-    with pytest.raises(NotImplementedError, match="predictor=None"):
-        pinf.Server(object())
+def test_server_with_a_predictor_serves(tmp_path):
+    """A server takes a Predictor and answers tensor requests from it
+    (tests/test_torch_inference.py covers the batching and errors)."""
+    from paddle_tpu_torch import jit
+    net = torch.nn.Linear(4, 2).eval()
+    jit.save(net, str(tmp_path), input_spec=[jit.InputSpec([None, 4])])
+    pred = pinf.create_predictor(pinf.Config(str(tmp_path), device="cpu"))
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    with pinf.Server(pred) as srv:
+        with pinf.Client(port=srv.port, timeout_s=WAIT_S) as cli:
+            got = cli.infer([x])[0]
+    with torch.no_grad():
+        np.testing.assert_array_equal(got, net(torch.from_numpy(x)).numpy())
 
 
 # ---------------------------------------------------------------------------

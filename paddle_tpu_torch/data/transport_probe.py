@@ -143,6 +143,7 @@ def _memory() -> dict:
         try:
             with open(f"/sys/fs/cgroup/{name}") as f:
                 out[name] = f.read().strip()
+        # ptlint: disable=silent-failure -- a cgroup file this kernel or cgroup version lacks is left out of the report, which lists only the files that exist
         except OSError:
             pass
     try:
@@ -151,6 +152,7 @@ def _memory() -> dict:
                 k, v = line.split()
                 if k in ("file", "file_dirty", "file_writeback", "shmem"):
                     out[f"cgroup_{k}"] = int(v)
+    # ptlint: disable=silent-failure -- no memory.stat (cgroup v1, or no memory controller): the report leaves the cgroup page counts out, and /proc/meminfo below still gives the machine's
     except OSError:
         pass
     with open("/proc/meminfo") as f:

@@ -106,6 +106,7 @@ def _encode_array(arr: np.ndarray, segments: List[SharedMemory]):
     # keep this process's resource tracker out of it
     try:
         resource_tracker.unregister(shm._name, "shared_memory")
+    # ptlint: disable=silent-failure -- resource_tracker unregistration is best-effort across Python versions; worst case is a spurious tracker warning at exit
     except Exception:  # noqa: BLE001 — best effort across versions
         pass
     dst = np.ndarray(arr.shape, arr.dtype, buffer=shm.buf)
@@ -272,6 +273,7 @@ def _iterable_worker_loop(dataset, collate_fn, batch_size: int,
                 if not posted:  # the parent never saw it: unlink here
                     try:
                         shm.unlink()
+                    # ptlint: disable=silent-failure -- the parent may have unlinked first on a racing teardown; either side unlinking is enough
                     except FileNotFoundError:
                         pass  # the parent's teardown unlinked it first
             if not posted:
@@ -394,6 +396,7 @@ class MultiprocessIter:
     def __del__(self):
         try:
             self.shutdown()
+        # ptlint: disable=silent-failure -- finalizer: shutdown() already counts its own swallowed errors; raising from __del__ only prints noise
         except Exception:  # noqa: BLE001 — a finalizer must not raise
             pass
 
@@ -477,6 +480,7 @@ class IterableMultiprocessIter:
     def __del__(self):
         try:
             self.shutdown()
+        # ptlint: disable=silent-failure -- finalizer: shutdown() already counts its own swallowed errors; raising from __del__ only prints noise
         except Exception:  # noqa: BLE001 — a finalizer must not raise
             pass
 

@@ -1115,6 +1115,7 @@ class Client:
         if sock is not None:
             try:
                 sock.close()
+            # ptlint: disable=silent-failure -- closing a broken socket: the kernel may refuse, but the fd is dropped either way
             except OSError:
                 pass  # the fd is dropped either way
 
@@ -1186,6 +1187,7 @@ class Client:
                 try:
                     self._reconnect_with_backoff(
                         max(0, self._max_reconnects - 1), gen, deadline)
+                # ptlint: disable=silent-failure -- transport repair is opportunistic: the original error is re-raised on the next line either way
                 except (ConnectionError, TimeoutError):
                     pass  # the original error is raised below either way
                 raise
@@ -1221,6 +1223,7 @@ class Client:
                     k, v = line.rsplit("=", 1)
                     try:
                         out[k] = int(v)
+                    # ptlint: disable=silent-failure -- a non-integer stat line is skipped, not fatal: the STATS wire format is k=v per line
                     except ValueError:
                         pass  # the format is k=<int> per line; skip others
             return out
@@ -1428,6 +1431,7 @@ class Client:
         if sock is not None:
             try:
                 sock.close()
+            # ptlint: disable=silent-failure -- close() teardown: the fd is dropped whether or not the kernel objects
             except OSError:
                 pass  # the fd is dropped either way
 

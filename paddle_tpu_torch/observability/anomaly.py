@@ -93,6 +93,7 @@ class AnomalySentinel:
         for fn in listeners:
             try:
                 fn(series, value, kind)
+            # ptlint: disable=silent-failure -- listener isolation: one broken listener must not unhook the others or fail the train step (add_listener contract)
             except Exception:  # noqa: BLE001 — see add_listener
                 pass
         return kind

@@ -82,10 +82,9 @@ class GoodputLedger:
             if not self._seeded_restart:
                 self._seeded_restart = True
                 idle = 0.0
-                # a malformed launcher env var degrades to "no seeded
-                # idle", not a failed run
                 try:
                     idle += float(os.environ.get("PT_RESTART_IDLE_S", 0))
+                # ptlint: disable=silent-failure -- a malformed launcher env var degrades to "no seeded idle", not a failed run
                 except ValueError:
                     pass
                 try:
@@ -93,6 +92,7 @@ class GoodputLedger:
                         # relaunch: everything before the run resumed is
                         # restart dead time (imports, checkpoint find)
                         idle += time.perf_counter() - _IMPORT_T0
+                # ptlint: disable=silent-failure -- a malformed launcher env var degrades to "no seeded idle", not a failed run
                 except ValueError:
                     pass
                 if idle > 0:

@@ -439,4 +439,5 @@ def histogram(name: str, help: str = "", always: bool = False,
 # sync through the hook in flags.py).
 from ..flags import GLOBAL_FLAGS as _GF  # noqa: E402
 
+# ptlint: disable=flag-freeze -- deliberate: seeds _ENABLED from the env once; flags.py's on_change hook keeps it in sync afterwards
 _ENABLED = bool(_GF.get("enable_metrics"))

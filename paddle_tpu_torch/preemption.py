@@ -99,6 +99,7 @@ class PreemptionGuard:
             try:
                 signal.signal(sig, prev if prev is not None
                               else signal.SIG_DFL)
+            # ptlint: disable=silent-failure -- restoring handlers from a non-main thread raises ValueError; the guard is exiting either way
             except (ValueError, OSError):
                 pass  # off the main thread; the guard is exiting anyway
         self._prev.clear()

@@ -527,6 +527,7 @@ class Router:
             for close in (lambda: s.shutdown(socket.SHUT_RDWR), s.close):
                 try:
                     close()
+                # ptlint: disable=silent-failure -- teardown: the listener fd is gone either way
                 except OSError:
                     pass
         with self._lock:
@@ -535,6 +536,7 @@ class Router:
         for c in conns:
             try:
                 c.close()
+            # ptlint: disable=silent-failure -- teardown: peer may already be gone
             except OSError:
                 pass  # the peer may be gone already
         t, self._accept_thread = self._accept_thread, None
@@ -667,6 +669,7 @@ class Router:
                 self._conns.discard(conn)
             try:
                 conn.close()
+            # ptlint: disable=silent-failure -- teardown: peer may already be gone
             except OSError:
                 pass
 

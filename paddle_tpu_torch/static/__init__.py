@@ -566,7 +566,7 @@ class TrainStep:
         ok = None
         if found_inf is not None:
             ok = ~found_inf
-            self.nonfinite_steps += found_inf.to(torch.int64)
+            self.nonfinite_steps.add_(found_inf.to(torch.int64))
         if self._lr_scaled:
             # a rate computed on the device, rescaled: host_lr holds the
             # scale (JAX: resolve_lr(rate, step + 1) * lr_scale)

@@ -242,7 +242,34 @@ in order:
    eager forward's ms, ``run()``'s ms and host overhead, sequences/s;
    over the wire requests/s and p50/p99 latency; the phase's peak
    memory, each beside the card's name and power limit;
-10. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+10. the user entry point ``hapi.Model`` on the card (``run_hapi``): (a)
+   BERT-base (``BertForPretraining(BertConfig())``, dropout 0.1, seed
+   ``SEED``) in bf16 with the fused flags, ``AdamW(1e-4,
+   weight_decay=0.01, fused_state=True)``, b8 x s512 from 32
+   ``PretrainSamples`` (4 batches an epoch, 2 workers, the seeded
+   shuffle), the MLM and NSP labels packed into one int64 label
+   (``PackedSamples``, ``packed_loss``): ``Model.fit`` for 2 epochs
+   uninterrupted; ``fit(epochs=1, ckpt_dir=, save_steps=4)`` and then a
+   fresh ``Model`` over the same directory for 2 epochs (it restores
+   step 4 and re-enters through ``iter_from``); the same 8 batches
+   through a bare ``TrainStep``: the losses and every leaf of the
+   training state bit for bit alike in all three, each fit launching 8
+   times the per-step counts, the captured step's stream ms through
+   ``fit`` against the bare step's (median of steps 2-4 of each epoch);
+   (b) ``evaluate`` with the loss and an NSP-accuracy ``Metric`` (the
+   deferred ``compute`` path) and ``predict`` (lag 1), each bit for bit
+   a loop of ``EvalStep`` over the same batches; (c)
+   ``Model(BertModel(BertConfig())).save(path, training=False,
+   input_spec=[InputSpec([None, 128])])`` served by ``create_predictor``
+   at batch 3, bit for bit the eager forward at bucket 4; (d) at 2
+   layers, one ``fit`` with ``enable_metrics`` on (the step histogram
+   counts its steps, the goodput ledger holds ``step_compute`` and
+   ``data_wait``) and a divergence drill (NaN losses from
+   ``testing.faults``, ``rollback_budget`` 1, a checkpoint a step): one
+   rollback, the steps after the checkpoint run again, every parameter
+   finite; (e) ``paddle_tpu_torch.verify.run_verification()`` ok, its
+   artifact written, every kernel launched;
+11. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -5729,6 +5756,507 @@ def run_predictor(torch) -> tuple:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: hapi.Model over BERT pretraining, the export and the verify entry
+# ---------------------------------------------------------------------------
+
+# BERT-base bf16 pretraining through Model.fit as the JAX bench builds it
+# (the fused flags over the flat fused state), b8 x s512 from
+# HAPI_SAMPLES samples (4 batches an epoch), HAPI_EPOCHS epochs; run 2 of
+# the interrupted fit resumes at HAPI_SAVE_AT; the metrics-on fit and the
+# divergence drill at HAPI_SMALL_LAYERS
+HAPI_SAMPLES, HAPI_EPOCHS, HAPI_SAVE_AT = 32, 2, 4
+HAPI_LAYERS, HAPI_SMALL_LAYERS = 12, 2
+HAPI_DRILL_BATCHES = 10
+# the drill: NaN losses at the 4th-6th step, a streak of 3 trips the
+# watchdog, one rollback allowed
+HAPI_DRILL_SPEC = ("loss_spike:at=4:mul=nan,loss_spike:at=5:mul=nan,"
+                   "loss_spike:at=6:mul=nan")
+HAPI_DRILL_FLAGS = {"divergence_streak": 3, "rollback_budget": 1}
+# Model(BertModel(BertConfig())).save(training=False) at [None, 128],
+# served at batch 3 (its bucket 4)
+HAPI_EXPORT_SEQ, HAPI_EXPORT_BATCH = 128, 3
+HAPI_DEVICE = "cuda"
+# BertConfig overrides (none: BERT-base; a CPU rehearsal shrinks it)
+HAPI_CFG: dict = {}
+HAPI_ALL_KERNELS = ("layer_norm", "paged_attention",
+                    "paged_attention_multiquery", "flash_attention_fwd",
+                    "flash_attention_bwd_fused", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "fused_xent_fwd",
+                    "fused_xent_bwd_dlog", "fused_xent_bwd_dh",
+                    "fused_xent_bwd_dw", "adam_leaf", "adam_flat")
+PATH_KERNELS.update({
+    "hapi_fit": PATH_KERNELS["train_seq512_bf16_fused"],
+    "hapi_fit_resumed": PATH_KERNELS["train_seq512_bf16_fused"],
+    "hapi_fit_metrics": PATH_KERNELS["train_seq512_bf16_fused"],
+    "hapi_rollback": PATH_KERNELS["train_seq512_bf16_fused"],
+    # evaluate: the eval forward's LayerNorms (attention below the eval
+    # flash floor is plain) and the fused loss's forward
+    "hapi_eval": ("layer_norm", "fused_xent_fwd"),
+    "hapi_predict": ("layer_norm",),
+    "hapi_export": ("layer_norm",),
+    # verify holds every kernel against its plain version
+    "hapi_verify": HAPI_ALL_KERNELS})
+
+
+class PackedSamples:
+    """PretrainSamples for ``hapi``'s one-label contract: the inputs (ids,
+    types, mask, masked positions) and ONE int64 label ``[RESUME_MASKED +
+    1]``, the MLM labels followed by the NSP label."""
+
+    def __init__(self, base: PretrainSamples) -> None:
+        self.base = base
+
+    def __getitem__(self, i):
+        ids, types, mask, pos, mlm, nsp = self.base[i]
+        return ids, types, mask, pos, np.append(mlm, nsp).astype(np.int64)
+
+    def __len__(self):
+        return len(self.base)
+
+
+def packed_loss(out, label):
+    """``pretraining_loss`` over the packed label."""
+    from paddle_tpu_torch.models import pretraining_loss
+    return pretraining_loss(out, label[:, :-1], label[:, -1])
+
+
+def hapi_bert(torch, layers: int, dtype: str = "bfloat16"):
+    """BertForPretraining (dropout 0.1) from SEED on HAPI_DEVICE, cast as
+    the JAX bench casts it."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    model = BertForPretraining(BertConfig(num_hidden_layers=layers,
+                                          **HAPI_CFG),
+                               device=HAPI_DEVICE, seed=SEED)
+    if dtype != "float32":
+        model = cast_model_to_low_precision(model, dtype)
+    return model
+
+
+def hapi_model(net, metrics=None):
+    """``hapi.Model`` over ``net`` with the bench's AdamW(1e-4,
+    weight_decay=0.01) over the flat fused state and the packed loss."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    return Model(net, loss=packed_loss, metrics=metrics,
+                 optimizer=AdamW(1e-4, weight_decay=0.01, fused_state=True))
+
+
+def hapi_recorder(torch):
+    """A callback keeping each step's loss (a device tensor) and, on the
+    card, an event recorded after it on the current stream."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Recorder(Callback):
+        def __init__(self) -> None:
+            self.losses, self.events = [], []
+
+        def on_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            if HAPI_DEVICE == "cuda":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+
+    return Recorder()
+
+
+def steady_step_ms(events: list, per_epoch: int) -> Optional[float]:
+    """The median stream ms of steps 2..per_epoch of each epoch (the gap
+    between the events after consecutive steps); None without events."""
+    if not events:
+        return None
+    events[-1].synchronize()
+    gaps = [events[k - 1].elapsed_time(events[k])
+            for k in range(1, len(events)) if k % per_epoch]
+    return float(np.median(gaps))
+
+
+def hapi_samples(torch, cfg, seed: int) -> PretrainSamples:
+    return PretrainSamples(HAPI_SAMPLES, RESUME_SEQ, cfg.vocab_size, seed)
+
+
+def hapi_fit_resume(torch, card: str) -> tuple:
+    """(a): BERT-base bf16 fused through ``Model.fit``: HAPI_EPOCHS
+    epochs uninterrupted; one epoch with ``ckpt_dir`` and ``save_steps=
+    HAPI_SAVE_AT`` then a fresh Model over the same directory for
+    HAPI_EPOCHS epochs (it restores step HAPI_SAVE_AT and re-enters
+    through ``iter_from``); the same batches through a bare
+    ``TrainStep``. Losses, parameters, masters, moments, step counter and
+    generator bit for bit alike in all three; launches the per-step
+    counts times the steps. Returns (report, counts, the uninterrupted
+    Model, the samples)."""
+    from paddle_tpu_torch import io, kernels
+    d = os.path.join(CKPT_DIR, "hapi_fit")
+    shutil.rmtree(d, ignore_errors=True)
+    counts, t_run = {}, {}
+    net = hapi_bert(torch, HAPI_LAYERS)
+    cfg = net.config
+    base = hapi_samples(torch, cfg, SEED + 100)
+    ds = PackedSamples(base)
+    per_epoch = HAPI_SAMPLES // RESUME_BATCH
+    steps = HAPI_EPOCHS * per_epoch
+    # uninterrupted
+    kernels.reset_launch_counts()
+    model = hapi_model(net)
+    rec_u = hapi_recorder(torch)
+    t0 = time.perf_counter()
+    hist_u = model.fit(make_loader(torch, ds), epochs=HAPI_EPOCHS, verbose=0,
+                       callbacks=[rec_u])
+    t_run["uninterrupted_s"] = time.perf_counter() - t0
+    counts["hapi_fit"] = kernels.launch_counts()
+    end_u = state_on_host(model._train_step)
+    losses_u = [float(x) for x in rec_u.losses]
+    # interrupted after one epoch, resumed by a fresh Model
+    kernels.reset_launch_counts()
+    m1 = hapi_model(hapi_bert(torch, HAPI_LAYERS))
+    rec1 = hapi_recorder(torch)
+    t0 = time.perf_counter()
+    m1.fit(make_loader(torch, ds), epochs=1, verbose=0, ckpt_dir=d,
+           save_steps=HAPI_SAVE_AT, callbacks=[rec1])
+    t_run["interrupted_s"] = time.perf_counter() - t0
+    ck = io.AsyncCheckpointer(d)
+    saved_at, host_state = ck.intact_steps(), ck.host_state()
+    del m1
+    m2 = hapi_model(hapi_bert(torch, HAPI_LAYERS))
+    rec2 = hapi_recorder(torch)
+    t0 = time.perf_counter()
+    hist_r = m2.fit(make_loader(torch, ds), epochs=HAPI_EPOCHS, verbose=0,
+                    ckpt_dir=d, save_steps=HAPI_SAVE_AT, callbacks=[rec2])
+    t_run["resumed_s"] = time.perf_counter() - t0
+    counts["hapi_fit_resumed"] = kernels.launch_counts()
+    end_r = state_on_host(m2._train_step)
+    kept = ck.intact_steps()
+    losses_r = [float(x) for x in rec1.losses + rec2.losses]
+    del m2
+    shutil.rmtree(d, ignore_errors=True)
+    # the same batches through a bare TrainStep, staged on the card first
+    loader = make_loader(torch, base)
+    batches = [tuple(t.to(HAPI_DEVICE) for t in b)
+               for _ in range(HAPI_EPOCHS) for b in loader]
+    step = make_train_step(hapi_bert(torch, HAPI_LAYERS), fused_state=True)
+    events, losses_b = [], []
+    for ids, types, mask, pos, mlm, nsp in batches:
+        losses_b.append(step(ids, types, mask, pos, labels=(mlm, nsp))["loss"])
+        if HAPI_DEVICE == "cuda":
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+    losses_b = [float(x) for x in losses_b]
+    end_b = state_on_host(step)
+    bare_ms = steady_step_ms(events, per_epoch)
+    del step, batches
+    differ_r = equal_states(torch, end_u, end_r)
+    differ_b = equal_states(torch, end_u, end_b)
+    per_step = expected_launches(RESUME_SEQ, HAPI_LAYERS,
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 FUSED_FLAGS,
+                                 rows=RESUME_BATCH * RESUME_MASKED,
+                                 vocab=cfg.vocab_size)
+    fit_ms = steady_step_ms(rec_u.events, per_epoch)
+    res = {"layers": HAPI_LAYERS, "dtype": "bfloat16", "batch": RESUME_BATCH,
+           "seq": RESUME_SEQ, "steps": steps, "saved_at": saved_at,
+           "host_state": host_state, "checkpoints_kept": kept,
+           "losses_fit": losses_u, "losses_fit_resumed": losses_r,
+           "losses_train_step": losses_b, "history": hist_u,
+           "history_resumed": hist_r,
+           "state_leaves": len(end_u),
+           "resumed_leaves_differing": differ_r,
+           "train_step_leaves_differing": differ_b,
+           "fit_step_ms_median": fit_ms, "train_step_ms_median": bare_ms,
+           "fit_over_train_step": None if not bare_ms else fit_ms / bare_ms,
+           "card": card, **t_run}
+    log(f"hapi fit: {json.dumps(res)}")
+    if losses_r != losses_u or losses_b != losses_u or differ_r or differ_b \
+            or saved_at != [HAPI_SAVE_AT] or kept[-1] != steps \
+            or host_state["batch_in_epoch"] != HAPI_SAVE_AT - 1 \
+            or len(losses_u) != steps:
+        raise AssertionError(f"hapi fit: {res}")
+    for path in ("hapi_fit", "hapi_fit_resumed"):
+        path_launches(path, counts[path], per_step, steps)
+    return res, counts, model, base
+
+
+def hapi_eval_predict(torch, model, base) -> tuple:
+    """(b): ``Model.evaluate`` with the loss and an NSP-accuracy metric
+    through the deferred ``compute`` path, against a loop of ``EvalStep``
+    over the same batches (bit for bit), under the fused flags; then
+    ``Model.predict`` (the lag-1 path, default flags) against the same
+    loop's outputs on the host, bit for bit. Returns (report, counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.data import DataLoader
+    from paddle_tpu_torch.metric import Metric
+    from paddle_tpu_torch.ops import metrics_ops
+    from paddle_tpu_torch.static import EvalStep
+
+    class NspAccuracy(Metric):
+        """NSP accuracy: the device half computes, the host accumulates
+        the batch means."""
+
+        def __init__(self) -> None:
+            self.reset()
+
+        def reset(self) -> None:
+            self.total, self.count = 0.0, 0
+
+        def compute(self, out, label):
+            return metrics_ops.accuracy(out[1], label[:, -1])
+
+        def update(self, correct) -> None:
+            self.total += float(correct)
+            self.count += 1
+
+        def accumulate(self):
+            return self.total / max(self.count, 1)
+
+    ds = PackedSamples(base)
+    loader = DataLoader(ds, batch_size=RESUME_BATCH)
+    batches = [tuple(t.to(HAPI_DEVICE) for t in b) for b in loader]
+    counts = {}
+    model.prepare(metrics=[NspAccuracy()])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = model.evaluate(loader, verbose=0)
+    eval_s = time.perf_counter() - t0
+    counts["hapi_eval"] = kernels.launch_counts()
+    ev = EvalStep(model.network)
+    losses, accs = [], []
+    for *inputs, label in batches:
+        out, _ = ev(None, None, *inputs)
+        with torch.no_grad():
+            losses.append(packed_loss(out, label))
+        accs.append(float(metrics_ops.accuracy(out[1], label[:, -1])))
+    want = {"eval_loss": float(torch.stack([v.float() for v in losses])
+                               .mean()),
+            "eval_nspaccuracy": sum(accs) / len(accs)}
+    restore = flag_scope({k: False for k in FUSED_FLAGS})
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        preds = model.predict(loader)
+        predict_s = time.perf_counter() - t0
+        counts["hapi_predict"] = kernels.launch_counts()
+        refs = [ev(None, None, *b[:-1])[0] for b in batches]
+        same_pred = len(preds) == len(refs) and all(
+            len(p) == len(r) and all(
+                np.array_equal(pp, rr.float().cpu().numpy())
+                for pp, rr in zip(p, r)) for p, r in zip(preds, refs))
+        shapes = [[list(a.shape) for a in p] for p in preds[:1]]
+    finally:
+        restore()
+    del ev, refs, preds, batches
+    layers = model.network.config.num_hidden_layers
+    n = len(losses)
+    ln = 2 * layers + 2
+    res = {"evaluate": got, "eval_step_loop": want, "eval_s": eval_s,
+           "evaluate_equal": got == want, "predict_batches": n,
+           "predict_equal": same_pred, "predict_shapes": shapes,
+           "predict_s": predict_s}
+    log(f"hapi evaluate/predict: {json.dumps(res)}")
+    if got != want or not same_pred:
+        raise AssertionError(f"hapi evaluate/predict: {res}")
+    path_launches("hapi_eval", nonzero(counts["hapi_eval"]),
+                  {"layer_norm": ln, "fused_xent_fwd": 2}, n)
+    path_launches("hapi_predict", nonzero(counts["hapi_predict"]),
+                  {"layer_norm": ln}, n)
+    return res, counts
+
+
+def hapi_export(torch, card: str) -> tuple:
+    """(c): ``Model(BertModel(BertConfig())).save(path, training=False,
+    input_spec=[InputSpec([None, 128])])`` -> ``create_predictor``; a
+    batch of HAPI_EXPORT_BATCH run twice, each output bit for bit the
+    eager forward at the padded bucket, one forward's LayerNorms a call.
+    Returns (report, counts)."""
+    from paddle_tpu_torch import inference, jit, kernels
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import BertConfig, BertModel
+    path = os.path.join(PRED_DIR, "hapi_bert_base")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        cfg = BertConfig(**HAPI_CFG)
+        gen = torch.Generator(device=HAPI_DEVICE).manual_seed(SEED)
+        net = BertModel(cfg, device=HAPI_DEVICE, generator=gen)
+        t0 = time.perf_counter()
+        Model(net).save(path, training=False, input_spec=[jit.InputSpec(
+            [None, HAPI_EXPORT_SEQ], "int64", name="input_ids")])
+        save_s = time.perf_counter() - t0
+        pred = inference.create_predictor(inference.Config(path))
+        ids = predictor_inputs(cfg, HAPI_EXPORT_BATCH, HAPI_EXPORT_SEQ,
+                               SEED + 110)[:1]
+        kernels.reset_launch_counts()
+        first = [as_tensor(torch, o) for o in pred.run(ids)]
+        again = [as_tensor(torch, o) for o in pred.run(ids)]
+        counts = {"hapi_export": kernels.launch_counts()}
+        bucket = bucket_of(pred.config.batch_buckets(), HAPI_EXPORT_BATCH)
+        net.eval()
+        with torch.no_grad():
+            padded = [o.cpu() for o in net(torch.from_numpy(
+                pad_rows(ids, bucket)[0]).to(HAPI_DEVICE))]
+        bitwise = all(torch.equal(a.cpu(), p[:HAPI_EXPORT_BATCH])
+                      and torch.equal(b.cpu(), p[:HAPI_EXPORT_BATCH])
+                      for a, b, p in zip(first, again, padded))
+        res = {"seq": HAPI_EXPORT_SEQ, "batch": HAPI_EXPORT_BATCH,
+               "bucket": bucket, "bitwise_padded": bitwise,
+               "outputs": len(padded), "save_s": save_s, "card": card}
+        log(f"hapi export: {json.dumps(res)}")
+        if not bitwise or len(first) != len(padded):
+            raise AssertionError(f"hapi export: {res}")
+        path_launches("hapi_export", nonzero(counts["hapi_export"]),
+                      {"layer_norm": 2 * cfg.num_hidden_layers + 1}, 2)
+        del pred, net
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return res, counts
+
+
+def hapi_metrics_and_drill(torch) -> tuple:
+    """(d): one ``fit`` at HAPI_SMALL_LAYERS with ``enable_metrics`` on
+    (the step histogram counts its steps, the goodput ledger holds
+    ``step_compute`` and ``data_wait``); then the divergence drill at
+    the same depth: ``HAPI_DRILL_SPEC`` (NaN losses), ``rollback_budget``
+    1, a checkpoint every step: one rollback, the fit runs on to its end
+    from the checkpoint with every parameter finite. Returns (report,
+    counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.testing import faults
+    d = os.path.join(CKPT_DIR, "hapi_drill")
+    shutil.rmtree(d, ignore_errors=True)
+    counts = {}
+    restore = flag_scope({"enable_metrics": True, "metrics_port": -1,
+                          **HAPI_DRILL_FLAGS})
+    obs.reset_all()
+    try:
+        net = hapi_bert(torch, HAPI_SMALL_LAYERS)
+        cfg = net.config
+        base = hapi_samples(torch, cfg, SEED + 120)
+        per_step = expected_launches(
+            RESUME_SEQ, HAPI_SMALL_LAYERS,
+            cfg.hidden_size // cfg.num_attention_heads, FUSED_FLAGS,
+            rows=RESUME_BATCH * RESUME_MASKED, vocab=cfg.vocab_size)
+        kernels.reset_launch_counts()
+        hist = hapi_model(net).fit(make_loader(torch, PackedSamples(base)),
+                                   epochs=1, verbose=0)
+        counts["hapi_fit_metrics"] = kernels.launch_counts()
+        steps = HAPI_SAMPLES // RESUME_BATCH
+        observed = obs.registry().get("hapi_step_time_seconds").count()
+        ledger = obs.goodput_ledger().snapshot()["buckets"]
+        prom = obs.registry().prometheus_text()
+        series = [name for name in (
+            "hapi_step_time_seconds", "hapi_throughput_items_per_sec",
+            "hapi_loss", "device_mem_bytes_in_use", "memory_headroom_bytes",
+            "train_heartbeat_timestamp_seconds") if name not in prom]
+        metrics_res = {"history": hist, "steps_observed": observed,
+                       "ledger_buckets": ledger, "series_missing": series}
+        log(f"hapi metrics on: {json.dumps(metrics_res)}")
+        if observed != steps or ledger["step_compute"] <= 0 \
+                or ledger["data_wait"] <= 0 or series:
+            raise AssertionError(f"hapi metrics on: {metrics_res}")
+        path_launches("hapi_fit_metrics", counts["hapi_fit_metrics"],
+                      per_step, steps)
+        # the drill: a plain list of batches (no iter_from: the resume
+        # replays the stream past the checkpoint)
+        packed = PackedSamples(hapi_samples(torch, cfg, SEED + 130))
+        from paddle_tpu_torch.data import default_collate_fn
+        batches = [tuple(np.asarray(a) for a in default_collate_fn(
+            [packed[j % len(packed)] for j in range(i * RESUME_BATCH,
+                                                    (i + 1) * RESUME_BATCH)]))
+            for i in range(HAPI_DRILL_BATCHES)]
+        rollbacks = obs.counter("rollbacks_total", always=True)
+        before = rollbacks.value()
+        rec = hapi_recorder(torch)
+        drill_net = hapi_bert(torch, HAPI_SMALL_LAYERS)
+        faults.configure(HAPI_DRILL_SPEC)
+        kernels.reset_launch_counts()
+        try:
+            drill_hist = hapi_model(drill_net).fit(
+                batches, epochs=1, verbose=0, ckpt_dir=d, save_steps=1,
+                callbacks=[rec])
+        finally:
+            faults.configure(None)
+        counts["hapi_rollback"] = kernels.launch_counts()
+        events = {e["kind"]: e for e in obs.flight_recorder().events()
+                  if e["kind"] in ("fit_rollback", "fit_rollback_resume")}
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in drill_net.parameters())
+        losses = [float(x) for x in rec.losses]
+        tripped_at = events.get("fit_rollback", {}).get("at_step")
+        resumed_at = events.get("fit_rollback_resume", {}).get(
+            "resume_step")
+        drill = {"spec": HAPI_DRILL_SPEC, "flags": HAPI_DRILL_FLAGS,
+                 "rollbacks": rollbacks.value() - before,
+                 "tripped_after_step": tripped_at,
+                 "resumed_from_checkpoint": resumed_at,
+                 "steps_run": len(losses), "losses": losses,
+                 "history": drill_hist, "params_finite": finite}
+        log(f"hapi divergence drill: {json.dumps(drill)}")
+        # every step after the checkpoint it went back to runs again
+        if drill["rollbacks"] != 1 or not finite or tripped_at is None \
+                or resumed_at is None or resumed_at > tripped_at \
+                or len(losses) != HAPI_DRILL_BATCHES + tripped_at \
+                - resumed_at or not np.isfinite(losses[-1]):
+            raise AssertionError(f"hapi divergence drill: {drill}")
+        path_launches("hapi_rollback", counts["hapi_rollback"], per_step,
+                      len(losses))
+    finally:
+        restore()
+        obs.reset_all()
+        shutil.rmtree(d, ignore_errors=True)
+    return {"metrics_on": metrics_res, "divergence_drill": drill}, counts
+
+
+def hapi_verify(torch) -> tuple:
+    """(e): ``paddle_tpu_torch.verify.run_verification()`` on the card:
+    ok, its artifact written, every kernel launched. Returns (report,
+    counts)."""
+    from paddle_tpu_torch import kernels, verify
+    path = verify.default_artifact_path()
+    if os.path.exists(path):
+        os.remove(path)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = verify.run_verification()
+    seconds = time.perf_counter() - t0
+    counts = {"hapi_verify": kernels.launch_counts()}
+    with open(path) as f:
+        written = json.load(f)
+    out = dict(res, seconds=seconds, artifact=path,
+               artifact_equal=written == json.loads(json.dumps(res)))
+    log(f"hapi verify: {json.dumps(out)}")
+    if not res["ok"] or not out["artifact_equal"]:
+        raise AssertionError(f"hapi verify: {out}")
+    return out, counts
+
+
+def run_hapi(torch) -> tuple:
+    """Phase 10. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    restore = flag_scope(FUSED_FLAGS)
+    try:
+        report["hapi_fit"], c, model, base = hapi_fit_resume(torch, card)
+        counts.update(c)
+        report["hapi_eval_predict"], c = hapi_eval_predict(torch, model,
+                                                           base)
+        counts.update(c)
+        del model
+        if HAPI_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+        report["hapi_metrics"], c = hapi_metrics_and_drill(torch)
+        counts.update(c)
+    finally:
+        restore()
+    report["hapi_export"], c = hapi_export(torch, card)
+    counts.update(c)
+    report["hapi_verify"], c = hapi_verify(torch)
+    counts.update(c)
+    report["hapi_phase_s"] = time.perf_counter() - t_phase
+    log(f"hapi phase: {report['hapi_phase_s']:.1f} s [{card}]")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -5866,9 +6394,10 @@ def main() -> int:
     del served
     torch.cuda.empty_cache()
     predictor, pred_counts = run_predictor(torch)
+    hapi, hapi_counts = run_hapi(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
-                  flash_with_lse=lse_counts)
+                  **hapi_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -5876,7 +6405,7 @@ def main() -> int:
                   pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
-                  **predictor)
+                  **predictor, **hapi)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

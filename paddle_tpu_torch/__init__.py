@@ -8,9 +8,11 @@ for the TPU is, once ported, a hand-written CUDA kernel for Hopper
 GPU unless the caller passes ``device="cpu"``; on a CPU tensor each
 kernel's plain PyTorch version runs instead.
 
-Ported so far: the GPT serving path (``models.GPTLanguageModel`` and
-``serving_llm.LLMEngine``) with the layer-norm and paged-attention
-kernels.
+Ported so far: GPT serving (``serving_llm.LLMEngine``, in process and
+over the wire), BERT pretraining (``static.TrainStep``, ``io``,
+``data``), the export and ``inference.Predictor``, observability, the
+lint (``analysis``), and the user entry point ``hapi.Model`` with
+``metric``, the losses and ``verify``; ``ROADMAP.md`` lists the rest.
 """
 
 from .flags import get_flags, set_flags

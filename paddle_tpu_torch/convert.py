@@ -11,7 +11,8 @@ keeps the JAX layouts (Linear weights ``[in, out]``), so nothing is
 transposed. ``load_jax_params`` loads such a dict into a module after
 checking keys and shapes strictly. ``opt_state_from_jax`` carries an
 ``Optimizer.init``/``apply_gradients`` state across, so both packages
-can train on from the same point.
+can train on from the same point, whatever the optimizer's slots
+(Adam's moments, Momentum's velocity).
 
 The whole training state crosses both ways: ``train_state_from_jax``
 turns a JAX ``TrainStep.state`` (its leaves as numpy arrays, the ``rng``
@@ -74,9 +75,11 @@ def load_jax_params(module: torch.nn.Module,
 
 def opt_state_from_jax(state: Mapping[str, object],
                        params: Mapping[str, torch.Tensor]) -> dict:
-    """A JAX optimizer state (``{"step", "slots": {name: {"m", "v"[,
-    "master"]}}[, "fused": {"m", "v", "master"}]}`` over a name-keyed
-    ``param_dict()``) as the port's optimizer state for ``params`` (the
+    """A JAX optimizer state (``{"step", "slots": {name: {slot: ...}}[,
+    "fused": {slot: ...}]}`` over a name-keyed ``param_dict()``: Adam's
+    ``m``/``v``, Momentum's ``velocity``, SGD's none, plus ``master``
+    for a low-precision parameter) as the port's optimizer state for
+    ``params`` (the
     port's name-keyed parameters), every tensor on their device in the
     dtype JAX stored it in. The JAX package packs the flat fused vectors
     in its leaf order, sorted by name, and so does the port. Raises

@@ -463,6 +463,15 @@ define_flag("fault_spec", "",
             "Empty (default) disarms every point — the hit() hook is a "
             "near-free early return.",
             on_change=_fault_spec_changed)
+define_flag("rollback_budget", 2,
+            "Divergence-watchdog rollback budget for one "
+            "hapi.Model.fit(ckpt_dir=...) run: when the watchdog trips "
+            "(a NaN/spike streak on the loss, FLAGS_divergence_streak),"
+            " fit restores the newest intact checkpoint and replays — "
+            "at most this many times; the next trip after the budget "
+            "is exhausted raises. 0 disables rollback (the watchdog "
+            "still counts anomalies). Rollback needs "
+            "FLAGS_enable_metrics (the loss probes feed the watchdog).")
 define_flag("rollback_lr_factor", 1.0,
             "Learning-rate multiplier applied on divergence-rollback "
             "re-entry (e.g. 0.5 halves the LR after each rollback): "

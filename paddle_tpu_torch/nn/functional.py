@@ -1,7 +1,8 @@
 """Plain functional ops of the GPT and BERT paths.
 
 Counterparts of ``paddle_tpu.ops.nn_functional`` (linear, embedding,
-layer_norm, dropout) and ``paddle_tpu.ops.activation.gelu``. ``linear``
+layer_norm, dropout) and ``paddle_tpu.ops.activation``'s ``gelu`` and
+``relu``. ``linear``
 keeps the reference fc convention: the weight is ``[in, out]``, never
 torch's ``[out, in]``, so weights move across from the JAX package
 untouched.
@@ -15,7 +16,8 @@ import torch
 
 from ..core import random as _random
 
-__all__ = ["linear", "embedding", "gelu", "layer_norm", "dropout"]
+__all__ = ["linear", "embedding", "gelu", "relu", "layer_norm",
+           "dropout"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
@@ -35,6 +37,10 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU, as ``jax.nn.gelu(approximate=False)`` (GPT-2's
     published tanh form is not what the JAX package computes)."""
     return torch.nn.functional.gelu(x)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
 
 
 def dropout(x: torch.Tensor, p: float = 0.5,

@@ -1,7 +1,8 @@
 """Layers of the GPT and BERT paths as ``torch.nn.Module``s.
 
 Counterparts of ``paddle_tpu.nn.layers.common`` (Linear, Embedding,
-Dropout), the activation layers (GELU, Tanh),
+Dropout), the activation layers (GELU, Tanh, ReLU), the container
+``Sequential``,
 ``paddle_tpu.nn.layers.norm.LayerNorm`` and
 ``paddle_tpu.nn.layers.loss.FusedLinearCrossEntropy``. Parameter names
 (``weight``, ``bias``) and shapes match the JAX layers, so a JAX
@@ -17,6 +18,7 @@ raises without a GPU; pass ``device="cpu"`` for the CPU.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Optional, Sequence, Union
 
 import torch
@@ -29,8 +31,8 @@ from . import functional as F
 # may be mid-import when this line runs; attributes resolve at call time
 from .. import kernels
 
-__all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "LayerNorm",
-           "FusedLinearCrossEntropy"]
+__all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "ReLU",
+           "Sequential", "LayerNorm", "FusedLinearCrossEntropy"]
 
 
 def _param(shape, device, fill: Optional[float] = None) -> nn.Parameter:
@@ -97,6 +99,24 @@ class GELU(nn.Module):
 class Tanh(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.tanh(x)
+
+
+class ReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(x)
+
+
+class Sequential(nn.Sequential):
+    """``torch.nn.Sequential`` (sublayers named ``0``, ``1``, ... as the
+    JAX ``Sequential`` names them), also built from one list of
+    ``(name, layer)`` pairs, as the JAX one can be."""
+
+    def __init__(self, *layers) -> None:
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)) \
+                and layers[0] and isinstance(layers[0][0], (list, tuple)):
+            super().__init__(OrderedDict(layers[0]))
+        else:
+            super().__init__(*layers)
 
 
 class LayerNorm(nn.Module):

@@ -1,5 +1,5 @@
-"""Plain ops of the PyTorch package: losses and attention."""
+"""Plain ops of the PyTorch package: losses, metrics and attention."""
 
-from . import attention, loss
+from . import attention, loss, metrics_ops
 
-__all__ = ["attention", "loss"]
+__all__ = ["attention", "loss", "metrics_ops"]

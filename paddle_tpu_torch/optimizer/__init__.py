@@ -1,8 +1,12 @@
-"""Optimizers: the ``Optimizer`` base and Adam / AdamW as Paddle computes
-them.
+"""Optimizers: the ``Optimizer`` base, SGD / Momentum, and Adam / AdamW as
+Paddle computes them.
 
-Counterpart of ``paddle_tpu.optimizer`` (``Optimizer``, ``Adam``,
-``AdamW``). Paddle's Adam is not ``torch.optim.Adam``: ``eps`` is added
+Counterpart of ``paddle_tpu.optimizer`` (``Optimizer``, ``SGD``,
+``Momentum``, ``Adam``, ``AdamW``). ``SGD`` is ``p - lr g``;
+``Momentum`` keeps a ``velocity`` slot, ``v = mu v + g``, and steps
+``p - lr v`` (``p - lr (g + mu v)`` with ``use_nesterov``), as
+``momentum_op`` does; both are elementwise, so both run on the flat
+fused state too. Paddle's Adam is not ``torch.optim.Adam``: ``eps`` is added
 to the UNCORRECTED ``sqrt(v)``, and the bias correction is folded into
 the learning rate,
 
@@ -75,8 +79,8 @@ from ..kernels import fused_adam as _adam
 from . import lr
 from .lr import LRScheduler, resolve_lr
 
-__all__ = ["Optimizer", "Adam", "AdamW", "AdamOptimizer", "LRScheduler",
-           "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "AdamOptimizer",
+           "SGDOptimizer", "MomentumOptimizer", "LRScheduler", "lr"]
 
 # the use_pallas_adam route's least leaf size (the JAX package's)
 _FLAT_MIN_NUMEL = 1024
@@ -316,6 +320,52 @@ class Optimizer:
         raise NotImplementedError
 
 
+def _select(ok: Optional[torch.Tensor], new: torch.Tensor,
+            old: torch.Tensor) -> torch.Tensor:
+    """``new``, or ``old`` where the skip guard's ``ok`` is False."""
+    return new if ok is None else torch.where(ok, new, old)
+
+
+class SGD(Optimizer):
+    """Plain SGD (``sgd_op``): ``p - lr g`` in fp32 on the master (or the
+    fp32 parameter). Not ported: the row-sparse update (it comes with
+    the sparse gradients)."""
+
+    _elementwise_update = True
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        for leaf in leaves:
+            p = leaf.p32
+            p.copy_(_select(ok, p - lr_t * leaf.g.to(p.dtype), p))
+
+
+class Momentum(Optimizer):
+    """Momentum (``momentum_op``, ``use_nesterov``): a fp32 ``velocity``
+    slot per parameter."""
+
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 use_nesterov: bool = False, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.use_nesterov = use_nesterov
+
+    def init_slots(self, p32):
+        return {"velocity": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        mu = self.momentum
+        for leaf in leaves:
+            p, vel = leaf.p32, leaf.slots["velocity"]
+            g = leaf.g.to(p.dtype)
+            v = mu * vel + g
+            new_p = p - lr_t * (g + mu * v) if self.use_nesterov \
+                else p - lr_t * v
+            p.copy_(_select(ok, new_p, p))
+            vel.copy_(_select(ok, v, vel))
+
+
 class Adam(Optimizer):
     """Paddle Adam (``adam_op.h``): see the module note."""
 
@@ -403,5 +453,7 @@ class AdamW(Adam):
         return self.decoupled_weight_decay
 
 
-# the fluid.optimizer spelling
+# the fluid.optimizer spellings
+SGDOptimizer = SGD
+MomentumOptimizer = Momentum
 AdamOptimizer = Adam

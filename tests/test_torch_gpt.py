@@ -141,7 +141,7 @@ def test_model_refuses_to_run_on_cpu_unasked():
                                    "core.arena", "native", "inference",
                                    "serving_llm.server",
                                    "serving_llm.router", "jit",
-                                   "kernels.custom_ops"])
+                                   "kernels.custom_ops", "hapi"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -166,7 +166,12 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.serving_llm import LLMStreamBridge, "
             "Router; "
             "from paddle_tpu_torch.observability import server, fleet; "
-            "from paddle_tpu_torch import profiler")
+            "from paddle_tpu_torch import profiler; "
+            "from paddle_tpu_torch.hapi import Model; "
+            "from paddle_tpu_torch.metric import Accuracy; "
+            "from paddle_tpu_torch.nn import CrossEntropyLoss; "
+            "from paddle_tpu_torch.optimizer import SGD, Momentum; "
+            "from paddle_tpu_torch.verify import run_verification")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -213,7 +218,11 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/serving_llm/server.py",
         "paddle_tpu_torch/serving_llm/router.py",
         "paddle_tpu_torch/profiler.py", "paddle_tpu_torch/jit.py",
-        "paddle_tpu_torch/kernels/custom_ops.py"} | {
+        "paddle_tpu_torch/kernels/custom_ops.py",
+        "paddle_tpu_torch/hapi.py", "paddle_tpu_torch/verify.py",
+        "paddle_tpu_torch/metric/__init__.py",
+        "paddle_tpu_torch/ops/metrics_ops.py",
+        "paddle_tpu_torch/nn/loss.py"} | {
         f"paddle_tpu_torch/observability/{m}.py"
         for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
                   "fleet", "trace_agg")}

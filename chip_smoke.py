@@ -288,8 +288,11 @@ in order:
    (``ReluSigns``: a unit within rounding of 0 flips either way, and
    moves a whole token's term; the flips and the raw gap are reported);
    (c) ``decode_beam`` of the trained model (beam 4, 4
-   sources, max_len 64) equal to a CPU copy's, scores within
-   ``MT_BEAM_SCORE_TOL``; (e) ``nn.Transformer(normalize_before=True)``
+   sources, max_len 64) against a CPU copy's whose beams choose as the
+   card's did (``BeamChoices``: candidates within rounding of a tie rank
+   either way on either device): the same hypotheses, their scores and
+   each flipped choice's margin within ``MT_BEAM_SCORE_TOL``, the flips
+   reported; (e) ``nn.Transformer(normalize_before=True)``
    at d 512, 8 heads, 6 + 6, FFN 2048, batch 4, card against CPU within
    ``GRAD_REL_TOL``, and one ``need_weights=True`` attention call the
    same; (d) ``transformer_remat`` on BERT-base (phase 5c's bf16 fused
@@ -297,7 +300,43 @@ in order:
    steps): remat on equal to remat off bit for bit (losses and every
    leaf of the training state), the recompute's 2 LayerNorms and flash
    forward per layer counted, peak memory and step ms of both;
-12. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+12. ResNet-50 and the rest of the optimizers (``run_resnet``; no kernel
+   of the port runs here: cuDNN's convolutions and BatchNorm as the JAX
+   composition in torch ops, so the path ``rn_fit`` must launch none):
+   (a) ``resnet50(data_format="NHWC")`` from ``SEED`` cast to bf16 as
+   the JAX bench builds it (``bench.py:591-617``), 224 x 224, 1000
+   classes, ``Momentum(0.1, 0.9)`` and ``cross_entropy``, batch 128 of
+   bf16 images from numpy seed ``SEED + 200`` fed by a ``DataLoader``
+   with ``RN_WORKERS`` worker processes, ``Model.fit`` for 2 epochs of
+   4 captured steps: finite losses, one capture, every BatchNorm buffer
+   moved, finite and fp32; images/s (the median stream ms of steps 2-4
+   of each epoch), peak memory, the busy share of two profiled replays,
+   the FLOPs (2 x the forward's multiply-adds, 3 x that a step); (b) the
+   same model under ``LarsMomentum(0.1, 0.9, lars_coeff=0.001,
+   lars_weight_decay=5e-4)``, 4 captured steps, images/s; (c) the
+   small ResNet (``ResNet(BottleneckBlock, [1, 1, 1, 1])``, full widths,
+   fp32, 64 x 64, batch 8) on the card against the CPU, the CPU's ReLU
+   and max-pool decisions the card's (``RnSigns``): two-pass statistics
+   the loss, every gradient and every updated buffer within
+   ``RN_GRAD_TOL``, the default single pass the loss and buffers (its
+   gradients reported: the fp32 ``E[x^2] - E[x]^2`` cancels); (d)
+   ``resnet_block_remat`` off against on with ``deterministic`` on,
+   ResNet-50 bf16 b128, 3 captured steps: losses, parameters, masters,
+   velocities and buffers bit for bit, peak memory and step ms of both,
+   and a third run with ``deterministic`` off (its cost); (e) the
+   space-to-depth stem against the plain one, fp32, within
+   ``RN_S2D_TOL``: ResNet-50's stem conv and the JAX test's small model
+   end to end; (f) the small ResNet in fp16 under
+   ``TrainStep(amp_dtype="float16", scaler=GradScaler())`` fed an inf
+   pixel, eager and as a captured replay: parameters, masters,
+   velocities, step counter and BatchNorm buffers unchanged; (g) the
+   eleven optimizers and four wrappers, 3 updates of ResNet-50's own
+   leaves card against CPU within ``TOL``, then each training the small
+   ResNet 3 steps captured against eager, bit for bit; (h) ``Model.fit``
+   on ResNet-50 bf16 at batch 32 interrupted at step 4 and resumed by a
+   fresh ``Model`` against an uninterrupted fit, bit for bit, every
+   leaf and buffer;
+13. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -6658,12 +6697,97 @@ def mt_card_against_cpu(torch) -> dict:
     return res
 
 
+class BeamChoices:
+    """The beam decisions of one decode, shared with another run of the
+    same model, as ``ReluSigns`` shares the ReLU decisions. ``record``
+    (the card's ``beam_search_step``) keeps each step's chosen candidates
+    and the gap between the k-th and the (k+1)-th best total. ``replay``
+    (the CPU's) ranks its own totals, then takes the recorded candidates
+    at the CPU's own totals. A row of a step flips where the CPU's own
+    choice differs from the card's; its margin is the CPU's k-th best
+    total less the smallest CPU total among the card's choices (0 where
+    both chose the same set in another order). A barely trained model
+    spreads its 37000 log-probabilities over a few thousand ulps, so
+    candidates within rounding of a tie are common and rank either way
+    on either device, and one flip changes every later step: the decodes
+    are compared with the choices made alike, each flip's margin
+    bounded."""
+
+    def __init__(self, torch, step_fn) -> None:
+        self.torch = torch
+        self.step_fn = step_fn
+        self.chosen: list = []
+        self.gaps: list = []
+        self.pos = 0
+        self.flipped = 0
+        self.margin = 0.0
+
+    @staticmethod
+    def totals(torch, log_probs, scores, fin, end):
+        """``beam_search_step``'s candidate totals ``[batch, beam *
+        vocab]`` (a finished beam proposes only ``end``, at its score)."""
+        from paddle_tpu_torch.ops.beam import _NEG_INF
+        fin_row = torch.full(log_probs.shape[-1:], _NEG_INF,
+                             dtype=log_probs.dtype, device=log_probs.device)
+        fin_row[end] = 0.0
+        step = torch.where(fin[:, :, None], fin_row[None, None, :], log_probs)
+        return (scores[:, :, None] + step).reshape(log_probs.shape[0], -1)
+
+    def record(self, log_probs, scores, fin, k, end):
+        torch = self.torch
+        total = self.totals(torch, log_probs, scores, fin, end)
+        top = torch.sort(total, dim=-1, descending=True).values[:, :k + 1]
+        self.gaps.append((top[:, k - 1] - top[:, k]).min())
+        out = self.step_fn(log_probs, scores, fin, k, end)
+        self.chosen.append((out[1].long() * log_probs.shape[-1]
+                            + out[0].long()).cpu())
+        return out
+
+    def replay(self, log_probs, scores, fin, k, end):
+        torch = self.torch
+        vocab = log_probs.shape[-1]
+        total = self.totals(torch, log_probs, scores, fin, end)
+        own_token, own_parent, own_scores, _ = self.step_fn(
+            log_probs, scores, fin, k, end)
+        idx = self.chosen[self.pos].to(total.device)
+        self.pos += 1
+        taken = torch.gather(total, 1, idx)
+        rows = (own_parent.long() * vocab + own_token.long() != idx).any(-1)
+        if bool(rows.any()):
+            self.flipped += int(rows.sum())
+            margin = own_scores[:, k - 1] - taken.min(-1).values
+            self.margin = max(self.margin, float(margin[rows].max()))
+        parent = torch.div(idx, vocab, rounding_mode="floor")
+        token = (idx % vocab).to(torch.int32)
+        finished = torch.gather(fin, 1, parent) | (token == end)
+        return token, parent.to(torch.int32), taken, finished
+
+
+def same_hypotheses(seq_a, score_a, seq_b, score_b) -> tuple:
+    """Whether each row of ``seq_a`` (``[batch, beam, len]``) holds the
+    sequences of the same row of ``seq_b`` in any beam order; the largest
+    gap between one sequence's two scores; how many beams stand in
+    another slot (the final sort of near-equal scores)."""
+    gap, moved = 0.0, 0
+    for b in range(seq_a.shape[0]):
+        for j in range(seq_a.shape[1]):
+            hit = (seq_b[b] == seq_a[b, j]).all(-1).nonzero()
+            if hit.numel() == 0:
+                return False, float("inf"), moved
+            i = int(hit[0, 0])
+            moved += int(i != j)
+            gap = max(gap, float((score_a[b, j] - score_b[b, i]).abs()))
+    return True, gap, moved
+
+
 def mt_beam(torch, model, sources) -> dict:
     """(c) ``decode_beam`` of the trained model (eval) on the card and of
-    a CPU copy of it: the sequences equal, the scores within
-    MT_BEAM_SCORE_TOL. The smallest gap between the k-th and (k+1)-th
-    candidate of any step on the card is reported (how near a tie the
-    run came)."""
+    a CPU copy of it whose beams choose as the card's did
+    (``BeamChoices``): the same hypotheses in each row, their scores
+    within MT_BEAM_SCORE_TOL, and each flipped choice within
+    MT_BEAM_SCORE_TOL of the CPU's own. The flips, their largest margin
+    and the smallest gap between the k-th and (k+1)-th candidate of any
+    step on the card (how near a tie the run came) are reported."""
     from paddle_tpu_torch.ops import beam as beam_ops
     cfg = dict(MT_BEAM)
     n = cfg.pop("sources")
@@ -6671,21 +6795,14 @@ def mt_beam(torch, model, sources) -> dict:
     cpu = mt_model(torch, "cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     cpu.eval()
-    gaps = []
     step_fn = beam_ops.beam_search_step
-
-    def watched(log_probs, scores, fin, k, end):
-        total = scores[:, :, None] + log_probs
-        top = torch.sort(total.reshape(total.shape[0], -1), dim=-1,
-                         descending=True).values[:, :k + 1]
-        gaps.append((top[:, k - 1] - top[:, k]).min())
-        return step_fn(log_probs, scores, fin, k, end)
-
+    choices = BeamChoices(torch, step_fn)
     src = torch.from_numpy(sources[:n])
     out = {}
-    for side, dev, m in (("card", MT_DEVICE, model), ("cpu", "cpu", cpu)):
+    for side, dev, m, fn in (("card", MT_DEVICE, model, choices.record),
+                             ("cpu", "cpu", cpu, choices.replay)):
         t0 = time.perf_counter()
-        beam_ops.beam_search_step = watched if side == "card" else step_fn
+        beam_ops.beam_search_step = fn
         try:
             seqs, scores = m.decode_beam(src.to(dev), **cfg)
         finally:
@@ -6693,17 +6810,21 @@ def mt_beam(torch, model, sources) -> dict:
         out[side] = (seqs.cpu(), scores.cpu(), time.perf_counter() - t0)
     seq_card, score_card, card_s = out["card"]
     seq_cpu, score_cpu, cpu_s = out["cpu"]
-    res = {**MT_BEAM, "sequences_equal": bool(torch.equal(seq_card,
-                                                          seq_cpu)),
-           "rows_differing": int((seq_card != seq_cpu).any(-1).sum()),
-           "score_max_abs_diff": float((score_card - score_cpu).abs().max()),
-           "min_topk_gap_card": float(torch.stack(gaps).min()),
+    same, gap, moved = same_hypotheses(seq_card, score_card, seq_cpu,
+                                       score_cpu)
+    res = {**MT_BEAM, "same_hypotheses": same,
+           "sequences_equal": bool(torch.equal(seq_card, seq_cpu)),
+           "beams_in_another_slot": moved, "score_max_abs_diff": gap,
+           "choices_flipped": choices.flipped,
+           "choices": choices.pos * seq_card.shape[0],
+           "flip_max_margin": choices.margin,
+           "min_topk_gap_card": float(torch.stack(choices.gaps).min()),
            "card_s": card_s, "cpu_s": cpu_s,
            "best": seq_card[0, 0, :12].tolist(),
            "scores": score_card[:, 0].tolist()}
     log(f"mt beam: {json.dumps(res)}")
-    if not res["sequences_equal"] \
-            or res["score_max_abs_diff"] > MT_BEAM_SCORE_TOL:
+    if not same or gap > MT_BEAM_SCORE_TOL \
+            or choices.margin > MT_BEAM_SCORE_TOL:
         raise AssertionError(f"mt beam: card and CPU disagree: {res}")
     return res
 
@@ -6865,6 +6986,766 @@ def run_mt(torch) -> tuple:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: ResNet-50 image classification (A16) with the rest of the
+# optimizers and their wrappers
+# ---------------------------------------------------------------------------
+
+# (a) ResNet-50 as the JAX bench builds it (bench.py:591-617): bf16, NHWC,
+# 224 x 224, 1000 classes, Momentum(0.1, 0.9), cross_entropy, b128, fed
+# through Model.fit from RN_WORKERS worker processes for RN_EPOCHS epochs
+# of RN_STEPS steps
+RN_DEVICE = "cuda"
+RN_BATCH, RN_HW, RN_CLASSES = 128, 224, 1000
+RN_EPOCHS, RN_STEPS, RN_WORKERS = 2, 4, 2
+# (b) LarsMomentum's captured steps; (d) remat's
+RN_LARS_STEPS, RN_REMAT_STEPS = 4, 3
+# (c), (f), (g): ResNet(BottleneckBlock, [1, 1, 1, 1]) at full channel
+# widths, fp32, RN_SMALL_HW x RN_SMALL_HW images, batch RN_SMALL_BATCH
+RN_SMALL_HW, RN_SMALL_BATCH = 64, 8
+# (c): card against CPU. cuDNN's fp32 convolutions (TF32 off) against the
+# CPU's, weight gradients summing up to 8192 products each, then
+# BatchNorm's batch statistics: the loss and each gradient within this
+# share of the leaf's largest entry, with the ReLU and max-pool decisions
+# shared (RnSigns)
+RN_GRAD_TOL = 1e-4
+# (e): the JAX package's own tolerance for the s2d stem
+# (tests/test_model_zoo_extra.py:550)
+RN_S2D_TOL = 2e-5
+# (g): updates on ResNet-50's own leaves, card against CPU (TOL); then
+# the captured TrainStep against the eager one
+RN_SWEEP_STEPS = 3
+# (h): Model.fit interrupted at RN_SAVE_AT and resumed, at b32
+RN_RESUME_BATCH, RN_SAVE_AT = 32, 4
+RN_DIR = "chip_smoke_rn"  # the checkpoints of (h) (removed after it)
+# the ResNet paths run no kernel of the port (cuDNN's convolutions, plain
+# PyTorch around them): their launch counts must stay 0
+PATH_KERNELS.update({"rn_fit": ()})
+
+
+class ImageSamples:
+    """``n`` NHWC images (standard normal from numpy's ``seed``, then cast
+    to ``dtype`` as torch tensors: the bench's bf16 inputs) and their
+    int64 class labels; a map-style dataset whose samples collate into
+    ``(images, labels)``."""
+
+    def __init__(self, torch, n: int, hw: int, seed: int,
+                 dtype="bfloat16") -> None:
+        rng = np.random.default_rng(seed)
+        self.images = torch.from_numpy(rng.standard_normal(
+            (n, hw, hw, 3), dtype=np.float32)).to(getattr(torch, dtype))
+        self.labels = rng.integers(0, RN_CLASSES, n).astype(np.int64)
+
+    def __getitem__(self, i):
+        return self.images[i], self.labels[i]
+
+    def __len__(self):
+        return len(self.labels)
+
+
+def rn_loss(out, label):
+    from paddle_tpu_torch.ops.loss import cross_entropy
+    return cross_entropy(out, label)
+
+
+def rn_loader(torch, ds, batch: int):
+    """Seeded-shuffle batches of ``ds`` from RN_WORKERS worker processes
+    (the images cross through shared memory)."""
+    from paddle_tpu_torch.data import BatchSampler, DataLoader, RandomSampler
+    return DataLoader(ds, batch_sampler=BatchSampler(
+        RandomSampler(ds, seed=SEED), batch_size=batch, drop_last=True),
+        num_workers=RN_WORKERS, timeout=120.0)
+
+
+def rn_batches(torch, ds, batch: int, n: int) -> list:
+    """The first ``n`` batches of ``ds`` in order, on the card."""
+    return [(ds.images[i * batch:(i + 1) * batch].to(RN_DEVICE),
+             torch.from_numpy(ds.labels[i * batch:(i + 1) * batch]).to(
+                 RN_DEVICE)) for i in range(n)]
+
+
+def rn50(torch, dtype: str = "bfloat16"):
+    """ResNet-50 NHWC from SEED on RN_DEVICE, cast as the JAX bench casts
+    it."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import resnet50
+    net = resnet50(data_format="NHWC", device=RN_DEVICE, seed=SEED)
+    return cast_model_to_low_precision(net, dtype) \
+        if dtype != "float32" else net
+
+
+def rn_small(torch, device: Optional[str] = None, dtype: str = "float32"):
+    """ResNet(BottleneckBlock, [1, 1, 1, 1]) at full channel widths, NHWC,
+    from SEED, on ``device`` (RN_DEVICE by default)."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import BottleneckBlock, ResNet
+    net = ResNet(BottleneckBlock, [1, 1, 1, 1], RN_CLASSES,
+                 data_format="NHWC", device=device or RN_DEVICE, seed=SEED)
+    return cast_model_to_low_precision(net, dtype) \
+        if dtype != "float32" else net
+
+
+def rn_macs(torch, net, hw: int) -> int:
+    """Multiply-adds of one image's forward: each conv's ``Cout Ho Wo x
+    Cin/groups kh kw`` and the classifier's, from the output shapes of a
+    no-grad forward (its BatchNorm statistics put back after)."""
+    from paddle_tpu_torch.nn import Conv2D, Linear
+    saved = {n: b.clone() for n, b in net.named_buffers()}
+    macs = [0]
+
+    def hook(mod, _inp, out):
+        w = mod.weight
+        if isinstance(mod, Conv2D):
+            macs[0] += out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+        else:
+            macs[0] += out.numel() * w.shape[0]
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (Conv2D, Linear))]
+    try:
+        with torch.no_grad():
+            net(torch.zeros((1, hw, hw, 3), dtype=net.conv1.weight.dtype,
+                            device=net.conv1.weight.device))
+    finally:
+        for h in hooks:
+            h.remove()
+        with torch.no_grad():
+            for n, b in net.named_buffers():
+                b.copy_(saved[n])
+    return macs[0]
+
+
+def rn_timed_steps(torch, step, batches) -> tuple:
+    """``step`` over ``batches``: each loss (synchronised at the end) and
+    each step's stream ms (events around it)."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(batches) + 1)]
+    marks[0].record()
+    losses = []
+    for k, (x, y) in enumerate(batches):
+        losses.append(step(x, labels=(y,))["loss"])
+        marks[k + 1].record()
+    marks[-1].synchronize()
+    return ([float(v) for v in losses],
+            [marks[k].elapsed_time(marks[k + 1])
+             for k in range(len(batches))])
+
+
+def rn_busy(torch, step, batch, steps: int = 2) -> dict:
+    """torch.profiler over ``steps`` replays: the device ms a step, the
+    wall ms and the device's busy share of it, the largest rows."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch[0], labels=(batch[1],))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = device_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows) if rows else None
+    # PyTorch's own elementwise and reduction kernels (BatchNorm's
+    # composition, ReLU, the pools, the optimizer, casts) against the
+    # libraries' (cuDNN's convolutions, cuBLAS's classifier)
+    native = [r for r in rows if "at::native" in r[2]]
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "pytorch_native_ms": sum(r[0] for r in native),
+            "pytorch_native_launches": sum(r[1] for r in native),
+            "library_ms": sum(r[0] for r in rows if r not in native),
+            "library_launches": sum(r[1] for r in rows if r not in native),
+            "top_ms_launches_name": rows[:12],
+            "top_library_ms_launches_name": [r for r in rows
+                                             if r not in native][:8]}
+
+
+def rn_fit(torch, card: str) -> tuple:
+    """(a) ResNet-50 bf16 NHWC b128 through ``Model.fit`` (Momentum(0.1,
+    0.9), cross_entropy) for RN_EPOCHS epochs of RN_STEPS captured steps
+    from RN_WORKERS workers: finite losses, one capture, every BatchNorm
+    buffer moved and finite and fp32, no kernel of the port launched;
+    images/s (median stream ms of steps 2..RN_STEPS of each epoch), peak
+    memory, the busy share of two profiled replays after, the FLOPs
+    (2 x MACs of the forward, 3 x that a training step). Returns (report,
+    counts, the net's parameter shapes)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Momentum
+    t0 = time.perf_counter()
+    ds = ImageSamples(torch, RN_BATCH * RN_STEPS, RN_HW, SEED + 200)
+    data_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = rn50(torch)
+    macs = rn_macs(torch, net, RN_HW)
+    before = host_copy(dict(net.named_buffers()))
+    model = Model(net, loss=rn_loss, optimizer=Momentum(0.1, 0.9))
+    rec = hapi_recorder(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(rn_loader(torch, ds, RN_BATCH), epochs=RN_EPOCHS,
+              callbacks=[rec], verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in rec.losses]
+    step_ms = steady_step_ms(rec.events, RN_STEPS)
+    after = host_copy(dict(net.named_buffers()))
+    unmoved = [n for n in after if torch.equal(after[n], before[n])]
+    bad = [n for n, b in after.items() if b.dtype != torch.float32
+           or not bool(torch.isfinite(b).all())]
+    step = model._train_step
+    captures = step.captures
+    busy = rn_busy(torch, step, rn_batches(torch, ds, RN_BATCH, 1)[0])
+    flops_step = 3 * 2 * macs * RN_BATCH
+    res = {"model": "resnet50", "dtype": "bfloat16", "layout": "NHWC",
+           "image": RN_HW, "batch": RN_BATCH, "epochs": RN_EPOCHS,
+           "steps": RN_EPOCHS * RN_STEPS, "workers": RN_WORKERS,
+           "optimizer": "Momentum(0.1, 0.9)", "losses": losses,
+           "captures": captures, "capture_ms": step.capture_ms,
+           "captures_after_profiled_replays": step.captures,
+           "step_ms": step_ms,
+           "images_per_s": RN_BATCH / step_ms * 1e3 if step_ms else None,
+           "peak_allocated_gb": peak, "fit_s": fit_s, "data_s": data_s,
+           "forward_macs_per_image": macs,
+           "forward_flops_per_image_2x_macs": 2 * macs,
+           "train_flops_per_step_3x_forward": flops_step,
+           "achieved_tflops": flops_step / (step_ms / 1e3) / 1e12
+           if step_ms else None,
+           "bn_buffers": len(after), "bn_buffers_unmoved": unmoved,
+           "bn_buffers_bad": bad, "launches": nonzero(counts),
+           "profiled_replays": busy, "card": card}
+    log(f"resnet50 fit [{card}]: {json.dumps(res)}")
+    if len(losses) != RN_EPOCHS * RN_STEPS or not all(np.isfinite(losses)) \
+            or captures != 1 or step.captures != 1 or unmoved or bad \
+            or nonzero(counts):
+        raise AssertionError(f"resnet50 fit: {res}")
+    shapes = {n: tuple(p.shape) for n, p in net.named_parameters()}
+    del model, step, net
+    return res, {"rn_fit": counts}, shapes, ds
+
+
+def rn_lars(torch, ds, card: str) -> dict:
+    """(b) The same model and batch under LarsMomentum(0.1, 0.9,
+    lars_coeff=0.001, lars_weight_decay=5e-4): RN_LARS_STEPS captured
+    steps, finite losses, one capture; images/s from the replays."""
+    from paddle_tpu_torch.optimizer import LarsMomentum
+    from paddle_tpu_torch.static import TrainStep
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = TrainStep(rn50(torch), LarsMomentum(
+        0.1, 0.9, lars_coeff=0.001, lars_weight_decay=5e-4), rn_loss,
+        seed=SEED)
+    batches = rn_batches(torch, ds, RN_BATCH, RN_LARS_STEPS)
+    losses, ms = rn_timed_steps(torch, step, batches)
+    replay = float(np.median(ms[1:]))
+    res = {"optimizer": "LarsMomentum(0.1, 0.9, lars_coeff=0.001, "
+                        "lars_weight_decay=5e-4)", "losses": losses,
+           "step_ms": ms, "replay_ms": replay,
+           "images_per_s": RN_BATCH / replay * 1e3,
+           "captures": step.captures,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "card": card}
+    log(f"resnet50 lars [{card}]: {json.dumps(res)}")
+    if not all(np.isfinite(losses)) or step.captures != 1:
+        raise AssertionError(f"resnet50 lars: {res}")
+    return res
+
+
+def call_module(torch, fn):
+    """A module whose forward is ``fn`` (a ReLU or max pool replaced for
+    a card-against-CPU run)."""
+    class Call(torch.nn.Module):
+        def forward(self, x):
+            return fn(x)
+    return Call()
+
+
+class RnSigns:
+    """ReluSigns for the ResNet: the ReLU decisions (``relu`` of the model
+    and of every block, in call order) and the stem max pool's choice in
+    each window (its argmax), recorded on the card and replayed on the
+    CPU, where a unit within rounding of 0, or a window whose two largest
+    entries lie within rounding, would otherwise decide the other way;
+    the flips are counted."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.relu = ReluSigns(torch)
+        self.pools: list = []
+        self.pos = 0
+        self.pool_flips = 0
+        self.windows = 0
+
+    def _pool(self, x):
+        F = self.torch.nn.functional
+        xc = x.permute(0, 3, 1, 2)
+        return F.max_pool2d(xc, 3, 2, 1, return_indices=True), xc
+
+    def pool_record(self, x):
+        (out, idx), _ = self._pool(x)
+        self.pools.append(idx.detach().cpu())
+        return out.permute(0, 2, 3, 1)
+
+    def pool_replay(self, x):
+        (own, own_idx), xc = self._pool(x)
+        idx = self.pools[self.pos].to(x.device)
+        self.pos += 1
+        self.pool_flips += int((own_idx != idx).sum())
+        self.windows += idx.numel()
+        out = xc.flatten(2).gather(2, idx.flatten(2)).view_as(own)
+        return out.permute(0, 2, 3, 1)
+
+    def install(self, model, relu_fn, pool_fn) -> dict:
+        """Sets ``relu_fn`` in place of every ``relu`` and ``pool_fn`` of
+        the stem pool; returns the modules replaced, to restore."""
+        torch = self.torch
+        old = {}
+        for mod in model.modules():
+            if isinstance(getattr(mod, "relu", None), torch.nn.Module):
+                old[(mod, "relu")] = mod.relu
+                mod.relu = call_module(torch, relu_fn)
+        old[(model, "maxpool")] = model.maxpool
+        model.maxpool = call_module(torch, pool_fn)
+        return old
+
+    @staticmethod
+    def restore(old: dict) -> None:
+        for (mod, name), m in old.items():
+            setattr(mod, name, m)
+
+
+def rn_card_against_cpu(torch, card: str) -> dict:
+    """(c) The small ResNet, fp32 (TF32 off), RN_SMALL_BATCH images of
+    RN_SMALL_HW: one training-mode forward and backward on the card and
+    on the CPU from the same weights and buffers, the CPU deciding each
+    ReLU and max-pool window as the card did (``RnSigns``), under the
+    two-pass statistics and under the default single pass. Two-pass: the
+    loss, every gradient and every updated BatchNorm buffer within
+    RN_GRAD_TOL of its leaf's largest entry. Single pass: the loss and
+    the buffers within RN_GRAD_TOL; its gradients are reported, not
+    bounded: ``E[x^2] - E[x]^2`` in fp32 cancels where a channel's spread
+    is small against its mean, and its gradient there is rounding (the
+    JAX package's own fp32 gradient strays as far from float64). Each
+    side's gap to a float64 two-pass CPU run, the flips, and the gap
+    with the CPU's own decisions are reported."""
+    cardm = rn_small(torch, RN_DEVICE)
+    cpum = rn_small(torch, "cpu")
+    cpum.load_state_dict({k: v.cpu() for k, v in cardm.state_dict().items()})
+    start = {k: v.clone() for k, v in cpum.named_buffers()}
+    rng = np.random.default_rng(SEED + 210)
+    x = rng.standard_normal((RN_SMALL_BATCH, RN_SMALL_HW, RN_SMALL_HW, 3),
+                            dtype=np.float32)
+    y = rng.integers(0, RN_CLASSES, RN_SMALL_BATCH).astype(np.int64)
+
+    def side(model, dev, dtype=torch.float32):
+        with torch.no_grad():
+            for k, b in model.named_buffers():
+                b.copy_(start[k])
+        names = [n for n, _ in model.named_parameters()]
+        loss = rn_loss(model(torch.from_numpy(x).to(dev, dtype)),
+                       torch.from_numpy(y).to(dev))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return (float(loss.detach()), dict(zip(names, grads)),
+                {k: b.detach().clone() for k, b in model.named_buffers()})
+
+    def pair(single: bool) -> tuple:
+        restore = flag_scope({"batch_norm_single_pass": single})
+        try:
+            signs = RnSigns(torch)
+            old = signs.install(cardm, signs.relu.record, signs.pool_record)
+            card_out = side(cardm, RN_DEVICE)
+            RnSigns.restore(old)
+            old = signs.install(cpum, signs.relu.replay, signs.pool_replay)
+            cpu_out = side(cpum, "cpu")
+            RnSigns.restore(old)
+            own = side(cpum, "cpu")
+        finally:
+            restore()
+        return signs, card_out, cpu_out, own
+
+    runs = {"two_pass": pair(False), "single_pass": pair(True)}
+    cpum.double()
+    restore = flag_scope({"batch_norm_single_pass": False})
+    try:
+        f64 = side(cpum, "cpu", torch.float64)
+    finally:
+        restore()
+    res = {"batch": RN_SMALL_BATCH, "image": RN_SMALL_HW,
+           "tolerance": RN_GRAD_TOL, "host": cpu_facts(torch), "card": card}
+    for name, (signs, card_out, cpu_out, own) in runs.items():
+        gaps = grad_gaps(torch, card_out[1], cpu_out[1])
+        bufs = grad_gaps(torch, card_out[2], cpu_out[2])
+        worst, worst_buf = max(gaps, key=gaps.get), max(bufs, key=bufs.get)
+        res[name] = {
+            "loss_card": card_out[0], "loss_cpu": cpu_out[0],
+            "loss_rel_diff": abs(card_out[0] - cpu_out[0])
+            / abs(cpu_out[0]),
+            "grad_max_rel_gap": gaps[worst], "worst_grad": worst,
+            "grads_compared": len(gaps),
+            "buffer_max_rel_gap": bufs[worst_buf], "worst_buffer": worst_buf,
+            "buffers_compared": len(bufs),
+            "relu_units": signs.relu.units,
+            "relu_units_flipped": signs.relu.flipped,
+            "pool_windows": signs.windows,
+            "pool_windows_flipped": signs.pool_flips,
+            "grad_max_rel_gap_own_decisions": max(grad_gaps(
+                torch, card_out[1], own[1]).values()),
+            "card_grad_gap_to_float64": max(grad_gaps(
+                torch, card_out[1], f64[1]).values()),
+            "cpu_grad_gap_to_float64": max(grad_gaps(
+                torch, own[1], f64[1]).values())}
+    log(f"resnet card vs cpu: {json.dumps(res)}")
+    two, one = res["two_pass"], res["single_pass"]
+    if max(two["loss_rel_diff"], two["grad_max_rel_gap"],
+           two["buffer_max_rel_gap"], one["loss_rel_diff"],
+           one["buffer_max_rel_gap"]) > RN_GRAD_TOL:
+        raise AssertionError(f"resnet card vs cpu: {res}")
+    return res
+
+
+def rn_remat(torch, ds, card: str) -> dict:
+    """(d) ``resnet_block_remat`` on ResNet-50 bf16 b128, RN_REMAT_STEPS
+    captured Momentum steps from one seed and batches, with
+    ``deterministic`` on: remat off and on equal bit for bit (losses,
+    parameters, fp32 masters, velocities, step counter, every BatchNorm
+    buffer: the recompute moves none); a third run with ``deterministic``
+    off times what determinism costs. Peak memory and replay ms of
+    each."""
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.static import TrainStep
+    batches = rn_batches(torch, ds, RN_BATCH, RN_REMAT_STEPS)
+    runs, states = {}, {}
+    for name, flags in (("remat_off", dict(resnet_block_remat=False,
+                                           deterministic=True)),
+                        ("remat_on", dict(resnet_block_remat=True,
+                                          deterministic=True)),
+                        ("nondeterministic", dict(resnet_block_remat=False,
+                                                  deterministic=False))):
+        restore = flag_scope(flags)
+        try:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = TrainStep(rn50(torch), Momentum(0.1, 0.9), rn_loss,
+                             seed=SEED)
+            losses, ms = rn_timed_steps(torch, step, batches)
+            runs[name] = {"losses": losses, "step_ms": ms,
+                          "replay_ms": float(np.median(ms[1:])),
+                          "peak_allocated_gb":
+                              torch.cuda.max_memory_allocated() / 2 ** 30,
+                          "captures": step.captures}
+            states[name] = state_on_host(step)
+            del step
+        finally:
+            restore()
+    differ = equal_states(torch, states["remat_off"], states["remat_on"])
+    res = {**runs, "state_leaves": len(states["remat_off"]),
+           "state_leaves_differing": differ,
+           "determinism_cost": runs["remat_off"]["replay_ms"]
+           / runs["nondeterministic"]["replay_ms"],
+           "peak_gb_saved": runs["remat_off"]["peak_allocated_gb"]
+           - runs["remat_on"]["peak_allocated_gb"], "card": card}
+    log(f"resnet50 remat [{card}]: {json.dumps(res)}")
+    if runs["remat_off"]["losses"] != runs["remat_on"]["losses"] or differ \
+            or not all(np.isfinite(runs["remat_on"]["losses"])) \
+            or any(r["captures"] != 1 for r in runs.values()):
+        raise AssertionError(f"resnet50 remat changed the run: {res}")
+    return res
+
+
+def rn_s2d(torch, card: str) -> dict:
+    """(e) The space-to-depth stem against the plain stem, fp32, within
+    RN_S2D_TOL (rtol and atol, as the JAX test): ResNet-50's stem conv on
+    RN_SMALL_BATCH images of RN_HW, and the JAX test's own model
+    (``ResNet(BasicBlock, [1, 1, 1, 1], 10)``, NHWC, eval mode, two
+    24 x 24 images) end to end; ResNet-50's eval logits beside them
+    (reported: at its initial statistics they reach ~4e3, so their gap
+    is relative to the largest)."""
+    from paddle_tpu_torch.models import BasicBlock, ResNet
+    from paddle_tpu_torch.models.resnet import _space_to_depth_stem
+    rng = np.random.default_rng(SEED + 220)
+
+    def within(got, want) -> bool:
+        return bool(((got - want).abs()
+                     <= RN_S2D_TOL + RN_S2D_TOL * want.abs()).all())
+
+    net = rn50(torch, "float32").eval()
+    x = torch.from_numpy(rng.standard_normal(
+        (RN_SMALL_BATCH, RN_HW, RN_HW, 3), dtype=np.float32)).to(RN_DEVICE)
+    small = ResNet(BasicBlock, [1, 1, 1, 1], 10, data_format="NHWC",
+                   device=RN_DEVICE, seed=SEED).eval()
+    xs = torch.from_numpy(rng.standard_normal(
+        (2, 24, 24, 3), dtype=np.float32)).to(RN_DEVICE)
+    with torch.no_grad():
+        stem = net.conv1(x)
+        stem_s2d = _space_to_depth_stem(x, net.conv1.weight)
+        outs = {}
+        for s2d in (False, True):
+            net.s2d_stem = small.s2d_stem = s2d
+            outs[s2d] = (net(x), small(xs))
+    res = {"stem_max_abs_diff": float((stem_s2d - stem).abs().max()),
+           "stem_max_abs": float(stem.abs().max()),
+           "stem_within_tol": within(stem_s2d, stem),
+           "small_logits_max_abs_diff": float(
+               (outs[True][1] - outs[False][1]).abs().max()),
+           "small_within_tol": within(outs[True][1], outs[False][1]),
+           "resnet50_logits_max_rel_gap": rel_gap(
+               torch, outs[True][0], outs[False][0].cpu()),
+           "resnet50_logits_max_abs": float(outs[False][0].abs().max()),
+           "tolerance": RN_S2D_TOL, "card": card}
+    log(f"resnet s2d stem: {json.dumps(res)}")
+    if not (res["stem_within_tol"] and res["small_within_tol"]):
+        raise AssertionError(f"resnet s2d stem: {res}")
+    return res
+
+
+def rn_state(step) -> dict:
+    """A step's whole training state on the host but the scaler's."""
+    return {k: v for k, v in state_on_host(step).items()
+            if not k.startswith("scaler/")}
+
+
+def rn_skip_drill(torch, card: str) -> dict:
+    """(f) The small ResNet cast to fp16 under ``TrainStep(amp_dtype=
+    "float16", scaler=GradScaler())`` and Momentum, fed a batch with one
+    inf pixel: eager, and as the replay of a captured step (its first
+    step a clean batch): the parameters, fp32 masters, velocities, step
+    counter and BatchNorm buffers (which the forward rewrote with NaN)
+    bit for bit what they were, the step counted non-finite."""
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.static import TrainStep
+    rng = np.random.default_rng(SEED + 230)
+    x = torch.from_numpy(rng.standard_normal(
+        (RN_SMALL_BATCH, RN_SMALL_HW, RN_SMALL_HW, 3), dtype=np.float32)).to(
+        RN_DEVICE, torch.float16)
+    y = torch.from_numpy(rng.integers(0, RN_CLASSES, RN_SMALL_BATCH)).to(
+        RN_DEVICE)
+    bad = x.clone()
+    bad[0, 0, 0, 0] = float("inf")
+    res = {}
+    for compiled in (False, True):
+        step = TrainStep(rn_small(torch, dtype="float16"),
+                         Momentum(0.1, 0.9), rn_loss, seed=SEED,
+                         amp_dtype="float16", scaler=GradScaler(),
+                         compiled=compiled)
+        if compiled:
+            step(x, labels=(y,))
+        before = rn_state(step)
+        step(bad, labels=(y,))
+        torch.cuda.synchronize()
+        changed = equal_states(torch, before, rn_state(step))
+        name = "captured_replay" if compiled else "eager"
+        res[name] = {"changed": changed,
+                     "buffers_checked": sum(k.startswith("buffers/")
+                                            for k in before),
+                     "leaves_checked": len(before),
+                     "nonfinite_steps": int(step.nonfinite_steps),
+                     "captures": step.captures}
+        if changed or int(step.nonfinite_steps) < 1 \
+                or step.captures != int(compiled) \
+                or not res[name]["buffers_checked"]:
+            raise AssertionError(f"resnet skip drill ({name}): {res}")
+        del step
+    log(f"resnet skip drill [{card}]: {json.dumps(res)}")
+    return res
+
+
+def rn_optimizers(sigma: float = 0.0) -> dict:
+    """Constructors of the eleven optimizers and the four wrappers (over
+    Momentum), with ``sigma`` for Dpsgd."""
+    from paddle_tpu_torch import optimizer as O
+
+    def mom():
+        return O.Momentum(0.05, 0.9)
+
+    return {
+        "LarsMomentum": lambda: O.LarsMomentum(0.1, 0.9, lars_coeff=0.001,
+                                               lars_weight_decay=5e-4),
+        "Adamax": lambda: O.Adamax(1e-3),
+        "Adagrad": lambda: O.Adagrad(1e-2, initial_accumulator_value=0.1),
+        "Adadelta": lambda: O.Adadelta(1.0, rho=0.9),
+        "RMSProp": lambda: O.RMSProp(1e-3, momentum=0.5, centered=True),
+        "Lamb": lambda: O.Lamb(1e-3, lamb_weight_decay=0.01),
+        "Ftrl": lambda: O.Ftrl(0.1, l1=0.01, l2=0.01),
+        "Dpsgd": lambda: O.Dpsgd(1e-2, clip=1.0, batch_size=8.0,
+                                 sigma=sigma),
+        "DecayedAdagrad": lambda: O.DecayedAdagrad(1e-2),
+        "ProximalGD": lambda: O.ProximalGD(1e-2, l1=0.01, l2=0.01),
+        "ProximalAdagrad": lambda: O.ProximalAdagrad(1e-2, l1=0.01,
+                                                     l2=0.01),
+        "ExponentialMovingAverage": lambda: O.ExponentialMovingAverage(
+            mom(), 0.9),
+        "ModelAverage": lambda: O.ModelAverage(mom(),
+                                               max_average_window=2),
+        "Lookahead": lambda: O.Lookahead(mom(), alpha=0.5, k=2),
+        "GradientMerge": lambda: O.GradientMerge(mom(), k_steps=2),
+    }
+
+
+def rn_sweep(torch, shapes: dict, card: str) -> dict:
+    """(g) Each optimizer and wrapper: RN_SWEEP_STEPS updates of
+    ResNet-50's own leaves (fp32, numpy values from a seed) on the card
+    and on the CPU, every parameter and state tensor within TOL of its
+    largest entry (Dpsgd at sigma 0: the two devices' generators differ);
+    then the small ResNet trained RN_SWEEP_STEPS steps by an eager and a
+    captured TrainStep from the same weights and batches, with
+    ``deterministic`` on (Dpsgd at sigma 1, its noise from the step's
+    generator): every leaf of the training state bit for bit."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.static import TrainStep
+    rng = np.random.default_rng(SEED + 240)
+    values = {n: rng.standard_normal(s, dtype=np.float32) * 0.05
+              for n, s in shapes.items()}
+    grads = [{n: rng.standard_normal(s, dtype=np.float32)
+              for n, s in shapes.items()} for _ in range(RN_SWEEP_STEPS)]
+    leaves = {}
+    for name, make in rn_optimizers().items():
+        out = {}
+        for dev in (RN_DEVICE, "cpu"):
+            opt = make()
+            params = {n: torch.from_numpy(v).to(dev, copy=True)
+                      for n, v in values.items()}
+            state = opt.init(params)
+            for g in grads:
+                opt.apply_gradients(params, {n: torch.from_numpy(v).to(dev)
+                                             for n, v in g.items()}, state)
+            out[dev] = {k: v.detach().to("cpu", copy=True)
+                        for k, v in io.flatten({"params": params,
+                                                "opt": state}).items()}
+        gaps = grad_gaps(torch, out[RN_DEVICE], out["cpu"])
+        worst = max(gaps, key=gaps.get)
+        leaves[name] = {"max_rel_gap": gaps[worst], "worst": worst,
+                        "tensors": len(gaps)}
+        if gaps[worst] > TOL or set(out["cpu"]) != set(out[RN_DEVICE]):
+            raise AssertionError(f"optimizer sweep {name}: card and CPU "
+                                 f"disagree: {leaves[name]}")
+    rng = np.random.default_rng(SEED + 250)
+    batches = [(torch.from_numpy(rng.standard_normal(
+        (RN_SMALL_BATCH, RN_SMALL_HW, RN_SMALL_HW, 3),
+        dtype=np.float32)).to(RN_DEVICE),
+        torch.from_numpy(rng.integers(0, RN_CLASSES, RN_SMALL_BATCH)).to(
+            RN_DEVICE)) for _ in range(RN_SWEEP_STEPS)]
+    captured = {}
+    restore = flag_scope({"deterministic": True})
+    try:
+        for name, make in rn_optimizers(sigma=1.0).items():
+            states, losses = {}, {}
+            for compiled in (False, True):
+                step = TrainStep(rn_small(torch), make(), rn_loss,
+                                 seed=SEED, compiled=compiled)
+                losses[compiled] = [float(step(x, labels=(y,))["loss"])
+                                    for x, y in batches]
+                states[compiled] = state_on_host(step)
+                caps = step.captures
+                del step
+            differ = equal_states(torch, states[False], states[True])
+            captured[name] = {"losses": losses[True], "captures": caps,
+                              "leaves": len(states[True]),
+                              "leaves_differing": differ}
+            if differ or losses[False] != losses[True] or caps != 1 \
+                    or not all(np.isfinite(losses[True])):
+                raise AssertionError(f"optimizer sweep {name}: captured "
+                                     f"and eager differ: {captured[name]}")
+    finally:
+        restore()
+    res = {"card_vs_cpu": leaves, "captured_vs_eager": captured,
+           "leaves": len(shapes), "tolerance": TOL, "card": card}
+    log(f"optimizer sweep [{card}]: {json.dumps(res)}")
+    return res
+
+
+def rn_resume(torch, card: str) -> dict:
+    """(h) ResNet-50 bf16 at b RN_RESUME_BATCH through ``Model.fit``
+    (Momentum(0.1, 0.9), ``deterministic`` on) for RN_EPOCHS epochs of
+    RN_STEPS steps uninterrupted; then one epoch with ``ckpt_dir`` and
+    ``save_steps=RN_SAVE_AT`` and a fresh Model over the same directory
+    for RN_EPOCHS epochs (it restores step RN_SAVE_AT): the losses and
+    every leaf of the training state (parameters, fp32 masters,
+    velocities, step counter, BatchNorm buffers, generator) bit for
+    bit."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Momentum
+    shutil.rmtree(RN_DIR, ignore_errors=True)
+    ds = ImageSamples(torch, RN_RESUME_BATCH * RN_STEPS, RN_HW, SEED + 260)
+
+    def model():
+        return Model(rn50(torch), loss=rn_loss,
+                     optimizer=Momentum(0.1, 0.9))
+
+    restore = flag_scope({"deterministic": True})
+    try:
+        torch.cuda.empty_cache()
+        m = model()
+        rec_u = hapi_recorder(torch)
+        m.fit(rn_loader(torch, ds, RN_RESUME_BATCH), epochs=RN_EPOCHS,
+              verbose=0, callbacks=[rec_u])
+        end_u = state_on_host(m._train_step)
+        del m
+        m1 = model()
+        rec1 = hapi_recorder(torch)
+        m1.fit(rn_loader(torch, ds, RN_RESUME_BATCH), epochs=1, verbose=0,
+               ckpt_dir=RN_DIR, save_steps=RN_SAVE_AT, callbacks=[rec1])
+        saved = io.AsyncCheckpointer(RN_DIR).intact_steps()
+        del m1
+        m2 = model()
+        rec2 = hapi_recorder(torch)
+        m2.fit(rn_loader(torch, ds, RN_RESUME_BATCH), epochs=RN_EPOCHS,
+               verbose=0, ckpt_dir=RN_DIR, save_steps=RN_SAVE_AT,
+               callbacks=[rec2])
+        end_r = state_on_host(m2._train_step)
+        del m2
+    finally:
+        restore()
+        shutil.rmtree(RN_DIR, ignore_errors=True)
+    losses_u = [float(v) for v in rec_u.losses]
+    losses_r = [float(v) for v in rec1.losses + rec2.losses]
+    differ = equal_states(torch, end_u, end_r)
+    res = {"batch": RN_RESUME_BATCH, "steps": len(losses_u),
+           "saved_at": saved, "losses": losses_u,
+           "losses_resumed": losses_r, "state_leaves": len(end_u),
+           "buffers": sum(k.startswith("buffers/") for k in end_u),
+           "leaves_differing": differ, "card": card}
+    log(f"resnet50 resume [{card}]: {json.dumps(res)}")
+    if losses_r != losses_u or differ or saved[:1] != [RN_SAVE_AT] \
+            or len(losses_u) != RN_EPOCHS * RN_STEPS:
+        raise AssertionError(f"resnet50 resume: {res}")
+    return res
+
+
+def run_resnet(torch) -> tuple:
+    """Phase 12. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    t0 = time.perf_counter()
+    report["rn_fit"], c, shapes, ds = rn_fit(torch, card)
+    counts.update(c)
+    report["rn_lars"] = rn_lars(torch, ds, card)
+    report["rn_remat"] = rn_remat(torch, ds, card)
+    del ds
+    report["rn_main_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["rn_card_vs_cpu"] = rn_card_against_cpu(torch, card)
+    report["rn_s2d"] = rn_s2d(torch, card)
+    report["rn_skip_drill"] = rn_skip_drill(torch, card)
+    report["rn_checks_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["rn_sweep"] = rn_sweep(torch, shapes, card)
+    report["rn_sweep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    report["rn_resume"] = rn_resume(torch, card)
+    report["rn_resume_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    report["rn_phase_s"] = time.perf_counter() - t_phase
+    log(f"resnet phase: {report['rn_phase_s']:.1f} s [{card}]")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -7005,9 +7886,12 @@ def main() -> int:
     hapi, hapi_counts = run_hapi(torch)
     torch.cuda.empty_cache()
     mt, mt_counts = run_mt(torch)
+    torch.cuda.empty_cache()
+    rn, rn_counts = run_resnet(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
-                  **hapi_counts, **mt_counts, flash_with_lse=lse_counts)
+                  **hapi_counts, **mt_counts, **rn_counts,
+                  flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -7015,7 +7899,7 @@ def main() -> int:
                   pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
-                  **predictor, **hapi, **mt)
+                  **predictor, **hapi, **mt, **rn)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

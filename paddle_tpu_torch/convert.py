@@ -12,7 +12,9 @@ transposed. ``load_jax_params`` loads such a dict into a module after
 checking keys and shapes strictly. ``opt_state_from_jax`` carries an
 ``Optimizer.init``/``apply_gradients`` state across, so both packages
 can train on from the same point, whatever the optimizer's slots
-(Adam's moments, Momentum's velocity).
+(Adam's moments, Momentum's velocity, ...) and a wrapper's ``wrap``
+state (``optimizer.extras``). A model with buffers (BatchNorm's running
+statistics) takes its JAX ``buffer_dict()`` beside the parameters.
 
 The whole training state crosses both ways: ``train_state_from_jax``
 turns a JAX ``TrainStep.state`` (its leaves as numpy arrays, the ``rng``
@@ -26,7 +28,7 @@ generator: the JAX step keeps its own ``rng``.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -51,13 +53,20 @@ def params_from_jax(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_params(module: torch.nn.Module,
-                    params: Mapping[str, object]) -> torch.nn.Module:
+                    params: Mapping[str, object],
+                    buffers: Optional[Mapping[str, object]] = None
+                    ) -> torch.nn.Module:
     """Copy ``params`` (a JAX ``param_dict()`` as numpy arrays, or the
-    output of :func:`params_from_jax`) into ``module`` in place. Raises
+    output of :func:`params_from_jax`) and ``buffers`` (its
+    ``buffer_dict()``: BatchNorm's ``_mean``/``_variance``) into
+    ``module`` in place: together they must name every entry of the
+    module's ``state_dict()``, parameters and persistent buffers. Raises
     ValueError naming every missing or unexpected key and every shape
-    mismatch; dtypes follow the module's parameters."""
+    mismatch; dtypes follow the module's own tensors."""
+    given = dict(params)
+    given.update(buffers or {})
     state = {k: (v if isinstance(v, torch.Tensor) else tensor_from_numpy(v))
-             for k, v in params.items()}
+             for k, v in given.items()}
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     unexpected = sorted(set(state) - set(own))
@@ -76,9 +85,11 @@ def load_jax_params(module: torch.nn.Module,
 def opt_state_from_jax(state: Mapping[str, object],
                        params: Mapping[str, torch.Tensor]) -> dict:
     """A JAX optimizer state (``{"step", "slots": {name: {slot: ...}}[,
-    "fused": {slot: ...}]}`` over a name-keyed ``param_dict()``: Adam's
-    ``m``/``v``, Momentum's ``velocity``, SGD's none, plus ``master``
-    for a low-precision parameter) as the port's optimizer state for
+    "fused": {slot: ...}][, "wrap": {...}]}`` over a name-keyed
+    ``param_dict()``: Adam's ``m``/``v``, Momentum's ``velocity``, SGD's
+    none, any other optimizer's slots, plus ``master`` for a
+    low-precision parameter; a wrapper's parameter-keyed trees and
+    counters) as the port's optimizer state for
     ``params`` (the
     port's name-keyed parameters), every tensor on their device in the
     dtype JAX stored it in. The JAX package packs the flat fused vectors
@@ -102,6 +113,13 @@ def opt_state_from_jax(state: Mapping[str, object],
            "slots": {n: {k: move(v, params[n].shape)
                          for k, v in slots_in[n].items()}
                      for n in params}}
+    if "wrap" in state:
+        # a wrapper's state: parameter-keyed trees (ema, sum, slow, acc)
+        # and int32 counters (count, micro)
+        out["wrap"] = {
+            k: {n: move(v[n], params[n].shape) for n in params}
+            if isinstance(v, Mapping) else move(v).reshape(())
+            for k, v in state["wrap"].items()}
     if "fused" in state:
         out["fused"] = {k: move(v) for k, v in state["fused"].items()}
         total = sum(p.numel() for n, p in params.items()

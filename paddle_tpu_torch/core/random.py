@@ -11,7 +11,8 @@ under ``rng_scope`` (the train step binds one). Here the streams are
   (``TrainStep`` binds its own generator, seeded once from its ``seed``
   and advanced by every step, as the JAX step splits its ``rng`` key),
   and ``next_generator(stream, device)`` returns the bound one, else the
-  ``default`` binding, else the global generator of that device.
+  ``default`` binding, else the global generator of that device
+  (``bound_generator(stream)``: the binding alone, or None).
 
 The bits differ from JAX's threefry streams, so dropout outside the
 flash-attention kernels (whose mask is a hash of the seed) cannot match
@@ -46,7 +47,8 @@ import torch
 from ..flags import GLOBAL_FLAGS
 
 __all__ = ["seed", "default_generator", "rng_scope", "next_generator",
-           "DrawTape", "replay_draws", "draw", "fast_rng_enabled"]
+           "bound_generator", "DrawTape", "replay_draws", "draw",
+           "fast_rng_enabled"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -101,16 +103,22 @@ def rng_scope(**generators: torch.Generator) -> Iterator[None]:
         _scope.streams = prev
 
 
+def bound_generator(stream: str = "default"
+                    ) -> Optional[torch.Generator]:
+    """The generator bound to ``stream`` (else to ``default``) by the
+    innermost ``rng_scope``, or None outside any scope."""
+    streams = _scope.streams
+    if streams is None:
+        return None
+    return streams.get(stream, streams.get("default"))
+
+
 def next_generator(stream: str = "default",
                    device="cpu") -> torch.Generator:
     """The generator bound to ``stream`` (else to ``default``) by the
     innermost ``rng_scope``, else the global generator of ``device``."""
-    streams = _scope.streams
-    if streams is not None:
-        gen = streams.get(stream, streams.get("default"))
-        if gen is not None:
-            return gen
-    return default_generator(device)
+    gen = bound_generator(stream)
+    return gen if gen is not None else default_generator(device)
 
 
 

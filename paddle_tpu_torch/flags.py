@@ -8,10 +8,8 @@ attention routing and train-step flags of BERT pretraining, and those
 of the checkpoints and the input pipeline, of observability and fault
 injection, and of the core: devices, the staging arena, the transformer
 layers), with the names and defaults of ``paddle_tpu.flags``: every
-JAX flag but seven whose readers are not ported yet (``check_nan_inf``,
-``matmul_precision``, ``compile_cache_dir``, ``batch_norm_single_pass``,
-``resnet_block_remat``, ``resnet_space_to_depth_stem``,
-``straggler_factor``). The JAX package's TPU-routing switches
+JAX flag but four whose readers are not ported yet (``check_nan_inf``,
+``matmul_precision``, ``compile_cache_dir``, ``straggler_factor``). The JAX package's TPU-routing switches
 (``use_pallas_kernels``, ``use_pallas_layer_norm``, ``flash_block_q``/
 ``_k``, ``use_fast_rng``) are accepted and read by nothing: the port
 routes by the tensor's device and takes no fallback flag.
@@ -268,11 +266,25 @@ define_flag("router_prefix_affinity", False,
 # ---------------------------------------------------------------------------
 # runtime, devices and the host pipeline (core.place, core.arena)
 # ---------------------------------------------------------------------------
+
+
+def _deterministic_changed(value) -> None:
+    import torch
+    torch.backends.cudnn.deterministic = bool(value)
+
+
 define_flag("deterministic", False,
             "Ask for deterministic kernel choices (ref: "
-            "FLAGS_cudnn_deterministic). Defined as in the JAX package, "
-            "which has no reader either; the port's own kernels are "
-            "bitwise run to run whatever its value.")
+            "FLAGS_cudnn_deterministic): sets "
+            "torch.backends.cudnn.deterministic, so cuDNN's convolutions "
+            "(the ResNet path) take algorithms without atomics and a "
+            "step repeats bit for bit; set_flags applies it at once, a "
+            "FLAGS_deterministic environment value at import. The "
+            "port's own kernels are bitwise run to run whatever its "
+            "value.", on_change=_deterministic_changed)
+if os.environ.get("FLAGS_deterministic") is not None:
+    # ptlint: disable=flag-freeze -- applies the environment's value to torch once at import, as set_flags applies a later one
+    _deterministic_changed(GLOBAL_FLAGS.get("deterministic"))
 define_flag("eager_delete_tensor_gb", 0.0,
             "Retained-buffer budget of the host staging arena "
             "(core.arena.HostStagingArena), in GiB: the free list keeps "
@@ -349,9 +361,32 @@ define_flag("transformer_remat", False,
             "replayed by the recompute (core.random.replay_draws), so a "
             "step equals its run without remat bit for bit. Read per "
             "forward.")
+define_flag("resnet_block_remat", False,
+            "Rematerialise each ResNet residual block in the backward "
+            "(torch.utils.checkpoint per block, training only): the "
+            "backward recomputes the block's activations instead of "
+            "keeping them. The recompute writes no BatchNorm running "
+            "statistics, so they move once a step and a step equals its "
+            "run without remat bit for bit (cuDNN deterministic). Read "
+            "per forward.")
+define_flag("resnet_space_to_depth_stem", False,
+            "Compute the ResNet 7x7/stride-2 stem conv as the exact "
+            "4x4/stride-1 conv over the 2x2 space-to-depth fold of the "
+            "input (12 channels), the weight rearranged at call time "
+            "(parameters and checkpoints unchanged). NHWC input with even "
+            "height and width only; other inputs take the plain stem. "
+            "Read per forward; a model's s2d_stem attribute overrides it.")
+define_flag("batch_norm_single_pass", True,
+            "Training-mode BatchNorm statistics as E[x^2] - E[x]^2, both "
+            "accumulated in fp32 (no fp32 copy of the input is made), "
+            "clamped at 0 and cast back to the input's dtype (the two "
+            "reductions read one operand), instead of the mean followed "
+            "by the biased variance. Read per forward.")
 define_flag("skip_nonfinite_steps", True,
             "TrainStep discards the whole update (parameters, optimizer "
-            "moments and the step counter) when any gradient is NaN/Inf, "
+            "moments, the step counter and the buffers the forward "
+            "updated, such as BatchNorm's statistics) when any gradient "
+            "is NaN/Inf, "
             "selected on the device without a host sync. Read at "
             "TrainStep construction.")
 

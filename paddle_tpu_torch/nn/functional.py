@@ -1,8 +1,9 @@
 """Plain functional ops of the GPT and BERT paths.
 
 Counterparts of ``paddle_tpu.ops.nn_functional`` (linear, embedding,
-layer_norm, dropout) and ``paddle_tpu.ops.activation``'s ``gelu`` and
-``relu``. ``linear``
+layer_norm, dropout; the ResNet path's conv2d, pools and batch_norm are
+``ops.nn_functional``'s, re-exported here) and
+``paddle_tpu.ops.activation``'s ``gelu`` and ``relu``. ``linear``
 keeps the reference fc convention: the weight is ``[in, out]``, never
 torch's ``[out, in]``, so weights move across from the JAX package
 untouched.
@@ -15,9 +16,12 @@ from typing import Optional
 import torch
 
 from ..core import random as _random
+from ..ops.nn_functional import (adaptive_avg_pool2d, avg_pool2d,
+                                 batch_norm, conv2d, max_pool2d)
 
 __all__ = ["linear", "embedding", "gelu", "relu", "layer_norm",
-           "dropout"]
+           "dropout", "conv2d", "max_pool2d", "avg_pool2d",
+           "adaptive_avg_pool2d", "batch_norm"]
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor,

@@ -1,8 +1,8 @@
 """Layers of the GPT and BERT paths as ``torch.nn.Module``s.
 
 Counterparts of ``paddle_tpu.nn.layers.common`` (Linear, Embedding,
-Dropout), the activation layers (GELU, Tanh, ReLU), the container
-``Sequential``,
+Dropout, Flatten, Identity), the activation layers (GELU, Tanh, ReLU),
+the container ``Sequential``,
 ``paddle_tpu.nn.layers.norm.LayerNorm`` and
 ``paddle_tpu.nn.layers.loss.FusedLinearCrossEntropy``. Parameter names
 (``weight``, ``bias``) and shapes match the JAX layers, so a JAX
@@ -36,7 +36,8 @@ from .layer import Layer
 from .. import kernels
 
 __all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "ReLU",
-           "Sequential", "LayerNorm", "FusedLinearCrossEntropy"]
+           "Sequential", "LayerNorm", "FusedLinearCrossEntropy",
+           "Flatten", "Identity"]
 
 
 class Linear(Layer):
@@ -103,6 +104,23 @@ class Tanh(nn.Module):
 class ReLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(x)
+
+
+class Flatten(Layer):
+    """``x`` with dims ``start_axis`` to ``stop_axis`` merged into one."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1) -> None:
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class Identity(Layer):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
 
 
 class Sequential(nn.Sequential):

@@ -1,5 +1,6 @@
-"""Plain ops of the PyTorch package: losses, metrics and attention."""
+"""Plain ops of the PyTorch package: losses, metrics, attention and the
+convolution, pooling and BatchNorm ops."""
 
-from . import attention, loss, metrics_ops
+from . import attention, loss, metrics_ops, nn_functional
 
-__all__ = ["attention", "loss", "metrics_ops"]
+__all__ = ["attention", "loss", "metrics_ops", "nn_functional"]

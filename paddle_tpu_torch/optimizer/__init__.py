@@ -1,8 +1,17 @@
-"""Optimizers: the ``Optimizer`` base, SGD / Momentum, and Adam / AdamW as
-Paddle computes them.
+"""Optimizers: the ``Optimizer`` base, SGD / Momentum, Adam / AdamW and
+the rest of the family as Paddle computes them.
 
-Counterpart of ``paddle_tpu.optimizer`` (``Optimizer``, ``SGD``,
-``Momentum``, ``Adam``, ``AdamW``). ``SGD`` is ``p - lr g``;
+Counterpart of ``paddle_tpu.optimizer``: ``Optimizer``, ``SGD``,
+``Momentum``, ``Adam``, ``AdamW``, ``LarsMomentum``, ``Adamax``,
+``Adagrad``, ``Adadelta``, ``RMSProp``, ``Lamb``, ``Ftrl``, ``Dpsgd``,
+``DecayedAdagrad``, ``ProximalGD``, ``ProximalAdagrad``, the
+``*Optimizer`` spellings, and the wrappers of ``optimizer.extras``
+(``ExponentialMovingAverage``, ``ModelAverage``, ``Lookahead``,
+``GradientMerge``). Each update is the JAX one, in place under the skip
+guard's ``ok``. Those that are elementwise (SGD, Momentum, Adam(W),
+Adamax, Adagrad, Adadelta, RMSProp) may run on the flat fused state;
+the rest (a norm per leaf, or per-leaf state the JAX package keeps per
+leaf) run per leaf, ``fused_state`` or not. ``SGD`` is ``p - lr g``;
 ``Momentum`` keeps a ``velocity`` slot, ``v = mu v + g``, and steps
 ``p - lr v`` (``p - lr (g + mu v)`` with ``use_nesterov``), as
 ``momentum_op`` does; both are elementwise, so both run on the flat
@@ -74,13 +83,21 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from .. import kernels
+from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
 from . import lr
 from .lr import LRScheduler, resolve_lr
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "AdamOptimizer",
-           "SGDOptimizer", "MomentumOptimizer", "LRScheduler", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "LarsMomentum",
+           "Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb", "Ftrl",
+           "Dpsgd", "DecayedAdagrad", "ProximalGD", "ProximalAdagrad",
+           "AdamOptimizer", "SGDOptimizer", "MomentumOptimizer",
+           "AdamaxOptimizer", "AdagradOptimizer", "AdadeltaOptimizer",
+           "RMSPropOptimizer", "LambOptimizer", "FtrlOptimizer",
+           "LarsMomentumOptimizer", "ExponentialMovingAverage",
+           "ModelAverage", "Lookahead", "GradientMerge", "LRScheduler",
+           "lr"]
 
 # the use_pallas_adam route's least leaf size (the JAX package's)
 _FLAT_MIN_NUMEL = 1024
@@ -453,7 +470,366 @@ class AdamW(Adam):
         return self.decoupled_weight_decay
 
 
+def _l2(t: torch.Tensor) -> torch.Tensor:
+    """``sqrt(sum(t^2))``, as the JAX package forms a leaf's norm."""
+    return torch.sqrt(torch.sum(t * t))
+
+
+class LarsMomentum(Optimizer):
+    """Layer-adaptive rate scaling (``lars_momentum_op``; You et al.
+    2017): each leaf's rate is ``lr * coeff * |p| / (|g| + wd |p| +
+    eps)`` (``lr`` itself where ``|p|`` is 0), and ``v = mu v +
+    local_lr (g + wd p)``, ``p - v``. Per leaf (one norm each), so not on
+    the flat fused state."""
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 lars_coeff: float = 0.001,
+                 lars_weight_decay: float = 0.0005, epsilon: float = 1e-9,
+                 **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.lars_coeff = lars_coeff
+        self.lars_weight_decay = lars_weight_decay
+        self.epsilon = epsilon
+
+    def init_slots(self, p32):
+        return {"velocity": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        wd = self.lars_weight_decay
+        for leaf in leaves:
+            p, vel = leaf.p32, leaf.slots["velocity"]
+            g = leaf.g.to(p.dtype)
+            p_norm, g_norm = _l2(p), _l2(g)
+            local_lr = lr_t * self.lars_coeff * p_norm / (
+                g_norm + wd * p_norm + self.epsilon)
+            local_lr = torch.where(p_norm > 0, local_lr, lr_t)
+            v = self.momentum * vel + local_lr * (g + wd * p)
+            p.copy_(_select(ok, p - v, p))
+            vel.copy_(_select(ok, v, vel))
+
+
+class Adamax(Optimizer):
+    """``adamax_op``: ``m = b1 m + (1 - b1) g``, ``u = max(b2 u, |g|)``,
+    ``p - lr / (1 - b1^t) m / (u + eps)``."""
+
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def init_slots(self, p32):
+        return {"m": torch.zeros_like(p32), "u": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        lr_c = lr_t / (1.0 - torch.pow(self.beta1, step.to(torch.float32)))
+        for leaf in leaves:
+            p, m0, u0 = leaf.p32, leaf.slots["m"], leaf.slots["u"]
+            g = leaf.g.to(p.dtype)
+            m = self.beta1 * m0 + (1 - self.beta1) * g
+            u = torch.maximum(self.beta2 * u0, torch.abs(g))
+            p.copy_(_select(ok, p - lr_c * m / (u + self.epsilon), p))
+            m0.copy_(_select(ok, m, m0))
+            u0.copy_(_select(ok, u, u0))
+
+
+class Adagrad(Optimizer):
+    """``adagrad_op``: ``moment += g^2``, ``p - lr g / (sqrt(moment) +
+    eps)``; the moment starts at ``initial_accumulator_value``."""
+
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
+                 initial_accumulator_value: float = 0.0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.epsilon = epsilon
+        self.initial_accumulator_value = initial_accumulator_value
+
+    def init_slots(self, p32):
+        return {"moment": torch.full_like(p32,
+                                          self.initial_accumulator_value)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        for leaf in leaves:
+            p, mo = leaf.p32, leaf.slots["moment"]
+            g = leaf.g.to(p.dtype)
+            moment = mo + g * g
+            new_p = p - lr_t * g / (torch.sqrt(moment) + self.epsilon)
+            p.copy_(_select(ok, new_p, p))
+            mo.copy_(_select(ok, moment, mo))
+
+
+class Adadelta(Optimizer):
+    """``adadelta_op``: running averages of ``g^2`` and of the update's
+    square, the update ``g sqrt(asu + eps) / sqrt(asg + eps)`` times
+    ``lr`` (1.0 by default)."""
+
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=1.0, rho: float = 0.95,
+                 epsilon: float = 1e-6, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon = rho, epsilon
+
+    def init_slots(self, p32):
+        return {"avg_sq_grad": torch.zeros_like(p32),
+                "avg_sq_update": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        rho, eps = self.rho, self.epsilon
+        for leaf in leaves:
+            p = leaf.p32
+            sg, su = leaf.slots["avg_sq_grad"], leaf.slots["avg_sq_update"]
+            g = leaf.g.to(p.dtype)
+            asg = rho * sg + (1 - rho) * (g * g)
+            upd = g * torch.sqrt(su + eps) / torch.sqrt(asg + eps)
+            asu = rho * su + (1 - rho) * (upd * upd)
+            p.copy_(_select(ok, p - lr_t * upd, p))
+            sg.copy_(_select(ok, asg, sg))
+            su.copy_(_select(ok, asu, su))
+
+
+class RMSProp(Optimizer):
+    """``rmsprop_op``: ``ms = rho ms + (1 - rho) g^2``; ``mom = momentum
+    mom + lr g / sqrt(ms + eps)`` (``centered``: ``sqrt(ms - mg^2 +
+    eps)`` with ``mg`` the running mean of ``g``); ``p - mom``."""
+
+    _elementwise_update = True
+
+    def __init__(self, learning_rate=0.001, rho: float = 0.95,
+                 epsilon: float = 1e-6, momentum: float = 0.0,
+                 centered: bool = False, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon = rho, epsilon
+        self.momentum_coef = momentum
+        self.centered = centered
+
+    def init_slots(self, p32):
+        s = {"mean_square": torch.zeros_like(p32),
+             "moment": torch.zeros_like(p32)}
+        if self.centered:
+            s["mean_grad"] = torch.zeros_like(p32)
+        return s
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        rho, eps = self.rho, self.epsilon
+        for leaf in leaves:
+            p, sl = leaf.p32, leaf.slots
+            g = leaf.g.to(p.dtype)
+            ms = rho * sl["mean_square"] + (1 - rho) * (g * g)
+            new = {"mean_square": ms}
+            if self.centered:
+                mg = rho * sl["mean_grad"] + (1 - rho) * g
+                denom = torch.sqrt(ms - mg * mg + eps)
+                new["mean_grad"] = mg
+            else:
+                denom = torch.sqrt(ms + eps)
+            new["moment"] = self.momentum_coef * sl["moment"] \
+                + lr_t * g / denom
+            p.copy_(_select(ok, p - new["moment"], p))
+            for k, v in new.items():
+                sl[k].copy_(_select(ok, v, sl[k]))
+
+
+class Lamb(Optimizer):
+    """``lamb_op`` (layer-adaptive Adam for large batches): the
+    bias-corrected Adam direction plus ``lamb_weight_decay p`` is scaled
+    by the trust ratio ``|p| / |r|`` (1 where either norm is 0).
+    ``exclude_from_weight_decay_fn(name)`` True drops the decay for that
+    parameter. Per leaf (two norms each)."""
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay: float = 0.01,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-6, exclude_from_weight_decay_fn=None,
+                 **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lamb_weight_decay = lamb_weight_decay
+        self.exclude_fn = exclude_from_weight_decay_fn
+
+    def init_slots(self, p32):
+        return {"m": torch.zeros_like(p32), "v": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        b1, b2 = self.beta1, self.beta2
+        step_f = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(b1, step_f)
+        bc2 = 1.0 - torch.pow(b2, step_f)
+        for leaf in leaves:
+            p, m0, v0 = leaf.p32, leaf.slots["m"], leaf.slots["v"]
+            wd = self.lamb_weight_decay
+            if self.exclude_fn is not None and leaf.name is not None \
+                    and self.exclude_fn(leaf.name):
+                wd = 0.0
+            g = leaf.g.to(p.dtype)
+            m = b1 * m0 + (1 - b1) * g
+            v = b2 * v0 + (1 - b2) * (g * g)
+            r = (m / bc1) / (torch.sqrt(v / bc2) + self.epsilon) + wd * p
+            p_norm, r_norm = _l2(p), _l2(r)
+            trust = torch.where((p_norm > 0) & (r_norm > 0),
+                                p_norm / r_norm, 1.0)
+            p.copy_(_select(ok, p - lr_t * trust * r, p))
+            m0.copy_(_select(ok, m, m0))
+            v0.copy_(_select(ok, v, v0))
+
+
+class Ftrl(Optimizer):
+    """``ftrl_op`` (follow the regularised leader, L1/L2): the
+    ``squared`` and ``linear`` accumulators, the new parameter the
+    closed-form proximal point, 0 where ``|linear| <= l1``; the old
+    accumulator is floored at 1e-20 before its power."""
+
+    def __init__(self, learning_rate=0.001, l1: float = 0.0,
+                 l2: float = 0.0, lr_power: float = -0.5, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2, self.lr_power = l1, l2, lr_power
+
+    def init_slots(self, p32):
+        return {"squared": torch.zeros_like(p32),
+                "linear": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        pw = -self.lr_power
+        for leaf in leaves:
+            p, sq, li = leaf.p32, leaf.slots["squared"], leaf.slots["linear"]
+            g = leaf.g.to(p.dtype)
+            new_sq = sq + g * g
+            sigma = (torch.pow(new_sq, pw)
+                     - torch.pow(torch.clamp(sq, min=1e-20), pw)) / lr_t
+            lin = li + g - sigma * p
+            quad = torch.pow(new_sq, pw) / lr_t + 2 * self.l2
+            pre = (self.l1 * torch.sign(lin) - lin) / quad
+            new_p = torch.where(torch.abs(lin) > self.l1, pre, 0.0)
+            p.copy_(_select(ok, new_p, p))
+            sq.copy_(_select(ok, new_sq, sq))
+            li.copy_(_select(ok, lin, li))
+
+
+class Dpsgd(Optimizer):
+    """``dpsgd_op`` (differentially private SGD): each leaf's gradient
+    clipped to norm ``clip``, plus Gaussian noise of std ``sigma * clip /
+    batch_size``; ``p - lr (g + noise)``. The noise is drawn from the
+    generator bound by ``core.random.rng_scope`` (a ``TrainStep``'s own,
+    advanced by every step and registered with its graph), else from the
+    optimizer's own, seeded with ``seed``. Torch's Philox bits are not
+    the JAX package's threefry ones: only ``sigma=0`` matches it
+    exactly."""
+
+    def __init__(self, learning_rate=0.001, clip: float = 10.0,
+                 batch_size: float = 16.0, sigma: float = 1.0,
+                 seed: int = 0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.clip = clip
+        self.batch_size = batch_size
+        self.sigma = sigma
+        self.seed = seed
+        self._generators: Dict[torch.device, torch.Generator] = {}
+
+    def _generator(self, device: torch.device) -> torch.Generator:
+        gen = _random.bound_generator("dpsgd")
+        if gen is not None:
+            return gen
+        if device not in self._generators:
+            self._generators[device] = torch.Generator(
+                device=device).manual_seed(int(self.seed))
+        return self._generators[device]
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        std = self.sigma * self.clip / self.batch_size
+        for leaf in leaves:
+            p = leaf.p32
+            g = leaf.g.to(p.dtype)
+            scale = torch.clamp(self.clip / torch.clamp(_l2(g), min=1e-12),
+                                max=1.0)
+            g = g * scale
+            noise = std * torch.randn(g.shape, dtype=g.dtype,
+                                      device=g.device,
+                                      generator=self._generator(g.device))
+            p.copy_(_select(ok, p - lr_t * (g + noise), p))
+
+
+class DecayedAdagrad(Optimizer):
+    """``decayed_adagrad_op``: ``moment = decay moment + (1 - decay)
+    g^2``, ``p - lr g / (sqrt(moment) + eps)``."""
+
+    def __init__(self, learning_rate=0.001, decay: float = 0.95,
+                 epsilon: float = 1e-6, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.decay, self.epsilon = decay, epsilon
+
+    def init_slots(self, p32):
+        return {"moment": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        for leaf in leaves:
+            p, mo = leaf.p32, leaf.slots["moment"]
+            g = leaf.g.to(p.dtype)
+            moment = self.decay * mo + (1 - self.decay) * (g * g)
+            new_p = p - lr_t * g / (torch.sqrt(moment) + self.epsilon)
+            p.copy_(_select(ok, new_p, p))
+            mo.copy_(_select(ok, moment, mo))
+
+
+def _proximal(prox: torch.Tensor, lr, l1: float, l2: float
+              ) -> torch.Tensor:
+    """The L1/L2 proximal projection of ``prox`` at rate ``lr``."""
+    return torch.sign(prox) * torch.clamp(torch.abs(prox) - lr * l1,
+                                          min=0.0) / (1.0 + lr * l2)
+
+
+class ProximalGD(Optimizer):
+    """``proximal_gd_op``: an SGD step, then the L1/L2 proximal
+    projection."""
+
+    def __init__(self, learning_rate=0.001, l1: float = 0.0,
+                 l2: float = 0.0, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2 = l1, l2
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        for leaf in leaves:
+            p = leaf.p32
+            prox = p - lr_t * leaf.g.to(p.dtype)
+            p.copy_(_select(ok, _proximal(prox, lr_t, self.l1, self.l2), p))
+
+
+class ProximalAdagrad(Optimizer):
+    """``proximal_adagrad_op``: an Adagrad step at the rate ``lr /
+    (sqrt(moment) + eps)``, then the proximal projection at that rate."""
+
+    def __init__(self, learning_rate=0.001, l1: float = 0.0,
+                 l2: float = 0.0, epsilon: float = 1e-10, **kw) -> None:
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2, self.epsilon = l1, l2, epsilon
+
+    def init_slots(self, p32):
+        return {"moment": torch.zeros_like(p32)}
+
+    def _update(self, leaves, lr_t, step, ok) -> None:
+        for leaf in leaves:
+            p, mo = leaf.p32, leaf.slots["moment"]
+            g = leaf.g.to(p.dtype)
+            moment = mo + g * g
+            rate = lr_t / (torch.sqrt(moment) + self.epsilon)
+            new_p = _proximal(p - rate * g, rate, self.l1, self.l2)
+            p.copy_(_select(ok, new_p, p))
+            mo.copy_(_select(ok, moment, mo))
+
+
 # the fluid.optimizer spellings
 SGDOptimizer = SGD
 MomentumOptimizer = Momentum
 AdamOptimizer = Adam
+AdamaxOptimizer = Adamax
+AdagradOptimizer = Adagrad
+AdadeltaOptimizer = Adadelta
+RMSPropOptimizer = RMSProp
+LambOptimizer = Lamb
+FtrlOptimizer = Ftrl
+LarsMomentumOptimizer = LarsMomentum
+
+from .extras import (ExponentialMovingAverage, GradientMerge,  # noqa: E402
+                     Lookahead, ModelAverage)

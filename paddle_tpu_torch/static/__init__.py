@@ -15,9 +15,11 @@ eagerly.
 
 - The skip-step guard (``skip_nonfinite_steps``, read at construction):
   when any gradient is NaN/Inf the whole update is discarded,
-  parameters, fp32 masters, optimizer moments and the step counter
-  alike, selected on the device (no host sync); ``nonfinite_steps``
-  counts such steps on the device.
+  parameters, fp32 masters, optimizer moments, the step counter and
+  every buffer the forward updated (BatchNorm's running statistics,
+  which the forward writes in place: each buffer is copied before the
+  forward and selected back after it) alike, on the device (no host
+  sync); ``nonfinite_steps`` counts such steps on the device.
 - ``amp_dtype`` runs the forward under ``amp.auto_cast`` (thread-local
   state only, as in the JAX package; the model's dtypes are its own:
   cast it with ``amp.cast_model_to_low_precision``). A ``GradScaler``
@@ -108,9 +110,6 @@ divergence-rollback rescale) multiplies the rate on the host and reaches
 the step through ``host_lr``, so a rescale reuses the graph (a rate the
 step computes on the device from its counter is multiplied there by the
 scale, which ``host_lr`` then holds).
-
-Not ported: buffers the forward updates are not guarded (the ported
-models have none).
 """
 
 from __future__ import annotations
@@ -521,10 +520,13 @@ class TrainStep:
         gen = self.generator
         amp = _amp.auto_cast(enable=True, dtype=self.amp_dtype) \
             if self.amp_dtype is not None else contextlib.nullcontext()
+        scaler = self.scaler
+        # the buffers as they were, for the skip guard to put back
+        before = [(b, b.clone()) for b in self.model.buffers()] \
+            if scaler is not None or self._skip_guard else []
         with amp, _random.rng_scope(default=gen, dropout=gen):
             out = self.model(*args, **kwargs)
             loss = self.loss_fn(out, *labels)
-        scaler = self.scaler
         if scaler is not None:
             loss = scaler.scale(loss, self.scaler_state)
         names = list(self.params)
@@ -567,13 +569,19 @@ class TrainStep:
         if found_inf is not None:
             ok = ~found_inf
             self.nonfinite_steps.add_(found_inf.to(torch.int64))
+            with torch.no_grad():
+                for buf, old in before:
+                    buf.copy_(torch.where(ok, buf, old))
         if self._lr_scaled:
             # a rate computed on the device, rescaled: host_lr holds the
             # scale (JAX: resolve_lr(rate, step + 1) * lr_scale)
             lr = resolve_lr(self.optimizer.learning_rate,
                             self.state["step"] + 1) * lr
-        self.optimizer.apply_gradients(self.params, grads, self.state, ok,
-                                       lr_override=lr)
+        # an optimizer that draws (Dpsgd's noise) draws from the step's
+        # generator, registered with the graph as dropout's is
+        with _random.rng_scope(default=gen):
+            self.optimizer.apply_gradients(self.params, grads, self.state,
+                                           ok, lr_override=lr)
         if scaler is not None:
             scaler.update(self.scaler_state, found_inf)
         return metrics
@@ -798,7 +806,8 @@ class TrainStep:
 
 class EvalStep:
     """Inference step: ``EvalStep(model, metric_fns)(params, buffers,
-    *args, labels=())`` runs the model in eval mode without autograd and
+    *args, labels=())`` runs the model in eval mode (BatchNorm normalises
+    by its running statistics and writes none) without autograd and
     returns ``(outputs, {name: fn(outputs, *labels)})``. ``params`` /
     ``buffers`` (name -> tensor) replace the model's own for the call
     (``torch.func.functional_call``); None uses the model's. The model's

@@ -39,10 +39,10 @@ from paddle_tpu_torch.static import TrainStep  # noqa: E402
 jax_clip = importlib.import_module("paddle_tpu.clip")
 ROOT = Path(__file__).resolve().parent.parent
 
-# the JAX flags the port defines when their readers come (ROADMAP A)
+# the JAX flags the port defines when their readers come (ROADMAP A);
+# the ResNet path's three came with it
 WAITING_FLAGS = {"check_nan_inf", "matmul_precision", "compile_cache_dir",
-                 "batch_norm_single_pass", "resnet_block_remat",
-                 "resnet_space_to_depth_stem", "straggler_factor"}
+                 "straggler_factor"}
 
 
 def test_flag_registry_is_the_jax_one_but_seven():
@@ -54,7 +54,8 @@ def test_flag_registry_is_the_jax_one_but_seven():
                  "use_fast_rng", "use_pallas_kernels",
                  "use_pallas_layer_norm", "flash_block_q", "flash_block_k",
                  "deterministic", "log_level", "io_threadpool_size",
-                 "fuse_parameter_groups_size"):
+                 "fuse_parameter_groups_size", "batch_norm_single_pass",
+                 "resnet_block_remat", "resnet_space_to_depth_stem"):
         assert GLOBAL_FLAGS.get(name) == pt.flags.GLOBAL_FLAGS.get(name), \
             name
     assert prandom.fast_rng_enabled() is True

@@ -144,7 +144,10 @@ def test_model_refuses_to_run_on_cpu_unasked():
                                    "kernels.custom_ops", "hapi",
                                    "nn.transformer", "data.dataset",
                                    "models.transformer_seq2seq",
-                                   "param_attr", "core.place"])
+                                   "param_attr", "core.place",
+                                   "models.resnet", "nn.norm",
+                                   "optimizer.extras",
+                                   "ops.nn_functional"])
 def test_port_imports_in_any_order(first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -179,7 +182,11 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.data import InMemoryDataset; "
             "from paddle_tpu_torch.nn import Layer, Transformer; "
             "from paddle_tpu_torch.param_attr import ParamAttr; "
-            "from paddle_tpu_torch.ops.beam import beam_search")
+            "from paddle_tpu_torch.ops.beam import beam_search; "
+            "from paddle_tpu_torch.models import resnet50; "
+            "from paddle_tpu_torch.nn import BatchNorm2D, Conv2D; "
+            "from paddle_tpu_torch.optimizer import LarsMomentum, "
+            "Lookahead")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -235,7 +242,11 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/nn/initializer.py", "paddle_tpu_torch/ops/beam.py",
         "paddle_tpu_torch/models/transformer_seq2seq.py",
         "paddle_tpu_torch/data/dataset.py",
-        "paddle_tpu_torch/data/data_generator.py"} | {
+        "paddle_tpu_torch/data/data_generator.py",
+        "paddle_tpu_torch/ops/nn_functional.py",
+        "paddle_tpu_torch/nn/conv.py", "paddle_tpu_torch/nn/norm.py",
+        "paddle_tpu_torch/models/resnet.py",
+        "paddle_tpu_torch/optimizer/extras.py"} | {
         f"paddle_tpu_torch/observability/{m}.py"
         for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
                   "fleet", "trace_agg")}

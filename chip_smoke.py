@@ -336,7 +336,30 @@ in order:
    on ResNet-50 bf16 at batch 32 interrupted at step 4 and resumed by a
    fresh ``Model`` against an uninterrupted fit, bit for bit, every
    leaf and buffer;
-13. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+13. data, tensor and context parallelism (``run_distributed``): (a)
+   ``init_parallel_env()`` (NCCL at world size 1, an in-memory store)
+   and phase 10's BERT-base bf16 fused fit (the same batches) through
+   ``Model.prepare(mesh=create_mesh({"dp": 1}), zero_stage=...)``, a
+   captured ``ShardedTrainStep`` whose gradient all-reduce runs inside
+   the CUDA graph: ZeRO 0 on the flat fused state against phase 10's bare
+   fit run here (every state leaf and loss bit for bit, and the losses
+   against phase 10's own), ZeRO 1 and 3 on per-leaf state (losses and
+   every parameter bit for bit); launches the per-step counts times the
+   steps, the step stream ms, captures, NCCL calls a step, peak memory;
+   (b) ResNet-50 bf16 b128 with ``SyncBatchNorm.convert_sync_batchnorm``
+   under the world-1 mesh against the plain BatchNorm net: losses and
+   every statistic within ``DIST_RN_TOL``, ms a step of both; (c) four
+   ranks sharing the card under Gloo, started by ``launch_procs`` (the
+   control plane on the path; ``paddle_tpu_torch.testing.dist_worker``'s
+   ``chip`` job): ring attention's flash route (B8 per hop) and Ulysses
+   (B1/B2) at BERT-base heads (12 x 64), B 1, T = 4 x 4096, causal and
+   not, forward and gradients within ``DIST_ATTN_TOL``/``DIST_GRAD_TOL``
+   of plain attention over the whole sequence here, each rank's flash
+   launches exact (rank r of the causal ring r + 1 hops); a 2-layer
+   full-width BERT at dp 4 (ZeRO 1) and dp 2 x mp 2 (the Megatron rule),
+   3 steps, against one process's ``TrainStep`` on the global batch; rank
+   2 slowed on purpose and flagged alone by the straggler detector;
+14. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -351,6 +374,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import shutil
@@ -7746,6 +7770,407 @@ def run_resnet(torch) -> tuple:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 13: data, tensor and context parallelism (paddle_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# (a) BERT-base bf16 fused (phase 10's configuration and data) through
+# Model.prepare(mesh=create_mesh({"dp": 1})).fit under NCCL at world 1,
+# ZeRO 0 (the flat fused state, as phase 10) and ZeRO 1 and 3 (per-leaf
+# state: ZeRO refuses the flat one, as the JAX package does)
+DIST_ZERO_STAGES = (0, 1, 3)
+# (b) ResNet-50 bf16 NHWC b128 (phase 12's configuration), one epoch of
+# RN_STEPS captured steps, SyncBatchNorm under the world-1 mesh against
+# plain BatchNorm; bf16 tolerance on the loss and on every BatchNorm
+# statistic (relative to the statistic's largest entry)
+DIST_RN_TOL = 2e-2
+# (c) four ranks sharing the card under Gloo, started by launch_procs:
+# ring attention (flash route) and Ulysses at BERT-base heads over
+# DIST_T tokens (DIST_T / 4 a rank), forward and gradients against the
+# plain attention over the whole sequence in this process; a 2-layer
+# BERT-base (no dropout, fp32) at dp 4 (ZeRO 1) and dp 2 x mp 2 (the
+# Megatron rule), under the default flags and under phase 10's fused ones
+# (the fused MLM head hands parameters to the loss), against one
+# process's TrainStep under the same flags on the global batch; the
+# straggler drill
+DIST_WORLD = 4
+DIST_T, DIST_HEADS, DIST_HEAD_DIM = 4 * 4096, 12, 64
+DIST_LR = 1e-4
+DIST_BERT = dict(bert_layers=2, bert_batch=8, bert_seq=128, bert_masked=20,
+                 bert_steps=3, bert_lr=DIST_LR)
+# 3xTF32 kernels against fp32 plain attention, relative to the
+# reference's largest entry; the BERT runs against one process (the
+# gradient summed over ranks in another order): the loss, and every
+# parameter within DIST_PARAM_TOL, which lies between the sound runs'
+# readings (up to 1.01e-5 on an H100) and that of a state the steps left
+# unchanged (about lr a step: each run reports it and requires it above
+# the bound)
+DIST_ATTN_TOL, DIST_GRAD_TOL = 1e-4, 1e-3
+DIST_LOSS_TOL = 1e-5
+DIST_PARAM_TOL = 5e-5
+DIST_JOB_TIMEOUT_S = 420.0
+DIST_DIR = "chip_smoke_dist"  # the ranks' files (removed after the phase)
+DIST_DEVICE = "cuda"
+DIST_ATTN = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+PATH_KERNELS.update({
+    "dist_fit": PATH_KERNELS["train_seq512_bf16_fused"],
+    "dist_fit_zero1": PATH_KERNELS["train_seq512_bf16_fused"],
+    "dist_fit_zero3": PATH_KERNELS["train_seq512_bf16_fused"],
+    "rn_sync_fit": (),
+    # rank 3 of the causal ring runs every hop through
+    # flash_attention_with_lse (B8 over B1/B2)
+    "dist_ring": DIST_ATTN, "dist_ulysses": DIST_ATTN,
+    # rank 0 of (c)'s BERT under the fused flags: the fused MLM head's
+    # loss and the Adam kernel on the rank's shards
+    "dist_bert_dp4_fused": ("layer_norm", "fused_xent_fwd", "adam_leaf"),
+    "dist_bert_dp2mp2_fused": ("layer_norm", "fused_xent_fwd",
+                               "adam_leaf")})
+
+
+def dist_fit(torch, card: str) -> tuple:
+    """(a): the fits, each held against phase 10's bare fit run here on
+    the same batches (ZeRO 0: every state leaf bit for bit; ZeRO 1/3:
+    the losses and every parameter bit for bit; whether the losses equal
+    phase 10's own run is reported); launches the per-step
+    counts times the steps; the steady step stream ms, the captures, the
+    NCCL calls a step (those one capture recorded) and the peak memory.
+    Returns (report, counts)."""
+    from paddle_tpu_torch import kernels, parallel
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import collective
+    parallel.init_parallel_env()
+    mesh = parallel.create_mesh({"dp": 1})
+    net = hapi_bert(torch, HAPI_LAYERS)
+    cfg = net.config
+    del net
+    base = hapi_samples(torch, cfg, SEED + 100)
+    ds = PackedSamples(base)
+    per_epoch = HAPI_SAMPLES // RESUME_BATCH
+    steps = HAPI_EPOCHS * per_epoch
+    per_step = expected_launches(RESUME_SEQ, HAPI_LAYERS,
+                                 cfg.hidden_size // cfg.num_attention_heads,
+                                 FUSED_FLAGS,
+                                 rows=RESUME_BATCH * RESUME_MASKED,
+                                 vocab=cfg.vocab_size)
+    runs, counts, ends = {}, {}, {}
+    for name, zero in [("bare", None)] + [
+            (f"zero{z}", z) for z in DIST_ZERO_STAGES]:
+        model = Model(hapi_bert(torch, HAPI_LAYERS), loss=packed_loss,
+                      optimizer=AdamW(1e-4, weight_decay=0.01,
+                                      fused_state=zero in (None, 0)))
+        if zero is not None:
+            model.prepare(mesh=mesh, zero_stage=zero)
+        rec = hapi_recorder(torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        collective.reset_backend_calls()
+        t0 = time.perf_counter()
+        model.fit(make_loader(torch, ds), epochs=HAPI_EPOCHS, verbose=0,
+                  callbacks=[rec])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        c = kernels.launch_counts()
+        step = model._train_step
+        calls = collective.backend_calls().get("nccl", 0)
+        runs[name] = {
+            "zero_stage": zero, "losses": [float(v) for v in rec.losses],
+            "step_ms": steady_step_ms(rec.events, per_epoch),
+            "captures": step.captures, "capture_ms": step.capture_ms,
+            # a captured step is one graph replay a step; the warm-up ran
+            # each collective once and the capture recorded it once
+            "host_calls_per_step": 1 if step.compiled else None,
+            "nccl_calls": calls,
+            "nccl_calls_per_step": calls / (2 * step.captures)
+            if step.captures else None,
+            "launches": nonzero(c), "fit_s": fit_s,
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "type": type(step).__name__}
+        ends[name] = state_on_host(step)
+        if zero is not None:
+            counts["dist_fit" if zero == 0 else f"dist_fit_zero{zero}"] = c
+            path_launches(f"dist_fit zero {zero}", c, per_step, steps)
+        del model, step
+        torch.cuda.empty_cache()
+    ref = REPORT.get("hapi_fit", {}).get("losses_fit")
+    params = [k for k in ends["bare"] if k.startswith("params/")]
+    for name in runs:
+        if name == "bare":
+            continue
+        keys = None if name == "zero0" else params
+        a = ends["bare"] if keys is None else {k: ends["bare"][k]
+                                               for k in keys}
+        b = ends[name] if keys is None else {k: ends[name][k] for k in keys}
+        runs[name]["leaves_differing_from_bare"] = equal_states(torch, a, b)
+        runs[name]["losses_equal_bare"] = \
+            runs[name]["losses"] == runs["bare"]["losses"]
+        runs[name]["losses_equal_phase10"] = None if ref is None \
+            else runs[name]["losses"] == ref
+        bare_ms = runs["bare"]["step_ms"]
+        runs[name]["step_ms_over_bare"] = runs[name]["step_ms"] / bare_ms \
+            if bare_ms and runs[name]["step_ms"] else None
+    res = {"runs": runs, "steps": steps, "batch": RESUME_BATCH,
+           "seq": RESUME_SEQ, "layers": HAPI_LAYERS, "dtype": "bfloat16",
+           "per_step_launches": per_step, "card": card}
+    log(f"dist fit [{card}]: {json.dumps(res)}")
+    bad = [n for n, r in runs.items() if n != "bare" and (
+        r["leaves_differing_from_bare"] or not r["losses_equal_bare"]
+        or r["captures"] != 1
+        or r["type"] != "ShardedTrainStep" or not r["nccl_calls"])]
+    if bad or len(runs["bare"]["losses"]) != steps:
+        raise AssertionError(f"dist fit: {bad}: {res}")
+    return res, counts
+
+
+def rn_sync(torch, card: str) -> dict:
+    """(b): ResNet-50 with SyncBatchNorm under the world-1 mesh through
+    Model.prepare(mesh=).fit against the plain BatchNorm net's fit on the
+    same batches: losses and every BatchNorm statistic within
+    DIST_RN_TOL, ms a step of each."""
+    from paddle_tpu_torch import kernels, parallel
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.optimizer import Momentum
+    mesh = parallel.create_mesh({"dp": 1})
+    ds = ImageSamples(torch, RN_BATCH * RN_STEPS, RN_HW, SEED + 200)
+    out = {}
+    for name in ("plain", "sync"):
+        net = rn50(torch)
+        if name == "sync":
+            SyncBatchNorm.convert_sync_batchnorm(net)
+        model = Model(net, loss=rn_loss, optimizer=Momentum(0.1, 0.9))
+        if name == "sync":
+            model.prepare(mesh=mesh)
+        rec = hapi_recorder(torch)
+        kernels.reset_launch_counts()
+        model.fit(rn_loader(torch, ds, RN_BATCH), epochs=1,
+                  callbacks=[rec], verbose=0)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        out[name] = {"losses": [float(v) for v in rec.losses],
+                     "step_ms": steady_step_ms(rec.events, RN_STEPS),
+                     "captures": model._train_step.captures,
+                     "counts": c, "launches": nonzero(c),
+                     "buffers": host_copy(dict(net.named_buffers()))}
+        del model, net
+        torch.cuda.empty_cache()
+    errs = {}
+    for n, want in out["plain"]["buffers"].items():
+        got = out["sync"]["buffers"][n].double()
+        want = want.double()
+        errs[n] = float((got - want).abs().max() / want.abs().max()
+                        .clamp(min=1e-30))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        out["sync"]["losses"], out["plain"]["losses"]))
+    res = {"losses_plain": out["plain"]["losses"],
+           "losses_sync": out["sync"]["losses"],
+           "loss_max_rel_err": loss_err,
+           "stat_max_rel_err": max(errs.values()),
+           "stat_worst": max(errs, key=errs.get),
+           "step_ms_plain": out["plain"]["step_ms"],
+           "step_ms_sync": out["sync"]["step_ms"],
+           "captures": [out["plain"]["captures"], out["sync"]["captures"]],
+           "launches": [out["plain"]["launches"], out["sync"]["launches"]],
+           "batch": RN_BATCH, "steps": RN_STEPS, "tol": DIST_RN_TOL,
+           "card": card}
+    log(f"resnet50 sync bn [{card}]: {json.dumps(res)}")
+    res["counts"] = out["sync"]["counts"]
+    if loss_err > DIST_RN_TOL or res["stat_max_rel_err"] > DIST_RN_TOL \
+            or res["captures"] != [1, 1] or any(res["launches"]) \
+            or not all(np.isfinite(out["sync"]["losses"])):
+        raise AssertionError(f"resnet50 sync bn: {res}")
+    return res
+
+
+def plain_attention_reference(torch, q, k, v, g, causal: bool):
+    """out, dq, dk, dv of plain fp32 attention over the whole sequence on
+    the card, a head at a time (scores of one head: T x T)."""
+    outs = [[], [], [], []]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    for h in range(q.shape[1]):
+        qh, kh, vh = (torch.tensor(a[:, h:h + 1], device=DIST_DEVICE)
+                      .requires_grad_(True) for a in (q, k, v))
+        s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+        if causal:
+            t = s.shape[-1]
+            keep = torch.ones(t, t, dtype=torch.bool, device=DIST_DEVICE).tril()
+            s = s.masked_fill(~keep, float("-inf"))
+        o = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), vh)
+        grads = torch.autograd.grad(
+            (o * torch.tensor(g[:, h:h + 1], device=DIST_DEVICE)).sum(),
+            [qh, kh, vh])
+        for lst, t_ in zip(outs, (o,) + tuple(grads)):
+            lst.append(t_.detach().cpu().numpy())
+        del qh, kh, vh, s, o, grads
+    return [np.concatenate(x, axis=1) for x in outs]
+
+
+def dist_ranks(torch, card: str) -> tuple:
+    """(c): the ``chip`` job of paddle_tpu_torch.testing.dist_worker on
+    DIST_WORLD ranks (Gloo, cuda:0) through launch_procs, then the
+    references in this process. Returns (report, counts)."""
+    from paddle_tpu_torch.kernels.flash_attention import backward_route
+    from paddle_tpu_torch.testing import dist_worker as W
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.static import TrainStep
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    inputs = dict(seed=SEED + 300, heads=DIST_HEADS, t=DIST_T,
+                  d=DIST_HEAD_DIM, **DIST_BERT)
+    t0 = time.perf_counter()
+    outs = W.run_job("chip", DIST_DIR, DIST_WORLD,
+                     {k: np.asarray(v) for k, v in inputs.items()},
+                     timeout_s=DIST_JOB_TIMEOUT_S,
+                     env={"PT_WORKER_DEVICE": DIST_DEVICE,
+                          "PT_DIST_BACKEND": "gloo"})
+    job_s = time.perf_counter() - t0
+    res, counts = {"job_s": job_s, "world": DIST_WORLD, "t": DIST_T,
+                   "heads": DIST_HEADS, "head_dim": DIST_HEAD_DIM,
+                   "card": card}, {}
+    q, k, v, g = W.attention_inputs(SEED + 300, 1, DIST_HEADS, DIST_T,
+                                    DIST_HEAD_DIM)
+    tl = DIST_T // DIST_WORLD
+    route = backward_route(tl, tl, DIST_HEAD_DIM)
+    uroute = backward_route(DIST_T, DIST_T, DIST_HEAD_DIM)
+    bad = []
+    for causal in (False, True):
+        ref = plain_attention_reference(torch, q, k, v, g, causal)
+        for kind in ("ring", "ulysses"):
+            tag = f"{kind}/{'causal' if causal else 'full'}"
+            errs = {}
+            for j, name in enumerate(("out", "dq", "dk", "dv")):
+                got = np.concatenate([o[f"{tag}/{name}"] for o in outs],
+                                     axis=2)
+                errs[name] = float(np.abs(got - ref[j]).max()
+                                   / np.abs(ref[j]).max())
+            launches, want = [], []
+            for r, o in enumerate(outs):
+                c = dict(zip(o[f"{tag}/launch_names"].tolist(),
+                             o[f"{tag}/launches"].tolist()))
+                launches.append(nonzero(c))
+                hops = (r + 1 if causal else DIST_WORLD) \
+                    if kind == "ring" else 1
+                bwd = ("flash_attention_bwd_fused",) if (
+                    route if kind == "ring" else uroute) == "fused" \
+                    else ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+                want.append({n: hops for n in ("flash_attention_fwd",)
+                             + bwd})
+                if kind == "ring" and causal and r == DIST_WORLD - 1:
+                    counts["dist_ring"] = c
+                if kind == "ulysses" and causal and r == 0:
+                    counts["dist_ulysses"] = c
+            res[tag] = {"max_rel_err": errs, "launches_by_rank": launches,
+                        "ms_by_rank": [float(o[f"{tag}/ms"]) for o in outs]}
+            if launches != want or errs["out"] > DIST_ATTN_TOL or max(
+                    errs[n] for n in ("dq", "dk", "dv")) > DIST_GRAD_TOL:
+                bad.append((tag, errs, launches, want))
+        del ref
+        torch.cuda.empty_cache()
+    # the BERT runs against one process's TrainStep on the global batch,
+    # under the same flags
+    batch = [torch.tensor(a, device=DIST_DEVICE) for a in W.bert_batch(
+        SEED + 301, DIST_BERT["bert_batch"], DIST_BERT["bert_seq"],
+        DIST_BERT["bert_masked"], 30522)]
+    want = {}
+    for fused in (False, True):
+        model = W.chip_bert(torch, DIST_BERT["bert_layers"], SEED + 300,
+                            DIST_DEVICE)
+        init = {n: p.detach().cpu().numpy().copy()
+                for n, p in model.named_parameters()}
+        step = TrainStep(model, AdamW(DIST_LR, weight_decay=0.01,
+                                      fused_state=False), pretraining_loss)
+        restore = flag_scope(W.FUSED_FLAGS if fused else
+                             {k: False for k in W.FUSED_FLAGS})
+        try:
+            losses = [float(step(*batch[:4], labels=tuple(batch[4:]))[
+                "loss"]) for _ in range(DIST_BERT["bert_steps"])]
+        finally:
+            restore()
+        params = {n: p.detach().cpu().numpy()
+                  for n, p in model.named_parameters()}
+        # what the parameter check reads when the steps change nothing
+        unchanged = max(float(np.abs(params[n] - init[n]).max())
+                        for n in params)
+        want[fused] = losses, params, unchanged
+        del model, step, init
+    for name, _, _, fused in W.CHIP_BERT_RUNS:
+        want_losses, want_params, unchanged = want[fused]
+        total = sum(p.size for p in want_params.values())
+        loss_err = max(float(np.abs(o[f"bert_{name}/loss"]
+                                    - want_losses).max()) / abs(
+            want_losses[0]) for o in outs)
+        errs = {n: max(float(np.abs(o[f"bert_{name}/param/{n}"] - w).max())
+                       for o in outs) for n, w in want_params.items()}
+        worst = max(errs, key=errs.get)
+        shards = [int(o[f"bert_{name}/shard_numel"]) for o in outs]
+        c = dict(zip(outs[0][f"bert_{name}/launch_names"].tolist(),
+                     outs[0][f"bert_{name}/launches"].tolist()))
+        res[f"bert_{name}"] = {
+            "losses": outs[0][f"bert_{name}/loss"].tolist(),
+            "losses_one_process": want_losses,
+            "loss_max_rel_err": loss_err, "param_max_abs_err": errs[worst],
+            "param_worst": worst, "param_bound": DIST_PARAM_TOL,
+            "param_unchanged_reading": unchanged,
+            "shard_numel_by_rank": shards, "params": total,
+            "launches_rank0": nonzero(c),
+            "ms_by_rank": [o[f"bert_{name}/ms"].tolist() for o in outs]}
+        launched = True
+        if fused:
+            counts[f"dist_bert_{name}"] = c
+            # every rank ran the fused head's loss and the Adam kernel
+            launched = all(
+                dict(zip(o[f"bert_{name}/launch_names"].tolist(),
+                         o[f"bert_{name}/launches"].tolist())).get(k, 0) > 0
+                for o in outs for k in PATH_KERNELS[f"dist_bert_{name}"])
+            res[f"bert_{name}"]["path_kernels_on_every_rank"] = launched
+        if loss_err > DIST_LOSS_TOL or errs[worst] > DIST_PARAM_TOL \
+                or unchanged <= DIST_PARAM_TOL or max(shards) >= total \
+                or not launched:
+            bad.append((name, res[f"bert_{name}"]))
+    flagged = [o["straggler/flagged"].tolist() for o in outs]
+    res["straggler"] = {"flagged_by_rank": flagged,
+                        "slowed": W.STRAGGLER_RANK}
+    if flagged != [[W.STRAGGLER_RANK]] * DIST_WORLD:
+        bad.append(("straggler", flagged))
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    log(f"dist ranks [{card}]: {json.dumps(res)}")
+    if bad:
+        raise AssertionError(f"dist ranks: {bad}")
+    return res, counts
+
+
+def run_distributed(torch) -> tuple:
+    """Phase 13. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    restore = flag_scope(FUSED_FLAGS)
+    try:
+        t0 = time.perf_counter()
+        report["dist_fit"], c = dist_fit(torch, card)
+        counts.update(c)
+        report["dist_fit_s"] = time.perf_counter() - t0
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["rn_sync"] = rn_sync(torch, card)
+    counts["rn_sync_fit"] = report["rn_sync"].pop("counts")
+    report["rn_sync_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    report["dist_ranks"], c = dist_ranks(torch, card)
+    counts.update(c)
+    report["dist_ranks_s"] = time.perf_counter() - t0
+    report["dist_phase_s"] = time.perf_counter() - t_phase
+    import torch.distributed as dist
+    dist.destroy_process_group()  # (a)'s world-1 NCCL group
+    log(f"distributed phase: {report['dist_phase_s']:.1f} s [{card}]")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path; ``launches_by_path`` gives every path's."""
@@ -7888,9 +8313,12 @@ def main() -> int:
     mt, mt_counts = run_mt(torch)
     torch.cuda.empty_cache()
     rn, rn_counts = run_resnet(torch)
+    torch.cuda.empty_cache()
+    REPORT["hapi_fit"] = hapi["hapi_fit"]  # phase 13 (a) reads its losses
+    dist, dist_counts = run_distributed(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
-                  **hapi_counts, **mt_counts, **rn_counts,
+                  **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
                   flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
@@ -7899,7 +8327,7 @@ def main() -> int:
                   pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
-                  **predictor, **hapi, **mt, **rn)
+                  **predictor, **hapi, **mt, **rn, **dist)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)

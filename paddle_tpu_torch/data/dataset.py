@@ -17,10 +17,10 @@ v...`` per slot (the MultiSlot format ``data_generator`` writes).
 ``InMemoryDataset.local_shuffle(seed)`` permutes the loaded records with
 the feed's ``std::mt19937_64``, so the JAX package's feed over the same
 files gives the same order (with one reader thread, or one file: several
-threads load several files in the order they finish). Not ported:
-``global_shuffle``, which exchanges record ranges through the control
-plane's ``ControlPlaneClient`` (it raises NotImplementedError; ROADMAP
-A15), and the static ``Executor.train_from_dataset`` (A17).
+threads load several files in the order they finish);
+``global_shuffle`` exchanges record ranges between workers through the
+control plane's ``native.ControlPlaneClient``. Not ported: the static
+``Executor.train_from_dataset`` (A17).
 """
 
 from __future__ import annotations
@@ -152,15 +152,36 @@ class InMemoryDataset(DatasetBase):
         self._shuffle_round += 1
         self._feed_or_make().local_shuffle(seed)
 
-    def global_shuffle(self, client=None, rank: int = 0, world: int = 1,
+    def global_shuffle(self, client, rank: int, world: int,
                        timeout_ms: int = 120000) -> int:
-        """Not ported: the exchange of record ranges between workers goes
-        through the control plane's ``ControlPlaneClient``, which comes
-        with the distributed package (ROADMAP A15)."""
-        raise NotImplementedError(
-            "InMemoryDataset.global_shuffle needs the control plane's "
-            "ControlPlaneClient, not ported yet (ROADMAP A15); "
-            "local_shuffle(seed) shuffles one worker's records")
+        """Shuffles the records across ``world`` workers through the
+        control plane (``native.ControlPlaneClient``), as the JAX package
+        does: every worker local-shuffles (seed ``round * 1000003 + 17``),
+        splits its records into ``world`` contiguous chunks, publishes
+        chunk d under ``gshuf/<round>/<rank>-><d>``, meets the others at a
+        barrier, rebuilds its memory from every chunk sent to it (in
+        source order), meets them again, and local-shuffles (seed ``round *
+        7919 + rank``). Returns the new local record count. The same seeds
+        and files give each rank the JAX package's record set."""
+        feed = self._feed_or_make()
+        rnd = self._shuffle_round
+        self._shuffle_round += 1
+        feed.local_shuffle(rnd * 1000003 + 17)
+        n = feed.memory_size()
+        bounds = [int(round(i * n / world)) for i in range(world + 1)]
+        for dst in range(world):
+            blob = feed.serialize_range(bounds[dst], bounds[dst + 1])
+            client.set(f"gshuf/{rnd}/{rank}->{dst}", blob)
+        client.barrier(f"gshuf/{rnd}/posted", world, timeout_ms)
+        feed.clear_memory()
+        total = 0
+        for src in range(world):
+            blob = client.get(f"gshuf/{rnd}/{src}->{rank}", block=True,
+                              timeout_ms=timeout_ms)
+            total += feed.deserialize_append(blob)
+        client.barrier(f"gshuf/{rnd}/done", world, timeout_ms)
+        feed.local_shuffle(rnd * 7919 + rank)
+        return total
 
     def release_memory(self) -> None:
         self._feed_or_make().clear_memory()

@@ -8,8 +8,8 @@ attention routing and train-step flags of BERT pretraining, and those
 of the checkpoints and the input pipeline, of observability and fault
 injection, and of the core: devices, the staging arena, the transformer
 layers), with the names and defaults of ``paddle_tpu.flags``: every
-JAX flag but four whose readers are not ported yet (``check_nan_inf``,
-``matmul_precision``, ``compile_cache_dir``, ``straggler_factor``). The JAX package's TPU-routing switches
+JAX flag but three whose readers are not ported yet (``check_nan_inf``,
+``matmul_precision``, ``compile_cache_dir``). The JAX package's TPU-routing switches
 (``use_pallas_kernels``, ``use_pallas_layer_norm``, ``flash_block_q``/
 ``_k``, ``use_fast_rng``) are accepted and read by nothing: the port
 routes by the tensor's device and takes no fallback flag.
@@ -488,6 +488,15 @@ define_flag("anomaly_spike_factor", 10.0,
             "anomalies_total and logged to events.jsonl under "
             "FLAGS_trace_dir. NaN/Inf are always flagged. 0 disables "
             "spike detection (NaN/Inf detection stays on).")
+define_flag("straggler_factor", 0.0,
+            "Multi-host straggler threshold: during a sharded fit, "
+            "per-rank step wall times are all-gathered over the data "
+            "axis every few steps (observability.goodput."
+            "StragglerDetector, outside the captured step) and a rank "
+            "whose step time exceeds this factor times the fleet median "
+            "increments straggler_events_total{host=} and logs a "
+            "flight-recorder event. 0 (default) disables the exchange "
+            "entirely; 1.5 is a reasonable production starting point.")
 define_flag("divergence_streak", 5,
             "Consecutive anomalous loss samples (NaN/Inf or EWMA spike "
             "per FLAGS_anomaly_spike_factor) before the divergence "

@@ -33,9 +33,12 @@ Where the port differs from the JAX package, and why:
   ``jax.effects_barrier()``, so stale probes cannot re-trip the
   watchdog after the restore.
 
-Not ported: ``prepare(mesh=...)`` (the sharded step and the straggler
-detector come with the mesh package; it raises NotImplementedError) and
-the compile-cache flag (the port has no compile cache).
+``prepare(mesh=...)`` routes ``fit`` to ``parallel.ShardedTrainStep``
+over the mesh (its options pass through), every rank called with the
+global batch, and with metrics on ``fit`` runs the straggler detector
+(``observability.goodput.StragglerDetector``) over the data axis when it
+has more than one rank. Not ported: the compile-cache flag (the port has
+no compile cache).
 """
 
 from __future__ import annotations
@@ -259,14 +262,17 @@ class Model:
         self._fitting = False
         self._amp_dtype = None
         self._scaler = None
+        self._mesh = None
+        self._mesh_kwargs: Dict = {}
 
     def prepare(self, optimizer: Optional[Optimizer] = None,
                 loss: Optional[Callable] = None,
                 metrics: Optional[Sequence[Metric]] = None,
                 mesh=None, **mesh_kwargs) -> "Model":
-        """Sets the optimizer, the loss and the metrics. ``mesh=`` (and
-        its options) raise NotImplementedError: the sharded step comes
-        with the mesh package."""
+        """Sets the optimizer, the loss and the metrics. With ``mesh=``
+        fit trains distributed: a ``parallel.ShardedTrainStep`` over the
+        mesh, the other keywords (``batch_spec``, ``param_rule``,
+        ``zero_stage``, ``dp_axis``, ``seed``) passed through to it."""
         allowed = {"batch_spec", "param_rule", "zero_stage", "dp_axis",
                    "seed"}
         unknown = set(mesh_kwargs) - allowed
@@ -276,10 +282,9 @@ class Model:
                 f"{sorted(unknown or mesh_kwargs)}; mesh options "
                 f"({sorted(allowed)}) require mesh=")
         if mesh is not None:
-            raise NotImplementedError(
-                "prepare(mesh=...): the sharded train step "
-                "(ShardedTrainStep) and the straggler detector are not "
-                "ported yet (ROADMAP A15)")
+            self._mesh = mesh
+            self._mesh_kwargs = dict(mesh_kwargs)
+            self._train_step = None
         if optimizer is not None:
             self._optimizer = optimizer
         if loss is not None:
@@ -328,10 +333,17 @@ class Model:
                     # ops.metrics_ops, no host value
                     from .ops.metrics_ops import accuracy as acc_fn
                     extra["acc"] = (lambda out, *ls: acc_fn(out, ls[0]))
-            self._train_step = TrainStep(
-                self.network, self._optimizer, loss_call,
-                extra_metrics=extra, amp_dtype=self._amp_dtype,
-                scaler=self._scaler)
+            if self._mesh is not None:
+                from .parallel import ShardedTrainStep
+                self._train_step = ShardedTrainStep(
+                    self.network, self._optimizer, loss_call, self._mesh,
+                    extra_metrics=extra, amp_dtype=self._amp_dtype,
+                    scaler=self._scaler, **self._mesh_kwargs)
+            else:
+                self._train_step = TrainStep(
+                    self.network, self._optimizer, loss_call,
+                    extra_metrics=extra, amp_dtype=self._amp_dtype,
+                    scaler=self._scaler)
             self._step_storage = self._storage()
         return self._train_step
 
@@ -443,7 +455,13 @@ class Model:
                     resume_step = int(at or 0)
                     _obs.flight.record("fit_resume", force=True,
                                        step=resume_step)
-            # the straggler detector needs a mesh (ROADMAP A15)
+            straggler = None
+            if _obs.enabled():
+                mesh = getattr(step, "mesh", None)
+                axis = getattr(step, "axis", "dp")
+                if mesh is not None and axis in mesh.shape \
+                        and mesh.shape[axis] > 1:
+                    straggler = _obs.goodput.StragglerDetector(mesh, axis)
             if ckptr is not None and _obs.enabled() \
                     and int(GLOBAL_FLAGS.get("rollback_budget")) > 0:
                 # fed by the loss probes the step already hands to the
@@ -564,6 +582,8 @@ class Model:
                                     cache_before), compile_dt)
                         ledger.attribute("step_compute", dt - compile_dt)
                         _obs.flight.record("step", epoch=epoch, step=i)
+                        if straggler is not None:
+                            straggler.observe(global_step, dt)
                         step_hist.observe(dt)
                         items = int(label.shape[0]) \
                             if getattr(label, "ndim", 0) else 1

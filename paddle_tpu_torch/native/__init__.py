@@ -5,10 +5,14 @@ the file-driven data path need: the loader, :class:`ServingTransport`
 (the TCP front of ``inference.Server``: sockets, framing, the bounded
 request queue), the monitor counters (``stat_add``/``stat_get``/
 ``stat_reset``/``stat_dump``), whose ``serving.*`` lines ride the STATS
-reply, and :class:`SlotSpec`/:class:`NativeDataFeed` (``csrc/data_feed.cc``:
+reply, :class:`SlotSpec`/:class:`NativeDataFeed` (``csrc/data_feed.cc``:
 reader threads parse MultiSlot files into records, which stream into
 batches or load into memory for a seeded local shuffle; the records of a
-range serialise for an exchange), under ``data.dataset``.
+range serialise for an exchange), under ``data.dataset``, and the job's
+control plane (``csrc/control_plane.cc``): :class:`ControlPlaneServer`, a
+key/value and barrier server that ``distributed.launch`` runs for rank 0's
+job, and :class:`ControlPlaneClient`, which the ranks reach it with
+(``InMemoryDataset.global_shuffle`` exchanges records through it).
 
 The library compiles from the repository's ``csrc/*.cc`` with ``g++``
 (the JAX package's command) at first use into
@@ -37,7 +41,7 @@ import numpy as np
 
 __all__ = ["build", "loaded", "ServingTransport", "stat_add",
            "stat_get", "stat_reset", "stat_dump", "SlotSpec",
-           "NativeDataFeed"]
+           "NativeDataFeed", "ControlPlaneServer", "ControlPlaneClient"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG.parent / "csrc"
@@ -133,6 +137,22 @@ _SIGS = {
     "pt_df_next": ([ctypes.c_int64, ctypes.POINTER(ctypes.c_void_p),
                     ctypes.POINTER(ctypes.c_void_p),
                     ctypes.POINTER(ctypes.c_void_p)], ctypes.c_int),
+    "pt_cp_server_start": ([ctypes.c_int], ctypes.c_int64),
+    "pt_cp_server_port": ([ctypes.c_int64], ctypes.c_int),
+    "pt_cp_server_stop": ([ctypes.c_int64], None),
+    "pt_cp_client_connect": ([ctypes.c_char_p, ctypes.c_int, ctypes.c_int],
+                             ctypes.c_int64),
+    "pt_cp_client_close": ([ctypes.c_int64], None),
+    "pt_cp_set": ([ctypes.c_int64, ctypes.c_char_p,
+                   ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64],
+                  ctypes.c_int),
+    "pt_cp_get": ([ctypes.c_int64, ctypes.c_char_p,
+                   ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int], ctypes.c_int64),
+    "pt_cp_add": ([ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64],
+                  ctypes.c_int64),
+    "pt_cp_barrier": ([ctypes.c_int64, ctypes.c_char_p, ctypes.c_int,
+                       ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -406,3 +426,96 @@ class NativeDataFeed:
         if getattr(self, "_h", -1) > 0 and _lib is not None:
             _lib.pt_df_destroy(self._h)
             self._h = -1
+
+
+# ---------------------------------------------------------------------------
+# the control plane
+# ---------------------------------------------------------------------------
+
+class ControlPlaneServer:
+    """Key/value and barrier server (``csrc/control_plane.cc``); one per
+    job, on an ephemeral port unless ``port`` is given."""
+
+    def __init__(self, port: int = 0) -> None:
+        lib = _load()
+        self._h = lib.pt_cp_server_start(port)
+        if self._h < 0:
+            raise RuntimeError(f"control-plane server failed on port {port}")
+        self.port = lib.pt_cp_server_port(self._h)
+
+    def stop(self) -> None:
+        if getattr(self, "_h", -1) > 0:
+            _load().pt_cp_server_stop(self._h)
+            self._h = -1
+
+    def __enter__(self) -> "ControlPlaneServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def __del__(self) -> None:
+        if getattr(self, "_h", -1) > 0 and _lib is not None:
+            _lib.pt_cp_server_stop(self._h)
+
+
+class ControlPlaneClient:
+    """A client of the control plane; safe from several threads. ``set``
+    and ``get`` move bytes under a key (``get`` may block until the key
+    appears), ``add`` is an atomic counter, ``barrier`` waits for
+    ``world`` arrivals under a name."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 timeout_ms: int = 30000) -> None:
+        lib = _load()
+        self._h = lib.pt_cp_client_connect(host.encode(), port, timeout_ms)
+        if self._h < 0:
+            raise RuntimeError(
+                f"connect to control plane {host}:{port} failed")
+
+    def set(self, key: str, value: bytes) -> None:
+        buf = (ctypes.c_uint8 * len(value)).from_buffer_copy(value)
+        rc = _load().pt_cp_set(self._h, key.encode(), buf, len(value))
+        if rc != 0:
+            raise RuntimeError(f"control-plane set({key!r}) failed")
+
+    def get(self, key: str, block: bool = True, timeout_ms: int = 30000,
+            max_size: int = 1 << 20) -> bytes:
+        buf = (ctypes.c_uint8 * max_size)()
+        n = _load().pt_cp_get(self._h, key.encode(), buf, max_size,
+                              1 if block else 0, timeout_ms)
+        if n == -3:  # the buffer is too small: grow and ask again
+            return self.get(key, block, timeout_ms, max_size * 16)
+        if n == -2:
+            raise TimeoutError(
+                f"control-plane get({key!r}) timed out after {timeout_ms}ms")
+        if n == -1:
+            raise KeyError(key)
+        if n < 0:
+            raise RuntimeError(f"control-plane get({key!r}) transport error")
+        return bytes(buf[:n])
+
+    def add(self, key: str, delta: int = 1) -> int:
+        v = _load().pt_cp_add(self._h, key.encode(), delta)
+        if v == -(2 ** 63):
+            raise RuntimeError(f"control-plane add({key!r}) failed")
+        return v
+
+    def barrier(self, name: str, world: int,
+                timeout_ms: int = 60000) -> None:
+        rc = _load().pt_cp_barrier(self._h, name.encode(), world,
+                                   timeout_ms)
+        if rc != 0:
+            raise TimeoutError(f"barrier {name!r} timed out "
+                               f"(world={world})")
+
+    def close(self) -> None:
+        if getattr(self, "_h", -1) > 0:
+            _load().pt_cp_client_close(self._h)
+            self._h = -1
+
+    def __enter__(self) -> "ControlPlaneClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -18,9 +18,20 @@ Inside :func:`frozen_statistics` the forward writes nothing: a
 rematerialised block's recompute (``models.resnet``) runs its
 BatchNorms a second time, and the statistics must move once a step.
 
-``SyncBatchNorm`` (statistics reduced over the data-parallel group)
-comes with the distributed package (ROADMAP A15): it raises
-NotImplementedError.
+``SyncBatchNorm`` (and any BatchNorm given ``sync_axis``, as
+``convert_sync_batchnorm`` sets it) reduces its batch statistics over the
+process group of that mesh axis (``parallel.collective``), in this
+module's arithmetic (``ops.nn_functional.batch_norm`` with a group: one
+all-reduce of the sum and the square norm under
+``batch_norm_single_pass``, two of the sum and the centred square sum
+without it), the gradient crossing the reduction; the running variance
+moves by the biased batch variance, as the JAX ``sync_batch_norm`` moves
+it. Without a process group it is the plain BatchNorm. Inside
+``parallel.ShardedTrainStep`` a plain BatchNorm normalises over the
+GLOBAL batch too (:func:`global_batch`, set by the step around its
+forward when the batch is split over more than one rank), because the
+JAX step runs it in one program over the whole batch; its running
+variance keeps the plain unbiased update, with n the global count.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ from . import initializer as I
 from .layer import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm", "frozen_statistics"]
+           "SyncBatchNorm", "frozen_statistics", "global_batch"]
 
 
 class _Frozen(threading.local):
@@ -46,6 +57,26 @@ class _Frozen(threading.local):
 
 
 _frozen = _Frozen()
+
+
+class _Global(threading.local):
+    def __init__(self) -> None:
+        self.group = None
+
+
+_global = _Global()
+
+
+@contextlib.contextmanager
+def global_batch(group) -> Iterator[None]:
+    """BatchNorm forwards inside (on this thread) reduce their training
+    statistics over ``group`` (a process group): the batch is split over
+    its ranks (``parallel.ShardedTrainStep``)."""
+    prev, _global.group = _global.group, group
+    try:
+        yield
+    finally:
+        _global.group = prev
 
 
 @contextlib.contextmanager
@@ -64,9 +95,10 @@ class _BatchNormBase(Layer):
                  epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
                  data_format: str = "NCHW",
                  use_global_stats: Optional[bool] = None,
-                 device=None) -> None:
+                 sync_axis: Optional[str] = None, device=None) -> None:
         super().__init__()
         device = resolve_device(device)
+        self.sync_axis = sync_axis
         self.num_features = num_features
         self.momentum = momentum
         self.epsilon = epsilon
@@ -83,9 +115,17 @@ class _BatchNormBase(Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         training = self.training and self.use_global_stats is not True
+        group = None
+        if training and self.sync_axis is not None:
+            from ..parallel import collective
+            group = collective.resolve(self.sync_axis)
+        elif training:
+            group = _global.group
         out, new_mean, new_var = F.batch_norm(
             x, self._mean, self._variance, self.weight, self.bias,
-            training, self.momentum, self.epsilon, self.data_format)
+            training, self.momentum, self.epsilon, self.data_format,
+            group=group, biased_running_var=group is not None
+            and self.sync_axis is not None)
         if training and not _frozen.depth:
             with torch.no_grad():
                 self._mean.copy_(new_mean)
@@ -114,17 +154,18 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Statistics reduced over the data-parallel group: not ported yet
-    (ROADMAP A15, with the distributed package)."""
+    """BatchNorm whose statistics are reduced over the mesh axis
+    ``sync_axis`` (the reference's ``sync_batch_norm_op``)."""
 
-    def __init__(self, num_features: int, *args, **kw) -> None:
-        raise NotImplementedError(
-            "SyncBatchNorm reduces its statistics over the data-parallel "
-            "group, which comes with the distributed package (ROADMAP "
-            "A15); use BatchNorm2D on one card")
+    def __init__(self, num_features: int, sync_axis: str = "dp",
+                 **kw) -> None:
+        super().__init__(num_features, sync_axis=sync_axis, **kw)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer, sync_axis: str = "dp"):
-        raise NotImplementedError(
-            "SyncBatchNorm.convert_sync_batchnorm: SyncBatchNorm comes "
-            "with the distributed package (ROADMAP A15)")
+        """Sets ``sync_axis`` on every BatchNorm of ``layer`` (itself
+        included), in place; returns ``layer``."""
+        for sub in layer.modules():
+            if isinstance(sub, _BatchNormBase):
+                sub.sync_axis = sync_axis
+        return layer

@@ -26,9 +26,14 @@ an eval pass is charged to ``checkpoint`` only). Published as
 ``goodput_ratio``, ``goodput_wall_seconds``, ``goodput_seconds_total``
 and ``badput_seconds_total{bucket=}``, served live at ``/goodput``.
 
-:func:`flag_stragglers` is the pure straggler policy; the JAX
-``StragglerDetector`` (a step-time all-gather over a mesh) comes with the
-port's multi-host tier.
+:func:`flag_stragglers` is the pure straggler policy;
+:class:`StragglerDetector` feeds it: every ``interval`` steps each rank's
+latest step time is all-gathered over a mesh axis (``dp``), outside any
+captured graph, and a rank whose time exceeds FLAGS_straggler_factor x the
+median is counted in ``straggler_events_total{host=}`` and recorded in the
+flight recorder. The JAX detector hands the gathered vector back through
+an asynchronous ``jax.debug.callback``; here the gather is a small
+synchronous collective on the host's schedule (every ``interval`` steps).
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ from . import recompile as _recompile
 
 __all__ = ["BUCKETS", "GOODPUT_BUCKET", "GoodputLedger", "ledger",
            "compile_seconds_total", "compile_cache_stats",
-           "classify_compile_bucket", "flag_stragglers"]
+           "classify_compile_bucket", "flag_stragglers",
+           "StragglerDetector"]
 
 GOODPUT_BUCKET = "step_compute"
 BUCKETS = (GOODPUT_BUCKET, "jit_compile_cold", "jit_compile_cache_hit",
@@ -282,3 +288,71 @@ def flag_stragglers(times, factor: float) -> List[int]:
     if med <= 0:
         return []
     return [int(i) for i in np.nonzero(t > factor * med)[0]]
+
+
+def _straggler_factor() -> float:
+    from ..flags import GLOBAL_FLAGS
+    return float(GLOBAL_FLAGS.get("straggler_factor"))
+
+
+class StragglerDetector:
+    """Per-rank step-time exchange and flagging over a mesh axis.
+
+    ``observe(step_idx, dt)`` feeds this rank's step wall time; every
+    ``interval`` steps (and only with FLAGS_straggler_factor > 0 and more
+    than one rank on ``axis``) the ranks all-gather their latest times and
+    :meth:`on_fleet` flags the slow ones. Every rank of the axis must call
+    ``observe`` with the same step indices (the gather is a collective)."""
+
+    def __init__(self, mesh, axis: str = "dp", interval: int = 16) -> None:
+        self.mesh = mesh
+        self.axis = axis
+        self.interval = max(1, int(interval))
+        self._n = int(mesh.shape[axis]) if mesh is not None \
+            and axis in mesh.shape else 1
+        self._lock = threading.Lock()
+        self._last_processed = -1
+
+    def observe(self, step_idx: int, dt_s: float) -> None:
+        """Feeds one local step time; exchanges every ``interval``
+        steps."""
+        if self._n < 2 or _straggler_factor() <= 0:
+            return
+        if (step_idx + 1) % self.interval:
+            return
+        import torch
+
+        from ..parallel import collective, env
+        group = self.mesh.group(self.axis)
+        if group is None:
+            return
+        dev = "cuda" if env.backend() == "nccl" else "cpu"
+        mine = torch.tensor([float(dt_s)], dtype=torch.float64, device=dev)
+        times = collective._gather_raw(mine, 0, group)
+        self.on_fleet(times.cpu().numpy(), step_idx)
+
+    def on_fleet(self, times, step_idx) -> None:
+        """Flags the stragglers of one fleet vector (public, so tests and
+        host-driven loops can drive it directly); each step is processed
+        once."""
+        step = int(step_idx)
+        with self._lock:
+            if step <= self._last_processed:
+                return
+            self._last_processed = step
+        t = np.asarray(times, dtype=np.float64).reshape(-1)
+        factor = _straggler_factor()
+        flagged = flag_stragglers(t, factor)
+        if not flagged:
+            return
+        med = float(np.median(t))
+        c = _metrics.counter(
+            "straggler_events_total",
+            "hosts whose step time exceeded FLAGS_straggler_factor x "
+            "the fleet median")
+        for host in flagged:
+            c.inc(host=host)
+            _flight.record("straggler", host=host, step=step,
+                           step_seconds=round(float(t[host]), 6),
+                           fleet_median_seconds=round(med, 6),
+                           factor=factor)

@@ -44,7 +44,7 @@ import torch.nn.functional as tF
 from ..flags import GLOBAL_FLAGS
 
 __all__ = ["conv2d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
-           "batch_norm"]
+           "batch_norm", "sync_batch_norm"]
 
 IntOrPair = Union[int, Sequence[int]]
 _LOW = (torch.bfloat16, torch.float16)
@@ -221,16 +221,22 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
                weight: Optional[torch.Tensor] = None,
                bias: Optional[torch.Tensor] = None, training: bool = False,
                momentum: float = 0.9, epsilon: float = 1e-5,
-               data_format: str = "NCHW") -> tuple:
+               data_format: str = "NCHW", group=None,
+               biased_running_var: bool = False) -> tuple:
     """``(out, new_running_mean, new_running_var)``; the running
     statistics move as ``new = momentum * old + (1 - momentum) * batch``
     (the opposite of torch's ``momentum``), the variance's with the
-    unbiased ``var * n / max(n - 1, 1)``. Training mode normalises by the
-    batch statistics, single-pass under ``batch_norm_single_pass`` (see
-    the flag: ``E[x^2]`` as the fp32-accumulated square norm over ``n``,
-    so no fp32 copy of ``x`` is made or kept); eval mode by the running
-    ones. The new statistics carry no
-    gradient."""
+    unbiased ``var * n / max(n - 1, 1)`` (the biased ``var`` with
+    ``biased_running_var``, as the JAX ``sync_batch_norm`` moves it).
+    Training mode normalises by the batch statistics, single-pass under
+    ``batch_norm_single_pass`` (see the flag: ``E[x^2]`` as the
+    fp32-accumulated square norm over ``n``, so no fp32 copy of ``x`` is
+    made or kept); eval mode by the running ones. With ``group`` (a
+    process group) the batch is split over its ranks and the statistics
+    are the whole batch's: the sums are all-reduced over the group
+    (``parallel.collective``, the gradient crossing it; one all-reduce
+    single-pass, two otherwise) and ``n`` is the whole batch's count. The
+    new statistics carry no gradient."""
     if data_format in ("NCHW", "NCL", "NCDHW"):
         dims = (0,) + tuple(range(2, x.ndim))
         shape = (1, -1) + (1,) * (x.ndim - 2)
@@ -241,31 +247,43 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
         channels = x.shape[-1]
     if training:
         n = x.numel() // channels
+        if group is not None:
+            from ..parallel import collective
+            n *= collective.world_size(group)
+
+        def total(t: torch.Tensor) -> torch.Tensor:
+            """The sum over the whole batch of this rank's sum ``t``."""
+            return t if group is None \
+                else collective.all_reduce(t, "sum", group)
+
         if GLOBAL_FLAGS.get("batch_norm_single_pass"):
             # fp32 accumulation without an fp32 copy of x (autograd keeps
             # x alone): the sum of squares as the square of the norm
             # (a wider x is cast down first, as JAX's astype(float32))
             xs = x if x.dtype in (torch.float32,) + _LOW else x.float()
-            mean32 = xs.mean(dims, dtype=torch.float32)
-            mean_sq = torch.square(torch.linalg.vector_norm(
-                xs, 2, dims, dtype=torch.float32)) / n
-            var32 = torch.clamp(mean_sq - mean32 * mean32, min=0.0)
+            sums = total(torch.stack([
+                xs.sum(dims, dtype=torch.float32),
+                torch.square(torch.linalg.vector_norm(
+                    xs, 2, dims, dtype=torch.float32))])) / n
+            mean32 = sums[0]
+            var32 = torch.clamp(sums[1] - mean32 * mean32, min=0.0)
             mean, var = mean32.to(x.dtype), var32.to(x.dtype)
         else:
             # jnp.mean / jnp.var: low precision computes in fp32, the
             # variance about the fp32 mean
             xf = x.float() if x.dtype in _LOW else x
-            mean32 = xf.mean(dims)
+            mean32 = total(xf.sum(dims)) / n
             centred = xf - mean32.reshape(shape)
             mean = mean32.to(x.dtype)
-            var = (centred * centred).mean(dims).to(x.dtype)
+            var = (total((centred * centred).sum(dims)) / n).to(x.dtype)
         with torch.no_grad():
             m_d, v_d = mean.detach(), var.detach()
-            unbiased = v_d * _weak(n, v_d) / _weak(max(n - 1, 1), v_d)
+            run = v_d if biased_running_var \
+                else v_d * _weak(n, v_d) / _weak(max(n - 1, 1), v_d)
             new_mean = momentum * running_mean \
                 + _weak(1 - momentum, m_d) * m_d
             new_var = momentum * running_var \
-                + _weak(1 - momentum, unbiased) * unbiased
+                + _weak(1 - momentum, run) * run
     else:
         mean, var = running_mean, running_var
         new_mean, new_var = running_mean, running_var
@@ -276,3 +294,20 @@ def batch_norm(x: torch.Tensor, running_mean: torch.Tensor,
     if bias is not None:
         out = out + bias.reshape(shape)
     return out, new_mean, new_var
+
+
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    training: bool = False, momentum: float = 0.9,
+                    epsilon: float = 1e-5, data_format: str = "NCHW",
+                    axis_name: Optional[str] = None) -> tuple:
+    """The JAX ``sync_batch_norm``: batch statistics reduced over the mesh
+    axis ``axis_name``'s process group, with the biased running variance;
+    :func:`batch_norm` when not training, without an axis or outside a
+    process group."""
+    group = None
+    if training and axis_name is not None:
+        from ..parallel import collective
+        group = collective.resolve(axis_name)
+    return batch_norm(x, running_mean, running_var, weight, bias, training,
+                      momentum, epsilon, data_format, group=group,
+                      biased_running_var=group is not None)

@@ -465,6 +465,9 @@ class Router:
       deadline failures retry on another within the retry budget.
     * PTST: the failover state machine (``_serve_stream``)."""
 
+    # the bound on stop()'s join of the stream threads, seconds
+    STOP_JOIN_S = 5.0
+
     def __init__(self, backends: Seq,
                  host: str = "127.0.0.1", port: int = 0,
                  pool: Optional[BackendPool] = None,
@@ -482,6 +485,7 @@ class Router:
         self._lock = threading.Lock()
         self._conns: set = set()          # guarded-by: self._lock
         self._streams_active = 0          # guarded-by: self._lock
+        self._stream_threads: set = set()  # guarded-by: self._lock
         # guarded-by: self._lock
         self._counts = {"failovers": 0, "retries": 0, "shed": 0,
                         "streams": 0, "proxied": 0}
@@ -542,6 +546,15 @@ class Router:
         t, self._accept_thread = self._accept_thread, None
         if t is not None:
             t.join(timeout=5.0)
+        # a stream sends its end frame before its finally lowers
+        # router_streams_active: join the stream threads (their
+        # connections are closed above, so each ends at its next write),
+        # so that the gauge reads 0 once stop() returns
+        with self._lock:
+            streams, self._stream_threads = self._stream_threads, set()
+        deadline = time.monotonic() + self.STOP_JOIN_S
+        for st in streams:
+            st.join(timeout=max(0.0, deadline - time.monotonic()))
         _ROUTERS.discard(self)
 
     def __enter__(self) -> "Router":
@@ -710,12 +723,18 @@ class Router:
                 self._reply(conn, wlock, tag, -1,
                             f"router: bad generate body: {e}".encode())
                 return
-            threading.Thread(
+            t = threading.Thread(
                 target=self._serve_stream,
                 args=(conn, wlock, tag, trace_id, prompt, int(max_new),
                       None if eos_raw == _EOS_NONE else int(eos_raw),
                       float(temp), int(seed), base_offset, tenant_cls),
-                name="router-stream", daemon=True).start()
+                name="router-stream", daemon=True)
+            with self._lock:
+                # stop() joins what is left of these
+                self._stream_threads = {
+                    s for s in self._stream_threads if s.is_alive()}
+                self._stream_threads.add(t)
+            t.start()
         else:
             self._reply(conn, wlock, tag, -4,
                         f"unknown magic 0x{magic:08x}".encode())

@@ -40,9 +40,9 @@ jax_clip = importlib.import_module("paddle_tpu.clip")
 ROOT = Path(__file__).resolve().parent.parent
 
 # the JAX flags the port defines when their readers come (ROADMAP A);
-# the ResNet path's three came with it
-WAITING_FLAGS = {"check_nan_inf", "matmul_precision", "compile_cache_dir",
-                 "straggler_factor"}
+# the ResNet path's three came with it, straggler_factor with the
+# straggler detector
+WAITING_FLAGS = {"check_nan_inf", "matmul_precision", "compile_cache_dir"}
 
 
 def test_flag_registry_is_the_jax_one_but_seven():

@@ -163,9 +163,24 @@ def test_round_trip_fails_alike_with_a_sparse_slot_before_a_dense_one(files):
 
 
 def test_global_shuffle_names_what_it_waits_for(files):
-    ds = _make(pdata, "InMemoryDataset", files["port"])
-    with pytest.raises(NotImplementedError, match="A15"):
-        ds.global_shuffle()
+    # one worker through each package's control plane: the JAX records in
+    # the JAX order (several workers: tests/test_torch_launch.py)
+    from paddle_tpu import native as jnative
+    from paddle_tpu_torch import native as pnative
+    got = {}
+    for name, mod, nat in (("jax", jdata, jnative), ("port", pdata,
+                                                     pnative)):
+        kw = dict(slots=DENSE_FIRST)
+        ds = _make(mod, "InMemoryDataset", files[name + "_dense_first"],
+                   **kw)
+        ds.load_into_memory()
+        with nat.ControlPlaneServer() as srv, \
+                nat.ControlPlaneClient(port=srv.port) as cli:
+            assert ds.global_shuffle(cli, 0, 1) == 2 * N_LINES
+        got[name] = list(ds)
+    _equal_batches(got["port"], got["jax"])
+    with pytest.raises(TypeError):
+        _make(pdata, "InMemoryDataset", files["port"]).global_shuffle()
     with pytest.raises(ValueError, match="unknown dataset class"):
         pdata.DatasetFactory().create_dataset("Nope")
     assert os.path.exists(files["port"][0])

@@ -238,8 +238,11 @@ def test_prepare_refuses_a_mesh_and_unknown_kwargs():
         m.prepare(optimzer=Adam())  # a typo must not be eaten
     with pytest.raises(TypeError):
         m.prepare(zero_stage=1)  # a mesh option without a mesh
-    with pytest.raises(NotImplementedError, match="A15"):
-        m.prepare(mesh=object(), dp_axis="dp")
+    # a mesh and its options are taken, as the JAX Model takes them (the
+    # sharded fit: tests/test_torch_parallel.py)
+    mesh = object()
+    assert m.prepare(mesh=mesh, dp_axis="dp") is m
+    assert (m._mesh, m._mesh_kwargs) == (mesh, {"dp_axis": "dp"})
 
 
 def test_fit_amp_options():

@@ -524,8 +524,18 @@ def test_batch_norm_layers_and_flags():
     assert not g._mean.any()
     assert pnn.BatchNorm1D(3, device="cpu").data_format == "NCL"
     assert pnn.BatchNorm3D(3, device="cpu").data_format == "NCDHW"
-    with pytest.raises(NotImplementedError, match="A15"):
-        pnn.SyncBatchNorm(3)
+    # outside a process group SyncBatchNorm is the plain BatchNorm (its
+    # reduction over ranks: tests/test_torch_parallel.py)
+    sync = pnn.SyncBatchNorm(3, device="cpu")
+    plain = pnn.BatchNorm2D(3, device="cpu")
+    assert sync.sync_axis == "dp" and plain.sync_axis is None
+    x = torch.randn(2, 3, 4, 4)
+    torch.testing.assert_close(sync(x), plain(x), rtol=0, atol=0)
+    torch.testing.assert_close(sync._variance, plain._variance, rtol=0,
+                               atol=0)
+    net = pnn.Sequential(pnn.BatchNorm2D(3, device="cpu"))
+    assert pnn.SyncBatchNorm.convert_sync_batchnorm(net, "dp") is net
+    assert net[0].sync_axis == "dp"
     from paddle_tpu_torch import get_flags
     assert get_flags(["batch_norm_single_pass", "resnet_block_remat",
                       "resnet_space_to_depth_stem"]) == {

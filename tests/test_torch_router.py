@@ -647,6 +647,14 @@ def _router_view(mod):
     return metrics, flights, spans
 
 
+def _wait_stream_threads(deadline_s: float = 10.0) -> None:
+    end = time.monotonic() + deadline_s
+    while any(t.name == "router-stream" and t.is_alive()
+              for t in threading.enumerate()):
+        assert time.monotonic() < end, "router stream threads still alive"
+        time.sleep(0.01)
+
+
 def test_router_telemetry_matches_jax_over_a_dead_backend():
     """A dead backend then a live one: the retry, the breaker's
     transitions, the stream gauge and the per-hop span read the same in
@@ -673,6 +681,10 @@ def test_router_telemetry_matches_jax_over_a_dead_backend():
                     setf({"router_retry_backoff_s": 0.05})
                 router.stop()
                 peer.stop()
+            # a stream lowers router_streams_active after its end frame:
+            # the port's stop() joins its stream threads, the JAX
+            # router's are waited for here
+            _wait_stream_threads()
             metrics, flights, spans = _router_view(omod)
             metrics["router_backend_state"] = sorted(
                 v for _, v in metrics["router_backend_state"])

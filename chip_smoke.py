@@ -4,7 +4,8 @@
 Run from the repository root on a machine with one NVIDIA H100 (or
 another Hopper card) and the CUDA toolkit::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase (one card)
+    python3 chip_smoke.py --distributed   # phases 13-14 (four cards: 14 b)
 
 It imports only ``paddle_tpu_torch`` (never JAX or ``paddle_tpu``) and,
 in order:
@@ -356,10 +357,38 @@ in order:
    not, forward and gradients within ``DIST_ATTN_TOL``/``DIST_GRAD_TOL``
    of plain attention over the whole sequence here, each rank's flash
    launches exact (rank r of the causal ring r + 1 hops); a 2-layer
-   full-width BERT at dp 4 (ZeRO 1) and dp 2 x mp 2 (the Megatron rule),
-   3 steps, against one process's ``TrainStep`` on the global batch; rank
-   2 slowed on purpose and flagged alone by the straggler detector;
-14. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+   full-width BERT at dp 4 (ZeRO 1) and dp 2 x mp 2 (the Megatron rule,
+   each rank holding and multiplying its blocks), 3 steps, against one
+   process's ``TrainStep`` on the global batch; rank 2 slowed on purpose
+   and flagged alone by the straggler detector;
+14. pipeline, LocalSGD, DGC, fleet and the parameter server
+   (``run_phase14``): (a) four Gloo ranks sharing the card (one
+   ``launch_procs`` job, ``dist_worker``'s ``chip14``), under the fused
+   flags with the flash route on at seq 128, each case held against the
+   same algorithm run here on the global batch (losses within
+   ``DIST14_LOSS_TOL``, every parameter within ``DIST14_PARAM_TOL``, and
+   each rank launching what ``PATH_KERNELS`` names for its path; the DGC
+   reference sends the entries the ranks sent and holds their choice to
+   a top-k of its own accumulator):
+   ``GPipeTrainStep`` on BERT-base (12 layers in 4 stages of 3, M = 4,
+   b 32, seq 128), and on the 2-layer full-width BERT (b 8) tensor
+   parallelism dp 2 x mp 2 with ZeRO 3, ``LocalSGDStep`` (dp 4, k 2),
+   ``DGCTrainStep`` (dp 4, Momentum, sparsity 0.99, rampup 1),
+   ``fleet.distributed_optimizer`` with sharding (stage 3) and with
+   gradient merge (k 2), and sync ``PSTrainStep`` (2 pserver shards, 2
+   trainers, an untied BERT's word embedding a ``SparseEmbeddingPS``
+   looked up by the batch's ids); (b) only with four cards: the same job
+   under NCCL, one rank a card, with phase 13 (c)'s job and 13 (a)'s fits
+   at world 4, and BERT-base bf16 fused at seq 512 (``NCCL14``, one
+   global batch), captured, at ZeRO 0 and ZeRO 3 (dp 4) and TP dp 2 x
+   mp 2: losses, step ms, peak memory and the bytes a rank holds; the
+   fits and the runs are held against one card's run of the same steps
+   (losses within ``DIST14_BF16_TOL``, parameters within
+   ``DIST14_MOVE_TOL``, both below what an unchanged model reads); on one card
+   (b) logs why it did not run. ``python3 chip_smoke.py --distributed``
+   runs phases 13 and 14 alone (after the build) and writes
+   ``chiprun_out/chip_smoke_distributed.json``;
+15. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -8011,24 +8040,41 @@ def dist_ranks(torch, card: str) -> tuple:
     """(c): the ``chip`` job of paddle_tpu_torch.testing.dist_worker on
     DIST_WORLD ranks (Gloo, cuda:0) through launch_procs, then the
     references in this process. Returns (report, counts)."""
+    from paddle_tpu_torch.testing import dist_worker as W
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    outs = W.run_job("chip", DIST_DIR, DIST_WORLD,
+                     {k: np.asarray(v) for k, v in chip_job_inputs().items()},
+                     timeout_s=DIST_JOB_TIMEOUT_S,
+                     env={"PT_WORKER_DEVICE": DIST_DEVICE,
+                          "PT_DIST_BACKEND": "gloo"})
+    job_s = time.perf_counter() - t0
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    res, counts = check_chip_job(torch, outs, card)
+    res["job_s"] = job_s
+    log(f"dist ranks [{card}]: {json.dumps(res)}")
+    if res["bad"]:
+        raise AssertionError(f"dist ranks: {res['bad']}")
+    return res, counts
+
+
+def chip_job_inputs() -> dict:
+    """The inputs of dist_worker's ``chip`` job (phase 13 (c))."""
+    return dict(seed=SEED + 300, heads=DIST_HEADS, t=DIST_T,
+                d=DIST_HEAD_DIM, **DIST_BERT)
+
+
+def check_chip_job(torch, outs, card: str) -> tuple:
+    """The ``chip`` job's outputs held against the references in this
+    process (see :func:`dist_ranks`): (report with its ``bad`` list,
+    counts)."""
     from paddle_tpu_torch.kernels.flash_attention import backward_route
     from paddle_tpu_torch.testing import dist_worker as W
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.models import pretraining_loss
     from paddle_tpu_torch.static import TrainStep
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
-    inputs = dict(seed=SEED + 300, heads=DIST_HEADS, t=DIST_T,
-                  d=DIST_HEAD_DIM, **DIST_BERT)
-    t0 = time.perf_counter()
-    outs = W.run_job("chip", DIST_DIR, DIST_WORLD,
-                     {k: np.asarray(v) for k, v in inputs.items()},
-                     timeout_s=DIST_JOB_TIMEOUT_S,
-                     env={"PT_WORKER_DEVICE": DIST_DEVICE,
-                          "PT_DIST_BACKEND": "gloo"})
-    job_s = time.perf_counter() - t0
-    res, counts = {"job_s": job_s, "world": DIST_WORLD, "t": DIST_T,
-                   "heads": DIST_HEADS, "head_dim": DIST_HEAD_DIM,
-                   "card": card}, {}
+    res, counts = {"world": DIST_WORLD, "t": DIST_T, "heads": DIST_HEADS,
+                   "head_dim": DIST_HEAD_DIM, "card": card}, {}
     q, k, v, g = W.attention_inputs(SEED + 300, 1, DIST_HEADS, DIST_T,
                                     DIST_HEAD_DIM)
     tl = DIST_T // DIST_WORLD
@@ -8108,6 +8154,7 @@ def dist_ranks(torch, card: str) -> tuple:
         c = dict(zip(outs[0][f"bert_{name}/launch_names"].tolist(),
                      outs[0][f"bert_{name}/launches"].tolist()))
         res[f"bert_{name}"] = {
+            "held_numel_rank0": int(outs[0][f"bert_{name}/held_numel"]),
             "losses": outs[0][f"bert_{name}/loss"].tolist(),
             "losses_one_process": want_losses,
             "loss_max_rel_err": loss_err, "param_max_abs_err": errs[worst],
@@ -8134,10 +8181,7 @@ def dist_ranks(torch, card: str) -> tuple:
                         "slowed": W.STRAGGLER_RANK}
     if flagged != [[W.STRAGGLER_RANK]] * DIST_WORLD:
         bad.append(("straggler", flagged))
-    shutil.rmtree(DIST_DIR, ignore_errors=True)
-    log(f"dist ranks [{card}]: {json.dumps(res)}")
-    if bad:
-        raise AssertionError(f"dist ranks: {bad}")
+    res["bad"] = bad
     return res, counts
 
 
@@ -8168,6 +8212,629 @@ def run_distributed(torch) -> tuple:
     import torch.distributed as dist
     dist.destroy_process_group()  # (a)'s world-1 NCCL group
     log(f"distributed phase: {report['dist_phase_s']:.1f} s [{card}]")
+    return report, counts
+
+
+# ---------------------------------------------------------------------------
+# phase 14: pipeline, LocalSGD, DGC, fleet and the parameter server, with
+# tensor parallelism and ZeRO 3 partitioned for real
+# ---------------------------------------------------------------------------
+
+# (a) four Gloo ranks sharing the card (dist_worker's ``chip14`` job, one
+# startup for every case), each case against the same algorithm in this
+# process on the global batch: GPipe over BERT-base (12 layers in 4 stages
+# of 3, M = 4, b 32, seq 128); on phase 13 (c)'s 2-layer full-width BERT
+# (b 8, seq 128): tensor parallelism dp 2 x mp 2 with ZeRO 3 (13 (c)'s
+# dp2mp2 runs are plain TP, partitioned since this phase came), LocalSGD
+# at dp 4 (k 2), DGC at dp 4 (Momentum, sparsity 0.99, rampup 1), fleet's
+# sharding (stage 3) and gradient merge (k 2), sync PS training (2
+# pserver shards, 2 trainers, an untied BERT's word embedding a sparse
+# table looked up by the batch's ids); all
+# under the fused flags with the flash route on at seq 128
+DIST14 = dict(DIST_BERT, gpipe_layers=12, gpipe_batch=32, gpipe_micro=4)
+DIST14_DIR = "chip_smoke_dist14"
+DIST14_CASES = ("gpipe", "tp_zero3", "localsgd", "dgc", "fleet_sharding",
+                "fleet_merge", "ps")
+# the loss's and every parameter's bound, as 13 (c)'s; the PS run's
+# gradients are averaged by the servers in another order, its step is
+# CHIP14_PS_LR x the gradient
+DIST14_LOSS_TOL, DIST14_PARAM_TOL = DIST_LOSS_TOL, DIST_PARAM_TOL
+# DGC's top-k: the reference sends the entries each rank sent, and holds
+# the rank's choice to a top-k of its own accumulator: the largest
+# magnitude left out may exceed the smallest taken by DGC_SELECT_TOL of the
+# k-th largest plus DGC_ROUNDING of the replica's largest entry (the two
+# accumulators differ by the rounding of the gradient's kernels, and the
+# key projection's bias has a gradient of 0 in exact arithmetic, softmax
+# ignoring a shift common to a query's keys, so its entries are rounding
+# alone); a choice that is not a top-k reads thousands of times that
+DGC_SELECT_TOL, DGC_ROUNDING = 1e-4, 1e-6
+# (b) under NCCL, one rank a card (only with four cards): phase 13 (c)'s
+# job and 13 (a)'s fits at world 4 (dp 4, ZeRO 0/1/3; FIT4 global batches
+# of FIT4_BATCH), (a)'s job, and BERT-base bf16 fused at seq 512,
+# one global batch of 4 x NCCL_BATCH rows, captured: ZeRO 0 and ZeRO 3
+# at dp 4 (NCCL_BATCH rows a rank), TP dp 2 x mp 2 (twice that a dp
+# replica, whose two ranks split its heads and FFN). The fits and the
+# runs are held against one card's run of the same steps: the losses
+# within DIST14_BF16_TOL (the sums over ranks round elsewhere; an
+# unchanged model must read more) and the parameters within
+# DIST14_MOVE_TOL
+FIT4 = dict(fit_batches=4, fit_batch=32, fit_masked=72)
+NCCL14 = dict(nccl_batch=8, nccl_steps=6, nccl_seq=512, nccl_layers=12)
+DIST14_BF16_TOL = 2e-3
+# tensor parallelism rounds each row-parallel partial product to bf16
+# before its all-reduce over mp, so its bf16 losses drift further from
+# one card's (2.1e-3 on H100s, against 0.12 for an unchanged model; in
+# fp32, phase 14 (a), TP is within 1e-6 of one process)
+DIST14_TP_BF16_TOL = 1e-2
+# a bf16 run's parameters against the reference run's: the L2 distance of
+# the two runs' moves from their common start over the reference's move
+# (``dist_worker.move_error``; a run that changed nothing reads 1)
+DIST14_MOVE_TOL = 0.2
+_XENT_ADAM = ("fused_xent_fwd", "fused_xent_bwd_dlog", "fused_xent_bwd_dh",
+              "fused_xent_bwd_dw")
+
+
+def dist14_path_kernels() -> dict:
+    """What each phase-14 case must launch on every rank that trains: the
+    LayerNorm, the flash route at seq 128, the fused head's loss, and the
+    Adam kernel where the optimizer is AdamW."""
+    from paddle_tpu_torch.kernels.flash_attention import backward_route
+    seq = DIST14["bert_seq"]
+    bwd = ("flash_attention_bwd_fused",) if backward_route(
+        seq, seq, DIST_HEAD_DIM) == "fused" else (
+        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    base = ("layer_norm", "flash_attention_fwd") + bwd + _XENT_ADAM
+    return {f"dist14_{c}": base + (() if c in ("dgc", "ps")
+                                   else ("adam_leaf",))
+            for c in DIST14_CASES}
+
+
+def ps_run(torch, model, batch, steps: int, trainers: int = 1):
+    """The sync PS run of one trainer over two fresh pserver shards in
+    this process, ``model`` an untied BERT whose word embedding is a
+    sparse table looked up by the batch's ids: (losses, dense params and
+    the word embedding)."""
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.distributed.ps import (PSCluster, PSTrainStep,
+                                                 SparseEmbeddingPS)
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.testing import dist_worker as W
+    servers = [native.PsServer(), native.PsServer()]
+    try:
+        cluster = PSCluster([f"127.0.0.1:{s.port}" for s in servers])
+        emb = SparseEmbeddingPS(cluster, "word", model.config.hidden_size,
+                                optimizer="sgd", lr=W.CHIP14_PS_LR,
+                                init_scale=0.02)
+        step = PSTrainStep(model, pretraining_loss, cluster, mode="sync",
+                           n_trainers=trainers, optimizer="sgd",
+                           lr=W.CHIP14_PS_LR,
+                           sparse_tables={W.PS_WORD: (emb, 0)})
+        losses = [step(*batch[:4], labels=(batch[4], batch[5]))["loss"]
+                  for _ in range(steps)]
+        params = dict(step.params)
+        params[W.PS_WORD] = emb.pull(np.arange(model.config.vocab_size))
+        cluster.close()
+    finally:
+        for s_ in servers:
+            s_.stop()
+    return losses, params
+
+
+def dgc_reference(torch, model, batch, steps: int, world: int, lr: float,
+                  sent: dict):
+    """DGC in one process: each replica's gradient on its rows, the
+    momentum-corrected top-k exchange of the JAX module's header (dense
+    for the first ``rampup_steps``), SGD with the exchanged update (the
+    optimizer's momentum zeroed). Past the warm-up each replica sends the
+    entries its rank sent, ``sent[(step, rank, name)]``, so a near tie
+    that rounding breaks the other way on the rank moves no parameter; the
+    choice itself is held here: ``gaps[name]``, the largest of (the
+    largest magnitude left out - the smallest taken) of this process's
+    accumulator over what rounding allows (``DGC_SELECT_TOL`` of the
+    k-th largest + ``DGC_ROUNDING`` of the replica's largest entry): <= 0
+    when the rank's entries are a top-k of it, <= 1 within rounding; and
+    ``flips[name]``, how many of them ``topk_sparsify`` here would not
+    have taken. Returns (losses, params, gaps, flips)."""
+    from paddle_tpu_torch.core import random as _random
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.parallel import topk_sparsify
+    from paddle_tpu_torch.testing import dist_worker as W
+    cfg = W.CHIP14_DGC
+    params = dict(model.named_parameters())
+    vel = [{n: torch.zeros_like(p) for n, p in params.items()}
+           for _ in range(world)]
+    res = [{n: torch.zeros_like(p) for n, p in params.items()}
+           for _ in range(world)]
+    rows = batch[0].shape[0] // world
+    gen = torch.Generator(device=batch[0].device).manual_seed(0)
+    losses, gaps, flips = [], {}, {}
+    for i in range(steps):
+        grads, step_losses = [], []
+        for r in range(world):
+            part = [t[r * rows:(r + 1) * rows] for t in batch]
+            with _random.rng_scope(default=gen, dropout=gen):
+                loss = pretraining_loss(model(*part[:4]), part[4], part[5])
+            grads.append(dict(zip(params, torch.autograd.grad(
+                loss, list(params.values())))))
+            step_losses.append(float(loss.detach()))
+        losses.append(float(np.mean(step_losses)))
+        with torch.no_grad():
+            # each replica's largest accumulated entry: DGC_ROUNDING of
+            # it is the rounding floor of the choice's gap
+            floor = [DGC_ROUNDING * max(
+                float((res[r][n] + cfg["momentum"] * vel[r][n]
+                       + grads[r][n]).abs().max()) for n in params)
+                for r in range(world)]
+            for n, p in params.items():
+                upd = torch.zeros(p.numel(), device=p.device)
+                accs = []
+                for r in range(world):
+                    u = cfg["momentum"] * vel[r][n] + grads[r][n]
+                    acc = res[r][n] + u
+                    accs.append(acc)
+                    if i < cfg["rampup_steps"]:
+                        vel[r][n] = u
+                        res[r][n] = torch.zeros_like(acc)
+                        continue
+                    flat = acc.reshape(-1)
+                    idx = torch.as_tensor(sent[(i, r, n)],
+                                          device=p.device).long()
+                    k = idx.numel()
+                    mine = topk_sparsify(acc, k)[1]
+                    mag = flat.abs()
+                    kth = float(mag[mine].min())
+                    if k < flat.numel():
+                        left = mag.index_fill(0, idx, -1.0).max()
+                        gap = float(left - mag[idx].min()) / (
+                            DGC_SELECT_TOL * kth + floor[r])
+                        gaps[n] = max(gaps.get(n, gap), gap)
+                    taken = torch.zeros(flat.numel(), dtype=torch.bool,
+                                        device=p.device)
+                    taken[mine] = True
+                    flips[n] = flips.get(n, 0) + int(
+                        (~taken[idx]).sum())
+                    upd.index_add_(0, idx, flat[idx])
+                    res[r][n] = flat.index_fill(0, idx, 0.0).reshape(
+                        acc.shape)
+                    vel[r][n] = u.reshape(-1).index_fill(
+                        0, idx, 0.0).reshape(u.shape)
+                upd = (torch.stack(accs).mean(0) if i < cfg["rampup_steps"]
+                       else (upd / world).reshape(p.shape))
+                p.sub_(lr * upd)
+    return losses, {n: p.detach() for n, p in params.items()}, gaps, flips
+
+
+def dgc_sent(outs, tag: str = "") -> dict:
+    """The entries each rank's DGC run sent: {(step, rank, name):
+    indices} from (a)'s outputs (``tag`` prefixes their keys)."""
+    prefix = f"{tag}dgc/sent/"
+    return {(int(k[len(prefix):].split("/", 1)[0]), r,
+             k[len(prefix):].split("/", 1)[1]): v
+            for r, o in enumerate(outs) for k, v in o.items()
+            if k.startswith(prefix)}
+
+
+def dist14_references(torch, dev: str, widths: dict, sent: dict) -> dict:
+    """Phase 14 (a)'s cases run in this process on the global batches:
+    {case: (losses, {name: param})}; a pipeline's names are the whole
+    model's. The DGC reference sends what the ranks sent (``sent``, from
+    :func:`dgc_sent`) and its ``dgc_choice`` holds that choice."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import create_mesh
+    from paddle_tpu_torch.static import TrainStep
+    from paddle_tpu_torch.testing import dist_worker as W
+    inputs = dict(seed=SEED + 300, **DIST14,
+                  **{f"width/{k}": v for k, v in widths.items()})
+    seed, lr, steps = SEED + 300, DIST14["bert_lr"], DIST14["bert_steps"]
+    layers = DIST14["bert_layers"]
+
+    def opt():
+        return AdamW(lr, weight_decay=0.01, fused_state=False)
+
+    def host(params):
+        return {n: np.array(p.detach().float().cpu().numpy()
+                            if isinstance(p, torch.Tensor) else p)
+                for n, p in params.items()}
+
+    def moved(init, end):
+        """What the parameter check reads when the steps change nothing:
+        the largest move of any entry."""
+        return max(float(np.abs(end[n] - init[n]).max()) for n in init)
+
+    refs = {}
+    restore = flag_scope(W.CHIP14_FLAGS)
+    try:
+        gb = W.chip14_batch(torch, inputs, dev, DIST14["gpipe_batch"],
+                            DIST14["bert_seq"], 1)
+        model = W.chip_bert(torch, DIST14["gpipe_layers"], seed, dev,
+                            **widths)
+        init = host(dict(model.named_parameters()))
+        step = TrainStep(model, opt(), pretraining_loss)
+        losses, _ = W._run_steps(torch, step, gb, steps, pipeline=True)
+        end = host(dict(model.named_parameters()))
+        refs["gpipe"] = losses, end, moved(init, end)
+        del model, step
+        batch = W.chip14_batch(torch, inputs, dev, DIST14["bert_batch"],
+                               DIST14["bert_seq"], 2)
+        model = W.chip_bert(torch, layers, seed, dev, **widths)
+        init = host(dict(model.named_parameters()))
+        step = TrainStep(model, opt(), pretraining_loss)
+        losses, _ = W._run_steps(torch, step, batch, steps)
+        end = host(dict(model.named_parameters()))
+        refs["tp_zero3"] = refs["fleet_sharding"] = (
+            losses, end, moved(init, end))
+        del model, step
+        s = fleet.DistributedStrategy()
+        s.gradient_merge, s.gradient_merge_configs.k_steps = True, 2
+        model = W.chip_bert(torch, layers, seed, dev, **widths)
+        step = fleet.apply_strategy(s, model, opt(), pretraining_loss,
+                                    mesh=create_mesh({"dp": 1}))
+        losses, _ = W._run_steps(torch, step, batch, steps)
+        end = host(dict(model.named_parameters()))
+        refs["fleet_merge"] = losses, end, moved(init, end)
+        del model, step
+        # LocalSGD: four replicas on their rows, averaged every k steps
+        k, rows = W.CHIP14_LOCALSGD_K, DIST14["bert_batch"] // DIST_WORLD
+        reps = [W.chip_bert(torch, layers, seed, dev, **widths)
+                for _ in range(DIST_WORLD)]
+        rsteps = [TrainStep(m, opt(), pretraining_loss) for m in reps]
+        losses = []
+        for call in range(2 * k):
+            ls = [W._run_steps(torch, st, [t[r * rows:(r + 1) * rows]
+                                           for t in batch], 1)[0][0]
+                  for r, st in enumerate(rsteps)]
+            losses.append(float(np.mean(ls)))
+            if (call + 1) % k == 0:
+                with torch.no_grad():
+                    for n in rsteps[0].params:
+                        leaves = [[st.params[n]] + [
+                            v for v in st.state["slots"][n].values()
+                            if v.ndim > 0] for st in rsteps]
+                        for j in range(len(leaves[0])):
+                            mean = torch.stack([lv[j] for lv in leaves]
+                                               ).mean(0)
+                            for lv in leaves:
+                                lv[j].copy_(mean)
+        ends = [host(dict(m.named_parameters())) for m in reps]
+        refs["localsgd"] = losses, ends, moved(init, ends[0])
+        del reps, rsteps
+        model = W.chip_bert(torch, layers, seed, dev, **widths)
+        losses, params, gaps, flips = dgc_reference(
+            torch, model, batch, steps, DIST_WORLD, W.CHIP14_DGC["lr"],
+            sent)
+        end = host(params)
+        refs["dgc"] = losses, end, moved(init, end)
+        refs["dgc_choice"] = gaps, flips
+        del model
+        model = W.untied_bert(torch, layers, seed, dev, **widths)
+        init = host(dict(model.named_parameters()))
+        losses, params = ps_run(torch, model, batch, steps)
+        end = host(params)
+        # the word embedding's first value is the table's, not the
+        # model's: its move is left out of the reading
+        refs["ps"] = losses, end, moved(
+            {n: v for n, v in init.items() if n != W.PS_WORD}, end)
+        del model
+    finally:
+        restore()
+    return refs
+
+
+def _pipe_name(n: str, stage: int, per: int) -> str:
+    """A GPipe step's parameter name as the whole BERT names it."""
+    if n.startswith("embed."):
+        return "bert.embeddings." + n[len("embed."):]
+    if n.startswith("head.pooler."):
+        return "bert." + n[len("head."):]
+    if n.startswith("head.cls."):
+        return n[len("head."):]
+    parts = n.split(".")  # stages.layers.<j>.<rest>
+    return ".".join(["bert.encoder.layers", str(stage * per + int(parts[2]))]
+                    + parts[3:])
+
+
+def check_dist14(torch, outs, refs: dict, card: str, tag: str = "") -> tuple:
+    """(a)'s outputs (``tag`` prefixes their keys) against ``refs``:
+    (report with its ``bad`` list, counts of rank 0 or the first
+    trainer)."""
+    want_kernels = dist14_path_kernels()
+    res, counts, bad = {"card": card}, {}, []
+    per = DIST14["gpipe_layers"] // DIST_WORLD
+    for case in DIST14_CASES:
+        ranks = [r for r in range(len(outs))
+                 if f"{tag}{case}/loss" in outs[r]]
+        want_losses, want_params, unchanged = refs[case]
+        per_rank = [np.asarray(outs[r][f"{tag}{case}/loss"])
+                    for r in ranks]
+        if case == "ps":  # each trainer's loss is its half's
+            per_rank = [np.mean(per_rank, axis=0)]
+        got_losses = per_rank[0]
+        loss_err = max(float(np.abs(g - want_losses).max())
+                       for g in per_rank) / abs(want_losses[0])
+        errs = {}
+        for r in ranks:
+            prefix = f"{tag}{case}/param/"
+            for k, v in outs[r].items():
+                if not k.startswith(prefix):
+                    continue
+                n = k[len(prefix):]
+                if case == "gpipe":
+                    n = _pipe_name(n, r, per)
+                w = want_params[r][n] if case == "localsgd" \
+                    else want_params[n]
+                errs[n] = max(errs.get(n, 0.0),
+                              float(np.abs(v - w).max()))
+        worst = max(errs, key=errs.get)
+        c = [dict(zip(outs[r][f"{tag}{case}/launch_names"].tolist(),
+                      outs[r][f"{tag}{case}/launches"].tolist()))
+             for r in ranks]
+        counts[f"dist14_{case}"] = c[0]
+        launched = all(ci.get(kname, 0) > 0 for ci in c
+                       for kname in want_kernels[f"dist14_{case}"])
+        res[case] = {
+            "losses": np.asarray(got_losses).tolist(),
+            "losses_one_process": list(want_losses),
+            "loss_max_rel_err": loss_err, "param_max_abs_err": errs[worst],
+            "param_worst": worst, "params_checked": len(errs),
+            "param_bound": DIST14_PARAM_TOL,
+            "param_unchanged_reading": unchanged,
+            "ranks": ranks, "path_kernels_on_every_rank": launched,
+            "ms_by_rank": [outs[r][f"{tag}{case}/ms"].tolist()
+                           for r in ranks],
+            "peak_gb_by_rank": [float(outs[r][f"{tag}{case}/peak_gb"])
+                                for r in ranks
+                                if f"{tag}{case}/peak_gb" in outs[r]],
+            "launches_rank": nonzero(c[0])}
+        chose_wrong = False
+        if case == "dgc":
+            gaps, flips = refs["dgc_choice"]
+            gap_worst = max(gaps, key=gaps.get)
+            res[case].update(
+                select_gap_max=gaps[gap_worst], select_gap_leaf=gap_worst,
+                select_gap_bound=1.0,
+                leaves_sent=len(flips),
+                flips_by_leaf={n: f for n, f in flips.items() if f},
+                sent_by_step_rank=sum(
+                    1 for k in outs[0] if k.startswith(f"{tag}dgc/sent/")))
+            chose_wrong = gaps[gap_worst] > 1.0
+        if loss_err > DIST14_LOSS_TOL or errs[worst] > DIST14_PARAM_TOL \
+                or unchanged <= DIST14_PARAM_TOL or not launched \
+                or chose_wrong or not np.all(np.isfinite(got_losses)):
+            bad.append((case, res[case]))
+    held = [int(sum(v for k, v in o.items()
+                    if k.startswith(f"{tag}tp_zero3/held_numel/")))
+            for o in outs]
+    total = sum(v.size for v in refs["tp_zero3"][1].values())
+    res["tp_zero3"]["held_numel_by_rank"] = held
+    res["tp_zero3"]["params"] = total
+    if max(held) * 2 > total:
+        bad.append(("tp_zero3 holds more than half", held, total))
+    res["bad"] = bad
+    return res, counts
+
+
+def run_dist14(torch, card: str) -> tuple:
+    """(a) on this card: the ``chip14`` job under Gloo, then the
+    references. Returns (report, counts)."""
+    from paddle_tpu_torch.testing import dist_worker as W
+    shutil.rmtree(DIST14_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    outs = W.run_job("chip14", DIST14_DIR, DIST_WORLD,
+                     {k: np.asarray(v) for k, v in dict(
+                         seed=SEED + 300, **DIST14).items()},
+                     timeout_s=DIST_JOB_TIMEOUT_S,
+                     env={"PT_WORKER_DEVICE": DIST_DEVICE,
+                          "PT_DIST_BACKEND": "gloo"})
+    job_s = time.perf_counter() - t0
+    shutil.rmtree(DIST14_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs = dist14_references(torch, DIST_DEVICE, {}, dgc_sent(outs))
+    res, counts = check_dist14(torch, outs, refs, card)
+    res.update(job_s=job_s, references_s=time.perf_counter() - t0,
+               backend="gloo", note="four ranks share one card: times are "
+               "not data-parallel speed")
+    log(f"dist14 gloo [{card}]: {json.dumps(res)}")
+    if res["bad"]:
+        raise AssertionError(f"dist14: {res['bad']}")
+    return res, counts
+
+
+def fit_reference(torch, dev: str, widths: dict) -> tuple:
+    """13 (a)'s data at world 4 through one card's bare fit: (its losses,
+    the losses of the unchanged model on the same batches, its parameters
+    and their start, on the host)."""
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import pretraining_loss
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.testing import dist_worker as W
+    n, b = FIT4["fit_batches"], FIT4["fit_batch"]
+    data = W.bert_batch(SEED + 300 + 5, n * b, NCCL14["nccl_seq"],
+                        FIT4["fit_masked"], widths.get("vocab_size", 30522))
+    batches = [tuple(a[i * b:(i + 1) * b] for a in data[:4])
+               + (np.concatenate([data[4][i * b:(i + 1) * b],
+                                  data[5][i * b:(i + 1) * b, None]], 1),)
+               for i in range(n)]
+    rec = hapi_recorder(torch)
+    restore = flag_scope(FUSED_FLAGS)
+    try:
+        net = cast_model_to_low_precision(W.chip_bert(
+            torch, NCCL14["nccl_layers"], SEED + 300, dev, **widths),
+            "bfloat16")
+        init = {k: p.detach().to("cpu", copy=True)
+                for k, p in net.named_parameters()}
+        with torch.no_grad():
+            unchanged = []
+            for bt in batches:
+                x = [torch.as_tensor(a, device=dev) for a in bt]
+                unchanged.append(float(pretraining_loss(
+                    net(*x[:4]), x[4][:, :-1], x[4][:, -1])))
+        m = Model(net, loss=lambda o, y: pretraining_loss(
+            o, y[:, :-1], y[:, -1]), optimizer=AdamW(
+                1e-4, weight_decay=0.01, fused_state=True))
+        m.fit(batches, epochs=1, verbose=0, callbacks=[rec])
+        end = {k: p.detach().to("cpu", copy=True)
+                for k, p in net.named_parameters()}
+    finally:
+        restore()
+    losses = [float(v) for v in rec.losses]
+    del m, net
+    return losses, unchanged, end, init
+
+
+def run_nccl14(torch, card: str) -> tuple:
+    """(b): dist_worker's ``chip_nccl`` job under NCCL, one rank a card,
+    held against (a)'s and 13 (c)'s references and a one-card fit.
+    Returns (report, counts)."""
+    from paddle_tpu_torch.testing import dist_worker as W
+    n = torch.cuda.device_count()
+    if n < DIST_WORLD:
+        msg = (f"phase 14 (b) not run: {n} CUDA device(s), it needs "
+               f"{DIST_WORLD} (one NCCL rank a card; run "
+               f"`python chip_smoke.py --distributed` on four cards)")
+        log(msg)
+        return {"ran": False, "why": msg}, {}
+    shutil.rmtree(DIST14_DIR, ignore_errors=True)
+    inputs = dict(chip_job_inputs(), **DIST14, **FIT4, **NCCL14)
+    t0 = time.perf_counter()
+    try:
+        outs = W.run_job("chip_nccl", DIST14_DIR, DIST_WORLD,
+                         {k: np.asarray(v) for k, v in inputs.items()},
+                         timeout_s=3 * DIST_JOB_TIMEOUT_S,
+                         env={"PT_WORKER_DEVICE": DIST_DEVICE,
+                              "PT_DIST_BACKEND": "nccl"})
+    except RuntimeError:
+        # the ranks' whole logs, for the report (the error has their tails)
+        os.makedirs("chiprun_out", exist_ok=True)
+        for r in range(DIST_WORLD):
+            src = os.path.join(DIST14_DIR, f"rank{r}.log")
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(
+                    "chiprun_out", f"chip_smoke_nccl_rank{r}.log"))
+        raise
+    job_s = time.perf_counter() - t0
+    shutil.rmtree(DIST14_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    res, counts = check_nccl14(torch, outs, card, DIST_DEVICE, {})
+    res["job_s"] = job_s
+    log(f"dist14 nccl [{card}]: {json.dumps(res)}")
+    if res["bad"]:
+        raise AssertionError(f"dist14 nccl: {res['bad']}")
+    return res, counts
+
+
+def check_nccl14(torch, outs, card: str, dev: str, widths: dict) -> tuple:
+    """(b)'s outputs against (a)'s and 13 (c)'s references and a one-card
+    fit: (report with its ``bad`` list, counts)."""
+    from paddle_tpu_torch.testing import dist_worker as W
+    res = {"ran": True, "backend": "nccl", "card": card,
+           "parts_s": {p: float(outs[0][f"{p}/s"])
+                       for p in ("c", "a", "14a", "14b")}}
+    c_outs = [{k[2:]: v for k, v in o.items() if k.startswith("c/")}
+              for o in outs]
+    res["13c"], counts13 = check_chip_job(torch, c_outs, card)
+    refs = dist14_references(torch, dev, widths, dgc_sent(outs, "14a/"))
+    res["14a"], counts = check_dist14(torch, outs, refs, card, tag="14a/")
+    bad = [("13c", b) for b in res["13c"]["bad"]] + [
+        ("14a", b) for b in res["14a"]["bad"]]
+    want, unchanged, one_end, one_init = fit_reference(torch, dev, widths)
+
+    def rel(got, ref):
+        return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+    fits = {"loss_bound": DIST14_BF16_TOL, "move_bound": DIST14_MOVE_TOL,
+            "loss_unchanged_reading": rel(unchanged, want)}
+    z0_end = {n[len("a/fit0/param/"):]: torch.from_numpy(v).view(
+        torch.bfloat16) for n, v in outs[0].items()
+        if n.startswith("a/fit0/param/")}
+    for z in (0, 1, 3):
+        got = [o[f"a/fit{z}/loss"].tolist() for o in outs]
+        err = max(rel(g, want) for g in got)
+        if z == 0:  # the world-4 fit's move against the one card's
+            moves = [W.move_error(torch, z0_end, one_end, one_init)[0]]
+        else:  # every rank's against ZeRO 0's at world 4
+            moves = [float(o[f"a/fit{z}/move_err_vs_zero0"][0])
+                     for o in outs]
+        fits[f"zero{z}"] = {
+            "losses": got[0], "loss_max_rel_err": err,
+            "move_err": max(moves),
+            "move_err_against": "one card" if z == 0 else "zero0",
+            "captures": [int(o[f"a/fit{z}/captures"]) for o in outs],
+            "fit_s": float(outs[0][f"a/fit{z}/s"]),
+            "peak_gb_by_rank": [float(o[f"a/fit{z}/peak_gb"]) for o in outs]}
+        if err > DIST14_BF16_TOL or max(moves) > DIST14_MOVE_TOL \
+                or not all(np.isfinite(got[0])):
+            bad.append((f"fit zero{z}", fits[f"zero{z}"]))
+    if fits["loss_unchanged_reading"] <= DIST14_BF16_TOL:
+        bad.append(("fit: the unchanged model passes the loss bound",
+                    fits["loss_unchanged_reading"]))
+    res["13a_world4"] = dict(fits, losses_one_card=want, **FIT4)
+    del z0_end, one_end, one_init
+    runs = {}
+    for name, axes, zero, tp in W.CHIP_NCCL_RUNS:
+        runs[name] = {
+            "axes": axes, "zero_stage": zero, "tensor_parallel": tp,
+            "losses": outs[0][f"14b/{name}/loss"].tolist(),
+            "step_ms_by_rank": [float(np.median(o[f"14b/{name}/ms"][2:]))
+                                for o in outs],
+            "peak_gb_by_rank": [float(o[f"14b/{name}/peak_gb"])
+                                for o in outs],
+            "param_bytes_rank0": int(outs[0][f"14b/{name}/param_bytes"]),
+            "state_bytes_rank0": int(outs[0][f"14b/{name}/state_bytes"]),
+            "captures": int(outs[0][f"14b/{name}/captures"]),
+            "launches_rank0": nonzero(dict(zip(
+                outs[0][f"14b/{name}/launch_names"].tolist(),
+                outs[0][f"14b/{name}/launches"].tolist())))}
+    z0, z3, tp_ = runs["zero0"], runs["zero3"], runs["tp"]
+    # each run against rank 0's one-card run of the same steps: the
+    # losses, and the fp32 masters' moves (whole model, and the worst
+    # leaf for the record); an unchanged state reads the loss reading
+    # below and 1 for the moves
+    one = outs[0]["14b/one/loss"].tolist()
+    held = {"losses_one_card": one, "loss_bound": DIST14_BF16_TOL,
+            "move_bound": DIST14_MOVE_TOL,
+            "loss_unchanged_reading": rel([one[0]] * len(one), one)}
+    ok = held["loss_unchanged_reading"] > DIST14_TP_BF16_TOL
+    for name in runs:
+        move = outs[0][f"14b/{name}/master_move_err"]
+        bound = DIST14_TP_BF16_TOL if runs[name]["tensor_parallel"] \
+            else DIST14_BF16_TOL
+        held[name] = {
+            "loss_max_rel_err": rel(runs[name]["losses"], one),
+            "loss_bound": bound,
+            "master_move_err": float(move[0]),
+            "master_move_err_worst_leaf": float(move[1]),
+            "worst_leaf": str(outs[0][f"14b/{name}/master_worst_leaf"])}
+        ok = ok and held[name]["loss_max_rel_err"] <= bound \
+            and held[name]["master_move_err"] <= DIST14_MOVE_TOL
+    runs["against_one_card"] = held
+    if not ok or z3["param_bytes_rank0"] * 3 \
+            > z0["param_bytes_rank0"] or tp_["param_bytes_rank0"] \
+            >= z0["param_bytes_rank0"] or max(z3["peak_gb_by_rank"]) \
+            >= max(z0["peak_gb_by_rank"]) or any(
+                r["captures"] != 1 for r in (z0, z3, tp_)):
+        bad.append(("14b", runs))
+    res["14b"] = dict(runs, **NCCL14, dtype="bfloat16")
+    res["bad"] = bad
+    return res, {f"nccl_{k}": v for k, v in dict(counts13, **counts).items()}
+
+
+def run_phase14(torch) -> tuple:
+    """Phase 14. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    report["dist14"], counts = run_dist14(torch, card)
+    report["dist14_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    report["nccl14"], c = run_nccl14(torch, card)
+    counts.update(c)
+    report["nccl14_s"] = time.perf_counter() - t0
+    report["phase14_s"] = time.perf_counter() - t_phase
+    log(f"phase 14: {report['phase14_s']:.1f} s [{card}]")
     return report, counts
 
 
@@ -8239,7 +8906,15 @@ def kernel_line(results: dict, counts: dict) -> dict:
     return {"kernels": line}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """The whole smoke (no arguments), or with ``--distributed`` phases 13
+    and 14 alone (the kernels built; 14 (b) needs four cards)."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--distributed", action="store_true",
+                    help="run phases 13-14 only (parallelism; on four "
+                         "cards phase 14 (b) runs under NCCL)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -8276,6 +8951,10 @@ def main() -> int:
                                             if a) if m else ln
             elif "registers" in ln or "spill" in ln or "error" in ln:
                 log(f"ptxas {name} {func}: {ln.strip()}")
+
+    PATH_KERNELS.update(dist14_path_kernels())
+    if args.distributed:
+        return main_distributed(torch, card, t_start)
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
@@ -8316,10 +8995,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     REPORT["hapi_fit"] = hapi["hapi_fit"]  # phase 13 (a) reads its losses
     dist, dist_counts = run_distributed(torch)
+    torch.cuda.empty_cache()
+    phase14, p14_counts = run_phase14(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
                   **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
-                  flash_with_lse=lse_counts)
+                  **p14_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -8327,12 +9008,36 @@ def main() -> int:
                   pinned_capture=pinned, launches=counts,
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
-                  **predictor, **hapi, **mt, **rn, **dist)
+                  **predictor, **hapi, **mt, **rn, **dist, **phase14)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
     print(card)
     print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_distributed(torch, card: str, t_start: float) -> int:
+    """Phases 13 and 14 alone; the report goes to
+    chiprun_out/chip_smoke_distributed.json and a summary line of each
+    case before the contract line."""
+    dist, counts = run_distributed(torch)
+    torch.cuda.empty_cache()
+    phase14, p14_counts = run_phase14(torch)
+    counts.update(p14_counts)
+    REPORT.update(card=card, launches=counts,
+                  total_s=time.perf_counter() - t_start, **dist, **phase14)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_distributed.json"),
+              "w") as f:
+        json.dump(REPORT, f, indent=1)
+    print(card)
+    print(json.dumps({"phases": [13, 14],
+                      "nccl_world4": phase14["nccl14"].get("ran", False),
+                      "total_s": REPORT["total_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

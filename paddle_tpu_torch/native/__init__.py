@@ -12,7 +12,10 @@ range serialise for an exchange), under ``data.dataset``, and the job's
 control plane (``csrc/control_plane.cc``): :class:`ControlPlaneServer`, a
 key/value and barrier server that ``distributed.launch`` runs for rank 0's
 job, and :class:`ControlPlaneClient`, which the ranks reach it with
-(``InMemoryDataset.global_shuffle`` exchanges records through it).
+(``InMemoryDataset.global_shuffle`` exchanges records through it), and
+the parameter server (``csrc/ps_service.cc``): :class:`PsServer`, a shard
+of dense and sparse tables with server-side optimizers and worker
+heartbeats, and :class:`PsClient` (``distributed.ps`` drives them).
 
 The library compiles from the repository's ``csrc/*.cc`` with ``g++``
 (the JAX package's command) at first use into
@@ -153,6 +156,38 @@ _SIGS = {
                   ctypes.c_int64),
     "pt_cp_barrier": ([ctypes.c_int64, ctypes.c_char_p, ctypes.c_int,
                        ctypes.c_int], ctypes.c_int),
+    "pt_ps_server_start": ([ctypes.c_int], ctypes.c_int64),
+    "pt_ps_server_port": ([ctypes.c_int64], ctypes.c_int),
+    "pt_ps_server_stop": ([ctypes.c_int64], None),
+    "pt_ps_connect": ([ctypes.c_char_p, ctypes.c_int, ctypes.c_int],
+                      ctypes.c_int64),
+    "pt_ps_disconnect": ([ctypes.c_int64], None),
+    "pt_ps_dense_init": ([ctypes.c_int64, ctypes.c_char_p, ctypes.c_int64,
+                          ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+                          ctypes.POINTER(ctypes.c_float), ctypes.c_int],
+                         ctypes.c_int),
+    "pt_ps_dense_pull": ([ctypes.c_int64, ctypes.c_char_p,
+                          ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+                          ctypes.c_int64, ctypes.c_int], ctypes.c_int64),
+    "pt_ps_dense_push": ([ctypes.c_int64, ctypes.c_char_p,
+                          ctypes.POINTER(ctypes.c_float), ctypes.c_int64],
+                         ctypes.c_int64),
+    "pt_ps_sparse_init": ([ctypes.c_int64, ctypes.c_char_p, ctypes.c_int,
+                           ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+                           ctypes.c_float], ctypes.c_int),
+    "pt_ps_sparse_pull": ([ctypes.c_int64, ctypes.c_char_p,
+                           ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                           ctypes.c_int, ctypes.POINTER(ctypes.c_float)],
+                          ctypes.c_int),
+    "pt_ps_sparse_push": ([ctypes.c_int64, ctypes.c_char_p,
+                           ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                           ctypes.c_int, ctypes.POINTER(ctypes.c_float)],
+                          ctypes.c_int),
+    "pt_ps_sparse_size": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
+    "pt_ps_save": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int),
+    "pt_ps_load": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int),
+    "pt_ps_heartbeat": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
+    "pt_ps_liveness": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
 }
 
 
@@ -519,3 +554,179 @@ class ControlPlaneClient:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# ---------------------------------------------------------------------------
+# the parameter server
+# ---------------------------------------------------------------------------
+
+_OPT_CODES = {"sgd": 0, "adagrad": 1, "adam": 2, "sum": 3}
+
+
+def _hyper_array(lr: float, beta1: float = 0.9, beta2: float = 0.999,
+                 eps: float = 1e-8):
+    return (ctypes.c_float * 4)(lr, beta1, beta2, eps)
+
+
+def _fptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _iptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+class PsServer:
+    """One parameter-server shard (``csrc/ps_service.cc``): dense and
+    sparse tables whose optimizer (sgd, adagrad, adam, or ``sum`` for a
+    delta table) runs on the server at each push, on an ephemeral port
+    unless ``port`` is given; its threads serve until :meth:`stop`."""
+
+    def __init__(self, port: int = 0) -> None:
+        lib = _load()
+        self._h = lib.pt_ps_server_start(port)
+        if self._h < 0:
+            raise RuntimeError(f"ps server failed on port {port}")
+        self.port = lib.pt_ps_server_port(self._h)
+
+    def stop(self) -> None:
+        if getattr(self, "_h", -1) > 0:
+            _load().pt_ps_server_stop(self._h)
+            self._h = -1
+
+    def __enter__(self) -> "PsServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def __del__(self) -> None:
+        if getattr(self, "_h", -1) > 0 and _lib is not None:
+            _lib.pt_ps_server_stop(self._h)
+            self._h = -1
+
+
+class PsClient:
+    """A connection to one shard. Dense tables: ``dense_init`` (a sync
+    table, ``sync_world`` > 0, applies the mean of that many pushes at
+    once and bumps its version), ``dense_push`` (the version after it),
+    ``dense_pull`` (waits for ``min_version``). Sparse tables: rows made
+    on first pull (uniform in ``+-init_scale``, the same for an id on any
+    server), ``sparse_push`` applies the optimizer per row. ``heartbeat``
+    / ``liveness_ms`` for a worker's liveness, ``save``/``load`` of the
+    shard's tables with their optimizer state."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0,
+                 timeout_ms: int = 30000) -> None:
+        self._h = _load().pt_ps_connect(host.encode(), port, timeout_ms)
+        if self._h < 0:
+            raise RuntimeError(f"connect to ps {host}:{port} failed")
+
+    def close(self) -> None:
+        if getattr(self, "_h", -1) > 0:
+            _load().pt_ps_disconnect(self._h)
+            self._h = -1
+
+    def __enter__(self) -> "PsClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def dense_init(self, name: str, values: Optional[np.ndarray], n: int,
+                   optimizer: str = "sgd", lr: float = 0.01,
+                   beta1: float = 0.9, beta2: float = 0.999,
+                   eps: float = 1e-8, sync_world: int = 0) -> None:
+        ptr = None
+        if values is not None:
+            values = np.ascontiguousarray(values, np.float32).reshape(-1)
+            if values.size != n:
+                raise ValueError(f"ps dense_init({name!r}): {values.size} "
+                                 f"values for a table of {n}")
+            ptr = _fptr(values)
+        rc = _load().pt_ps_dense_init(
+            self._h, name.encode(), n, ptr, _OPT_CODES[optimizer],
+            _hyper_array(lr, beta1, beta2, eps), sync_world)
+        if rc != 0:
+            raise RuntimeError(f"ps dense_init({name!r}) failed ({rc})")
+
+    def dense_pull(self, name: str, n: int, min_version: int = 0,
+                   timeout_ms: int = 60000) -> Tuple[np.ndarray, int]:
+        out = np.empty(n, np.float32)
+        ver = _load().pt_ps_dense_pull(self._h, name.encode(), _fptr(out), n,
+                                       min_version, timeout_ms)
+        if ver < 0:
+            raise TimeoutError(
+                f"ps dense_pull({name!r}, min_version={min_version}) "
+                f"failed ({ver})")
+        return out, int(ver)
+
+    def dense_push(self, name: str, grad: np.ndarray) -> int:
+        grad = np.ascontiguousarray(grad, np.float32).reshape(-1)
+        ver = _load().pt_ps_dense_push(self._h, name.encode(), _fptr(grad),
+                                       grad.size)
+        if ver < 0:
+            raise RuntimeError(f"ps dense_push({name!r}) failed ({ver})")
+        return int(ver)
+
+    def sparse_init(self, name: str, dim: int, optimizer: str = "sgd",
+                    lr: float = 0.01, beta1: float = 0.9,
+                    beta2: float = 0.999, eps: float = 1e-8,
+                    init_scale: float = 0.0) -> None:
+        rc = _load().pt_ps_sparse_init(
+            self._h, name.encode(), dim, _OPT_CODES[optimizer],
+            _hyper_array(lr, beta1, beta2, eps), init_scale)
+        if rc != 0:
+            raise RuntimeError(f"ps sparse_init({name!r}) failed ({rc})")
+
+    def sparse_pull(self, name: str, ids: np.ndarray,
+                    dim: int) -> np.ndarray:
+        ids = np.ascontiguousarray(ids, np.int64).reshape(-1)
+        out = np.empty((ids.size, dim), np.float32)
+        rc = _load().pt_ps_sparse_pull(self._h, name.encode(), _iptr(ids),
+                                       ids.size, dim, _fptr(out))
+        if rc != 0:
+            raise RuntimeError(f"ps sparse_pull({name!r}) failed ({rc})")
+        return out
+
+    def sparse_push(self, name: str, ids: np.ndarray, grads: np.ndarray,
+                    dim: int) -> None:
+        ids = np.ascontiguousarray(ids, np.int64).reshape(-1)
+        grads = np.ascontiguousarray(grads, np.float32).reshape(-1)
+        if grads.size != ids.size * dim:
+            raise ValueError(f"ps sparse_push({name!r}): {grads.size} "
+                             f"values for {ids.size} rows of {dim}")
+        rc = _load().pt_ps_sparse_push(self._h, name.encode(), _iptr(ids),
+                                       ids.size, dim, _fptr(grads))
+        if rc != 0:
+            raise RuntimeError(f"ps sparse_push({name!r}) failed ({rc})")
+
+    def sparse_size(self, name: str) -> int:
+        v = _load().pt_ps_sparse_size(self._h, name.encode())
+        if v < 0:
+            raise RuntimeError(f"ps sparse_size({name!r}) failed ({v})")
+        return int(v)
+
+    def heartbeat(self, worker: str) -> None:
+        """Records a liveness beat for ``worker`` on the server."""
+        v = _load().pt_ps_heartbeat(self._h, worker.encode())
+        if v < 0:
+            raise RuntimeError(f"ps heartbeat({worker!r}) failed ({v})")
+
+    def liveness_ms(self, worker: str) -> Optional[int]:
+        """Milliseconds since ``worker``'s last beat, None if it never
+        beat."""
+        v = _load().pt_ps_liveness(self._h, worker.encode())
+        if v == -1:
+            return None
+        if v < 0:
+            raise RuntimeError(f"ps liveness({worker!r}) failed ({v})")
+        return int(v)
+
+    def save(self, path: str) -> None:
+        if _load().pt_ps_save(self._h, path.encode()) != 0:
+            raise RuntimeError(f"ps save({path!r}) failed")
+
+    def load(self, path: str) -> None:
+        if _load().pt_ps_load(self._h, path.encode()) != 0:
+            raise RuntimeError(f"ps load({path!r}) failed")

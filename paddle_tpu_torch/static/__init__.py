@@ -577,14 +577,19 @@ class TrainStep:
             # scale (JAX: resolve_lr(rate, step + 1) * lr_scale)
             lr = resolve_lr(self.optimizer.learning_rate,
                             self.state["step"] + 1) * lr
+        self._update(grads, ok, lr, gen)
+        if scaler is not None:
+            scaler.update(self.scaler_state, found_inf)
+        return metrics
+
+    def _update(self, grads, ok, lr, gen) -> None:
+        """The optimizer's in-place update of the parameters (a subclass
+        may transform the gradients first or update blocks instead)."""
         # an optimizer that draws (Dpsgd's noise) draws from the step's
         # generator, registered with the graph as dropout's is
         with _random.rng_scope(default=gen):
             self.optimizer.apply_gradients(self.params, grads, self.state,
                                            ok, lr_override=lr)
-        if scaler is not None:
-            scaler.update(self.scaler_state, found_inf)
-        return metrics
 
     def _lr(self, scaled: bool = True) -> Optional[torch.Tensor]:
         """``host_lr`` holding the rate's live host value times

@@ -23,10 +23,18 @@ The jobs (``JOBS``): ``collective`` (every collective of
 SyncBatchNorm on a small ResNet, ``sync_batch_norm`` itself,
 ``DataParallel``, ``Model.prepare(mesh=).fit``, the straggler detector),
 ``long_context`` (ring and Ulysses attention, forward and gradients),
-``gshuffle`` (``InMemoryDataset.global_shuffle`` over the control plane)
-and ``chip`` (``chip_smoke.py``'s four ranks on one card: ring and Ulysses
-attention at BERT-base heads, a 2-layer BERT-base at dp 4 and dp 2 x mp 2,
-the straggler drill).
+``gshuffle`` (``InMemoryDataset.global_shuffle`` over the control plane),
+``pipeline`` (``gpipe`` and ``GPipeTrainStep`` at pp 4), ``dgc_localsgd``
+(``LocalSGDStep``, ``DGCTrainStep``, ``dgc_allreduce`` at dp 4), ``fleet``
+(``apply_strategy``'s routes and :data:`FLEET_CASES`, ``fleet.metrics``),
+``ps`` (two pserver shards and two sync trainers with a sparse table),
+``chip`` (``chip_smoke.py`` phase 13 (c)'s four ranks on one card: ring
+and Ulysses attention at BERT-base heads, a 2-layer BERT-base at dp 4 and
+dp 2 x mp 2, the straggler drill), ``chip14`` (phase 14 (a): GPipe over
+BERT-base, TP + ZeRO 3, LocalSGD, DGC, fleet and the PS on the 2-layer
+BERT-base) and ``chip_nccl`` (phase 14 (b): ``chip``, phase 13 (a)'s fits
+at world 4, ``chip14`` and BERT-base at seq 512 under NCCL, one rank a
+card).
 Each case's configuration lives here, so a test builds the JAX side from
 the same description.
 """
@@ -38,7 +46,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -56,6 +64,12 @@ SHARDED_CASES: Dict[str, Dict[str, Any]] = {
     "kwargs": dict(axes={"dp": 4}, kwargs=True),
     # a tail batch of 6 rows that dp 4 does not divide: run whole
     "tail": dict(axes={"dp": 4}, rows=6, zero=1),
+    # real partitioning: Megatron blocks with ZeRO 3's dp blocks on top,
+    # a tail batch under ZeRO 3, and a global-norm clip over blocks
+    "tp_zero3": dict(axes={"dp": 2, "mp": 2}, rule="megatron", zero=3),
+    "tail_zero3": dict(axes={"dp": 4}, rows=6, zero=3),
+    "tp_clip": dict(axes={"dp": 2, "mp": 2}, rule="megatron", zero=3,
+                    clip=0.05),
 }
 SHARDED_STEPS = 5
 # a small BERT (2 layers, hidden 64, vocab 512, no dropout) at dp 4 and
@@ -72,6 +86,9 @@ BERT_CASES: Dict[str, Dict[str, Any]] = {
     "bert_fused": dict(axes={"dp": 4}, zero=1, fused=True),
     "bert_fused_tp": dict(axes={"dp": 2, "mp": 2}, rule="megatron",
                           fused=True),
+    "bert_fused_zero3": dict(axes={"dp": 4}, zero=3, fused=True),
+    "bert_tp_zero3": dict(axes={"dp": 2, "mp": 2}, rule="megatron",
+                          zero=3, fused=False),
 }
 BERT_BATCH, BERT_SEQ, BERT_MASKED = 8, 16, 4
 BERT_LR = 1e-3
@@ -219,6 +236,7 @@ def _sharded_case(name: str, spec, inputs, rank: int, world: int,
     import torch
 
     from ..amp import GradScaler
+    from ..clip import ClipGradByGlobalNorm
     from ..ops import loss as L
     from ..optimizer import Adam
     from ..parallel import (ShardedTrainStep, create_mesh,
@@ -230,8 +248,10 @@ def _sharded_case(name: str, spec, inputs, rank: int, world: int,
             "megatron": megatron_param_rule()}.get(spec.get("rule"))
     scaler = GradScaler(init_loss_scaling=2.0 ** 10) \
         if spec.get("scaler") else None
+    clip = ClipGradByGlobalNorm(spec["clip"]) if spec.get("clip") else None
     step = ShardedTrainStep(
-        model, Adam(1e-2), lambda o, y: L.cross_entropy(o, y), mesh,
+        model, Adam(1e-2, grad_clip=clip),
+        lambda o, y: L.cross_entropy(o, y), mesh,
         param_rule=rule, zero_stage=spec.get("zero", 0),
         amp_dtype=spec.get("amp"), scaler=scaler)
     rows = spec.get("rows", len(inputs["x"]))
@@ -246,10 +266,13 @@ def _sharded_case(name: str, spec, inputs, rank: int, world: int,
               for _ in range(SHARDED_STEPS)]
     step.sync_to_model()
     out = {f"{name}/loss": np.asarray(losses)}
-    for n, p in model.named_parameters():
+    for n, p in step.whole_params().items():
         out[f"{name}/param/{n}"] = _np(p)
     out[f"{name}/shard_numel"] = np.asarray(
         sum(t.numel() for t in step.shards.values()))
+    # what the model itself holds between steps, by parameter
+    for n, p in model.named_parameters():
+        out[f"{name}/held_shape/{n}"] = np.asarray(p.shape)
     return out
 
 
@@ -279,8 +302,10 @@ def _bert_case(name: str, spec, inputs, rank: int, world: int,
     finally:
         set_flags({"fused_softmax_xent": False})
     out = {f"{name}/loss": np.asarray(losses)}
-    for n, p in model.named_parameters():
+    for n, p in step.whole_params().items():
         out[f"{name}/param/{n}"] = _np(p)
+    for n, p in model.named_parameters():
+        out[f"{name}/held_shape/{n}"] = np.asarray(p.shape)
     return out
 
 
@@ -424,9 +449,42 @@ def _straggler(inputs, rank: int, world: int, dev):
             "straggler/events": np.asarray(len(events))}
 
 
+# param rules whose layout the model lacks: (name, rule); each must raise
+# naming the parameter
+TP_ERROR_RULES = {
+    "no_partner": {"fc1.weight": (None, "mp")},
+    "bias_alone": {"fc2.bias": ("mp",)},
+    "two_axes": {"fc1.weight": ("dp", "mp"), "fc2.weight": ("mp", None)},
+}
+
+
+def _tp_errors(rank: int, world: int, dev) -> Dict[str, np.ndarray]:
+    """The message of each :data:`TP_ERROR_RULES` rule at dp 2 x mp 2 (a
+    rank raises before any collective, so every rank does)."""
+    from ..optimizer import Adam
+    from ..parallel import ShardedTrainStep, create_mesh
+    from ..parallel.mesh import P
+    out = {}
+    mesh = create_mesh({"dp": 2, "mp": world // 2})
+    rules = dict(TP_ERROR_RULES)
+    # the bias of a row-parallel Linear split with its weight's rows
+    rules["row_bias"] = {"fc1.weight": (None, "mp"),
+                         "fc2.weight": ("mp", None), "fc2.bias": ("mp",)}
+    for tag, table in rules.items():
+        try:
+            ShardedTrainStep(tiny_mlp(dev), Adam(1e-2), lambda o, y: o,
+                             mesh, param_rule=lambda n, v, t=table: P(
+                                 *t.get(n, ())))
+            out[f"tp_error/{tag}"] = np.asarray("")
+        except ValueError as e:
+            out[f"tp_error/{tag}"] = np.asarray(str(e))
+    return out
+
+
 def job_train(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     dev = _device()
     out: Dict[str, np.ndarray] = {}
+    out.update(_tp_errors(rank, world, dev))
     for name, spec in SHARDED_CASES.items():
         out.update(_sharded_case(name, spec, inputs, rank, world, dev))
     for name, spec in BERT_CASES.items():
@@ -511,6 +569,305 @@ def job_gshuffle(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     return out
 
 
+# -- pipeline ----------------------------------------------------------------
+
+PIPE_STEPS = 3
+PIPE_MICRO = 4
+
+
+def pipe_parts(dev, widths=(8, 16, 1), n_stages: int = 4):
+    """GPipe's parts for the ``pipeline`` job: embed Linear(in, hidden),
+    ``n_stages`` stages of Sequential(Linear(hidden, hidden), Tanh), head
+    Linear(hidden, out)."""
+    from .. import nn
+    d_in, hid, d_out = widths
+    embed = nn.Linear(d_in, hid, device=dev)
+    stages = [nn.Sequential(nn.Linear(hid, hid, device=dev), nn.Tanh())
+              for _ in range(n_stages)]
+    head = nn.Linear(hid, d_out, device=dev)
+    return embed, stages, head
+
+
+def _load_pipe(inputs, embed, stages, head, prefix: str) -> None:
+    _load(embed, inputs, f"{prefix}embed/")
+    for i, st in enumerate(stages):
+        _load(st, inputs, f"{prefix}stage{i}/")
+    _load(head, inputs, f"{prefix}head/")
+
+
+def job_pipeline(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """``gpipe`` over four stages (the forward and the input's gradient)
+    and ``GPipeTrainStep`` (plain, with ``remat_stages``) at pp 4."""
+    import torch
+
+    from ..ops import loss as L
+    from ..optimizer import Adam
+    from ..parallel import create_mesh
+    from ..parallel.pipeline import GPipeTrainStep, gpipe, stack_stage_params
+    dev = _device()
+    mesh = create_mesh({"pp": world})
+    out: Dict[str, np.ndarray] = {}
+    _, stages, _ = pipe_parts(dev, (16, 16, 16))
+    for i, st in enumerate(stages):
+        _load(st, inputs, f"seq/stage{i}/")
+    template = stages[0]
+    x = torch.tensor(inputs["seq_x"], device=dev, requires_grad=True)
+
+    def stage_fn(params, xb):
+        return torch.func.functional_call(template, params, (xb,))
+
+    y = gpipe(stage_fn, stack_stage_params(stages), x, PIPE_MICRO, mesh)
+    (dx,) = torch.autograd.grad((y * torch.tensor(inputs["seq_g"],
+                                                  device=dev)).sum(), [x])
+    out["gpipe/y"], out["gpipe/dx"] = _np(y), _np(dx)
+    for remat in (False, True):
+        embed, stages, head = pipe_parts(dev)
+        _load_pipe(inputs, embed, stages, head, "pipe/")
+        step = GPipeTrainStep(embed, stages, head, Adam(1e-2),
+                              lambda o, t: L.mse_loss(o, t), mesh,
+                              num_microbatches=PIPE_MICRO,
+                              remat_stages=remat)
+        xb = torch.tensor(inputs["pipe_x"], device=dev)
+        yb = torch.tensor(inputs["pipe_y"], device=dev)
+        tag = "remat" if remat else "plain"
+        out[f"{tag}/loss"] = np.asarray(
+            [float(step(xb, labels=(yb,))["loss"])
+             for _ in range(PIPE_STEPS)])
+        for n, p in step.params.items():
+            out[f"{tag}/param/{n}"] = _np(p)
+        out[f"{tag}/stage_id"] = np.asarray(step.stage_id)
+    return out
+
+
+# -- DGC and LocalSGD ----------------------------------------------------------
+
+LOCALSGD_K = 4
+DGC_STEPS = 6
+DGC_FEEDBACK_STEPS = 20
+
+
+def job_dgc_localsgd(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """LocalSGD (k 4, Momentum) through one sync, DGC (Momentum, sparsity
+    0.75, rampup 3) through its warm-up and past it, and
+    ``dgc_allreduce``'s error feedback over 20 exchanges, at dp 4."""
+    import torch
+
+    from .. import nn
+    from ..ops import loss as L
+    from ..optimizer import Momentum
+    from ..parallel import (DGCTrainStep, LocalSGDStep, create_mesh,
+                            dgc_allreduce)
+    dev = _device()
+    mesh = create_mesh({"dp": world})
+    out: Dict[str, np.ndarray] = {}
+
+    def mse(o, t):
+        return L.mse_loss(o, t)
+
+    model = nn.Linear(8, 4, device=dev)
+    _load(model, inputs, "lsgd/")
+    step = LocalSGDStep(model, Momentum(0.05, 0.9), mse, mesh,
+                        k_steps=LOCALSGD_K)
+    x, y = (torch.tensor(inputs[k], device=dev) for k in ("lx", "ly"))
+    losses, divs = [], []
+    for _ in range(LOCALSGD_K + 1):
+        losses.append(float(step(x, labels=(y,))["loss"]))
+        divs.append(step.replica_divergence())
+    out["lsgd/loss"], out["lsgd/div"] = np.asarray(losses), np.asarray(divs)
+    for n, p in step.params.items():
+        out[f"lsgd/param/{n}"] = _np(p)
+    for n, p in step.averaged_params().items():
+        out[f"lsgd/avg/{n}"] = _np(p)
+    model = nn.Linear(16, 4, device=dev)
+    _load(model, inputs, "dgc/")
+    step = DGCTrainStep(model, Momentum(0.05, 0.9), mse, mesh,
+                        sparsity=0.75, rampup_steps=3)
+    x, y = (torch.tensor(inputs[k], device=dev) for k in ("dx", "dy"))
+    out["dgc/loss"] = np.asarray([float(step(x, labels=(y,))["loss"])
+                                  for _ in range(DGC_STEPS)])
+    for n, p in step.params.items():
+        out[f"dgc/param/{n}"] = _np(p)
+    g = torch.tensor(inputs["fb_g"], device=dev)
+    res = torch.zeros_like(g)
+    delivered = []
+    with mesh:
+        for _ in range(DGC_FEEDBACK_STEPS):
+            d, res = dgc_allreduce(g, res, "dp", sparsity=0.9)
+            delivered.append(_np(d))
+    out["fb/delivered"] = np.stack(delivered)
+    out["fb/residual"] = _np(res)
+    return out
+
+
+# -- fleet ---------------------------------------------------------------------
+
+FLEET_STEPS = 3
+# strategy toggles of each composed case (held against the JAX
+# apply_strategy on the same model and batch)
+FLEET_CASES: Dict[str, Dict[str, Any]] = {
+    "merge": dict(gradient_merge=True, k=2, avg=True),
+    "merge_sum": dict(gradient_merge=True, k=2, avg=False),
+    "recompute": dict(recompute=True),
+    "zero3": dict(sharding=True, stage=3),
+    "tp": dict(tensor_parallel=True, degree=2),
+    "hier": dict(hierarchical_allreduce=True),
+}
+
+
+def fleet_strategy(fleet, spec):
+    """A DistributedStrategy (of the port's or the JAX package's
+    ``fleet``) from a :data:`FLEET_CASES` entry."""
+    s = fleet.DistributedStrategy()
+    if spec.get("gradient_merge"):
+        s.gradient_merge = True
+        s.gradient_merge_configs.k_steps = spec["k"]
+        s.gradient_merge_configs.avg = spec["avg"]
+    if spec.get("recompute"):
+        s.recompute = True
+    if spec.get("sharding"):
+        s.sharding = True
+        s.sharding_configs.stage = spec["stage"]
+    if spec.get("tensor_parallel"):
+        s.tensor_parallel = True
+        s.tensor_parallel_configs = {"tensor_parallel_degree":
+                                     spec["degree"]}
+    if spec.get("hierarchical_allreduce"):
+        s.hierarchical_allreduce = True
+    return s
+
+
+def job_fleet(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """``apply_strategy``'s routes and composed steps on the tiny MLP
+    (the global batch on every rank), ``fleet`` itself, and
+    ``fleet.metrics`` over the control plane (rank ``r`` holds its own
+    statistics)."""
+    import torch
+
+    from ..distributed import fleet
+    from ..ops import loss as L
+    from ..optimizer import SGD, Adam, Momentum
+    from ..parallel import DGCTrainStep, LocalSGDStep, ShardedTrainStep
+    dev = _device()
+    out: Dict[str, np.ndarray] = {}
+
+    def xent(o, t):
+        return L.cross_entropy(o, t)
+
+    f = fleet.init(is_collective=True)
+    out["fleet/worker"] = np.asarray([f.worker_index(), f.worker_num(),
+                                      int(f.is_first_worker())])
+    x = torch.tensor(inputs["x"], device=dev)
+    y = torch.tensor(inputs["y"], device=dev)
+    for name, spec in FLEET_CASES.items():
+        model = tiny_mlp(dev)
+        _load(model, inputs, "mlp/")
+        opt = fleet.distributed_optimizer(Adam(1e-2),
+                                          fleet_strategy(fleet, spec))
+        step = f.build_train_step(model, opt, xent)
+        out[f"{name}/type"] = np.asarray(type(step).__name__)
+        out[f"{name}/loss"] = np.asarray(
+            [float(step(x, labels=(y,))["loss"])
+             for _ in range(FLEET_STEPS)])
+        for n, p in step.whole_params().items():
+            out[f"{name}/param/{n}"] = _np(p)
+        out[f"{name}/mesh"] = np.asarray(
+            [f"{k}={v}" for k, v in step.mesh.shape.items()])
+    routes = {}
+    for tag, opt in (("dgc", Momentum(0.01, 0.9)), ("localsgd", SGD(0.01)),
+                     ("sharding", Adam(0.01))):
+        s = fleet.DistributedStrategy()
+        setattr(s, tag, True)
+        if tag == "localsgd":
+            s.localsgd_configs.k_steps = 3
+        step = fleet.apply_strategy(s, tiny_mlp(dev), opt, xent)
+        routes[tag] = step
+    out["route/dgc"] = np.asarray(isinstance(routes["dgc"], DGCTrainStep))
+    out["route/localsgd"] = np.asarray(
+        isinstance(routes["localsgd"], LocalSGDStep)
+        and routes["localsgd"].k_steps == 3)
+    out["route/sharding"] = np.asarray(
+        isinstance(routes["sharding"], ShardedTrainStep)
+        and any("dp" in str(sp) for sp in routes["sharding"].slot_specs
+                .values()))
+    s = fleet.DistributedStrategy()
+    s.amp, s.dgc = True, True
+    try:
+        fleet.apply_strategy(s, tiny_mlp(dev), Momentum(0.01), xent)
+        out["route/amp_dgc"] = np.asarray("")
+    except ValueError as e:
+        out["route/amp_dgc"] = np.asarray(str(e))
+    m = fleet.metrics
+    st = inputs["metric_stats"][rank]  # correct, total, abserr, sqrerr
+    out["metrics/values"] = np.asarray([
+        float(m.sum(np.array([rank + 1.0]))[0]), float(m.max(rank * 10.0)),
+        float(m.min(rank - 1.0)), m.acc(st[0], st[1]), m.mae(st[2], st[1]),
+        m.mse(st[3], st[1]), m.rmse(st[3], st[1]),
+        m.auc(inputs["auc_pos"][rank], inputs["auc_neg"][rank])])
+    f.barrier_worker()
+    return out
+
+
+# -- the parameter server ------------------------------------------------------
+
+PS_STEPS = 5
+PS_LR = 0.1
+
+
+def job_ps(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Ranks 0 and 1 each run a pserver shard (``run_server``), the other
+    ranks are sync trainers of a small regression model over both shards,
+    its embedding served as a sparse table (``SparseEmbeddingPS``, looked
+    up by the ids of input 0); each trainer feeds its half of the global
+    batch. The ports meet through the control plane."""
+    import torch
+
+    from .. import native, nn
+    from ..distributed.ps import (PSCluster, PSTrainStep, SparseEmbeddingPS,
+                                  run_server)
+    host, port = os.environ["PT_CP_ENDPOINT"].split(":")
+    cp = native.ControlPlaneClient(host, int(port))
+    out: Dict[str, np.ndarray] = {}
+    n_servers = 2
+    trainers = world - n_servers
+    if rank < n_servers:
+        server = run_server(0, ready_callback=lambda srv: cp.set(
+            f"ps/port{rank}", str(srv.port).encode()))
+        try:
+            cp.barrier("ps/done", world, 120000)
+        finally:
+            server.stop()
+        out["role"] = np.asarray("server")
+        return out
+    ports = [int(cp.get(f"ps/port{r}")) for r in range(n_servers)]
+    cluster = PSCluster([f"127.0.0.1:{p}" for p in ports])
+    dev = _device()
+    model = nn.Sequential(nn.Embedding(16, 4, device=dev),
+                          nn.Flatten(), nn.Linear(8, 1, device=dev))
+    _load(model, inputs, "psreg/")
+    emb = SparseEmbeddingPS(cluster, "emb", 4, optimizer="sgd", lr=PS_LR,
+                            init_scale=0.05)
+    step = PSTrainStep(model, lambda o, t: ((o - t) ** 2).mean(), cluster,
+                       mode="sync", n_trainers=trainers, optimizer="sgd",
+                       lr=PS_LR, sparse_tables={"0.weight": (emb, 0)})
+    me = rank - n_servers
+    ids, tgt = inputs["ps_ids"], inputs["ps_y"]
+    rows = ids.shape[1] // trainers
+    losses = []
+    for i in range(PS_STEPS):
+        sl = slice(me * rows, (me + 1) * rows)
+        losses.append(step(torch.tensor(ids[i, sl], device=dev),
+                           labels=(torch.tensor(tgt[i, sl], device=dev),)
+                           )["loss"])
+    out["role"] = np.asarray("trainer")
+    out["loss"] = np.asarray(losses)
+    for n, v in step.params.items():
+        out[f"param/{n}"] = v
+    out["emb"] = emb.pull(np.arange(16))
+    cluster.close()
+    cp.barrier("ps/done", world, 120000)
+    return out
+
+
 # -- the card (chip_smoke.py phase 13c) ---------------------------------------
 
 def attention_inputs(seed: int, b: int, h: int, t: int, d: int):
@@ -536,13 +893,54 @@ def bert_batch(seed: int, batch: int, seq: int, masked: int, vocab: int):
     return ids, types, mask, pos, mlm, nsp
 
 
-def chip_bert(torch, layers: int, seed: int, device):
-    """BertForPretraining at BERT-base width, ``layers`` deep, no dropout
-    (the ranks' streams differ from one process's), fp32, from ``seed``."""
+def chip_bert(torch, layers: int, seed: int, device, **widths):
+    """BertForPretraining at BERT-base width (``widths`` may shrink it for
+    a check on the CPU), ``layers`` deep, no dropout (the ranks' streams
+    differ from one process's), fp32, from ``seed``."""
     from ..models import BertConfig, BertForPretraining
     cfg = BertConfig(num_hidden_layers=layers, hidden_dropout_prob=0.0,
-                     attention_probs_dropout_prob=0.0)
+                     attention_probs_dropout_prob=0.0, **widths)
     return BertForPretraining(cfg, device=device, seed=seed)
+
+
+# the untied BERT's word embedding, the PS runs' sparse table
+PS_WORD = "net.bert.embeddings.word_embeddings.weight"
+
+
+def untied_bert(torch, layers: int, seed: int, device, **widths):
+    """:func:`chip_bert` with its MLM decoder untied from the word
+    embedding: ``decoder_weight``, a parameter of its own that starts as
+    the embedding's copy, so the model reads the word embedding (named
+    :data:`PS_WORD`) only at the batch's ids, a lookup a sparse table can
+    serve."""
+    from torch import nn
+    model = chip_bert(torch, layers, seed, device, **widths)
+
+    class Untied(nn.Module):
+        def __init__(self, net) -> None:
+            super().__init__()
+            self.net, self.config = net, net.config
+            self.decoder_weight = nn.Parameter(
+                net.bert.embeddings.word_embeddings.weight.detach().clone())
+
+        def forward(self, input_ids, token_type_ids=None,
+                    attention_mask=None, masked_positions=None):
+            seq_out, pooled = self.net.bert(input_ids, token_type_ids,
+                                            attention_mask)
+            if masked_positions is not None:
+                idx = masked_positions.long()[:, :, None].expand(
+                    -1, -1, seq_out.shape[-1])
+                seq_out = torch.gather(seq_out, 1, idx)
+            return self.net.cls(seq_out, pooled, self.decoder_weight)
+
+    return Untied(model)
+
+
+def chip_widths(inputs) -> Dict[str, int]:
+    """The BERT widths a job's inputs ask for (``width/<name>``; none:
+    BERT-base's)."""
+    return {k[len("width/"):]: int(v) for k, v in inputs.items()
+            if k.startswith("width/")}
 
 
 def _timed(torch, fn):
@@ -646,13 +1044,528 @@ def job_chip(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
             [counts[n] for n in sorted(counts)])
         out[f"bert_{name}/loss"] = np.asarray(losses)
         out[f"bert_{name}/ms"] = np.asarray(ms)
-        for n, p in model.named_parameters():
+        for n, p in step.whole_params().items():
             out[f"bert_{name}/param/{n}"] = _np(p)
         out[f"bert_{name}/shard_numel"] = np.asarray(
             sum(x.numel() for x in step.shards.values()))
+        # what the model holds between steps (its blocks under tensor
+        # parallelism)
+        out[f"bert_{name}/held_numel"] = np.asarray(
+            sum(p.numel() for p in model.parameters()))
         del model, step
         torch.cuda.empty_cache()
     out.update(_straggler(inputs, rank, world, dev))
+    return out
+
+
+# -- the card (chip_smoke.py phase 14) ----------------------------------------
+
+# phase 14 runs its BERT cases under the fused flags with the flash route
+# on at seq 128
+CHIP14_FLAGS = dict(FUSED_FLAGS, flash_attention_min_seq_train=128)
+CHIP14_PS_LR = 0.05
+CHIP14_DGC = dict(sparsity=0.99, rampup_steps=1, momentum=0.9, lr=1e-2)
+CHIP14_LOCALSGD_K = 2
+
+
+def bert_stage(layers):
+    """A stage of a BERT trunk: encoder layers run in order, with no
+    attention mask (the phase's batches are unpadded)."""
+    from .. import nn
+
+    class Stage(nn.Layer):
+        def __init__(self) -> None:
+            super().__init__()
+            self.layers = nn.LayerList(list(layers))
+
+        def forward(self, x):
+            for layer in self.layers:
+                x = layer(x)
+            return x
+
+    return Stage()
+
+
+def bert_head(model):
+    """BERT's pooler and pretraining heads as one module over the trunk's
+    output, reading the tied word embedding from ``model``'s
+    embeddings."""
+    from .. import nn
+
+    class _Head(nn.Layer):
+        def __init__(self, m) -> None:
+            super().__init__()
+            self.pooler, self.cls = m.bert.pooler, m.cls
+            self.pooler_act = m.bert.pooler_act
+            self.word = m.bert.embeddings.word_embeddings
+
+        def forward(self, seq_out):
+            pooled = self.pooler_act(self.pooler(seq_out[:, 0]))
+            return self.cls(seq_out, pooled, self.word.weight)
+
+    return _Head(model)
+
+
+def gpipe_bert(torch, layers: int, stages: int, seed: int, device,
+               **widths):
+    """(embed, stages, head, the whole model) of :func:`chip_bert` cut
+    into ``stages`` stages of equal depth."""
+    model = chip_bert(torch, layers, seed, device, **widths)
+    per = layers // stages
+    trunk = model.bert.encoder.layers
+    return (model.bert.embeddings,
+            [bert_stage(trunk[i * per:(i + 1) * per]) for i in range(stages)],
+            bert_head(model), model)
+
+
+def _counts(kernels) -> Dict[str, np.ndarray]:
+    c = kernels.launch_counts()
+    return {"launch_names": np.asarray(sorted(c)),
+            "launches": np.asarray([c[n] for n in sorted(c)])}
+
+
+def full_mlm_labels(torch, batch):
+    """The batch's MLM labels over every position ([B, T]; -100 where
+    nothing is masked), for a head that scores every position."""
+    ids, _, _, pos, mlm, _ = batch
+    return torch.full_like(ids, -100).scatter_(1, pos, mlm)
+
+
+def _run_steps(torch, step, batch, steps: int, pipeline: bool = False):
+    """(losses, ms of each step) of ``steps`` calls on one batch (a
+    pipeline takes the ids alone and the labels of every position)."""
+    if pipeline:
+        args, labels = (batch[0],), (full_mlm_labels(torch, batch),
+                                     batch[5])
+    else:
+        args, labels = tuple(batch[:4]), (batch[4], batch[5])
+    losses, ms = [], []
+    for _ in range(steps):
+        m, dt = _timed(torch, lambda: step(*args, labels=labels))
+        losses.append(float(m["loss"]))
+        ms.append(dt)
+    return losses, ms
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _reset_memory(torch, dev) -> None:
+    """Frees the allocator's cache and restarts its peak (the card)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch, dev) -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+
+
+def _case(torch, kernels, out, tag, fn, params=None):
+    """Runs ``fn()`` -> (losses, ms) and records them, the launches, this
+    rank's peak memory and the parameters ``params()`` gives."""
+    dev = _device()
+    _reset_memory(torch, dev)
+    kernels.reset_launch_counts()
+    losses, ms = fn()
+    out[f"{tag}/loss"] = np.asarray(losses)
+    out[f"{tag}/ms"] = np.asarray(ms)
+    for k, v in _counts(kernels).items():
+        out[f"{tag}/{k}"] = v
+    out[f"{tag}/peak_gb"] = np.asarray(_peak_gb(torch, dev))
+    for n, p in (params() if params else {}).items():
+        out[f"{tag}/param/{n}"] = _np(p)
+
+
+def _dgc_steps(torch, step, batch, steps: int, out):
+    """:func:`_run_steps` of a ``DGCTrainStep`` that also records, for
+    each step past the warm-up, the entries this rank sent of every leaf
+    (``dgc/sent/<step>/<name>``), for the reference to take the same
+    ones. ``dgc.topk_sparsify`` is wrapped to keep a clone of each call's
+    indices: one call a leaf a step, in the step's leaf order; under a
+    captured step the clones of the capture are graph buffers that each
+    replay refills, so the last calls' clones hold this step's."""
+    from ..parallel import dgc
+    chosen = []
+    plain = dgc.topk_sparsify
+
+    def recorded(g, k):
+        vals, idx, residual = plain(g, k)
+        chosen.append(idx.clone())
+        return vals, idx, residual
+
+    names = list(step.params)
+    losses, ms = [], []
+    dgc.topk_sparsify = recorded
+    try:
+        for i in range(steps):
+            loss, dt = _run_steps(torch, step, batch, 1)
+            losses += loss
+            ms += dt
+            if i < step.rampup_steps:
+                continue
+            for n, idx in zip(names, chosen[-len(names):]):
+                k = max(1, int(step.params[n].numel()
+                               * (1.0 - step.sparsity)))
+                assert idx.numel() == k, (n, idx.numel(), k)
+                out[f"dgc/sent/{i}/{n}"] = idx.cpu().numpy()
+    finally:
+        dgc.topk_sparsify = plain
+    return losses, ms
+
+
+def chip14_batch(torch, inputs, dev, batch: int, seq: int, seed_off: int):
+    """A global BERT batch for phase 14 (:func:`bert_batch`), on ``dev``."""
+    vocab = chip_widths(inputs).get("vocab_size", 30522)
+    return [torch.tensor(a, device=dev) for a in bert_batch(
+        int(inputs["seed"]) + seed_off, batch, seq,
+        int(inputs["bert_masked"]), vocab)]
+
+
+def job_chip14(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Phase 14 (a): GPipe over BERT-base (12 layers in 4 stages of 3),
+    then on the 2-layer full-width BERT tensor parallelism with ZeRO 3
+    (dp 2 x mp 2), LocalSGD (dp 4, k 2), DGC (dp 4, Momentum, sparsity
+    0.99, rampup 1), fleet with sharding (stage 3) and with gradient merge
+    (k 2), and sync PS training (ranks 0-1 pserver shards, 2-3 trainers,
+    :func:`untied_bert`'s word embedding a sparse table looked up by the
+    batch's ids), under :data:`CHIP14_FLAGS`."""
+    import torch
+
+    from .. import kernels, native
+    from ..distributed import fleet
+    from ..distributed.ps import PSCluster, PSTrainStep, SparseEmbeddingPS
+    from ..flags import get_flags, set_flags
+    from ..models import pretraining_loss
+    from ..optimizer import AdamW, Momentum
+    from ..parallel import (DGCTrainStep, LocalSGDStep, ShardedTrainStep,
+                            create_mesh, megatron_param_rule)
+    from ..parallel.pipeline import GPipeTrainStep
+    dev = _device()
+    out: Dict[str, np.ndarray] = {}
+    seed, lr = int(inputs["seed"]), float(inputs["bert_lr"])
+    steps, layers = int(inputs["bert_steps"]), int(inputs["bert_layers"])
+    widths = chip_widths(inputs)
+    before = get_flags(list(CHIP14_FLAGS))
+    set_flags(CHIP14_FLAGS)
+    try:
+        gb = chip14_batch(torch, inputs, dev, int(inputs["gpipe_batch"]),
+                          int(inputs["bert_seq"]), 1)
+        embed, stages, head, whole = gpipe_bert(
+            torch, int(inputs["gpipe_layers"]), world, seed, dev, **widths)
+        step = GPipeTrainStep(embed, stages, head,
+                              AdamW(lr, weight_decay=0.01,
+                                    fused_state=False),
+                              pretraining_loss, create_mesh({"pp": world}),
+                              num_microbatches=int(inputs["gpipe_micro"]))
+        _case(torch, kernels, out, "gpipe",
+              lambda: _run_steps(torch, step, gb, steps, pipeline=True),
+              lambda: step.params)
+        del step, embed, stages, head, whole
+        batch = chip14_batch(torch, inputs, dev, int(inputs["bert_batch"]),
+                             int(inputs["bert_seq"]), 2)
+
+        def opt():
+            return AdamW(lr, weight_decay=0.01, fused_state=False)
+
+        model = chip_bert(torch, layers, seed, dev, **widths)
+        step = ShardedTrainStep(model, opt(), pretraining_loss,
+                                create_mesh({"dp": 2, "mp": world // 2}),
+                                param_rule=megatron_param_rule(),
+                                zero_stage=3)
+        _case(torch, kernels, out, "tp_zero3",
+              lambda: _run_steps(torch, step, batch, steps),
+              step.whole_params)
+        for n, p in model.named_parameters():
+            out[f"tp_zero3/held_numel/{n}"] = np.asarray(p.numel())
+        del model, step
+        model = chip_bert(torch, layers, seed, dev, **widths)
+        step = LocalSGDStep(model, opt(), pretraining_loss,
+                            create_mesh({"dp": world}),
+                            k_steps=CHIP14_LOCALSGD_K)
+        _case(torch, kernels, out, "localsgd",
+              lambda: _run_steps(torch, step, batch, 2 * CHIP14_LOCALSGD_K),
+              lambda: step.params)
+        del model, step
+        model = chip_bert(torch, layers, seed, dev, **widths)
+        step = DGCTrainStep(model, Momentum(CHIP14_DGC["lr"],
+                                            CHIP14_DGC["momentum"]),
+                            pretraining_loss, create_mesh({"dp": world}),
+                            sparsity=CHIP14_DGC["sparsity"],
+                            rampup_steps=CHIP14_DGC["rampup_steps"])
+        _case(torch, kernels, out, "dgc",
+              lambda: _dgc_steps(torch, step, batch, steps, out),
+              lambda: step.params)
+        del model, step
+        for tag in ("sharding", "merge"):
+            s = fleet.DistributedStrategy()
+            if tag == "sharding":
+                s.sharding, s.sharding_configs.stage = True, 3
+            else:
+                s.gradient_merge = True
+                s.gradient_merge_configs.k_steps = 2
+            model = chip_bert(torch, layers, seed, dev, **widths)
+            step = fleet.fleet.build_train_step(
+                model, fleet.distributed_optimizer(opt(), s),
+                pretraining_loss)
+            _case(torch, kernels, out, f"fleet_{tag}",
+                  lambda: _run_steps(torch, step, batch, steps),
+                  step.whole_params)
+            del model, step
+        # the parameter server: ranks 0 and 1 serve, the others train
+        host, port = os.environ["PT_CP_ENDPOINT"].split(":")
+        cp = native.ControlPlaneClient(host, int(port))
+        if rank < 2:
+            server = native.PsServer()
+            try:
+                cp.set(f"chip14/ps{rank}", str(server.port).encode())
+                cp.barrier("chip14/ps_done", world, 600000)
+            finally:
+                server.stop()
+        else:
+            ports = [int(cp.get(f"chip14/ps{r}", timeout_ms=120000))
+                     for r in range(2)]
+            cluster = PSCluster([f"127.0.0.1:{p}" for p in ports])
+            model = untied_bert(torch, layers, seed, dev, **widths)
+            emb = SparseEmbeddingPS(cluster, "word",
+                                    model.config.hidden_size, optimizer="sgd",
+                                    lr=CHIP14_PS_LR, init_scale=0.02)
+            step = PSTrainStep(model, pretraining_loss, cluster,
+                               mode="sync", n_trainers=world - 2,
+                               optimizer="sgd", lr=CHIP14_PS_LR,
+                               sparse_tables={PS_WORD: (emb, 0)})
+            rows = batch[0].shape[0] // (world - 2)
+            mine = [t[(rank - 2) * rows:(rank - 1) * rows] for t in batch]
+            _case(torch, kernels, out, "ps",
+                  lambda: _run_steps(torch, step, mine, steps),
+                  lambda: dict(
+                      {k: torch.from_numpy(v) for k, v in
+                       step.params.items()},
+                      **{PS_WORD: torch.from_numpy(emb.pull(np.arange(
+                          model.config.vocab_size)))}))
+            cluster.close()
+            cp.barrier("chip14/ps_done", world, 600000)
+        cp.close()
+    finally:
+        set_flags(before)
+    return out
+
+
+# phase 14 (b)'s BERT-base runs under NCCL, one rank a card: (name, mesh
+# axes, ZeRO stage, Megatron rule); bf16, fused flags, captured
+CHIP_NCCL_RUNS = (("zero0", {"dp": 4}, 0, False),
+                  ("zero3", {"dp": 4}, 3, False),
+                  ("tp", {"dp": 2, "mp": 2}, 0, True))
+
+
+def move_error(torch, end, ref, init) -> Tuple[float, float, str]:
+    """How far a run's parameters ``end`` lie from the reference run's
+    ``ref``, over how far ``ref`` moved from their common start ``init``
+    (name -> tensor): (the L2 ratio over the whole model, the worst leaf's
+    ratio, that leaf). A run that changed nothing reads 1."""
+    num = den = 0.0
+    worst, leaf = 0.0, ""
+    for n, r in ref.items():
+        e = float(torch.linalg.vector_norm(end[n].float() - r.float()))
+        m = float(torch.linalg.vector_norm(r.float() - init[n].float()))
+        num, den = num + e * e, den + m * m
+        if m > 0 and e / m >= worst:
+            worst, leaf = e / m, n
+    return (num / den) ** 0.5, worst, leaf
+
+
+def whole_masters(step) -> Dict[str, Any]:
+    """A ZeRO 0/3 or tensor-parallel ``ShardedTrainStep``'s fp32 masters,
+    whole (all-gathered: every rank calls this) and on the host: there a
+    master is held as its parameter is (an fp32 parameter is its own)."""
+    from ..parallel.spmd import _unblock
+    assert step.zero_stage in (0, 3), step.zero_stage
+    out = {}
+    for n, p in step.params.items():
+        m = step.state["slots"][n].get("master", p).detach()
+        out[n] = (_unblock(m, step._held[n], step.mesh)
+                  if step._held[n] else m).to("cpu", copy=True)
+    return out
+
+
+def _host_params(step) -> Dict[str, Any]:
+    return {n: p.to("cpu", copy=True)
+            for n, p in step.whole_params().items()}
+
+
+def _fit_world(torch, inputs, dev) -> Dict[str, np.ndarray]:
+    """Phase 13 (a) at world 4: BERT-base bf16 under the fused flags
+    through ``Model.prepare(mesh=dp 4, zero_stage=z).fit`` (ZeRO 0: the
+    flat fused state; 1 and 3: per-leaf), one epoch over the global
+    batches every rank is given."""
+    from .. import kernels
+    from ..amp import cast_model_to_low_precision
+    from ..flags import set_flags
+    from ..hapi import Callback, Model
+    from ..models import pretraining_loss
+    from ..optimizer import AdamW
+    from ..parallel import create_mesh
+    out: Dict[str, np.ndarray] = {}
+    widths = chip_widths(inputs)
+    n, b = int(inputs["fit_batches"]), int(inputs["fit_batch"])
+    data = bert_batch(int(inputs["seed"]) + 5, n * b,
+                      int(inputs["nccl_seq"]), int(inputs["fit_masked"]),
+                      widths.get("vocab_size", 30522))
+    batches = [tuple(a[i * b:(i + 1) * b] for a in data[:4])
+               + (np.concatenate([data[4][i * b:(i + 1) * b],
+                                  data[5][i * b:(i + 1) * b, None]], 1),)
+               for i in range(n)]
+
+    class Rec(Callback):
+        def __init__(self) -> None:
+            self.losses = []
+
+        def on_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+
+    set_flags(FUSED_FLAGS)
+    init = ref = None
+    try:
+        for z in (0, 1, 3):
+            net = cast_model_to_low_precision(chip_bert(
+                torch, int(inputs["nccl_layers"]), int(inputs["seed"]), dev,
+                **widths), "bfloat16")
+            if init is None:
+                init = {n: p.detach().to("cpu", copy=True)
+                        for n, p in net.named_parameters()}
+            m = Model(net, loss=lambda o, y: pretraining_loss(
+                o, y[:, :-1], y[:, -1]), optimizer=AdamW(
+                    1e-4, weight_decay=0.01, fused_state=z == 0))
+            m.prepare(mesh=create_mesh({"dp": 4}), zero_stage=z)
+            rec = Rec()
+            _reset_memory(torch, dev)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            m.fit(batches, epochs=1, verbose=0, callbacks=[rec])
+            _sync(torch, dev)
+            out[f"fit{z}/loss"] = np.asarray(rec.losses)
+            out[f"fit{z}/s"] = np.asarray(time.perf_counter() - t0)
+            out[f"fit{z}/captures"] = np.asarray(m._train_step.captures)
+            out[f"fit{z}/peak_gb"] = np.asarray(_peak_gb(torch, dev))
+            end = _host_params(m._train_step)
+            if ref is None:
+                # bf16 as its bits: the one-card fit is held against them
+                ref = end
+                for n, p in end.items():
+                    out[f"fit0/param/{n}"] = p.view(torch.int16).numpy()
+            else:
+                out[f"fit{z}/move_err_vs_zero0"] = np.asarray(
+                    move_error(torch, end, ref, init)[:2])
+            del m, net, rec, end
+    finally:
+        set_flags({k: False for k in FUSED_FLAGS})
+    return out
+
+
+def _nccl_runs(torch, inputs, dev, rank: int) -> Dict[str, np.ndarray]:
+    """Phase 14 (b)'s BERT-base runs (:data:`CHIP_NCCL_RUNS`) at world 4:
+    12 layers, bf16, fused flags, one global batch of 4 x ``nccl_batch``
+    rows at seq 512, captured; the losses, the steady step ms, the peak
+    memory and the bytes a rank holds (parameters and optimizer state).
+    First rank 0 runs the same steps alone (``TrainStep``, no collective;
+    ``one/loss``), and holds each run's fp32 masters against that run's:
+    ``<run>/master_move_err``, :func:`move_error`'s (whole model, worst
+    leaf), and ``<run>/master_worst_leaf``."""
+    import torch.distributed as dist
+
+    from .. import kernels
+    from ..amp import cast_model_to_low_precision
+    from ..flags import set_flags
+    from ..models import pretraining_loss
+    from ..optimizer import AdamW
+    from ..parallel import (ShardedTrainStep, create_mesh,
+                            megatron_param_rule)
+    from ..static import TrainStep
+    out: Dict[str, np.ndarray] = {}
+    widths = chip_widths(inputs)
+    steps = int(inputs["nccl_steps"])
+
+    def bf16_bert():
+        return cast_model_to_low_precision(chip_bert(
+            torch, int(inputs["nccl_layers"]), int(inputs["seed"]), dev,
+            **widths), "bfloat16")
+
+    def opt():
+        return AdamW(1e-4, weight_decay=0.01, fused_state=False)
+
+    set_flags(FUSED_FLAGS)
+    try:
+        batch = chip14_batch(torch, inputs, dev,
+                             4 * int(inputs["nccl_batch"]),
+                             int(inputs["nccl_seq"]), 7)
+        init = ref = None
+        if rank == 0:
+            net = bf16_bert()
+            # the masters start as the bf16 weights
+            init = {n: p.detach().to("cpu", torch.float32, copy=True)
+                    for n, p in net.named_parameters()}
+            step = TrainStep(net, opt(), pretraining_loss)
+            out["one/loss"] = np.asarray(_run_steps(torch, step, batch,
+                                                    steps)[0])
+            ref = {n: step.state["slots"][n].get("master", p).detach().to(
+                "cpu", copy=True) for n, p in step.params.items()}
+            del net, step
+        dist.barrier()
+        for name, axes, zero, tp in CHIP_NCCL_RUNS:
+            _reset_memory(torch, dev)
+            net = bf16_bert()
+            step = ShardedTrainStep(
+                net, opt(), pretraining_loss, create_mesh(axes),
+                param_rule=megatron_param_rule() if tp else None,
+                zero_stage=zero)
+            kernels.reset_launch_counts()
+            losses, ms = _run_steps(torch, step, batch, steps)
+            held = sum(p.numel() * p.element_size()
+                       for p in net.parameters())
+            state = sum(t.numel() * t.element_size()
+                        for slots in step.state["slots"].values()
+                        for t in slots.values())
+            out[f"{name}/loss"] = np.asarray(losses)
+            out[f"{name}/ms"] = np.asarray(ms)
+            out[f"{name}/param_bytes"] = np.asarray(held)
+            out[f"{name}/state_bytes"] = np.asarray(state)
+            out[f"{name}/captures"] = np.asarray(step.captures)
+            out[f"{name}/peak_gb"] = np.asarray(_peak_gb(torch, dev))
+            for k, v in _counts(kernels).items():
+                out[f"{name}/{k}"] = v
+            end = whole_masters(step)  # after the peak is read
+            if rank == 0:
+                err, worst, leaf = move_error(torch, end, ref, init)
+                out[f"{name}/master_move_err"] = np.asarray([err, worst])
+                out[f"{name}/master_worst_leaf"] = np.asarray(leaf)
+            del net, step, end
+    finally:
+        set_flags({k: False for k in FUSED_FLAGS})
+    return out
+
+
+def job_chip_nccl(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Phase 14 (b), under NCCL with one rank a card: phase 13 (c)'s job
+    (:func:`job_chip`), phase 13 (a)'s fits at world 4, phase 14 (a)'s job
+    (:func:`job_chip14`) and the BERT-base runs of
+    :data:`CHIP_NCCL_RUNS`."""
+    import torch
+    dev = _device()
+    out: Dict[str, np.ndarray] = {}
+    parts = (("c", lambda: job_chip(inputs, rank, world)),
+             ("a", lambda: _fit_world(torch, inputs, dev)),
+             ("14a", lambda: job_chip14(inputs, rank, world)),
+             ("14b", lambda: _nccl_runs(torch, inputs, dev, rank)))
+    for tag, fn in parts:
+        t0 = time.perf_counter()
+        for k, v in fn().items():
+            out[f"{tag}/{k}"] = v
+        out[f"{tag}/s"] = np.asarray(time.perf_counter() - t0)
+        _reset_memory(torch, dev)
     return out
 
 
@@ -669,7 +1582,12 @@ def spawn_probe(out_dir: str) -> None:
 JOBS: Dict[str, Callable] = {"collective": job_collective,
                              "train": job_train, "chip": job_chip,
                              "long_context": job_long_context,
-                             "gshuffle": job_gshuffle}
+                             "gshuffle": job_gshuffle,
+                             "pipeline": job_pipeline,
+                             "dgc_localsgd": job_dgc_localsgd,
+                             "fleet": job_fleet, "ps": job_ps,
+                             "chip14": job_chip14,
+                             "chip_nccl": job_chip_nccl}
 
 
 # -- the harness -------------------------------------------------------------

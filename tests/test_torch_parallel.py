@@ -1,5 +1,6 @@
 """PyTorch port: meshes, ``ShardedTrainStep`` (ZeRO 0/1/3, tensor
-parallel placement), BatchNorm and SyncBatchNorm over the data axis,
+parallelism; each partitioned for real: a rank holds and multiplies its
+blocks), BatchNorm and SyncBatchNorm over the data axis,
 ``DataParallel``, ``Model.prepare(mesh=).fit`` and the straggler detector,
 against the JAX package.
 
@@ -25,6 +26,7 @@ from jax.sharding import PartitionSpec as JP  # noqa: E402
 
 import paddle_tpu as jpt  # noqa: E402
 from paddle_tpu import hapi as jhapi  # noqa: E402
+from paddle_tpu.clip import ClipGradByGlobalNorm as JaxClip  # noqa: E402
 from paddle_tpu.flags import GLOBAL_FLAGS as JAX_FLAGS  # noqa: E402
 from paddle_tpu.models import BertConfig as JaxBertConfig  # noqa: E402
 from paddle_tpu.models import BertForPretraining as JaxBert  # noqa: E402
@@ -158,7 +160,9 @@ def _jax_case(spec, inputs):
         rule = jax_megatron()
     scaler = jpt.amp.GradScaler(init_loss_scaling=2.0 ** 10) \
         if spec.get("scaler") else None
-    step = JaxSharded(model, jpt.optimizer.Adam(1e-2),
+    clip = JaxClip(spec["clip"]) \
+        if spec.get("clip") else None
+    step = JaxSharded(model, jpt.optimizer.Adam(1e-2, grad_clip=clip),
                       lambda o, y: JL.cross_entropy(o, y), mesh,
                       param_rule=rule, zero_stage=spec.get("zero", 0),
                       amp_dtype=spec.get("amp"), scaler=scaler)
@@ -194,6 +198,61 @@ def test_sharded_train_step_matches_jax(job, case):
     if spec.get("rule"):
         specs = jstep.state_specs["params"]
         assert tuple(specs["fc1.weight"])[1] == "mp"
+
+
+def _held(out, case):
+    return {k.split("/held_shape/")[1]: tuple(int(x) for x in v)
+            for k, v in out.items() if k.startswith(f"{case}/held_shape/")}
+
+
+@pytest.mark.parametrize("case", ["tp_rule", "megatron", "tp_zero3",
+                                  "zero3", "bert_fused_tp", "bert_tp_zero3",
+                                  "bert_fused_zero3"])
+def test_partitioned_blocks_are_what_a_rank_holds(job, case):
+    """The bytes: at mp 2 a rank's column-parallel weight holds half its
+    columns (with its bias) and the row-parallel one half its rows; under
+    ZeRO 3 a rank holds 1/dp of every parameter that dp divides, between
+    steps, in the model itself."""
+    inputs, outs = job
+    spec = {**W.SHARDED_CASES, **W.BERT_CASES}[case]
+    prefix = "mlp/" if case in W.SHARDED_CASES else "bert/"
+    whole = {k[len(prefix):]: v.shape for k, v in inputs.items()
+             if k.startswith(prefix)}
+    mp = spec["axes"].get("mp", 1) if spec.get("rule") else 1
+    dp = spec["axes"]["dp"] if spec.get("zero", 0) >= 3 else 1
+    column, row = ("q_proj", "k_proj", "v_proj", "fc1", "linear1"), \
+        ("out_proj", "fc2", "linear2")
+    for out in outs:
+        held = _held(out, case)
+        assert set(held) == set(whole)
+        for n, shape in whole.items():
+            want = list(shape)
+            layer, kind = n.rsplit(".", 2)[-2:]
+            if layer in column:  # [in, out] columns, or the bias
+                want[-1] //= mp
+            elif layer in row and kind == "weight":
+                want[0] //= mp
+            numel = int(np.prod(want))
+            if any(d % dp == 0 for d in want):
+                numel //= dp
+            assert int(np.prod(held[n])) == numel, (case, n, held[n])
+    if case == "bert_fused_tp":
+        q = "bert.encoder.layers.0.self_attn.q_proj.weight"
+        o = "bert.encoder.layers.0.self_attn.out_proj.weight"
+        assert _held(outs[0], case)[q] == (64, 32)
+        assert _held(outs[0], case)[o] == (32, 64)
+
+
+def test_a_rule_the_model_cannot_partition_names_the_parameter(job):
+    """A split with no Megatron pair in the model raises, naming the
+    parameter; nothing falls back to running the whole model."""
+    _, outs = job
+    want = {"no_partner": "fc1.weight", "bias_alone": "fc2.bias",
+            "two_axes": "fc1.weight", "row_bias": "fc2.bias"}
+    for out in outs:
+        for tag, name in want.items():
+            msg = str(out[f"tp_error/{tag}"])
+            assert f"'{name}'" in msg and "Megatron" in msg, (tag, msg)
 
 
 _JAX_BERT: dict = {}

@@ -7,6 +7,7 @@ another Hopper card) and the CUDA toolkit::
     python3 chip_smoke.py                 # every phase (one card)
     python3 chip_smoke.py --distributed   # phases 13-14 (four cards: 14 b)
     python3 chip_smoke.py --static        # phase 15
+    python3 chip_smoke.py --recurrent     # phase 16
 
 It imports only ``paddle_tpu_torch`` (never JAX or ``paddle_tpu``) and,
 in order:
@@ -416,7 +417,42 @@ in order:
    ``matmul_precision`` float32 and tensorfloat32 against float64 (TF32
    must show its error). ``python3 chip_smoke.py --static`` runs this
    phase alone and writes ``chiprun_out/chip_smoke_static.json``;
-16. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+16. the recurrent and sequence stack (A17 part 2): (a) the PTB LSTM
+   language model "large" (``PTB_CFG``: Zaremba et al. 2014, 2 layers,
+   hidden 1,500, vocabulary 10,000, dropout 0.65, untied; ~66 M
+   parameters) on seeded Zipf ids, b20 x 35 unrolled steps, through
+   ``hapi.Model.fit`` with ``SGD(1.0)`` and ``ClipGradByGlobalNorm(10)``
+   for ``PTB_STEPS`` captured steps: finite losses, one capture, no kernel
+   of the port launched, the same losses bit for bit as the same steps
+   eager, step ms (median of steps 3-8), tokens/s and peak memory; one
+   forward and backward at dropout 0 on the card against the CPU
+   (``PTB_LOSS_TOL``, ``PTB_GRAD_TOL``), and ``torch.nn.LSTM`` (cuDNN,
+   a yardstick never on the path) on the port's weights transposed, its
+   output gap (``PTB_CUDNN_TOL``) and its forward and backward ms beside
+   the port's; (b) ``CRNNCTC`` (95 classes, height 32, base 64, GRU 256)
+   on seeded [64, 1, 32, 256] images (64 frames) and labels of 8-24
+   characters, ``CRNN_STEPS`` captured steps of ``Adam`` under
+   ``fused_adam`` (the leaf kernel once a step), its CTC loss against
+   ``torch.nn.functional.ctc_loss`` reduced the same way (``CTC_TOL``,
+   both ms), the greedy decode and the edit distance of the same logits
+   on the card and on the CPU equal; (c) ``SRLBiLSTMCRF`` (vocabulary
+   20,000, 59 tags, embed 32, hidden 512, 2 layers) on b32 with ragged
+   lengths 8-64: loss and gradients on the card against the CPU
+   (``SRL_*``), the Viterbi paths equal but for ties (counted),
+   ``chunk_eval``'s counts equal, and ``SentimentBiLSTM``'s logits on the
+   same batch; (d) ``SkipGramNCE`` (vocabulary 100,000, 300 dims, 5
+   negatives, b1024): NCE loss and gradients on given negatives against
+   the CPU (``W2V_TOL``), the sampled path by shape, device and the same
+   draw from the same seed, then the embedding's ``embedding_grad``
+   (merged) through ``SGD`` and lazy ``Adam``: each equal to the dense
+   update on the touched rows bit for bit, every other row (and moment)
+   unchanged, and the ms of both; (e) every public function of
+   ``ops.sequence``, ``crf``, ``rnn_functional``, ``sampling`` and
+   ``sparse`` and the CTC losses on the card against the CPU within
+   ``OPS_RTOL``/``OPS_ATOL`` (``testing/op_cases.py``'s
+   ``SEQ_CASES``). ``python3 chip_smoke.py --recurrent`` runs this phase
+   alone and writes ``chiprun_out/chip_smoke_recurrent.json``;
+17. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -9396,6 +9432,8 @@ def dy2static_cases(torch, card: str) -> dict:
 
 def _sweep_flat(out):
     import torch
+    if isinstance(out, dict):
+        return [a for k in sorted(out) for a in _sweep_flat(out[k])]
     if isinstance(out, (list, tuple)):
         return [a for o in out for a in _sweep_flat(o)]
     if isinstance(out, torch.Tensor):
@@ -9405,19 +9443,22 @@ def _sweep_flat(out):
     return [out]
 
 
+def _sweep_arg(torch, a, device):
+    if isinstance(a, np.ndarray):
+        return torch.from_numpy(a.copy()).to(device)
+    if isinstance(a, list) and a and isinstance(a[0], (np.ndarray, dict)):
+        return [_sweep_arg(torch, v, device) for v in a]
+    if isinstance(a, dict):
+        return {k: _sweep_arg(torch, v, device) for k, v in a.items()}
+    return a
+
+
 def _sweep_args(torch, args, device):
-    conv = []
-    for a in args:
-        if isinstance(a, np.ndarray):
-            conv.append(torch.from_numpy(a.copy()).to(device))
-        elif isinstance(a, list) and a and isinstance(a[0], np.ndarray):
-            conv.append([torch.from_numpy(v.copy()).to(device) for v in a])
-        else:
-            conv.append(a)
-    return conv
+    return [_sweep_arg(torch, a, device) for a in args]
 
 
-def _sweep_compare(torch, card_out, cpu_out, what: str) -> float:
+def _sweep_compare(torch, card_out, cpu_out, what: str,
+                   device: Optional[str] = None) -> float:
     got, want = _sweep_flat(card_out), _sweep_flat(cpu_out)
     if len(got) != len(want):
         raise AssertionError(f"{what}: {len(got)} outputs, {len(want)} on "
@@ -9428,7 +9469,8 @@ def _sweep_compare(torch, card_out, cpu_out, what: str) -> float:
             if g != w:
                 raise AssertionError(f"{what}: {g} != {w}")
             continue
-        if g.device.type != P15_DEVICE or g.dtype != w.dtype or g.shape != w.shape:
+        if g.device.type != (device or P15_DEVICE) or g.dtype != w.dtype \
+                or g.shape != w.shape:
             raise AssertionError(f"{what}: {g.device} {g.dtype} "
                                  f"{tuple(g.shape)} against {w.dtype} "
                                  f"{tuple(w.shape)}")
@@ -9607,9 +9649,634 @@ def run_phase15(torch) -> tuple:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the recurrent and sequence stack (A17 part 2). (a) the PTB
+# LSTM language model "large" (Zaremba, Sutskever & Vinyals 2014,
+# arXiv:1409.2329 §4.1: 2 layers, hidden 1,500, vocabulary 10,000, 35
+# unrolled steps, batch 20, dropout 0.65, untied, SGD at lr 1 with
+# global-norm clipping at 10) on seeded Zipf ids through Model.fit,
+# captured against eager bit for bit, one forward and backward against the
+# CPU, and torch.nn.LSTM (cuDNN) as a yardstick; (b) CRNN-CTC trained with
+# Adam under fused_adam, its CTC against torch's, its greedy decode and
+# edit distance against the CPU; (c) the SRL BiLSTM-CRF and the sentiment
+# BiLSTM on a ragged batch against the CPU; (d) the NCE skip-gram against
+# the CPU and the row-sparse SGD and lazy Adam updates against the dense
+# ones; (e) every public function of the five new op modules and the CTC
+# losses on the card against the CPU. `python3 chip_smoke.py --recurrent`
+# runs this phase alone.
+# ---------------------------------------------------------------------------
+
+# where phase 16 runs (a CPU rehearsal sets "cpu" and shrinks the configs)
+P16_DEVICE = "cuda"
+PTB_CFG = dict(vocab_size=10000, hidden_size=1500, num_layers=2,
+               dropout=0.65, tie_weights=False)
+PTB_BATCH, PTB_T, PTB_STEPS = 20, 35, 8
+PTB_LR, PTB_CLIP = 1.0, 10.0
+# the exponent of the seeded Zipf token ids
+PTB_ZIPF_A = 1.1
+# card against CPU at full width and dropout 0, one forward and backward
+# (fp32, TF32 off): 35 recurrent steps of [20, 1500] x [1500, 6000] sums
+# on both sides, cuBLAS against the CPU's BLAS. The loss's relative gap,
+# and each leaf's largest gradient gap over that leaf's largest entry
+PTB_LOSS_TOL, PTB_GRAD_TOL = 1e-5, 1e-4
+# cuDNN's LSTM (the port's weights transposed) against the port's stack:
+# largest output gap over the largest output
+PTB_CUDNN_TOL = 1e-4
+CRNN_CFG = dict(num_classes=95, height=32, base=64, rnn_hidden=256)
+CRNN_BATCH, CRNN_W, CRNN_STEPS = 64, 256, 6
+CRNN_LABEL_LEN = (8, 24)
+# the port's CTC ("mean") against torch.nn.functional.ctc_loss's per
+# sequence losses reduced the same way: relative gap (64 frames of fp32
+# log-space sums on both)
+CTC_TOL = 1e-5
+SRL_CFG = dict(vocab_size=20000, num_tags=59, embed_dim=32, hidden=512,
+               num_layers=2)
+SENT_CFG = dict(vocab_size=20000, embed_dim=32, hidden=512, num_layers=2)
+SRL_BATCH, SRL_LEN = 32, (8, 64)
+# card against CPU through a 2-layer BiLSTM over 64 steps and the CRF's
+# 64-step log-sum-exp recursion: loss relative gap; each leaf's largest
+# gradient gap over its largest entry; the sentiment logits' largest gap
+# over the largest logit; two Viterbi paths whose scores differ by less
+# than SRL_TIE_TOL of the score are a tie (rounding may order them)
+SRL_LOSS_TOL, SRL_GRAD_TOL, SENT_TOL, SRL_TIE_TOL = 1e-5, 1e-4, 1e-5, 1e-5
+# Mikolov et al. 2013's skip-gram: vocabulary 100,000, 300 dims, 5
+# negatives; batch 1024
+W2V_CFG = dict(vocab_size=100000, embed_dim=300, num_neg=5)
+W2V_BATCH = 1024
+# NCE loss and gradients card against CPU (one gather and a 300-dim dot
+# product a logit): relative gaps
+W2V_TOL = 1e-5
+# the PTB path runs no kernel of the port (cuBLAS products, plain PyTorch
+# around them); the CRNN path's Adam is the leaf kernel, once a step
+PATH_KERNELS.update({"ptb_lm_large_fit": (), "crnn_ctc_fit": ("adam_leaf",)})
+
+
+def p16_zipf(rng, shape, vocab: int):
+    """Seeded Zipf token ids in [0, vocab)."""
+    return (np.minimum(rng.zipf(PTB_ZIPF_A, shape), vocab) - 1).astype(
+        np.int64)
+
+
+def ptb_batches(torch, n: int, seed: int) -> list:
+    """``n`` (ids, next ids) batches of PTB_BATCH x PTB_T on the CPU."""
+    rng = np.random.default_rng(seed)
+    ids = p16_zipf(rng, (n * PTB_BATCH, PTB_T + 1), PTB_CFG["vocab_size"])
+    return [(torch.from_numpy(ids[i * PTB_BATCH:(i + 1) * PTB_BATCH, :-1]),
+             torch.from_numpy(ids[i * PTB_BATCH:(i + 1) * PTB_BATCH, 1:]))
+            for i in range(n)]
+
+
+def ptb_model(torch, device: str, dropout: float):
+    from paddle_tpu_torch.models import LMConfig, LSTMLanguageModel
+    return LSTMLanguageModel(LMConfig(**dict(PTB_CFG, dropout=dropout)),
+                             device=device, seed=SEED)
+
+
+def ptb_loss(out, label):
+    from paddle_tpu_torch.ops.loss import cross_entropy
+    return cross_entropy(out, label)
+
+
+def ptb_optimizer():
+    from paddle_tpu_torch.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import SGD
+    return SGD(PTB_LR, grad_clip=ClipGradByGlobalNorm(PTB_CLIP))
+
+
+def p16_grads(torch, model, loss_fn) -> tuple:
+    """(loss, {name: grad}) of one forward and backward."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                         for n, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def cpu_twin(torch, model, make):
+    """``make("cpu")`` with ``model``'s state copied in."""
+    twin = make("cpu")
+    twin.load_state_dict({k: v.detach().cpu()
+                          for k, v in model.state_dict().items()})
+    return twin
+
+
+def ptb_card_against_cpu(torch, batch) -> dict:
+    """One forward and backward at full width, dropout 0, on the card and
+    on the CPU from the same weights; then cuDNN's LSTM on the same
+    weights and input as a yardstick."""
+    card = ptb_model(torch, P16_DEVICE, 0.0)
+    cpu = cpu_twin(torch, card, lambda d: ptb_model(torch, d, 0.0))
+    x, y = batch
+    t0 = time.perf_counter()
+    lc, gc = p16_grads(torch, card, lambda m: ptb_loss(
+        m(x.to(P16_DEVICE)), y.to(P16_DEVICE)))
+    lh, gh = p16_grads(torch, cpu, lambda m: ptb_loss(m(x), y))
+    cpu_s = time.perf_counter() - t0
+    gaps = grad_gaps(torch, gc, gh)
+    res = {"loss_card": lc, "loss_cpu": lh,
+           "loss_rel_gap": abs(lc - lh) / abs(lh),
+           "grad_rel_gap_max": max(gaps.values()),
+           "grad_rel_gap_worst_leaf": max(gaps, key=gaps.get),
+           "bounds": {"loss": PTB_LOSS_TOL, "grad": PTB_GRAD_TOL},
+           "cpu_threads": torch.get_num_threads(), "both_s": cpu_s}
+    del cpu
+    # the yardstick: torch.nn.LSTM with the port's gates transposed
+    hid, layers = PTB_CFG["hidden_size"], PTB_CFG["num_layers"]
+    ref = torch.nn.LSTM(hid, hid, num_layers=layers, batch_first=True,
+                        device=P16_DEVICE)
+    with torch.no_grad():
+        for k in range(layers):
+            cell = card.lstm.fw[k].cell
+            getattr(ref, f"weight_ih_l{k}").copy_(cell.weight_ih.T)
+            getattr(ref, f"weight_hh_l{k}").copy_(cell.weight_hh.T)
+            getattr(ref, f"bias_ih_l{k}").copy_(cell.bias_ih)
+            getattr(ref, f"bias_hh_l{k}").copy_(cell.bias_hh)
+        h = card.embed(x.to(P16_DEVICE)).detach()
+        ours, _ = card.lstm(h)
+        theirs, _ = ref(h)
+    res["cudnn_out_rel_gap"] = float((ours - theirs).abs().max()
+                                     / ours.abs().max())
+    res["cudnn_bound"] = PTB_CUDNN_TOL
+    if P16_DEVICE == "cuda":
+        hg = h.clone().requires_grad_(True)
+        dout = torch.randn_like(ours)
+
+        def fwd_bwd(layer):
+            def run():
+                out, _ = layer(hg)
+                out.backward(dout)
+            return run
+
+        res["port_lstm_fwd_bwd_ms"] = device_ms(torch, fwd_bwd(card.lstm))
+        res["cudnn_lstm_fwd_bwd_ms"] = device_ms(torch, fwd_bwd(ref))
+        with torch.no_grad():
+            res["port_lstm_fwd_ms"] = device_ms(torch,
+                                                lambda: card.lstm(h))
+            res["cudnn_lstm_fwd_ms"] = device_ms(torch, lambda: ref(h))
+    return res
+
+
+def ptb_lm_large_fit(torch, card: str) -> tuple:
+    """(a): PTB_STEPS captured steps through Model.fit, the same steps
+    eager, and the card against the CPU."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.static import TrainStep
+    batches = ptb_batches(torch, PTB_STEPS, SEED + 160)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = ptb_model(torch, P16_DEVICE, PTB_CFG["dropout"])
+    n_params = sum(p.numel() for p in net.parameters())
+    model = Model(net, loss=ptb_loss, optimizer=ptb_optimizer())
+    rec = hapi_recorder(torch)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    model.fit(batches, epochs=1, callbacks=[rec], verbose=0)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in rec.losses]
+    step = model._train_step
+    captures, capture_ms = step.captures, step.capture_ms
+    # two profiled replays: device ms, busy share, the largest kernels
+    busy = rn_busy(torch, step, tuple(t.to(P16_DEVICE)
+                                      for t in batches[0])) \
+        if P16_DEVICE == "cuda" else None
+    # the stream ms of steps 3..PTB_STEPS (events after each step)
+    ms = [rec.events[k - 2].elapsed_time(rec.events[k - 1])
+          for k in range(3, PTB_STEPS + 1)] if rec.events else []
+    step_ms = float(np.median(ms)) if ms else None
+    del model, step, net
+    torch.cuda.empty_cache()
+    # the same steps eager, from the same weights and seed
+    eager = TrainStep(ptb_model(torch, P16_DEVICE, PTB_CFG["dropout"]),
+                      ptb_optimizer(), ptb_loss, compiled=False)
+    eager_losses = [float(eager(x.to(P16_DEVICE),
+                                labels=(y.to(P16_DEVICE),))["loss"])
+                    for x, y in batches]
+    del eager
+    torch.cuda.empty_cache()
+    against_cpu = ptb_card_against_cpu(torch, batches[0])
+    tokens = PTB_BATCH * PTB_T
+    res = {"config": PTB_CFG, "parameters": n_params, "batch": PTB_BATCH,
+           "unrolled": PTB_T, "steps": PTB_STEPS,
+           "optimizer": f"SGD({PTB_LR}) + ClipGradByGlobalNorm({PTB_CLIP})",
+           "input_projection": "hoisted: one [B*T, in] x [in, 4H] product "
+                               "a layer, then one [B, H] x [H, 4H] a step",
+           "losses": losses, "eager_losses": eager_losses,
+           "captured_equals_eager": losses == eager_losses,
+           "captures": captures, "capture_ms": capture_ms,
+           "step_stream_ms": ms, "step_ms_median_3_to_8": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3 if step_ms else None,
+           "peak_allocated_gb": peak, "fit_s": fit_s,
+           "launches": nonzero(counts), "profiled_replays": busy,
+           "card_against_cpu": against_cpu, "card": card}
+    log(f"ptb lm large fit [{card}]: {json.dumps(res)}")
+    if len(losses) != PTB_STEPS or not all(np.isfinite(losses)) \
+            or losses != eager_losses or nonzero(counts) \
+            or (P16_DEVICE == "cuda" and captures != 1):
+        raise AssertionError(f"ptb fit: {res}")
+    if against_cpu["loss_rel_gap"] > PTB_LOSS_TOL \
+            or against_cpu["grad_rel_gap_max"] > PTB_GRAD_TOL \
+            or against_cpu["cudnn_out_rel_gap"] > PTB_CUDNN_TOL:
+        raise AssertionError(f"ptb card against cpu: {against_cpu}")
+    return res, counts
+
+
+def crnn_batches(torch, n: int, seed: int) -> list:
+    """``n`` (images, labels, label_lengths) batches on the CPU: standard
+    normal images, labels of CRNN_LABEL_LEN characters (0-padded)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = CRNN_LABEL_LEN
+    out = []
+    for _ in range(n):
+        img = rng.standard_normal((CRNN_BATCH, 1, CRNN_CFG["height"],
+                                   CRNN_W)).astype(np.float32)
+        lens = rng.integers(lo, hi + 1, CRNN_BATCH)
+        lab = rng.integers(0, CRNN_CFG["num_classes"], (CRNN_BATCH, hi))
+        lab[np.arange(hi)[None, :] >= lens[:, None]] = 0
+        out.append(tuple(torch.from_numpy(a) for a in (img, lab, lens)))
+    return out
+
+
+def crnn_loss(logits, labels, label_lengths):
+    import torch
+    from paddle_tpu_torch.ops.loss import ctc_loss
+    t = logits.shape[1]
+    lp = torch.log_softmax(logits, dim=-1).transpose(0, 1)
+    in_len = torch.full((logits.shape[0],), t, dtype=torch.int64,
+                        device=logits.device)
+    return ctc_loss(lp, labels, in_len, label_lengths,
+                    blank=CRNN_CFG["num_classes"])
+
+
+def crnn_ctc_fit(torch, card: str) -> tuple:
+    """(b): CRNN_STEPS captured steps with Adam under fused_adam (the
+    leaf kernel once a step); the CTC loss against torch's; decoding and
+    edit distance on the card against the CPU."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import CRNNCTC
+    from paddle_tpu_torch.ops.loss import ctc_loss
+    from paddle_tpu_torch.ops.sequence import (ctc_greedy_decoder,
+                                               edit_distance)
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import TrainStep
+    batches = [tuple(t.to(P16_DEVICE) for t in b)
+               for b in crnn_batches(torch, CRNN_STEPS, SEED + 161)]
+    restore = flag_scope({"fused_adam": True})
+    try:
+        net = CRNNCTC(**CRNN_CFG, device=P16_DEVICE, seed=SEED)
+        step = TrainStep(net, Adam(1e-3), crnn_loss, seed=SEED)
+        kernels.reset_launch_counts()
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(CRNN_STEPS + 1)] \
+            if P16_DEVICE == "cuda" else []
+        if marks:
+            marks[0].record()
+        losses = []
+        for k, (img, lab, lens) in enumerate(batches):
+            losses.append(step(img, labels=(lab, lens))["loss"])
+            if marks:
+                marks[k + 1].record()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        losses = [float(v) for v in losses]
+        ms = [marks[k].elapsed_time(marks[k + 1])
+              for k in range(CRNN_STEPS)] if marks else []
+        captures = step.captures
+    finally:
+        restore()
+    # the CTC check on the trained model's logits (feasible labels: at
+    # most 2 x 24 + 1 of the 64 frames)
+    img, lab, lens = batches[0]
+    net.eval()
+    with torch.no_grad():
+        logits = net(img)
+    t = logits.shape[1]
+    lp = torch.log_softmax(logits, dim=-1).transpose(0, 1).contiguous()
+    in_len = torch.full((CRNN_BATCH,), t, dtype=torch.int64,
+                        device=lp.device)
+    blank = CRNN_CFG["num_classes"]
+    ours = float(ctc_loss(lp, lab, in_len, lens, blank=blank))
+    per = torch.nn.functional.ctc_loss(lp, lab, in_len, lens, blank=blank,
+                                       reduction="none")
+    theirs = float((per / lens.clamp(min=1)).mean())
+    ctc = {"port": ours, "torch": theirs,
+           "rel_gap": abs(ours - theirs) / abs(theirs), "bound": CTC_TOL}
+    if P16_DEVICE == "cuda":
+        lpg = lp.clone().requires_grad_(True)
+
+        def run(fn):
+            def go():
+                fn(lpg).backward()
+            return go
+
+        ctc["port_fwd_bwd_ms"] = device_ms(torch, run(
+            lambda x: ctc_loss(x, lab, in_len, lens, blank=blank)))
+        ctc["torch_fwd_bwd_ms"] = device_ms(torch, run(
+            lambda x: (torch.nn.functional.ctc_loss(
+                x, lab, in_len, lens, blank=blank, reduction="none")
+                / lens.clamp(min=1)).mean()))
+    # decoding: the same logits on the card and on the CPU. Six steps in,
+    # the trained model's argmax is the blank at every frame, so the
+    # logits are an untrained twin's (seed + 1), whose argmax spreads
+    fresh = CRNNCTC(**CRNN_CFG, device=P16_DEVICE, seed=SEED + 1).eval()
+    with torch.no_grad():
+        lsm = torch.log_softmax(fresh(img), dim=-1)
+    del fresh
+    dec, n = ctc_greedy_decoder(lsm, in_len, blank=blank)
+    dec_c, n_c = ctc_greedy_decoder(lsm.cpu(), in_len.cpu(), blank=blank)
+    dist, _ = edit_distance(dec, n, lab, lens)
+    dist_c, _ = edit_distance(dec_c, n_c, lab.cpu(), lens.cpu())
+    decode = {"equal": bool(torch.equal(dec.cpu(), dec_c)
+                            and torch.equal(n.cpu(), n_c)),
+              "edit_distance_equal": bool(torch.equal(dist.cpu(), dist_c)),
+              "mean_normalised_edit_distance": float(dist_c.mean()),
+              "decoded_len_mean": float(n_c.double().mean())}
+    per_step = {k: 0 for k in counts}
+    per_step["adam_leaf"] = 1
+    res = {"config": CRNN_CFG, "batch": CRNN_BATCH, "width": CRNN_W,
+           "frames": t, "steps": CRNN_STEPS, "optimizer": "Adam(1e-3)",
+           "flags": {"fused_adam": True}, "losses": losses,
+           "captures": captures, "step_stream_ms": ms,
+           "step_ms_median": float(np.median(ms[1:])) if ms else None,
+           "launches": nonzero(counts), "ctc": ctc, "decode": decode,
+           "card": card}
+    log(f"crnn ctc fit [{card}]: {json.dumps(res)}")
+    del step, net
+    if not all(np.isfinite(losses)) or ctc["rel_gap"] > CTC_TOL \
+            or not decode["equal"] or not decode["edit_distance_equal"] \
+            or (P16_DEVICE == "cuda" and captures != 1):
+        raise AssertionError(f"crnn: {res}")
+    path_launches("crnn_ctc_fit", counts, per_step
+                  if P16_DEVICE == "cuda" else {k: 0 for k in counts},
+                  CRNN_STEPS)
+    return res, counts
+
+
+def srl_batch(torch, seed: int) -> tuple:
+    """(words, predicate marks, tags, lengths): SRL_BATCH rows of ragged
+    lengths in SRL_LEN, ids from 1 (0 pads), zero past each length."""
+    rng = np.random.default_rng(seed)
+    lo, hi = SRL_LEN
+    lens = rng.integers(lo, hi + 1, SRL_BATCH)
+    valid = np.arange(hi)[None, :] < lens[:, None]
+    words = p16_zipf(rng, (SRL_BATCH, hi), SRL_CFG["vocab_size"] - 1) + 1
+    mark = rng.integers(0, 2, (SRL_BATCH, hi))
+    tags = rng.integers(0, SRL_CFG["num_tags"], (SRL_BATCH, hi))
+    return tuple(torch.from_numpy(np.where(valid, a, 0))
+                 for a in (words, mark, tags)) + (torch.from_numpy(lens),)
+
+
+def srl_crf(torch, card: str) -> dict:
+    """(c): the SRL BiLSTM-CRF and the sentiment BiLSTM, card against
+    CPU."""
+    from paddle_tpu_torch.models import SentimentBiLSTM, SRLBiLSTMCRF
+    from paddle_tpu_torch.ops.crf import (chunk_eval, crf_decoding,
+                                          linear_chain_crf)
+    batch = srl_batch(torch, SEED + 162)
+    words, mark, tags, lens = batch
+
+    def make(d):
+        return SRLBiLSTMCRF(**SRL_CFG, device=d, seed=SEED)
+
+    card_m = make(P16_DEVICE)
+    with torch.no_grad():  # a seeded transition (JAX starts it at zero)
+        card_m.transition.copy_(torch.from_numpy(
+            np.random.default_rng(SEED + 163).normal(
+                0, 0.1, tuple(card_m.transition.shape)).astype(np.float32)))
+    cpu_m = cpu_twin(torch, card_m, make)
+    dev_b = tuple(t.to(P16_DEVICE) for t in batch)
+    lc, gc = p16_grads(torch, card_m, lambda m: m.loss(*dev_b))
+    lh, gh = p16_grads(torch, cpu_m, lambda m: m.loss(*batch))
+    gaps = grad_gaps(torch, gc, gh)
+    with torch.no_grad():
+        em_c = card_m.emissions(dev_b[0], dev_b[1], dev_b[3])
+        em_h = cpu_m.emissions(words, mark, lens)
+        path_c = crf_decoding(em_c, card_m.transition, dev_b[3]).cpu()
+        path_h = crf_decoding(em_h, cpu_m.transition, lens)
+        # rows whose paths differ: a tie when both paths score within
+        # SRL_TIE_TOL under the CPU's emissions
+        differ = (path_c != path_h).any(dim=1)
+        ties = 0
+        if bool(differ.any()):
+            nll_c = linear_chain_crf(em_h, cpu_m.transition, path_c, lens)
+            nll_h = linear_chain_crf(em_h, cpu_m.transition, path_h, lens)
+            gap = ((nll_c - nll_h).abs() / nll_h.abs().clamp(min=1.0))
+            if bool((gap[differ] > SRL_TIE_TOL).any()):
+                raise AssertionError(f"srl: decoded paths differ beyond a "
+                                     f"tie: {gap[differ].tolist()}")
+            ties = int(differ.sum())
+        n_types = (SRL_CFG["num_tags"] - 1) // 2
+        ck_c = chunk_eval(path_h.to(P16_DEVICE), dev_b[2], dev_b[3],
+                          n_types)
+        ck_h = chunk_eval(path_h, tags, lens, n_types)
+        chunks_equal = all(torch.equal(ck_c[k].cpu(), ck_h[k])
+                           for k in ("num_infer_chunks", "num_label_chunks",
+                                     "num_correct_chunks"))
+    # the sentiment BiLSTM on the same ragged batch (0 pads)
+    sent = SentimentBiLSTM(**SENT_CFG, device=P16_DEVICE, seed=SEED)
+    sent_h = cpu_twin(torch, sent, lambda d: SentimentBiLSTM(
+        **SENT_CFG, device=d, seed=SEED))
+    with torch.no_grad():
+        lo_c = sent(dev_b[0]).cpu()
+        lo_h = sent_h(words)
+    sent_gap = float((lo_c - lo_h).abs().max() / lo_h.abs().max())
+    res = {"config": SRL_CFG, "batch": SRL_BATCH, "lengths": SRL_LEN,
+           "loss_card": lc, "loss_cpu": lh,
+           "loss_rel_gap": abs(lc - lh) / abs(lh),
+           "grad_rel_gap_max": max(gaps.values()),
+           "grad_rel_gap_worst_leaf": max(gaps, key=gaps.get),
+           "decode_rows_differing_as_ties": ties,
+           "chunk_counts": {k: int(ck_h[k]) for k in (
+               "num_infer_chunks", "num_label_chunks",
+               "num_correct_chunks")}, "chunk_counts_equal": chunks_equal,
+           "sentiment_config": SENT_CFG, "sentiment_logit_rel_gap": sent_gap,
+           "bounds": {"loss": SRL_LOSS_TOL, "grad": SRL_GRAD_TOL,
+                      "sentiment": SENT_TOL, "tie": SRL_TIE_TOL},
+           "card": card}
+    log(f"srl crf [{card}]: {json.dumps(res)}")
+    if res["loss_rel_gap"] > SRL_LOSS_TOL \
+            or res["grad_rel_gap_max"] > SRL_GRAD_TOL \
+            or sent_gap > SENT_TOL or not chunks_equal:
+        raise AssertionError(f"srl: {res}")
+    return res
+
+
+def word2vec_sparse(torch, card: str) -> dict:
+    """(d): the NCE skip-gram card against CPU, its sampled path, and the
+    row-sparse SGD and lazy Adam updates against the dense ones."""
+    from paddle_tpu_torch.models import SkipGramNCE
+    from paddle_tpu_torch.ops import sampling, sparse
+    from paddle_tpu_torch.optimizer import SGD, Adam
+    rng = np.random.default_rng(SEED + 164)
+    v, d, k = W2V_CFG["vocab_size"], W2V_CFG["embed_dim"], W2V_CFG["num_neg"]
+    center = torch.from_numpy(p16_zipf(rng, (W2V_BATCH,), v))
+    context = torch.from_numpy(p16_zipf(rng, (W2V_BATCH,), v))
+    neg = torch.from_numpy(p16_zipf(rng, (W2V_BATCH, k), v))
+
+    def make(dev):
+        return SkipGramNCE(**W2V_CFG, device=dev, seed=SEED)
+
+    card_m = make(P16_DEVICE)
+    with torch.no_grad():  # a seeded output table (JAX starts it at zero)
+        card_m.out_weight.copy_(torch.from_numpy(rng.normal(
+            0, 0.1, (v, d)).astype(np.float32)))
+    cpu_m = cpu_twin(torch, card_m, make)
+    dev = [t.to(P16_DEVICE) for t in (center, context, neg)]
+
+    def given_neg_loss(m, c, ctx, n):  # the model's loss, on given negatives
+        return torch.mean(sampling.nce_loss(
+            m.in_embed(c), m.out_weight, ctx, v, k, sampler="log_uniform",
+            custom_neg_samples=n))
+
+    lc, gc = p16_grads(torch, card_m, lambda m: given_neg_loss(m, *dev))
+    lh, gh = p16_grads(torch, cpu_m, lambda m: given_neg_loss(
+        m, center, context, neg))
+    gaps = grad_gaps(torch, gc, gh)
+    # the sampled path: the same draw again from the same seed
+    x = card_m.in_embed(dev[0]).detach()
+    s1 = sampling.nce_loss(x, card_m.out_weight.detach(), dev[1], v, k,
+                           sampler="log_uniform", key=SEED)
+    s2 = sampling.nce_loss(x, card_m.out_weight.detach(), dev[1], v, k,
+                           sampler="log_uniform", key=SEED)
+    stream = card_m.loss(dev[0], dev[1]).detach()
+    sampled = {"shape": list(s1.shape), "device": str(s1.device),
+               "same_draw_same_seed": bool(torch.equal(s1, s2)),
+               "finite": bool(torch.isfinite(s1).all()),
+               "stream_loss": float(stream)}
+    # the embedding's gradient as a RowSlices, merged once
+    emb = card_m.in_embed(dev[0]).detach().requires_grad_(True)
+    loss = torch.mean(sampling.nce_loss(
+        emb, card_m.out_weight.detach(), dev[1], v, k,
+        sampler="log_uniform", custom_neg_samples=dev[2]))
+    (g_out,) = torch.autograd.grad(loss, emb)
+    g = sparse.merge_rows(sparse.embedding_grad(dev[0], g_out, v))
+    dense_g = sparse.to_dense(g)
+    table = card_m.in_embed.weight.detach()
+    touched = torch.zeros(v, dtype=torch.bool, device=table.device)
+    touched[dev[0]] = True
+    updates = {}
+    for name, make_opt, make_dense in (
+            ("sgd", lambda: SGD(0.5), lambda: SGD(0.5)),
+            ("adam_lazy", lambda: Adam(1e-2, lazy_mode=True),
+             lambda: Adam(1e-2))):
+        sp, dn = table.clone(), table.clone()
+        opt_s, opt_d = make_opt(), make_dense()
+        st_s, st_d = opt_s.init({"w": sp}), opt_d.init({"w": dn})
+        opt_s.apply_gradients({"w": sp}, {"w": g}, st_s)
+        opt_d.apply_gradients({"w": dn}, {"w": dense_g}, st_d)
+        ok = bool(torch.equal(sp[touched], dn[touched])) \
+            and bool(torch.equal(sp[~touched], table[~touched]))
+        for slot, t in st_s["slots"]["w"].items():
+            ok = ok and bool(torch.equal(t[touched],
+                                         st_d["slots"]["w"][slot][touched]))
+            ok = ok and not bool(t[~touched].any())
+        u = {"equal_on_touched_rows_and_others_unchanged": ok,
+             "touched_rows": int(touched.sum())}
+        if P16_DEVICE == "cuda":
+            u["sparse_ms"] = device_ms(torch, lambda: opt_s.apply_gradients(
+                {"w": sp}, {"w": g}, st_s))
+            u["dense_ms"] = device_ms(torch, lambda: opt_d.apply_gradients(
+                {"w": dn}, {"w": dense_g}, st_d))
+        updates[name] = u
+    res = {"config": W2V_CFG, "batch": W2V_BATCH, "loss_card": lc,
+           "loss_cpu": lh, "loss_rel_gap": abs(lc - lh) / abs(lh),
+           "grad_rel_gap_max": max(gaps.values()), "grad_rel_gaps": gaps,
+           "bound": W2V_TOL, "sampled": sampled, "updates": updates,
+           "card": card}
+    log(f"word2vec sparse [{card}]: {json.dumps(res)}")
+    if res["loss_rel_gap"] > W2V_TOL or res["grad_rel_gap_max"] > W2V_TOL \
+            or not (sampled["same_draw_same_seed"] and sampled["finite"]
+                    and sampled["shape"] == [W2V_BATCH]
+                    and s1.device.type == P16_DEVICE) \
+            or not all(u["equal_on_touched_rows_and_others_unchanged"]
+                       for u in updates.values()):
+        raise AssertionError(f"word2vec: {res}")
+    return res
+
+
+def ops_sweep_recurrent(torch, card: str) -> dict:
+    """(e): every public function of sequence, crf, rnn_functional,
+    sampling and sparse, and the CTC losses, on the card against the
+    CPU; the sampled ones by shape, device and the same draw again."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.testing import op_cases as C
+    mods = {m: getattr(ops, m) for m in C.SEQ_MODULES + ("loss",)}
+    t0 = time.perf_counter()
+    worst, done = 0.0, set()
+    for mod, name, args, kw in C.SEQ_CASES:
+        fn = getattr(mods[mod], name)
+
+        def call(dev):
+            return fn(*_sweep_args(torch, args, dev),
+                      **_sweep_arg(torch, kw, dev))
+
+        worst = max(worst, _sweep_compare(torch, call(P16_DEVICE),
+                                          call("cpu"), f"{mod}.{name}",
+                                          P16_DEVICE))
+        done.add(name)
+    for run in C.sparse_runs():
+        worst = max(worst, _sweep_compare(
+            torch, run(mods["sparse"], lambda a: _sweep_arg(
+                torch, a, P16_DEVICE)),
+            run(mods["sparse"], lambda a: _sweep_arg(torch, a, "cpu")),
+            run.__name__, P16_DEVICE))
+        done.add(run.__name__)
+    done.add("RowSlices")
+    x = torch.from_numpy(C.F2).to(P16_DEVICE)
+    w = torch.from_numpy(C.NCE_W).to(P16_DEVICE)
+    lab = torch.tensor([2, 7, 10], device=P16_DEVICE)
+    draws = [mods["sampling"].sampled_softmax_with_cross_entropy(
+        x, w, lab, 11, 6, key=key) for key in (4, 4, 5)]
+    if not (draws[0].shape == (3,) and draws[0].device.type == P16_DEVICE
+            and torch.equal(draws[0], draws[1])
+            and not torch.equal(draws[0], draws[2])
+            and bool(torch.isfinite(draws[0]).all())):
+        raise AssertionError(f"sampled softmax: {draws}")
+    done |= C.SEQ_RANDOM
+    missing = sorted(set().union(*(set(mods[m].__all__)
+                                   for m in C.SEQ_MODULES))
+                     - done) + sorted({"ctc_loss", "warpctc"} - done)
+    if missing:
+        raise AssertionError(f"recurrent ops sweep: not run on the card: "
+                             f"{missing}")
+    res = {"cases": len(C.SEQ_CASES) + len(C.sparse_runs()),
+           "functions": len(done), "max_rel_err_card_vs_cpu": worst,
+           "bound": [OPS_RTOL, OPS_ATOL],
+           "sweep_s": time.perf_counter() - t0, "card": card}
+    log(f"recurrent ops sweep [{card}]: {json.dumps(res)}")
+    return res
+
+
+def run_phase16(torch) -> tuple:
+    """Phase 16. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts = {}, {}
+    report["ptb_lm_large_fit"], counts["ptb_lm_large_fit"] = \
+        ptb_lm_large_fit(torch, card)
+    torch.cuda.empty_cache()
+    report["crnn_ctc_fit"], counts["crnn_ctc_fit"] = crnn_ctc_fit(torch,
+                                                                  card)
+    torch.cuda.empty_cache()
+    report["srl_crf"] = srl_crf(torch, card)
+    torch.cuda.empty_cache()
+    report["word2vec_sparse"] = word2vec_sparse(torch, card)
+    torch.cuda.empty_cache()
+    report["ops_sweep_recurrent"] = ops_sweep_recurrent(torch, card)
+    report["phase16_s"] = time.perf_counter() - t_phase
+    log(f"phase 16: {report['phase16_s']:.1f} s [{card}]")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
-    the kernel's own path; ``launches_by_path`` gives every path's."""
+    the kernel's own path, or, where ``path`` lists several, the sum of
+    their counts, each read from its own run with the counts reset just
+    before it; ``launches_by_path`` gives every path's."""
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     flash_ref = "paddle_tpu/kernels/flash_attention.py"
     xent_src = "paddle_tpu_torch/csrc/fused_softmax_xent.cu"
@@ -9642,7 +10309,9 @@ def kernel_line(results: dict, counts: dict) -> dict:
                               f"{xent_ref}:92"),
         "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
                               f"{xent_ref}:110"),
-        "adam_leaf": ("train_seq512_fused", adam_src, f"{adam_ref}:54"),
+        # phase 16 (b)'s CRNN steps launch it too: its launches add
+        "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit"), adam_src,
+                      f"{adam_ref}:54"),
         "adam_flat": ("train_seq128_pallas_adam", adam_src,
                       f"{adam_ref}:34"),
         # an entry over the flash kernels (forward, dq + dkv or fused):
@@ -9659,10 +10328,12 @@ def kernel_line(results: dict, counts: dict) -> dict:
     line = []
     for name, (path, src, replaces, *counters) in meta.items():
         counters = counters[0] if counters else (name,)
+        paths = path if isinstance(path, tuple) else (path,)
         r = results[name]
         line.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "path": path,
-                     "launches": sum(counts[path][c] for c in counters),
+                     "launches": sum(counts[p][c] for p in paths
+                                     for c in counters),
                      "launches_by_path": {p: sum(counts[p][c]
                                                  for c in counters)
                                           for p in PATH_KERNELS},
@@ -9686,6 +10357,9 @@ def main(argv=None) -> int:
     ap.add_argument("--static", action="store_true",
                     help="run phase 15 only (the static programming model "
                          "and the core op library)")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="run phase 16 only (the recurrent and sequence "
+                         "stack)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -9729,6 +10403,8 @@ def main(argv=None) -> int:
         return main_distributed(torch, card, t_start)
     if args.static:
         return main_static(torch, card, t_start)
+    if args.recurrent:
+        return main_recurrent(torch, card, t_start)
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
@@ -9773,10 +10449,13 @@ def main(argv=None) -> int:
     phase14, p14_counts = run_phase14(torch)
     torch.cuda.empty_cache()
     phase15, p15_counts = run_phase15(torch)
+    torch.cuda.empty_cache()
+    phase16, p16_counts = run_phase16(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
                   **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
-                  **p14_counts, **p15_counts, flash_with_lse=lse_counts)
+                  **p14_counts, **p15_counts, **p16_counts,
+                  flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -9785,7 +10464,7 @@ def main(argv=None) -> int:
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
                   **predictor, **hapi, **mt, **rn, **dist, **phase14,
-                  **phase15)
+                  **phase15, **phase16)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
@@ -9835,6 +10514,36 @@ def main_static(torch, card: str, t_start: float) -> int:
     print(json.dumps({"phases": [15], "launches": {
         k: nonzero(v) for k, v in counts.items()},
         "phase15_s": phase15["phase15_s"], "total_s": REPORT["total_s"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_recurrent(torch, card: str, t_start: float) -> int:
+    """Phase 16 alone; the report goes to
+    chiprun_out/chip_smoke_recurrent.json and a summary line before the
+    contract line."""
+    phase16, counts = run_phase16(torch)
+    for path, names in PATH_KERNELS.items():
+        if path in counts:
+            for name in names:
+                if counts[path][name] <= 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         f"on the {path} path")
+    REPORT.update(card=card, launches=counts,
+                  total_s=time.perf_counter() - t_start, **phase16)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_recurrent.json"),
+              "w") as f:
+        json.dump(REPORT, f, indent=1)
+    a = phase16["ptb_lm_large_fit"]
+    print(card)
+    print(json.dumps({"phases": [16], "launches": {
+        k: nonzero(v) for k, v in counts.items()},
+        "ptb_step_ms": a["step_ms_median_3_to_8"],
+        "ptb_tokens_per_s": a["tokens_per_s"],
+        "phase16_s": phase16["phase16_s"], "total_s": REPORT["total_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,11 @@
 """Layers of the GPT and BERT paths as ``torch.nn.Module``s.
 
 Counterparts of ``paddle_tpu.nn.layers.common`` (Linear, Embedding,
-Dropout, Flatten, Identity), the activation layers (GELU, Tanh, ReLU),
-the container ``Sequential``,
+Dropout, Dropout2D, AlphaDropout, Flatten, Identity, Upsample, Pad2D,
+CosineSimilarity, Bilinear, PReLU, Maxout and the activation layers
+under the JAX names: GELU, Tanh and ReLU here, the rest made by
+``_activation_layer`` over ``ops.activation``), the container
+``Sequential``,
 ``paddle_tpu.nn.layers.norm.LayerNorm`` and
 ``paddle_tpu.nn.layers.loss.FusedLinearCrossEntropy``. Parameter names
 (``weight``, ``bias``) and shapes match the JAX layers, so a JAX
@@ -27,6 +30,8 @@ import torch
 from torch import nn
 
 from ..core.place import resolve_device
+from ..ops import activation as _act
+from ..ops import nn_functional as _nnf
 from ..ops.loss import _reduce
 from . import functional as F
 from . import initializer as I
@@ -37,7 +42,13 @@ from .. import kernels
 
 __all__ = ["Linear", "Embedding", "Dropout", "GELU", "Tanh", "ReLU",
            "Sequential", "LayerNorm", "FusedLinearCrossEntropy",
-           "Flatten", "Identity"]
+           "Flatten", "Identity", "Dropout2D", "AlphaDropout", "Upsample",
+           "Pad2D", "CosineSimilarity", "Bilinear", "PReLU", "Maxout",
+           "ReLU6", "LeakyReLU", "ELU", "SELU", "CELU", "Sigmoid",
+           "LogSigmoid", "Hardsigmoid", "Hardswish", "Hardshrink",
+           "Softshrink", "Hardtanh", "Tanhshrink", "Softplus", "Softsign",
+           "Swish", "Silu", "Mish", "ThresholdedReLU", "LogSoftmax",
+           "Softmax", "GLU"]
 
 
 class Linear(Layer):
@@ -64,19 +75,30 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
+    """A lookup ``weight[ids]``; rows at ``padding_idx`` read as zeros.
+    ``sparse`` is accepted and changes nothing, as in the JAX package:
+    the autograd gradient is dense, and the row-sparse update takes an
+    ``ops.sparse.embedding_grad`` built from it."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
+                 padding_idx: Optional[int] = None, sparse: bool = False,
                  weight_attr=None, name=None, device=None,
                  generator: Optional[torch.Generator] = None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
+        self.padding_idx = padding_idx
+        self.sparse = sparse
         self.weight = I.make_param(weight_attr, I.XavierNormal(),
                                    (num_embeddings, embedding_dim),
                                    device=device, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.weight)
+        out = F.embedding(ids, self.weight)
+        if self.padding_idx is not None:
+            out = out * (ids != self.padding_idx)[..., None].to(out.dtype)
+        return out
 
 
 class Dropout(nn.Module):
@@ -188,3 +210,148 @@ class FusedLinearCrossEntropy(nn.Module):
         loss = kernels.maybe_fused_linear_xent(
             hidden, weight, bias, label, ignore_index=self.ignore_index)
         return _reduce(loss, self.reduction)
+
+
+class Dropout2D(nn.Module):
+    def __init__(self, p: float = 0.5) -> None:
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nnf.dropout2d(x, self.p, training=self.training)
+
+
+class AlphaDropout(nn.Module):
+    def __init__(self, p: float = 0.5) -> None:
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nnf.alpha_dropout(x, self.p, training=self.training)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode: str = "nearest",
+                 align_corners: bool = False) -> None:
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nnf.interpolate(x, self.size, self.scale_factor, self.mode,
+                                self.align_corners)
+
+
+class Pad2D(Layer):
+    def __init__(self, padding, mode: str = "constant", value: float = 0.0,
+                 data_format: str = "NCHW") -> None:
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _nnf.pad2d(x, self.padding, self.mode, self.value,
+                          self.data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis: int = 1, eps: float = 1e-8) -> None:
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        return _nnf.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Bilinear(Layer):
+    """(ref: bilinear_tensor_product_op.cc) ``out[b, k] = x1[b] W[k]
+    x2[b]^T + bias[k]``, W ``[out, in1, in2]`` Xavier-uniform."""
+
+    def __init__(self, in1_features: int, in2_features: int,
+                 out_features: int, weight_attr=None, bias_attr=None,
+                 device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.weight = I.make_param(
+            weight_attr, I.XavierUniform(),
+            (out_features, in1_features, in2_features), device=device,
+            generator=generator)
+        self.bias = None if bias_attr is False else I.make_param(
+            bias_attr, I.Constant(0.0), (out_features,), device=device,
+            generator=generator)
+
+    def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        from ..ops.math import bilinear_tensor_product
+        return bilinear_tensor_product(x1, x2, self.weight, self.bias)
+
+
+class PReLU(Layer):
+    def __init__(self, num_parameters: int = 1, init: float = 0.25,
+                 device=None) -> None:
+        super().__init__()
+        self.weight = nn.Parameter(torch.full(
+            (num_parameters,), init, device=resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if w.shape[0] > 1:
+            w = w.reshape((1, -1) + (1,) * (x.ndim - 2))
+        return _act.prelu(x, w)
+
+
+class Maxout(Layer):
+    def __init__(self, groups: int, axis: int = 1) -> None:
+        super().__init__()
+        self.groups = groups
+        self.axis = axis
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _act.maxout(x, self.groups, self.axis)
+
+
+def _activation_layer(fn_name: str, **defaults):
+    """A layer calling ``ops.activation.<fn_name>(x, **kwargs)``, its
+    keyword arguments given at construction."""
+    fn = getattr(_act, fn_name)
+
+    class _Act(Layer):
+        def __init__(self, **kwargs) -> None:
+            super().__init__()
+            self.kwargs = {**defaults, **kwargs}
+
+        def forward(self, x: torch.Tensor) -> torch.Tensor:
+            return fn(x, **self.kwargs)
+
+    _Act.__name__ = _Act.__qualname__ = "".join(
+        s.capitalize() for s in fn_name.split("_"))
+    return _Act
+
+
+ReLU6 = _activation_layer("relu6")
+LeakyReLU = _activation_layer("leaky_relu")
+ELU = _activation_layer("elu")
+SELU = _activation_layer("selu")
+CELU = _activation_layer("celu")
+Sigmoid = _activation_layer("sigmoid")
+LogSigmoid = _activation_layer("logsigmoid")
+Hardsigmoid = _activation_layer("hard_sigmoid")
+Hardswish = _activation_layer("hard_swish")
+Hardshrink = _activation_layer("hard_shrink")
+Softshrink = _activation_layer("soft_shrink")
+Hardtanh = _activation_layer("hard_tanh")
+Tanhshrink = _activation_layer("tanh_shrink")
+Softplus = _activation_layer("softplus")
+Softsign = _activation_layer("softsign")
+Swish = _activation_layer("swish")
+Silu = _activation_layer("swish")
+Mish = _activation_layer("mish")
+ThresholdedReLU = _activation_layer("thresholded_relu")
+LogSoftmax = _activation_layer("log_softmax")
+Softmax = _activation_layer("softmax")
+GLU = _activation_layer("glu")

@@ -3,12 +3,11 @@
 Counterparts of ``paddle_tpu.nn.layers.loss`` under its names and
 arguments: ``CrossEntropyLoss``, ``MSELoss``, ``L1Loss``, ``NLLLoss``,
 ``BCELoss``, ``BCEWithLogitsLoss``, ``KLDivLoss``, ``SmoothL1Loss``,
-``MarginRankingLoss``, ``CosineEmbeddingLoss`` and
+``MarginRankingLoss``, ``CTCLoss``, ``CosineEmbeddingLoss`` and
 ``TripletMarginLoss`` (``FusedLinearCrossEntropy`` is in
 ``nn.layers``). The reductions are Paddle's (see ``ops.loss``). A class
 ``weight`` is kept as the caller gave it (a tensor, not a buffer), as
-the JAX layer keeps it. Not ported: ``CTCLoss`` (it comes with the
-sequence ops).
+the JAX layer keeps it.
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ from ..ops import loss as L
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss",
-           "MarginRankingLoss", "CosineEmbeddingLoss", "TripletMarginLoss"]
+           "MarginRankingLoss", "CTCLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss"]
 
 
 class CrossEntropyLoss(nn.Module):
@@ -123,6 +123,19 @@ class MarginRankingLoss(nn.Module):
     def forward(self, input, other, label):
         return L.margin_ranking_loss(input, other, label, self.margin,
                                      self.reduction)
+
+
+class CTCLoss(nn.Module):
+    """``ops.loss.ctc_loss`` over log-probs ``[T, B, C]``."""
+
+    def __init__(self, blank: int = 0, reduction: str = "mean") -> None:
+        super().__init__()
+        self.blank = blank
+        self.reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths):
+        return L.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction)
 
 
 class CosineEmbeddingLoss(nn.Module):

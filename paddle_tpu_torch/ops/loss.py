@@ -29,8 +29,13 @@ Where torch's own loss would differ from the JAX package:
 
 The hard-label cross-entropy reduces in fp32 (fp64 for fp64 logits)
 whatever the logits' dtype, as JAX does; the others compute in their
-inputs' dtype. Not ported: ``ctc_loss``/``warpctc`` (they come with the
-sequence ops).
+inputs' dtype. ``ctc_loss`` is the JAX package's log-space DP over time
+(one vectorised step a frame) with its guards: unreachable cells hold
+``-1e30``, not ``-inf``, and their differences are zeroed before the
+``exp``/``log``, so an unreachable cell's gradient is 0, never ``inf *
+0``; a label with no alignment gives a loss of about ``1e30`` (torch's
+``ctc_loss`` gives ``inf``), and an empty label counts its one path
+twice, as the JAX package does (``log 2`` below torch's). ``warpctc`` is its reference name.
 """
 
 from __future__ import annotations
@@ -47,7 +52,8 @@ __all__ = ["softmax_with_cross_entropy", "cross_entropy", "nll_loss",
            "log_loss", "margin_rank_loss", "margin_ranking_loss",
            "rank_loss", "bpr_loss", "cosine_embedding_loss",
            "triplet_margin_loss", "squared_l2_distance",
-           "teacher_student_sigmoid_loss", "center_loss", "dice_loss"]
+           "teacher_student_sigmoid_loss", "center_loss", "dice_loss",
+           "ctc_loss", "warpctc"]
 
 
 def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
@@ -381,3 +387,77 @@ def dice_loss(input: torch.Tensor, label: torch.Tensor,
     union = torch.sum(input, dim=dims) + torch.sum(one_hot, dim=dims)
     dice = (2.0 * inter + epsilon) / (union + epsilon)
     return torch.mean(1.0 - dice)
+
+
+_CTC_NEG_INF = -1e30
+
+
+def _ctc_logaddexp(*terms: torch.Tensor) -> torch.Tensor:
+    """log(sum(exp(terms))) with the dead-cell guard: where every term
+    is ``-1e30`` the result is ``-1e30`` and no term's gradient is
+    taken through an ``exp`` of ``-inf``."""
+    m = terms[0]
+    for t in terms[1:]:
+        m = torch.maximum(m, t)
+    dead = m == _CTC_NEG_INF
+    m_safe = torch.where(dead, 0.0, m)
+    total = sum(torch.exp(torch.where(dead, 0.0, t - m_safe)) for t in terms)
+    return torch.where(dead, _CTC_NEG_INF, m_safe + torch.log(total))
+
+
+def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor,
+             input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+             blank: int = 0, reduction: str = "mean") -> torch.Tensor:
+    """(ref: warpctc_op.cc) CTC by dynamic programming in log space.
+
+    log_probs [T, B, C] (log-softmax outputs), labels [B, S] padded.
+    ``"mean"`` divides each loss by ``max(label_length, 1)`` before the
+    batch mean; a frame at or past ``input_length`` leaves alpha as it
+    was."""
+    t_max, b, _ = log_probs.shape
+    s_max = labels.shape[1]
+    dev = log_probs.device
+    lab = labels.long()
+    # the extended label sequence: blank, l1, blank, l2, ..., blank
+    ext = torch.full((b, 2 * s_max + 1), blank, dtype=torch.int64,
+                     device=dev)
+    ext[:, 1::2] = lab
+    ext_len = 2 * label_lengths.long() + 1
+    # s-2 -> s is allowed where ext[s] is no blank and differs from ext[s-2]
+    same_as_prev2 = torch.cat([torch.ones((b, 2), dtype=torch.bool,
+                                          device=dev),
+                               ext[:, 2:] == ext[:, :-2]], dim=1)
+    can_skip = (ext != blank) & ~same_as_prev2
+    neg = torch.full((b, 2 * s_max + 1), _CTC_NEG_INF,
+                     dtype=log_probs.dtype, device=dev)
+    first = torch.gather(log_probs[0], 1, ext[:, :2])
+    first = torch.stack([first[:, 0], torch.where(
+        ext_len > 1, first[:, 1], _CTC_NEG_INF)], dim=1)
+    alpha = torch.cat([first, neg[:, 2:]], dim=1)
+    in_len = input_lengths.long()
+    for t in range(1, t_max):
+        prev1 = torch.cat([neg[:, :1], alpha[:, :-1]], dim=1)
+        prev2 = torch.where(can_skip, torch.cat([neg[:, :2],
+                                                 alpha[:, :-2]], dim=1),
+                            _CTC_NEG_INF)
+        new = _ctc_logaddexp(alpha, prev1, prev2) \
+            + torch.gather(log_probs[t], 1, ext)
+        alpha = torch.where((t < in_len)[:, None], new, alpha)
+    a_last = torch.gather(alpha, 1, (ext_len - 1)[:, None])[:, 0]
+    a_prev = torch.gather(alpha, 1, (ext_len - 2).clamp(min=0)[:, None])[:, 0]
+    loss = -_ctc_logaddexp(a_last, a_prev)
+    if reduction == "mean":
+        return torch.mean(loss / label_lengths.clamp(min=1))
+    return _reduce(loss, reduction)
+
+
+def warpctc(log_probs: torch.Tensor, labels: torch.Tensor,
+            input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+            blank: int = 0, norm_by_times: bool = False) -> torch.Tensor:
+    """The reference's name for :func:`ctc_loss` (per-sequence losses;
+    ``norm_by_times`` divides each by its input length)."""
+    loss = ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                    blank=blank, reduction="none")
+    if norm_by_times:
+        loss = loss / input_lengths.to(log_probs.dtype).clamp(min=1)
+    return loss

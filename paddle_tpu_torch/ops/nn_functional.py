@@ -27,6 +27,20 @@ window's real (unpadded) elements when ``exclusive`` and the padding is
 not zero, else by the window's size (always for a named padding, which
 also ignores ``ceil_mode``, as there).
 
+Beside them, the functional ops of the common layers: ``dropout2d``
+and ``alpha_dropout`` (drawing from the ``dropout`` stream, as the
+port's ``dropout``), ``interpolate`` (``upsample``), ``pad2d`` and
+``cosine_similarity``. ``interpolate`` computes ``jax.image.resize``'s
+resize, as the JAX op does: nearest takes input index ``floor((i + 0.5)
+* in / out)``; the linear modes ("area" among them) and ``bicubic``
+(Keys' cubic, a = -0.5) are one ``[in, out]`` weight matrix per resized
+dim, on half-pixel centres, the kernel widened by ``in / out`` when
+shrinking (antialiasing, in every dim count), each column normalised.
+With ``align_corners`` the 1-D and 2-D resizes are linear (bicubic
+too) on the grid ``linspace(0, in - 1, out)``, and 3-D ones the
+half-pixel resize, as the JAX op has them; nearest ignores
+``align_corners``.
+
 ``batch_norm`` returns ``(out, new_running_mean, new_running_var)``
 and writes nothing, as the JAX op; the layers (``nn.norm``) write the
 statistics back in place. Python scalars meet a bf16/fp16 tensor
@@ -44,7 +58,8 @@ import torch.nn.functional as tF
 from ..flags import GLOBAL_FLAGS
 
 __all__ = ["conv2d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
-           "batch_norm", "sync_batch_norm"]
+           "batch_norm", "sync_batch_norm", "dropout2d", "alpha_dropout",
+           "interpolate", "upsample", "pad2d", "cosine_similarity"]
 
 IntOrPair = Union[int, Sequence[int]]
 _LOW = (torch.bfloat16, torch.float16)
@@ -311,3 +326,152 @@ def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return batch_norm(x, running_mean, running_var, weight, bias, training,
                       momentum, epsilon, data_format, group=group,
                       biased_running_var=group is not None)
+
+
+def _keep(x: torch.Tensor, p: float, shape) -> torch.Tensor:
+    from ..core import random as _random
+    return _random.draw("dropout", x.device, lambda gen: torch.rand(
+        tuple(shape), generator=gen, device=x.device) < (1.0 - p))
+
+
+def dropout2d(x: torch.Tensor, p: float = 0.5,
+              training: bool = True) -> torch.Tensor:
+    """Whole channels dropped (``[N, C, 1, 1]`` keep mask), the kept
+    ones scaled by ``1 / (1 - p)``."""
+    if not training or p == 0.0:
+        return x
+    keep = _keep(x, p, x.shape[:2] + (1,) * (x.ndim - 2))
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def alpha_dropout(x: torch.Tensor, p: float = 0.5,
+                  training: bool = True) -> torch.Tensor:
+    """SELU's dropout: dropped units at SELU's negative saturation, then
+    the affine map that keeps the mean and variance."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -1.6732632423543772 * 1.0507009873554805
+    a = (1.0 / ((1 - p) * (1 + p * alpha_p ** 2)) ** 0.5)
+    b = -a * alpha_p * p
+    keep = _keep(x, p, x.shape)
+    return (a * torch.where(keep, x, torch.full_like(x, alpha_p))
+            + b).to(x.dtype)
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x, 0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 at ``x >= 0``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0,
+                      out)
+    return torch.where(x >= 2.0, torch.zeros_like(out), out)
+
+
+def _resize_weights(n_in: int, n_out: int, kernel,
+                    device) -> torch.Tensor:
+    """``jax.image.resize``'s ``[n_in, n_out]`` weights (antialiased)."""
+    inv = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device)
+              + 0.5) * inv - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = kernel(torch.abs(sample[None, :] - src[:, None]) / max(inv, 1.0))
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total,
+                                    torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def _resize(x: torch.Tensor, size, method: str) -> torch.Tensor:
+    """``jax.image.resize`` of the spatial dims (antialiased)."""
+    if not x.is_floating_point():
+        x = x.float()
+    for d, n_out in enumerate(size, start=2):
+        n_in = x.shape[d]
+        if n_in == n_out:
+            continue
+        if method == "nearest":
+            idx = torch.floor((torch.arange(n_out, dtype=torch.float32,
+                                            device=x.device) + 0.5)
+                              * n_in / n_out).long()
+            x = x.index_select(d, idx)
+            continue
+        w = _resize_weights(n_in, n_out, _triangle if method == "linear"
+                            else _keys_cubic, x.device).to(x.dtype)
+        x = torch.movedim(torch.tensordot(x, w, dims=([d], [0])), -1, d)
+    return x
+
+
+def _resize_align_corners(x: torch.Tensor, size,
+                          method: str) -> torch.Tensor:
+    """The JAX op's ``align_corners`` resize: linear on the grid
+    ``linspace(0, in - 1, out)`` in 1-D and 2-D, the half-pixel resize
+    in 3-D."""
+    if len(size) == 3:
+        return _resize(x, size, method)
+    if len(size) == 1:
+        return _resize_align_corners(x[:, :, None, :], (1, size[0]),
+                                     method)[:, :, 0, :]
+    grids = []
+    for n_in, n_out in zip(x.shape[2:], size):
+        g = torch.zeros(1, device=x.device) if n_out == 1 else \
+            torch.linspace(0.0, n_in - 1, n_out, device=x.device)
+        lo = torch.floor(g).long()
+        grids.append((lo, torch.clamp_max(lo + 1, n_in - 1), g - lo))
+    (h0, h1, fh), (w0, w1, fw) = grids
+    fh, fw = fh[None, None, :, None], fw[None, None, None, :]
+    tl = x[:, :, h0[:, None], w0[None, :]]
+    tr = x[:, :, h0[:, None], w1[None, :]]
+    bl = x[:, :, h1[:, None], w0[None, :]]
+    br = x[:, :, h1[:, None], w1[None, :]]
+    top = tl + (tr - tl) * fw
+    bot = bl + (br - bl) * fw
+    return top + (bot - top) * fh
+
+
+def interpolate(x: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest", align_corners: bool = False,
+                data_format: str = "NCHW") -> torch.Tensor:
+    """Resize of the spatial dims of a channel-first ``x`` (see the
+    module note)."""
+    if data_format not in ("NCHW", "NCDHW", "NCL"):
+        raise NotImplementedError("interpolate supports channel-first")
+    spatial = x.shape[2:]
+    if size is None:
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * len(spatial)
+        size = [int(s * f) for s, f in zip(spatial, scale_factor)]
+    size = tuple(int(s) for s in size)
+    method = {"nearest": "nearest", "bilinear": "linear", "linear": "linear",
+              "trilinear": "linear", "bicubic": "cubic",
+              "area": "linear"}.get(mode)
+    if method is None:
+        raise ValueError(f"interpolate: unknown mode {mode!r}")
+    if align_corners and method != "nearest":
+        return _resize_align_corners(x, size, method)
+    return _resize(x, size, method)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False):
+    return interpolate(x, size, scale_factor, mode, align_corners)
+
+
+def pad2d(x: torch.Tensor, paddings, mode: str = "constant",
+          pad_value: float = 0.0, data_format: str = "NCHW") -> torch.Tensor:
+    from .manipulation import pad
+    return pad(x, paddings, mode=mode, value=pad_value,
+               data_format=data_format)
+
+
+def cosine_similarity(x1: torch.Tensor, x2: torch.Tensor, axis: int = 1,
+                      eps: float = 1e-8) -> torch.Tensor:
+    dot = torch.sum(x1 * x2, dim=axis)
+    n1 = torch.linalg.vector_norm(x1, dim=axis)
+    n2 = torch.linalg.vector_norm(x2, dim=axis)
+    return dot / torch.clamp(n1 * n2, min=eps)

@@ -74,6 +74,19 @@ the plain version on the CPU; one leaf, the flat master, under
 ``fused_state``), AdamW's decay and the skip guard folded in; the other
 leaves (bf16 moments among them) take the unfused update, fp32 math
 with the moments stored back in their dtype.
+
+A gradient may be an ``ops.sparse.RowSlices`` (an embedding's
+``embedding_grad``), as in the JAX package: ``update_sparse`` takes it.
+The base class densifies it (``to_dense``) and runs the dense update;
+``SGD`` and ``Adam(lazy_mode=True)`` read and write the touched rows
+alone (the moments of the other rows stay as they were), after
+``merge_rows`` has summed duplicate rows, as the reference's sparse
+functors merge them. Each row is written with its new value
+(``index_copy_``), so a touched row equals the dense update's bit for
+bit. A sparse gradient's values join ``grad_clip`` (its norm, and the
+scale or clamp) and it takes no weight decay (under ``fused_state`` it
+is densified into the flat update, its slice undecayed), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -86,6 +99,7 @@ from .. import kernels
 from ..core import random as _random
 from ..flags import GLOBAL_FLAGS
 from ..kernels import fused_adam as _adam
+from ..ops.sparse import RowSlices, merge_rows, to_dense
 from . import lr
 from .lr import LRScheduler, resolve_lr
 
@@ -120,6 +134,42 @@ def _moment_dtype(default: torch.dtype) -> torch.dtype:
 def _as_f32(t: torch.Tensor) -> torch.Tensor:
     """A bf16/fp16 tensor cast up to fp32; any other as it is."""
     return t.float() if t.dtype in _LOW else t
+
+
+def _g32(g):
+    """A gradient cast up to fp32 (a RowSlices' values)."""
+    if g is None:
+        return None
+    if isinstance(g, RowSlices):
+        return RowSlices(g.rows, _as_f32(g.values), g.dense_rows)
+    return _as_f32(g)
+
+
+class _Rows(NamedTuple):
+    """The rows a sparse update touches: ``rows`` (int64, each real row
+    once; the slots ``merge_rows`` frees repeat the first row), the
+    merged ``values`` and the ``valid`` slots."""
+    rows: torch.Tensor
+    values: torch.Tensor
+    valid: torch.Tensor
+
+
+def _touched(g: RowSlices) -> _Rows:
+    m = merge_rows(g)
+    valid = m.rows < g.dense_rows
+    return _Rows(torch.where(valid, m.rows, m.rows[:1]), m.values, valid)
+
+
+def _write_rows(t: torch.Tensor, r: _Rows, new: torch.Tensor,
+                ok: Optional[torch.Tensor]) -> None:
+    """Rows ``r.rows`` of ``t`` set to ``new`` in place (the old rows
+    where ``ok`` is False). A freed slot writes its row's own new value
+    (slot 0's), so the repeated index writes one value."""
+    valid = r.valid.reshape((-1,) + (1,) * (new.ndim - 1))
+    new = torch.where(valid, new, new[:1])
+    if ok is not None:
+        new = torch.where(ok, new, t[r.rows])
+    t.index_copy_(0, r.rows, new.to(t.dtype))
 
 
 class _Leaf(NamedTuple):
@@ -252,8 +302,7 @@ class Optimizer:
             else resolve_lr(self.learning_rate, step)
         # the single upcast site: clip and decay see fp32 (a global norm
         # in fp16 overflows)
-        grads = {n: None if g is None else _as_f32(g)
-                 for n, g in grads.items() if n in params}
+        grads = {n: _g32(g) for n, g in grads.items() if n in params}
         meta = self._param_meta
         regs = {n: meta.get(n, (True, None))[1] for n in params}
         if self.grad_clip is not None:
@@ -272,19 +321,24 @@ class Optimizer:
                     "set fused_state=False")
             self._apply_fused(params, grads, state, lr_t, step, ok)
         else:
-            leaves = []
+            leaves, sparse = [], []
             for name, p in params.items():
                 g = grads.get(name)
                 if g is None:
                     continue
                 slots = state["slots"][name]
                 p32 = slots.get("master", p)
-                leaves.append(_Leaf(name, p32,
-                                    self._decay_grad(g, p32, regs[name]),
-                                    {k: v for k, v in slots.items()
-                                     if k != "master"}))
+                own = {k: v for k, v in slots.items() if k != "master"}
+                if isinstance(g, RowSlices):
+                    sparse.append(_Leaf(name, p32, g, own))
+                else:
+                    leaves.append(_Leaf(name, p32, self._decay_grad(
+                        g, p32, regs[name]), own))
             self._update(leaves, lr_t, step, ok)
-            for leaf in leaves:
+            for leaf in sparse:
+                self.update_sparse(leaf.p32, leaf.g, leaf.slots, lr_t,
+                                   step, ok, leaf.name)
+            for leaf in leaves + sparse:
                 p = params[leaf.name]
                 if leaf.p32 is not p:
                     # the master cast down (an unchanged master gives the
@@ -299,7 +353,7 @@ class Optimizer:
         fused = state["fused"]
         master = fused["master"]
         names = self._fused_names(params)
-        parts, frozen, offsets = [], [], []
+        parts, frozen, offsets, undecayed = [], [], [], []
         off = 0
         for n in names:
             k = params[n].numel()
@@ -309,6 +363,9 @@ class Optimizer:
                                          device=master.device))
                 frozen.append((off, k))
             else:
+                if isinstance(g, RowSlices):
+                    g = to_dense(g)
+                    undecayed.append((off, k))
                 parts.append(g.reshape(-1).float())
             offsets.append(off)
             off += k
@@ -318,7 +375,13 @@ class Optimizer:
                              f"{off}")
         gflat = torch.cat(parts) if parts else master.new_zeros((0,))
         if self.weight_decay:
-            gflat = self._decay_grad(gflat, master)
+            decayed = master
+            if undecayed:
+                mask = torch.ones_like(master)
+                for o, k in undecayed:
+                    mask[o:o + k] = 0.0
+                decayed = master * mask
+            gflat = self._decay_grad(gflat, decayed)
         # a leaf without a gradient is an exact no-op: AdamW's decay and
         # the moments' decay would move it, so its slices are put back
         kept = [(o, k, {s: t[o:o + k].clone() for s, t in fused.items()})
@@ -336,6 +399,17 @@ class Optimizer:
     def _update(self, leaves: List[_Leaf], lr_t, step, ok) -> None:
         raise NotImplementedError
 
+    def update_sparse(self, p32: torch.Tensor, g: RowSlices,
+                      slots: Dict[str, torch.Tensor], lr_t, step,
+                      ok: Optional[torch.Tensor] = None,
+                      name: Optional[str] = None) -> None:
+        """One update of ``p32`` (and its ``slots``) by the sparse
+        gradient ``g``, in place (the old values where ``ok`` is False).
+        Here: ``g`` densified and the dense update run (correct, not
+        bandwidth-optimal); SGD and lazy Adam touch its rows alone."""
+        self._update([_Leaf(name, p32, to_dense(g), slots)], lr_t, step,
+                     ok)
+
 
 def _select(ok: Optional[torch.Tensor], new: torch.Tensor,
             old: torch.Tensor) -> torch.Tensor:
@@ -345,8 +419,7 @@ def _select(ok: Optional[torch.Tensor], new: torch.Tensor,
 
 class SGD(Optimizer):
     """Plain SGD (``sgd_op``): ``p - lr g`` in fp32 on the master (or the
-    fp32 parameter). Not ported: the row-sparse update (it comes with
-    the sparse gradients)."""
+    fp32 parameter); a sparse gradient updates its rows alone."""
 
     _elementwise_update = True
 
@@ -354,6 +427,12 @@ class SGD(Optimizer):
         for leaf in leaves:
             p = leaf.p32
             p.copy_(_select(ok, p - lr_t * leaf.g.to(p.dtype), p))
+
+    def update_sparse(self, p32, g, slots, lr_t, step, ok=None,
+                      name=None) -> None:
+        r = _touched(g)
+        _write_rows(p32, r, p32[r.rows] - lr_t * r.values.to(p32.dtype),
+                    ok)
 
 
 class Momentum(Optimizer):
@@ -390,11 +469,12 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
-                 **kw) -> None:
+                 lazy_mode: bool = False, **kw) -> None:
         super().__init__(learning_rate, **kw)
         self.beta1 = beta1
         self.beta2 = beta2
         self.epsilon = epsilon
+        self.lazy_mode = lazy_mode
 
     def init_slots(self, p32):
         dt = _moment_dtype(p32.dtype)
@@ -441,6 +521,24 @@ class Adam(Optimizer):
                 _adam.adam_multi_plain(*args)
             else:
                 kernels.maybe_fused_adam(*args, variant)
+
+    def update_sparse(self, p32, g, slots, lr_t, step, ok=None,
+                      name=None) -> None:
+        """``lazy_mode``: the touched rows alone take the update (ref:
+        adam_op.h's sparse functor), as the unfused dense update computes
+        them; the other rows and their moments stay as they were.
+        Otherwise the dense update of the densified gradient."""
+        if not self.lazy_mode:
+            return super().update_sparse(p32, g, slots, lr_t, step, ok,
+                                         name)
+        r = _touched(g)
+        m, v = slots["m"], slots["v"]
+        p_new, m_new, v_new = _adam.adam_leaf_plain(
+            p32[r.rows], r.values.to(p32.dtype), m[r.rows].float(),
+            v[r.rows].float(), self._bias_correct_lr(lr_t, step),
+            self.beta1, self.beta2, self.epsilon)
+        for t, new in ((m, m_new), (v, v_new), (p32, p_new)):
+            _write_rows(t, r, new, ok)
 
     def _decay_coeff(self, name: Optional[str]) -> Optional[float]:
         """The decoupled decay coefficient ``wd`` of parameter ``name``

@@ -8,6 +8,15 @@ from a fixed seed (ties, ``-0.0``, NaN/Inf and half-way values where the
 semantics turn on them). ``tests/test_torch_ops_core.py`` runs each
 through the JAX package and the port on the CPU; ``chip_smoke.py``
 phase 15 (e) runs each through the port on the card and on the CPU.
+``SEQ_CASES`` lists the recurrent and sequence stack's cases the same
+way: every public function of ``ops.sequence``, ``crf``,
+``rnn_functional`` and the deterministic ones of ``sampling`` (NCE on
+given negatives), and the CTC losses of ``ops.loss`` (every reduction,
+repeated labels, short inputs, a label longer than its input);
+``sparse_runs`` drives ``ops.sparse`` (``SEQ_MODULES``); ``SEQ_RANDOM``
+names the sampled functions, checked by shape and seed.
+``tests/test_torch_sequence_ops.py`` runs them against the JAX package,
+``chip_smoke.py`` phase 16 (e) on the card against the CPU.
 ``RANDOM``, ``CREATION``, ``CONTROL`` name the functions the random,
 creation and control-flow checks cover; ``control_flow_runs`` and
 ``tensor_array_run`` drive ``ops.control_flow`` and ``ops.tensor_array``
@@ -19,7 +28,8 @@ standard deviation its distribution has.
 import numpy as np
 
 __all__ = ["CASES", "RANDOM", "CREATION", "CONTROL", "RANDOM_MOMENTS",
-           "control_flow_runs", "tensor_array_run", "MODULES"]
+           "control_flow_runs", "tensor_array_run", "MODULES",
+           "SEQ_MODULES", "SEQ_CASES", "SEQ_RANDOM", "sparse_runs"]
 
 MODULES = ("math", "activation", "reduction", "manipulation", "search",
            "random_ops", "control_flow", "tensor_array")
@@ -354,3 +364,186 @@ def tensor_array_run(m, x, **kw):
     outs += [seq.data, m.array_length(seq), m.array_to_lod_tensor(seq),
              len(a)]
     return outs
+
+
+# ---------------------------------------------------------------------------
+# the recurrent and sequence stack
+# ---------------------------------------------------------------------------
+
+SEQ_MODULES = ("sequence", "crf", "rnn_functional", "sampling", "sparse")
+
+S = np.random.default_rng(23)
+F3 = S.normal(size=(3, 5, 4)).astype(np.float32)
+F3B = S.normal(size=(3, 3, 4)).astype(np.float32)
+F2 = S.normal(size=(3, 4)).astype(np.float32)
+LEN = np.array([5, 2, 0], np.int64)
+LEN2 = np.array([1, 3, 2], np.int64)
+IDS = S.integers(1, 9, size=(3, 6)).astype(np.int64)
+IDS2 = S.integers(1, 9, size=(3, 4)).astype(np.int64)
+ILEN = np.array([6, 3, 0], np.int64)
+
+
+def _logp(*shape):
+    z = S.normal(size=shape).astype(np.float32)
+    return (z - np.log(np.exp(z).sum(-1, keepdims=True))).astype(np.float32)
+
+
+# CTC: [T=7, B=4, C=5] log-probs, blank 0; row 0 repeats a label (needs a
+# blank between), row 1 has a short input, row 2 an empty label, row 3 a
+# label longer than its input (no alignment: ~1e30)
+CTC_LP = _logp(7, 4, 5)
+CTC_LAB = np.array([[1, 1, 2, 0], [3, 4, 0, 0], [0, 0, 0, 0],
+                    [1, 2, 3, 4]], np.int64)
+CTC_LABLEN = np.array([3, 2, 0, 4], np.int64)
+CTC_INLEN = np.array([7, 4, 5, 3], np.int64)
+CRF_EM = S.normal(size=(3, 5, 4)).astype(np.float32)
+CRF_TR = S.normal(size=(6, 4)).astype(np.float32)
+CRF_LAB = S.integers(0, 4, size=(3, 5)).astype(np.int64)
+CRF_LEN = np.array([5, 3, 1], np.int64)
+CHUNK_INF = np.array([[0, 1, 4, 2, 3, 3], [2, 3, 0, 1, 1, 4],
+                      [1, 1, 4, 0, 2, 2]], np.int64)
+CHUNK_LAB = np.array([[0, 1, 4, 2, 3, 4], [2, 3, 0, 4, 1, 4],
+                      [0, 1, 4, 0, 2, 3]], np.int64)
+NCE_W = S.normal(size=(11, 4)).astype(np.float32)
+NCE_B = S.normal(size=(11,)).astype(np.float32)
+NCE_NEG = S.integers(0, 11, size=(3, 5)).astype(np.int64)
+H = 3
+
+
+def _r(*shape):
+    return (S.normal(size=shape) * 0.5).astype(np.float32)
+
+
+SEQ_CASES = [
+    C("sequence", "sequence_mask", LEN, 6),
+    C("sequence", "sequence_mask", LEN2, dtype="float32"),
+    *[C("sequence", "sequence_pool", F3, LEN, t, pad_value=1.5)
+      for t in ("sum", "sqrt", "average", "mean", "max", "min", "first",
+                "last")],
+    C("sequence", "sequence_softmax", F3, LEN),
+    C("sequence", "sequence_softmax", F3[..., 0], LEN2),
+    C("sequence", "sequence_pad", F3, LEN, 7, pad_value=-1.0),
+    C("sequence", "sequence_pad", F3, LEN, 3),
+    C("sequence", "sequence_unpad", F3, LEN),
+    C("sequence", "sequence_reverse", F3, LEN),
+    C("sequence", "sequence_reverse", IDS, ILEN),
+    C("sequence", "sequence_expand", F2, LEN2),
+    C("sequence", "sequence_expand", F2, LEN2, max_len=5),
+    C("sequence", "sequence_expand_dense", F2, LEN, 6),
+    C("sequence", "sequence_concat", [F3, F3B], [LEN, LEN2]),
+    C("sequence", "sequence_enumerate", IDS, ILEN, 3, pad_value=0),
+    C("sequence", "sequence_erase", IDS, ILEN, [2, 5]),
+    C("sequence", "sequence_slice", F3, LEN, np.array([1, 0, 0]),
+      np.array([3, 2, 0])),
+    C("sequence", "sequence_first_step", F3, LEN),
+    C("sequence", "sequence_last_step", F3, LEN),
+    C("sequence", "sequence_conv", F3, LEN, _r(12, 5), 3,
+      context_start=-1, bias=_r(5)),
+    C("sequence", "sequence_expand_as", F2, LEN2),
+    C("sequence", "sequence_reshape", S.normal(size=(3, 4, 6)).astype(
+        np.float32), np.array([4, 2, 0]), 12),
+    C("sequence", "sequence_scatter", F2, np.array([[0, 3, 3, 1],
+                                                    [2, 2, 0, 1],
+                                                    [1, 0, 3, 2]]),
+      _r(3, 4), np.array([4, 2, 0])),
+    C("sequence", "sequence_topk_avg_pooling",
+      S.normal(size=(2, 2, 3, 5)).astype(np.float32), np.array([3, 2]),
+      np.array([5, 3]), [1, 3], 2),
+    C("sequence", "lod_reset", F3, LEN, np.array([3, 4])),
+    C("sequence", "filter_by_instag", F2, np.array([[1, 0, 0], [3, 7, 0],
+                                                    [2, 2, 5]]),
+      np.array([2, 7])),
+    C("sequence", "edit_distance", IDS, ILEN, IDS2, np.array([4, 2, 3])),
+    C("sequence", "edit_distance", IDS, ILEN, IDS2, np.array([4, 2, 3]),
+      normalized=False),
+    C("sequence", "ctc_greedy_decoder", _logp(3, 6, 5),
+      np.array([6, 4, 0])),
+    C("sequence", "ctc_greedy_decoder", _logp(3, 6, 5),
+      np.array([6, 6, 2]), blank=0),
+    C("sequence", "lod_append", LEN, np.array([1, 2, 3])),
+    C("sequence", "reorder_lod_tensor_by_rank", F3, np.array([2, 5, 2])),
+    C("sequence", "reorder_lod_tensor_by_rank", F3, LEN2, reverse=False),
+    # the CTC losses
+    *[C("loss", "ctc_loss", CTC_LP, CTC_LAB, CTC_INLEN, CTC_LABLEN,
+        reduction=r) for r in ("none", "sum", "mean")],
+    C("loss", "ctc_loss", CTC_LP[:, :3], np.minimum(CTC_LAB[:3, :3], 3),
+      CTC_INLEN[:3],
+      CTC_LABLEN[:3], blank=4, reduction="none"),
+    C("loss", "warpctc", CTC_LP, CTC_LAB, CTC_INLEN, CTC_LABLEN),
+    C("loss", "warpctc", CTC_LP, CTC_LAB, CTC_INLEN, CTC_LABLEN,
+      norm_by_times=True),
+    # crf
+    C("crf", "linear_chain_crf", CRF_EM, CRF_TR, CRF_LAB, CRF_LEN),
+    C("crf", "crf_decoding", CRF_EM, CRF_TR, CRF_LEN),
+    C("crf", "chunk_eval", CHUNK_INF, CHUNK_LAB, np.array([6, 5, 4]), 2),
+    C("crf", "chunk_eval", CHUNK_INF, CHUNK_LAB, np.array([6, 6, 6]), 2,
+      chunk_scheme="IOE"),
+    # sampling: the deterministic functions, NCE on given negatives
+    C("sampling", "hsigmoid_loss", F2, _r(5, 4), np.array([0, 3, 5]), 6),
+    C("sampling", "hsigmoid_loss", F2, _r(5, 4), np.array([0, 3, 5]), 6,
+      bias=_r(5)),
+    C("sampling", "hsigmoid_loss", F2, _r(5, 4), np.array([0, 3, 5]),
+      bias=_r(5), path_table=np.array([[0, 2, -1], [0, 1, 4], [3, -1, -1]]),
+      path_code=np.array([[1, 0, -1], [0, 1, 1], [1, -1, -1]])),
+    C("sampling", "nce_loss", F2, NCE_W, np.array([2, 7, 10]), 11, 5,
+      custom_neg_samples=NCE_NEG),
+    C("sampling", "nce_loss", F2, NCE_W, np.array([2, 7, 10]), 11, 5,
+      bias=NCE_B, sampler="log_uniform", custom_neg_samples=NCE_NEG),
+    C("sampling", "nce_loss", F2, NCE_W, np.array([2, 7, 10]), 11, 5,
+      custom_neg_samples=NCE_NEG[0]),
+    C("sampling", "hash_bucket", np.array([[0], [1], [-7], [123456789],
+                                           [2 ** 31 - 1]]), 1000, 3),
+    C("sampling", "hash_bucket", np.array([5, 77, 4096]), 97),
+    # rnn_functional, forward
+    C("rnn_functional", "lstm_unit", _r(3, 4 * H), _r(3, H), _r(3, H),
+      _r(H, 4 * H), _r(4 * H), forget_bias=1.0),
+    C("rnn_functional", "gru_unit", _r(3, 3 * H), _r(3, H), _r(H, 3 * H),
+      _r(3 * H)),
+    C("rnn_functional", "dynamic_lstm", _r(3, 5, 4 * H), _r(H, 4 * H),
+      _r(7 * H), LEN2, use_peepholes=True, is_reverse=True),
+    C("rnn_functional", "dynamic_lstmp", _r(3, 5, 4 * H), _r(2, 4 * H),
+      _r(H, 2), _r(4 * H), LEN),
+    C("rnn_functional", "dynamic_gru", _r(3, 5, 3 * H), _r(H, 3 * H),
+      _r(3 * H), LEN),
+    C("rnn_functional", "lstm", _r(3, 5, 4), _r(2, 3, H), _r(2, 3, H),
+      [{"w_ih": _r(4, 4 * H), "w_hh": _r(H, 4 * H), "b": _r(4 * H)},
+       {"w_ih": _r(H, 4 * H), "w_hh": _r(H, 4 * H), "b": _r(4 * H)}],
+      LEN2, num_layers=2),
+]
+
+# the sampled functions (checked by shape, device and the same draw from
+# the same seed)
+SEQ_RANDOM = {"sampled_softmax_with_cross_entropy"}
+SPARSE_ROWS = np.array([3, 1, 3, 0, 5], np.int64)
+SPARSE_VALS = S.normal(size=(5, 4)).astype(np.float32)
+SPARSE_P = S.normal(size=(6, 4)).astype(np.float32)
+
+
+def sparse_runs():
+    """``[run(module, array)]``: calls of every ``ops.sparse`` function,
+    ``array`` turning numpy into the package's arrays; each returns a
+    list of arrays."""
+
+    def rs(m, a, rows=SPARSE_ROWS, vals=SPARSE_VALS):
+        return m.RowSlices(a(rows), a(vals), 6)
+
+    def to_dense(m, a):
+        return [m.to_dense(rs(m, a))]
+
+    def merge_rows(m, a):
+        s = m.merge_rows(rs(m, a))
+        return [s.rows, s.values, m.to_dense(s)]
+
+    def scatter_apply(m, a):
+        return [m.scatter_apply(a(SPARSE_P), rs(m, a),
+                                lambda r, v: r * 0.5 - v)]
+
+    def embedding_grad(m, a):
+        s = m.embedding_grad(a(IDS[:2, :3]), a(F3[:2, :3]), 9)
+        return [s.rows, s.values, m.to_dense(s)]
+
+    def add(m, a):
+        s = m.add(rs(m, a), rs(m, a, SPARSE_ROWS[:2], SPARSE_VALS[:2]))
+        return [s.rows, s.values, m.to_dense(s)]
+
+    return [to_dense, merge_rows, scatter_apply, embedding_grad, add]

@@ -8,6 +8,7 @@ another Hopper card) and the CUDA toolkit::
     python3 chip_smoke.py --distributed   # phases 13-14 (four cards: 14 b)
     python3 chip_smoke.py --static        # phase 15
     python3 chip_smoke.py --recurrent     # phase 16
+    python3 chip_smoke.py --vision        # phase 17
 
 It imports only ``paddle_tpu_torch`` (never JAX or ``paddle_tpu``) and,
 in order:
@@ -452,7 +453,36 @@ in order:
    ``OPS_RTOL``/``OPS_ATOL`` (``testing/op_cases.py``'s
    ``SEQ_CASES``). ``python3 chip_smoke.py --recurrent`` runs this phase
    alone and writes ``chiprun_out/chip_smoke_recurrent.json``;
-17. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+17. runs the vision slice (fp32 checks with TF32 off): (a) MobileNetV2
+   1.0 at 224 (ImageNet's 1000 classes), NHWC, bf16 with fp32 masters,
+   b128 through ``Model.fit`` with ``Adam`` under ``fused_adam`` for 8
+   captured steps with deterministic convolutions: one capture, the Adam
+   leaf kernel exactly once a step, the 8 losses bit for bit with the
+   same steps run eagerly, step ms, images/s, peak memory, a profiled
+   replay split into convolutions, matmuls and PyTorch's own kernels
+   (BatchNorm's composition among them), the default convolutions'
+   replay ms; then one fp32 forward and backward at batch 4, card against
+   CPU, with two-pass statistics and the ReLU6 decisions shared
+   (``ReluSigns``): the loss within ``P17_LOSS_TOL`` relative, each
+   leaf's fp32 gradient within ``P17_GRAD_TOL`` of its largest entry or
+   ``P17_NOISE_K`` times the CPU's own fp32 gap from a float64 run
+   (cuDNN's Winograd weight gradient, where it explains a leaf, within
+   ``P17_WINOGRAD_TOL``), and in float64 each leaf within
+   ``P17_GRAD_TOL``; (b)
+   SSDLite at its defaults (20 classes, 128 px, base 32), b32: the loss
+   card against CPU as (a)'s check, its priors equal to the CPU's, 4
+   captured Momentum steps, ``predict`` on the card against the CPU (the
+   port's NMS on both), the CPU taking the card's choices where scores
+   tie within ``SSD_TIE`` (``NmsChoices``; ties counted): the same valid
+   rows and labels, scores and boxes within 1e-5; (c) the DCGAN's
+   ``GANTrainStep`` 8 times on the card, its first step against the CPU
+   fed the card's z; (d) VGG-16-BN (dropout 0), MobileNetV1 and LeNet,
+   one forward and backward each, card against CPU as (a)'s; (e) every
+   call of ``VISION_CASES``, ``DET_CASES`` and ``DET_CREATION`` on the
+   card against the CPU within ``OPS_RTOL``/``OPS_ATOL``, the sampled
+   ops by shape and seed. ``python3 chip_smoke.py --vision`` runs this
+   phase alone and writes ``chiprun_out/chip_smoke_vision.json``;
+18. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -6713,7 +6743,9 @@ class ReluSigns:
     either side of the kink on either device, and each such flip moves
     its ``linear1`` gradient column by a whole token's term (~1e-2 of the
     largest entry at these sizes: ``grad_max_rel_gap_own_relu``), so the
-    gradients are compared with the kink decided alike."""
+    gradients are compared with the kink decided alike. ReLU6 (``six``)
+    has two edges: a unit within rounding of 0 or of 6 takes either side,
+    so its masks are the middle and the clipped top."""
 
     def __init__(self, torch) -> None:
         self.torch = torch
@@ -6722,16 +6754,28 @@ class ReluSigns:
         self.flipped = 0
         self.units = 0
 
-    def record(self, x):
-        self.masks.append((x > 0).detach().cpu())
-        return self.torch.relu(x)
+    @staticmethod
+    def _decide(x, six: bool):
+        if six:
+            return (x >= 0) & (x <= 6), x > 6
+        return x > 0, None
 
-    def replay(self, x):
-        mask = self.masks[self.pos]
+    def record(self, x, six: bool = False):
+        mid, above = self._decide(x.detach(), six)
+        self.masks.append((mid.cpu(), None if above is None
+                           else above.cpu()))
+        return self.torch.clamp(x, 0.0, 6.0) if six else self.torch.relu(x)
+
+    def replay(self, x, six: bool = False):
+        mid, above = self.masks[self.pos]
         self.pos += 1
-        self.flipped += int(((x > 0).cpu() != mask).sum())
-        self.units += mask.numel()
-        return x * mask.to(device=x.device, dtype=x.dtype)
+        own, _ = self._decide(x.detach(), six)
+        self.flipped += int((own.cpu() != mid).sum())
+        self.units += mid.numel()
+        out = x * mid.to(device=x.device, dtype=x.dtype)
+        if above is not None:
+            out = out + 6.0 * above.to(device=x.device, dtype=x.dtype)
+        return out
 
     @staticmethod
     def install(model, fn) -> int:
@@ -6743,6 +6787,25 @@ class ReluSigns:
                 mod.activation = fn
                 n += 1
         return n
+
+    def install_children(self, model, how) -> list:
+        """Replaces every ReLU/ReLU6 child module with ``how(x, six)``;
+        returns what ``restore`` puts back."""
+        from paddle_tpu_torch.nn import ReLU, ReLU6
+        old = []
+        for mod in model.modules():
+            for name, child in list(mod.named_children()):
+                if isinstance(child, (ReLU, ReLU6)):
+                    six = isinstance(child, ReLU6)
+                    old.append((mod, name, child))
+                    setattr(mod, name, call_module(
+                        self.torch, lambda x, s=six: how(x, s)))
+        return old
+
+    @staticmethod
+    def restore(old: list) -> None:
+        for mod, name, child in old:
+            setattr(mod, name, child)
 
 
 def grads_card_cpu(torch, card, cpu, run, tag: str) -> dict:
@@ -10272,6 +10335,793 @@ def run_phase16(torch) -> tuple:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the vision slice. (a) MobileNetV2 1.0 at 224, NHWC, bf16 with
+# fp32 masters, b128 through Model.fit with Adam under fused_adam (row 11
+# once a step), captured, its losses bit for bit with the eager steps
+# (deterministic convolutions on both), the device split of a profiled
+# replay, then card against CPU in fp32 at batch 4 (ReLU6 decisions
+# shared); (b) SSDLite at its defaults, b32: loss card against CPU, 4
+# captured training steps, predict card against CPU (the CPU's NMS taking
+# the card's choices where scores tie within rounding); (c) the DCGAN step
+# 8 times, its first step against the CPU on the same z; (d) VGG-16-BN,
+# MobileNetV1 and LeNet forward and backward, card against CPU; (e) the
+# vision and detection op cases on the card against the CPU.
+# `python3 chip_smoke.py --vision` runs this phase alone.
+# ---------------------------------------------------------------------------
+
+# where phase 17 runs (a CPU rehearsal sets "cpu")
+P17_DEVICE = "cuda"
+MV2_BATCH, MV2_HW, MV2_CLASSES, MV2_STEPS = 128, 224, 1000, 8
+MV2_LR = 1e-3
+# card against CPU (fp32, TF32 off, two-pass statistics, ReLU6 decisions
+# shared): the loss's relative gap, and each leaf's largest gradient gap
+# over that leaf's largest entry (a convolution bias-free net, so no leaf
+# is zero but for rounding)
+MV2_CPU_BATCH = 4
+P17_LOSS_TOL, P17_GRAD_TOL = 1e-5, 1e-4
+# fp32 gradients: each leaf's card gap to float64 within this many times
+# the CPU's fp32 gap (a nearly cancelled leaf's rounding, of one size on
+# both devices) where that exceeds P17_GRAD_TOL; a leaf over it passes
+# only where cuDNN's Winograd weight gradient explains it, within
+# P17_WINOGRAD_TOL (``p17_winograd``)
+P17_NOISE_K, P17_WINOGRAD_TOL = 4.0, 2e-3
+SSD_CFG = dict(num_classes=20, image_size=128, base=32)
+SSD_BATCH, SSD_STEPS, SSD_GT = 32, 4, 6
+# predict: keep_top_k rows an image, and a threshold the random-weight
+# model's softmax scores (~1 / 21) reach
+SSD_TOP_K, SSD_SCORE = 20, 0.04
+# a score within this of the card's choice is a tie the CPU may break
+# the other way (fp32 softmax over 21 logits on both sides)
+SSD_TIE = 1e-5
+GAN_CFG = dict(z_dim=64, base=32)
+GAN_BATCH, GAN_STEPS, GAN_LR = 64, 8, 0.05
+VGG_BATCH, MV1_BATCH, LENET_BATCH = 2, 4, 16
+PATH_KERNELS.update({"mv2_fit": ("adam_leaf",)})
+
+
+def p17_images(torch, n: int, hw: int, seed: int, c: int = 3,
+               nhwc: bool = False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, c, hw, hw), dtype=np.float32)
+    if nhwc:
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    return torch.from_numpy(x)
+
+
+def zero_grad_leaves(model) -> dict:
+    """``{leaf: reference leaf}`` for the shifts whose exact gradient is
+    zero, each measured against a sibling's gradient scale instead (as
+    ``grad_gaps`` measures a key-projection bias): a convolution bias
+    followed by a training-mode BatchNorm (the norm removes any
+    per-channel constant), and MobileNetV2's projection BatchNorm shift
+    (the linear bottleneck: the stream it adds to reaches only 1x1
+    convolutions followed by training-mode BatchNorms, which remove it).
+    Their entries on either side are rounding, so their own scale would
+    compare noise with noise."""
+    from paddle_tpu_torch.models.mobilenet import _InvertedResidual
+    from paddle_tpu_torch.nn import Conv2D
+    from paddle_tpu_torch.nn.norm import _BatchNormBase
+    out = {}
+    for name, mod in model.named_modules():
+        pre = f"{name}." if name else ""
+        kids = list(mod.named_children())
+        for (a, first), (_, second) in zip(kids, kids[1:]):
+            if isinstance(first, Conv2D) and first.bias is not None \
+                    and isinstance(second, _BatchNormBase):
+                out[f"{pre}{a}.bias"] = f"{pre}{a}.weight"
+        if isinstance(mod, _InvertedResidual):
+            last = str(len(mod.conv) - 1)
+            out[f"{pre}conv.{last}.bias"] = f"{pre}conv.{last}.weight"
+    return out
+
+
+def p17_gaps(torch, grads: dict, ref: dict, zero: dict) -> dict:
+    """``grad_gaps``, the leaves of ``zero`` measured against their
+    reference leaf's largest entry."""
+    out = {}
+    for n, g in grads.items():
+        scale = float(ref[zero.get(n, n)].abs().max())
+        out[n] = float((g.cpu() - ref[n]).abs().max()) / max(scale, 1e-30)
+    return out
+
+
+def p17_card_against_cpu(torch, tag: str, make, x, loss_fn) -> dict:
+    """One training-mode forward and backward of ``make(device)`` (two-pass
+    statistics) on the card and on the CPU from the same weights and
+    buffers, the ReLU/ReLU6 decisions of the card's fp32 run shared by
+    every other run (``ReluSigns``).
+
+    In fp32: the loss within P17_LOSS_TOL relative, and each leaf's card
+    gradient within max(P17_GRAD_TOL, P17_NOISE_K x the CPU's fp32 gap) of
+    a float64 CPU run (gaps over the leaf's largest float64 entry,
+    ``zero_grad_leaves`` against a sibling's). The CPU's term admits the
+    leaves whose exact gradient is nearly cancelled, where fp32 itself
+    strays on either device (a BatchNorm scale with a zero shift feeding a
+    ReLU6, a depthwise convolution and another BatchNorm: only the clipped
+    units keep its gradient from cancelling); a gap the card alone shows
+    fails. A leaf over that bound passes only where cuDNN's Winograd
+    weight gradient explains it (``p17_winograd``). In float64 on both
+    devices: the loss within P17_LOSS_TOL relative and each leaf's
+    gradient within P17_GRAD_TOL, the card running the same composition
+    and its libraries' float64 kernels."""
+    card = make(P17_DEVICE)
+    cpu = cpu_twin(torch, card, make)
+    start = {k: v.detach().cpu().clone() for k, v in card.state_dict().items()}
+    restore = flag_scope({"batch_norm_single_pass": False})
+    signs = ReluSigns(torch)
+
+    def run(model, dev, how, dtype):
+        model.load_state_dict({k: v.to(dev) for k, v in start.items()})
+        model.to(dtype)
+        signs.pos = 0
+        old = signs.install_children(model, how)
+        try:
+            return p16_grads(torch, model, lambda m: loss_fn(
+                m, x.to(dev, dtype), dev))
+        finally:
+            ReluSigns.restore(old)
+
+    try:
+        lc, gc = run(card, P17_DEVICE, signs.record, torch.float32)
+        lh, gh = run(cpu, "cpu", signs.replay, torch.float32)
+        units, flipped = signs.units, signs.flipped
+        cpu.load_state_dict(start)
+        lo, go = p16_grads(torch, cpu, lambda m: loss_fn(m, x, "cpu"))
+        lc64, gc64 = run(card, P17_DEVICE, signs.replay, torch.float64)
+        lh64, gh64 = run(cpu, "cpu", signs.replay, torch.float64)
+        zero = zero_grad_leaves(cpu)
+        gaps = p17_gaps(torch, gc, gh, zero)
+        gaps64 = p17_gaps(torch, gc64, gh64, zero)
+
+        def to64(g):
+            return {n: v.double() for n, v in g.items()}
+
+        card_f64 = p17_gaps(torch, to64(gc), gh64, zero)
+        cpu_f64 = p17_gaps(torch, to64(gh), gh64, zero)
+        bound = {n: max(P17_GRAD_TOL, P17_NOISE_K * cpu_f64[n])
+                 for n in card_f64}
+        over = sorted(n for n in card_f64 if card_f64[n] > bound[n])
+        winograd = p17_winograd(
+            torch, lambda: run(card, P17_DEVICE, signs.replay,
+                               torch.float32)[1],
+            lambda g: p17_gaps(torch, to64(g), gh64, zero), over, bound,
+            card_f64) if over else {}
+    finally:
+        restore()
+    worst = sorted(gaps, key=lambda n: -gaps[n])[:6]
+    unexplained = [n for n in over if n not in winograd.get("leaves", {})]
+    res = {"fp32": {
+        "loss_card": lc, "loss_cpu": lh,
+        "loss_rel_gap": abs(lc - lh) / abs(lh),
+        "grad_rel_gap_max": gaps[worst[0]], "worst_leaf": worst[0],
+        "card_gap_to_float64_max": max(card_f64.values()),
+        "cpu_gap_to_float64_max": max(cpu_f64.values()),
+        "worst_leaves_gap_card_to_f64_cpu_to_f64": [
+            (n, gaps[n], card_f64[n], cpu_f64[n]) for n in worst],
+        "leaves_over_bound": over, "winograd": winograd,
+        "leaves_unexplained": unexplained,
+        "loss_rel_gap_own_decisions": abs(lc - lo) / abs(lo),
+        "grad_rel_gap_own_decisions": max(p17_gaps(torch, gc, go,
+                                                   zero).values())},
+        "float64": {
+            "loss_card": lc64, "loss_cpu": lh64,
+            "loss_rel_gap": abs(lc64 - lh64) / abs(lh64),
+            "grad_rel_gap_max": max(gaps64.values()),
+            "worst_leaf": max(gaps64, key=gaps64.get)},
+        "leaves": len(gaps), "zero_gradient_leaves": len(zero),
+        "act_units": units, "act_units_flipped": flipped,
+        "bounds": {"loss": P17_LOSS_TOL, "grad": P17_GRAD_TOL,
+                   "grad_fp32_cpu_gap_times": P17_NOISE_K,
+                   "grad_fp32_winograd": P17_WINOGRAD_TOL}}
+    log(f"{tag} card vs cpu: {json.dumps(res)}")
+    if res["fp32"]["loss_rel_gap"] > P17_LOSS_TOL or unexplained \
+            or res["float64"]["loss_rel_gap"] > P17_LOSS_TOL \
+            or res["float64"]["grad_rel_gap_max"] > P17_GRAD_TOL:
+        raise AssertionError(f"{tag} card vs cpu: {res}")
+    return res
+
+
+def p17_winograd(torch, card_grads, to_f64, over, bound, card_f64) -> dict:
+    """The leaves of ``over`` whose fp32 gap cuDNN's Winograd weight
+    gradient explains: the card's fp32 run again under the profiler
+    launched a cuDNN Winograd kernel, the same run with cuDNN off
+    (PyTorch's own im2col and GEMM convolutions) brings the leaf within
+    its ``bound``, and the gap with cuDNN stays within P17_WINOGRAD_TOL.
+    (cuDNN 9 takes its nonfused 9x9/5x5 Winograd for the weight gradient
+    of a one-channel 5x5 convolution, LeNet's first, whatever the
+    deterministic and benchmark settings: ~1e-3 of the largest entry
+    where the CPU and PyTorch's own convolution are within 4e-7.)"""
+    if P17_DEVICE != "cuda":
+        return {}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        card_grads()
+        torch.cuda.synchronize()
+    kernels = sorted({e.name.split("(")[0] for e in prof.events()
+                      if "winograd" in e.name.lower()})
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        plain = to_f64(card_grads())
+    finally:
+        torch.backends.cudnn.enabled = was
+    leaves = {n: {"gap_cudnn": card_f64[n], "gap_without_cudnn": plain[n],
+                  "bound": bound[n]} for n in over
+              if kernels and plain[n] <= bound[n]
+              and card_f64[n] <= P17_WINOGRAD_TOL}
+    return {"kernels": kernels, "leaves": leaves,
+            "gap_without_cudnn_max": max(plain.values())}
+
+
+def p17_split(rows) -> dict:
+    """Device ms of a profiled step by kind: the convolutions (cuDNN's and
+    PyTorch's own depthwise kernels), the matmuls, PyTorch's other own
+    kernels (BatchNorm's composition, ReLU6, the residual adds, casts,
+    the optimizer's glue) and the port's Adam kernel."""
+    out = {"convolution": 0.0, "gemm": 0.0, "pytorch_elementwise": 0.0,
+           "adam_kernel": 0.0, "other": 0.0}
+    conv = re.compile(r"conv|cudnn|xmma|implicit|depthwise|wgrad|dgrad|"
+                      r"fprop|sm90_xmma|winograd", re.I)
+    for ms, _, name in rows:
+        if "adam" in name.lower():
+            out["adam_kernel"] += ms
+        elif conv.search(name):
+            out["convolution"] += ms
+        elif re.search(r"gemm|cutlass|cublas", name, re.I):
+            out["gemm"] += ms
+        elif "at::native" in name:
+            out["pytorch_elementwise"] += ms
+        else:
+            out["other"] += ms
+    total = sum(out.values())
+    out["total"] = total
+    out["bn_and_elementwise_share"] = out["pytorch_elementwise"] / total \
+        if total else None
+    out["convolution_share"] = out["convolution"] / total if total else None
+    return out
+
+
+def p17_state_dtypes(torch, step) -> dict:
+    """The parameters' dtypes (counted), and every master and moment of
+    the optimizer state fp32 (raises otherwise)."""
+    params: dict = {}
+    for p in step.params.values():
+        params[str(p.dtype)] = params.get(str(p.dtype), 0) + 1
+    tensors = dict(step.state.get("fused", {}))
+    for n, slots in step.state["slots"].items():
+        tensors.update({f"{n}.{k}": t for k, t in slots.items()})
+    bad = [k for k, t in tensors.items() if t.dtype != torch.float32]
+    masters = sum(k.endswith("master") for k in tensors)
+    if bad or not masters:
+        raise AssertionError(f"optimizer state dtypes: {bad[:8]}, "
+                             f"{masters} masters")
+    return {"param_dtypes": params, "fp32_state_tensors": len(tensors),
+            "masters": masters, "fused_state": "fused" in step.state}
+
+
+def p17_profile(torch, step, batch, steps: int = 2) -> dict:
+    """torch.profiler over ``steps`` replays: device ms a step, the busy
+    share of the wall, the split of ``p17_split`` and the largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    x, y = (t.to(P17_DEVICE) for t in batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(x, labels=(y,))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    rows = device_rows(prof, steps)
+    device_ms = sum(r[0] for r in rows) if rows else None
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if rows else None,
+            "split_ms": p17_split(rows), "launches": sum(r[1] for r in rows),
+            "top_ms_launches_name": rows[:14]}
+
+
+def mv2_model(torch, device: str, dtype: str = "bfloat16"):
+    from paddle_tpu_torch.amp import cast_model_to_low_precision
+    from paddle_tpu_torch.models import mobilenet_v2
+    net = mobilenet_v2(num_classes=MV2_CLASSES, scale=1.0,
+                       data_format="NHWC", device=device, seed=SEED)
+    return cast_model_to_low_precision(net, dtype) \
+        if dtype != "float32" else net
+
+
+def mv2_fit(torch, card: str) -> tuple:
+    """(a): MV2_STEPS captured steps through Model.fit, the same steps
+    eager, a profiled replay, a nondeterministic replay's ms, and the
+    card against the CPU."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import TrainStep
+    rng = np.random.default_rng(SEED + 170)
+    t0 = time.perf_counter()
+    batches = [(p17_images(torch, MV2_BATCH, MV2_HW, SEED + 171 + k,
+                           nhwc=True).to(torch.bfloat16),
+                torch.from_numpy(rng.integers(0, MV2_CLASSES, MV2_BATCH)))
+               for k in range(MV2_STEPS)]
+    data_s = time.perf_counter() - t0
+    restore = flag_scope({"fused_adam": True, "deterministic": True})
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = mv2_model(torch, P17_DEVICE)
+        n_params = sum(p.numel() for p in net.parameters())
+        before = host_copy(dict(net.named_buffers()))
+        model = Model(net, loss=rn_loss, optimizer=Adam(MV2_LR))
+        rec = hapi_recorder(torch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model.fit(batches, epochs=1, callbacks=[rec], verbose=0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(v) for v in rec.losses]
+        step = model._train_step
+        captures, capture_ms = step.captures, step.capture_ms
+        ms = [rec.events[k - 1].elapsed_time(rec.events[k])
+              for k in range(1, len(rec.events))] if rec.events else []
+        step_ms = float(np.median(ms[1:])) if len(ms) > 1 else None
+        after = host_copy(dict(net.named_buffers()))
+        unmoved = [n for n in after if torch.equal(after[n], before[n])]
+        lowp = p17_state_dtypes(torch, step)
+        busy = p17_profile(torch, step, batches[0]) \
+            if P17_DEVICE == "cuda" else None
+        del model, step, net
+        torch.cuda.empty_cache()
+        eager = TrainStep(mv2_model(torch, P17_DEVICE), Adam(MV2_LR),
+                          rn_loss, compiled=False)
+        eager_losses = [float(eager(x.to(P17_DEVICE),
+                                    labels=(y.to(P17_DEVICE),))["loss"])
+                        for x, y in batches]
+        del eager
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    # the default (nondeterministic) convolutions' replay ms
+    replay_ms = None
+    if P17_DEVICE == "cuda":
+        restore = flag_scope({"fused_adam": True})
+        try:
+            nd = TrainStep(mv2_model(torch, P17_DEVICE), Adam(MV2_LR),
+                           rn_loss)
+            xb = [(x.to(P17_DEVICE), y.to(P17_DEVICE))
+                  for x, y in batches[:4]]
+            _, nd_ms = rn_timed_steps(torch, nd, xb)
+            replay_ms = float(np.median(nd_ms[1:]))
+            del nd, xb
+        finally:
+            restore()
+        torch.cuda.empty_cache()
+
+    log(f"mobilenet_v2 fit steps [{card}]: losses {losses}, eager "
+        f"{eager_losses}, captures {captures}, step ms {step_ms}, "
+        f"replay ms (nondeterministic) {replay_ms}, peak GB {peak}, "
+        f"launches {nonzero(counts)}, profile {json.dumps(busy)}")
+
+    res = {"model": "mobilenet_v2(scale=1.0)", "parameters": n_params,
+           "dtype": "bfloat16, fp32 masters", "layout": "NHWC",
+           "image": MV2_HW, "batch": MV2_BATCH, "steps": MV2_STEPS,
+           "optimizer": f"Adam({MV2_LR}) under fused_adam",
+           "deterministic": True, "losses": losses,
+           "eager_losses": eager_losses,
+           "captured_equals_eager": losses == eager_losses,
+           "captures": captures, "capture_ms": capture_ms,
+           "step_stream_ms": ms, "step_ms_median_2_to_8": step_ms,
+           "images_per_s": MV2_BATCH / step_ms * 1e3 if step_ms else None,
+           "replay_ms_nondeterministic": replay_ms,
+           "images_per_s_nondeterministic": MV2_BATCH / replay_ms * 1e3
+           if replay_ms else None,
+           "peak_allocated_gb": peak, "fit_s": fit_s, "data_s": data_s,
+           "bn_buffers_unmoved": unmoved, "low_precision_state": lowp,
+           "launches": nonzero(counts), "profiled_replays": busy,
+           "card": card}
+    log(f"mobilenet_v2 fit [{card}]: {json.dumps(res)}")
+    if len(losses) != MV2_STEPS or not all(np.isfinite(losses)) \
+            or losses != eager_losses or unmoved \
+            or (P17_DEVICE == "cuda" and captures != 1):
+        raise AssertionError(f"mobilenet_v2 fit: {res}")
+    path_launches("mv2_fit", counts, {k: int(k == "adam_leaf")
+                                      for k in counts}
+                  if P17_DEVICE == "cuda" else {k: 0 for k in counts},
+                  MV2_STEPS)
+    return res, counts
+
+
+def mv2_card_against_cpu(torch, card: str) -> dict:
+    """(a)'s card against CPU: MobileNetV2 1.0 in fp32 at MV2_CPU_BATCH
+    images of 224 (``p17_card_against_cpu``)."""
+
+    def loss_fn(m, x, dev):
+        return rn_loss(m(x), torch.arange(MV2_CPU_BATCH, device=dev))
+
+    res = p17_card_against_cpu(
+        torch, "mobilenet_v2", lambda d: mv2_model(torch, d, "float32"),
+        p17_images(torch, MV2_CPU_BATCH, MV2_HW, SEED, nhwc=True), loss_fn)
+    res["card"] = card
+    return res
+
+
+def ssd_batch(torch, seed: int) -> tuple:
+    """SSD_BATCH images and up to SSD_GT ground-truth boxes each
+    (normalised corners, labels 1..classes, -1 padded)."""
+    rng = np.random.default_rng(seed)
+    hw = SSD_CFG["image_size"]
+    x = rng.standard_normal((SSD_BATCH, 3, hw, hw), dtype=np.float32)
+    n = rng.integers(1, SSD_GT + 1, SSD_BATCH)
+    xy = rng.uniform(0.0, 0.6, (SSD_BATCH, SSD_GT, 2))
+    wh = rng.uniform(0.1, 0.4, (SSD_BATCH, SSD_GT, 2))
+    box = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    lab = rng.integers(1, SSD_CFG["num_classes"] + 1, (SSD_BATCH, SSD_GT))
+    pad = np.arange(SSD_GT)[None, :] >= n[:, None]
+    box[pad] = 0.0
+    lab[pad] = -1
+    return tuple(torch.from_numpy(a) for a in (x, box, lab))
+
+
+class NmsChoices:
+    """The NMS decisions of one ``detection_output``, shared with another
+    run, as ``BeamChoices`` shares beam decisions. Recording (the card),
+    the port's ``ops.detection._nms_loop`` runs as it is and its
+    selections are kept. Replaying (the CPU), the port's loop runs on the
+    CPU's scores, then again in float64 with each recorded selection
+    raised to the largest CPU score among it and the later selections
+    (their order, reversed by rounding at a tie: at most SSD_TIE / 2) plus
+    SSD_TIE / 2. That run must give the recorded selections back exactly:
+    each was then within SSD_TIE of the largest live CPU score after the
+    ones before it, and together they are an NMS sequence under the CPU's
+    overlaps. The recorded selections take the CPU's place; the slots
+    whose index differs from the CPU's own are counted."""
+
+    def __init__(self, torch) -> None:
+        from paddle_tpu_torch.ops import detection
+        self.torch, self.det = torch, detection
+        self.orig = detection._nms_loop
+        self.choices: list = []
+        self.pos = 0
+        self.replaying = False
+        self.ties = 0
+        self.gap = 0.0
+
+    def loop(self, iou, scores, iou_threshold, score_threshold, max_out):
+        torch = self.torch
+        idx, valid = self.orig(iou, scores, iou_threshold, score_threshold,
+                               max_out)
+        if not self.replaying:
+            self.choices.append((idx.cpu(), valid.cpu()))
+            return idx, valid
+        want, want_valid = (t.to(scores.device)
+                            for t in self.choices[self.pos])
+        self.pos += 1
+        s64 = scores.double()
+        neg = torch.full(want.shape, -np.inf, dtype=s64.dtype,
+                         device=s64.device)
+        taken = torch.where(want_valid, s64.gather(-1, want.clamp(min=0)),
+                            neg)
+        # the largest score among each selection and the later ones
+        later = taken.flip(-1).cummax(-1).values.flip(-1)
+        gaps = (later - taken)[want_valid]
+        if gaps.numel():
+            self.gap = max(self.gap, float(gaps.max()))
+        if self.gap > SSD_TIE / 2:
+            raise AssertionError(f"nms replay: the card's selections are "
+                                 f"out of order by {self.gap} on the CPU")
+        order = torch.arange(max_out, 0, -1, dtype=s64.dtype,
+                             device=s64.device)
+        n = scores.shape[-1]
+        # an empty slot writes to a spare column
+        raised = torch.cat([s64, s64[..., :1]], -1).scatter(
+            -1, torch.where(want_valid, want, torch.full_like(want, n)),
+            torch.where(want_valid, later + SSD_TIE / 2 + order * 1e-12,
+                        neg))[..., :n]
+        forced, forced_valid = self.orig(iou, raised, iou_threshold,
+                                         score_threshold, max_out)
+        if not (torch.equal(forced, want)
+                and torch.equal(forced_valid, want_valid)):
+            raise AssertionError("nms replay: the card's selections are not "
+                                 "the CPU's to within SSD_TIE")
+        self.ties += int((want != idx).sum())
+        return want, want_valid
+
+    def __enter__(self):
+        self.det._nms_loop = self.loop
+        return self
+
+    def __exit__(self, *exc):
+        self.det._nms_loop = self.orig
+
+
+def ssd_predict_gap(torch, card_out, cpu_out) -> dict:
+    """Each image's valid rows: the same count and labels, scores and
+    boxes within SSD_TIE / 1e-5; a row whose place differs only by a
+    score within SSD_TIE of its neighbour's is an order tie (counted)."""
+    worst, order_ties, rows = 0.0, 0, 0
+    for (co, cv), (ho, hv) in zip(card_out, cpu_out):
+        co, cv = co.cpu(), cv.cpu()
+        if not torch.equal(cv, hv):
+            raise AssertionError(f"ssd predict: valid {cv} != {hv}")
+        co, ho = co[cv], ho[hv]
+        rows += len(co)
+        for i in range(len(co)):
+            if torch.equal(co[i, 0], ho[i, 0]) and float(
+                    (co[i, 1:] - ho[i, 1:]).abs().max()) <= 1e-5:
+                worst = max(worst, float((co[i, 1:] - ho[i, 1:]).abs().max()))
+                continue
+            # a swap with a row of the same score to rounding
+            match = [j for j in range(len(ho))
+                     if torch.equal(co[i, 0], ho[j, 0])
+                     and float((co[i, 1:] - ho[j, 1:]).abs().max()) <= 1e-5
+                     and abs(float(ho[j, 1] - ho[i, 1])) <= SSD_TIE]
+            if not match:
+                raise AssertionError(f"ssd predict: row {i} {co[i]} has no "
+                                     f"match on the CPU")
+            order_ties += 1
+    return {"rows": rows, "max_abs_gap": worst, "order_ties": order_ties}
+
+
+def ssd_check(torch, card: str) -> dict:
+    """(b): the loss card against CPU, SSD_STEPS captured steps, predict
+    card against CPU."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import SSDLite
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.static import TrainStep
+    x, box, lab = ssd_batch(torch, SEED + 175)
+
+    def make(dev):
+        return SSDLite(**SSD_CFG, device=dev, seed=SEED)
+
+    def loss_fn(m, xx, dev):
+        return m.loss(xx, box.to(dev), lab.to(dev))
+
+    against = p17_card_against_cpu(torch, "ssdlite", make, x, loss_fn)
+    net = make(P17_DEVICE)
+    priors_equal = bool(torch.equal(net.priors.cpu(), make("cpu").priors))
+
+    def step_loss(out, gt, gl):
+        from paddle_tpu_torch.ops.detection import ssd_loss
+        return ssd_loss(out[0], out[1], gt, gl, net.priors).mean()
+
+    step = TrainStep(net, Momentum(0.01, 0.9), step_loss, seed=SEED)
+    kernels.reset_launch_counts()
+    losses, ms = [], []
+    for k in range(SSD_STEPS):
+        xb, bb, lb = ssd_batch(torch, SEED + 176 + k)
+        t0 = time.perf_counter()
+        losses.append(float(step(xb.to(P17_DEVICE), labels=(
+            bb.to(P17_DEVICE), lb.to(P17_DEVICE)))["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernels.launch_counts()
+    captures = step.captures
+    del step
+    # predict on the trained weights, card and CPU
+    net.eval()
+    cpu = cpu_twin(torch, net, make).eval()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        with NmsChoices(torch) as rec:
+            card_out = net.predict(x.to(P17_DEVICE), keep_top_k=SSD_TOP_K,
+                                   score_threshold=SSD_SCORE)
+        if P17_DEVICE == "cuda":
+            torch.cuda.synchronize()
+        predict_s = time.perf_counter() - t0
+        rec.replaying = True
+        with rec:
+            cpu_out = cpu.predict(x, keep_top_k=SSD_TOP_K,
+                                  score_threshold=SSD_SCORE)
+    gap = ssd_predict_gap(torch, card_out, cpu_out)
+    res = {"config": SSD_CFG, "batch": SSD_BATCH, "priors":
+           int(net.priors.shape[0]), "priors_equal_cpu": priors_equal,
+           "loss_card_against_cpu": against, "losses": losses,
+           "step_wall_ms": ms, "captures": captures,
+           "launches": nonzero(counts), "predict_s": predict_s,
+           "predict": dict(gap, nms_ties=rec.ties, nms_order_gap=rec.gap,
+                           valid_rows_card=[int(v.sum())
+                                            for _, v in card_out]),
+           "card": card}
+    log(f"ssdlite [{card}]: {json.dumps(res)}")
+    if not all(np.isfinite(losses)) or not priors_equal \
+            or (P17_DEVICE == "cuda" and captures != 1) or nonzero(counts):
+        raise AssertionError(f"ssdlite: {res}")
+    return res
+
+
+def gan_check(torch, card: str) -> dict:
+    """(c): GAN_STEPS GANTrainStep calls on the card (SGD on both sides);
+    the first against the same step on the CPU fed the card's z: both
+    losses within P17_LOSS_TOL relative, every parameter and statistic
+    within P17_GRAD_TOL of its model's largest update / entry."""
+    from paddle_tpu_torch.models import Discriminator, GANTrainStep, Generator
+    from paddle_tpu_torch.optimizer import SGD
+
+    def make(dev):
+        g = Generator(**GAN_CFG, device=dev, seed=SEED)
+        d = Discriminator(base=GAN_CFG["base"], device=dev, seed=SEED + 1)
+        return g, d, GANTrainStep(g, d, SGD(GAN_LR), SGD(GAN_LR), seed=SEED)
+
+    rng = np.random.default_rng(SEED + 180)
+    reals = [torch.from_numpy(np.tanh(rng.standard_normal(
+        (GAN_BATCH, 1, 28, 28))).astype(np.float32))
+        for _ in range(GAN_STEPS)]
+    g, d, step = make(P17_DEVICE)
+    cg, cd, cstep = make("cpu")
+    cg.load_state_dict({k: v.cpu() for k, v in g.state_dict().items()})
+    cd.load_state_dict({k: v.cpu() for k, v in d.state_dict().items()})
+    before = {**{"g." + k: v.detach().cpu().clone()
+                 for k, v in g.state_dict().items()},
+              **{"d." + k: v.detach().cpu().clone()
+                 for k, v in d.state_dict().items()}}
+    z = step._z(GAN_BATCH, torch.Generator(
+        device=P17_DEVICE).manual_seed(SEED))
+    cstep._z = lambda n, gen: z.cpu()
+    out = [step(reals[0].to(P17_DEVICE))]
+    after = {**{"g." + k: v.detach().cpu().clone()
+                for k, v in g.state_dict().items()},
+             **{"d." + k: v.detach().cpu().clone()
+                for k, v in d.state_dict().items()}}
+    cout = cstep(reals[0])
+    cafter = {**{"g." + k: v.detach().clone()
+                 for k, v in cg.state_dict().items()},
+              **{"d." + k: v.detach().clone()
+                 for k, v in cd.state_dict().items()}}
+    gaps = {}
+    for side in ("g.", "d."):
+        keys = [k for k in after if k.startswith(side)]
+        top = max(float((cafter[k] - before[k]).abs().max()) for k in keys
+                  if cafter[k].is_floating_point())
+        for k in keys:
+            if after[k].is_floating_point():
+                gaps[k] = float((after[k] - cafter[k]).abs().max()) / top
+    t0 = time.perf_counter()
+    for r in reals[1:]:
+        out.append(step(r.to(P17_DEVICE)))
+    losses = [{k: float(v) for k, v in o.items()} for o in out]
+    steps_s = time.perf_counter() - t0
+    res = {"config": GAN_CFG, "batch": GAN_BATCH, "steps": GAN_STEPS,
+           "optimizer": f"SGD({GAN_LR}) both", "losses": losses,
+           "first_step_cpu": {k: float(v) for k, v in cout.items()},
+           "d_loss_rel_gap": abs(losses[0]["d_loss"] - float(cout["d_loss"]))
+           / abs(float(cout["d_loss"])),
+           "g_loss_rel_gap": abs(losses[0]["g_loss"] - float(cout["g_loss"]))
+           / abs(float(cout["g_loss"])),
+           "state_rel_gap_max": max(gaps.values()),
+           "state_rel_gap_worst": max(gaps, key=gaps.get),
+           "later_steps_s": steps_s, "card": card}
+    log(f"dcgan [{card}]: {json.dumps(res)}")
+    if not all(np.isfinite(v) for o in losses for v in o.values()) \
+            or res["d_loss_rel_gap"] > P17_LOSS_TOL \
+            or res["g_loss_rel_gap"] > P17_LOSS_TOL \
+            or res["state_rel_gap_max"] > P17_GRAD_TOL:
+        raise AssertionError(f"dcgan: {res}")
+    return res
+
+
+def small_models_check(torch, card: str) -> dict:
+    """(d): VGG-16-BN (dropout 0) at 224, MobileNetV1 1.0 at 224 and
+    LeNet at 28, each one forward and backward card against CPU."""
+    from paddle_tpu_torch.models import LeNet, mobilenet_v1
+    from paddle_tpu_torch.models.vgg import VGG, _CFGS, _make_layers
+
+    def vgg16_bn(dev):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return VGG(_make_layers(_CFGS["D"], True, "NCHW", dev, gen),
+                   num_classes=1000, dropout=0.0, device=dev, generator=gen)
+
+    def loss_fn(n):
+        def fn(m, x, dev):
+            return rn_loss(m(x), torch.arange(n, device=dev) % 10)
+        return fn
+
+    res = {}
+    for tag, make, x in (
+            ("vgg16_bn", vgg16_bn, p17_images(torch, VGG_BATCH, 224,
+                                              SEED + 185)),
+            ("mobilenet_v1", lambda d: mobilenet_v1(device=d, seed=SEED),
+             p17_images(torch, MV1_BATCH, 224, SEED + 186)),
+            ("lenet", lambda d: LeNet(device=d, seed=SEED),
+             p17_images(torch, LENET_BATCH, 28, SEED + 187, c=1))):
+        res[tag] = p17_card_against_cpu(torch, tag, make, x,
+                                        loss_fn(x.shape[0]))
+        torch.cuda.empty_cache()
+    res["card"] = card
+    return res
+
+
+def ops_sweep_vision(torch, card: str) -> dict:
+    """(e): every VISION_CASES and DET_CASES call on the card against the
+    CPU; the sampled ops by shape, device and the same draw again."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.testing import op_cases as C
+    mods = {m: getattr(ops, m) for m in C.VISION_MODULES + ("detection",)}
+    t0 = time.perf_counter()
+    worst, done = 0.0, set()
+    for mod, name, args, kw in C.VISION_CASES + C.DET_CASES:
+        fn = getattr(mods[mod], name)
+
+        def call(dev):
+            return fn(*_sweep_args(torch, args, dev),
+                      **_sweep_arg(torch, kw, dev))
+
+        got, want = call(P17_DEVICE), call("cpu")
+        try:
+            worst = max(worst, _sweep_compare(torch, got, want,
+                                              f"{mod}.{name}", P17_DEVICE))
+        except AssertionError:
+            bad = [(tuple(g.shape), float((g.cpu().double()
+                                           - w.double()).abs().max()),
+                    torch.nonzero((g.cpu() != w)).tolist()[:6])
+                   for g, w in zip(_sweep_flat(got), _sweep_flat(want))
+                   if isinstance(w, torch.Tensor)]
+            raise AssertionError(f"{mod}.{name}: card against CPU: {bad}")
+        done.add(name)
+    for mod, name, args, kw in C.DET_CREATION:
+        worst = max(worst, _sweep_compare(
+            torch, getattr(mods[mod], name)(*args, **kw, device=P17_DEVICE),
+            getattr(mods[mod], name)(*args, **kw, device="cpu"),
+            name, P17_DEVICE))
+        done.add(name)
+    nnf = mods["nn_functional"]
+    x = torch.arange(2 * 3 * 6 * 7, dtype=torch.float32,
+                     device=P17_DEVICE).reshape(2, 3, 6, 7)
+    crops = [nnf.random_crop(x, (4, 5), key=torch.Generator(
+        device=P17_DEVICE).manual_seed(s)) for s in (3, 3, 4)]
+    masks = [nnf.dropout_keep_mask(torch.Generator(
+        device=P17_DEVICE).manual_seed(s), 0.7, (256, 256))
+        for s in (5, 5, 6)]
+    # an int seed and no key draw on the card unless the CPU is asked for
+    by_seed = [nnf.dropout_keep_mask(s, 0.7, (256, 256), device=P17_DEVICE
+                                     if P17_DEVICE == "cpu" else None)
+               for s in (5, 5, None)]
+    if not (crops[0].shape == (2, 3, 4, 5)
+            and crops[0].device.type == P17_DEVICE
+            and torch.equal(crops[0], crops[1])
+            and all(m.device.type == P17_DEVICE for m in masks + by_seed)
+            and torch.equal(masks[0], masks[1])
+            and not torch.equal(masks[0], masks[2])
+            and torch.equal(by_seed[0], by_seed[1])
+            and all(abs(float(m.float().mean()) - 0.7) < 0.01
+                    for m in (masks[0], by_seed[0], by_seed[2]))):
+        raise AssertionError("vision sampled ops on the card")
+    done |= C.VISION_RANDOM
+    res = {"cases": len(C.VISION_CASES) + len(C.DET_CASES)
+           + len(C.DET_CREATION), "functions": len(done),
+           "max_rel_err_card_vs_cpu": worst, "bound": [OPS_RTOL, OPS_ATOL],
+           "sweep_s": time.perf_counter() - t0, "card": card}
+    log(f"vision ops sweep [{card}]: {json.dumps(res)}")
+    return res
+
+
+def run_phase17(torch) -> tuple:
+    """Phase 17. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts, failed = {}, {}, []
+    report["mv2_fit"], counts["mv2_fit"] = mv2_fit(torch, card)
+    # each later check runs whatever an earlier one found; the phase
+    # raises at its end, naming every check that failed
+    for name, check in (("mv2_card_against_cpu", mv2_card_against_cpu),
+                        ("ssdlite", ssd_check), ("dcgan", gan_check),
+                        ("vision_models", small_models_check),
+                        ("ops_sweep_vision", ops_sweep_vision)):
+        torch.cuda.empty_cache()
+        try:
+            report[name] = check(torch, card)
+        except AssertionError as e:
+            log(f"phase 17 {name} FAILED: {e}")
+            failed.append(name)
+    report["phase17_s"] = time.perf_counter() - t_phase
+    log(f"phase 17: {report['phase17_s']:.1f} s [{card}]")
+    if failed:
+        raise AssertionError(f"phase 17: {failed} failed (see the log)")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path, or, where ``path`` lists several, the sum of
@@ -10309,9 +11159,10 @@ def kernel_line(results: dict, counts: dict) -> dict:
                               f"{xent_ref}:92"),
         "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
                               f"{xent_ref}:110"),
-        # phase 16 (b)'s CRNN steps launch it too: its launches add
-        "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit"), adam_src,
-                      f"{adam_ref}:54"),
+        # phase 16 (b)'s CRNN steps and phase 17 (a)'s MobileNetV2 steps
+        # launch it too: their launches add
+        "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit", "mv2_fit"),
+                      adam_src, f"{adam_ref}:54"),
         "adam_flat": ("train_seq128_pallas_adam", adam_src,
                       f"{adam_ref}:34"),
         # an entry over the flash kernels (forward, dq + dkv or fused):
@@ -10360,6 +11211,8 @@ def main(argv=None) -> int:
     ap.add_argument("--recurrent", action="store_true",
                     help="run phase 16 only (the recurrent and sequence "
                          "stack)")
+    ap.add_argument("--vision", action="store_true",
+                    help="run phase 17 only (the vision slice)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -10405,6 +11258,8 @@ def main(argv=None) -> int:
         return main_static(torch, card, t_start)
     if args.recurrent:
         return main_recurrent(torch, card, t_start)
+    if args.vision:
+        return main_vision(torch, card, t_start)
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
@@ -10451,10 +11306,12 @@ def main(argv=None) -> int:
     phase15, p15_counts = run_phase15(torch)
     torch.cuda.empty_cache()
     phase16, p16_counts = run_phase16(torch)
+    torch.cuda.empty_cache()
+    phase17, p17_counts = run_phase17(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
                   **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
-                  **p14_counts, **p15_counts, **p16_counts,
+                  **p14_counts, **p15_counts, **p16_counts, **p17_counts,
                   flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
@@ -10464,7 +11321,7 @@ def main(argv=None) -> int:
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
                   **predictor, **hapi, **mt, **rn, **dist, **phase14,
-                  **phase15, **phase16)
+                  **phase15, **phase16, **phase17)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
@@ -10544,6 +11401,37 @@ def main_recurrent(torch, card: str, t_start: float) -> int:
         "ptb_step_ms": a["step_ms_median_3_to_8"],
         "ptb_tokens_per_s": a["tokens_per_s"],
         "phase16_s": phase16["phase16_s"], "total_s": REPORT["total_s"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_vision(torch, card: str, t_start: float) -> int:
+    """Phase 17 alone; the report goes to
+    chiprun_out/chip_smoke_vision.json and a summary line before the
+    contract line."""
+    phase17, counts = run_phase17(torch)
+    for path, names in PATH_KERNELS.items():
+        if path in counts:
+            for name in names:
+                if counts[path][name] <= 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         f"on the {path} path")
+    REPORT.update(card=card, launches=counts,
+                  total_s=time.perf_counter() - t_start, **phase17)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_vision.json"),
+              "w") as f:
+        json.dump(REPORT, f, indent=1)
+    a = phase17["mv2_fit"]
+    print(card)
+    print(json.dumps({"phases": [17], "launches": {
+        k: nonzero(v) for k, v in counts.items()},
+        "mv2_step_ms": a["step_ms_median_2_to_8"],
+        "mv2_images_per_s": a["images_per_s"],
+        "mv2_peak_gb": a["peak_allocated_gb"],
+        "phase17_s": phase17["phase17_s"], "total_s": REPORT["total_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 """Layers, loss layers and functional ops of the PyTorch package."""
 
 from . import decode, functional, initializer, layer, rnn
-from .conv import AdaptiveAvgPool2D, AvgPool2D, Conv2D, MaxPool2D
+from .conv import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D,
+                   AvgPool3D, Conv1D, Conv2D, Conv2DTranspose, Conv3D, Fold,
+                   MaxPool2D, MaxPool3D, PixelShuffle, Unfold)
 from .decode import (BasicDecoder, BeamSearchDecoder, DecodeHelper,
                      Decoder, GreedyEmbeddingHelper, SampleEmbeddingHelper,
                      TrainingHelper, dynamic_decode)
@@ -22,7 +24,8 @@ from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
 from .rnn import (GRU, LSTM, RNN, GRUCell, LSTMCell, RNNCell, SimpleRNN,
                   SimpleRNNCell)
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   SyncBatchNorm)
+                   GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
+                   LocalResponseNorm, SpectralNorm, SyncBatchNorm)
 from .transformer import (MultiHeadAttention, Transformer,
                           TransformerDecoder, TransformerDecoderLayer,
                           TransformerEncoder, TransformerEncoderLayer)
@@ -41,9 +44,13 @@ __all__ = ["functional", "initializer", "layer", "decode", "rnn", "Layer",
            "GRU", "SimpleRNN", "DecodeHelper", "TrainingHelper",
            "GreedyEmbeddingHelper", "SampleEmbeddingHelper", "Decoder",
            "BasicDecoder", "BeamSearchDecoder", "dynamic_decode", "CTCLoss",
-           "Conv2D", "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
+           "Conv1D", "Conv2D", "Conv3D", "Conv2DTranspose", "MaxPool2D",
+           "AvgPool2D", "MaxPool3D", "AvgPool3D", "AdaptiveAvgPool2D",
+           "AdaptiveMaxPool2D", "Unfold", "Fold", "PixelShuffle",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm",
+           "SyncBatchNorm", "InstanceNorm1D", "InstanceNorm2D",
+           "InstanceNorm3D", "GroupNorm", "SpectralNorm",
+           "LocalResponseNorm",
            "FusedLinearCrossEntropy", "CrossEntropyLoss", "MSELoss",
            "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "SmoothL1Loss", "MarginRankingLoss", "CosineEmbeddingLoss",

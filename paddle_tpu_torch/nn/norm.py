@@ -1,4 +1,5 @@
-"""The BatchNorm family: the port's first buffers a forward updates.
+"""The BatchNorm family (the port's first buffers a forward updates) and
+the other norm layers.
 
 Counterparts of ``paddle_tpu.nn.layers.norm``'s ``_BatchNormBase``,
 ``BatchNorm``, ``BatchNorm1D``/``2D``/``3D`` and ``SyncBatchNorm``. The
@@ -32,6 +33,16 @@ GLOBAL batch too (:func:`global_batch`, set by the step around its
 forward when the batch is split over more than one rank), because the
 JAX step runs it in one program over the whole batch; its running
 variance keeps the plain unbiased update, with n the global count.
+
+``InstanceNorm2D`` (``InstanceNorm1D``/``3D`` are the same class, as in
+JAX), ``GroupNorm`` and ``LocalResponseNorm`` are the JAX layers over
+``ops.nn_functional``. ``SpectralNorm(weight_shape)`` holds the power
+iteration's start vectors as the buffers ``weight_u`` ``[h]`` and
+``weight_v`` ``[w]`` (standard normal from ``generator``) and returns
+``weight / sigma``; as the JAX layer, it never moves them (the JAX
+``spectral_norm`` discards the iterated vectors), so every call starts
+from the same vectors and a captured step reads them as it reads any
+buffer.
 """
 
 from __future__ import annotations
@@ -48,7 +59,9 @@ from . import initializer as I
 from .layer import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm", "frozen_statistics", "global_batch"]
+           "SyncBatchNorm", "frozen_statistics", "global_batch",
+           "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "GroupNorm",
+           "SpectralNorm", "LocalResponseNorm"]
 
 
 class _Frozen(threading.local):
@@ -169,3 +182,82 @@ class SyncBatchNorm(_BatchNormBase):
             if isinstance(sub, _BatchNormBase):
                 sub.sync_axis = sync_axis
         return layer
+
+
+def _scale_shift(num: int, weight_attr, bias_attr, device) -> tuple:
+    weight = None if weight_attr is False else I.make_param(
+        weight_attr, I.Constant(1.0), (num,), device=device)
+    bias = None if bias_attr is False else I.make_param(
+        bias_attr, I.Constant(0.0), (num,), device=device)
+    return weight, bias
+
+
+class InstanceNorm2D(Layer):
+    def __init__(self, num_features: int, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None, device=None) -> None:
+        super().__init__()
+        self.weight, self.bias = _scale_shift(
+            num_features, weight_attr, bias_attr, resolve_device(device))
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x, self.weight, self.bias, self.epsilon)
+
+
+InstanceNorm1D = InstanceNorm2D
+InstanceNorm3D = InstanceNorm2D
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 device=None) -> None:
+        super().__init__()
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.weight, self.bias = _scale_shift(
+            num_channels, weight_attr, bias_attr, resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon)
+
+
+class SpectralNorm(Layer):
+    """``weight / sigma`` by power iteration (see the module note)."""
+
+    def __init__(self, weight_shape, dim: int = 0, power_iters: int = 1,
+                 epsilon: float = 1e-12, device=None,
+                 generator: Optional[torch.Generator] = None) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        self.dim = dim
+        self.power_iters = power_iters
+        self.epsilon = epsilon
+        h = int(weight_shape[dim])
+        w = 1
+        for s in weight_shape:
+            w *= int(s)
+        w //= h
+        self.register_buffer("weight_u", torch.randn(
+            h, generator=generator, device=device))
+        self.register_buffer("weight_v", torch.randn(
+            w, generator=generator, device=device))
+
+    def forward(self, weight: torch.Tensor) -> torch.Tensor:
+        return F.spectral_norm(weight, self.weight_u, self.weight_v,
+                               self.power_iters, self.epsilon, self.dim)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, k: float = 1.0) -> None:
+        super().__init__()
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k)

@@ -512,7 +512,12 @@ class Adam(Optimizer):
             # lr * wd: a float for a float lr (taken in double, as the
             # kernel's scalar), else an fp32 device tensor
             lr_wd = lr_t * wd
-            args = ([leaf.p32 for leaf in sel], [leaf.g for leaf in sel],
+            # the kernel reads each leaf as one dense row: a gradient in
+            # another memory format (a channels-last convolution's) is
+            # copied into the parameter's
+            args = ([leaf.p32 for leaf in sel],
+                    [leaf.g if variant is None else leaf.g.contiguous()
+                     for leaf in sel],
                     [leaf.slots["m"] for leaf in sel],
                     [leaf.slots["v"] for leaf in sel],
                     [c is not None for c in coeffs], lr_c, self.beta1,

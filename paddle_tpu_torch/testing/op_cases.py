@@ -17,6 +17,17 @@ repeated labels, short inputs, a label longer than its input);
 names the sampled functions, checked by shape and seed.
 ``tests/test_torch_sequence_ops.py`` runs them against the JAX package,
 ``chip_smoke.py`` phase 16 (e) on the card against the CPU.
+``VISION_CASES`` lists the vision slice's: every public function of
+``ops.conv_extra`` and the convolutions, pools, norms and misc ops of
+``ops.nn_functional`` (``VISION_MODULES``), with SAME at stride 2,
+``ceil_mode`` with and without ``exclusive``, transposed convolutions
+with dilation, groups and ``output_padding``, and pool windows that tie;
+``VISION_RANDOM`` names the sampled ones. ``DET_CASES`` (with
+``DET_CREATION``, the ops that make boxes from sizes alone, and
+``DET_RANDOM``, the assignments that also sample) does the same for
+every function of ``ops.detection`` (``tests/test_torch_detection.py``).
+``tests/test_torch_vision_ops.py`` runs them against the JAX package,
+``chip_smoke.py`` phase 17 (e) on the card against the CPU.
 ``RANDOM``, ``CREATION``, ``CONTROL`` name the functions the random,
 creation and control-flow checks cover; ``control_flow_runs`` and
 ``tensor_array_run`` drive ``ops.control_flow`` and ``ops.tensor_array``
@@ -29,7 +40,9 @@ import numpy as np
 
 __all__ = ["CASES", "RANDOM", "CREATION", "CONTROL", "RANDOM_MOMENTS",
            "control_flow_runs", "tensor_array_run", "MODULES",
-           "SEQ_MODULES", "SEQ_CASES", "SEQ_RANDOM", "sparse_runs"]
+           "SEQ_MODULES", "SEQ_CASES", "SEQ_RANDOM", "sparse_runs",
+           "VISION_MODULES", "VISION_CASES", "VISION_RANDOM",
+           "DET_CASES", "DET_CREATION", "DET_RANDOM"]
 
 MODULES = ("math", "activation", "reduction", "manipulation", "search",
            "random_ops", "control_flow", "tensor_array")
@@ -547,3 +560,354 @@ def sparse_runs():
         return [s.rows, s.values, m.to_dense(s)]
 
     return [to_dense, merge_rows, scatter_apply, embedding_grad, add]
+
+
+# ---------------------------------------------------------------------------
+# the vision slice: ops.nn_functional's convolutions, pools, norms and
+# misc ops, and ops.conv_extra (VISION_MODULES); VISION_RANDOM names the
+# sampled functions (checked by shape, law and seed); VISION_GRAD marks
+# the cases whose gradients are held too (a float first argument)
+# ---------------------------------------------------------------------------
+
+VISION_MODULES = ("nn_functional", "conv_extra")
+V = np.random.default_rng(24)
+
+
+def _v(*shape, scale=1.0):
+    return (V.normal(size=shape) * scale).astype(np.float32)
+
+
+IMG = _v(2, 4, 7, 9)
+IMG_NHWC = np.ascontiguousarray(IMG.transpose(0, 2, 3, 1))
+VOL = _v(2, 3, 5, 6, 7)
+SEQ1 = _v(2, 4, 11)
+# a pool window whose entries tie: the first maximum wins the index
+TIE = np.array([[[[1.0, 3.0, 3.0, 0.0], [3.0, 2.0, 1.0, 3.0],
+                  [0.0, 0.0, 5.0, 5.0], [-1.0, 5.0, 0.0, 5.0]]]],
+               np.float32)
+THETA = np.array([[[0.9, 0.1, 0.05], [-0.2, 1.1, -0.1]],
+                  [[1.2, 0.0, 0.2], [0.3, 0.8, 0.0]]], np.float32)
+GRID = (V.uniform(-1.2, 1.2, size=(2, 3, 5, 2))).astype(np.float32)
+BOXES_R = np.array([[0.5, 1.0, 5.5, 6.0], [2.0, 0.0, 8.0, 3.5],
+                    [1.0, 2.0, 3.0, 4.0]], np.float32)
+
+
+VISION_CASES = [
+    # convolutions: SAME at stride 2 (more padding at the end), asymmetric
+    # pads, dilation, groups, NHWC
+    C("nn_functional", "conv1d", SEQ1, _v(6, 2, 3), _v(6), stride=2,
+      padding=1, groups=2),
+    C("nn_functional", "conv1d", SEQ1, _v(5, 4, 4), padding="SAME",
+      dilation=2),
+    C("nn_functional", "conv3d", VOL, _v(4, 3, 2, 3, 2), _v(4), stride=2,
+      padding="SAME"),
+    C("nn_functional", "conv3d", VOL, _v(6, 1, 3, 3, 3), stride=(1, 2, 1),
+      padding=[1, 0, 0, 1, 2, 1], dilation=(1, 1, 2), groups=3),
+    C("nn_functional", "conv3d",
+      np.ascontiguousarray(VOL.transpose(0, 2, 3, 4, 1)), _v(2, 3, 2, 3, 4),
+      padding=1, data_format="NDHWC"),
+    C("nn_functional", "conv2d", IMG, _v(6, 4, 3, 3), stride=2,
+      padding="SAME"),
+    C("nn_functional", "conv2d_transpose", IMG, _v(4, 3, 3, 3), _v(3),
+      stride=2, padding=1, output_padding=1),
+    C("nn_functional", "conv2d_transpose", IMG, _v(4, 2, 3, 2), stride=(2, 3),
+      padding=[1, 0, 2, 1], output_padding=(1, 2), dilation=(2, 1),
+      groups=2),
+    C("nn_functional", "conv2d_transpose", IMG, _v(4, 3, 4, 4), stride=2,
+      padding=3, dilation=2),
+    C("nn_functional", "conv2d_transpose", IMG_NHWC, _v(4, 1, 3, 3), _v(4),
+      stride=2, padding=1, groups=4, data_format="NHWC"),
+    C("nn_functional", "depthwise_conv2d", IMG, _v(4, 1, 3, 3), _v(4),
+      stride=2, padding="SAME"),
+    C("nn_functional", "depthwise_conv2d", IMG_NHWC, _v(3, 3, 1, 4),
+      padding=1, data_format="NHWC"),
+    C("nn_functional", "conv_shift", _v(3, 7), _v(3, 3)),
+    # pools: ceil_mode keeps a window that starts in the padding,
+    # exclusive divides by its real cells; SAME and global pooling
+    C("nn_functional", "pool2d", IMG, 3, "avg", 2, 1, ceil_mode=True),
+    C("nn_functional", "pool2d", IMG, 3, "avg", 2, 1, ceil_mode=True,
+      exclusive=False),
+    C("nn_functional", "pool2d", IMG, 2, "max", 2, [0, 1, 1, 0],
+      ceil_mode=True),
+    C("nn_functional", "pool2d", IMG_NHWC, 3, "avg", 2, "SAME",
+      data_format="NHWC"),
+    C("nn_functional", "pool2d", IMG, pool_type="avg", global_pooling=True),
+    C("nn_functional", "pool3d", VOL, 2, "max", 2, 0, ceil_mode=True),
+    C("nn_functional", "pool3d", VOL, 3, "avg", 2, 1, ceil_mode=True),
+    C("nn_functional", "pool3d", VOL, pool_type="max", global_pooling=True),
+    C("nn_functional", "max_pool3d", VOL, 3, 2, 1),
+    C("nn_functional", "avg_pool3d", VOL, (2, 3, 2), (1, 2, 2), 1,
+      ceil_mode=True, exclusive=True),
+    C("nn_functional", "avg_pool3d", VOL, 2, exclusive=False),
+    C("nn_functional", "adaptive_max_pool2d", IMG, (3, 4)),
+    C("nn_functional", "adaptive_max_pool2d", IMG, (7, 3)),
+    C("nn_functional", "adaptive_pool3d", VOL, (2, 3, 3)),
+    C("nn_functional", "adaptive_pool3d", VOL, (5, 2, 7), pool_type="max"),
+    C("nn_functional", "adaptive_pool3d", VOL, (3, 4, 5), pool_type="max"),
+    # (value, index) pools: ties keep the first maximum
+    C("nn_functional", "max_pool2d_with_index", TIE, 2),
+    C("nn_functional", "max_pool2d_with_index", TIE, 3, 1, 1),
+    C("nn_functional", "max_pool2d_with_index", IMG, 3, 2, [1, 0, 0, 1]),
+    C("nn_functional", "max_pool3d_with_index", VOL, 2, 2),
+    C("nn_functional", "max_pool3d_with_index",
+      np.round(VOL * 2).astype(np.float32), 3, 2, 1),
+    C("nn_functional", "unpool", _v(2, 3, 2, 2),
+      np.array([[[[0, 3], [9, 14]]] * 3] * 2, np.int64), 2),
+    C("nn_functional", "unpool", _v(1, 2, 2, 3),
+      np.array([[[[1, 4, 8], [15, 17, 23]]] * 2], np.int64), 3, 2,
+      output_size=(5, 5)),
+    # norms
+    C("nn_functional", "instance_norm", IMG, _v(4), _v(4)),
+    C("nn_functional", "instance_norm", VOL, epsilon=1e-3),
+    C("nn_functional", "group_norm", IMG, 2, _v(4), _v(4)),
+    C("nn_functional", "group_norm", _v(2, 6, 5), 3, epsilon=1e-3),
+    C("nn_functional", "local_response_norm", IMG, 3, 1e-2, 0.75, 2.0),
+    C("nn_functional", "local_response_norm", IMG),
+    C("nn_functional", "lrn", IMG, 4),
+    C("nn_functional", "spectral_norm", _v(4, 3, 2), _v(4), _v(6),
+      power_iters=3),
+    C("nn_functional", "spectral_norm", _v(4, 3, 2), _v(3), _v(8), dim=1),
+    C("nn_functional", "data_norm", _v(5, 3), 10.0, _v(3) * 10,
+      np.abs(_v(3)) * 40 + 30),
+    C("nn_functional", "affine_channel", IMG, _v(4), _v(4)),
+    C("nn_functional", "affine_channel", IMG_NHWC, _v(4), _v(4),
+      data_format="NHWC"),
+    *[C("nn_functional", "inplace_abn", IMG, _v(4), np.abs(_v(4)) + 0.5,
+        _v(4), _v(4), training=t, act=a, act_alpha=0.2)
+      for t, a in ((True, "relu"), (False, "leaky_relu"), (True, "elu"),
+                   (True, None))],
+    # unfold / fold / grids
+    C("nn_functional", "unfold", IMG, 3, 2, 1, 1),
+    C("nn_functional", "unfold", IMG, (2, 3), (1, 2), [1, 0, 0, 2], (2, 1)),
+    C("nn_functional", "fold", _v(2, 4 * 6, 12), (5, 7), (2, 3), 2, 1),
+    C("nn_functional", "fold", _v(1, 2 * 4, 30), (6, 6), 2, 1, [1, 0, 0, 1],
+      (2, 1)),
+    *[C("nn_functional", "grid_sample", IMG[:, :, :5, :6], GRID, mode=m,
+        padding_mode=pm, align_corners=ac)
+      for m, pm, ac in (("bilinear", "zeros", True),
+                        ("bilinear", "border", False),
+                        ("nearest", "zeros", True),
+                        ("nearest", "border", False))],
+    C("nn_functional", "affine_grid", THETA, (2, 3, 4, 5)),
+    C("nn_functional", "affine_grid", THETA, (2, 1, 3, 6),
+      align_corners=False),
+    # misc
+    C("nn_functional", "normalize", IMG, 3, 2),
+    C("nn_functional", "normalize", _v(3, 4)),
+    C("nn_functional", "l2_normalize", _v(3, 5), 0),
+    C("nn_functional", "cos_sim", _v(3, 5), _v(3, 5)),
+    C("nn_functional", "label_smooth",
+      np.eye(4, dtype=np.float32)[[0, 3, 1]]),
+    C("nn_functional", "label_smooth",
+      np.eye(4, dtype=np.float32)[[0, 3, 1]],
+      np.array([0.1, 0.2, 0.3, 0.4], np.float32), 0.2),
+    C("nn_functional", "one_hot", np.array([[0, 3], [5, -1]]), 4),
+    C("nn_functional", "one_hot", np.array([2, 0, 1]), 3, dtype="int32"),
+    C("nn_functional", "npair_loss", _v(4, 3), _v(4, 3),
+      np.array([1, 2, 1, 0])),
+    C("nn_functional", "add_position_encoding", _v(2, 5, 6), 0.5, 2.0),
+    C("nn_functional", "add_position_encoding", _v(1, 3, 5)),
+    C("nn_functional", "similarity_focus",
+      np.round(IMG * 2).astype(np.float32), 1, [0, 2]),
+    C("nn_functional", "similarity_focus", _v(2, 3, 4, 5), 2, [1]),
+    C("nn_functional", "continuous_value_model", _v(3, 5),
+      np.abs(_v(3, 2)) * 5),
+    C("nn_functional", "continuous_value_model", _v(3, 5),
+      np.abs(_v(3, 2)) * 5, use_cvm=False),
+    C("nn_functional", "deformable_roi_pooling", IMG, BOXES_R,
+      _v(3, 2, 2, 3, scale=0.5), (2, 3), np.array([0, 1, 1]), 0.9, 0.2),
+    C("nn_functional", "deformable_roi_pooling", IMG, BOXES_R,
+      _v(3, 2, 3, 3), 3, samples_per_bin=3),
+    # conv_extra
+    C("conv_extra", "conv3d_transpose", VOL, _v(3, 2, 2, 3, 2), _v(2),
+      stride=2, padding=1, output_padding=1),
+    C("conv_extra", "conv3d_transpose", VOL, _v(3, 2, 3, 2, 2),
+      stride=(1, 2, 2), padding=[0, 1, 1, 0, 2, 1], dilation=(2, 1, 1),
+      groups=3),
+    C("conv_extra", "depthwise_conv2d_transpose", IMG, _v(4, 1, 3, 3),
+      _v(4), stride=2, padding=1, output_padding=1),
+    C("conv_extra", "deformable_conv", IMG, _v(2, 2 * 9, 7, 9, scale=0.7),
+      _v(6, 4, 3, 3), padding=1),
+    C("conv_extra", "deformable_conv", IMG, _v(2, 2 * 2 * 4, 4, 4),
+      _v(4, 2, 2, 2), np.abs(_v(2, 2 * 4, 4, 4)), _v(4), stride=2,
+      padding=[0, 1, 0, 1], dilation=(1, 2), groups=2,
+      deformable_groups=2),
+    C("conv_extra", "row_conv", _v(2, 5, 3), _v(3, 3)),
+    C("conv_extra", "row_conv", _v(2, 5, 3), _v(2, 3), np.array([5, 3])),
+    C("conv_extra", "var_conv_2d", IMG, np.array([5, 7]), np.array([9, 4]),
+      _v(3, 4, 3, 3), 3),
+    C("conv_extra", "var_conv_2d", IMG, np.array([6, 3]), np.array([2, 9]),
+      _v(2, 4, 3, 2), 2, stride=2),
+    C("conv_extra", "tree_conv", _v(2, 5, 3),
+      np.array([[[0, 1], [0, 2], [0, 3], [2, 4], [-1, -1]],
+                [[0, 1], [1, 2], [1, 3], [-1, -1], [-1, -1]]]),
+      _v(3, 3, 4)),
+    C("conv_extra", "spp", IMG, 3),
+    C("conv_extra", "spp", IMG, 2, "avg"),
+    C("conv_extra", "fsp_matrix", IMG, _v(2, 3, 7, 9)),
+    C("conv_extra", "partial_sum", [_v(3, 5), _v(3, 5)], 1, 3),
+    C("conv_extra", "partial_concat", [_v(3, 5), _v(3, 5)], 2),
+    C("conv_extra", "batch_fc", _v(2, 3, 4), _v(2, 4, 5), _v(2, 5)),
+    C("conv_extra", "rank_attention", _v(3, 4),
+      np.array([[1, 2, 0, 1, 0, 0, 0], [2, 0, 0, 3, 0, 1, 0],
+                [0, 1, 0, 1, 0, 0, 0]]), _v(9, 4, 2), 3),
+    C("conv_extra", "cvm", np.abs(_v(3, 5)) * 4),
+    C("conv_extra", "cvm", np.abs(_v(3, 5)) * 4, False),
+    C("conv_extra", "match_matrix_tensor", _v(2, 4, 3), np.array([4, 2]),
+      _v(2, 5, 3), np.array([3, 5]), _v(3, 2, 3)),
+    C("conv_extra", "pyramid_hash", np.array([[3, 7, 1, 9, 2],
+                                              [4, 4, 8, 0, 0]]),
+      np.array([5, 3]), _v(13, 4), 13),
+    C("conv_extra", "pyramid_hash", np.array([[2 ** 31 - 1, 5, 6]]),
+      np.array([3]), _v(7, 2), 7, 1, 3),
+]
+
+# the sampled functions of the vision slice (checked by shape, law and
+# the same draw from the same seed)
+VISION_RANDOM = {"random_crop", "dropout_keep_mask"}
+
+
+# ---------------------------------------------------------------------------
+# ops.detection (DET_CASES): NMS with exact score ties (the lower index
+# wins) and with fewer survivors than slots, every assignment with
+# use_random=False; DET_CREATION names the creation ops (no tensor input,
+# a device of their own), DET_RANDOM the sampled calls
+# ---------------------------------------------------------------------------
+
+D = np.random.default_rng(25)
+
+
+def _boxes(n, scale=1.0, lo=0.05, hi=0.5):
+    xy = D.uniform(0.0, 1.0 - hi, size=(n, 2))
+    wh = D.uniform(lo, hi, size=(n, 2))
+    return (np.concatenate([xy, xy + wh], 1) * scale).astype(np.float32)
+
+
+DBOX = _boxes(12)
+DBOX2 = _boxes(5)
+DPIX = _boxes(10, 32.0, 0.1, 0.6)
+# scores with exact ties between overlapping boxes
+DSCORE = np.round(D.uniform(0.0, 1.0, size=12), 1).astype(np.float32)
+DSCORES = np.round(D.uniform(0.0, 1.0, size=(4, 12)), 1).astype(np.float32)
+DFEAT = D.normal(size=(2, 8, 9, 10)).astype(np.float32)
+DROIS = np.array([[0.5, 1.0, 6.5, 7.0], [2.0, 0.0, 9.0, 4.5],
+                  [1.2, 2.7, 3.1, 4.9], [-1.0, 5.0, 4.0, 9.5]], np.float32)
+DROI_B = np.array([0, 1, 1, 0])
+QUADS = np.array([[1.0, 7.0, 8.0, 0.5, 0.5, 1.0, 7.5, 6.0],
+                  [2.0, 6.0, 6.5, 2.5, 1.0, 0.5, 4.0, 5.0]], np.float32)
+GT = np.zeros((2, 4, 4), np.float32)
+GT[0, :3], GT[1, :2] = _boxes(3), _boxes(2)
+GT_LAB = np.array([[1, 3, 2, -1], [2, 2, -1, -1]])
+PRIORS = _boxes(20)
+YOLO_X = D.normal(size=(2, 2 * (5 + 3), 4, 5)).astype(np.float32)
+YOLO_GT = np.zeros((2, 3, 4), np.float32)
+YOLO_GT[0] = [[0.3, 0.4, 0.2, 0.3], [0.7, 0.2, 0.5, 0.4],
+              [0.31, 0.41, 0.1, 0.1]]
+YOLO_GT[1, 0] = [0.5, 0.5, 0.9, 0.8]
+YOLO_LAB = np.array([[0, 2, 1], [1, 0, 0]])
+ANCH = _boxes(30, 32.0, 0.05, 0.5)
+GT_PIX = np.zeros((4, 4), np.float32)
+GT_PIX[:3] = _boxes(3, 32.0, 0.2, 0.6)
+
+
+DET_CASES = [
+    C("detection", "box_area", DBOX),
+    C("detection", "iou_similarity", DBOX, DBOX2),
+    C("detection", "iou_similarity", DPIX, DPIX[:4], box_normalized=False),
+    C("detection", "box_coder", DBOX2, D.uniform(0.1, 0.3, (5, 4)).astype(
+        np.float32), DBOX[:3]),
+    C("detection", "box_coder", DBOX2, np.array([0.1, 0.1, 0.2, 0.2],
+                                                np.float32),
+      D.normal(size=(3, 5, 4)).astype(np.float32) * 0.3,
+      code_type="decode_center_size"),
+    C("detection", "box_coder", DPIX[:1], None,
+      D.normal(size=(4, 4)).astype(np.float32) * 0.3,
+      code_type="decode_center_size", box_normalized=False),
+    C("detection", "box_clip", DPIX * 1.5 - 4.0, (30, 40)),
+    C("detection", "yolo_box", YOLO_X, np.array([[64, 80], [96, 60]]),
+      [10, 13, 16, 30], 3, 0.3, 16),
+    C("detection", "yolo_box", YOLO_X, np.array([[64, 80], [96, 60]]),
+      [10, 13, 16, 30], 3, 0.6, 16, clip_bbox=False, scale_x_y=1.2),
+    C("detection", "nms", DBOX, DSCORE, 0.3),
+    C("detection", "nms", DBOX, DSCORE, 0.1, 0.35, 20),
+    C("detection", "nms", np.repeat(DBOX[:3], 2, 0),
+      np.array([0.5, 0.5, 0.9, 0.9, 0.2, 0.2], np.float32), 0.5, -1.0, 4),
+    C("detection", "multiclass_nms", DBOX, DSCORES, 0.2, 0.3, 10, 6),
+    C("detection", "multiclass_nms", DBOX, DSCORES, 0.0, 0.5, 30, -1,
+      background_label=0),
+    C("detection", "roi_align", DFEAT, DROIS, (3, 2), 0.8, 2, DROI_B),
+    C("detection", "roi_align", DFEAT, DROIS, (2, 4), 1.0, -1, DROI_B,
+      aligned=True),
+    C("detection", "roi_pool", DFEAT, DROIS, (3, 2), 1.0, DROI_B),
+    C("detection", "roi_pool", DFEAT, DROIS * 2, (2, 3), 0.5),
+    C("detection", "psroi_pool", DFEAT, DROIS, (2, 2), 2, 1.0, DROI_B),
+    C("detection", "prroi_pool", DFEAT, DROIS, (2, 3), 0.9, DROI_B, 3),
+    C("detection", "roi_perspective_transform", DFEAT, QUADS, 4, 5),
+    C("detection", "bipartite_match",
+      np.round(D.uniform(-0.2, 1.0, (4, 6)), 1).astype(np.float32)),
+    C("detection", "bipartite_match",
+      np.round(D.uniform(0.0, 1.0, (6, 3)), 1).astype(np.float32)),
+    C("detection", "distribute_fpn_proposals", DPIX * 8, 2, 5, 4, 224.0),
+    C("detection", "generate_proposals", D.uniform(size=30).astype(
+        np.float32), D.normal(size=(30, 4)).astype(np.float32) * 0.2, ANCH,
+      np.full((30, 4), 0.5, np.float32), (32, 32), 20, 8, 0.5, 2.0),
+    C("detection", "generate_proposals", D.uniform(size=30).astype(
+        np.float32), D.normal(size=(30, 4)).astype(np.float32) * 0.2, ANCH,
+      None, (40, 30), 40, 12),
+    C("detection", "matrix_nms", DBOX, DSCORES, 0.2, 0.05, 8, 12),
+    C("detection", "matrix_nms", DBOX, DSCORES, 0.1, 0.0, 12, 50,
+      use_gaussian=True, background_label=-1),
+    C("detection", "locality_aware_nms", DBOX, DSCORE + 0.05, 0.2, 0.0, 6),
+    C("detection", "collect_fpn_proposals", [DBOX, DBOX2],
+      [DSCORE, DSCORE[:5]], 9),
+    C("detection", "target_assign", D.normal(size=(5, 3)).astype(np.float32),
+      np.array([2, -1, 0, 4, -1, 1]), np.array([1, 4]), -1.0),
+    C("detection", "ssd_loss", D.normal(size=(2, 20, 4)).astype(np.float32),
+      D.normal(size=(2, 20, 5)).astype(np.float32), GT, GT_LAB, PRIORS),
+    C("detection", "ssd_loss", D.normal(size=(2, 20, 4)).astype(np.float32),
+      D.normal(size=(2, 20, 5)).astype(np.float32), GT, GT_LAB, PRIORS,
+      np.array([0.1, 0.1, 0.2, 0.2], np.float32), overlap_threshold=0.3,
+      neg_pos_ratio=2.0, loc_loss_weight=0.5),
+    C("detection", "yolov3_loss", YOLO_X, YOLO_GT, YOLO_LAB,
+      [10, 13, 16, 30, 33, 23], [1, 2], 3, 0.5, 16),
+    C("detection", "yolov3_loss", YOLO_X, YOLO_GT, YOLO_LAB,
+      [10, 13, 16, 30, 33, 23], [0, 1], 3, 0.7, 16,
+      np.array([[1.0, 0.5, 0.7], [0.8, 1.0, 1.0]], np.float32), True),
+    C("detection", "box_decoder_and_assign", DPIX[:4],
+      np.array([0.1, 0.1, 0.2, 0.2], np.float32),
+      D.normal(size=(4, 12)).astype(np.float32),
+      D.uniform(size=(4, 3)).astype(np.float32)),
+    C("detection", "polygon_box_transform",
+      D.normal(size=(2, 4, 3, 5)).astype(np.float32)),
+    C("detection", "rpn_target_assign", ANCH, GT_PIX, None, (32, 32, 1.0),
+      12, 0.0, 0.5, 0.5, 0.2, use_random=False, box_normalized=False),
+    C("detection", "rpn_target_assign", ANCH, GT_PIX,
+      np.array([False, True, False, False]), None, 8,
+      rpn_positive_overlap=0.4, use_random=False),
+    C("detection", "retinanet_target_assign", ANCH, GT_PIX,
+      np.array([2, 1, 3, 0]), (32, 32, 1.0), 0.4, 0.3, False),
+    C("detection", "sigmoid_focal_loss",
+      D.normal(size=(6, 3)).astype(np.float32),
+      np.array([0, 1, -1, 3, 2, 0]), 3.0),
+    C("detection", "retinanet_detection_output",
+      D.normal(size=(30, 4)).astype(np.float32) * 0.2, D.uniform(
+          size=(30, 3)).astype(np.float32), ANCH, (30, 30, 1.0), 0.3, 10,
+      8, 0.4, False),
+    C("detection", "generate_proposal_labels", ANCH[:12], GT_PIX,
+      np.array([3, 1, 2, 0]), 10, 0.3, 0.3, 0.3, 0.0, num_classes=4,
+      use_random=False, box_normalized=False),
+    C("detection", "generate_mask_labels", ANCH[:6],
+      np.array([1, 0, 2, 1, 0, 3]),
+      D.integers(0, 2, size=(4, 32, 32)).astype(np.float32), GT_PIX, 5),
+]
+DET_CREATION = [
+    C("detection", "prior_box", (4, 5), (64, 80), [16.0, 32.0], [24.0, 48.0],
+      (2.0, 3.0), flip=True, clip=True),
+    C("detection", "prior_box", (3, 3), (60, 60), [20.0], [40.0], (2.0,),
+      step=(18.0, 20.0), offset=0.4, min_max_aspect_ratios_order=True),
+    C("detection", "density_prior_box", (3, 4), (48, 64), [8.0, 16.0],
+      [1.0, 2.0], [2, 1], clip=True),
+    C("detection", "anchor_generator", (3, 4), [32.0, 64.0], [0.5, 1.0, 2.0],
+      (16.0, 16.0)),
+]
+DET_RANDOM = {"rpn_target_assign", "generate_proposal_labels"}

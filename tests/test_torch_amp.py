@@ -7,6 +7,7 @@ leave what a model computes bitwise unchanged, as the JAX package's
 does (it only records thread-local state).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ Both analysis packages are loaded by path, as their command-line entries
 load them, so nothing here imports torch or jax for the lint itself.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import collections
 import importlib.util
 import io

@@ -4,6 +4,7 @@
 functions, within 1e-5 (fp32). The functions use only arithmetic and
 methods both array types have, so one definition serves both."""
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

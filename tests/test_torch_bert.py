@@ -9,6 +9,7 @@ with ``flash_attention_min_seq_train`` at 16 the plain version of its
 flash kernels, which must agree too.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch
@@ -101,8 +102,9 @@ def test_logits_loss_and_grads_match_jax(pair, gate):
         return jax_pretraining_loss(out, jnp.asarray(mlm),
                                     jnp.asarray(nsp)), out
 
-    (jl, jout), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(
-        jm.param_dict())
+    # one XLA program: the same function, compiled once, not op by op
+    (jl, jout), jgrads = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(jm.param_dict())
     set_flags({"flash_attention_min_seq_train": gate})
     try:
         out = pm(_t(ids), _t(types), _t(mask), _t(pos))

@@ -21,6 +21,7 @@ xent loss (2e-2, ``tests/test_fused_loss.py``) and the flash gradients
 bf16-rounded output, the port from the fp32 one).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ shard r. fp32, every op exact up to 1e-6 relative (sums of four values
 in another order).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -29,6 +29,7 @@ cannot run here, so these tests hold what the capture depends on:
 A small BERT (2 layers, hidden 64, 2 heads, vocab 512, seq 32).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 import gc
 import weakref

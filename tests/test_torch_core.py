@@ -2,6 +2,7 @@
 ParamAttr, ``Layer``, the flag registry, the staging arena's budget and
 the replayed random draws) against the JAX package on the CPU."""
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import importlib
 import re
 from pathlib import Path

@@ -17,6 +17,7 @@ Every worker test joins with a bound (the loaders' ``timeout``), so
 none can hang.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 import threading
 

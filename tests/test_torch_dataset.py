@@ -10,6 +10,7 @@ JAX package's order; ``serialize_range`` blobs must be equal and load
 into the other package's feed.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 
 import numpy as np

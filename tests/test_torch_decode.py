@@ -10,6 +10,7 @@ helper cannot match threefry's bits: it is checked by shape, range, the
 same draws from the same seed, and the lengths its ids imply.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ Tolerance ``TOL``, relative to a tensor's largest entry, for losses,
 parameters and delivered updates (fp32; sums formed in another order).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 

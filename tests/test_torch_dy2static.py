@@ -14,6 +14,7 @@ captured path through a stand-in for the CUDA graph backend (as
 converted layer, and ``not_to_static``/``rollback``.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 
 import numpy as np

@@ -7,6 +7,7 @@ layers x H 64 with ERNIE's ``relu`` gives the JAX model's loss within
 largest magnitude (fp32, the JAX weights moved in with
 ``convert.load_jax_params``)."""
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ ports are ephemeral; both packages' ``metrics_port`` and
 ``enable_metrics`` are restored.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import gzip
 import json
 import os

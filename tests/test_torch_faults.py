@@ -14,6 +14,7 @@ JAX package.
 Every test disarms both registries and restores each flag it sets.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 import subprocess
 import sys

@@ -16,6 +16,7 @@ autograd Function over the kernels' plain stand-ins, and its router)
 against the JAX entry of that name with both cotangents nonzero.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ port one, with equal ``/fleet`` pages. Every exporter and reporter
 started here is stopped in teardown; ports are ephemeral.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import json
 import time
 import urllib.error

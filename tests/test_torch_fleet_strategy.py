@@ -16,6 +16,7 @@ entry) for losses and every parameter over 3 Adam steps in fp32; 1e-12
 for the metrics (float64 sums of a few numbers).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 

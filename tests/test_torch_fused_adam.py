@@ -14,6 +14,7 @@ leaf variant, so it must equal the unfused update bit for bit; the
 poisoned step on both fused routes.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ BERT whose MLM head hands ``MLMHeadOutput`` to the loss, against the JAX
 BERT with the fused head on (its kernel in interpret mode) or off.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import functools
 
 import numpy as np
@@ -262,7 +263,8 @@ def test_bert_fused_head_matches_jax(bert_pair, monkeypatch, jax_fused):
                                     jnp.asarray(nsp))
 
     try:
-        jl, jgrads = jax.value_and_grad(jax_loss)(jm.param_dict())
+        # one XLA program: the same function, compiled once, not op by op
+        jl, jgrads = jax.jit(jax.value_and_grad(jax_loss))(jm.param_dict())
     finally:
         pt.set_flags({"fused_softmax_xent": False})
     set_flags({"fused_softmax_xent": True})

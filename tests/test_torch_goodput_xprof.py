@@ -13,6 +13,7 @@ from a forward and a backward, with the formulas of ``chip_smoke.py``'s
 bounds; analytics change no bit of the state.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 
 import numpy as np

@@ -6,7 +6,9 @@ The JAX model's ``param_dict()`` moves into the port through
 numpy inputs.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import ast
+import select
 import subprocess
 import sys
 from pathlib import Path
@@ -135,6 +137,50 @@ def test_model_refuses_to_run_on_cpu_unasked():
         GPTLanguageModel()
 
 
+# Each import check runs in a fresh interpreter forked from one that has
+# imported numpy and torch (the port's dependencies, not the port): the
+# child imports the port from nothing, the case's module first, as a new
+# process would, without paying torch's import a case
+_IMPORT_SERVER = r"""
+import os, sys, traceback
+import numpy, torch  # noqa: F401
+print("ready", flush=True)
+for line in sys.stdin:
+    pid = os.fork()
+    if pid == 0:
+        try:
+            exec(line, {"__name__": "__main__"})
+            sys.stdout.flush()
+            os._exit(0)
+        except BaseException:
+            traceback.print_exc()
+            sys.stderr.flush()
+            os._exit(1)
+    _, status = os.waitpid(pid, 0)
+    print(os.waitstatus_to_exitcode(status), flush=True)
+"""
+
+
+@pytest.fixture(scope="module")
+def import_server():
+    proc = subprocess.Popen([sys.executable, "-c", _IMPORT_SERVER],
+                            cwd=ROOT, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    assert proc.stdout.readline().strip() == "ready"
+    yield proc
+    proc.stdin.close()
+    proc.wait(timeout=60)
+
+
+def _fresh_import(proc, code: str) -> int:
+    """The exit code of ``code`` run in a fresh fork of the server."""
+    proc.stdin.write(code + "\n")
+    proc.stdin.flush()
+    ready, _, _ = select.select([proc.stdout], [], [], 120)
+    assert ready, "the import check did not finish in 120 s"
+    return int(proc.stdout.readline())
+
+
 @pytest.mark.parametrize("first", ["kernels", "nn", "serving_llm",
                                    "models", "static", "amp", "optimizer",
                                    "clip", "io", "data", "preemption",
@@ -147,8 +193,9 @@ def test_model_refuses_to_run_on_cpu_unasked():
                                    "param_attr", "core.place",
                                    "models.resnet", "nn.norm",
                                    "optimizer.extras",
-                                   "ops.nn_functional"])
-def test_port_imports_in_any_order(first):
+                                   "ops.nn_functional", "ops.detection",
+                                   "layers", "models.ssd"])
+def test_port_imports_in_any_order(import_server, first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
     code = (f"import paddle_tpu_torch.{first}; "
@@ -186,9 +233,11 @@ def test_port_imports_in_any_order(first):
             "from paddle_tpu_torch.models import resnet50; "
             "from paddle_tpu_torch.nn import BatchNorm2D, Conv2D; "
             "from paddle_tpu_torch.optimizer import LarsMomentum, "
-            "Lookahead")
-    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
-                   timeout=120)
+            "Lookahead; "
+            "from paddle_tpu_torch.models import SSDLite, mobilenet_v2; "
+            "from paddle_tpu_torch.layers import detection_output; "
+            "from paddle_tpu_torch.ops import conv_extra, detection")
+    assert _fresh_import(import_server, code) == 0, first
 
 
 def _port_files():
@@ -246,7 +295,14 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/ops/nn_functional.py",
         "paddle_tpu_torch/nn/conv.py", "paddle_tpu_torch/nn/norm.py",
         "paddle_tpu_torch/models/resnet.py",
-        "paddle_tpu_torch/optimizer/extras.py"} | {
+        "paddle_tpu_torch/optimizer/extras.py",
+        "paddle_tpu_torch/ops/detection.py",
+        "paddle_tpu_torch/ops/conv_extra.py",
+        "paddle_tpu_torch/layers/__init__.py",
+        "paddle_tpu_torch/models/lenet.py", "paddle_tpu_torch/models/vgg.py",
+        "paddle_tpu_torch/models/mobilenet.py",
+        "paddle_tpu_torch/models/ssd.py",
+        "paddle_tpu_torch/models/gan.py"} | {
         f"paddle_tpu_torch/observability/{m}.py"
         for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
                   "fleet", "trace_agg")}

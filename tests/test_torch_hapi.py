@@ -13,6 +13,7 @@ for bit, SIGTERM in a subprocess, the rollback drill, the metrics) is
 checked on the port alone.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 import signal
 import subprocess

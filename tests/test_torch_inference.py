@@ -12,6 +12,7 @@ does for ``TrainStep``); a JAX ``Client`` against a port server; the
 error paths and the server's telemetry names against the JAX server's.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import threading
 import time
 

@@ -29,6 +29,7 @@ the CPU.
 A small BERT (2 layers, hidden 64, 2 heads, vocab 512, seq 32).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import json
 import os
 import signal

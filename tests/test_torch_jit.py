@@ -12,6 +12,7 @@ the port's runs its plain composition (and, at head dim 128 with
 forward through the ``paddle_tpu_torch::flash_attention`` operator).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import functools
 import json
 import os

@@ -8,6 +8,7 @@ launch counters, the ctypes binding, the build's refusal to fall back)
 is checked.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import re
 
 import numpy as np

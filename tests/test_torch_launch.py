@@ -11,6 +11,7 @@ this process against a JAX control plane: the same files and seeds give
 each rank the same records in the same order.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import os
 import sys
 import threading

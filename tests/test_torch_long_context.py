@@ -14,6 +14,7 @@ and ``dq``/``dk``/``dv`` within 1e-4 of the reference's largest entry
 (fp32, another summation order).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ into the result (a zero mask times NaN); the port selects ignored
 positions away, as Paddle defines them (0 loss, 0 weight).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ another order. Tied logits are the case ``jax.lax.top_k`` decides
 toward the lower index, which the port's counted top-k reproduces.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

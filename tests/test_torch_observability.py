@@ -12,6 +12,7 @@ global registries are left alone); the port's are reset around each
 test and every flag set is restored.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import json
 import math
 import os

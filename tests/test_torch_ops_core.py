@@ -15,6 +15,7 @@ coverage test requires every public function of the eight modules to
 have a case here.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -10,6 +10,7 @@ of its dtype (a master within TOL of JAX's may round the other way at a
 rounding boundary).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import importlib
 
 import numpy as np

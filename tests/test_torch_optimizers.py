@@ -10,6 +10,7 @@ step of bf16. Dpsgd's noise is torch's, not threefry's: it is held
 against JAX with ``sigma=0`` and by its moments otherwise.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ sequence; the kernel itself is held against it on the card by
 ``chip_smoke.py``.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ design A/Bs of ``kernels/design_ab.py`` are checked to still apply to
 the kernels' sources.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

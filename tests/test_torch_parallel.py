@@ -17,6 +17,7 @@ are formed in another order),
 ``NET_TOL`` through the small ResNet, ``BF16_TOL`` under bf16 autocast.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 
@@ -355,9 +356,12 @@ def test_batch_norm_kinds_at_dp4_match_jax_global_batch(job, jax_resnet,
                    f"{case} {n}")
 
 
-@pytest.mark.parametrize("tag", ["tp", "sp"])
-def test_sync_batch_norm_op_matches_jax_shard_map(job, tag):
-    inputs, outs = job
+@pytest.fixture(scope="module")
+def jax_sync_bn(job):
+    """The JAX sync_batch_norm op under shard_map over the dp ranks and
+    its input gradient, one jitted program each (the reference both
+    ranks' layouts are held against)."""
+    inputs, _ = job
     mesh = jax_mesh({"dp": WORLD}, allow_submesh=True)
     w, b = jnp.asarray(inputs["sbn_w"]), jnp.asarray(inputs["sbn_b"])
 
@@ -371,9 +375,16 @@ def test_sync_batch_norm_op_matches_jax_shard_map(job, tag):
                    out_specs=(JP("dp"), JP("dp"), JP("dp")),
                    check_vma=False)
     x = jnp.asarray(inputs["sbn_x"])
-    y, nm, nv = fn(x)
-    dx = jax.grad(lambda xx: jnp.sum(fn(xx)[0]
-                                     * jnp.asarray(inputs["sbn_g"])))(x)
+    y, nm, nv = jax.jit(fn)(x)
+    dx = jax.jit(jax.grad(lambda xx: jnp.sum(
+        fn(xx)[0] * jnp.asarray(inputs["sbn_g"]))))(x)
+    return y, nm, nv, dx
+
+
+@pytest.mark.parametrize("tag", ["tp", "sp"])
+def test_sync_batch_norm_op_matches_jax_shard_map(job, jax_sync_bn, tag):
+    inputs, outs = job
+    y, nm, nv, dx = jax_sync_bn
     rows = 8 // WORLD
     for r, out in enumerate(outs):
         sl = slice(r * rows, (r + 1) * rows)

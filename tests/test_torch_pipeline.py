@@ -12,6 +12,7 @@ gradient, and for the losses and every parameter over 3 Adam steps
 to the plain step at 1e-6, as the JAX test holds it.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 

@@ -15,6 +15,7 @@ table looked up by the batch's ids) is held against the same algorithm in
 one process on the global batch.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import threading
 import time
 

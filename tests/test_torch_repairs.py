@@ -15,6 +15,7 @@ CPU, so every constructor that takes ``device`` raises without a GPU when
 none is given.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import math
 
 import numpy as np

@@ -9,6 +9,7 @@ for one fp32 op (its reductions summed in another order than XLA's),
 ``NET_TOL`` through a network of them, one bf16 step for bf16 outputs.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

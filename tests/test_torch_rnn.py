@@ -10,6 +10,7 @@ another order (the port hoists the input projection of all steps into
 one product).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ the same given negatives (the log-uniform draws cannot match threefry's
 bits).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ backend as a counted retry, STATS through the router, a tensor request
 proxied, and prefix affinity with the same tokens as a direct run.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 import socket
 import struct

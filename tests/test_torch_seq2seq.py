@@ -11,6 +11,7 @@ version of the flash kernels with the training gate lowered), 5
 ``beam_search_decode`` and ``decode_beam``.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch
@@ -83,8 +84,9 @@ def test_forward_loss_and_grads_match_jax(pair, gate):
                           jnp.asarray(tgt))
         return jax_L.cross_entropy(logits, jnp.asarray(lab)), logits
 
-    (jl, jlogits), jgrads = jax.value_and_grad(jax_loss, has_aux=True)(
-        jm.param_dict())
+    # one XLA program: the same function, compiled once, not op by op
+    (jl, jlogits), jgrads = jax.jit(jax.value_and_grad(
+        jax_loss, has_aux=True))(jm.param_dict())
     old = get_flags("flash_attention_min_seq_train")
     set_flags({"flash_attention_min_seq_train": gate})
     try:

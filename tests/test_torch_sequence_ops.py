@@ -16,6 +16,7 @@ equals the port's dense update on the touched rows bit for bit and
 leaves the other rows and moments exactly as they were.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

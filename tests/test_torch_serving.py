@@ -9,6 +9,7 @@ Then the port's own invariants: position-keyed sampling at temperature
 > 0, the allocator against a shadow model, admission and device rules.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 import random
 

@@ -13,6 +13,7 @@ The JAX engine runs its Pallas kernels in interpret mode. Its metrics
 switch and registries are reset around each test, as are the port's.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 
 import numpy as np

@@ -8,6 +8,7 @@ packages' registries and rings under one fake clock: windowed
 rate and error budget must be equal. No test bounds a wall time.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import math
 import threading
 

@@ -11,6 +11,7 @@ stalled, and the engine's stall watchdog files its post-hoc diagnosis.
 No test bounds a wall time (the sampler's cost is measured on the card).
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import json
 import os
 import subprocess

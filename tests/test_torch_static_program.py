@@ -12,6 +12,7 @@ epoch losses against JAX's from the same slot files (a small BERT, 3
 steps an epoch, within ``LOSS_TOL``); ``infer_from_dataset``'s dump
 text equal to JAX's."""
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 import os
 

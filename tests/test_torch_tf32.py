@@ -4,6 +4,7 @@ The xent kernels and the flash forward, dq and dK/dV kernels
 (``csrc/tf32_mma.cuh``)
 split each fp32 operand into two TF32 numbers (``hi = rna(x)``, ``lo =
 rna(x - hi)``, ``cvt.rna.tf32.f32``'s rounding: to nearest, ties away
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 from zero) and sum ``lo.hi + hi.lo + hi.hi`` in fp32, a stage of the
 reduction per fresh tile. Here a plain emulation of that scheme is held
 against float64 products of the same numpy inputs at the reduction

@@ -35,6 +35,7 @@ a per-query constant, so its exact gradient is 0 and both packages see
 only bf16 rounding noise there, which Adam turns into steps of ~lr.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import functools
 import importlib
 

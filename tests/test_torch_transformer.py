@@ -12,6 +12,7 @@ kernels (causal, Tq != Tk), under both ``attention_bthd_layout`` values.
 dropout 0.1 in the flash kernels and in the layers: equal bit for bit.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ plain version: every check passes, and a wrapper off by 1% is named as
 a failure.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import json
 import subprocess
 import sys

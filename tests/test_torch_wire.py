@@ -12,6 +12,7 @@ library's build: two processes at once, nothing written into the JAX
 package.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import contextlib
 import json
 import os

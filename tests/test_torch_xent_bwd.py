@@ -11,6 +11,7 @@ against the JAX package's ``_backward`` (its ``_bwd_dh_kernel`` and
 same ``lse``, within 1e-5 of each gradient's largest entry.
 """
 
+from torch_threads import port_threads  # noqa: F401  (autouse fixture)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ another Hopper card) and the CUDA toolkit::
     python3 chip_smoke.py --static        # phase 15
     python3 chip_smoke.py --recurrent     # phase 16
     python3 chip_smoke.py --vision        # phase 17
+    python3 chip_smoke.py --zoo           # phase 18 (four cards: 18 b NCCL)
 
 It imports only ``paddle_tpu_torch`` (never JAX or ``paddle_tpu``) and,
 in order:
@@ -482,7 +483,37 @@ in order:
    card against the CPU within ``OPS_RTOL``/``OPS_ATOL``, the sampled
    ops by shape and seed. ``python3 chip_smoke.py --vision`` runs this
    phase alone and writes ``chiprun_out/chip_smoke_vision.json``;
-18. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+18. runs the slice of MoE, Transformer-XL, the recommenders and the data
+   modules (fp32, TF32 off): (a) Transformer-XL at enwik8 "base" width
+   (``TXL_CFG``: 12 layers, d 512, 8 heads, d_ff 2048, tgt_len and
+   mem_len 512, batch 22, dropout 0.1) through its captured
+   ``TransformerXLTrainStep`` with ``Adam`` under ``fused_adam`` over 6
+   consecutive segments of one seeded byte stream: one capture, LayerNorm
+   24 launches a step and the Adam leaf kernel one, the losses, memories
+   and parameters bit for bit with the same steps eager, ``valid`` at
+   min(512, 512 s), step ms, tokens/s, peak memory, ``reset_mems`` in
+   place followed by a step equal to the eager twin's and a fresh step's;
+   then 2 layers at the full widths, batch 2, dropout 0, two segments,
+   card against CPU (``P18_LOSS_TOL``, ``P18_GRAD_TOL``); (b) the MoE net
+   of ``tests/test_moe.py`` at Switch-Base's expert width with four
+   residual MoE blocks (``MOE_SWITCH``) on a [32, 128, 768]
+   batch: one card's captured ``TrainStep``, then ``ShardedTrainStep``
+   with ``moe_param_rule("ep")`` at dp 1 x ep 4 and dp 2 x ep 2 on four
+   Gloo ranks sharing the card (and, on four cards, under NCCL, one rank
+   a card), 3 Adam steps each: losses, ``aux_loss`` and every whole
+   parameter within ``P18_MOE_*`` of the reference, the dropped choices
+   equal, each rank holding E / ep experts, its bytes, collectives and
+   (NCCL) step ms and peak; (c) ``RecommenderSystem`` at MovieLens-1M's
+   widths through ``Model.fit`` on the synthetic ``Movielens`` (4
+   captured steps), then it and ``DeepFM`` (26 fields of 100,000 ids,
+   embed 16, hidden 400 x 3, ReLU decisions shared) card against CPU;
+   (d) ``Tokenizer`` build/encode/save/load, ``Imikolov`` on a PTB tar
+   the script writes (native ids equal to the Python path's), a
+   ``reader`` chain feeding an N-gram LM's steps, every distribution's
+   ``log_prob``/``entropy`` card against CPU. ``python3 chip_smoke.py
+   --zoo`` runs this phase alone and writes
+   ``chiprun_out/chip_smoke_zoo.json``;
+19. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -11122,6 +11153,674 @@ def run_phase17(torch) -> tuple:
     return report, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the slice of MoE, Transformer-XL, the recommenders and the data
+# modules (fp32, TF32 off). (a) Transformer-XL at enwik8 "base" width
+# through its captured segment-recurrent step with Adam under fused_adam
+# (rows 1 and 11), bit for bit with the same steps eager, then card
+# against CPU at 2 layers; (b) MoE at Switch-Base's expert width with
+# expert parallelism (four Gloo ranks sharing the card; under NCCL on four
+# cards) against one card's TrainStep; (c) RecommenderSystem through
+# Model.fit and DeepFM at Criteo's 26 fields, card against CPU; (d) the
+# Tokenizer, Imikolov, the reader and the distributions.
+# `python3 chip_smoke.py --zoo` runs this phase alone.
+# ---------------------------------------------------------------------------
+
+# where phase 18 runs (a CPU rehearsal sets "cpu")
+P18_DEVICE = "cuda"
+# enwik8 "base" of Dai et al. 2019 as the authors'
+# pytorch/run_enwik8_base.sh sets it (n_layer 12, d_model 512, n_head 8,
+# d_head 64, d_inner 2048, tgt_len 512, mem_len 512, batch_size 22,
+# dropout 0.1; enwik8's 204 byte values); lr its 0.00025
+TXL_CFG = dict(vocab_size=204, d_model=512, n_heads=8, d_ff=2048,
+               n_layers=12, mem_len=512, dropout=0.1)
+TXL_TGT_LEN, TXL_BATCH, TXL_SEGMENTS, TXL_LR = 512, 22, 6, 2.5e-4
+# card against CPU: 2 layers, batch 2, the full widths, dropout 0, two
+# segments (the second reading the first's memory): the loss's relative
+# gap and each leaf's largest gradient gap over its largest entry
+TXL_CPU_LAYERS, TXL_CPU_BATCH = 2, 2
+P18_LOSS_TOL, P18_GRAD_TOL = 1e-5, 1e-4
+# (b): 3 Adam steps at each mesh against one card's TrainStep on the
+# global batch: the loss and aux_loss within P18_MOE_LOSS_TOL relative,
+# every whole parameter within P18_MOE_PARAM_TOL of its largest entry or
+# P18_MOE_ATOL absolute (a fiftieth of one Adam step: a near-zero
+# gradient entry's fp32 noise, summed over dp in another order, moves
+# Adam's update by a few thousandths of a step, 0.42% seen at dp 2 x
+# ep 2), the dropped choices equal
+# the MoE net of tests/test_moe.py at Switch-Base's expert width (Fedus et
+# al. 2021: d_model 768, d_ff 3072; 8 experts, top-2, capacity factor
+# 1.25), four residual MoE blocks, 16 classes
+MOE_SWITCH = dict(d=768, h=3072, e=8, classes=16, cf=1.25, blocks=4,
+                  in_dim=768, seed=SEED + 184)
+MOE_CHIP_BATCH, MOE_CHIP_T, MOE_CHIP_STEPS, MOE_CHIP_LR = 32, 128, 3, 1e-4
+P18_MOE_LOSS_TOL, P18_MOE_PARAM_TOL = 1e-5, 5e-5
+P18_MOE_ATOL = MOE_CHIP_LR / 50
+P18_DIR = "chip_smoke_zoo"  # the ranks' and the data files (removed)
+# (c): MovieLens-1M's widths (the model's defaults) fed by the synthetic
+# Movielens through fit, 4 captured steps; DeepFM on 26 fields as
+# Criteo's categorical features, 100,000 ids each
+REC_BATCH, REC_LR = 64, 1e-3
+DEEPFM_FIELDS, DEEPFM_IDS, DEEPFM_EMBED = 26, 100_000, 16
+DEEPFM_HIDDEN, DEEPFM_BATCH = (400, 400, 400), 2048
+# (d): distributions card against CPU
+DIST_TOL = 1e-5
+PATH_KERNELS.update({"txl": ("layer_norm", "adam_leaf"),
+                     "moe_ep": ("adam_leaf",), "rec_fit": ("adam_leaf",)})
+
+
+def txl_model(torch, device: str, layers: int, dropout: float):
+    from paddle_tpu_torch.models import TransformerXL, TransformerXLConfig
+    cfg = TransformerXLConfig(**dict(TXL_CFG, n_layers=layers,
+                                     dropout=dropout))
+    return TransformerXL(cfg, device=device, seed=SEED + 180)
+
+
+def txl_stream(torch, batch: int, tokens: int, seed: int):
+    """Seeded bytes (enwik8's 204 values): one stream a row."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, TXL_CFG["vocab_size"],
+                                         (batch, tokens)))
+
+
+def txl_segments(torch, stream, n: int, t: int, device: str) -> list:
+    return [(stream[:, s * t:(s + 1) * t].to(device),
+             stream[:, s * t + 1:(s + 1) * t + 1].to(device))
+            for s in range(n)]
+
+
+def txl_card_against_cpu(torch) -> dict:
+    """2 layers at the full widths, dropout 0, one forward and backward
+    over two segments (the second reading the first's memory), on the
+    card and on the CPU from the same weights."""
+    cpu = txl_model(torch, "cpu", TXL_CPU_LAYERS, 0.0)
+    card = txl_model(torch, P18_DEVICE, TXL_CPU_LAYERS, 0.0)
+    card.load_state_dict(cpu.state_dict())
+    t = TXL_TGT_LEN
+    stream = txl_stream(torch, TXL_CPU_BATCH, 2 * t + 1, SEED + 181)
+
+    def loss(m, dev):
+        x = stream.to(dev)
+        l1, mems = m.loss(x[:, :t], x[:, 1:t + 1])
+        l2, _ = m.loss(x[:, t:2 * t], x[:, t + 1:2 * t + 1], mems)
+        return l1 + l2
+
+    t0 = time.perf_counter()
+    lc, gc = p16_grads(torch, card, lambda m: loss(m, P18_DEVICE))
+    lh, gh = p16_grads(torch, cpu, lambda m: loss(m, "cpu"))
+    gaps = grad_gaps(torch, gc, gh)
+    return {"loss_card": lc, "loss_cpu": lh,
+            "loss_rel_gap": abs(lc - lh) / abs(lh),
+            "grad_rel_gap_max": max(gaps.values()),
+            "grad_rel_gap_worst_leaf": max(gaps, key=gaps.get),
+            "bounds": {"loss": P18_LOSS_TOL, "grad": P18_GRAD_TOL},
+            "layers": TXL_CPU_LAYERS, "batch": TXL_CPU_BATCH,
+            "both_s": time.perf_counter() - t0}
+
+
+def txl_fit(torch, card: str) -> tuple:
+    """(a): TXL_SEGMENTS consecutive segments of one stream through the
+    captured TransformerXLTrainStep (the counts read around them), the
+    same segments eager from the same weights and seed (losses, memories
+    and valid bit for bit), reset_mems on both and one more step (equal,
+    and equal to a fresh step's first on the same weights), then the card
+    against the CPU. Returns (report, counts)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import TransformerXLTrainStep
+    from paddle_tpu_torch.optimizer import Adam
+    t, b, n = TXL_TGT_LEN, TXL_BATCH, TXL_SEGMENTS
+    stream = txl_stream(torch, b, n * t + 1, SEED + 182)
+    segs = txl_segments(torch, stream, n, t, P18_DEVICE)
+    restore = flag_scope({"fused_adam": True})
+    try:
+        torch.cuda.empty_cache()
+        model = txl_model(torch, P18_DEVICE, TXL_CFG["n_layers"],
+                          TXL_CFG["dropout"])
+        n_params = sum(p.numel() for p in model.parameters())
+        step = TransformerXLTrainStep(model, Adam(TXL_LR), batch_size=b)
+        losses, valid, snaps, ms, peaks = [], [], [], [], []
+        snap_bytes = 0
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for ids, tgt in segs:
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = step(ids, tgt)["loss"]
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            peaks.append((torch.cuda.max_memory_allocated() - snap_bytes)
+                         / 2 ** 30)
+            losses.append(float(loss))
+            valid.append(int(step.mems["valid"]))
+            snaps.append([m.clone() for m in step.mems["layers"]])
+            snap_bytes += sum(m.numel() * 4 for m in snaps[-1])
+        counts = kernels.launch_counts()
+        captures, capture_ms = step.captures, step.capture_ms
+        # the same segments eager, from the same weights and seed
+        twin = txl_model(torch, P18_DEVICE, TXL_CFG["n_layers"],
+                         TXL_CFG["dropout"])
+        eager = TransformerXLTrainStep(twin, Adam(TXL_LR), batch_size=b,
+                                       compiled=False)
+        eager_losses, mems_equal, eager_valid = [], [], []
+        for (ids, tgt), snap in zip(segs, snaps):
+            eager_losses.append(float(eager(ids, tgt)["loss"]))
+            eager_valid.append(int(eager.mems["valid"]))
+            mems_equal.append(all(bool(torch.equal(a, c)) for a, c in zip(
+                eager.mems["layers"], snap)))
+        del snaps
+        params_equal = all(bool(torch.equal(p, q)) for p, q in zip(
+            model.parameters(), twin.parameters()))
+        # reset_mems: in place, no new capture; the next step equals the
+        # eager twin's after its own reset, and a fresh step's first on
+        # the same weights and generator state
+        ptrs = [m.data_ptr() for m in step.mems["layers"]]
+        step.reset_mems(b)
+        eager.reset_mems(b)
+        fresh_model = txl_model(torch, P18_DEVICE, TXL_CFG["n_layers"],
+                                TXL_CFG["dropout"])
+        fresh_model.load_state_dict(twin.state_dict())
+        fresh = TransformerXLTrainStep(fresh_model, Adam(TXL_LR),
+                                       batch_size=b, compiled=False)
+        fresh.generator.set_state(eager.generator.get_state())
+        reset = {"captured": float(step(*segs[0])["loss"]),
+                 "eager": float(eager(*segs[0])["loss"]),
+                 "fresh": float(fresh(*segs[0])["loss"]),
+                 "in_place": [m.data_ptr() for m in step.mems["layers"]]
+                 == ptrs, "captures_after": step.captures}
+        del model, twin, step, eager, fresh, fresh_model
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    against_cpu = txl_card_against_cpu(torch)
+    step_ms = float(np.median(ms[2:]))
+    res = {"config": dict(TXL_CFG, tgt_len=t, batch=b),
+           "source": "Dai et al. 2019, pytorch/run_enwik8_base.sh",
+           "parameters": n_params, "segments": n,
+           "optimizer": f"Adam({TXL_LR}) under fused_adam",
+           "losses": losses, "eager_losses": eager_losses,
+           "captured_equals_eager": losses == eager_losses,
+           "memories_equal": mems_equal, "valid": valid,
+           "eager_valid": eager_valid, "params_equal": params_equal,
+           "captures": captures, "capture_ms": capture_ms,
+           "step_ms": ms, "step_ms_median_3_to_6": step_ms,
+           "tokens_per_s": b * t / step_ms * 1e3,
+           "peak_allocated_gb": max(peaks), "reset_mems": reset,
+           "launches": nonzero(counts), "card_against_cpu": against_cpu,
+           "card": card}
+    log(f"txl fit [{card}]: {json.dumps(res)}")
+    want_valid = [min(TXL_CFG["mem_len"], t * (s + 1)) for s in range(n)]
+    ln = counts.get("layer_norm", 0)
+    if not all(np.isfinite(losses)) or losses != eager_losses \
+            or not all(mems_equal) or not params_equal \
+            or valid != want_valid or eager_valid != want_valid \
+            or captures != 1 or ln != 2 * TXL_CFG["n_layers"] * n \
+            or counts.get("adam_leaf", 0) != n \
+            or not (reset["captured"] == reset["eager"] == reset["fresh"])\
+            or not reset["in_place"] or reset["captures_after"] != 1:
+        raise AssertionError(f"txl fit: {res}")
+    if against_cpu["loss_rel_gap"] > P18_LOSS_TOL \
+            or against_cpu["grad_rel_gap_max"] > P18_GRAD_TOL:
+        raise AssertionError(f"txl card against cpu: {against_cpu}")
+    return res, counts
+
+
+def moe_inputs(torch) -> dict:
+    rng = np.random.default_rng(SEED + 183)
+    x = rng.standard_normal((MOE_CHIP_BATCH, MOE_CHIP_T,
+                             MOE_SWITCH["in_dim"])).astype(np.float32)
+    y = rng.integers(0, MOE_SWITCH["classes"], MOE_CHIP_BATCH)
+    return dict({"moe_x": x, "moe_y": y, "steps": MOE_CHIP_STEPS,
+                 "lr": MOE_CHIP_LR},
+                **{f"net/{k}": v for k, v in MOE_SWITCH.items()})
+
+
+def moe_reference(torch, inputs, cf: float) -> tuple:
+    """One card's captured TrainStep of the same model at capacity factor
+    ``cf`` on the global batch: (report, {name: whole parameter as
+    numpy})."""
+    from paddle_tpu_torch.ops.loss import cross_entropy
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import TrainStep
+    from paddle_tpu_torch.testing import dist_worker as W
+    restore = flag_scope({"fused_adam": True})
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = W.moe_net(torch.device(P18_DEVICE),
+                        **dict(MOE_SWITCH, cf=cf))
+        step = TrainStep(net, Adam(MOE_CHIP_LR), cross_entropy)
+        x = torch.from_numpy(inputs["moe_x"]).to(P18_DEVICE)
+        y = torch.from_numpy(inputs["moe_y"]).to(P18_DEVICE)
+        losses, aux, dropped, ms = [], [], [], []
+        for _ in range(MOE_CHIP_STEPS):
+            dropped.append(W.moe_dropped(net, x))
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = step(x, labels=(y,))["loss"]
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+            losses.append(float(loss))
+            aux.append([float(m.aux_loss) for m in net.layers()])
+        params = {n: p.detach().cpu().numpy()
+                  for n, p in net.named_parameters()}
+        res = {"losses": losses, "aux": aux, "dropped": dropped,
+               "step_ms": ms, "captures": step.captures,
+               "peak_allocated_gb": torch.cuda.max_memory_allocated()
+               / 2 ** 30, "parameters": sum(v.size
+                                            for v in params.values()),
+               "bytes": sum(v.nbytes for v in params.values())}
+        del net, step
+    finally:
+        restore()
+    torch.cuda.empty_cache()
+    return res, params
+
+
+def check_moe_ranks(torch, outs, refs: dict, backend: str) -> tuple:
+    """The ranks' cases against the reference at each one's capacity
+    factor (``refs``: cf -> report): (report with ``bad``, the ranks'
+    launch counts summed)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.testing import dist_worker as W
+    e = MOE_SWITCH["e"]
+    res, bad = {"backend": backend}, []
+    counts = {k: 0 for k in kernels.launch_counts()}
+    for case, spec in W.CHIP_MOE_CASES.items():
+        ep = spec["axes"]["ep"]
+        ref = refs[spec.get("cf", MOE_SWITCH["cf"])]
+        r = {"mesh": spec["axes"], "cf": spec.get("cf", MOE_SWITCH["cf"])}
+        losses = [o[f"{case}/loss"].tolist() for o in outs]
+        r["loss_rel_gap"] = max(abs(a - b) / abs(b) for ls in losses
+                                for a, b in zip(ls, ref["losses"]))
+        r["aux_rel_gap"] = max(float(np.max(np.abs(
+            o[f"{case}/aux"] - np.asarray(ref["aux"]))
+            / np.abs(np.asarray(ref["aux"])))) for o in outs)
+        # each rank counts its rows' dropped choices: summed over the
+        # ranks of one expert index, the global batch's
+        first = [o for o in outs if int(o[f"{case}/ep_index"]) == 0]
+        r["dropped"] = sum(o[f"{case}/dropped"] for o in first).tolist()
+        r["dropped_equal"] = r["dropped"] == ref["dropped"]
+        worst, worst_abs, over = 0.0, 0.0, []
+        for o in outs:
+            for k, v in o.items():
+                if k.startswith(f"{case}/param_gap/"):
+                    name = k.split("/param_gap/")[1]
+                    worst, worst_abs = max(worst, float(v[0])), \
+                        max(worst_abs, float(v[1]))
+                    if v[0] > P18_MOE_PARAM_TOL and v[1] > P18_MOE_ATOL:
+                        over.append(name)
+        r.update(param_rel_gap_max=worst, param_abs_gap_max=worst_abs,
+                 params_over_bound=sorted(set(over)))
+        held = {k.split("/held_shape/")[1]: [int(d) for d in v]
+                for k, v in outs[0].items()
+                if k.startswith(f"{case}/held_shape/")}
+        r["experts_held"] = held["moes.0.w_in"][0]
+        r["held_bytes_per_rank"] = [int(o[f"{case}/held_bytes"])
+                                    for o in outs]
+        r["backend_calls_per_step"] = [o[f"{case}/backend_calls"].tolist()
+                                       for o in outs]
+        r["step_ms_per_rank"] = [o[f"{case}/step_ms"].tolist()
+                                 for o in outs]
+        if f"{case}/peak_gb" in outs[0]:
+            r["peak_gb_per_rank"] = [float(o[f"{case}/peak_gb"])
+                                     for o in outs]
+        r["captures"] = [int(o[f"{case}/captures"]) for o in outs]
+        for o in outs:
+            for k, c in zip(o[f"{case}/launch_names"],
+                            o[f"{case}/launches"]):
+                counts[str(k)] = counts.get(str(k), 0) + int(c)
+        r["dropped_total"] = int(np.sum(r["dropped"]))
+        if r["loss_rel_gap"] > P18_MOE_LOSS_TOL \
+                or r["aux_rel_gap"] > P18_MOE_LOSS_TOL \
+                or not r["dropped_equal"] or over \
+                or r["experts_held"] != e // ep \
+                or (r["cf"] < 1 and r["dropped_total"] == 0):
+            bad.append(case)
+        res[case] = r
+    res["bad"] = bad
+    return res, counts
+
+
+def moe_ep(torch, card: str) -> tuple:
+    """(b): the reference on one card, then dist_worker's ``chip_moe`` job
+    on four Gloo ranks sharing the card, then (four cards) under NCCL, one
+    rank a card. Returns (report, counts of the Gloo ranks' steps)."""
+    from paddle_tpu_torch.testing import dist_worker as W
+    inputs = moe_inputs(torch)
+    refs, job_in = {}, dict(inputs)
+    for cf in sorted({MOE_SWITCH["cf"]} | {s["cf"] for s in
+                                           W.CHIP_MOE_CASES.values()
+                                           if "cf" in s}):
+        refs[cf], params = moe_reference(torch, inputs, cf)
+        log(f"moe reference cf {cf} [{card}]: {json.dumps(refs[cf])}")
+        job_in.update({f"ref{cf}/{k}": v for k, v in params.items()})
+        del params
+    job_in = {k: np.asarray(v) for k, v in job_in.items()}
+    res = {"config": dict(MOE_SWITCH, batch=MOE_CHIP_BATCH,
+                          t=MOE_CHIP_T, steps=MOE_CHIP_STEPS,
+                          lr=MOE_CHIP_LR),
+           "source": "Fedus et al. 2021, Switch-Base expert width",
+           "reference": {str(cf): r for cf, r in refs.items()}}
+    runs = [("gloo", "gloo")]
+    n = torch.cuda.device_count()
+    if n >= DIST_WORLD:
+        runs.append(("nccl", "nccl"))
+    else:
+        res["nccl"] = {"ran": False, "why": (
+            f"{n} CUDA device(s); the NCCL run needs {DIST_WORLD} (one "
+            f"rank a card: run `python3 chip_smoke.py --zoo` on four "
+            f"cards)")}
+        log(f"phase 18 (b) NCCL not run: {res['nccl']['why']}")
+    counts = None
+    for tag, backend in runs:
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        outs = W.run_job("chip_moe", P18_DIR, DIST_WORLD, job_in,
+                         timeout_s=DIST_JOB_TIMEOUT_S,
+                         env={"PT_WORKER_DEVICE": P18_DEVICE,
+                              "PT_DIST_BACKEND": backend})
+        job_s = time.perf_counter() - t0
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+        r, c = check_moe_ranks(torch, outs, refs, backend)
+        r["job_s"] = job_s
+        res[tag] = r
+        counts = c if counts is None else counts
+        log(f"moe ep {tag} [{card}]: {json.dumps(r)}")
+        if r["bad"]:
+            raise AssertionError(f"moe ep {tag}: {r['bad']}")
+    return res, counts
+
+
+class RatingsNet:
+    """A Movielens row (user id, gender, age, job, movie id, category)
+    into RecommenderSystem's two towers (built in ``make``)."""
+
+    @staticmethod
+    def make(torch, device: str):
+        from paddle_tpu_torch.models import RecommenderSystem
+        from paddle_tpu_torch.nn import Layer
+
+        class Ratings(Layer):
+            def __init__(self) -> None:
+                super().__init__()
+                self.rec = RecommenderSystem(device=device, seed=SEED + 185)
+
+            def forward(self, row):
+                return self.rec(row[:, :4], row[:, 4:])
+
+        return Ratings()
+
+
+def rec_loss(pred, rating):
+    return ((pred - rating) ** 2).mean()
+
+
+def rec_fit(torch, card: str) -> tuple:
+    """(c): RecommenderSystem at MovieLens-1M's widths through Model.fit
+    on the synthetic Movielens, captured, Adam under fused_adam."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.data import DataLoader
+    from paddle_tpu_torch.datasets import Movielens
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import Adam
+    restore = flag_scope({"fused_adam": True})
+    try:
+        ds = Movielens(mode="synthetic")
+        net = RatingsNet.make(torch, P18_DEVICE)
+        model = Model(net, loss=rec_loss, optimizer=Adam(REC_LR))
+        rec = hapi_recorder(torch)
+        kernels.reset_launch_counts()
+        model.fit(DataLoader(ds, batch_size=REC_BATCH), epochs=1,
+                  callbacks=[rec], verbose=0)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        losses = [float(v) for v in rec.losses]
+        captures = model._train_step.captures
+        del model, net
+    finally:
+        restore()
+    res = {"rows": len(ds), "batch": REC_BATCH, "losses": losses,
+           "captures": captures, "launches": nonzero(counts)}
+    steps = len(ds) // REC_BATCH
+    if len(losses) != steps or not all(np.isfinite(losses)) \
+            or captures != 1 or counts.get("adam_leaf", 0) != steps:
+        raise AssertionError(f"rec fit: {res}")
+    return res, counts
+
+
+def rec_card_against_cpu(torch) -> dict:
+    """(c): both recommenders, one forward and backward on the card and on
+    the CPU from the same weights (DeepFM's ReLU decisions shared:
+    ``ReluSigns`` in place of its deep tower's ReLU module)."""
+    from paddle_tpu_torch.datasets import Movielens
+    from paddle_tpu_torch.models import DeepFM
+    out = {}
+    ds = Movielens(mode="synthetic")
+    rows = torch.from_numpy(np.stack([ds[i][0] for i in range(len(ds))]))
+    ratings = torch.from_numpy(np.stack([ds[i][1] for i in range(len(ds))]))
+    card = RatingsNet.make(torch, P18_DEVICE)
+    cpu = cpu_twin(torch, card, lambda d: RatingsNet.make(torch, d))
+
+    def rec_run(m, dev):
+        return rec_loss(m(rows.to(dev)), ratings.to(dev))
+
+    lc, gc = p16_grads(torch, card, lambda m: rec_run(m, P18_DEVICE))
+    lh, gh = p16_grads(torch, cpu, lambda m: rec_run(m, "cpu"))
+    gaps = grad_gaps(torch, gc, gh)
+    out["recommender"] = {"loss_rel_gap": abs(lc - lh) / abs(lh),
+                          "grad_rel_gap_max": max(gaps.values()),
+                          "rows": len(ds)}
+    del card, cpu
+    fields = [DEEPFM_IDS] * DEEPFM_FIELDS
+    rng = np.random.default_rng(SEED + 186)
+    x = torch.from_numpy(rng.integers(0, DEEPFM_IDS,
+                                      (DEEPFM_BATCH, DEEPFM_FIELDS)))
+    y = torch.from_numpy(rng.integers(0, 2, DEEPFM_BATCH))
+
+    def make(dev):
+        return DeepFM(fields, embed_dim=DEEPFM_EMBED, hidden=DEEPFM_HIDDEN,
+                      device=dev, seed=SEED + 187)
+
+    card = make(P18_DEVICE)
+    cpu = cpu_twin(torch, card, make)
+    signs = ReluSigns(torch)
+    old = signs.install_children(card, signs.record)
+    try:
+        lc, gc = p16_grads(torch, card, lambda m: m.loss(
+            x.to(P18_DEVICE), y.to(P18_DEVICE)))
+    finally:
+        ReluSigns.restore(old)
+    old = signs.install_children(cpu, signs.replay)
+    try:
+        lh, gh = p16_grads(torch, cpu, lambda m: m.loss(x, y))
+    finally:
+        ReluSigns.restore(old)
+    gaps = grad_gaps(torch, gc, gh)
+    out["deepfm"] = {"loss_rel_gap": abs(lc - lh) / abs(lh),
+                     "grad_rel_gap_max": max(gaps.values()),
+                     "grad_rel_gap_worst_leaf": max(gaps, key=gaps.get),
+                     "relu_flips": signs.flipped, "relu_units": signs.units,
+                     "fields": DEEPFM_FIELDS, "ids": DEEPFM_IDS,
+                     "batch": DEEPFM_BATCH,
+                     "parameters": sum(p.numel() for p in card.parameters())}
+    out["bounds"] = {"loss": P18_LOSS_TOL, "grad": P18_GRAD_TOL}
+    log(f"recommenders card against cpu: {json.dumps(out)}")
+    for name in ("recommender", "deepfm"):
+        if out[name]["loss_rel_gap"] > P18_LOSS_TOL \
+                or out[name]["grad_rel_gap_max"] > P18_GRAD_TOL:
+            raise AssertionError(f"{name} card against cpu: {out[name]}")
+    return out
+
+
+def ptb_tar(path: str, seed: int) -> None:
+    """A PTB-format ``simple-examples.tgz``: seeded ASCII words."""
+    import io
+    import tarfile
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(300)]
+
+    def text(lines: int) -> str:
+        return "".join(" ".join(words[j] for j in rng.zipf(1.3, 12) % 300)
+                       + "\n" for _ in range(lines))
+
+    with tarfile.open(path, "w:gz") as tar:
+        for name, body in (("./simple-examples/data/ptb.train.txt",
+                            text(2000)),
+                           ("./simple-examples/data/ptb.valid.txt",
+                            text(100))):
+            data = body.encode()
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+
+
+def data_path(torch, card: str) -> dict:
+    """(d): the Tokenizer round trip, Imikolov through both tokenizer
+    paths, a reader chain feeding a training loop on the card, and every
+    distribution card against CPU."""
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch import reader
+    from paddle_tpu_torch.datasets import Imikolov
+    from paddle_tpu_torch.models import NGramLM
+    from paddle_tpu_torch.native import Tokenizer
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.static import TrainStep
+    res = {}
+    shutil.rmtree(P18_DIR, ignore_errors=True)
+    os.makedirs(P18_DIR)
+    try:
+        corpus = os.path.join(P18_DIR, "corpus.txt")
+        rng = np.random.default_rng(SEED + 188)
+        with open(corpus, "w") as f:
+            for _ in range(5000):
+                f.write(" ".join(f"t{j}" for j in rng.zipf(1.5, 10) % 2000)
+                        + "\n")
+        t0 = time.perf_counter()
+        with Tokenizer.build([corpus], min_freq=2) as tok:
+            build_s = time.perf_counter() - t0
+            ids = tok.encode_file(corpus, unk_id=0)
+            vocab = tok.freqs()
+            tok.save(os.path.join(P18_DIR, "v.vocab"))
+            size = len(tok)
+        with Tokenizer.load(os.path.join(P18_DIR, "v.vocab")) as back:
+            same = len(back) == size and bool(np.array_equal(
+                back.encode_file(corpus, unk_id=0), ids))
+        res["tokenizer"] = {"vocab": size, "tokens": int(len(ids)),
+                            "top_freq": int(vocab[0]), "build_s": build_s,
+                            "round_trip_equal": same}
+        ptb_tar(os.path.join(P18_DIR, "simple-examples.tgz"), SEED + 189)
+        kw = dict(mode="train", window_size=5, min_word_freq=2,
+                  data_home=P18_DIR)
+        py = Imikolov(**kw)
+        nat = Imikolov(**kw, use_native_tokenizer=True)
+        imik_equal = py.word_idx == nat.word_idx and bool(
+            np.array_equal(py.ctx, nat.ctx)) and bool(
+            np.array_equal(py.nxt, nat.nxt))
+        res["imikolov"] = {"vocab": len(py.word_idx), "ngrams": len(py),
+                           "native_equals_python": imik_equal}
+        # a reader chain (threaded map, prefetch buffer, batches) feeding
+        # an N-gram LM's steps on the card
+        lm = NGramLM(len(py.word_idx), embed_dim=32, context=4,
+                     hidden=128, device=P18_DEVICE, seed=SEED + 190)
+        step = TrainStep(lm, SGD(0.5), lambda o, t: _xent(o, t),
+                         compiled=False)
+        chain = reader.batch(reader.buffered(reader.xmap_readers(
+            lambda i: (py.ctx[i], py.nxt[i]),
+            lambda: iter(range(min(len(py), 64 * 40))), 4, 64), 256), 64)
+        losses = []
+        for b in chain():
+            ctx = torch.from_numpy(np.stack([c for c, _ in b])).to(
+                P18_DEVICE)
+            nxt = torch.from_numpy(np.asarray([t for _, t in b])).to(
+                P18_DEVICE)
+            losses.append(float(step(ctx, labels=(nxt,))["loss"]))
+        res["reader_loop"] = {"batches": len(losses), "first": losses[0],
+                              "last": losses[-1]}
+    finally:
+        shutil.rmtree(P18_DIR, ignore_errors=True)
+    # the distributions on the card against the CPU
+    rng = np.random.default_rng(SEED + 191)
+    loc = rng.standard_normal((64, 8)).astype(np.float32)
+    scale = (rng.random((64, 8)) + 0.5).astype(np.float32)
+    logits = rng.standard_normal((64, 10)).astype(np.float32)
+    value = (rng.standard_normal((64, 8)) * 2).astype(np.float32)
+    cls = rng.integers(0, 10, 64)
+
+    def family(dev):
+        return {"uniform": D.Uniform(loc - 1, loc + scale, device=dev),
+                "normal": D.Normal(loc, scale, device=dev),
+                "categorical": D.Categorical(logits, device=dev),
+                "mvn": D.MultivariateNormalDiag(loc, scale, device=dev),
+                "normal2": D.Normal(loc * 0.5, scale * 2, device=dev)}
+
+    gaps = {}
+    cards, cpus = family(P18_DEVICE), family("cpu")
+    for name in ("uniform", "normal", "categorical", "mvn"):
+        v = cls if name == "categorical" else value
+        for what in ("log_prob", "entropy"):
+            a = getattr(cards[name], what)(*([v] if what == "log_prob"
+                                             else []))
+            b = getattr(cpus[name], what)(*([v] if what == "log_prob"
+                                            else []))
+            fin = torch.isfinite(b)
+            same_inf = bool(torch.equal(torch.isfinite(a).cpu(), fin))
+            gaps[f"{name}.{what}"] = rel_gap(torch, a.cpu()[fin], b[fin]) \
+                if same_inf else float("inf")
+    gaps["kl(normal, normal2)"] = rel_gap(
+        torch, D.kl_divergence(cards["normal"], cards["normal2"]),
+        D.kl_divergence(cpus["normal"], cpus["normal2"]))
+    draws = cards["normal"].sample((1000,), key=SEED)
+    res["distributions"] = {"rel_gaps": gaps, "bound": DIST_TOL,
+                            "sample_device": str(draws.device),
+                            "sample_shape": list(draws.shape)}
+    log(f"data path [{card}]: {json.dumps(res)}")
+    if not res["tokenizer"]["round_trip_equal"] \
+            or not res["imikolov"]["native_equals_python"] \
+            or not all(np.isfinite(losses)) or losses[-1] >= losses[0] \
+            or max(gaps.values()) > DIST_TOL \
+            or draws.device.type != torch.device(P18_DEVICE).type:
+        raise AssertionError(f"data path: {res}")
+    return res
+
+
+def _xent(out, target):
+    from paddle_tpu_torch.ops.loss import cross_entropy
+    return cross_entropy(out, target)
+
+
+def run_phase18(torch) -> tuple:
+    """Phase 18. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts, failed = {}, {}, []
+    report["txl_fit"], counts["txl"] = txl_fit(torch, card)
+    # each later check runs whatever an earlier one found; the phase
+    # raises at its end, naming every check that failed
+    for name, check in (("moe_ep", moe_ep), ("rec_fit", rec_fit)):
+        torch.cuda.empty_cache()
+        try:
+            report[name], counts[name] = check(torch, card)
+        except AssertionError as e:
+            log(f"phase 18 {name} FAILED: {e}")
+            failed.append(name)
+    for name, check in (("recommenders_card_against_cpu",
+                         lambda torch, card: rec_card_against_cpu(torch)),
+                        ("data_path", data_path)):
+        torch.cuda.empty_cache()
+        try:
+            report[name] = check(torch, card)
+        except AssertionError as e:
+            log(f"phase 18 {name} FAILED: {e}")
+            failed.append(name)
+    report["phase18_s"] = time.perf_counter() - t_phase
+    log(f"phase 18: {report['phase18_s']:.1f} s [{card}]")
+    if failed:
+        raise AssertionError(f"phase 18: {failed} failed (see the log)")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path, or, where ``path`` lists several, the sum of
@@ -11134,7 +11833,9 @@ def kernel_line(results: dict, counts: dict) -> dict:
     adam_src = "paddle_tpu_torch/csrc/fused_adam.cu"
     adam_ref = "paddle_tpu/kernels/fused_adam.py"
     meta = {
-        "layer_norm": ("serving", "paddle_tpu_torch/csrc/layer_norm.cu",
+        # phase 18 (a)'s Transformer-XL steps launch it too: they add
+        "layer_norm": (("serving", "txl"),
+                       "paddle_tpu_torch/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:29"),
         "paged_attention": ("serving",
                             "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -11159,9 +11860,11 @@ def kernel_line(results: dict, counts: dict) -> dict:
                               f"{xent_ref}:92"),
         "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
                               f"{xent_ref}:110"),
-        # phase 16 (b)'s CRNN steps and phase 17 (a)'s MobileNetV2 steps
-        # launch it too: their launches add
-        "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit", "mv2_fit"),
+        # phase 16 (b)'s CRNN steps, phase 17 (a)'s MobileNetV2 steps and
+        # phase 18's Transformer-XL, expert-parallel MoE and recommender
+        # steps launch it too: their launches add
+        "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit", "mv2_fit",
+                       "txl", "moe_ep", "rec_fit"),
                       adam_src, f"{adam_ref}:54"),
         "adam_flat": ("train_seq128_pallas_adam", adam_src,
                       f"{adam_ref}:34"),
@@ -11213,6 +11916,10 @@ def main(argv=None) -> int:
                          "stack)")
     ap.add_argument("--vision", action="store_true",
                     help="run phase 17 only (the vision slice)")
+    ap.add_argument("--zoo", action="store_true",
+                    help="run phase 18 only (MoE with expert parallelism, "
+                         "Transformer-XL, the recommenders and the data "
+                         "modules)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -11260,6 +11967,8 @@ def main(argv=None) -> int:
         return main_recurrent(torch, card, t_start)
     if args.vision:
         return main_vision(torch, card, t_start)
+    if args.zoo:
+        return main_zoo(torch, card, t_start)
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
@@ -11308,11 +12017,13 @@ def main(argv=None) -> int:
     phase16, p16_counts = run_phase16(torch)
     torch.cuda.empty_cache()
     phase17, p17_counts = run_phase17(torch)
+    torch.cuda.empty_cache()
+    phase18, p18_counts = run_phase18(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
                   **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
                   **p14_counts, **p15_counts, **p16_counts, **p17_counts,
-                  flash_with_lse=lse_counts)
+                  **p18_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -11321,7 +12032,7 @@ def main(argv=None) -> int:
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
                   **predictor, **hapi, **mt, **rn, **dist, **phase14,
-                  **phase15, **phase16, **phase17)
+                  **phase15, **phase16, **phase17, **phase18)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
@@ -11432,6 +12143,36 @@ def main_vision(torch, card: str, t_start: float) -> int:
         "mv2_images_per_s": a["images_per_s"],
         "mv2_peak_gb": a["peak_allocated_gb"],
         "phase17_s": phase17["phase17_s"], "total_s": REPORT["total_s"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_zoo(torch, card: str, t_start: float) -> int:
+    """Phase 18 alone; the report goes to chiprun_out/chip_smoke_zoo.json
+    and a summary line before the contract line."""
+    phase18, counts = run_phase18(torch)
+    for path, names in PATH_KERNELS.items():
+        if path in counts:
+            for name in names:
+                if counts[path][name] <= 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         f"on the {path} path")
+    REPORT.update(card=card, launches=counts,
+                  total_s=time.perf_counter() - t_start, **phase18)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_zoo.json"), "w") as f:
+        json.dump(REPORT, f, indent=1)
+    a = phase18["txl_fit"]
+    print(card)
+    print(json.dumps({"phases": [18], "launches": {
+        k: nonzero(v) for k, v in counts.items()},
+        "moe_nccl": phase18["moe_ep"].get("nccl", {}).get("ran", True),
+        "txl_step_ms": a["step_ms_median_3_to_6"],
+        "txl_tokens_per_s": a["tokens_per_s"],
+        "txl_peak_gb": a["peak_allocated_gb"],
+        "phase18_s": phase18["phase18_s"], "total_s": REPORT["total_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

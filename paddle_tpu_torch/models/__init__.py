@@ -16,7 +16,10 @@ from .resnet import (BasicBlock, BottleneckBlock, ResNet, resnet18,
                      resnet34, resnet50, resnet101, resnet152,
                      resnext50_32x4d)
 from .ssd import SSDLite
+from .recommender import DeepFM, RecommenderSystem
 from .transformer_seq2seq import Seq2SeqConfig, TransformerSeq2Seq
+from .transformer_xl import (TransformerXL, TransformerXLConfig,
+                             TransformerXLTrainStep)
 from .vgg import VGG, vgg11, vgg13, vgg16, vgg19
 from .word2vec import NGramLM, SkipGramNCE
 
@@ -31,4 +34,6 @@ __all__ = ["GPTConfig", "GPTBlock", "GPTLanguageModel",
            "SRLBiLSTMCRF", "NGramLM", "SkipGramNCE", "LeNet", "MobileNetV1",
            "MobileNetV2", "mobilenet_v1", "mobilenet_v2", "VGG", "vgg11",
            "vgg13", "vgg16", "vgg19", "SSDLite", "Generator",
-           "Discriminator", "GANTrainStep"]
+           "Discriminator", "GANTrainStep", "TransformerXLConfig",
+           "TransformerXL", "TransformerXLTrainStep", "RecommenderSystem",
+           "DeepFM"]

@@ -15,7 +15,10 @@ job, and :class:`ControlPlaneClient`, which the ranks reach it with
 (``InMemoryDataset.global_shuffle`` exchanges records through it), and
 the parameter server (``csrc/ps_service.cc``): :class:`PsServer`, a shard
 of dense and sparse tables with server-side optimizers and worker
-heartbeats, and :class:`PsClient` (``distributed.ps`` drives them).
+heartbeats, and :class:`PsClient` (``distributed.ps`` drives them), and
+:class:`Tokenizer` (``csrc/tokenizer.cc``: threaded frequency counting
+over corpus files, whitespace encoding to ids; ``datasets.Imikolov``
+builds its vocabulary through it).
 
 The library compiles from the repository's ``csrc/*.cc`` with ``g++``
 (the JAX package's command) at first use into
@@ -44,7 +47,8 @@ import numpy as np
 
 __all__ = ["build", "loaded", "ServingTransport", "stat_add",
            "stat_get", "stat_reset", "stat_dump", "SlotSpec",
-           "NativeDataFeed", "ControlPlaneServer", "ControlPlaneClient"]
+           "NativeDataFeed", "ControlPlaneServer", "ControlPlaneClient",
+           "Tokenizer"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG.parent / "csrc"
@@ -188,6 +192,25 @@ _SIGS = {
     "pt_ps_load": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int),
     "pt_ps_heartbeat": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
     "pt_ps_liveness": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
+    # the tokenizer's handles are int64: ctypes' default int restype
+    # would truncate them
+    "pt_tok_build": ([ctypes.c_char_p, ctypes.c_int64, ctypes.c_int],
+                     ctypes.c_int64),
+    "pt_tok_destroy": ([ctypes.c_int64], None),
+    "pt_tok_vocab_size": ([ctypes.c_int64], ctypes.c_int64),
+    "pt_tok_lookup": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int64),
+    "pt_tok_word": ([ctypes.c_int64, ctypes.c_int64, ctypes.c_char_p,
+                     ctypes.c_int64], ctypes.c_int64),
+    "pt_tok_freqs": ([ctypes.c_int64, ctypes.POINTER(ctypes.c_int64),
+                      ctypes.c_int64], ctypes.c_int64),
+    "pt_tok_encode": ([ctypes.c_int64, ctypes.c_char_p,
+                       ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                       ctypes.c_int64], ctypes.c_int64),
+    "pt_tok_encode_file": ([ctypes.c_int64, ctypes.c_char_p,
+                            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                            ctypes.c_int64], ctypes.c_int64),
+    "pt_tok_save": ([ctypes.c_int64, ctypes.c_char_p], ctypes.c_int),
+    "pt_tok_load": ([ctypes.c_char_p], ctypes.c_int64),
 }
 
 
@@ -730,3 +753,102 @@ class PsClient:
     def load(self, path: str) -> None:
         if _load().pt_ps_load(self._h, path.encode()) != 0:
             raise RuntimeError(f"ps load({path!r}) failed")
+
+
+# -------------------------------------------------------------- tokenizer
+
+class Tokenizer:
+    """Native corpus tokenizer/vocab (``csrc/tokenizer.cc``): threaded
+    frequency counting over files, whitespace encoding to ids, off the
+    GIL. The JAX package's class, over this package's copy of the
+    library."""
+
+    def __init__(self, handle: int):
+        if handle < 0:
+            raise RuntimeError("tokenizer build/load failed")
+        self._h = handle
+
+    @classmethod
+    def build(cls, files: Sequence[str], min_freq: int = 1,
+              num_threads: int = 4) -> "Tokenizer":
+        return cls(_load().pt_tok_build(";".join(files).encode(), min_freq,
+                                        num_threads))
+
+    @classmethod
+    def load(cls, path: str) -> "Tokenizer":
+        return cls(_load().pt_tok_load(path.encode()))
+
+    def save(self, path: str) -> None:
+        if _load().pt_tok_save(self._h, path.encode()) != 0:
+            raise RuntimeError(f"tokenizer save to {path} failed")
+
+    def __len__(self) -> int:
+        v = _load().pt_tok_vocab_size(self._h)
+        if v < 0:
+            raise RuntimeError("tokenizer closed")
+        return int(v)
+
+    def lookup(self, word: str) -> Optional[int]:
+        v = _load().pt_tok_lookup(self._h, word.encode())
+        if v == -2:
+            raise RuntimeError("tokenizer closed")
+        return None if v == -1 else int(v)
+
+    def word(self, idx: int) -> str:
+        cap = 4096
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            n = _load().pt_tok_word(self._h, idx, buf, cap)
+            if n == -2:  # the buffer is too small, NOT a bad index
+                cap *= 8
+                continue
+            if n == -3:
+                raise RuntimeError("tokenizer closed")
+            if n < 0:
+                raise IndexError(idx)
+            return buf.value.decode()
+
+    def freqs(self) -> np.ndarray:
+        """Per-id corpus counts from ``build`` (empty for a loaded
+        vocabulary)."""
+        n = len(self)
+        out = np.zeros(n, np.int64)
+        v = _load().pt_tok_freqs(
+            self._h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n)
+        if v == -3:
+            raise RuntimeError("tokenizer closed")
+        return out[:max(0, int(v))]
+
+    def _encode_with(self, fn, arg: bytes, unk_id: int) -> np.ndarray:
+        # the library returns the count it needs when the buffer is short:
+        # grow to it and encode again
+        cap = 1 << 16
+        while True:
+            out = np.empty(cap, np.int64)
+            n = fn(self._h, arg,
+                   out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), cap,
+                   unk_id)
+            if n < 0:
+                raise RuntimeError("tokenizer encode failed")
+            if n <= cap:
+                return out[:n].copy()
+            cap = int(n)
+
+    def encode(self, text: str, unk_id: int = -1) -> np.ndarray:
+        return self._encode_with(_load().pt_tok_encode, text.encode(),
+                                 unk_id)
+
+    def encode_file(self, path: str, unk_id: int = -1) -> np.ndarray:
+        return self._encode_with(_load().pt_tok_encode_file, path.encode(),
+                                 unk_id)
+
+    def close(self) -> None:
+        if self._h > 0:
+            _load().pt_tok_destroy(self._h)
+            self._h = -1
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

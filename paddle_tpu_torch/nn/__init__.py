@@ -17,6 +17,7 @@ from .layers import (CELU, ELU, GELU, GLU, SELU, AlphaDropout, Bilinear,
                      Mish, Pad2D, PReLU, ReLU, ReLU6, Sequential, Sigmoid,
                      Silu, Softmax, Softplus, Softshrink, Softsign, Swish,
                      Tanh, Tanhshrink, ThresholdedReLU, Upsample)
+from .moe import MoELayer, moe_param_rule
 from .loss import (BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss,
                    CrossEntropyLoss, CTCLoss, KLDivLoss, L1Loss,
                    MarginRankingLoss, MSELoss, NLLLoss, SmoothL1Loss,
@@ -50,7 +51,7 @@ __all__ = ["functional", "initializer", "layer", "decode", "rnn", "Layer",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "InstanceNorm1D", "InstanceNorm2D",
            "InstanceNorm3D", "GroupNorm", "SpectralNorm",
-           "LocalResponseNorm",
+           "LocalResponseNorm", "MoELayer", "moe_param_rule",
            "FusedLinearCrossEntropy", "CrossEntropyLoss", "MSELoss",
            "L1Loss", "NLLLoss", "BCELoss", "BCEWithLogitsLoss", "KLDivLoss",
            "SmoothL1Loss", "MarginRankingLoss", "CosineEmbeddingLoss",

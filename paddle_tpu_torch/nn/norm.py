@@ -60,6 +60,7 @@ from .layer import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm", "frozen_statistics", "global_batch",
+           "global_batch_group",
            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "GroupNorm",
            "SpectralNorm", "LocalResponseNorm"]
 
@@ -90,6 +91,13 @@ def global_batch(group) -> Iterator[None]:
         yield
     finally:
         _global.group = prev
+
+
+def global_batch_group():
+    """The process group ``global_batch`` set on this thread (None
+    outside it): the ranks the batch's rows are split over. ``MoELayer``
+    counts its capacity and slots over it."""
+    return _global.group
 
 
 @contextlib.contextmanager

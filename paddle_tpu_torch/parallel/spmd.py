@@ -81,6 +81,18 @@ the global meaning is restored explicitly:
     these collectives inside its graph, and the graph's private pool
     holds the transient copies.
 
+  - **Expert parallelism** (:func:`~paddle_tpu_torch.nn.moe_param_rule`:
+    a ``MoELayer``'s ``w_in``/``b_in``/``w_out``/``b_out`` split along
+    their expert dim over one axis, ``ep``). A rank holds and multiplies
+    its ``E / ep`` experts; the tokens stay replicated over ``ep``; the
+    layer all-reduces its partial combine over ``ep`` and, backward, the
+    cotangents of its input and of its gate weight (``nn/moe.py``'s
+    note). Its capacity, slots and ``aux_loss`` count the global batch
+    through ``nn.norm.global_batch``, as BatchNorm does. A ``batch_spec``
+    that splits the tokens over the expert axis, ZeRO >= 1 beside it, or
+    an expert weight split alone or along another dim raises with the
+    parameter's name.
+
   The optimizer updates the held blocks in place; no whole parameter is
   formed for the forward. A ``grad_clip`` still sees the whole gradients
   (gathered for the clip alone, as in the JAX program). The skip verdict
@@ -375,6 +387,7 @@ def _copy_inputs_hook(pg):
 
 
 _COLUMN_PAIRS = {"linear1": "linear2", "fc1": "fc2"}
+_EXPERT_LEAVES = ("w_in", "b_in", "w_out", "b_out")
 _ATTN_COLUMNS = ("q_proj", "k_proj", "v_proj")
 
 
@@ -386,6 +399,7 @@ def _plan_tensor_parallel(model: nn.Module, specs: Dict[str, P],
     split parameter belongs to a Megatron pair the model has (ValueError
     naming the parameter otherwise)."""
     from ..nn.layers import Linear
+    from ..nn.moe import MoELayer
     from ..nn.transformer import MultiHeadAttention
     mods = dict(model.named_modules())
     split = {n: _sharded_dims(s, mesh) for n, s in specs.items()}
@@ -398,12 +412,23 @@ def _plan_tensor_parallel(model: nn.Module, specs: Dict[str, P],
             f"ShardedTrainStep: the param_rule splits '{name}' "
             f"({specs[name]}), but {why}; the port partitions the "
             f"Megatron pairs (q/k/v_proj + out_proj of a "
-            f"MultiHeadAttention, linear1 + linear2, fc1 + fc2) and no "
-            f"other parameter")
+            f"MultiHeadAttention, linear1 + linear2, fc1 + fc2) and a "
+            f"MoELayer's experts (w_in, b_in, w_out, b_out over their "
+            f"expert dim), no other parameter")
 
+    experts: Dict[str, str] = {}  # MoELayer -> its expert axis
     for name, dims in split.items():
         mname, _, pname = name.rpartition(".")
         mod = mods.get(mname)
+        if isinstance(mod, MoELayer) and pname in _EXPERT_LEAVES:
+            if dims[0][0] != 0 or len(dims) != 1 \
+                    or not isinstance(dims[0][1], str):
+                raise bad(name, "an expert weight is split over one axis "
+                                "along its expert dim alone")
+            if experts.setdefault(mname, dims[0][1]) != dims[0][1]:
+                raise bad(name, "its MoELayer's expert weights are split "
+                                "over different axes")
+            continue
         if pname == "bias" and isinstance(mod, Linear):
             continue  # checked with its weight below
         if not isinstance(mod, Linear) or pname != "weight":
@@ -414,12 +439,27 @@ def _plan_tensor_parallel(model: nn.Module, specs: Dict[str, P],
         roles[mname] = ("column" if d == 1 else "row", axis)
     for name, dims in split.items():
         mname, _, pname = name.rpartition(".")
+        if mname in experts:
+            continue
         if pname == "bias" and (mname not in roles
                                 or roles[mname][0] != "column"
                                 or dims != [(0, roles[mname][1])]):
             raise bad(name, "only a column-parallel Linear's bias is "
                             "split, with its weight's columns")
     actions: list = []
+    for mname, axis in experts.items():
+        moe, k = mods[mname], mesh.axis_size(axis)
+        for leaf in _EXPERT_LEAVES:
+            wname = f"{mname}.{leaf}"
+            if wname not in split:
+                raise bad(f"{mname}.w_in", f"'{wname}' is not split with "
+                                           f"it: the experts' four weights "
+                                           f"split together")
+            held[wname] = [(0, axis)]
+        if moe.num_experts % k:
+            raise bad(f"{mname}.w_in", f"{moe.num_experts} experts do not "
+                                       f"split over {k} ranks")
+        actions.append(("experts", moe, axis))
     for mname, (role, axis) in roles.items():
         parent, _, leaf = mname.rpartition(".")
         prefix = parent + "." if parent else ""
@@ -467,7 +507,9 @@ def _apply_tensor_parallel(actions: list, mesh: Mesh) -> None:
     """Partitions the work (see :func:`_plan_tensor_parallel`)."""
     for kind, mod, axis in actions:
         k, pg = mesh.axis_size(axis), mesh.group(axis)
-        if kind == "attention":
+        if kind == "experts":
+            mod._pt_ep = (pg, mesh.axis_index(axis), k)
+        elif kind == "attention":
             mod.num_heads //= k
             mod.embed_dim //= k
             mod.register_forward_pre_hook(_copy_inputs_hook(pg),
@@ -482,6 +524,32 @@ def _apply_tensor_parallel(actions: list, mesh: Mesh) -> None:
             mod._pt_mp_group = pg
             mod.__class__ = _derived_class(
                 type(mod), "row", {"forward": _row_parallel_forward})
+
+
+def _check_experts(actions: list, held: Dict[str, Dims], batch_spec: P,
+                   mesh: Mesh, zero_stage: int) -> None:
+    """Expert parallelism runs with the tokens replicated over the expert
+    axis and without ZeRO; any other combination raises, naming an
+    expert parameter."""
+    axes = {a for kind, _, a in actions if kind == "experts"}
+    if not axes:
+        return
+    name = next(n for n, d in held.items() if d and d[0][1] in axes)
+    lead = tuple(batch_spec)[0] if len(batch_spec) else None
+    lead = () if lead is None else (lead,) if isinstance(lead, str) \
+        else tuple(lead)
+    if axes & set(lead):
+        raise ValueError(
+            f"ShardedTrainStep: the param_rule splits '{name}' over "
+            f"{sorted(axes)}, and the batch_spec {batch_spec} splits the "
+            f"tokens over it too; the port's expert parallelism keeps the "
+            f"tokens replicated over the expert axis")
+    if zero_stage >= 1:
+        raise ValueError(
+            f"ShardedTrainStep: the param_rule splits '{name}' over "
+            f"{sorted(axes)}; the port's expert parallelism does not "
+            f"combine with ZeRO (zero_stage={zero_stage}): use "
+            f"zero_stage=0")
 
 
 # -- ZeRO 3: parameters gathered on use ----------------------------------------
@@ -715,6 +783,8 @@ class ShardedTrainStep(TrainStep):
                  if p.requires_grad}
         rule_specs = make_param_specs(whole, param_rule)
         tp_held, tp_actions = _plan_tensor_parallel(model, rule_specs, mesh)
+        _check_experts(tp_actions, tp_held, self.batch_spec, mesh,
+                       self.zero_stage)
         held = {n: list(tp_held.get(n, [])) for n in whole}
         if self.zero_stage >= 3:
             for n, p in whole.items():
@@ -906,10 +976,6 @@ class ShardedTrainStep(TrainStep):
         for a in self._block_axes:
             f = _c._all_reduce_raw(f, "max", self.mesh.group(a))
         return f > 0
-
-    def _call_model(self, args, kwargs):
-        """The model's forward (a subclass may recompute it)."""
-        return self.model(*args, **kwargs)
 
     def _forward_grads(self, args, labels, kwargs):
         """``(loss, {name: gradient}, outputs)`` of this rank's rows: the

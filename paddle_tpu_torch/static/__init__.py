@@ -529,7 +529,7 @@ class TrainStep:
         before = [(b, b.clone()) for b in self.model.buffers()] \
             if scaler is not None or self._skip_guard else []
         with amp, _random.rng_scope(default=gen, dropout=gen):
-            out = self.model(*args, **kwargs)
+            out = self._call_model(args, kwargs)
             loss = self.loss_fn(out, *labels)
         if scaler is not None:
             loss = scaler.scale(loss, self.scaler_state)
@@ -585,6 +585,12 @@ class TrainStep:
         if scaler is not None:
             scaler.update(self.scaler_state, found_inf)
         return metrics
+
+    def _call_model(self, args, kwargs):
+        """The model's forward (a subclass may recompute it, or carry
+        state around it as ``TransformerXLTrainStep`` carries its
+        memories)."""
+        return self.model(*args, **kwargs)
 
     def _update(self, grads, ok, lr, gen) -> None:
         """The optimizer's in-place update of the parameters (a subclass

@@ -22,7 +22,12 @@ The jobs (``JOBS``): ``collective`` (every collective of
 :data:`BERT_CASES`, BatchNorm and
 SyncBatchNorm on a small ResNet, ``sync_batch_norm`` itself,
 ``DataParallel``, ``Model.prepare(mesh=).fit``, the straggler detector),
-``long_context`` (ring and Ulysses attention, forward and gradients),
+``moe`` (``ShardedTrainStep`` with ``moe_param_rule("ep")`` over
+:data:`MOE_CASES` at dp 1 x ep 4 and dp 2 x ep 2, and the refused
+combinations), ``chip_moe`` (``chip_smoke.py`` phase 18 (b): MoE at
+Switch-Base's expert width at dp 1 x ep 4 and dp 2 x ep 2, four Gloo
+ranks sharing a card or one NCCL rank a card), ``long_context`` (ring and Ulysses attention, forward and
+gradients),
 ``gshuffle`` (``InMemoryDataset.global_shuffle`` over the control plane),
 ``pipeline`` (``gpipe`` and ``GPipeTrainStep`` at pp 4), ``dgc_localsgd``
 (``LocalSGDStep``, ``DGCTrainStep``, ``dgc_allreduce`` at dp 4), ``fleet``
@@ -495,6 +500,263 @@ def job_train(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
     out.update(_data_parallel(inputs, rank, world, dev))
     out.update(_hapi(inputs, rank, world, dev))
     out.update(_straggler(inputs, rank, world, dev))
+    return out
+
+
+# -- expert parallelism ------------------------------------------------------
+
+# ``tests/test_moe.py``'s MoENet (d 16, hidden 32, 4 experts, top-2, inputs
+# [n, 6, 8], 4 classes) under ``moe_param_rule("ep")``: each case's mesh
+# and capacity factor (0.5 drops choices), 5 Adam steps on one global
+# batch of MOE_ROWS rows
+MOE_CASES: Dict[str, Dict[str, Any]] = {
+    "ep4": dict(axes={"dp": 1, "ep": 4}, cf=2.0),
+    "dp2_ep2": dict(axes={"dp": 2, "ep": 2}, cf=2.0),
+    "ep4_drop": dict(axes={"dp": 1, "ep": 4}, cf=0.5),
+    "dp2_ep2_drop": dict(axes={"dp": 2, "ep": 2}, cf=0.5),
+    # plain SGD: a gradient's scale moves the weights (Adam's update
+    # hardly sees a gradient counted twice)
+    "ep4_sgd": dict(axes={"dp": 1, "ep": 4}, cf=2.0, sgd=True),
+    "dp2_ep2_sgd": dict(axes={"dp": 2, "ep": 2}, cf=2.0, sgd=True),
+    # the net returns the layer's ``aux`` and the loss adds MOE_AUX_W
+    # times it: the load-balance term's gradient, under SGD
+    "ep4_aux": dict(axes={"dp": 1, "ep": 4}, cf=2.0, sgd=True, aux=True),
+    "dp2_ep2_aux": dict(axes={"dp": 2, "ep": 2}, cf=2.0, sgd=True,
+                        aux=True),
+}
+MOE_STEPS, MOE_LR, MOE_SGD_LR, MOE_ROWS = 5, 3e-3, 0.05, 16
+MOE_AUX_W = 1.0
+# the combinations the port's expert parallelism refuses: the tokens
+# split over the expert axis, and ZeRO beside it
+MOE_ERRORS = {"batch_over_ep": dict(batch_spec=(("dp", "ep"),)),
+              "zero1": dict(zero_stage=1)}
+
+
+def moe_net(device, d: int = 16, h: int = 32, e: int = 4,
+            classes: int = 4, cf: float = 2.0, blocks: int = 1,
+            in_dim: int = 8, seed: int = 0, aux: bool = False):
+    """``tests/test_moe.py``'s MoENet (``embed`` -> ``h + moe(h)`` ->
+    ``head`` of the mean over time); ``blocks`` > 1 stacks that many
+    residual MoE blocks (``moes``); with ``aux`` the forward returns
+    ``(logits, the sum of the blocks' aux)``."""
+    import torch
+
+    from .. import nn
+
+    class MoENet(nn.Layer):
+        def __init__(self) -> None:
+            super().__init__()
+            kw = dict(device=device, generator=torch.Generator(
+                device=device).manual_seed(seed))
+            self.embed = nn.Linear(in_dim, d, **kw)
+            make = [nn.MoELayer(d, h, num_experts=e, top_k=2,
+                                capacity_factor=cf, **kw)
+                    for _ in range(blocks)]
+            if blocks == 1:
+                self.moe = make[0]
+            else:
+                self.moes = nn.LayerList(make)
+            self.head = nn.Linear(d, classes, **kw)
+
+        def layers(self):
+            return [self.moe] if blocks == 1 else list(self.moes)
+
+        def forward(self, x):
+            h = self.embed(x)
+            for moe in self.layers():
+                h = h + moe(h)
+            out = self.head(h.mean(dim=1))
+            if aux:
+                return out, sum(m.aux for m in self.layers())
+            return out
+
+    return MoENet()
+
+
+def moe_loss(aux: bool):
+    """The MoE nets' loss: cross entropy, plus ``MOE_AUX_W`` times the
+    returned load-balance term with ``aux``."""
+    from ..ops import loss as L
+    if aux:
+        return lambda o, y: L.cross_entropy(o[0], y) + MOE_AUX_W * o[1]
+    return lambda o, y: L.cross_entropy(o, y)
+
+
+def moe_dropped(model, *args) -> list:
+    """The dropped choices of each MoE block of ``model`` (a ``moe_net``)
+    on the rows of ``args``, from one no-grad forward: each block's
+    ``route`` of its input (on a rank, its rows, inside the step's batch
+    group)."""
+    import torch
+    counts = []
+
+    def count(layer, inputs):
+        x = inputs[0]
+        keep = layer.route(x.reshape(-1, x.shape[-1])).keep
+        counts.append(int((~keep).sum()))
+
+    hooks = [m.register_forward_pre_hook(count) for m in model.layers()]
+    try:
+        with torch.no_grad():
+            model(*args)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return counts
+
+
+def moe_case(name: str, spec, inputs, dev, steps: int = MOE_STEPS,
+             lr: float = MOE_LR, prefix: Optional[str] = "moe/",
+             net_kw: Optional[Dict[str, Any]] = None,
+             ref: Optional[Dict[str, np.ndarray]] = None
+             ) -> Dict[str, np.ndarray]:
+    """One expert-parallel case: the first step's routing of this rank's
+    rows (which choices are kept), then ``steps`` steps (Adam, or SGD for
+    a ``sgd`` case; an ``aux`` case's loss adds the load-balance term,
+    ``moe_loss``), each step's loss, ``aux_loss`` (each block's), dropped
+    choices (this rank's rows, ``moe_dropped`` on the weights the step
+    reads), backend calls, kernel launches and
+    (on the card) stream ms; then the whole parameters, or with ``ref``
+    (the reference's parameters by name) each one's largest gap to it
+    over its largest entry and its largest absolute gap; what the model
+    holds and its bytes. The weights come from ``inputs`` under
+    ``prefix``, or (``prefix=None``) from ``moe_net``'s seeded draw."""
+    import torch
+
+    from .. import kernels
+    from ..nn import moe_param_rule
+    from ..nn import norm as _norm
+    from ..optimizer import SGD, Adam
+    from ..parallel import ShardedTrainStep, collective as _c, create_mesh
+    aux_on = bool(spec.get("aux"))
+    model = moe_net(dev, cf=spec["cf"], aux=aux_on, **(net_kw or {}))
+    if prefix is not None:
+        _load(model, inputs, prefix)
+    mesh = create_mesh(spec["axes"], allow_submesh=True)
+    opt = SGD(MOE_SGD_LR) if spec.get("sgd") else Adam(lr)
+    step = ShardedTrainStep(model, opt, moe_loss(aux_on), mesh,
+                            param_rule=moe_param_rule("ep"))
+    x = torch.tensor(inputs["moe_x"], device=dev)
+    y = torch.tensor(inputs["moe_y"], device=dev)
+    out = {f"{name}/dp_index": np.asarray(mesh.axis_index("dp")),
+           f"{name}/ep_index": np.asarray(mesh.axis_index("ep"))}
+    dp = mesh.axis_size("dp")
+    group = step._batch_group if dp > 1 else None
+    rows = step._local(x)
+    with torch.no_grad(), mesh, _norm.global_batch(group):
+        h = model.embed(rows)
+        r = model.layers()[0].route(h.reshape(-1, h.shape[-1]))
+    out[f"{name}/keep"] = _np(r.keep)
+    out[f"{name}/expert"] = _np(r.expert)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, aux, dropped, calls, ms = [], [], [], [], []
+    for _ in range(steps):
+        with mesh, _norm.global_batch(group):
+            dropped.append(moe_dropped(model, rows))
+        _c.reset_backend_calls()
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        loss = step(x, labels=(y,))["loss"]
+        if cuda:
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(loss))
+        calls.append(sum(_c.backend_calls().values()))
+        aux.append([float(m.aux_loss) for m in model.layers()])
+    counts = kernels.launch_counts()
+    out.update({f"{name}/loss": np.asarray(losses),
+                f"{name}/aux": np.asarray(aux),
+                f"{name}/dropped": np.asarray(dropped),
+                f"{name}/backend_calls": np.asarray(calls),
+                f"{name}/step_ms": np.asarray(ms),
+                f"{name}/captures": np.asarray(step.captures),
+                f"{name}/launch_names": np.asarray(sorted(counts)),
+                f"{name}/launches": np.asarray(
+                    [counts[k] for k in sorted(counts)])})
+    if cuda:
+        out[f"{name}/peak_gb"] = np.asarray(
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+    for n, p in step.whole_params().items():
+        if ref is None:
+            out[f"{name}/param/{n}"] = _np(p)
+            continue
+        want = torch.from_numpy(ref[n]).to(p.device)
+        gap = float((p - want).abs().max())
+        out[f"{name}/param_gap/{n}"] = np.asarray(
+            [gap / max(float(want.abs().max()), 1e-30), gap])
+    for n, p in model.named_parameters():
+        out[f"{name}/held_shape/{n}"] = np.asarray(p.shape)
+    out[f"{name}/held_bytes"] = np.asarray(sum(
+        p.numel() * p.element_size() for p in model.parameters()))
+    return out
+
+
+def _moe_errors(rank: int, world: int, dev) -> Dict[str, np.ndarray]:
+    """The message of each :data:`MOE_ERRORS` combination (raised before
+    any collective, on every rank)."""
+    from ..nn import moe_param_rule
+    from ..optimizer import Adam
+    from ..parallel import ShardedTrainStep, create_mesh
+    from ..parallel.mesh import P
+    out = {}
+    mesh = create_mesh({"dp": 2, "ep": world // 2})
+    for tag, kw in MOE_ERRORS.items():
+        kw = dict(kw)
+        if "batch_spec" in kw:
+            kw["batch_spec"] = P(*kw["batch_spec"])
+        try:
+            ShardedTrainStep(moe_net(dev), Adam(1e-2), lambda o, y: o, mesh,
+                             param_rule=moe_param_rule("ep"), **kw)
+            out[f"moe_error/{tag}"] = np.asarray("")
+        except ValueError as e:
+            out[f"moe_error/{tag}"] = np.asarray(str(e))
+    return out
+
+
+def job_moe(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    dev = _device()
+    out = _moe_errors(rank, world, dev)
+    for name, spec in MOE_CASES.items():
+        out.update(moe_case(name, spec, inputs, dev))
+    return out
+
+
+# ``chip_smoke.py`` phase 18 (b)'s meshes (the net's widths and the
+# steps come with the inputs); a ``cf`` replaces the net's capacity
+# factor (0.5 drops choices), its reference under ``ref<cf>/``
+CHIP_MOE_CASES = {"ep4": dict(axes={"dp": 1, "ep": 4}),
+                  "dp2_ep2": dict(axes={"dp": 2, "ep": 2}),
+                  "dp2_ep2_drop": dict(axes={"dp": 2, "ep": 2}, cf=0.5)}
+
+
+def job_chip_moe(inputs, rank: int, world: int) -> Dict[str, np.ndarray]:
+    """Each case of :data:`CHIP_MOE_CASES`: ``int(inputs["steps"])`` Adam
+    steps under ``fused_adam`` from ``moe_net``'s seeded weights (its
+    arguments ``net/<name>``), every whole parameter held against the
+    one-card reference's at the case's capacity factor
+    (``ref<cf>/<name>``)."""
+    from ..flags import set_flags
+    dev = _device()
+    set_flags({"fused_adam": True})
+    kw = {k[4:]: v.item() for k, v in inputs.items()
+          if k.startswith("net/")}
+    net_cf = kw.pop("cf")
+    out: Dict[str, np.ndarray] = {}
+    for name, spec in CHIP_MOE_CASES.items():
+        cf = spec.get("cf", net_cf)
+        tag = f"ref{cf}/"
+        ref = {k[len(tag):]: v for k, v in inputs.items()
+               if k.startswith(tag)}
+        out.update(moe_case(name, dict(spec, cf=cf), inputs, dev,
+                            steps=int(inputs["steps"]),
+                            lr=float(inputs["lr"]), prefix=None,
+                            net_kw=kw, ref=ref))
     return out
 
 
@@ -1581,6 +1843,7 @@ def spawn_probe(out_dir: str) -> None:
 
 JOBS: Dict[str, Callable] = {"collective": job_collective,
                              "train": job_train, "chip": job_chip,
+                             "moe": job_moe, "chip_moe": job_chip_moe,
                              "long_context": job_long_context,
                              "gshuffle": job_gshuffle,
                              "pipeline": job_pipeline,

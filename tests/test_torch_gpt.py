@@ -194,7 +194,10 @@ def _fresh_import(proc, code: str) -> int:
                                    "models.resnet", "nn.norm",
                                    "optimizer.extras",
                                    "ops.nn_functional", "ops.detection",
-                                   "layers", "models.ssd"])
+                                   "layers", "models.ssd", "nn.moe",
+                                   "models.transformer_xl", "datasets",
+                                   "reader", "vision", "nets",
+                                   "distribution", "utils"])
 def test_port_imports_in_any_order(import_server, first):
     # kernels and nn import each other's modules; whichever package a
     # user imports first, the cycle must resolve
@@ -236,7 +239,16 @@ def test_port_imports_in_any_order(import_server, first):
             "Lookahead; "
             "from paddle_tpu_torch.models import SSDLite, mobilenet_v2; "
             "from paddle_tpu_torch.layers import detection_output; "
-            "from paddle_tpu_torch.ops import conv_extra, detection")
+            "from paddle_tpu_torch.ops import conv_extra, detection; "
+            "from paddle_tpu_torch.nn import MoELayer, moe_param_rule; "
+            "from paddle_tpu_torch.models import TransformerXLTrainStep, "
+            "DeepFM, RecommenderSystem; "
+            "from paddle_tpu_torch.native import Tokenizer; "
+            "from paddle_tpu_torch.datasets import Movielens; "
+            "from paddle_tpu_torch.vision import transforms; "
+            "from paddle_tpu_torch.utils import run_check; "
+            "from paddle_tpu_torch import reader, nets, distribution, "
+            "version")
     assert _fresh_import(import_server, code) == 0, first
 
 
@@ -302,7 +314,19 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "paddle_tpu_torch/models/lenet.py", "paddle_tpu_torch/models/vgg.py",
         "paddle_tpu_torch/models/mobilenet.py",
         "paddle_tpu_torch/models/ssd.py",
-        "paddle_tpu_torch/models/gan.py"} | {
+        "paddle_tpu_torch/models/gan.py", "paddle_tpu_torch/nn/moe.py",
+        "paddle_tpu_torch/models/transformer_xl.py",
+        "paddle_tpu_torch/models/recommender.py",
+        "paddle_tpu_torch/datasets/__init__.py",
+        "paddle_tpu_torch/reader.py", "paddle_tpu_torch/nets.py",
+        "paddle_tpu_torch/distribution.py", "paddle_tpu_torch/version.py",
+        "paddle_tpu_torch/vision/__init__.py",
+        "paddle_tpu_torch/vision/transforms.py",
+        "paddle_tpu_torch/utils/__init__.py",
+        "paddle_tpu_torch/utils/crypto.py",
+        "paddle_tpu_torch/utils/dlpack.py",
+        "paddle_tpu_torch/utils/install_check.py",
+        "paddle_tpu_torch/utils/op_bench.py"} | {
         f"paddle_tpu_torch/observability/{m}.py"
         for m in ("server", "tsdb", "slo", "goodput", "xprof", "stacks",
                   "fleet", "trace_agg")}

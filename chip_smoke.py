@@ -513,7 +513,39 @@ in order:
    ``log_prob``/``entropy`` card against CPU. ``python3 chip_smoke.py
    --zoo`` runs this phase alone and writes
    ``chiprun_out/chip_smoke_zoo.json``;
-19. prints one ``{"kernels": [...]}`` line with each kernel's launches,
+19. runs the compat slice (the last modules of the JAX package; fp32,
+   TF32 off) over BERT-base (``bert_base_config``, dropout 0, b8 x s512,
+   every Linear wrapped by ``slim.quantize_model``: 75
+   ``QuantizedLinear``s): (a) QAT under ``fused_softmax_xent`` and
+   ``fused_adam`` through the fluid spellings,
+   ``fluid.Executor(fluid.CUDAPlace(0)).train_from_dataset`` of an
+   ``InMemoryDataset`` inside ``fluid.scope_guard`` and
+   ``incubate.train_epoch_range`` (2 epochs x 4 captured steps, Adam at a
+   ``fluid.layers.exponential_decay``): one capture, the launches
+   ``expected_launches`` gives, the 8 losses and every ``act_scale`` bit
+   for bit with the same steps eager, a fresh range on an interrupted
+   run's directory resuming at epoch 2 and ending bit for bit with the
+   uninterrupted run, the trained parameters and ``act_scale``s through a
+   ``fluid.Scope``, ``fluid.io.save_persistables`` and a fresh scope bit
+   for bit, step ms, tokens/s and peak memory; (b) 2 layers at the full
+   widths, batch 2, one QAT forward and backward card against CPU with
+   the card's round decisions shared (``RoundShare``; each flip within
+   ``QAT_TIE`` of a half step): loss, gradients and ``act_scale``s within
+   ``QAT_LOSS_TOL``/``QAT_GRAD_TOL``; (c) ``PostTrainingQuantization`` on
+   2 eval batches, ``convert_to_int8`` and the int8 forward: the int32
+   accumulators of ``INT8_LAYERS`` (``torch._int_mm`` over zero-padded
+   operands) equal to the CPU's bit for bit, the MLM logits within
+   ``INT8_LOGIT_BOUND`` of the fake-quant model's (mean |gap| over mean
+   |logit|), the fp32, fake-quant and int8 forward ms; (d)
+   ``nn.functional.multihead_matmul`` against its plain version at
+   ``MHM_SHAPES`` (the flash forward launched once where the eval gate
+   admits the call, at 8192 keys, and not at 512); (e) a fresh
+   ``FLAGS_compile_cache_dir``: a first process compiles the LayerNorm
+   library there (misses), a second loads it (hits, no miss), and
+   ``sysconfig.get_include``/``get_lib`` name directories holding the
+   header and the library. ``python3 chip_smoke.py --compat`` runs this
+   phase alone and writes ``chiprun_out/chip_smoke_compat.json``;
+20. prints one ``{"kernels": [...]}`` line with each kernel's launches,
    error and times, and last one ``{"ok": true, "device": {...}}`` line.
    Launch counts are set to 0 just before each run of a path (each
    training run, each engine run) and read just after it; each path
@@ -11821,6 +11853,553 @@ def run_phase18(torch) -> tuple:
     return report, counts
 
 
+# --------------------------------------------------------------------------
+# phase 19: the compat slice (layers/fluid shims, slim, auto_checkpoint,
+# sysconfig, nn.functional) over BERT-base
+# --------------------------------------------------------------------------
+
+P19_DEVICE = "cuda"
+COMPAT_BATCH, COMPAT_SEQ, COMPAT_STEPS, COMPAT_EPOCHS = 8, 512, 4, 2
+COMPAT_DIR = "chip_smoke_compat"  # slot files and checkpoints (removed)
+# fluid.layers.exponential_decay(1e-4, decay_steps 2, rate 0.9, staircase)
+COMPAT_LR = dict(learning_rate=1e-4, decay_steps=2, decay_rate=0.9,
+                 staircase=True)
+# (b): 2 layers at the full widths, batch 2, card against CPU with the
+# card's round decisions shared (RoundShare). A flipped decision must lie
+# within rounding of a half step (|frac - 0.5| <= QAT_TIE: the pre-round
+# value is x / scale * 127, |x / scale| <= 1, so fp32 rounding moves it
+# by ~127 * 2^-23 per operation); loss and gradients as the fp32 card
+# against CPU checks of phase 18
+QAT_CPU_LAYERS, QAT_CPU_BATCH = 2, 2
+QAT_TIE = 1e-3
+QAT_LOSS_TOL, QAT_GRAD_TOL = 1e-5, 1e-4
+# (c): the int8 MLM logits against the fake-quant model's eval logits, the
+# JAX test's bound (tests/test_detection_slim.py: mean |gap| < 0.05 x
+# mean |logit|); the calibration batches
+INT8_LOGIT_BOUND = 0.05
+PTQ_BATCHES = 2
+# (c): the Int8Linear layers whose int32 accumulators are held bit for
+# bit against the CPU: a square one, the pooler (M = batch, padded to
+# torch._int_mm's 17 rows) and the NSP head (N = 2, padded to 8)
+INT8_LAYERS = ("bert.encoder.layers.0.linear1", "bert.pooler",
+               "cls.seq_relationship")
+# (d): F.multihead_matmul at BERT-base's shape (12 heads of 64 at s 512:
+# the eval gate takes the plain composition) and at 8192 keys, where the
+# gate admits the flash forward at head dim 64
+MHM_SHAPES = ((8, 512, 768, 12), (1, 8192, 768, 12))
+PATH_KERNELS.update({
+    "compat_qat": ("layer_norm", "flash_attention_fwd",
+                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                   "fused_xent_fwd", "fused_xent_bwd_dlog",
+                   "fused_xent_bwd_dh", "fused_xent_bwd_dw", "adam_leaf"),
+    # eval at s 512, head dim 64: the plain attention route, LayerNorm's
+    # kernel alone
+    "compat_int8": ("layer_norm",),
+    "compat_mhm": ("flash_attention_fwd",)})
+
+
+def compat_config(layers: int = 12):
+    from paddle_tpu_torch.models import bert_base_config
+    cfg = bert_base_config()
+    cfg.num_hidden_layers = layers
+    cfg.hidden_dropout_prob = cfg.attention_probs_dropout_prob = 0.0
+    return cfg
+
+
+def compat_model(torch, device: str, layers: int = 12, seed: int = SEED):
+    """BertForPretraining at ``bert_base_config`` (dropout 0), every Linear
+    wrapped by ``slim.quantize_model``."""
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.models import BertForPretraining
+    model = BertForPretraining(compat_config(layers), device=device,
+                               seed=seed)
+    return slim.quantize_model(model)
+
+
+def compat_slot_files(directory: str, vocab: int) -> list:
+    """COMPAT_STEPS batches of seeded records as two MultiSlot files
+    (slots: input_ids, mlm with every position labelled, nsp)."""
+    n = COMPAT_BATCH * COMPAT_STEPS
+    rng = np.random.default_rng(SEED + 19)
+    ids = rng.integers(0, vocab, (n, COMPAT_SEQ))
+    mlm = rng.integers(0, vocab, (n, COMPAT_SEQ))
+    nsp = rng.integers(0, 2, (n, 1))
+    os.makedirs(directory, exist_ok=True)
+    files = []
+    for part in range(2):
+        path = os.path.join(directory, f"part-{part}")
+        with open(path, "w") as f:
+            for i in range(part * n // 2, (part + 1) * n // 2):
+                f.write(" ".join(f"{len(v)} " + " ".join(map(str, v))
+                                 for v in (ids[i], mlm[i], nsp[i]))
+                        + "\n")
+        files.append(path)
+    return files
+
+
+def compat_dataset(files: list):
+    from paddle_tpu_torch.data import InMemoryDataset
+    ds = InMemoryDataset()
+    ds.set_slots([("input_ids", "sparse", COMPAT_SEQ),
+                  ("mlm", "sparse", COMPAT_SEQ), ("nsp", "sparse", 1)])
+    ds.set_batch_size(COMPAT_BATCH)
+    ds.set_thread(1)
+    ds.set_filelist(files)
+    loaded = ds.load_into_memory()
+    if loaded != COMPAT_BATCH * COMPAT_STEPS:
+        raise AssertionError(f"compat: loaded {loaded} records")
+    return ds
+
+
+def compat_loss(out, mlm, nsp):
+    from paddle_tpu_torch.models import pretraining_loss
+    return pretraining_loss(out, mlm, nsp.reshape(-1))
+
+
+def compat_step(torch, model, compiled: bool):
+    """A TrainStep with Adam at the fluid.layers decay."""
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.static import TrainStep
+    lr = fluid.layers.exponential_decay(**COMPAT_LR)
+    return TrainStep(model, Adam(lr), compat_loss, seed=SEED,
+                     compiled=compiled)
+
+
+def act_scales(model) -> dict:
+    return {n: b.detach().cpu().clone() for n, b in model.named_buffers()
+            if n.endswith("act_scale")}
+
+
+def compat_fit(torch, step, ds, epochs, save_dir: str, handler=None):
+    """``fluid.Executor(fluid.CUDAPlace(0)).train_from_dataset`` an epoch
+    at a time inside ``incubate.train_epoch_range`` (the step's whole
+    state registered), under ``fluid.scope_guard``. Returns (the
+    range's start epoch, the per-epoch mean losses)."""
+    from paddle_tpu_torch import fluid, incubate
+    history = []
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(fluid.CUDAPlace(0))
+        r = incubate.train_epoch_range(epochs, save_dir=save_dir,
+                                       name="qat")
+        r.register("train", step.state_dict, step.set_state_dict)
+        for _ in r:
+            history += exe.train_from_dataset(
+                step, ds, input_slots=["input_ids"],
+                label_slots=["mlm", "nsp"], epochs=1,
+                fetch_handler=handler)
+    return r.start_epoch, history
+
+
+def compat_qat(torch, card: str) -> tuple:
+    """(a): QAT BERT-base through the fluid spellings, its eager twin, a
+    resumed run and the Scope round trip."""
+    from paddle_tpu_torch import fluid, kernels
+    from paddle_tpu_torch.kernels.fused_softmax_xent import bwd_chunk
+    cfg = compat_config()
+    root = os.path.abspath(COMPAT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    ds = compat_dataset(compat_slot_files(os.path.join(root, "slots"),
+                                          cfg.vocab_size))
+    batches = [tuple(torch.from_numpy(b[k]).to(P19_DEVICE)
+                     for k in ("input_ids", "mlm", "nsp")) for b in ds]
+    restore = flag_scope(FUSED_FLAGS)
+    try:
+        model = compat_model(torch, P19_DEVICE)
+        n_q = sum(type(m).__name__ == "QuantizedLinear"
+                  for m in model.modules())
+        step = compat_step(torch, model, compiled=True)
+        losses, events = [], []
+
+        def handler(metrics):
+            losses.append(metrics["loss"])
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        start, history = compat_fit(torch, step, ds, COMPAT_EPOCHS,
+                                    os.path.join(root, "full"), handler)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = [float(v) for v in losses]
+        captures = step.captures
+        scales = act_scales(model)
+        final = state_on_host(step)
+        # the scope round trip of the trained parameters and act_scales
+        scope = fluid.Scope()
+        for n, t in list(model.named_parameters()) + [
+                (n, b) for n, b in model.named_buffers()
+                if n.endswith("act_scale")]:
+            scope.set_var(n, t.detach())
+        with fluid.scope_guard(scope):
+            exe = fluid.Executor(fluid.CUDAPlace(0))
+            fluid.io.save_persistables(exe, os.path.join(root, "scope"))
+        fresh = fluid.Scope()
+        with fluid.scope_guard(fresh):
+            fluid.io.load_persistables(fluid.Executor(fluid.CUDAPlace(0)),
+                                       os.path.join(root, "scope"))
+        scope_bad = [n for n in scope.local_var_names()
+                     if not torch.equal(fresh.find_var(n),
+                                        scope.find_var(n))]
+        scope_vars = len(scope.local_var_names())
+        del step, model, scope, fresh
+        torch.cuda.empty_cache()
+        # the eager twin: the same model, seed and batches, step by step
+        eager_model = compat_model(torch, P19_DEVICE)
+        eager = compat_step(torch, eager_model, compiled=False)
+        eager_losses = []
+        for _ in range(COMPAT_EPOCHS):
+            for ids, mlm, nsp in batches:
+                eager_losses.append(eager(ids, labels=(mlm, nsp))["loss"])
+        eager_losses = [float(v) for v in eager_losses]
+        eager_scales = act_scales(eager_model)
+        del eager, eager_model
+        torch.cuda.empty_cache()
+        # interrupted after epoch 1, resumed by a fresh range (a model of
+        # another seed: the restore must bring every leaf back)
+        part = os.path.join(root, "resume")
+        first = compat_step(torch, compat_model(torch, P19_DEVICE),
+                            compiled=True)
+        compat_fit(torch, first, ds, 1, part)
+        del first
+        torch.cuda.empty_cache()
+        resumed_model = compat_model(torch, P19_DEVICE, seed=SEED + 1)
+        resumed = compat_step(torch, resumed_model, compiled=True)
+        resumed_start, _ = compat_fit(torch, resumed, ds, COMPAT_EPOCHS,
+                                      part)
+        resumed_bad = equal_states(torch, state_on_host(resumed), final)
+        del resumed, resumed_model
+    finally:
+        restore()
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    steps = COMPAT_EPOCHS * COMPAT_STEPS
+    rows = COMPAT_BATCH * COMPAT_SEQ
+    d = cfg.hidden_size // cfg.num_attention_heads
+    per_step = expected_launches(COMPAT_SEQ, cfg.num_hidden_layers, d,
+                                 FUSED_FLAGS, rows=rows,
+                                 vocab=cfg.vocab_size)
+    # within an epoch (the epoch's checkpoint sits between two), after
+    # the first step (its warm-up and capture)
+    ms = [events[i - 1].elapsed_time(events[i])
+          for i in range(2, len(events)) if i % COMPAT_STEPS]
+    step_ms = float(np.median(ms))
+    scale_bad = [n for n in scales if not torch.equal(scales[n],
+                                                      eager_scales[n])]
+    res = {"config": {k: getattr(cfg, k) for k in (
+        "vocab_size", "hidden_size", "num_hidden_layers",
+        "num_attention_heads", "intermediate_size")},
+        "batch": COMPAT_BATCH, "seq": COMPAT_SEQ, "dtype": "float32",
+        "flags": FUSED_FLAGS, "lr": COMPAT_LR, "quantized_linears": n_q,
+        "epochs": COMPAT_EPOCHS, "steps": steps, "fit_s": fit_s,
+        "start_epoch": start, "epoch_losses": history, "losses": losses,
+        "eager_losses": eager_losses,
+        "losses_bit_for_bit_with_eager": losses == eager_losses,
+        "act_scales": len(scales), "act_scales_not_equal": scale_bad,
+        "resumed_start_epoch": resumed_start,
+        "resumed_leaves_not_equal": resumed_bad[:8],
+        "scope_vars": scope_vars, "scope_round_trip_not_equal": scope_bad,
+        "captures": captures, "step_stream_ms": ms,
+        "step_ms_median_after_capture": step_ms,
+        "tokens_per_s": rows / step_ms * 1e3, "peak_allocated_gb": peak,
+        "xent_bwd_chunks": -(-cfg.vocab_size // bwd_chunk(
+            rows, cfg.vocab_size)),
+        "launches_per_step": nonzero(per_step), "card": card}
+    log(f"compat qat fit [{card}]: {json.dumps(res)}")
+    if n_q != cfg.num_hidden_layers * 6 + 3:
+        raise AssertionError(f"compat: {n_q} QuantizedLinears")
+    if not all(np.isfinite(losses)) or losses != eager_losses:
+        raise AssertionError(f"compat: captured losses {losses} against "
+                             f"eager {eager_losses}")
+    if scale_bad or len(scales) != n_q:
+        raise AssertionError(f"compat: act_scales differ from eager: "
+                             f"{scale_bad[:8]} ({len(scales)})")
+    if captures != 1 or start != 0:
+        raise AssertionError(f"compat: {captures} captures over {steps} "
+                             f"steps of one shape, start epoch {start}")
+    if resumed_start != 1 or resumed_bad:
+        raise AssertionError(f"compat: resumed at epoch {resumed_start}; "
+                             f"leaves differ from the uninterrupted run: "
+                             f"{resumed_bad[:8]}")
+    n_params = sum(k.startswith("params/") for k in final)
+    if scope_bad or scope_vars != n_params + n_q:
+        raise AssertionError(f"compat: scope round trip {scope_vars} "
+                             f"vars, differing {scope_bad[:8]}")
+    path_launches("compat_qat", counts, per_step, steps)
+    return res, counts
+
+
+class RoundShare:
+    """The fake-quant round decisions of one forward, shared with another
+    run of the same model, as ``ReluSigns`` shares ReLU's: ``record`` (on
+    the card) keeps each ``round`` result in call order, ``replay`` (on
+    the CPU) returns the recorded one and counts the entries whose own
+    rounding differs, each of which must lie within ``QAT_TIE`` of a half
+    step. The gradient passes straight through in both."""
+
+    def __init__(self, torch) -> None:
+        self.torch = torch
+        self.grids: list = []
+        self.pos = 0
+        self.flipped = 0
+        self.entries = 0
+        self.worst_tie = 0.0
+
+    def record(self, x):
+        from paddle_tpu_torch import slim
+        q = slim._STERound.apply(x)
+        self.grids.append(q.detach().to(self.torch.int8).cpu())
+        return q
+
+    def replay(self, x):
+        torch = self.torch
+        card = self.grids[self.pos].to(x.dtype)
+        self.pos += 1
+        own = torch.round(x.detach())
+        flip = own != card
+        self.entries += flip.numel()
+        if bool(flip.any()):
+            frac = (x.detach()[flip] - torch.floor(x.detach()[flip]))
+            tie = float((frac - 0.5).abs().max())
+            self.worst_tie = max(self.worst_tie, tie)
+            self.flipped += int(flip.sum())
+        return x + (card - x).detach()
+
+
+def qat_card_against_cpu(torch) -> dict:
+    """(b): 2 layers at the full widths, batch 2, one QAT forward and
+    backward (training mode: the act_scale EMA moves) on the card and on
+    the CPU from the same weights, the card's round decisions shared."""
+    import copy
+    from paddle_tpu_torch import slim
+    cpu = compat_model(torch, "cpu", QAT_CPU_LAYERS)
+    card = copy.deepcopy(cpu).to(P19_DEVICE)
+    ids, mlm, nsp = bert_batch(torch, compat_config(QAT_CPU_LAYERS),
+                               QAT_CPU_BATCH, COMPAT_SEQ, "cpu", SEED + 191)
+    share = RoundShare(torch)
+    orig = slim._ste_round
+    restore = flag_scope(FUSED_FLAGS)
+    t0 = time.perf_counter()
+    try:
+        slim._ste_round = share.record
+        lc, gc = p16_grads(torch, card, lambda m: compat_loss(
+            m(ids.to(P19_DEVICE)), mlm.to(P19_DEVICE), nsp.to(P19_DEVICE)))
+        slim._ste_round = share.replay
+        lh, gh = p16_grads(torch, cpu, lambda m: compat_loss(
+            m(ids), mlm, nsp))
+    finally:
+        slim._ste_round = orig
+        restore()
+    plain = {n.replace(".inner.", "."): g for n, g in gc.items()}
+    gaps = grad_gaps(torch, plain, {n.replace(".inner.", "."): g
+                                    for n, g in gh.items()})
+    sc, sh = act_scales(card), act_scales(cpu)
+    scale_gap = max(float((sc[n] - sh[n]).abs() / sh[n]) for n in sc)
+    res = {"loss_card": lc, "loss_cpu": lh,
+           "loss_rel_gap": abs(lc - lh) / abs(lh),
+           "grad_rel_gap_max": max(gaps.values()),
+           "grad_rel_gap_worst_leaf": max(gaps, key=gaps.get),
+           "act_scale_rel_gap_max": scale_gap,
+           "round_calls": share.pos, "round_entries": share.entries,
+           "round_flips": share.flipped, "worst_flip_tie": share.worst_tie,
+           "bounds": {"loss": QAT_LOSS_TOL, "grad": QAT_GRAD_TOL,
+                      "tie": QAT_TIE},
+           "layers": QAT_CPU_LAYERS, "batch": QAT_CPU_BATCH,
+           "both_s": time.perf_counter() - t0}
+    log(f"compat qat card against cpu: {json.dumps(res)}")
+    if share.pos != len(share.grids) or share.worst_tie > QAT_TIE:
+        raise AssertionError(f"compat (b): round decisions {share.pos} of "
+                             f"{len(share.grids)}, a flip {share.worst_tie}"
+                             f" from a half step")
+    if not (res["loss_rel_gap"] <= QAT_LOSS_TOL
+            and res["grad_rel_gap_max"] <= QAT_GRAD_TOL
+            and scale_gap <= QAT_LOSS_TOL):
+        raise AssertionError(f"compat (b): card against CPU {res}")
+    return res
+
+
+def compat_int8(torch, card: str) -> tuple:
+    """(c): PostTrainingQuantization on PTQ_BATCHES eval batches,
+    convert_to_int8, the int8 BERT-base forward; the chosen layers'
+    int32 accumulators against the CPU's; the fp32, fake-quant and int8
+    forwards' ms."""
+    import copy
+    from paddle_tpu_torch import kernels, slim
+    from paddle_tpu_torch.models import BertForPretraining
+    cfg = compat_config()
+    model = BertForPretraining(cfg, device=P19_DEVICE, seed=SEED)
+    model.eval()
+    ids = [bert_batch(torch, cfg, COMPAT_BATCH, COMPAT_SEQ, P19_DEVICE,
+                      SEED + 192 + i)[0] for i in range(PTQ_BATCHES + 1)]
+    with torch.no_grad():
+        fp32_ms = device_ms(torch, lambda: model(ids[-1]), 5)
+        slim.quantize_model(model)
+        model.eval()  # the wrappers are made in training mode
+        ptq = slim.PostTrainingQuantization(model).calibrate(
+            [(x,) for x in ids[:PTQ_BATCHES]])
+        want = model(ids[-1])[0]
+        fq_ms = device_ms(torch, lambda: model(ids[-1]), 5)
+        slim.convert_to_int8(model)
+        layers = dict(model.named_modules())
+        inputs = {}
+        hooks = [layers[n].register_forward_pre_hook(
+            lambda m, a, n=n: inputs.__setitem__(n, a[0].detach()))
+            for n in INT8_LAYERS]
+        kernels.reset_launch_counts()
+        got = model(ids[-1])[0]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for h in hooks:
+            h.remove()
+        int8_ms = device_ms(torch, lambda: model(ids[-1]), 5)
+        acc = {}
+        for n in INT8_LAYERS:
+            lay = layers[n]
+            twin = copy.deepcopy(lay).to("cpu")
+            a_card = lay.accumulate(inputs[n])
+            a_cpu = twin.accumulate(inputs[n].cpu())
+            acc[n] = {"shape": list(a_card.shape),
+                      "dtype": str(a_card.dtype).replace("torch.", ""),
+                      "bit_for_bit": bool(torch.equal(a_card.cpu(), a_cpu)),
+                      "abs_max": int(a_cpu.abs().max())}
+    n_int8 = sum(type(m).__name__ == "Int8Linear" for m in model.modules())
+    gap = float((got - want).abs().mean() / want.abs().mean())
+    res = {"ptq_batches": PTQ_BATCHES,
+           "ptq_output_abs_max": ptq.act_scales["output"],
+           "int8_linears": n_int8, "int8_mean_abs_gap_rel": gap,
+           "bound": INT8_LOGIT_BOUND, "accumulators": acc,
+           "fp32_forward_ms": fp32_ms, "fake_quant_forward_ms": fq_ms,
+           "int8_forward_ms": int8_ms, "batch": COMPAT_BATCH,
+           "seq": COMPAT_SEQ, "card": card}
+    log(f"compat int8 [{card}]: {json.dumps(res)}")
+    del model
+    torch.cuda.empty_cache()
+    if n_int8 != cfg.num_hidden_layers * 6 + 3 or not all(a["bit_for_bit"]
+                                       and a["dtype"] == "int32"
+                                       for a in acc.values()):
+        raise AssertionError(f"compat (c): {n_int8} Int8Linears, "
+                             f"accumulators {acc}")
+    if not (bool(torch.isfinite(got).all()) and gap < INT8_LOGIT_BOUND):
+        raise AssertionError(f"compat (c): int8 logits {gap} of the mean "
+                             f"|logit| from the fake-quant model's")
+    return res, counts
+
+
+def compat_multihead_matmul(torch) -> tuple:
+    """(d): F.multihead_matmul against its plain version (the projection,
+    then ops.attention's composition) at MHM_SHAPES; the flash forward
+    launches once where the gate admits the call, never where not."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+    out, counts = {}, None
+    for b, t, c, h in MHM_SHAPES:
+        g = torch.Generator(device=P19_DEVICE).manual_seed(SEED + t)
+        x = torch.randn(b, t, c, device=P19_DEVICE, generator=g)
+        w = torch.randn(c, 3 * c, device=P19_DEVICE, generator=g) * c ** -0.5
+        bias = torch.randn(3 * c, device=P19_DEVICE, generator=g) * 0.1
+        kernels.reset_launch_counts()
+        got = F.multihead_matmul(x, w, bias, h)
+        torch.cuda.synchronize()
+        launched = kernels.launch_counts()
+        qkv = (x @ w + bias).reshape(b, t, 3, h, c // h)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        want = scaled_dot_product_attention(q, k, v).transpose(1, 2) \
+            .reshape(b, t, c)
+        err = float((got - want).abs().max())
+        ms = device_ms(torch, lambda: F.multihead_matmul(x, w, bias, h), 5)
+        flash = launched["flash_attention_fwd"]
+        out[f"b{b}_t{t}_c{c}_h{h}"] = {
+            "max_abs_err": err, "flash_attention_fwd": flash, "ms": ms,
+            "tol": FLASH_TOL}
+        if err > FLASH_TOL or flash != (1 if t >= 8192 else 0):
+            raise AssertionError(f"compat (d): multihead_matmul at "
+                                 f"{(b, t, c, h)}: err {err}, flash "
+                                 f"launches {flash}")
+        if flash:
+            counts = launched
+        del x, w, q, k, v, qkv, got, want
+        torch.cuda.empty_cache()
+    log(f"compat multihead_matmul: {json.dumps(out)}")
+    return out, counts
+
+
+def compat_sysconfig(torch) -> dict:
+    """(e): a fresh FLAGS_compile_cache_dir: the first process compiles
+    the layer_norm library there (misses), a second loads it (hits, no
+    miss); get_include and get_lib name directories that exist."""
+    from paddle_tpu_torch import sysconfig
+    cache = os.path.abspath(COMPAT_DIR + "_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    code = ("import json; from paddle_tpu_torch.kernels import _build; "
+            "from paddle_tpu_torch import sysconfig; "
+            "_build.build_all(['layer_norm']); "
+            "print(json.dumps(sysconfig.compile_cache_stats()))")
+    env = dict(os.environ, FLAGS_compile_cache_dir=cache,
+               PYTHONPATH=os.getcwd())
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"compat (e): rc {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        stats = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append(dict(stats, s=time.perf_counter() - t0))
+    built = sorted(os.listdir(cache))
+    shutil.rmtree(cache, ignore_errors=True)
+    inc, lib = sysconfig.get_include(), sysconfig.get_lib()
+    res = {"runs": runs, "built": built, "include": inc, "lib": lib,
+           "include_has_header": os.path.isfile(
+               os.path.join(inc, "ptnative.h")),
+           "lib_has_library": os.path.isfile(
+               os.path.join(lib, "libptnative.so"))}
+    log(f"compat sysconfig: {json.dumps(res)}")
+    first, second = runs
+    if not (first["misses"] > 0 and second["hits"] > 0
+            and second["misses"] == 0 and res["include_has_header"]
+            and res["lib_has_library"]):
+        raise AssertionError(f"compat (e): {res}")
+    return res
+
+
+def run_phase19(torch) -> tuple:
+    """Phase 19. Returns (report, launch counts of each path)."""
+    card = REPORT.get("card", "")
+    t_phase = time.perf_counter()
+    report, counts, failed = {}, {}, []
+    report["compat_qat"], counts["compat_qat"] = compat_qat(torch, card)
+    # each later check runs whatever an earlier one found; the phase
+    # raises at its end, naming every check that failed
+    for name, check in (
+            ("compat_qat_card_against_cpu",
+             lambda: (qat_card_against_cpu(torch), None)),
+            ("compat_int8", lambda: compat_int8(torch, card)),
+            ("compat_mhm", lambda: compat_multihead_matmul(torch)),
+            ("compat_sysconfig", lambda: (compat_sysconfig(torch), None))):
+        torch.cuda.empty_cache()
+        try:
+            report[name], got = check()
+            if got is not None:
+                counts[name] = got
+        except AssertionError as e:
+            log(f"phase 19 {name} FAILED: {e}")
+            failed.append(name)
+    report["phase19_s"] = time.perf_counter() - t_phase
+    log(f"phase 19: {report['phase19_s']:.1f} s [{card}]")
+    if failed:
+        raise AssertionError(f"phase 19: {failed} failed (see the log)")
+    return report, counts
+
+
 def kernel_line(results: dict, counts: dict) -> dict:
     """The kernels JSON line. ``launches`` is the count from the run of
     the kernel's own path, or, where ``path`` lists several, the sum of
@@ -11833,8 +12412,9 @@ def kernel_line(results: dict, counts: dict) -> dict:
     adam_src = "paddle_tpu_torch/csrc/fused_adam.cu"
     adam_ref = "paddle_tpu/kernels/fused_adam.py"
     meta = {
-        # phase 18 (a)'s Transformer-XL steps launch it too: they add
-        "layer_norm": (("serving", "txl"),
+        # phase 18 (a)'s Transformer-XL steps and phase 19 (a)'s QAT
+        # BERT-base steps launch it too: they add
+        "layer_norm": (("serving", "txl", "compat_qat"),
                        "paddle_tpu_torch/csrc/layer_norm.cu",
                        "paddle_tpu/kernels/layer_norm.py:29"),
         "paged_attention": ("serving",
@@ -11860,11 +12440,12 @@ def kernel_line(results: dict, counts: dict) -> dict:
                               f"{xent_ref}:92"),
         "fused_xent_bwd_dw": ("train_seq512_fused", xent_src,
                               f"{xent_ref}:110"),
-        # phase 16 (b)'s CRNN steps, phase 17 (a)'s MobileNetV2 steps and
+        # phase 16 (b)'s CRNN steps, phase 17 (a)'s MobileNetV2 steps,
         # phase 18's Transformer-XL, expert-parallel MoE and recommender
-        # steps launch it too: their launches add
+        # steps and phase 19 (a)'s QAT BERT-base steps launch it too:
+        # their launches add
         "adam_leaf": (("train_seq512_fused", "crnn_ctc_fit", "mv2_fit",
-                       "txl", "moe_ep", "rec_fit"),
+                       "txl", "moe_ep", "rec_fit", "compat_qat"),
                       adam_src, f"{adam_ref}:54"),
         "adam_flat": ("train_seq128_pallas_adam", adam_src,
                       f"{adam_ref}:34"),
@@ -11920,6 +12501,10 @@ def main(argv=None) -> int:
                     help="run phase 18 only (MoE with expert parallelism, "
                          "Transformer-XL, the recommenders and the data "
                          "modules)")
+    ap.add_argument("--compat", action="store_true",
+                    help="run phase 19 only (nn.functional, the layers/ "
+                         "and fluid/ shims, slim with int8 deployment, "
+                         "auto_checkpoint and sysconfig over BERT-base)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -11969,6 +12554,8 @@ def main(argv=None) -> int:
         return main_vision(torch, card, t_start)
     if args.zoo:
         return main_zoo(torch, card, t_start)
+    if args.compat:
+        return main_compat(torch, card, t_start)
 
     timer = Timer(torch)
     results = check_kernels(torch, timer)
@@ -12019,11 +12606,13 @@ def main(argv=None) -> int:
     phase17, p17_counts = run_phase17(torch)
     torch.cuda.empty_cache()
     phase18, p18_counts = run_phase18(torch)
+    torch.cuda.empty_cache()
+    phase19, p19_counts = run_phase19(torch)
     counts.update(resume_counts, **serve_counts, **wire_counts,
                   **obs_counts, **plane_counts, **pred_counts,
                   **hapi_counts, **mt_counts, **rn_counts, **dist_counts,
                   **p14_counts, **p15_counts, **p16_counts, **p17_counts,
-                  **p18_counts, flash_with_lse=lse_counts)
+                  **p18_counts, **p19_counts, flash_with_lse=lse_counts)
     log(f"launches per run: {json.dumps(counts)}")
     line = kernel_line(results, counts)
     REPORT.update(card=card, kernels=results,
@@ -12032,7 +12621,7 @@ def main(argv=None) -> int:
                   total_s=time.perf_counter() - t_start, **training,
                   **resume, **serving, **wire, **observ, **plane,
                   **predictor, **hapi, **mt, **rn, **dist, **phase14,
-                  **phase15, **phase16, **phase17, **phase18)
+                  **phase15, **phase16, **phase17, **phase18, **phase19)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
@@ -12173,6 +12762,39 @@ def main_zoo(torch, card: str, t_start: float) -> int:
         "txl_tokens_per_s": a["tokens_per_s"],
         "txl_peak_gb": a["peak_allocated_gb"],
         "phase18_s": phase18["phase18_s"], "total_s": REPORT["total_s"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_compat(torch, card: str, t_start: float) -> int:
+    """Phase 19 alone; the report goes to
+    chiprun_out/chip_smoke_compat.json and a summary line before the
+    contract line."""
+    phase19, counts = run_phase19(torch)
+    for path, names in PATH_KERNELS.items():
+        if path in counts:
+            for name in names:
+                if counts[path][name] <= 0:
+                    raise AssertionError(f"kernel {name} was never launched "
+                                         f"on the {path} path")
+    REPORT.update(card=card, launches=counts,
+                  total_s=time.perf_counter() - t_start, **phase19)
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "chip_smoke_compat.json"),
+              "w") as f:
+        json.dump(REPORT, f, indent=1)
+    a, c = phase19["compat_qat"], phase19["compat_int8"]
+    print(card)
+    print(json.dumps({"phases": [19], "launches": {
+        k: nonzero(v) for k, v in counts.items()},
+        "qat_step_ms": a["step_ms_median_after_capture"],
+        "qat_tokens_per_s": a["tokens_per_s"],
+        "qat_peak_gb": a["peak_allocated_gb"],
+        "int8_forward_ms": c["int8_forward_ms"],
+        "fp32_forward_ms": c["fp32_forward_ms"],
+        "phase19_s": phase19["phase19_s"], "total_s": REPORT["total_s"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -23,7 +23,13 @@ parallel and distributed stack, and the static programming model
 places, as the JAX package's root has them. One name differs:
 ``paddle_tpu_torch.clip`` is the gradient-clipping module (the clip op
 is ``ops.clip``), where the JAX root's ``clip`` is the op.
-``ROADMAP.md`` lists the rest.
+
+The root reaches the subpackages the JAX root imports (``nn``, ``io``,
+``static``, ``fluid``, ``slim``, ``sysconfig`` ...), ``ParamAttr``,
+``WeightNormParamAttr``, ``batch``, ``get_default_dtype``/
+``set_default_dtype`` and ``__version__``. The subpackages load at
+their first use (a module ``__getattr__``), so ``import
+paddle_tpu_torch`` stays as quick as it was and imports in any order.
 """
 
 import importlib as _importlib
@@ -34,7 +40,7 @@ from . import errors, flags
 from .flags import get_flags, set_flags
 from .core import (CPUPlace, CUDAPlace, Place, device_count, get_device,
                    is_compiled_with_cuda, set_device)
-from .core.dtype import convert_dtype
+from .core.dtype import convert_dtype, get_default_dtype, set_default_dtype
 from .core.random import seed
 
 # the dtypes under the JAX root's names
@@ -59,10 +65,42 @@ from .autograd import grad, no_grad, value_and_grad  # noqa: E402
 
 # the gradient-clipping module keeps its name (see the module note)
 clip = _importlib.import_module(".clip", __name__)
+from . import version  # noqa: E402
+from .version import __version__  # noqa: E402
+
+# name -> (module, attribute or None for the module itself), loaded at
+# first use; fluid comes last in the JAX root's import order
+_LAZY = {name: (name, None) for name in (
+    "amp", "data", "datasets", "distribution", "hapi", "inference", "io",
+    "jit", "layers", "metric", "models", "native", "nets", "nn",
+    "observability", "optimizer", "param_attr", "preemption", "profiler",
+    "reader", "regularizer", "testing", "utils", "vision", "parallel",
+    "static", "distributed", "incubate", "slim", "sysconfig", "fluid")}
+_LAZY.update(fleet=("distributed.fleet", None),
+             ParamAttr=("param_attr", "ParamAttr"),
+             WeightNormParamAttr=("param_attr", "WeightNormParamAttr"),
+             batch=("reader", "batch"))
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(
+            f"module 'paddle_tpu_torch' has no attribute {name!r}")
+    module, attr = _LAZY[name]
+    value = _importlib.import_module(f".{module}", __name__)
+    if attr is not None:
+        value = getattr(value, attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
 
 __all__ = (["get_flags", "set_flags", "errors", "flags", "CPUPlace",
             "CUDAPlace", "Place", "device_count", "get_device",
-            "is_compiled_with_cuda", "set_device", "convert_dtype", "seed",
+            "is_compiled_with_cuda", "set_device", "convert_dtype",
+           "get_default_dtype", "set_default_dtype", "__version__", "seed",
             "bfloat16", "bool_", "complex64", "complex128", "float16",
             "float32", "float64", "int8", "int16", "int32", "int64",
             "uint8", "ops", "Tensor", "to_tensor", "grad", "no_grad",

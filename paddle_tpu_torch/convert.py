@@ -24,6 +24,13 @@ the port's ``TrainStep.state_dict()`` into numpy leaves in the JAX
 state's structure (bf16 as ``ml_dtypes.bfloat16``, which only a JAX
 user needs and so is imported there alone), without the port's
 generator: the JAX step keeps its own ``rng``.
+
+A quantized model loads the same way in both of its forms: after
+``slim.quantize_model`` its parameters are named ``...inner.weight``
+beside an ``act_scale`` buffer per wrapper, and after
+``slim.convert_to_int8`` each wrapper's buffers are ``w_q`` (int8),
+``w_scale``, ``act_scale`` and ``bias_f``, the names and dtypes of the
+JAX ``param_dict()``/``buffer_dict()``.
 """
 
 from __future__ import annotations

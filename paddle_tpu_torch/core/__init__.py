@@ -2,6 +2,7 @@
 random number streams, LoD conversion)."""
 
 from . import lod, random
+from .dtype import convert_dtype, get_default_dtype, set_default_dtype
 from .place import (CPUPlace, CUDAPlace, Place, accelerator_available,
                     device_count, get_device, is_compiled_with_cuda,
                     local_devices, resolve_device, set_device)
@@ -9,4 +10,5 @@ from .place import (CPUPlace, CUDAPlace, Place, accelerator_available,
 __all__ = ["random", "lod", "resolve_device", "Place", "CPUPlace",
            "CUDAPlace", "set_device", "get_device", "device_count",
            "local_devices", "is_compiled_with_cuda",
-           "accelerator_available"]
+           "accelerator_available", "convert_dtype", "get_default_dtype",
+           "set_default_dtype"]

@@ -13,7 +13,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["convert_dtype", "is_floating"]
+__all__ = ["convert_dtype", "is_floating", "get_default_dtype",
+           "set_default_dtype"]
 
 _ALIASES = {
     "bool": torch.bool,
@@ -56,3 +57,21 @@ def convert_dtype(dtype: Any) -> Optional[torch.dtype]:
 
 def is_floating(dtype: Any) -> bool:
     return convert_dtype(dtype).is_floating_point
+
+
+# the default floating dtype (ref: fluid get_default_dtype/
+# set_default_dtype), a registry value as in the JAX package: torch's
+# own default is left as it is
+_default_dtype = torch.float32
+
+
+def set_default_dtype(dtype: Any) -> None:
+    global _default_dtype
+    d = convert_dtype(dtype)
+    if not d.is_floating_point:
+        raise ValueError("default dtype must be floating point")
+    _default_dtype = d
+
+
+def get_default_dtype() -> torch.dtype:
+    return _default_dtype

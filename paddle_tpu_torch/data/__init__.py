@@ -458,3 +458,4 @@ class DeviceLoader:
 
 from .dataset import (DatasetBase, DatasetFactory,  # noqa: E402,F401
                       InMemoryDataset, QueueDataset)
+from . import data_generator  # noqa: E402,F401

@@ -8,8 +8,9 @@ attention routing and train-step flags of BERT pretraining, and those
 of the checkpoints and the input pipeline, of observability and fault
 injection, and of the core: devices, the staging arena, the transformer
 layers), with the names and defaults of ``paddle_tpu.flags``: every
-JAX flag but ``compile_cache_dir``, whose reader is not ported yet
-(``check_nan_inf`` is read by ``static.Executor.run``,
+JAX flag (``compile_cache_dir`` points the kernel libraries' build
+directory, ``sysconfig``; ``check_nan_inf`` is read by
+``static.Executor.run``,
 ``matmul_precision`` by ``ops.math``). The JAX package's TPU-routing switches
 (``use_pallas_kernels``, ``use_pallas_layer_norm``, ``flash_block_q``/
 ``_k``, ``use_fast_rng``) are accepted and read by nothing: the port
@@ -24,7 +25,7 @@ from __future__ import annotations
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional, Union
 
 __all__ = ["GLOBAL_FLAGS", "FlagRegistry", "define_flag", "set_flags",
            "get_flags"]
@@ -91,6 +92,10 @@ class FlagRegistry:
             if name not in self._values:
                 raise KeyError(f"unknown flag '{name}'")
             return self._values[name]
+
+    def names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._specs)
 
     def snapshot(self) -> tuple:
         """Every flag's value, as sorted (name, value) pairs (hashable)."""
@@ -544,6 +549,26 @@ define_flag("flight_buffer_events", 512,
             "and dumped to flight_<ts>.jsonl under FLAGS_trace_dir on "
             "SIGTERM/uncaught exception/exit.",
             on_change=_flight_buffer_changed)
+
+
+def _compile_cache_dir_changed(value) -> None:
+    # applied at once when set here; an environment value is applied by
+    # the kernel build (kernels._build.build_all), as an on_change hook
+    # does not fire for it (a lazy import: sysconfig stands alone)
+    if value:
+        from . import sysconfig as _sysconfig
+        _sysconfig.apply_compile_cache_flag()
+
+
+define_flag("compile_cache_dir", "",
+            "Persistent directory of the compiled kernel libraries (the "
+            "nvcc-built csrc/*.cu, each keyed by a digest of its source, "
+            "headers and flags), applied by the kernel build: a second "
+            "process with the same directory loads them instead of "
+            "compiling. sysconfig.compile_cache_stats() counts a library "
+            "found built as a hit and one compiled as a miss. Empty: the "
+            "package's own _build/.",
+            on_change=_compile_cache_dir_changed)
 define_flag("trace_dir", "",
             "If set, observability.export_all() writes the host "
             "chrome-trace (host_trace.json) and the metrics snapshot "

@@ -56,8 +56,11 @@ fills a port model from either package's artifact, both of which keep
 their weights in ``params/`` in checkpoint v3 under the same dotted
 names.
 
-Not ported: the ``*_persistables``/``*_params`` Executor shims (the
-static ``Program``/``Executor``).
+The Executor shims ``save_persistables``/``load_persistables`` (and
+their ``*_params`` aliases) save every tensor reachable from an
+executor's scope chain as one checkpoint, and load one back into the
+executor's scope (in place where a held tensor agrees in shape, dtype
+and device, as ``Scope.set_var`` writes).
 """
 
 from __future__ import annotations
@@ -82,7 +85,9 @@ from ..testing import faults as _faults
 
 __all__ = ["save", "load", "is_committed", "load_step", "load_host_state",
            "verify", "flatten", "AsyncCheckpointer", "save_dygraph",
-           "load_dygraph", "save_inference_model", "load_inference_model"]
+           "load_dygraph", "save_inference_model", "load_inference_model",
+           "save_persistables", "load_persistables", "save_params",
+           "load_params"]
 
 _SENTINEL_KEY = "__paddle_tpu_ckpt__"
 _VERSION = 3                    # v3 adds host_state + PRNG-key leaves
@@ -710,3 +715,54 @@ def load_inference_model(dirname: str, model=None, device=None):
             if k in own:
                 own[k].copy_(v.to(own[k].dtype))
     return model
+
+
+# the Executor shims (ref: fluid/io.py) -------------------------------------
+
+def save_persistables(executor, dirname: str, main_program=None,
+                      filename: Optional[str] = None) -> None:
+    """Saves every tensor reachable from the executor's scope (ref: io.py
+    save_persistables:491): the scope is the persistent state, so the
+    snapshot is what the reference's persistable flag selects. The scope
+    chain is walked parents first, so a child's binding shadows its
+    parent's, as ``find_var`` resolves. ``main_program``/``filename`` are
+    accepted for the reference's signature."""
+    chain = []
+    sc = executor.scope
+    while sc is not None:
+        chain.append(sc)
+        sc = sc._parent
+    state: Dict[str, Any] = {}
+    for sc in reversed(chain):
+        for k, v in sc.as_dict().items():
+            if isinstance(v, (torch.Tensor, np.ndarray)):
+                state[k] = v
+    if not state:
+        raise ValueError(
+            "save_persistables: no array variables reachable from the "
+            "executor's scope — nothing to checkpoint")
+    save(state, dirname)
+
+
+def save_params(executor, dirname: str, main_program=None,
+                filename: Optional[str] = None) -> None:
+    """The reference's save_params (io.py:185) saves Parameters alone; a
+    scope holds no parameter/persistable distinction, so this is
+    :func:`save_persistables`."""
+    save_persistables(executor, dirname, main_program, filename)
+
+
+def load_persistables(executor, dirname: str, main_program=None,
+                      filename: Optional[str] = None) -> None:
+    """Restores a :func:`save_persistables` snapshot into the executor's
+    scope (ref: io.py load_persistables:734), each tensor on the
+    executor's device."""
+    dev = executor.device
+    for k, v in load(dirname).items():
+        executor.scope.set_var(k, v.to(dev))
+
+
+def load_params(executor, dirname: str, main_program=None,
+                filename: Optional[str] = None) -> None:
+    """:func:`load_persistables` (see :func:`save_params`)."""
+    load_persistables(executor, dirname, main_program, filename)

@@ -6,7 +6,10 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 the source text, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source or header rebuilds and an unchanged one is reused.
 Building happens at first use (never at import), and ``build_all()``
-starts one ``nvcc`` per source at once.
+starts one ``nvcc`` per source at once. ``set_build_dir`` (the
+``compile_cache_dir`` flag, through ``sysconfig``) moves the libraries
+to a persistent directory; ``cache_stats`` counts a library found built
+there as a hit and one compiled as a miss.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check()`` raises on a non-zero code. A failed build or launch raises:
@@ -25,7 +28,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "library", "check",
-           "nvcc_path"]
+           "nvcc_path", "set_build_dir", "cache_stats"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -88,6 +91,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# libraries this process found built (hits) or compiled (misses)
+cache_stats: Dict[str, int] = {"hits": 0, "misses": 0}
 # ptxas resource report (registers, shared memory, spills) per library
 build_logs: Dict[str, str] = {}
 
@@ -106,6 +111,12 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def set_build_dir(path: os.PathLike) -> None:
+    """Builds and loads the libraries not loaded yet from ``path``."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
+
+
 def _target(name: str) -> Path:
     # the source, the headers every source may include, and the flags
     src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
@@ -121,7 +132,9 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     place, so concurrent builds never load a half-written file."""
     out = _target(name)
     if out.exists():
+        cache_stats["hits"] += 1
         return None
+    cache_stats["misses"] += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -157,6 +170,8 @@ def _load(name: str) -> ctypes.CDLL:
 def build_all(names: Optional[List[str]] = None) -> Dict[str, ctypes.CDLL]:
     """Build (one nvcc per source, all running at once) and load every
     kernel library. Returns {name: library}."""
+    from .. import sysconfig
+    sysconfig.apply_compile_cache_flag()
     names = list(names or SOURCES)
     with _lock:
         todo = [n for n in names if n not in _libs]

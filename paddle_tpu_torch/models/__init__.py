@@ -2,7 +2,8 @@
 
 from .crnn_ctc import CRNNCTC
 from .bert import (BertConfig, BertForPretraining, BertModel,
-                   MLMHeadOutput, pretraining_loss)
+                   MLMHeadOutput, bert_base_config, bert_large_config,
+                   pretraining_loss)
 from .ernie import (ErnieConfig, ErnieForPretraining, ErnieModel,
                     knowledge_mask)
 from .gan import Discriminator, GANTrainStep, Generator
@@ -26,6 +27,7 @@ from .word2vec import NGramLM, SkipGramNCE
 __all__ = ["GPTConfig", "GPTBlock", "GPTLanguageModel",
            "dense_causal_attention", "BertConfig", "BertModel",
            "BertForPretraining", "MLMHeadOutput", "pretraining_loss",
+           "bert_base_config", "bert_large_config",
            "Seq2SeqConfig", "TransformerSeq2Seq", "BasicBlock",
            "BottleneckBlock", "ResNet", "resnet18", "resnet34", "resnet50",
            "resnet101", "resnet152", "resnext50_32x4d", "ErnieConfig",

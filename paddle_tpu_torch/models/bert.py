@@ -38,7 +38,7 @@ from ..ops import loss as L
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertModel",
            "BertPretrainingHeads", "BertForPretraining", "MLMHeadOutput",
-           "pretraining_loss"]
+           "pretraining_loss", "bert_base_config", "bert_large_config"]
 
 
 class MLMHeadOutput(NamedTuple):
@@ -62,6 +62,15 @@ class BertConfig:
     attention_probs_dropout_prob: float = 0.1
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+
+
+def bert_base_config() -> BertConfig:
+    return BertConfig()
+
+
+def bert_large_config() -> BertConfig:
+    return BertConfig(hidden_size=1024, num_hidden_layers=24,
+                      num_attention_heads=16, intermediate_size=4096)
 
 
 class BertEmbeddings(nn.Module):

@@ -45,7 +45,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["build", "loaded", "ServingTransport", "stat_add",
+__all__ = ["build", "available", "loaded", "ServingTransport", "stat_add",
            "stat_get", "stat_reset", "stat_dump", "SlotSpec",
            "NativeDataFeed", "ControlPlaneServer", "ControlPlaneClient",
            "Tokenizer"]
@@ -227,6 +227,16 @@ def _load():
                 fn.restype = restype
             _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads (building it if needed)."""
+    try:
+        _load()
+        return True
+    # ptlint: disable=silent-failure -- the answer to "can it load" is False when the build or load raises; callers that need the error call build()
+    except Exception:  # noqa: BLE001
+        return False
 
 
 def loaded() -> bool:

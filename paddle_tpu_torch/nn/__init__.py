@@ -1,4 +1,9 @@
-"""Layers, loss layers and functional ops of the PyTorch package."""
+"""Layers, loss layers and functional ops of the PyTorch package.
+
+``Parameter`` is ``torch.nn.Parameter``, the trainable leaf the JAX
+package's ``nn.Parameter`` wraps an array as."""
+
+from torch.nn import Parameter
 
 from . import decode, functional, initializer, layer, rnn
 from .conv import (AdaptiveAvgPool2D, AdaptiveMaxPool2D, AvgPool2D,
@@ -32,6 +37,7 @@ from .transformer import (MultiHeadAttention, Transformer,
                           TransformerEncoder, TransformerEncoderLayer)
 
 __all__ = ["functional", "initializer", "layer", "decode", "rnn", "Layer",
+           "Parameter",
            "LayerList", "ParameterList", "HookRemoveHelper",
            "functional_call", "Linear", "Embedding", "Dropout", "GELU",
            "Tanh", "ReLU", "Sequential", "LayerNorm", "Flatten", "Identity",

@@ -20,10 +20,10 @@ Counterpart of ``paddle_tpu.serving_llm``:
 
 from .kv_cache import KVBlockAllocator
 from .scheduler import ContinuousBatchingScheduler, Sequence
-from .engine import AdmissionRejected, LLMEngine
+from .engine import AdmissionRejected, LLMEngine, health_snapshot
 from .server import LLMStreamBridge
 from .router import Backend, BackendPool, CircuitBreaker, Router
 
 __all__ = ["KVBlockAllocator", "ContinuousBatchingScheduler", "Sequence",
            "LLMEngine", "LLMStreamBridge", "AdmissionRejected",
-           "Backend", "BackendPool", "CircuitBreaker", "Router"]
+           "health_snapshot", "Backend", "BackendPool", "CircuitBreaker", "Router"]

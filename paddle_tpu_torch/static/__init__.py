@@ -44,8 +44,8 @@ eagerly.
 card, off on the CPU; ``compiled=True`` with CPU parameters raises). A
 step's signature is the shapes, dtypes and devices of its tensor
 inputs, the values of its other inputs, every flag's value (the flags
-choose the kernels' routes inside the step), the model's training mode
-and whether a host rate is given. The
+choose the kernels' routes inside the step), every module's training
+mode and whether a host rate is given. The
 first step of a new signature runs eagerly on a side stream (the
 warm-up, a real step); then the step is captured into a CUDA graph over
 static input buffers, which records its kernels and runs nothing, so
@@ -202,6 +202,13 @@ def _wire_param_meta(model: nn.Module, optimizer: Optimizer) -> None:
             meta[n] = (need_clip, reg)
     if meta:
         optimizer.set_param_meta(meta)
+
+
+def _modes(model: nn.Module) -> tuple:
+    """Every module's training flag: a captured body reads each (dropout,
+    a fake-quant layer's EMA update, which a calibration turns on alone),
+    so the capture key holds them all."""
+    return tuple(m.training for m in model.modules())
 
 
 def _index(tree, i: int):
@@ -641,7 +648,7 @@ class TrainStep:
                                                     lr))
         inputs = (args, labels, kwargs)
         key = (_signature(inputs), GLOBAL_FLAGS.snapshot(),
-               self.model.training, lr is None, self._lr_scaled,
+               _modes(self.model), lr is None, self._lr_scaled,
                self._faults_armed, _obs.enabled())
 
         def first_call(count):

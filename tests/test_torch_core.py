@@ -40,11 +40,11 @@ from paddle_tpu_torch.static import TrainStep  # noqa: E402
 jax_clip = importlib.import_module("paddle_tpu.clip")
 ROOT = Path(__file__).resolve().parent.parent
 
-# the JAX flags the port defines when their readers come (ROADMAP A);
-# the ResNet path's three came with it, straggler_factor with the
-# straggler detector, check_nan_inf and matmul_precision with the static
-# Executor and ops.math
-WAITING_FLAGS = {"compile_cache_dir"}
+# the JAX flags the port defined when their readers came (ROADMAP A): the
+# ResNet path's three came with it, straggler_factor with the straggler
+# detector, check_nan_inf and matmul_precision with the static Executor
+# and ops.math, compile_cache_dir with sysconfig; none waits now
+WAITING_FLAGS = set()
 
 
 def test_flag_registry_is_the_jax_one_but_seven():
